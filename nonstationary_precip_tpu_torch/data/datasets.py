@@ -1,0 +1,88 @@
+"""Bundled Upper-Indus-Basin dataset loader (no pandas).
+
+Counterpart of ``nonstationary_precip_tpu/data/datasets.py::load_uib_spatial``,
+which reads the CSV with pandas.  pandas' default C parser does not round
+every decimal string to the nearest double (on uib_spatial.csv 2 of 1182
+values land one ulp from ``float()``/``np.loadtxt``), so the values here go
+through a transcription of that parser: the port trains on bit-identical
+data, and runs where pandas is absent.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from nonstationary_precip_tpu_torch.utils.config import DATASET_DIR
+
+_UIB_SPATIAL_COLUMNS = ("lon", "lat", "tp")
+_POW10 = [float(f"1e{i}") for i in range(309)]
+_MAX_DIGITS = 17
+
+
+def _parse_float(s: str) -> float:
+    """A decimal string as pandas' default C parser reads it
+    (``precise_xstrtod``): at most 17 significant digits are accumulated as
+    ``number * 10 + digit`` in double precision, then scaled once by a
+    power of ten."""
+    s = s.strip()
+    p, n = 0, len(s)
+    negative = p < n and s[p] == "-"
+    if p < n and s[p] in "+-":
+        p += 1
+    number, exponent, num_digits = 0.0, 0, 0
+    while p < n and s[p].isdigit():
+        if num_digits < _MAX_DIGITS:
+            number = number * 10.0 + (ord(s[p]) - 48)
+            num_digits += 1
+        else:
+            exponent += 1
+        p += 1
+    if p < n and s[p] == ".":
+        p += 1
+        while p < n and s[p].isdigit():
+            if num_digits < _MAX_DIGITS:
+                number = number * 10.0 + (ord(s[p]) - 48)
+                num_digits += 1
+                exponent -= 1
+            p += 1
+    if num_digits == 0:
+        raise ValueError(f"not a number: {s!r}")
+    if negative:
+        number = -number
+    if p < n and s[p] in "eE":
+        p += 1
+        sign = -1 if p < n and s[p] == "-" else 1
+        if p < n and s[p] in "+-":
+            p += 1
+        start = p
+        while p < n and s[p].isdigit():
+            p += 1
+        if p == start:
+            raise ValueError(f"not a number: {s!r}")
+        exponent += sign * int(s[start:p])
+    if p != n:
+        raise ValueError(f"not a number: {s!r}")
+    if exponent > 308:
+        raise ValueError(f"out of range: {s!r}")
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -308:
+        return number / _POW10[-308 - exponent] / _POW10[308] if exponent >= -616 else 0.0
+    return number / _POW10[-exponent]
+
+
+def load_uib_spatial():
+    """(columns, x[394,2](lon,lat), y[394]) from ``data/uib_spatial.csv``.
+
+    The first element is the column names where the JAX loader returns its
+    DataFrame; x and y are the same float64 arrays, bit for bit."""
+    path = DATASET_DIR / "uib_spatial.csv"
+    with open(path) as fh:
+        header = tuple(fh.readline().strip().split(","))
+        if header != _UIB_SPATIAL_COLUMNS:
+            raise ValueError(f"{path}: expected columns {_UIB_SPATIAL_COLUMNS}, found {header}")
+        rows = [[_parse_float(v) for v in line.split(",")] for line in fh if line.strip()]
+    arr = np.asarray(rows, dtype=np.float64)
+    if arr.ndim != 2 or arr.shape[1] != len(header):
+        raise ValueError(f"{path}: ragged rows")
+    return header, arr[:, 0:2], arr[:, -1]

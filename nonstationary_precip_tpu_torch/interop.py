@@ -1,0 +1,45 @@
+"""Carry model weights from the JAX package into the port.
+
+The JAX package's models are pytrees; a caller flattens one to a dict of
+numpy arrays keyed by dotted leaf path (the port never imports jax), and the
+functions here build the port's module from it.  Leaves may be single
+(one model) or stacked on a leading split axis (K models at once).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from nonstationary_precip_tpu_torch.models.gibbs_gp import GibbsExactGP
+from nonstationary_precip_tpu_torch.models.likelihoods import GaussianLikelihood
+from nonstationary_precip_tpu_torch.priors.lognormal_process import LogNormalProcess
+
+#: The leaves of a JAX ``GibbsExactGP``, by dotted path.
+GIBBS_EXACT_KEYS = (
+    "log_ell",
+    "raw_outputscale",
+    "likelihood.raw_noise",
+    "prior.mean_const",
+    "prior.raw_outputscale",
+    "prior.raw_lengthscale",
+)
+
+
+def gibbs_exact_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float32) -> GibbsExactGP:
+    """The port's ``GibbsExactGP`` holding the JAX model's leaves.
+
+    ``params`` maps each of ``GIBBS_EXACT_KEYS`` to a numpy array; the
+    result has the default trainability (only the latent field trains)."""
+    missing = [k for k in GIBBS_EXACT_KEYS if k not in params]
+    if missing:
+        raise KeyError(f"gibbs_exact_from_jax: missing leaves {missing}")
+
+    def t(key):
+        return torch.tensor(np.array(params[key]), dtype=dtype, device=device)
+
+    prior = LogNormalProcess(t("prior.mean_const"), t("prior.raw_outputscale"), t("prior.raw_lengthscale"))
+    return GibbsExactGP(prior, GaussianLikelihood(t("likelihood.raw_noise")),
+                        t("raw_outputscale"), t("log_ell"))

@@ -1,0 +1,70 @@
+"""Diagonal (per-dimension) Gibbs nonstationary kernel.
+
+Counterpart of ``nonstationary_precip_tpu/kernels/gibbs.py``:
+
+    k(x, x') = ∏_d sqrt( 2 ℓ_d(x) ℓ_d(x') / (ℓ_d(x)² + ℓ_d(x')²) )
+               · exp( − Σ_d (x_d − x'_d)² / (ℓ_d(x)² + ℓ_d(x')²) )
+
+Layout: x and ell are (..., N, D), row per point; leading dimensions batch.
+The Gram is plain PyTorch (the TPU's Pallas Gram, K9, is opt-in there and
+off this path).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def gibbs_gram(x1: torch.Tensor, ell1: torch.Tensor, x2: torch.Tensor, ell2: torch.Tensor) -> torch.Tensor:
+    """Gibbs cross-Gram (..., N1, N2) of x1, ell1 (..., N1, D) and x2, ell2
+    (..., N2, D)."""
+    sq_sum = ell1[..., :, None, :] ** 2 + ell2[..., None, :, :] ** 2
+    prod = ell1[..., :, None, :] * ell2[..., None, :, :]
+    pref = torch.prod(torch.sqrt(2.0 * prod / sq_sum), dim=-1)
+    diff = x1[..., :, None, :] - x2[..., None, :, :]
+    quad = torch.sum(diff**2 / sq_sum, dim=-1)
+    return pref * torch.exp(-quad)
+
+
+def gibbs_diag(x: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:
+    """Diagonal of the Gibbs Gram: identically 1."""
+    return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+
+class GibbsKernel:
+    """Binds optional ``active_dims`` to the Gibbs Gram; ``ell1``/``ell2``
+    are the positive lengthscales at the respective inputs, one column per
+    active dim."""
+
+    def __init__(self, active_dims: Optional[tuple] = None):
+        self.active_dims = active_dims
+
+    def _slice(self, x):
+        if self.active_dims is None:
+            return x
+        return x[..., list(self.active_dims)]
+
+    def _check_ell(self, xs, ell):
+        if ell.shape[-1] != xs.shape[-1]:
+            raise ValueError(
+                f"ell has {ell.shape[-1]} columns but the kernel operates on "
+                f"{xs.shape[-1]} active dims ({self.active_dims}); pass ell "
+                "sliced to the active dims"
+            )
+
+    def __call__(self, x1, ell1, x2=None, ell2=None):
+        xs1 = self._slice(x1)
+        self._check_ell(xs1, ell1)
+        if x2 is None:
+            xs2, ell2 = xs1, ell1
+        else:
+            xs2 = self._slice(x2)
+            self._check_ell(xs2, ell2)
+        return gibbs_gram(xs1, ell1, xs2, ell2)
+
+    def diag(self, x, ell):
+        xs = self._slice(x)
+        self._check_ell(xs, ell)
+        return gibbs_diag(xs, ell)

@@ -1,0 +1,1 @@
+"""Counterpart of nonstationary_precip_tpu.utils."""

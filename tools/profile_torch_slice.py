@@ -1,0 +1,96 @@
+"""Where a training step of the PyTorch port goes, on the card.
+
+Builds the 10-split exact Gibbs MAP problem of
+``nonstationary_precip_tpu_torch.experiments.spatial_gibbs`` (real UIB data,
+10 splits × 316 points, f32), warms up, then traces ``--steps`` Adam steps
+with ``torch.profiler`` (CPU and CUDA activities).  Prints the top device
+kernels by time, and one JSON line: the window's wall time per step, the
+device's busy time per step (sum of kernel time; one stream, so kernels do
+not overlap), the idle share, and K1's share of the device time.  The
+Chrome trace goes to ``chiprun_out/profile_torch_slice.json``.
+
+Run from the repository root on a CUDA card:
+    python tools/profile_torch_slice.py [--steps 50]
+"""
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from nonstationary_precip_tpu_torch.data.datasets import load_uib_spatial  # noqa: E402
+from nonstationary_precip_tpu_torch.experiments.spatial_gibbs import build_prior, make_split  # noqa: E402
+from nonstationary_precip_tpu_torch.models.gibbs_gp import gibbs_map_loss_batched  # noqa: E402
+from nonstationary_precip_tpu_torch.ops import chol_inv  # noqa: E402
+from nonstationary_precip_tpu_torch.train.config import ExperimentConfig  # noqa: E402
+from nonstationary_precip_tpu_torch.train.vmapped import stack_modules  # noqa: E402
+from nonstationary_precip_tpu_torch.utils.config import device  # noqa: E402
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--warmup", type=int, default=20)
+    args = ap.parse_args()
+    dev = device("cuda")
+    cfg = ExperimentConfig(device="cuda")
+    chol_inv.build()
+    _, x, y = load_uib_spatial()
+    x_norm = (x - x.mean(0)) / x.std(0, ddof=1)
+    y_norm = (y - y.mean()) / y.std(ddof=1)
+    splits = [make_split(x_norm, y_norm, s, cfg, torch.float32, dev) for s in range(cfg.num_splits)]
+    model = stack_modules([s[0] for s in splits])
+    xs = torch.stack([s[1][0] for s in splits])
+    ys = torch.stack([s[1][1] for s in splits])
+    pre = build_prior(cfg, torch.float32, dev).gram_pre(xs)
+    opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=cfg.lr)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        gibbs_map_loss_batched(model, xs, ys, pre).sum().backward()
+        opt.step()
+
+    for _ in range(args.warmup):
+        step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "profile_torch_slice.json"))
+    # device-side rows, less the ranges that user annotations (the optimizer's
+    # record_function) put on the device timeline around the kernels
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    k1_us = sum(e.self_device_time_total for e in kernels if "chol_inv_kernel" in e.key)
+    print(f"{'kernel':<90} {'calls':>6} {'us/step':>9} {'share':>6}")
+    for e in kernels[:25]:
+        print(f"{e.key[:90]:<90} {e.count:>6} {e.self_device_time_total / args.steps:>9.1f} "
+              f"{e.self_device_time_total / busy_us:>6.1%}")
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "steps": args.steps,
+        "wall_ms_per_step": 1e3 * wall / args.steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / args.steps,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "k1_share_of_device_time": k1_us / busy_us,
+        "kernels_per_step": sum(e.count for e in kernels) / args.steps,
+    }))
+
+
+if __name__ == "__main__":
+    main()
