@@ -1,22 +1,41 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's main path — the 10-split exact Gibbs MAP experiment of
-``nonstationary_precip_tpu_torch.experiments.spatial_gibbs`` on the real UIB
-data (10 splits × 316 training points) — and checks every hand-written
-kernel on it against its plain PyTorch version.  Phases, one JSON line each:
+Drives the port's two main paths and checks every hand-written kernel on
+them against its plain PyTorch version.  The paths are the 10-split exact
+Gibbs MAP experiment of ``nonstationary_precip_tpu_torch.experiments.
+spatial_gibbs`` on the real UIB data (10 splits × 316 training points, K1),
+and the large-N matrix-free gate of ``experiments.gibbs_largen`` at
+N = 16384 (K2 and K3).  Phases, one JSON line each:
 
-  1. device  — the card's name; nvidia-smi's name and power limit;
-  2. build   — K1 (csrc/chol_inv_batched.cu) compiled with nvcc, in seconds;
-  3. k1      — K1 against its plain version at the slice's shape (10, 316)
-               on the real stacked Gibbs Gram and on random SPD stacks, a
-               rank-deficient member through the jitter retry, then the
-               median time of each;
-  4. slice   — the experiment on the card (300 Adam steps by default): K1's
-               launch count over the run, finite and falling losses, the
-               per-split losses at steps 0 and 50 against the JAX package's
-               pinned float32 values (tests/fixtures/jax_spatial_gibbs_ref.npz),
-               steps/s, mean RMSE/NLPD, the field CSV's shape.
+  1. device     — the card's name; nvidia-smi's name and power limit;
+  2. build      — K1 (csrc/chol_inv_batched.cu) and K2/K3
+                  (csrc/gibbs_matvec.cu), two nvcc runs started together,
+                  in seconds, with each kernel's registers and spills;
+  3. k1         — K1 against its plain version at the slice's shape (10, 316)
+                  on the real stacked Gibbs Gram and on random SPD stacks, a
+                  rank-deficient member through the jitter retry, then the
+                  median time of each;
+  4. slice      — the experiment on the card (300 Adam steps by default): K1's
+                  launch count over the run, finite and falling losses, the
+                  per-split losses at steps 0 and 50 against the JAX package's
+                  pinned float32 values (tests/fixtures/jax_spatial_gibbs_ref.npz),
+                  steps/s, mean RMSE/NLPD, the field CSV's shape;
+  5. largen_ref — the large-N experiment at N = 2048 on the data and probe
+                  draws of the JAX run pinned in
+                  tests/fixtures/jax_gibbs_largen_ref.npz: its losses at steps
+                  0 and 19 against JAX's;
+  6. largen     — the gate at N = 16384 (20 Adam steps, rank 150, 16 mBCG
+                  iterations): relres of the trained-pose solve, the loss
+                  against the dense Cholesky oracle, the gradient cosine,
+                  K2's and K3's launch counts against what the code implies,
+                  training and wall seconds;
+  7. k2         — K2 against its plain version at (16384, 16384, D = 2,
+                  R = 9) on the gate's init-pose and trained-pose payloads and
+                  at a ragged (1000, 1500, D = 3, R = 130), bitwise repeat,
+                  then the median time of each;
+  8. k3         — K3 against its plain version at N = 16384, R = 8 on the
+                  same payloads, and its row-block form on one block; times.
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line and
@@ -30,10 +49,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -51,6 +72,31 @@ TOL_KERNEL_PLAIN = 1e-5
 RTOL_STEP0 = 1e-4
 RTOL_STEP50 = 1e-2
 N_TIMED = 60  # calls per timed block; blocks run plain, kernel, kernel, plain
+# K2 against its plain version (tests/test_torch_matvec.py's band, from the
+# JAX kernel's own tests): both are f32 sums of N terms in another order.
+K2_RTOL, K2_ATOL = 2e-5, 2e-4
+# K3 against its plain version, relative to each output's largest entry: its
+# outputs are signed sums of N products with cancellation, so an entrywise
+# relative band means nothing near zero.  Measured 1.6e-6 on random factors
+# at N = 16384; 2e-5 leaves a tenfold margin.
+K3_TOL = 2e-5
+# The large-N run at N = 2048 against the pinned JAX float32 losses: at
+# step 0 both compute the same estimator on the same probes in another
+# summation order (the port's CPU run: 6e-6); Adam's first steps are
+# ~lr·sign(g), so per-point lengthscales whose gradient is near zero move
+# apart and by step 19 the loss follows (the port's CPU run: 6.0e-3).
+LARGEN_RTOL_STEP0 = 1e-3
+LARGEN_RTOL_STEP19 = 1e-2
+# The RESULTS gate (run_benchmarks.py), hardware-independent.
+GATE_RELRES, GATE_LOSS_REL, GATE_COSINE = 1e-2, 5e-2, 0.98
+LARGEN_N = 16384
+LARGEN_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_gibbs_largen_ref.npz"
+RAGGED = (1000, 1500, 3, 130)  # K2's ragged shape: R crosses the 128-column seam
+K3_ROWS = (2048, 4096)  # the row block of K3's row form
+N_TIMED_GRAM = 20  # calls per timed block at N = 16384 (the plain version takes ~40 ms)
+# The card's peaks (H100 SXM data sheet, at the full 700 W): f32 outside the
+# tensor cores, and HBM.
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 
 
 def emit(phase: str, **fields):
@@ -68,6 +114,39 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(ops: float, nbytes: float) -> tuple:
+    """(least time in ms, what bounds it): the larger of the operations over
+    the f32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel<template args>: "R regs, S spill bytes"} from nvcc's -Xptxas -v."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)ELi(\d+)EE)?", m.group(1))
+            name = k.group(1) + (f"<{k.group(2)},{k.group(3)}>" if k.group(2) else "") if k else m.group(1)
+        elif name and "spill stores" in ln:
+            out[name] = re.search(r"(\d+) bytes spill stores", ln).group(1) + " spill bytes"
+        elif name and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out[name] = f"{regs} regs, {out.get(name, '? spill bytes')}"
+            name = None
+    return out
+
+
+def timed_pair(kernel, plain, calls: int) -> dict:
+    """Median per-call ms of ``kernel`` and ``plain``, timed in blocks run
+    plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = (block_times_ms(f, calls) for f in (plain, kernel, kernel, plain))
+    return {"ms": statistics.median(k1 + k2), "plain_ms": statistics.median(p1 + p2),
+            "blocks_ms": {"plain": [statistics.median(p1), statistics.median(p2)],
+                          "kernel": [statistics.median(k1), statistics.median(k2)]}}
 
 
 def block_times_ms(fn, calls: int) -> list:
@@ -180,12 +259,9 @@ def phase_k1(chol_inv, spatial_gibbs, dev):
     g = gram.contiguous()
     plain = lambda: chol_inv.chol_inv_batched_safe_plain(g)  # noqa: E731
     kernel = lambda: chol_inv.chol_inv_batched_cuda(g)  # noqa: E731
-    p1, k1, k2, p2 = (block_times_ms(f, N_TIMED) for f in (plain, kernel, kernel, plain))
-    ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
-    emit("k1", shape=[10, 316], errors=errs, retry_jitter=j_b.tolist(), ms=ms, plain_ms=plain_ms,
-         timed_calls=len(k1 + k2) * 10, blocks_ms={"plain": [statistics.median(p1), statistics.median(p2)],
-                                                    "kernel": [statistics.median(k1), statistics.median(k2)]})
-    return errs, ms, plain_ms
+    t = timed_pair(kernel, plain, N_TIMED)
+    emit("k1", shape=[10, 316], errors=errs, retry_jitter=j_b.tolist(), timed_calls=2 * N_TIMED, **t)
+    return errs, t["ms"], t["plain_ms"]
 
 
 def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
@@ -218,6 +294,148 @@ def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
     return launches
 
 
+def reset_launches(chol_inv, matvec):
+    chol_inv.LAUNCHES = 0
+    for k in matvec.LAUNCHES:
+        matvec.LAUNCHES[k] = 0
+
+
+def phase_largen_ref(gibbs_largen):
+    """The large-N experiment at the pinned run's N on its data and probe
+    draws: the losses at steps 0 and 19 against JAX's."""
+    ref = np.load(LARGEN_REF)
+    cfg = gibbs_largen.LargeNConfig(n=int(ref["n"]), steps=int(ref["steps"]), rank=int(ref["rank"]),
+                                    iters=int(ref["iters"]), device="cuda")
+    out = gibbs_largen.run(cfg, probe_noise=(ref["u1"], ref["u2"]), data=(ref["x"], ref["y"]))
+    losses = out["losses"]
+    rel = np.abs(losses - ref["losses"]) / np.abs(ref["losses"])
+    check(losses.shape == ref["losses"].shape, f"loss trace shape {losses.shape}")
+    check(float(rel[0]) <= LARGEN_RTOL_STEP0, f"step-0 loss vs JAX: {rel[0]:.3g} <= {LARGEN_RTOL_STEP0}")
+    check(float(rel[-1]) <= LARGEN_RTOL_STEP19, f"step-19 loss vs JAX: {rel[-1]:.3g} <= {LARGEN_RTOL_STEP19}")
+    emit("largen_ref", n=cfg.n, step0_rel_err=float(rel[0]), step19_rel_err=float(rel[-1]),
+         losses=losses.tolist(), jax_losses=ref["losses"].tolist(), relres_solve=out["relres_solve"],
+         jax_relres_solve=float(ref["relres_solve"]), loss_rel_diff=out["loss_rel_diff"],
+         grad_cosine=out["grad_cosine"], jax_grad_cosine=float(ref["grad_cosine"]))
+
+
+def phase_largen(gibbs_largen, matvec, chol_inv, dev_name: str):
+    """The gate at full size, counting K2's and K3's launches over it."""
+    cfg = gibbs_largen.LargeNConfig(n=LARGEN_N, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(chol_inv, matvec)
+    out = gibbs_largen.run(cfg)
+    launches = dict(matvec.LAUNCHES)
+    # K2: one launch per mBCG iteration, in each training step, in the
+    # trained-pose diagnostics and in the lazy loss the oracle is held to;
+    # K3: one per backward, in each step and in that loss
+    want = {"gibbs_matvec": cfg.steps * out["iters"] + 2 * out["iters"], "gibbs_panel_grads": cfg.steps + 1}
+    check(launches == want, f"K2/K3 launches {launches} == {want}")
+    check(chol_inv.LAUNCHES == 0, "K1 is not on this path")
+    check(out["relres_solve"] <= GATE_RELRES, f"relres_solve {out['relres_solve']:.3g} <= {GATE_RELRES}")
+    check(out["loss_rel_diff"] <= GATE_LOSS_REL, f"loss vs dense {out['loss_rel_diff']:.3g} <= {GATE_LOSS_REL}")
+    check(out["grad_cosine"] >= GATE_COSINE, f"gradient cosine {out['grad_cosine']:.5f} >= {GATE_COSINE}")
+    check(not out["diag"]["broke"], "no mBCG breakdown")
+    emit("largen", n=cfg.n, steps=cfg.steps, rank=cfg.rank, iters=out["iters"], launches=launches,
+         relres_solve=out["relres_solve"], diag=out["diag"], loss_lazy=out["loss_lazy"],
+         loss_dense=out["loss_dense"], loss_rel_diff=out["loss_rel_diff"], grad_cosine=out["grad_cosine"],
+         loss_first=float(out["losses"][0]), loss_last=float(out["losses"][-1]),
+         train_seconds=out["train_seconds"], wall_seconds=out["wall_seconds"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, device=dev_name)
+    return out, launches
+
+
+def largen_payloads(gibbs_largen, out, dev):
+    """(x, ℓ) of the gate at its init pose (ℓ = 1) and at its trained pose."""
+    x, _ = gibbs_largen._data(LARGEN_N)
+    x = x.to(dev)
+    ell = torch.exp(torch.as_tensor(out["params"]["log_ell_pp"], device=dev)).contiguous()
+    return {"init": (x, torch.ones_like(x)), "trained": (x, ell)}
+
+
+def phase_k2(matvec, payloads, dev):
+    gen = torch.Generator().manual_seed(29)
+    v = torch.randn(LARGEN_N, 9, generator=gen).to(dev)
+    errs = {}
+
+    def compare(name, x1, l1, x2, l2, vv):
+        k = matvec.gibbs_gram_matvec_cuda(x1, l1, x2, l2, vv)
+        again = matvec.gibbs_gram_matvec_cuda(x1, l1, x2, l2, vv)
+        p = matvec.gibbs_gram_matvec_plain(x1, l1, x2, l2, vv)
+        torch.cuda.synchronize()
+        err = (k - p).abs()
+        errs[name] = {"max_abs_err": float(err.max()), "max_rel_err": float((err / p.abs().clamp_min(1e-30)).max()),
+                      "max_abs_ref": float(p.abs().max())}
+        check(bool(torch.isfinite(k).all()), f"K2 {name} finite")
+        check(bool((err <= K2_ATOL + K2_RTOL * p.abs()).all()), f"K2 {name} within rtol {K2_RTOL} / atol {K2_ATOL}")
+        check(torch.equal(k, again), f"K2 {name} bitwise repeatable")
+
+    for pose, (x, ell) in payloads.items():
+        compare(pose, x, ell, x, ell, v)
+    n1, n2, d, r = RAGGED
+    rag = [torch.randn(*shape, generator=gen) for shape in ((n1, d), (n1, d), (n2, d), (n2, d), (n2, r))]
+    x1, l1, x2, l2, vr = (t.to(dev) for t in (2 * rag[0], torch.exp(0.3 * rag[1]), 2 * rag[2], torch.exp(0.3 * rag[3]),
+                                               rag[4]))
+    compare("ragged", x1, l1, x2, l2, vr)
+    x, ell = payloads["trained"]
+    t = timed_pair(lambda: matvec.gibbs_gram_matvec_cuda(x, ell, x, ell, v),
+                   lambda: matvec.gibbs_gram_matvec_plain(x, ell, x, ell, v), N_TIMED_GRAM)
+    ops = matvec.matvec_ops(LARGEN_N, LARGEN_N, 2, 9)
+    b_ms, b_by = bound(ops, 4 * (4 * LARGEN_N * 2 + 2 * LARGEN_N * 9))
+    emit("k2", shape=[LARGEN_N, LARGEN_N, 2, 9], ragged=list(RAGGED), errors=errs, ops=ops, bound_ms=b_ms,
+         bound_by=b_by, timed_calls=2 * N_TIMED_GRAM, **t)
+    return errs, t, b_ms, b_by
+
+
+def phase_k3(matvec, payloads, dev):
+    gen = torch.Generator().manual_seed(31)
+    a, s, z = (torch.randn(*shape, generator=gen).to(dev) for shape in ((LARGEN_N,), (LARGEN_N, 8), (LARGEN_N, 8)))
+    errs = {}
+
+    def compare(name, got, ref):
+        torch.cuda.synchronize()
+        e = {}
+        for g, p, what in zip(got, ref, ("gx", "gl", "sp")):
+            check(bool(torch.isfinite(g).all()), f"K3 {name} {what} finite")
+            e[what] = float((g - p).abs().max() / p.abs().max())
+            check(e[what] <= K3_TOL, f"K3 {name} {what}: {e[what]:.3g} of its largest entry <= {K3_TOL}")
+        e["max_abs_err"] = max(float((g - p).abs().max()) for g, p in zip(got, ref))
+        errs[name] = e
+
+    for pose, (x, ell) in payloads.items():
+        compare(pose, matvec.packed_gibbs_panel_grads(x, ell, a, s, z),
+                matvec.packed_gibbs_panel_grads_plain(x, ell, a, s, z))
+    x, ell = payloads["trained"]
+    sl = slice(*K3_ROWS)
+    again = matvec.packed_gibbs_panel_grads(x, ell, a, s, z)
+    compare("rows", matvec.packed_gibbs_panel_grads_rows(x[sl], ell[sl], a[sl], s[sl], z[sl], x, ell, a, s, z),
+            matvec.packed_gibbs_panel_grads_rows_plain(x[sl], ell[sl], a[sl], s[sl], z[sl], x, ell, a, s, z))
+    full = matvec.packed_gibbs_panel_grads(x, ell, a, s, z)
+    check(all(torch.equal(p, q) for p, q in zip(full, again)), "K3 bitwise repeatable")
+    t = timed_pair(lambda: matvec.packed_gibbs_panel_grads(x, ell, a, s, z),
+                   lambda: matvec.packed_gibbs_panel_grads_plain(x, ell, a, s, z), N_TIMED_GRAM)
+    ops = matvec.panel_grads_ops(LARGEN_N, LARGEN_N, 2, 8)
+    # reads x, ℓ and α, S, Z once; writes ∂x, ∂ℓ and the row sums
+    b_ms, b_by = bound(ops, 4 * LARGEN_N * (2 * 2 + 1 + 2 * 8 + 2 * 2 + 1))
+    emit("k3", n=LARGEN_N, r=8, rows=list(K3_ROWS), errors=errs, ops=ops, bound_ms=b_ms, bound_by=b_by,
+         timed_calls=2 * N_TIMED_GRAM, **t)
+    return errs, t, b_ms, b_by
+
+
+def build_all(chol_inv, matvec):
+    """Both nvcc runs at once, each timed on its own."""
+    def timed(build):
+        t0 = time.perf_counter()
+        log = build(force=True)
+        return time.perf_counter() - t0, log
+
+    with ThreadPoolExecutor(2) as pool:
+        k1_job, gm_job = pool.submit(timed, chol_inv.build), pool.submit(timed, matvec.build)
+        (k1_s, k1_log), (gm_s, gm_log) = k1_job.result(), gm_job.result()
+    emit("build", kernel="chol_inv_batched", seconds=k1_s,
+         ptxas=[ln.strip() for ln in k1_log.splitlines() if "registers" in ln or "spill" in ln])
+    emit("build", kernel="gibbs_matvec", seconds=gm_s, ptxas=ptxas_summary(gm_log))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=300, help="Adam steps of the slice run")
@@ -230,31 +448,44 @@ def main(argv=None):
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    from nonstationary_precip_tpu_torch.experiments import spatial_gibbs
-    from nonstationary_precip_tpu_torch.ops import chol_inv
+    from nonstationary_precip_tpu_torch.experiments import gibbs_largen, spatial_gibbs
+    from nonstationary_precip_tpu_torch.ops import chol_inv, matvec
     from nonstationary_precip_tpu_torch.utils import config
 
     dev = config.device("cuda")
-
-    t0 = time.perf_counter()
-    log = chol_inv.build(force=True)
-    emit("build", kernel="chol_inv_batched", seconds=time.perf_counter() - t0,
-         ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
+    build_all(chol_inv, matvec)
 
     errs, ms, plain_ms = phase_k1(chol_inv, spatial_gibbs, dev)
+    reset_launches(chol_inv, matvec)
     launches = phase_slice(chol_inv, spatial_gibbs, args.steps, name)
+    check(not any(matvec.LAUNCHES.values()), "K2/K3 are not on the slice's path")
+    phase_largen_ref(gibbs_largen)
+    out, largen_launches = phase_largen(gibbs_largen, matvec, chol_inv, name)
+    payloads = largen_payloads(gibbs_largen, out, dev)
+    k2_errs, k2_t, k2_bound, k2_by = phase_k2(matvec, payloads, dev)
+    k3_errs, k3_t, k3_bound, k3_by = phase_k3(matvec, payloads, dev)
 
+    # K1 at (10, 316): 2N³/3 flops per matrix (Cholesky and triangular
+    # inverse, N³/3 each); reads A once, writes L and L⁻¹
+    k1_bound, k1_by = bound(10 * 2 * 316**3 / 3, 4 * 3 * 10 * 316 * 316)
     print(nvidia_smi_line(), flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "chol_inv_batched_safe",
-        "route": "cuda",
-        "source": "nonstationary_precip_tpu_torch/csrc/chol_inv_batched.cu",
-        "replaces": "nonstationary_precip_tpu/ops/pallas_chol.py:1054",
-        "launches": launches,
-        "max_abs_err": errs["gibbs_gram"]["max_abs_err"],
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "chol_inv_batched_safe", "route": "cuda",
+         "source": "nonstationary_precip_tpu_torch/csrc/chol_inv_batched.cu",
+         "replaces": "nonstationary_precip_tpu/ops/pallas_chol.py:1054", "launches": launches,
+         "max_abs_err": errs["gibbs_gram"]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+        {"name": "gibbs_matvec", "route": "cuda", "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
+         "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:240", "launches": largen_launches["gibbs_matvec"],
+         "max_abs_err": max(e["max_abs_err"] for e in k2_errs.values()), "ms": k2_t["ms"],
+         "plain_ms": k2_t["plain_ms"], "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+        {"name": "gibbs_panel_grads", "route": "cuda",
+         "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
+         "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:350",
+         "launches": largen_launches["gibbs_panel_grads"],
+         "max_abs_err": max(e["max_abs_err"] for e in k3_errs.values()), "ms": k3_t["ms"],
+         "plain_ms": k3_t["plain_ms"], "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)
 

@@ -28,6 +28,19 @@ GIBBS_EXACT_KEYS = (
 )
 
 
+#: The parameters of the JAX large-N gate (``experiments/gibbs_largen.py``).
+LARGEN_KEYS = ("log_ell_pp", "raw_s2", "log_noise")
+
+
+def largen_params_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float32) -> dict:
+    """The large-N gate's parameter dict {log_ell_pp (N, 2), raw_s2,
+    log_noise} as the port's tensors, from the JAX run's numpy arrays."""
+    missing = [k for k in LARGEN_KEYS if k not in params]
+    if missing:
+        raise KeyError(f"largen_params_from_jax: missing {missing}")
+    return {k: torch.tensor(np.array(params[k]), dtype=dtype, device=device) for k in LARGEN_KEYS}
+
+
 def gibbs_exact_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float32) -> GibbsExactGP:
     """The port's ``GibbsExactGP`` holding the JAX model's leaves.
 

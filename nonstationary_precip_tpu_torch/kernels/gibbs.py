@@ -12,9 +12,12 @@ off this path).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+
+from nonstationary_precip_tpu_torch.utils.transforms import positive
 
 
 def gibbs_gram(x1: torch.Tensor, ell1: torch.Tensor, x2: torch.Tensor, ell2: torch.Tensor) -> torch.Tensor:
@@ -26,6 +29,21 @@ def gibbs_gram(x1: torch.Tensor, ell1: torch.Tensor, x2: torch.Tensor, ell2: tor
     diff = x1[..., :, None, :] - x2[..., None, :, :]
     quad = torch.sum(diff**2 / sq_sum, dim=-1)
     return pref * torch.exp(-quad)
+
+
+@functools.lru_cache(maxsize=8)
+def packed_gibbs_cross(d: int):
+    """cross_fn of the matrix-free paths' packed payload: rows are
+    ``x_aug = [x, log ℓ]`` split at ``d``.  ``raw_s2`` is the raw (softplus)
+    outputscale, or None for the unscaled Gram.  The matrix-free backward
+    rebuilds panels through this function, so it must compute the operator
+    of ``ops/matvec.scaled_packed_gibbs_matvec_builder(d)``."""
+
+    def cross(raw_s2, xa, xb):
+        k = gibbs_gram(xa[:, :d], torch.exp(xa[:, d:]), xb[:, :d], torch.exp(xb[:, d:]))
+        return k if raw_s2 is None else positive(raw_s2) * k
+
+    return cross
 
 
 def gibbs_diag(x: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:

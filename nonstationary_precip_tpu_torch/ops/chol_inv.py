@@ -42,16 +42,12 @@ kernel launches (and nothing else).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
 from nonstationary_precip_tpu_torch.ops.linalg import cholesky_failed, escalating_jitter
-from nonstationary_precip_tpu_torch.utils.config import BASE_PATH, EPSILON
+from nonstationary_precip_tpu_torch.utils.config import EPSILON
 
 #: Largest N the kernel takes (the TPU gate's MAX_N_CHOLINV_B).
 MAX_N = 384
@@ -60,10 +56,7 @@ MAX_N = 384
 #: main path went through the kernel.
 LAUNCHES = 0
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "chol_inv_batched.cu"
-BUILD_DIR = BASE_PATH / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = CSRC / "chol_inv_batched.cu"
 # static shared memory and the per-block reserve beside the dynamic slab
 _SMEM_RESERVE = 1024
 
@@ -71,34 +64,13 @@ _lib = None
 _max_smem: dict[int, int] = {}
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (Path(cuda_home) / "bin" / "nvcc", shutil.which("nvcc")):
-        if cand and Path(cand).is_file():
-            return str(cand)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
 def build(force: bool = False) -> str:
-    """Compile ``csrc/chol_inv_batched.cu`` into a shared library named by
-    the source's hash, load it, and return nvcc's output (the ``-Xptxas -v``
-    register and shared-memory report).  A library already built from the
-    same source is reused unless ``force``.  A failed compile raises."""
+    """Compile ``csrc/chol_inv_batched.cu`` (``ops/cuda_build.py``), load
+    it, and return nvcc's output (the ``-Xptxas -v`` register and
+    shared-memory report).  A library already built from the same source is
+    reused unless ``force``.  A failed compile raises."""
     global _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libchol_inv_{tag}.so"
-    log = ""
-    if force or not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    lib, log = build_library(SOURCE, force)
     lib.chol_inv_batched.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.chol_inv_batched.restype = ctypes.c_int

@@ -1,0 +1,296 @@
+"""Matrix-free ("lazy") BBMM on one device: the exact-GP marginal
+log-likelihood and its gradients with the N×N Gram never in memory.
+
+Counterpart of ``nonstationary_precip_tpu/ops/lazy_cg.py``, the part the
+large-N Gibbs path runs (``experiments/gibbs_largen.py``):
+  * the mBCG matvec rebuilds (block, N) row panels of K + σ²I from x, or
+    goes through a fused ``matvec_builder`` (K2, ``ops/matvec.py``);
+  * ``lazy_cg_mll`` is one ``torch.autograd.Function`` whose backward never
+    forms the (N, N) cotangent: dMLL/dK = ½ααᵀ − ½·mean_i (K⁻¹zᵢ)rᵢᵀ is
+    rank-(1+R), pulled back either panel by panel through ``cross_fn``
+    (``make_jnp_panel_vjp``) or by a fused ``panel_vjp`` (K3);
+  * σ² rides the panel diagonal, so its gradient falls out of the same
+    trace identity.
+
+Kernels whose state is per point (the Gibbs lengthscale field) use the
+packed payload ``x_aug = [x, log ℓ]`` with a ``cross_fn`` that unpacks it
+(``kernels.gibbs.packed_gibbs_cross``).  Randomness comes from the caller:
+``probe_noise`` is (u1 (rank, R), u2 (N, R)) standard normal draws with a
+preconditioner, else the (N, R) probes themselves.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from nonstationary_precip_tpu_torch.ops.bbmm import (
+    lanczos_logdet,
+    mbcg,
+    precond_logdet,
+    sample_precond_probes,
+    woodbury_precond,
+)
+
+
+def default_cross(kernel, xa, xb):
+    return kernel(xa, xb)
+
+
+def check_divisible(n: int, m: int, what: str, unit: str):
+    if n % m:
+        raise ValueError(
+            f"{what} length {n} is not divisible by the {unit} {m} — pad the data "
+            "(padding Gram rows is NOT neutral: fake train points change the solve)")
+
+
+def _panel(kernel, x_blk, x, sigma2, i0, cross_fn):
+    """Rows [i0, i0+B) of K + σ²I, the only piece of the Gram that exists."""
+    kb = cross_fn(kernel, x_blk, x)
+    idx = i0 + torch.arange(x_blk.shape[0], device=x.device)
+    mask = (torch.arange(x.shape[0], device=x.device)[None, :] == idx[:, None]).to(kb.dtype)
+    return kb + sigma2 * mask
+
+
+def _lazy_matvec(kernel, x, sigma2, block, cross_fn):
+    """(N, R) → (N, R) multiply by K + σ²I, one (block, N) panel at a time."""
+    n = x.shape[0]
+
+    def matvec(v):
+        return torch.cat([_panel(kernel, x[i0:i0 + block], x, sigma2, i0, cross_fn) @ v
+                          for i0 in range(0, n, block)])
+
+    return matvec
+
+
+@torch.no_grad()
+def lazy_pivoted_cholesky(kernel, x: torch.Tensor, rank: int, cross_fn: Callable = default_cross,
+                          jitter: float = 1e-8, key=None) -> torch.Tensor:
+    """Rank-``rank`` greedy pivoted Cholesky (N, rank) of the noise-free
+    K(x, x) without forming it: the diagonal from single-point evaluations,
+    each pivot row from one (1, N) cross-Gram build.  The pivot stays on
+    the device (argmax and index_select, no host read per pivot).  Same
+    recursion as ``ops/bbmm.pivoted_cholesky``.  ``key`` (RPCholesky's
+    sampled pivots) is not yet ported."""
+    if key is not None:
+        raise NotImplementedError("RPCholesky pivoting (lazy_pivoted_cholesky with a key) is not yet ported")
+    n = x.shape[0]
+    d = torch.vmap(lambda xi: cross_fn(kernel, xi[None], xi[None])[0, 0])(x)
+    l = torch.zeros((n, rank), dtype=x.dtype, device=x.device)
+    for j in range(rank):
+        piv = torch.argmax(d).reshape(1)
+        dmax = d.index_select(0, piv)
+        krow = cross_fn(kernel, x.index_select(0, piv), x)[0]
+        resid = krow - l @ l.index_select(0, piv)[0]
+        col = resid / torch.sqrt(torch.clamp_min(dmax, jitter))
+        col = torch.where(d > 0.0, col, torch.zeros_like(col))
+        l[:, j] = col
+        d = torch.clamp_min(d - col * col, 0.0).index_fill(0, piv, 0.0)
+    return l
+
+
+def build_precond_factor(precond, kernel, x, rank, cross, key=None):
+    """The (N, rank) preconditioner factor.  Only ``'pivchol'`` is ported."""
+    if precond == "pivchol":
+        return lazy_pivoted_cholesky(kernel, x, rank, cross, key=key)
+    if precond == "nystrom":
+        raise NotImplementedError("precond='nystrom' (lazy_nystrom_factor) is not yet ported")
+    raise ValueError(f"precond must be 'pivchol' or 'nystrom', got {precond!r}")
+
+
+# ---------------------------------------------------------------------------
+# MLL (differentiable w.r.t. the kernel's raw outputscale, x, resid, sigma2)
+# ---------------------------------------------------------------------------
+
+
+class _Settings(NamedTuple):
+    block: int
+    max_iters: int
+    tol: float
+    precond_rank: int
+    cross_fn: Callable
+    matvec_builder: Optional[Callable]
+    panel_vjp: Optional[Callable]
+
+
+def _core_fwd(s: _Settings, kernel, x, resid, probes, sigma2, lpc):
+    """The JAX package's ``core_fwd`` (:325-366): value, and the vectors the
+    backward needs (α = K⁻¹r, the probe solves, the trace's right vectors)."""
+    n = resid.shape[0]
+    if s.matvec_builder is not None:
+        matvec = s.matvec_builder(kernel, x, sigma2)
+    else:
+        matvec = _lazy_matvec(kernel, x, sigma2, s.block, s.cross_fn)
+    if s.precond_rank > 0:
+        # the preconditioner parameterises the estimator, not the estimand:
+        # σ² is frozen in it; z ~ N(0, P) and P⁻¹z keep E[z (P⁻¹z)ᵀ] = I
+        # (JAX's ``_woodbury`` is ``woodbury_precond``)
+        s2 = sigma2.detach()
+        minv = woodbury_precond(lpc, s2)
+        probe_rights = minv(probes)
+        probe_w = torch.sum(probes * probe_rights, dim=0)
+        logdet_p = precond_logdet(lpc, s2, n)
+    else:
+        minv = None
+        probe_rights = probes  # E[z zᵀ] = I for Rademacher probes
+        probe_w = torch.sum(probes * probes, dim=0)
+        logdet_p = torch.zeros((), dtype=resid.dtype, device=resid.device)
+    res = mbcg(matvec, torch.cat([resid[:, None], probes], dim=1), max_iters=s.max_iters, tol=s.tol,
+               precond=minv)
+    alpha, solves = res.x[:, 0], res.x[:, 1:]
+    logdet = logdet_p + lanczos_logdet(res.alphas[:, 1:], res.betas[:, 1:], probe_w)
+    two_pi = torch.tensor(2.0 * math.pi, dtype=resid.dtype, device=resid.device)
+    val = -0.5 * torch.dot(resid, alpha) - 0.5 * logdet - 0.5 * n * torch.log(two_pi)
+    val = torch.where(torch.any(res.broke), torch.full_like(val, math.nan), val)
+    return val, (alpha, solves, probe_rights)
+
+
+class _LazyCGMLL(torch.autograd.Function):
+    """``core`` of the JAX package's ``_mll_machinery``: forward ``core_fwd``,
+    backward the fused ``panel_vjp`` or the panel-by-panel pullback."""
+
+    @staticmethod
+    def forward(ctx, kernel, x, resid, probes, sigma2, lpc, settings):
+        val, (alpha, solves, rights) = _core_fwd(settings, kernel, x, resid, probes, sigma2, lpc)
+        ctx.settings = settings
+        ctx.kernel = kernel
+        ctx.save_for_backward(x, sigma2, alpha, solves, rights)
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        x, sigma2, alpha, solves, rights = ctx.saved_tensors
+        s = ctx.settings
+        pvjp = s.panel_vjp if s.panel_vjp is not None else make_jnp_panel_vjp(s.cross_fn, s.block)
+        kg, xgrad, s2g = pvjp(ctx.kernel, x, sigma2, alpha, solves, rights, g)
+        if not isinstance(ctx.kernel, torch.Tensor):
+            kg = None
+        return kg, xgrad, -g * alpha, None, s2g, None, None
+
+
+def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma2, *,
+                block: int = 1024, max_iters: int = 100, tol: float = 1e-6, precond_rank: int = 0,
+                precond_key=None, precond: str = "pivchol", precond_lpc: Optional[torch.Tensor] = None,
+                cross_fn: Optional[Callable] = None, matvec_builder: Optional[Callable] = None,
+                panel_vjp: Optional[Callable] = None) -> torch.Tensor:
+    """−½ rᵀK⁻¹r − ½ log det K − (n/2) log 2π with K = kernel(x) + σ²I, K
+    never in memory.  Differentiable w.r.t. ``kernel`` (when it is a tensor:
+    the raw outputscale of ``packed_gibbs_cross``), ``x``, ``resid`` and
+    ``sigma2``.
+
+    ``probe_noise``: with a preconditioner (``precond_rank > 0`` or
+    ``precond_lpc``), the standard normal draws (u1 (rank, R), u2 (N, R))
+    from which the probes z = L u₁ + σ u₂ ~ N(0, P) are made;
+    without one, the (N, R) Rademacher probes themselves.  (The JAX
+    package's ``precond_shift`` is not ported: the path runs shift 1.)  The preconditioner
+    factor (built by greedy pivoted Cholesky unless ``precond_lpc`` is
+    given), the probes and σ² inside P carry no gradient.
+
+    ``matvec_builder`` swaps the mBCG matvec for a fused one (K2);
+    ``panel_vjp`` swaps the backward panel loop for a fused sweep (K3) with
+    the contract ``(kernel, x, sigma2, alpha, solves, rights, g) ->
+    (kernel_grad, x_grad, sigma2_grad)``.  Both must compute the operator
+    of ``cross_fn``.  ``block`` must divide N (it is clamped to N first)."""
+    n = x.shape[0]
+    block = min(block, n)
+    check_divisible(n, block, "x", "row-panel block")
+    cross = cross_fn or default_cross
+    sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device)
+    if precond_lpc is not None:
+        precond_rank = precond_lpc.shape[-1]
+    with torch.no_grad():
+        if precond_rank > 0:
+            lpc = (precond_lpc if precond_lpc is not None
+                   else build_precond_factor(precond, kernel, x, precond_rank, cross, precond_key)).detach()
+            u1, u2 = probe_noise
+            probes = sample_precond_probes(lpc, sigma2.detach(), u1, u2)
+        else:
+            lpc = torch.zeros((n, 0), dtype=x.dtype, device=x.device)
+            probes = probe_noise.detach()
+    settings = _Settings(block, max_iters, tol, precond_rank, cross, matvec_builder, panel_vjp)
+    return _LazyCGMLL.apply(kernel, x, resid, probes, sigma2, lpc, settings)
+
+
+@functools.lru_cache(maxsize=16)
+def make_jnp_panel_vjp(cross_fn: Callable, block: int):
+    """The MLL backward as a panel loop with autograd, with the contract of
+    ``ops/matvec.packed_gibbs_panel_vjp`` (the sweep K3 replaces):
+
+        panel_vjp(kernel, x, sigma2, alpha, solves, rights, g)
+            -> (kernel_grad, x_grad, sigma2_grad)
+
+    Each (block, N) panel's cotangent rows of ½ααᵀ − (¼/R)(SZᵀ + ZSᵀ) are
+    pulled back through ``_panel``.  x enters every panel twice, as the
+    panel's rows and as the full column side; the two cotangents are summed."""
+
+    def panel_vjp(kernel, x, sigma2, alpha, solves, rights, g):
+        n = x.shape[0]
+        blk = min(block, n)
+        check_divisible(n, blk, "x", "row-panel block")
+        r = rights.shape[-1]
+        with_kernel = isinstance(kernel, torch.Tensor)
+        kern = kernel.detach().requires_grad_() if with_kernel else kernel
+        xf = x.detach().requires_grad_()
+        s2 = sigma2.detach().requires_grad_()
+        leaves = ((kern,) if with_kernel else ()) + (xf, s2)
+        acc = [torch.zeros_like(t) for t in leaves]
+        rows = []
+        for i0 in range(0, n, blk):
+            sl = slice(i0, i0 + blk)
+            kbar = 0.5 * torch.outer(alpha[sl], alpha) - (0.25 / r) * (solves[sl] @ rights.T + rights[sl] @ solves.T)
+            xb = x[sl].detach().requires_grad_()
+            with torch.enable_grad():
+                panel = _panel(kern, xb, xf, s2, i0, cross_fn)
+                grads = torch.autograd.grad(panel, (xb, *leaves), grad_outputs=g * kbar, allow_unused=True)
+            grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip((xb, *leaves), grads)]
+            rows.append(grads[0])
+            acc = [a + gr for a, gr in zip(acc, grads[1:])]
+        kg = acc[0] if with_kernel else None
+        return kg, torch.cat(rows) + acc[-2], acc[-1]
+
+    return panel_vjp
+
+
+# ---------------------------------------------------------------------------
+# convergence diagnostics (gate evidence, not an estimator)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def lazy_cg_diagnostics(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma2, *,
+                        block: int = 1024, max_iters: int = 100, tol: float = 1e-6, precond_rank: int = 0,
+                        precond_key=None, precond: str = "pivchol", precond_lpc: Optional[torch.Tensor] = None,
+                        cross_fn: Optional[Callable] = None, matvec_builder: Optional[Callable] = None) -> dict:
+    """Convergence evidence for the solves :func:`lazy_cg_mll` runs: the same
+    matvec, preconditioner, probes and mBCG budget, returning
+    {"relres_solve", "relres_max", "iters_max", "broke"}: relres_solve is
+    the K⁻¹y solve's final relative residual, relres_max the worst column."""
+    n = x.shape[0]
+    block = min(block, n)
+    check_divisible(n, block, "x", "row-panel block")
+    cross = cross_fn or default_cross
+    sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device)
+    if precond_lpc is not None:
+        precond_rank = precond_lpc.shape[-1]
+    if matvec_builder is not None:
+        matvec = matvec_builder(kernel, x, sigma2)
+    else:
+        matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
+    if precond_rank > 0:
+        lpc = (precond_lpc if precond_lpc is not None
+               else build_precond_factor(precond, kernel, x, precond_rank, cross, precond_key))
+        u1, u2 = probe_noise
+        probes = sample_precond_probes(lpc, sigma2, u1, u2)
+        minv = woodbury_precond(lpc, sigma2)
+    else:
+        probes, minv = probe_noise, None
+    res = mbcg(matvec, torch.cat([resid[:, None], probes], dim=1), max_iters=max_iters, tol=tol, precond=minv)
+    return {
+        "relres_solve": float(res.residnorm[0]),
+        "relres_max": float(torch.max(res.residnorm)),
+        "iters_max": int(torch.max(res.iters)),
+        "broke": bool(torch.any(res.broke)),
+    }

@@ -1,0 +1,399 @@
+"""K2 and K3: the Gibbs Gram·V and the fused backward panel sweep of the
+matrix-free MLL, by hand for Hopper.
+
+Replaces, in ``nonstationary_precip_tpu/ops/pallas_matvec.py``:
+  * K2 ``make_gibbs_matvec`` (:240, ``pallas_call`` at :207; body
+    ``_gibbs_kernel``), reached through ``packed_gibbs_matvec_builder`` and
+    ``scaled_packed_gibbs_matvec_builder`` (:602-644);
+  * K3 ``packed_gibbs_panel_grads`` (:350, ``pallas_call`` at :384) and
+    ``packed_gibbs_panel_grads_rows`` (:401 → :435; body
+    ``_gibbs_panel_bwd_kernel``), reached through ``packed_gibbs_panel_vjp``
+    and ``packed_gibbs_panel_vjp_rows`` (:453-599).
+Both kernels are ``csrc/gibbs_matvec.cu``: CUDA C++ for sm_90a, built with
+nvcc at first use (``ops/cuda_build.py``) and bound through ctypes.
+
+What bounds them on an H100.  Both are compute-bound.  They read O(N·(2D+R))
+bytes and do O(N²) work: at N = 16384, D = 2, R = 9 a K2 call reads 1.4 MB
+(0.4 µs at 3.35 TB/s) but builds 2.7·10⁸ Gram elements.  Per element and
+dimension the tile costs ~10 f32 operations, one IEEE division and one
+``sqrtf``; then one ``expf`` and the contraction, 2R flops for K2 and
+2(1 + 2R) + 6D for K3 (the cotangent's factors and the pullbacks).  The
+division, the square root and the exponential run partly on the SM's
+special-function units, a sixteenth of its FP32 rate, so they, and not the
+FMAs, may well set the pace.  ``chip_smoke.py`` reports the flop bound
+(operations counted as below, over 67 TFLOP/s) beside the measured time.
+
+What the design does about it.  K never reaches memory: each element is
+built in registers and contracted at once.  One thread owns one row, with
+the row's payload and its R (K2) or 1 + 2D (K3) accumulators in registers,
+so the inner loop is arithmetic on registers plus broadcast reads of the
+column payload from shared memory.  Accumulators are templated on R's
+bucket, so mBCG's R = 9 keeps exactly 9.  The column range is split over
+blocks until the card holds ~8 blocks per SM, and a second pass adds the
+slices in a fixed order: no float atomics, so a result is the same bits on
+every run.  Not carried over from the TPU: the (N, 128) lane packing and
+padded rows (the kernel masks the ragged edge), the MXU contraction modes
+(plain f32 FMAs, no tensor cores, no TF32, no fast-math intrinsics), and
+the d = 2 single-rsqrt rewrite, an optimisation left for later.
+
+Dispatch: a CPU tensor takes the plain version (``gibbs_gram_matvec_plain``,
+``packed_gibbs_panel_grads_plain``); a CUDA tensor launches the kernel or
+raises, for D > 8, a dtype other than float32, a non-contiguous input or a
+failed build alike.  ``LAUNCHES`` counts kernel launches and nothing else.
+Forward-only, as on the TPU: the matvec sits inside ``lazy_cg_mll``'s
+autograd Function, and K3 is itself a backward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram
+from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
+from nonstationary_precip_tpu_torch.utils.transforms import positive
+
+SOURCE = CSRC / "gibbs_matvec.cu"
+
+MAX_D = 8  # input dims the kernels take
+MAX_R = 128  # K2: right-hand sides one launch takes; wider V is column-chunked
+MAX_FACTORS = 65  # K3: 1 + 2R cotangent factors, so R ≤ 32
+ROWS = 128  # rows per block (csrc kRows)
+COLS = 128  # columns per shared-memory pass (csrc kCols)
+GROUP = 32  # K2: right-hand sides one block contracts (csrc kGroup)
+BLOCKS_PER_SM = 8  # column splits are added until the grid has this many
+PLAIN_BLOCK = 2048  # row-panel height of the plain versions
+
+#: Kernel launches so far in this process, one per K2 or K3 call of the
+#: library (each call is the kernel plus its fixed-order reduction pass).
+LAUNCHES = {"gibbs_matvec": 0, "gibbs_panel_grads": 0}
+
+_lib = None
+
+
+def build(force: bool = False) -> str:
+    """Compile ``csrc/gibbs_matvec.cu``, load it, and return nvcc's output
+    (registers, shared memory and spills per kernel).  Reused unless
+    ``force``; a failed compile raises."""
+    global _lib
+    lib, log = build_library(SOURCE, force)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gibbs_matvec.argtypes = [p, p, i, p, p, i, i, p, i, i, p, i, p, i, i, p]
+    lib.gibbs_matvec.restype = i
+    lib.gibbs_panel_grads.argtypes = [p, p, p, i, p, p, p, i, i, i, p, p, p, p, i, i, p]
+    lib.gibbs_panel_grads.restype = i
+    _lib = lib
+    return log
+
+
+def column_splits(n_rows: int, n_cols: int, groups: int, sms: int) -> tuple[int, int]:
+    """(splits, columns per split) for a grid of ⌈n_rows/ROWS⌉ row blocks ×
+    ``groups``: slices of a whole number of COLS-wide passes each, as many
+    as bring the grid to about BLOCKS_PER_SM blocks per SM (the passes are
+    shared out evenly, so the grid may fall short by the rounding)."""
+    chunks = -(-n_cols // COLS)
+    blocks = -(-n_rows // ROWS) * groups
+    want = min(chunks, max(1, -(-BLOCKS_PER_SM * sms // blocks)))
+    per = -(-chunks // want)
+    return -(-chunks // per), per * COLS
+
+
+@functools.cache
+def _num_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_cuda(name: str, *ts: torch.Tensor):
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name} kernel takes CUDA tensors on one device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel takes contiguous tensors")
+
+
+def _check_payload(name: str, x: torch.Tensor, ell: torch.Tensor):
+    if x.ndim != 2 or x.shape != ell.shape:
+        raise ValueError(f"{name}: x and ell must be (N, D) of one shape, got "
+                         f"{tuple(x.shape)} and {tuple(ell.shape)}")
+    if not 1 <= x.shape[1] <= MAX_D:
+        raise ValueError(f"{name}: D ≤ {MAX_D}, got D = {x.shape[1]}")
+
+
+def _launched(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# K2: Gibbs Gram·V
+# ---------------------------------------------------------------------------
+
+
+def gibbs_gram_matvec_cuda(x1, ell1, x2, ell2, v):
+    """K2's wrapper: K(x1, x2) @ v from ⌈R/MAX_R⌉ launches on the current
+    stream.  x1, ell1 (N1, D ≤ 8), x2, ell2 (N2, D), v (N2, R), all float32,
+    contiguous, on one CUDA device.  Raises on anything else."""
+    _check_payload("gibbs_matvec", x1, ell1)
+    _check_payload("gibbs_matvec", x2, ell2)
+    if v.ndim != 2 or v.shape[0] != x2.shape[0] or x1.shape[1] != x2.shape[1]:
+        raise ValueError(f"gibbs_matvec: shapes {tuple(x1.shape)}, {tuple(x2.shape)}, v {tuple(v.shape)}")
+    _check_cuda("gibbs_matvec", x1, ell1, x2, ell2, v)
+    if _lib is None:
+        build()
+    (n1, d), n2, r = x1.shape, x2.shape[0], v.shape[1]
+    out = torch.empty((n1, r), dtype=v.dtype, device=v.device)
+    sms, stream = _num_sms(v.device), _stream(v.device)
+    for c0 in range(0, r, MAX_R):
+        rc = min(MAX_R, r - c0)
+        splits, per = column_splits(n1, n2, -(-rc // GROUP), sms)
+        part = torch.empty(splits * n1 * rc, dtype=v.dtype, device=v.device)
+        err = _lib.gibbs_matvec(
+            x1.data_ptr(), ell1.data_ptr(), n1, x2.data_ptr(), ell2.data_ptr(), n2, d,
+            v.data_ptr() + 4 * c0, r, rc, out.data_ptr() + 4 * c0, r, part.data_ptr(),
+            splits, per, stream)
+        _launched(err, "gibbs_matvec")
+    return out
+
+
+def gibbs_gram_matvec_plain(x1, ell1, x2, ell2, v, block: int = PLAIN_BLOCK):
+    """The plain PyTorch version of K2: row panels of ``gibbs_gram`` @ v."""
+    return torch.cat([gibbs_gram(x1[i:i + block], ell1[i:i + block], x2, ell2) @ v
+                      for i in range(0, x1.shape[0], block)])
+
+
+def make_gibbs_matvec(x1, ell1, x2, ell2, precision: str = "highest"):
+    """``matvec(v) = K(x1, x2) @ v`` for the diagonal Gibbs kernel, K never
+    in memory.  The payloads are made contiguous once, outside the caller's
+    iteration loop.  ``precision='highest'`` (exact f32) is the only mode
+    ported; the TPU's 'high3', 'default' and 'vpu' contraction modes raise."""
+    if precision in ("high3", "default", "vpu"):
+        raise NotImplementedError(f"gibbs matvec precision {precision!r} is not yet ported (only 'highest')")
+    if precision != "highest":
+        raise ValueError(f"precision must be highest/default/high3/vpu, got {precision!r}")
+    _check_payload("gibbs_matvec", x1, ell1)
+    _check_payload("gibbs_matvec", x2, ell2)
+    x1, ell1, x2, ell2 = (t.contiguous() for t in (x1, ell1, x2, ell2))
+
+    def matvec(v):
+        if v.device.type == "cpu":
+            return gibbs_gram_matvec_plain(x1, ell1, x2, ell2, v)
+        return gibbs_gram_matvec_cuda(x1, ell1, x2, ell2, v)
+
+    return matvec
+
+
+def gibbs_gram_matvec(x1, ell1, x2, ell2, v, precision: str = "highest"):
+    """One-shot K(x1, x2) @ v; inside an iteration loop use
+    :func:`make_gibbs_matvec`."""
+    return make_gibbs_matvec(x1, ell1, x2, ell2, precision)(v)
+
+
+@functools.lru_cache(maxsize=8)
+def packed_gibbs_matvec_builder(d: int, precision: str = "highest"):
+    """Builder for the packed payload x_aug = [x, log ℓ]: returns
+    ``builder(kernel, x_aug, sigma2) -> matvec`` with
+    matvec(v) = K_gibbs v + σ²v (``kernel`` unused)."""
+
+    def builder(kernel, x_aug, sigma2):
+        ell = torch.exp(x_aug[:, d:])
+        mv = make_gibbs_matvec(x_aug[:, :d], ell, x_aug[:, :d], ell, precision)
+        return lambda v: mv(v) + sigma2 * v
+
+    return builder
+
+
+@functools.lru_cache(maxsize=8)
+def scaled_packed_gibbs_matvec_builder(d: int, precision: str = "highest"):
+    """Like :func:`packed_gibbs_matvec_builder`, with ``kernel`` the raw
+    outputscale: v ↦ s²·K_gibbs v + σ²v, s² = softplus(raw).  The forward
+    counterpart of ``kernels.gibbs.packed_gibbs_cross(d)``."""
+
+    def builder(raw_s2, x_aug, sigma2):
+        ell = torch.exp(x_aug[:, d:])
+        mv = make_gibbs_matvec(x_aug[:, :d], ell, x_aug[:, :d], ell, precision)
+        s2 = positive(raw_s2)
+        return lambda v: s2 * mv(v) + sigma2 * v
+
+    return builder
+
+
+# ---------------------------------------------------------------------------
+# K3: the backward panel sweep
+# ---------------------------------------------------------------------------
+
+
+def cotangent_factors(alpha, solves, rights):
+    """(f1, f2), each (N, 1 + 2R), with f1ᵢ·f2ⱼ = Ŵᵢⱼ, the symmetrised
+    cotangent ½αᵢαⱼ − (¼/R)(SᵢZⱼ + ZᵢSⱼ) (``pallas_matvec.py:368-381``)."""
+    c = 0.25 / solves.shape[-1]
+    f1 = torch.cat([0.5 * alpha[:, None], -c * solves, -c * rights], dim=1)
+    f2 = torch.cat([alpha[:, None], rights, solves], dim=1)
+    return f1.contiguous(), f2.contiguous()
+
+
+def _panel_grads_cuda(x_rows, ell_rows, f1_rows, x, ell, f2):
+    """K3's wrapper: one launch of the sweep for rows (x_rows, ell_rows,
+    f1_rows) against all columns (x, ell, f2)."""
+    _check_payload("gibbs_panel_grads", x_rows, ell_rows)
+    _check_payload("gibbs_panel_grads", x, ell)
+    (nr, d), n, fw = x_rows.shape, x.shape[0], f2.shape[1]
+    if x.shape[1] != d or f1_rows.shape != (nr, fw) or f2.shape[0] != n:
+        raise ValueError("gibbs_panel_grads: row and column shapes disagree")
+    if fw > MAX_FACTORS:
+        raise ValueError(f"gibbs_panel_grads kernel takes R ≤ {(MAX_FACTORS - 1) // 2} probes, got {(fw - 1) // 2}")
+    _check_cuda("gibbs_panel_grads", x_rows, ell_rows, f1_rows, x, ell, f2)
+    if _lib is None:
+        build()
+    dev = x.device
+    gx = torch.empty((nr, d), dtype=x.dtype, device=dev)
+    gl = torch.empty((nr, d), dtype=x.dtype, device=dev)
+    sp = torch.empty((nr,), dtype=x.dtype, device=dev)
+    splits, per = column_splits(nr, n, 1, _num_sms(dev))
+    part = torch.empty(splits * nr * (1 + 2 * d), dtype=x.dtype, device=dev)
+    err = _lib.gibbs_panel_grads(
+        x_rows.data_ptr(), ell_rows.data_ptr(), f1_rows.data_ptr(), nr,
+        x.data_ptr(), ell.data_ptr(), f2.data_ptr(), n, d, fw,
+        gx.data_ptr(), gl.data_ptr(), sp.data_ptr(), part.data_ptr(), splits, per, _stream(dev))
+    _launched(err, "gibbs_panel_grads")
+    return gx, gl, sp
+
+
+def _panel_grads_plain(x_rows, ell_rows, f1_rows, x, ell, f2, block: int = PLAIN_BLOCK):
+    """The plain PyTorch version of K3's closed form, over row panels."""
+    outs = []
+    for i in range(0, x_rows.shape[0], block):
+        xr, lr = x_rows[i:i + block, None, :], ell_rows[i:i + block, None, :]
+        ss = lr**2 + ell[None] ** 2
+        diff = xr - x[None]
+        k = torch.prod(torch.sqrt(2.0 * (lr * ell[None]) / ss), dim=-1) * torch.exp(-torch.sum(diff**2 / ss, dim=-1))
+        p = (f1_rows[i:i + block] @ f2.T) * k
+        sp = p.sum(dim=1)
+        gx = -2.0 * torch.sum(p[..., None] * (diff / ss), dim=1)
+        t = torch.sum(p[..., None] * ((2.0 * diff**2 / ss - 1.0) / ss), dim=1)
+        gl = sp[:, None] / (2.0 * lr[:, 0]) + lr[:, 0] * t
+        outs.append((gx, gl, sp))
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def _panel_grads(x_rows, ell_rows, f1_rows, x, ell, f2):
+    if x.device.type == "cpu":
+        return _panel_grads_plain(x_rows, ell_rows, f1_rows, x, ell, f2)
+    return _panel_grads_cuda(x_rows, ell_rows, f1_rows, x, ell, f2)
+
+
+def packed_gibbs_panel_grads_plain(x, ell, alpha, solves, rights):
+    """The plain version of :func:`packed_gibbs_panel_grads`."""
+    f1, f2 = cotangent_factors(alpha, solves, rights)
+    return _panel_grads_plain(x, ell, f1, x, ell, f2)
+
+
+def packed_gibbs_panel_grads(x, ell, alpha, solves, rights):
+    """One sweep of the BBMM backward over the unscaled Gibbs Gram: the
+    row-side pullbacks of Σ Ŵ ⊙ K(x, x), Ŵ = ½ααᵀ − (¼/R)(SZᵀ + ZSᵀ),
+    S = solves, Z = rights.  Returns (gx (N, D), gell (N, D), sp (N,)),
+    sp the row sums of Ŵ ⊙ K.  Raw ℓ, unscaled; the caller's total gradient
+    is twice the row side, by symmetry."""
+    f1, f2 = cotangent_factors(alpha, solves, rights)
+    return _panel_grads(x.contiguous(), ell.contiguous(), f1, x.contiguous(), ell.contiguous(), f2)
+
+
+def packed_gibbs_panel_grads_rows(x_rows, ell_rows, alpha_rows, solves_rows, rights_rows,
+                                  x, ell, alpha, solves, rights):
+    """:func:`packed_gibbs_panel_grads` restricted to ``x_rows`` on the row
+    side (all of x on the column side): the same kernel with a row count and
+    the rows' own pointers.  Returns (gx (nr, D), gell (nr, D), sp (nr,))."""
+    f1_rows, _ = cotangent_factors(alpha_rows, solves_rows, rights_rows)
+    _, f2 = cotangent_factors(alpha, solves, rights)
+    return _panel_grads(x_rows.contiguous(), ell_rows.contiguous(), f1_rows,
+                        x.contiguous(), ell.contiguous(), f2)
+
+
+def packed_gibbs_panel_grads_rows_plain(x_rows, ell_rows, alpha_rows, solves_rows, rights_rows,
+                                        x, ell, alpha, solves, rights):
+    """The plain version of :func:`packed_gibbs_panel_grads_rows`."""
+    f1_rows, _ = cotangent_factors(alpha_rows, solves_rows, rights_rows)
+    _, f2 = cotangent_factors(alpha, solves, rights)
+    return _panel_grads_plain(x_rows, ell_rows, f1_rows, x, ell, f2)
+
+
+@functools.lru_cache(maxsize=8)
+def packed_gibbs_panel_vjp(d: int):
+    """The fused backward of ``lazy_cg_mll`` for the packed Gibbs payload
+    (``kernels.gibbs.packed_gibbs_cross(d)``'s operator, scaled when
+    ``kernel`` is a raw outputscale, unscaled when it is None):
+
+        panel_vjp(kernel, aug, sigma2, alpha, solves, rights, g)
+            -> (kernel_grad, aug_grad, sigma2_grad)
+
+    Valid only for the symmetric K(aug, aug) pullback: total = 2× the row
+    side (``pallas_matvec.py:469-483``)."""
+
+    def panel_vjp(kernel, aug, sigma2, alpha, solves, rights, g):
+        x, ell = aug[:, :d], torch.exp(aug[:, d:])
+        gx, gl, sp = packed_gibbs_panel_grads(x, ell, alpha, solves, rights)
+        gaug = 2.0 * g * torch.cat([gx, gl * ell], dim=1)
+        # σ²'s pullback is the trace identity g·tr(Ŵ)
+        s2g = g * (0.5 * torch.dot(alpha, alpha) - (0.5 / solves.shape[-1]) * torch.sum(solves * rights))
+        if kernel is None:
+            return None, gaug, s2g
+        # s² = softplus(raw): d s²/d raw = sigmoid(raw)
+        return g * torch.sum(sp) * torch.sigmoid(kernel), positive(kernel) * gaug, s2g
+
+    return panel_vjp
+
+
+@functools.lru_cache(maxsize=8)
+def packed_gibbs_panel_vjp_rows(d: int):
+    """Row-block form of :func:`packed_gibbs_panel_vjp`:
+
+        rows(kernel, aug, sigma2, alpha, solves, rights, g, i0, nr)
+            -> (gaug_rows_raw (nr, 2d), sp_sum)
+
+    The caller concatenates the blocks, scales by s² when scaled, chains the
+    outputscale through Σ sp_sum and adds σ²'s trace identity itself."""
+
+    def rows(kernel, aug, sigma2, alpha, solves, rights, g, i0, nr):
+        sl = slice(i0, i0 + nr)
+        x, ell = aug[:, :d], torch.exp(aug[:, d:])
+        gx, gl, sp = packed_gibbs_panel_grads_rows(
+            x[sl], ell[sl], alpha[sl], solves[sl], rights[sl], x, ell, alpha, solves, rights)
+        return 2.0 * g * torch.cat([gx, gl * ell[sl]], dim=1), torch.sum(sp)
+
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# operation counts, for the bound chip_smoke.py reports
+# ---------------------------------------------------------------------------
+
+
+def _tile_ops(d: int) -> int:
+    """f32 operations per Gram element of the kernels' tile: per dim two
+    squares and their sum (3), the product and its doubling (2), 1/ss (1),
+    the ratio (1), its sqrtf (1), the prefactor product (1), the difference
+    (1), its square scaled by 1/ss (2) and the quad sum (1) = 13; then the
+    negation, expf and the final product (3)."""
+    return 13 * d + 3
+
+
+def matvec_ops(n1: int, n2: int, d: int, r: int) -> int:
+    """Operations of K2 over an n1 × n2 Gram with r right-hand sides: the
+    tile plus one FMA (2 ops) per right-hand side."""
+    return n1 * n2 * (_tile_ops(d) + 2 * r)
+
+
+def panel_grads_ops(nr: int, n: int, d: int, r: int) -> int:
+    """Operations of K3 over nr rows × n columns with r probes: the tile,
+    the cotangent (1 + 2r FMAs), P = Ŵ·K and its row sum (2), and per dim
+    the two pullback terms (d·inv, the FMA; inv·(2d²·inv − 1), the FMA = 9)."""
+    return nr * n * (_tile_ops(d) + 2 * (1 + 2 * r) + 2 + 9 * d)

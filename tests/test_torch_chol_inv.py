@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from nonstationary_precip_tpu.ops import pallas_chol
-from nonstationary_precip_tpu_torch.ops import chol_inv
+from nonstationary_precip_tpu_torch.ops import chol_inv, cuda_build
 
 torch.set_num_threads(1)
 
@@ -196,7 +196,7 @@ def test_chol_inv_build_raises_on_compiler_failure(tmp_path, monkeypatch):
     nvcc.write_text("#!/bin/sh\necho 'chol_inv_batched.cu(1): error: broken' >&2\nexit 2\n")
     nvcc.chmod(0o755)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(chol_inv, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(chol_inv, "_lib", None)
     with pytest.raises(RuntimeError, match="error: broken"):
         chol_inv.build(force=True)
