@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's two main paths and checks every hand-written kernel on
+Drives the port's three main paths and checks every hand-written kernel on
 them against its plain PyTorch version.  The paths are the 10-split exact
 Gibbs MAP experiment of ``nonstationary_precip_tpu_torch.experiments.
 spatial_gibbs`` on the real UIB data (10 splits × 316 training points, K1),
-and the large-N matrix-free gate of ``experiments.gibbs_largen`` at
-N = 16384 (K2 and K3).  Phases, one JSON line each:
+the large-N matrix-free gate of ``experiments.gibbs_largen`` at N = 16384
+(K2 and K3), and the 10-split DSVI deep GP of ``experiments.deepgp_spatial``
+(K4).  Phases, one JSON line each:
 
   1. device     — the card's name; nvidia-smi's name and power limit;
-  2. build      — K1 (csrc/chol_inv_batched.cu) and K2/K3
-                  (csrc/gibbs_matvec.cu), two nvcc runs started together,
-                  in seconds, with each kernel's registers and spills;
+  2. build      — K1 (csrc/chol_inv_batched.cu), K2/K3 (csrc/gibbs_matvec.cu)
+                  and K4 (csrc/svgp_precompute.cu), three nvcc runs started
+                  together, in seconds, with each kernel's registers, spills
+                  and shared memory;
   3. k1         — K1 against its plain version at the slice's shape (10, 316)
                   on the real stacked Gibbs Gram and on random SPD stacks, a
                   rank-deficient member through the jitter retry, then the
@@ -35,7 +37,21 @@ N = 16384 (K2 and K3).  Phases, one JSON line each:
                   at a ragged (1000, 1500, D = 3, R = 130), bitwise repeat,
                   then the median time of each;
   8. k3         — K3 against its plain version at N = 16384, R = 8 on the
-                  same payloads, and its row-block form on one block; times.
+                  same payloads, and its row-block form on one block; times;
+  9. dgp_ref    — the deep GP on the card at full width (M = 250) for 2
+                  splits and 10 steps, from the init, batch schedule and ε
+                  of the JAX run pinned in tests/fixtures/jax_deepgp_ref.npz:
+                  its losses at steps 0 and 9 against JAX's, and each K_zz
+                  member's jitter at init against the pinned run's;
+ 10. dgp        — the whole experiment (10 splits, 400 steps, M = 250):
+                  RMSE/NLPD against the deepgp_spatial_10split band, K4's
+                  launch count against what the code implies, steps/s;
+ 11. k4         — K4 against its plain version on the experiment's init and
+                  trained payloads (50 × M = 250, D = 2, P = 501) and a
+                  ragged (3, 37, D = 3), each held to float64 as in
+                  tests/test_torch_svgp_precompute.py, and K4's L⁻¹
+                  residual and W to entrywise γ_M bounds; the retry case (a
+                  duplicated z at s² = 40) beside a healthy member; times.
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line and
@@ -94,6 +110,33 @@ LARGEN_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_gibbs
 RAGGED = (1000, 1500, 3, 130)  # K2's ragged shape: R crosses the 128-column seam
 K3_ROWS = (2048, 4096)  # the row block of K3's row form
 N_TIMED_GRAM = 20  # calls per timed block at N = 16384 (the plain version takes ~40 ms)
+# The deep GP against the pinned JAX float32 losses: at step 0 both compute
+# the same ELBO from the same init and ε (the port's CPU run: 6e-8); Adam's
+# first steps are ~lr·sign(g), so parameters whose gradient is near zero move
+# apart, and by step 9 the loss follows (the port's CPU run: 2.4e-3).
+DGP_RTOL_STEP0 = 1e-4
+DGP_RTOL_STEP9 = 1e-2
+DGP_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_deepgp_ref.npz"
+# The RESULTS band of deepgp_spatial_10split (run_benchmarks.py:29),
+# hardware-independent.
+DGP_RMSE, DGP_NLPD = 0.48, 0.70
+# K4 against float64, as tests/test_torch_svgp_precompute.py and
+# tests/test_pallas.py:352-369 hold a kernel: the K_zz of 250 inducing points
+# in 2-D is near-singular (‖L⁻¹‖ ~ 3e2), so each f32 output's error from
+# float64 must stay within twice the plain f32 version's own, plus a floor
+# of 1e-5 in L and 1e-3 in W and L⁻¹.
+K4_SLACK = {"L": 1e-5, "W": 1e-3, "Linv": 1e-3}
+# Beside that, two bounds on K4's own f32 arithmetic that do not depend on
+# the conditioning (Higham, Accuracy and Stability of Numerical Algorithms,
+# §3.1 and §8.1), with γ_M = M·u/(1 − M·u), u = 2⁻²⁴: the sweep forms each
+# column of L⁻¹ by forward substitution in the kernel's own L, so
+# |L·L⁻¹ − I| ≤ γ_M·|L|·|L⁻¹| entrywise; the W kernel sums at most M products
+# per entry, so |W − (L⁻¹)ᵀP| ≤ γ_M·|L⁻¹|ᵀ|P| with the kernel's own L⁻¹.
+# Each error over its bound, computed in float64, must be at most 1.
+K4_RAGGED = (3, 37, 3)
+# the retried member: L Lᵀ reconstructs K + jitter·I to 5e-2 at s² = 40
+# (tests/test_pallas.py:449's band)
+K4_RETRY_RECON = 5e-2
 # The card's peaks (H100 SXM data sheet, at the full 700 W): f32 outside the
 # tensor cores, and HBM.
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -294,8 +337,9 @@ def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
     return launches
 
 
-def reset_launches(chol_inv, matvec):
+def reset_launches(chol_inv, matvec, svgp_precompute):
     chol_inv.LAUNCHES = 0
+    svgp_precompute.LAUNCHES = 0
     for k in matvec.LAUNCHES:
         matvec.LAUNCHES[k] = 0
 
@@ -318,11 +362,11 @@ def phase_largen_ref(gibbs_largen):
          grad_cosine=out["grad_cosine"], jax_grad_cosine=float(ref["grad_cosine"]))
 
 
-def phase_largen(gibbs_largen, matvec, chol_inv, dev_name: str):
+def phase_largen(gibbs_largen, matvec, chol_inv, svgp_precompute, dev_name: str):
     """The gate at full size, counting K2's and K3's launches over it."""
     cfg = gibbs_largen.LargeNConfig(n=LARGEN_N, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(chol_inv, matvec)
+    reset_launches(chol_inv, matvec, svgp_precompute)
     out = gibbs_largen.run(cfg)
     launches = dict(matvec.LAUNCHES)
     # K2: one launch per mBCG iteration, in each training step, in the
@@ -330,7 +374,7 @@ def phase_largen(gibbs_largen, matvec, chol_inv, dev_name: str):
     # K3: one per backward, in each step and in that loss
     want = {"gibbs_matvec": cfg.steps * out["iters"] + 2 * out["iters"], "gibbs_panel_grads": cfg.steps + 1}
     check(launches == want, f"K2/K3 launches {launches} == {want}")
-    check(chol_inv.LAUNCHES == 0, "K1 is not on this path")
+    check(chol_inv.LAUNCHES == 0 and svgp_precompute.LAUNCHES == 0, "K1 and K4 are not on this path")
     check(out["relres_solve"] <= GATE_RELRES, f"relres_solve {out['relres_solve']:.3g} <= {GATE_RELRES}")
     check(out["loss_rel_diff"] <= GATE_LOSS_REL, f"loss vs dense {out['loss_rel_diff']:.3g} <= {GATE_LOSS_REL}")
     check(out["grad_cosine"] >= GATE_COSINE, f"gradient cosine {out['grad_cosine']:.5f} >= {GATE_COSINE}")
@@ -421,19 +465,204 @@ def phase_k3(matvec, payloads, dev):
     return errs, t, b_ms, b_by
 
 
-def build_all(chol_inv, matvec):
-    """Both nvcc runs at once, each timed on its own."""
+def build_all(chol_inv, matvec, svgp_precompute):
+    """The three nvcc runs at once, each timed on its own."""
     def timed(build):
         t0 = time.perf_counter()
         log = build(force=True)
         return time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(2) as pool:
-        k1_job, gm_job = pool.submit(timed, chol_inv.build), pool.submit(timed, matvec.build)
-        (k1_s, k1_log), (gm_s, gm_log) = k1_job.result(), gm_job.result()
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(timed, m.build) for m in (chol_inv, matvec, svgp_precompute)]
+        (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log) = (j.result() for j in jobs)
     emit("build", kernel="chol_inv_batched", seconds=k1_s,
          ptxas=[ln.strip() for ln in k1_log.splitlines() if "registers" in ln or "spill" in ln])
     emit("build", kernel="gibbs_matvec", seconds=gm_s, ptxas=ptxas_summary(gm_log))
+    emit("build", kernel="svgp_precompute", seconds=k4_s,
+         ptxas=[ln.strip() for ln in k4_log.splitlines() if "registers" in ln or "spill" in ln
+                or "Compiling entry" in ln])
+
+
+def phase_dgp_ref(deepgp_spatial, svgp_precompute, dev):
+    """The deep GP at full width from the pinned JAX run's init, schedule and
+    ε (2 splits, 10 steps): its losses at steps 0 and 9 against JAX's."""
+    from nonstationary_precip_tpu_torch import interop
+    from nonstationary_precip_tpu_torch.data.dataprep import load_csv
+    from nonstationary_precip_tpu_torch.models.svgp import precompute_inputs
+    from nonstationary_precip_tpu_torch.train.optim import _epoch_schedule, fit_minibatched_splits
+    from nonstationary_precip_tpu_torch.train.vmapped import unstack_module
+    from nonstationary_precip_tpu_torch.utils.config import DATASET_DIR
+
+    ref = np.load(DGP_REF)
+    splits = [int(s) for s in ref["splits"]]
+    steps = ref["losses"].shape[0]
+    cfg = deepgp_spatial.default_config().parse_args(["--num_epochs", str(steps), "--device", "cuda"])
+    data = load_csv(DATASET_DIR / "uib_spatial.csv")
+    preps = [deepgp_spatial.prep_split(data, s, cfg, torch.float32, dev) for s in splits]
+    x = np.stack([p[1][0].cpu().numpy() for p in preps]).astype(np.float64)
+    y = np.stack([p[1][1].cpu().numpy() for p in preps]).astype(np.float64)
+    sums = np.stack([x.sum(axis=(-1, -2)), (x * x).sum(axis=(-1, -2)), y.sum(axis=-1)], axis=-1)
+    check(np.allclose(sums, ref["checksums"], rtol=1e-12, atol=0), "the pinned run trains the port's splits")
+    sched = np.stack([_epoch_schedule(s, x.shape[1], steps, cfg.batch_size) for s in splits], axis=1)
+    check(np.array_equal(sched, ref["batch_idx"]), "the port's batch schedule is the pinned run's")
+
+    init = interop.deepgp_from_jax({k[5:]: ref[k] for k in ref.files if k.startswith("init.")}, dev)
+    with torch.no_grad():
+        _, _, _, jit = svgp_precompute.svgp_precompute_fused(
+            *precompute_inputs(list(init.layers) + [init.head]), return_jitter=True)
+    jitter = jit.reshape(len(splits), -1).cpu().numpy()
+    mismatch = [[k, i] for k, i in zip(*np.nonzero((jitter > 0) != ref["jitter_init"]))]
+    eps = [tuple(torch.as_tensor(ref[f"eps_{i}"][:, k], device=dev) for i in range(cfg.num_layers))
+           for k in range(len(splits))]
+    before = svgp_precompute.LAUNCHES
+    res = fit_minibatched_splits(unstack_module(init, len(splits)), deepgp_spatial._loss_fn(x.shape[1]),
+                                 [p[1][0] for p in preps], [p[1][1] for p in preps], eps, num_epochs=steps,
+                                 batch_size=cfg.batch_size, lr=float(ref["lr"]), seeds=splits)
+    check(svgp_precompute.LAUNCHES - before == steps, "one K4 launch per step")
+    losses = res.losses
+    rel = np.abs(losses - ref["losses"]) / np.abs(ref["losses"])
+    check(bool(np.isfinite(losses).all()), "every loss finite")
+    check(float(rel[0].max()) <= DGP_RTOL_STEP0, f"step-0 losses vs JAX: {rel[0].max():.3g} <= {DGP_RTOL_STEP0}")
+    check(float(rel[-1].max()) <= DGP_RTOL_STEP9,
+          f"step-{steps - 1} losses vs JAX: {rel[-1].max():.3g} <= {DGP_RTOL_STEP9}")
+    emit("dgp_ref", splits=splits, steps=steps, step0_rel_err=float(rel[0].max()),
+         step9_rel_err=float(rel[-1].max()), max_rel_err=float(rel.max()), losses=losses.tolist(),
+         jax_losses=ref["losses"].tolist(), jitter_init=jitter.tolist(),
+         jax_fallback_jitter_init=ref["jitter_init"].tolist(),
+         jitter_differs_from_pinned_run=[[int(k), int(i)] for k, i in mismatch])
+
+
+def phase_dgp(deepgp_spatial, chol_inv, matvec, svgp_precompute, dev_name: str):
+    """The whole deep GP experiment at its default configuration (400
+    epochs), counting K4's launches over it."""
+    cfg = deepgp_spatial.default_config().parse_args(["--device", "cuda"])
+    reset_launches(chol_inv, matvec, svgp_precompute)
+    out = deepgp_spatial.run(cfg)
+    launches = svgp_precompute.LAUNCHES
+    # one call per training step (each loss builds every layer's factors in
+    # one call) and one for the stacked predict
+    want = out["steps"] + 1
+    check(launches == want, f"K4 launched {launches} times, the code implies {want}")
+    check(chol_inv.LAUNCHES == 0 and not any(matvec.LAUNCHES.values()), "K1-K3 are not on this path")
+    losses = out["losses"]
+    check(losses.shape == (out["steps"], cfg.num_splits), f"loss trace shape {losses.shape}")
+    check(bool(np.isfinite(losses).all()), "every loss finite")
+    check(bool((losses[-1] < losses[0]).all()), "every split's final loss below its step-0 loss")
+    check(out["rmse"] <= DGP_RMSE, f"10-split RMSE {out['rmse']:.4f} <= {DGP_RMSE}")
+    check(out["nlpd"] <= DGP_NLPD, f"10-split NLPD {out['nlpd']:.4f} <= {DGP_NLPD}")
+    emit("dgp", splits=cfg.num_splits, steps=out["steps"], launches=launches, rmse=out["rmse"],
+         nlpd=out["nlpd"], rmses=out["rmses"].tolist(), nlpds=out["nlpds"].tolist(),
+         steps_per_s=out["steps_per_s"], train_seconds=out["train_seconds"], wall_seconds=out["wall_seconds"],
+         final_loss=losses[-1].tolist(), device=dev_name)
+    return out, launches
+
+
+def k4_errors(svgp_precompute, args):
+    """K4 and its plain version on the same inputs, each against float64 at
+    the jitter it took: finite outputs, zero upper triangles, and the
+    kernel's error within twice the plain version's (+ K4_SLACK); then the
+    kernel's L⁻¹ residual and W against their γ_M bounds.  Returns the
+    errors and both jitter vectors."""
+    k = svgp_precompute.svgp_precompute_cuda(*args)
+    p = svgp_precompute.svgp_precompute_plain(*args)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(a).all()) for a in k[:3]), "K4 output finite")
+    check(bool((torch.triu(k[0], 1) == 0).all() and (torch.triu(k[2], 1) == 0).all()),
+          "K4's L and L⁻¹ are lower triangular")
+
+    def f64(jit):
+        z, ell, s2, packed = (a.double() for a in args)
+        kk = svgp_precompute.gram_zz_plain(z, ell, s2)
+        kk = kk + jit.double()[:, None, None] * torch.eye(kk.shape[-1], dtype=torch.float64, device=kk.device)
+        l = torch.linalg.cholesky(kk)
+        eye = torch.eye(kk.shape[-1], dtype=torch.float64, device=kk.device).expand_as(kk)
+        li = torch.linalg.solve_triangular(l, eye, upper=False)
+        return l, li.mT @ packed, li
+
+    ref_k, ref_p = f64(k[3]), f64(p[3])
+    err = {"max_abs_err": float(max((a - b).abs().max() for a, b in zip(k[:3], p[:3])))}
+    for i, name in enumerate(("L", "W", "Linv")):
+        ek = float((k[i].double() - ref_k[i]).abs().max())
+        ep = float((p[i].double() - ref_p[i]).abs().max())
+        err[name] = {"kernel_vs_f64": ek, "plain_vs_f64": ep, "largest": float(ref_k[i].abs().max())}
+        check(ek <= 2 * ep + K4_SLACK[name],
+              f"K4 {name} vs float64 {ek:.3g} within 2x the plain version's {ep:.3g} (+{K4_SLACK[name]})")
+
+    # bounds on K4's own arithmetic, independent of K_zz's conditioning
+    l, w, li = (a.double() for a in k[:3])
+    packed = args[3].double()
+    m = l.shape[-1]
+    gamma = m * 2.0**-24 / (1 - m * 2.0**-24)
+    eye = torch.eye(m, dtype=torch.float64, device=l.device)
+    w_ref = li.mT @ packed
+    for name, diff, scale in (("Linv", l @ li - eye, l.abs() @ li.abs()),
+                              ("W", w - w_ref, li.abs().mT @ packed.abs())):
+        ratio = float((diff.abs() / (gamma * scale + 1e-300)).max())
+        err[name]["bound_ratio"] = ratio
+        check(ratio <= 1.0, f"K4 {name}: error within γ_M of its entrywise bound, ratio {ratio:.3g} <= 1")
+    err["W"]["vs_own_Linv_rel_to_largest"] = float((w - w_ref).abs().max() / w_ref.abs().max())
+    return err, k[3].cpu().numpy(), p[3].cpu().numpy()
+
+
+def k4_payload(model):
+    """K4's inputs on the experiment's path: every layer of every split."""
+    from nonstationary_precip_tpu_torch.models.svgp import precompute_inputs
+
+    with torch.no_grad():
+        return tuple(a.detach().contiguous() for a in precompute_inputs(list(model.layers) + [model.head]))
+
+
+def phase_k4(deepgp_spatial, svgp_precompute, trained_model, dev):
+    from nonstationary_precip_tpu_torch.data.dataprep import load_csv
+    from nonstationary_precip_tpu_torch.train.vmapped import stack_modules
+    from nonstationary_precip_tpu_torch.utils.config import DATASET_DIR
+
+    cfg = deepgp_spatial.default_config().parse_args(["--num_epochs", "1", "--device", "cuda"])
+    data = load_csv(DATASET_DIR / "uib_spatial.csv")
+    init_model = stack_modules([deepgp_spatial.prep_split(data, s, cfg, torch.float32, dev)[0]
+                                for s in range(cfg.num_splits)])
+    payloads = {"init": k4_payload(init_model), "trained": k4_payload(trained_model)}
+    t, m, d = payloads["init"][0].shape
+    p = payloads["init"][3].shape[-1]
+    check((t, m, d, p) == (50, 250, 2, 501), f"the path's K4 shape {(t, m, d, p)}")
+    gen = torch.Generator().manual_seed(37)
+    rt, rm, rd = K4_RAGGED
+    payloads["ragged"] = tuple(a.to(dev) for a in (
+        torch.randn(rt, rm, rd, generator=gen), torch.exp(0.3 * torch.randn(rt, rd, generator=gen)) + 0.3,
+        torch.exp(0.2 * torch.randn(rt, generator=gen)), torch.randn(rt, rm, 2 * rm + 1, generator=gen)))
+    errs, jitter = {}, {}
+    for name, args in payloads.items():
+        errs[name], jk, jp = k4_errors(svgp_precompute, args)
+        jitter[name] = {"kernel": jk.tolist(), "plain": jp.tolist(),
+                        "differ": np.nonzero(jk != jp)[0].tolist()}
+
+    # the retry case: member 1 has a duplicated z at s² = 40, member 0 is healthy
+    z = torch.randn(2, 128, 2, generator=gen)
+    z[1, 64] = z[1, 32]
+    retry = tuple(a.to(dev) for a in (z, torch.ones(2, 2), torch.tensor([1.0, 40.0]),
+                                      torch.randn(2, 128, 257, generator=gen)))
+    l, w, li, jit = svgp_precompute.svgp_precompute_cuda(*retry)
+    _, _, _, pjit = svgp_precompute.svgp_precompute_plain(*retry)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(a).all()) for a in (l, w, li)), "retried K4 output finite")
+    check(float(jit[0]) == 0.0 and float(jit[1]) > 0.0, f"only the bad member jittered: {jit.tolist()}")
+    kk = svgp_precompute.gram_zz_plain(*(a.double() for a in retry[:3]))[1]
+    kk = kk + float(jit[1]) * torch.eye(128, dtype=torch.float64, device=dev)
+    recon = float((l[1].double() @ l[1].double().T - kk).abs().max())
+    check(recon <= K4_RETRY_RECON, f"retried member's L Lᵀ − (K + jI): {recon:.3g} <= {K4_RETRY_RECON}")
+
+    z, ell, s2, packed = payloads["trained"]
+    timed = timed_pair(lambda: svgp_precompute.svgp_precompute_cuda(z, ell, s2, packed),
+                       lambda: svgp_precompute.svgp_precompute_plain(z, ell, s2, packed), N_TIMED)
+    # M³/3 each for the factor and the inverse and M²·P for the triangular W
+    # per member (the gram's O(M²D) left out); reads z, ℓ, s², P once,
+    # writes L, L⁻¹ and W
+    ops = t * (2 * m**3 / 3 + m * m * p)
+    b_ms, b_by = bound(ops, 4 * t * (m * d + d + 1 + m * p + 2 * m * m + m * p))
+    emit("k4", shape=[t, m, d, p], ragged=list(K4_RAGGED), errors=errs, jitter=jitter,
+         retry={"jitter": jit.tolist(), "plain_jitter": pjit.tolist(), "recon_err": recon},
+         ops=ops, bound_ms=b_ms, bound_by=b_by, timed_calls=2 * N_TIMED, **timed)
+    return errs, timed, b_ms, b_by
 
 
 def main(argv=None):
@@ -448,22 +677,26 @@ def main(argv=None):
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    from nonstationary_precip_tpu_torch.experiments import gibbs_largen, spatial_gibbs
-    from nonstationary_precip_tpu_torch.ops import chol_inv, matvec
+    from nonstationary_precip_tpu_torch.experiments import deepgp_spatial, gibbs_largen, spatial_gibbs
+    from nonstationary_precip_tpu_torch.ops import chol_inv, matvec, svgp_precompute
     from nonstationary_precip_tpu_torch.utils import config
 
     dev = config.device("cuda")
-    build_all(chol_inv, matvec)
+    build_all(chol_inv, matvec, svgp_precompute)
 
     errs, ms, plain_ms = phase_k1(chol_inv, spatial_gibbs, dev)
-    reset_launches(chol_inv, matvec)
+    reset_launches(chol_inv, matvec, svgp_precompute)
     launches = phase_slice(chol_inv, spatial_gibbs, args.steps, name)
-    check(not any(matvec.LAUNCHES.values()), "K2/K3 are not on the slice's path")
+    check(not any(matvec.LAUNCHES.values()) and svgp_precompute.LAUNCHES == 0,
+          "K2-K4 are not on the slice's path")
     phase_largen_ref(gibbs_largen)
-    out, largen_launches = phase_largen(gibbs_largen, matvec, chol_inv, name)
+    out, largen_launches = phase_largen(gibbs_largen, matvec, chol_inv, svgp_precompute, name)
     payloads = largen_payloads(gibbs_largen, out, dev)
     k2_errs, k2_t, k2_bound, k2_by = phase_k2(matvec, payloads, dev)
     k3_errs, k3_t, k3_bound, k3_by = phase_k3(matvec, payloads, dev)
+    phase_dgp_ref(deepgp_spatial, svgp_precompute, dev)
+    dgp_out, dgp_launches = phase_dgp(deepgp_spatial, chol_inv, matvec, svgp_precompute, name)
+    k4_errs, k4_t, k4_bound, k4_by = phase_k4(deepgp_spatial, svgp_precompute, dgp_out["model"], dev)
 
     # K1 at (10, 316): 2N³/3 flops per matrix (Cholesky and triangular
     # inverse, N³/3 each); reads A once, writes L and L⁻¹
@@ -485,6 +718,11 @@ def main(argv=None):
          "launches": largen_launches["gibbs_panel_grads"],
          "max_abs_err": max(e["max_abs_err"] for e in k3_errs.values()), "ms": k3_t["ms"],
          "plain_ms": k3_t["plain_ms"], "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
+        {"name": "svgp_precompute", "route": "cuda",
+         "source": "nonstationary_precip_tpu_torch/csrc/svgp_precompute.cu",
+         "replaces": "nonstationary_precip_tpu/ops/pallas_svgp.py:367", "launches": dgp_launches,
+         "max_abs_err": max(e["max_abs_err"] for e in k4_errs.values()), "ms": k4_t["ms"],
+         "plain_ms": k4_t["plain_ms"], "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)

@@ -5,13 +5,18 @@ paths and public names so each counterpart is found at the same place, and
 never imports jax (nor the JAX package, whose config imports jax).
 
 Layering (bottom-up), as far as the port reaches today:
-  ops/      — dense linear algebra; ``chol_inv`` wraps the hand-written
-              CUDA batched (L, L⁻¹) kernel (``csrc/chol_inv_batched.cu``)
+  ops/      — dense linear algebra, mBCG/SLQ and the lazy MLL; wrappers of
+              the hand-written CUDA kernels in ``csrc/``: ``chol_inv`` (K1,
+              batched (L, L⁻¹)), ``matvec`` (K2/K3, the Gibbs Gram·V and its
+              backward sweep), ``svgp_precompute`` (K4, the SVGP K_zz
+              precompute); K1 and K4 share one sweep (``csrc/chol_sweep.cuh``)
   kernels/  — the Gibbs and squared-distance covariance functions
   priors/   — the log-normal latent-lengthscale process (dense part)
-  models/   — Gaussian likelihood, MVN, the Gibbs exact GP (MAP)
-  train/    — Adam loop, the split-batched trainer, metrics, config
-  data/     — numpy CSV loader and the seeded split harness
+  models/   — Gaussian likelihood, DiagNormal/MVN, the Gibbs exact GP (MAP),
+              the whitened SVGP layer and the DSVI deep GP
+  train/    — Adam loops (full-batch and epoch-shuffled minibatch), the
+              split-batched trainer, metrics, config
+  data/     — numpy CSV loaders, transforms and the seeded split harnesses
   interop   — carries JAX model weights into the port's modules
 """
 

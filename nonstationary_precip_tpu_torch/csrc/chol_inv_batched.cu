@@ -5,42 +5,28 @@
 // PyTorch version and the design notes are in
 // nonstationary_precip_tpu_torch/ops/chol_inv.py.
 //
-// One thread block per matrix.  Step k of a right-looking column sweep
-// factors column k AND finishes row k of L^-1 in the same pass: the
-// working set is one packed lower triangle W in which row i holds
-// L^-1[i, 0..k] (the partial forward substitution of the identity) left of
-// the trailing Schur complement S[i, k+1..i].  Per step:
-//   1. d = S[k,k]; a pivot that is not > 0 (or not finite) fails the try;
-//   2. u[j] = W[k,j]/L[k,k] for j < k (row k of L^-1, now final),
-//      u[k] = 1/L[k,k], u[i] = S[i,k]/L[k,k] for i > k (column k of L),
-//      and W[i,k] = 0 for i > k;
-//   3. W[i,j] -= u[i] u[j] for all k < i, j <= i: the rank-1 Schur update
-//      of S and the elimination step of L^-1 in one loop.
-// W lives in shared memory when it fits (N <= ~339 on an H100: 200 KB at
-// N = 316), else in a global scratch slab that stays in the 50 MB L2.
-// A try that fails restarts inside the block from A + j I, j = base, x10,
-// at most max_tries times, so the retry needs no host round trip; a member
-// that never failed runs exactly once with j = 0.
+// One thread block per matrix runs the fused right-looking sweep of
+// chol_sweep.cuh, which yields L and L^-1 from one pass over one packed
+// lower triangle.  The triangle lives in shared memory when it fits
+// (N <= ~339 on an H100: 200 KB at N = 316), else in a global scratch slab
+// that stays in the 50 MB L2.  A try that fails restarts inside the block
+// from A + j I, j = base, x10, at most max_tries times, so the retry needs
+// no host round trip; a member that never failed runs exactly once with
+// j = 0.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "chol_sweep.cuh"
+
 namespace {
+
+using chol_sweep::tri_off;
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 384;
-constexpr int kMaxM = kMaxN / 32;  // u values one lane keeps in registers
-
-__device__ __forceinline__ size_t tri_off(int i) {
-  return static_cast<size_t>(i) * (i + 1) / 2;
-}
-
-// false for NaN and +-inf
-__device__ __forceinline__ bool finite(float x) {
-  return fabsf(x) <= 3.402823466e+38f;
-}
 
 template <bool kSmem>
 __global__ void __launch_bounds__(kThreads)
@@ -72,74 +58,15 @@ chol_inv_kernel(const float* __restrict__ a, float* __restrict__ l,
     }
     if (tid == 0) bad = 0;
     __syncthreads();
-
-    bool pivot_failed = false;
-    for (int k = 0; k < n; ++k) {
-      // every thread reads the same pivot after the barrier: uniform branch
-      const float d = w[tri_off(k) + k];
-      if (!(d > 0.f) || !finite(d)) {
-        pivot_failed = true;
-        break;
-      }
-      const float lkk = sqrtf(d);
-      float* rowk = w + tri_off(k);
-      const size_t rk = static_cast<size_t>(k) * n;
-      for (int t = tid; t < n; t += kThreads) {
-        if (t < k) {
-          const float x = rowk[t] / lkk;
-          u[t] = x;
-          LI[rk + t] = x;
-        } else if (t == k) {
-          const float r = 1.0f / lkk;
-          u[k] = r;
-          LI[rk + k] = r;
-          L[rk + k] = lkk;
-        } else {
-          float* wt = w + tri_off(t) + k;
-          const float c = *wt / lkk;
-          if (!finite(c)) bad = 1;
-          u[t] = c;
-          *wt = 0.f;
-          L[static_cast<size_t>(t) * n + k] = c;
-          L[rk + t] = 0.f;
-          LI[rk + t] = 0.f;
-        }
-      }
-      __syncthreads();
-
-      float ur[kMaxM];
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        const int j = lane + 32 * m;
-        ur[m] = j < n ? u[j] : 0.f;
-      }
-      for (int i = k + 1 + warp; i < n; i += kWarps) {
-        const float ci = u[i];
-        float* row = w + tri_off(i);
-#pragma unroll
-        for (int m = 0; m < kMaxM; ++m) {
-          if (32 * m > i) break;
-          const int j = lane + 32 * m;
-          if (j <= i) row[j] = fmaf(-ci, ur[m], row[j]);
-        }
-      }
-      __syncthreads();
-    }
-    // `bad` was last written before a barrier every thread has passed
-    if (!pivot_failed && bad == 0) {
+    if (chol_sweep::chol_inv_sweep<kThreads, kMaxN, false>(w, u, L, LI, n,
+                                                             &bad)) {
       ok = true;
       break;
     }
     __syncthreads();  // all threads have read `bad` before the next try resets it
   }
 
-  if (!ok) {
-    const float nan = __int_as_float(0x7fc00000);
-    for (size_t e = tid; e < nn; e += kThreads) {
-      L[e] = nan;
-      LI[e] = nan;
-    }
-  }
+  if (!ok) chol_sweep::fill_nan<kThreads>(L, LI, nn);
   if (tid == 0) jit_out[blockIdx.x] = jit;
 }
 

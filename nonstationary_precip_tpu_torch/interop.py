@@ -13,8 +13,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from nonstationary_precip_tpu_torch.models.deep_gp import DeepGP
 from nonstationary_precip_tpu_torch.models.gibbs_gp import GibbsExactGP
 from nonstationary_precip_tpu_torch.models.likelihoods import GaussianLikelihood
+from nonstationary_precip_tpu_torch.models.svgp import SVGPLayer
 from nonstationary_precip_tpu_torch.priors.lognormal_process import LogNormalProcess
 
 #: The leaves of a JAX ``GibbsExactGP``, by dotted path.
@@ -56,3 +58,36 @@ def gibbs_exact_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.f
     prior = LogNormalProcess(t("prior.mean_const"), t("prior.raw_outputscale"), t("prior.raw_lengthscale"))
     return GibbsExactGP(prior, GaussianLikelihood(t("likelihood.raw_noise")),
                         t("raw_outputscale"), t("log_ell"))
+
+
+#: The leaves of one JAX ``SVGPLayer``, in its field order (``mean_w`` only
+#: for a linear mean).
+SVGP_KEYS = ("z", "var_mean", "var_chol", "raw_outputscale", "raw_lengthscale", "mean_b", "mean_w")
+
+
+def deepgp_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float32, *,
+                    num_layers: int = None, share_hidden: bool = False) -> DeepGP:
+    """The port's ``DeepGP`` holding a JAX ``DeepGP``'s leaves.
+
+    ``params`` maps dotted leaf paths (``layers.0.z``, ``head.var_chol``,
+    ``likelihood.raw_noise``, ...) to numpy arrays, single or stacked on a
+    leading split axis.  ``num_layers`` and ``share_hidden`` are the JAX
+    model's static fields; ``num_layers`` defaults to the number of layers
+    in ``params`` (1 when ``share_hidden``)."""
+    def t(key):
+        if key not in params:
+            raise KeyError(f"deepgp_from_jax: missing leaf {key!r}")
+        return torch.tensor(np.array(params[key]), dtype=dtype, device=device)
+
+    def layer(prefix):
+        linear = f"{prefix}.mean_w" in params
+        leaves = [t(f"{prefix}.{k}") for k in SVGP_KEYS[:-1]]
+        return SVGPLayer(*leaves, mean_w=t(f"{prefix}.mean_w") if linear else None,
+                         mean_type="linear" if linear else "constant")
+
+    n_stored = len({k.split(".")[1] for k in params if k.startswith("layers.")})
+    layers = [layer(f"layers.{i}") for i in range(n_stored)]
+    if num_layers is None:
+        num_layers = n_stored
+    return DeepGP(layers, layer("head"), GaussianLikelihood(t("likelihood.raw_noise")),
+                  share_hidden=share_hidden, num_layers=num_layers)

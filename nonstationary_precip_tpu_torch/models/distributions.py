@@ -1,16 +1,31 @@
-"""Full-covariance predictive distribution.
+"""Predictive distributions: independent marginals and the full joint.
 
-Counterpart of ``nonstationary_precip_tpu/models/distributions.py::MVN``,
-batched over leading dimensions.
+Counterpart of ``nonstationary_precip_tpu/models/distributions.py``
+(``DiagNormal``, ``MVN``), batched over leading dimensions.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from nonstationary_precip_tpu_torch.ops.linalg import mvn_logpdf_from_chol, safe_cholesky
+
+
+class DiagNormal(NamedTuple):
+    """Independent Gaussians: predictive marginals, mean and var (..., N)."""
+
+    mean: torch.Tensor
+    var: torch.Tensor
+
+    def log_prob(self, y: torch.Tensor) -> torch.Tensor:
+        """Per-point log densities."""
+        return -0.5 * ((y - self.mean) ** 2 / self.var + torch.log(2 * math.pi * self.var))
+
+    def add_noise(self, noise) -> "DiagNormal":
+        return DiagNormal(self.mean, self.var + noise)
 
 
 class MVN(NamedTuple):

@@ -2,7 +2,8 @@
 
 Every hand-written kernel of the port is CUDA C++ for sm_90a with a plain C
 interface.  nvcc compiles it at first use into ``build/torch_kernels/``,
-under a name made from the hash of the source and the flags, and ctypes
+under a name made from the hash of the source, the shared headers and the
+flags, and ctypes
 loads it: no PyTorch headers, so a build takes seconds.  The wrappers pass
 pointers and the stream as ``ctypes.c_void_p``.
 """
@@ -39,8 +40,9 @@ def build_library(source: Path, force: bool = False) -> tuple[ctypes.CDLL, str]:
     and load it.  Returns (library, nvcc's output: the ``-Xptxas -v``
     register, shared-memory and spill report).  A library already built
     from the same source and flags is reused unless ``force``.  A failed
-    compile raises."""
-    src = source.read_bytes()
+    compile raises.  The hash covers the shared headers (``csrc/*.cuh``)
+    that a source may include."""
+    src = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     log = ""

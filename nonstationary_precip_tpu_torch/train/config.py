@@ -15,13 +15,15 @@ from dataclasses import dataclass
 @dataclass
 class ExperimentConfig:
     """The fields the ported experiments read; a later slice adds the
-    fields of the experiments it ports (the JAX config's DSVI, logging and
+    fields of the experiments it ports (the JAX config's logging and
     checkpoint fields are not here yet)."""
 
+    model: str = "DiagonalGibbs"
     inference: str = "exact"  # 'exact' ('sparse' is not ported yet)
     train_percent: float = 80.0
     lr: float = 1e-2
     max_iters: int = 1000
+    num_inducing: int = 250
     num_splits: int = 10
 
     # Gibbs prior hypers (reference defaults, spatial_exp.py:76-80)
@@ -30,6 +32,12 @@ class ExperimentConfig:
     prior_mean: float = 0.3
     noise: float = 0.011  # 0 → optimise noise
     scale: float = 0.644  # 0 → optimise outputscale
+
+    # DSVI
+    num_epochs: int = 400
+    num_samples: int = 3
+    num_layers: int = 2
+    batch_size: int = 315
 
     # the torch device: 'cuda' (the card; raises where there is none) or 'cpu'
     device: str = "cuda"

@@ -1,17 +1,20 @@
-"""Training loop: Adam over the parameters that require grad.
+"""Training loops: Adam over the parameters that require grad.
 
-Counterpart of ``nonstationary_precip_tpu/train/optim.py::fit``.  The JAX
-package compiles fixed-length chunks of steps as one ``lax.scan``; here the
-chunk is a Python loop whose per-step losses stay on the device until the
-chunk ends, so the host reads them (and applies the NaN guard and the
-|Δloss| stop) once per chunk, as the JAX loop does.  Trainability is
-``requires_grad`` (the reference's freezing), in place of a mask pytree.
+Counterpart of ``nonstationary_precip_tpu/train/optim.py``: ``fit`` and the
+epoch-shuffled minibatch fits of the DSVI models (``fit_minibatched``,
+``fit_minibatched_splits``).  The JAX package compiles fixed-length chunks
+of steps as one ``lax.scan``; here the chunk is a Python loop whose
+per-step losses stay on the device until the chunk ends, so the host reads
+them (and applies the NaN guard and the |Δloss| stop) once per chunk, as
+the JAX loop does.  Trainability is ``requires_grad`` (the reference's
+freezing), in place of a mask pytree.  Adam has optax's defaults (b1 0.9,
+b2 0.999, eps 1e-8).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -118,3 +121,107 @@ def fit(
         prev_last = losses[-1]
     losses = np.concatenate(losses_all) if losses_all else np.zeros((0,))
     return TrainResult(model=model, losses=losses, steps=steps_done, seconds=clock.seconds())
+
+
+def _epoch_schedule(seed: int, n: int, num_epochs: int, batch_size: int) -> np.ndarray:
+    """Epoch-shuffled batch-index schedule, (T, B): per-epoch permutations,
+    wrap-around padded so every step has a full batch (DataLoader(shuffle=
+    True) in the reference's DSVI loop).  Bit-identical to the JAX
+    package's: the same ``np.random.default_rng(seed)`` draws."""
+    batch_size = min(batch_size, n)  # a batch never exceeds the dataset
+    steps_per_epoch = n // batch_size if n % batch_size == 0 else n // batch_size + 1
+    rng = np.random.default_rng(seed)
+    sched = []
+    for _ in range(num_epochs):
+        perm = rng.permutation(n)
+        pad = (-len(perm)) % (steps_per_epoch * batch_size)
+        if pad:
+            perm = np.concatenate([perm, perm[:pad]])
+        sched.append(perm.reshape(steps_per_epoch, batch_size))
+    return np.concatenate(sched, axis=0)
+
+
+def num_minibatch_steps(n: int, num_epochs: int, batch_size: int) -> int:
+    """Steps of ``_epoch_schedule(·, n, num_epochs, batch_size)``."""
+    batch_size = min(batch_size, n)
+    return num_epochs * -(-n // batch_size)
+
+
+def _minibatch_loop(model, loss_fn, x, y, batch_idx, eps, lr, gather) -> tuple:
+    """Adam over ``batch_idx``'s T steps: step t feeds ``loss_fn(model,
+    eps_t, x_b, y_b)`` the t-th slice of every ε tensor and the gathered
+    batch, and sums what it returns.  Returns (losses (T, ...) numpy,
+    seconds after the first step)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    clock = _Clock(params[0].device)
+    trace = []
+    for t in range(batch_idx.shape[0]):
+        idx = batch_idx[t]
+        optimizer.zero_grad(set_to_none=True)
+        per = loss_fn(model, tuple(e[t] for e in eps), gather(x, idx), gather(y, idx))
+        torch.sum(per).backward()
+        optimizer.step()
+        trace.append(per.detach())
+        if t == 0:
+            clock.start()
+    clock.stop()
+    return torch.stack(trace).cpu().numpy(), clock.seconds()
+
+
+def _check_eps(eps, total_steps: int):
+    if any(e.shape[0] < total_steps for e in eps):
+        raise ValueError(f"ε covers {min(e.shape[0] for e in eps)} steps; the schedule has {total_steps}")
+
+
+def fit_minibatched(model, loss_fn: Callable, x, y, eps, *, num_epochs: int, batch_size: int,
+                    lr: float = 0.01, seed: int = 0) -> TrainResult:
+    """Epoch-shuffled minibatch Adam (the reference's DSVI loop), trained in
+    place.  ``eps`` is a sequence of per-step noise tensors (T, ...), one
+    per hidden layer; ``loss_fn(model, eps_t, x_b, y_b)`` returns the loss."""
+    n = x.shape[0]
+    batch_idx = torch.as_tensor(_epoch_schedule(seed, n, num_epochs, batch_size), device=x.device)
+    _check_eps(eps, batch_idx.shape[0])
+    losses, seconds = _minibatch_loop(model, loss_fn, x, y, batch_idx, eps, lr, lambda a, i: a[i])
+    # the whole schedule runs without a host read, so this is post hoc: a
+    # non-finite ELBO trace is reported loudly, and stops nothing
+    if not np.isfinite(losses).all():
+        first_bad = int(np.argmax(~np.isfinite(losses)))
+        print(f"fit_minibatched: NON-FINITE loss from step {first_bad}/{len(losses)} "
+              f"— model state is unreliable; reduce lr or batch size", flush=True)
+    return TrainResult(model=model, losses=losses, steps=len(losses), seconds=seconds)
+
+
+def fit_minibatched_splits(models: Sequence[torch.nn.Module], loss_fn: Callable, xs, ys, eps, *,
+                           num_epochs: int, batch_size: int, lr: float = 0.01,
+                           seeds: Optional[Sequence[int]] = None) -> TrainResult:
+    """K ``fit_minibatched`` runs in lockstep on one stacked model: the same
+    per-split schedules, so the same trajectories (the gradient of the
+    summed loss is each split's own, and Adam is elementwise).
+
+    ``xs``/``ys``: K per-split tensors (identical shapes); ``eps``: K
+    per-split sequences of per-step noise tensors (T, ...), stacked here to
+    (T, K, ...); ``seeds``: K schedule seeds (default range(K));
+    ``loss_fn(stacked_model, eps_t, x_b, y_b)`` returns the (K,) losses.
+    Returns the stacked model and the (T, K) loss trace."""
+    from nonstationary_precip_tpu_torch.train.vmapped import stack_modules
+
+    k = len(models)
+    seeds = list(range(k)) if seeds is None else list(seeds)
+    x_stk, y_stk = torch.stack(list(xs)), torch.stack(list(ys))
+    n = x_stk.shape[1]
+    batch_idx = torch.as_tensor(
+        np.stack([_epoch_schedule(s, n, num_epochs, batch_size) for s in seeds], axis=1),
+        device=x_stk.device)  # (T, K, B)
+    eps_stk = tuple(torch.stack(list(per_layer), dim=1) for per_layer in zip(*eps))
+    _check_eps(eps_stk, batch_idx.shape[0])
+    rows = torch.arange(k, device=x_stk.device)[:, None]
+    stacked = stack_modules(models)
+    losses, seconds = _minibatch_loop(stacked, loss_fn, x_stk, y_stk, batch_idx, eps_stk, lr,
+                                      lambda a, i: a[rows, i])
+    if not np.isfinite(losses).all():  # any step: a mid-trace inf already
+        # contaminated that split's Adam moments
+        bad = np.where(~np.isfinite(losses).all(axis=0))[0]
+        print(f"fit_minibatched_splits: NON-FINITE loss in splits {bad.tolist()} "
+              f"— those models are unreliable; reduce lr or batch size", flush=True)
+    return TrainResult(model=stacked, losses=losses, steps=len(losses), seconds=seconds)
