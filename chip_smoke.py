@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's three main paths and checks every hand-written kernel on
-them against its plain PyTorch version.  The paths are the 10-split exact
+Drives the port's main paths and checks every hand-written kernel on them
+against its plain PyTorch version.  The paths are the 10-split exact
 Gibbs MAP experiment of ``nonstationary_precip_tpu_torch.experiments.
 spatial_gibbs`` on the real UIB data (10 splits × 316 training points, K1),
 the large-N matrix-free gate of ``experiments.gibbs_largen`` at N = 16384
-(K2 and K3), and the 10-split DSVI deep GP of ``experiments.deepgp_spatial``
-(K4).  Phases, one JSON line each:
+(K2 and K3), the 10-split DSVI deep GP of ``experiments.deepgp_spatial``
+(K4), and the stationary exact GP of ``experiments.exact_largen`` (the dense
+MLL loop at N = 1024..8192, K5; the matrix-free gate at N = 16384, K6) with
+``experiments.seard_spatial`` and ``experiments.temporal``.  Each path is
+driven with every launch count set to 0 just before it and read just after.
+Phases, one JSON line each:
 
   1. device     — the card's name; nvidia-smi's name and power limit;
-  2. build      — K1 (csrc/chol_inv_batched.cu), K2/K3 (csrc/gibbs_matvec.cu)
-                  and K4 (csrc/svgp_precompute.cu), three nvcc runs started
-                  together, in seconds, with each kernel's registers, spills
-                  and shared memory;
+  2. build      — K1 (csrc/chol_inv_batched.cu), K2/K3/K6 (csrc/gibbs_matvec.cu),
+                  K4 (csrc/svgp_precompute.cu) and K5 (csrc/chol_stream.cu),
+                  four nvcc runs started together, in seconds, with each
+                  kernel's registers, spills and shared memory;
   3. k1         — K1 against its plain version at the slice's shape (10, 316)
                   on the real stacked Gibbs Gram and on random SPD stacks, a
                   rank-deficient member through the jitter retry, then the
@@ -51,7 +55,34 @@ the large-N matrix-free gate of ``experiments.gibbs_largen`` at N = 16384
                   ragged (3, 37, D = 3), each held to float64 as in
                   tests/test_torch_svgp_precompute.py, and K4's L⁻¹
                   residual and W to entrywise γ_M bounds; the retry case (a
-                  duplicated z at s² = 40) beside a healthy member; times.
+                  duplicated z at s² = 40) beside a healthy member; times;
+ 12. k5         — K5, its plain version and torch.linalg.cholesky against
+                  float64 on the dense run's N = 8192 Gram at init and a
+                  ragged N = 6500 SPD matrix (padded to 6656), K5's backward
+                  error against γ_(N+1)|L||Lᵀ|; a rank-30 matrix through
+                  safe_cholesky's retry; times of all three;
+ 13. exact_dense — bench_scaling.py's exact loop (N = 1024..8192, 20 Adam
+                  steps each): K5 called exactly once per step at N = 8192
+                  and no other kernel, the N = 8192 losses at steps 0 and 19
+                  against the same loop with the plain version in K5's
+                  place, ms/step at every N;
+ 14. seard_ref  — 2 splits × 51 steps of the seard fit against the JAX run
+                  pinned in tests/fixtures/jax_exact_ref.npz (steps 0, 50);
+ 15. seard      — the whole experiment (10 splits, 400 steps) inside the
+                  seard_spatial_10split band, no kernel launched;
+ 16. temporal   — the whole experiment (2000 steps) inside the temporal
+                  band, no kernel launched;
+ 17. exact_lazy_ref — the matrix-free ExactGP at N = 2048 on the pinned JAX
+                  run's data and probe draws: its losses at steps 0 and 19;
+ 18. exact_lazy — the matrix-free gate at N = 16384 (20 steps, rank 150, 32
+                  mBCG iterations): relres, the loss against the float64
+                  Cholesky oracle, the gradient cosine (lengthscale,
+                  outputscale and noise gradients non-zero), the predictive
+                  mean at 64 points against the dense posterior's, K6's
+                  launch count against what the code implies;
+ 19. k6         — K6 and its plain version against float64 on the gate's
+                  trained payload (16384², R = 9) and a column-chunked
+                  (2048 × 16384, R = 200), bitwise repeat; times.
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line and
@@ -137,6 +168,40 @@ K4_RAGGED = (3, 37, 3)
 # the retried member: L Lᵀ reconstructs K + jitter·I to 5e-2 at s² = 40
 # (tests/test_pallas.py:449's band)
 K4_RETRY_RECON = 5e-2
+# K5 against float64, as tests/test_pallas.py holds the JAX kernel: its
+# factor's largest error must stay within twice torch.linalg.cholesky's own
+# (cuSOLVER potrf, f32) plus a floor of 1e-6 of the largest entry; and its
+# own backward error within Higham's Theorem 10.3 bound, entrywise
+# |L·Lᵀ − A| ≤ γ_{N+1}·|L|·|Lᵀ|, γ_n = n·u/(1 − n·u), u = 2⁻²⁴, ratio ≤ 1.
+K5_FLOOR = 1e-6
+K5_N, K5_RAGGED = 8192, 6500  # the dense run's N; a size that pads to 6656
+K5_TIMED = 20  # calls per timed block (K5 takes tens of ms)
+EXACT_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_exact_ref.npz"
+# The dense loop at N = 8192 with K5 against the same loop with the plain
+# version in its place: both factor the same matrices in f32 and differ in
+# rounding only (the port's CPU runs agree to ~1e-6), so the step-0 losses
+# agree to 1e-4; Adam's sign-like first steps let the traces drift, so
+# step 19 to 1e-3.
+DENSE_RTOL_STEP0, DENSE_RTOL_STEP19 = 1e-4, 1e-3
+# seard against the pinned JAX float32 losses: step 0 is the same MLL in
+# another summation order; by step 50 Adam's trajectories drift apart
+# (the tolerances of the slice's, tests/test_torch_jax_reference.py).
+SEARD_RTOL_STEP0, SEARD_RTOL_STEP50 = 1e-4, 1e-2
+# The RESULTS bands (run_benchmarks.py:22-23), hardware-independent.
+SEARD_RMSE, SEARD_NLPD = 0.42, 0.55
+TEMPORAL_RMSE, TEMPORAL_NLPD = 0.82, 1.35
+# The matrix-free ExactGP at N = 2048 against the pinned JAX run: step 0 is
+# the same estimator on the same probes (the port's CPU run: 0.0); by step
+# 19 Adam's trajectories drift (the port's CPU run: 1.9e-5).
+LAZY_RTOL_STEP0, LAZY_RTOL_STEP19 = 1e-3, 1e-2
+# The matrix-free predictive mean at the quickstart's 64 test points
+# against the dense posterior's (examples/quickstart_lazy_largen.py's band).
+LAZY_MEAN_TOL = 1e-2
+# K6 against float64: its error must stay within twice the plain version's
+# (which forms the quadratic from the identity with its clamp, K6 from the
+# differences; both sum N products in f32) plus 1e-6 of the largest entry.
+K6_FLOOR = 1e-6
+K6_WIDE = (2048, 200)  # rows and right-hand sides of the column-chunked case
 # The card's peaks (H100 SXM data sheet, at the full 700 W): f32 outside the
 # tensor cores, and HBM.
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -172,8 +237,9 @@ def ptxas_summary(log: str) -> dict:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)ELi(\d+)EE)?", m.group(1))
-            name = k.group(1) + (f"<{k.group(2)},{k.group(3)}>" if k.group(2) else "") if k else m.group(1)
+            k = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)ELi(\d+)E(?:Lb(\d)E)?E)?", m.group(1))
+            args = [a for a in (k.groups()[1:] if k else ()) if a is not None]
+            name = k.group(1) + (f"<{','.join(args)}>" if args else "") if k else m.group(1)
         elif name and "spill stores" in ln:
             out[name] = re.search(r"(\d+) bytes spill stores", ln).group(1) + " spill bytes"
         elif name and "registers" in ln:
@@ -315,12 +381,13 @@ def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
     cfg = ExperimentConfig(lr=0.01, max_iters=5000).parse_args(["--max_iters", str(steps), "--device", "cuda"])
     with tempfile.TemporaryDirectory() as out_dir:
         os.environ["NSGP_RESULTS_DIR"] = out_dir
-        chol_inv.LAUNCHES = 0
+        reset_launches()
         out = spatial_gibbs.run(cfg)
         launches = chol_inv.LAUNCHES
         field = np.loadtxt(out["csv"], delimiter=",", skiprows=1)
     losses = out["losses"]
     check(launches >= steps, f"K1 launched {launches} times over {steps} steps")
+    check_launches({"chol_inv_batched": launches}, "slice")
     check(losses.shape == (steps, 10), f"loss trace shape {losses.shape}")
     check(bool(np.isfinite(losses).all()), "every loss finite")
     check(bool((losses[-1] < losses[0]).all()), "every split's final loss below its step-0 loss")
@@ -337,11 +404,29 @@ def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
     return launches
 
 
-def reset_launches(chol_inv, matvec, svgp_precompute):
-    chol_inv.LAUNCHES = 0
-    svgp_precompute.LAUNCHES = 0
+def launch_counts() -> dict:
+    """Every hand-written kernel's launch count, by name."""
+    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, matvec, svgp_precompute
+
+    return {"chol_inv_batched": chol_inv.LAUNCHES, "svgp_precompute": svgp_precompute.LAUNCHES,
+            "streaming_cholesky": chol_stream.LAUNCHES, **matvec.LAUNCHES}
+
+
+def reset_launches():
+    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, matvec, svgp_precompute
+
+    chol_inv.LAUNCHES = svgp_precompute.LAUNCHES = chol_stream.LAUNCHES = 0
     for k in matvec.LAUNCHES:
         matvec.LAUNCHES[k] = 0
+
+
+def check_launches(want: dict, path: str) -> dict:
+    """The counts since the last reset: ``want``'s kernels as given, every
+    other kernel none."""
+    got = launch_counts()
+    expect = {k: want.get(k, 0) for k in got}
+    check(got == expect, f"{path}: launches {got} == {expect}")
+    return got
 
 
 def phase_largen_ref(gibbs_largen):
@@ -362,19 +447,17 @@ def phase_largen_ref(gibbs_largen):
          grad_cosine=out["grad_cosine"], jax_grad_cosine=float(ref["grad_cosine"]))
 
 
-def phase_largen(gibbs_largen, matvec, chol_inv, svgp_precompute, dev_name: str):
+def phase_largen(gibbs_largen, dev_name: str):
     """The gate at full size, counting K2's and K3's launches over it."""
     cfg = gibbs_largen.LargeNConfig(n=LARGEN_N, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(chol_inv, matvec, svgp_precompute)
+    reset_launches()
     out = gibbs_largen.run(cfg)
-    launches = dict(matvec.LAUNCHES)
     # K2: one launch per mBCG iteration, in each training step, in the
     # trained-pose diagnostics and in the lazy loss the oracle is held to;
-    # K3: one per backward, in each step and in that loss
+    # K3: one per backward, in each step and in that loss; no other kernel
     want = {"gibbs_matvec": cfg.steps * out["iters"] + 2 * out["iters"], "gibbs_panel_grads": cfg.steps + 1}
-    check(launches == want, f"K2/K3 launches {launches} == {want}")
-    check(chol_inv.LAUNCHES == 0 and svgp_precompute.LAUNCHES == 0, "K1 and K4 are not on this path")
+    launches = check_launches(want, "largen")
     check(out["relres_solve"] <= GATE_RELRES, f"relres_solve {out['relres_solve']:.3g} <= {GATE_RELRES}")
     check(out["loss_rel_diff"] <= GATE_LOSS_REL, f"loss vs dense {out['loss_rel_diff']:.3g} <= {GATE_LOSS_REL}")
     check(out["grad_cosine"] >= GATE_COSINE, f"gradient cosine {out['grad_cosine']:.5f} >= {GATE_COSINE}")
@@ -465,22 +548,24 @@ def phase_k3(matvec, payloads, dev):
     return errs, t, b_ms, b_by
 
 
-def build_all(chol_inv, matvec, svgp_precompute):
-    """The three nvcc runs at once, each timed on its own."""
+def build_all(chol_inv, matvec, svgp_precompute, chol_stream):
+    """The four nvcc runs at once, each timed on its own."""
     def timed(build):
         t0 = time.perf_counter()
         log = build(force=True)
         return time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(timed, m.build) for m in (chol_inv, matvec, svgp_precompute)]
-        (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log) = (j.result() for j in jobs)
+    def lines(log):
+        return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(timed, m.build) for m in (chol_inv, matvec, svgp_precompute, chol_stream)]
+        (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log), (k5_s, k5_log) = (j.result() for j in jobs)
     emit("build", kernel="chol_inv_batched", seconds=k1_s,
          ptxas=[ln.strip() for ln in k1_log.splitlines() if "registers" in ln or "spill" in ln])
     emit("build", kernel="gibbs_matvec", seconds=gm_s, ptxas=ptxas_summary(gm_log))
-    emit("build", kernel="svgp_precompute", seconds=k4_s,
-         ptxas=[ln.strip() for ln in k4_log.splitlines() if "registers" in ln or "spill" in ln
-                or "Compiling entry" in ln])
+    emit("build", kernel="svgp_precompute", seconds=k4_s, ptxas=lines(k4_log))
+    emit("build", kernel="chol_stream", seconds=k5_s, ptxas=lines(k5_log))
 
 
 def phase_dgp_ref(deepgp_spatial, svgp_precompute, dev):
@@ -532,18 +617,16 @@ def phase_dgp_ref(deepgp_spatial, svgp_precompute, dev):
          jitter_differs_from_pinned_run=[[int(k), int(i)] for k, i in mismatch])
 
 
-def phase_dgp(deepgp_spatial, chol_inv, matvec, svgp_precompute, dev_name: str):
+def phase_dgp(deepgp_spatial, svgp_precompute, dev_name: str):
     """The whole deep GP experiment at its default configuration (400
     epochs), counting K4's launches over it."""
     cfg = deepgp_spatial.default_config().parse_args(["--device", "cuda"])
-    reset_launches(chol_inv, matvec, svgp_precompute)
+    reset_launches()
     out = deepgp_spatial.run(cfg)
     launches = svgp_precompute.LAUNCHES
     # one call per training step (each loss builds every layer's factors in
-    # one call) and one for the stacked predict
-    want = out["steps"] + 1
-    check(launches == want, f"K4 launched {launches} times, the code implies {want}")
-    check(chol_inv.LAUNCHES == 0 and not any(matvec.LAUNCHES.values()), "K1-K3 are not on this path")
+    # one call) and one for the stacked predict; no other kernel
+    check_launches({"svgp_precompute": out["steps"] + 1}, "dgp")
     losses = out["losses"]
     check(losses.shape == (out["steps"], cfg.num_splits), f"loss trace shape {losses.shape}")
     check(bool(np.isfinite(losses).all()), "every loss finite")
@@ -665,6 +748,255 @@ def phase_k4(deepgp_spatial, svgp_precompute, trained_model, dev):
     return errs, timed, b_ms, b_by
 
 
+def k5_errors(chol_stream, a):
+    """K5, its plain version and torch.linalg.cholesky on the same f32
+    matrix, each against the float64 factor; K5's entrywise backward error
+    against γ_{N+1}|L||Lᵀ|."""
+    l = chol_stream.streaming_cholesky_cuda(a)
+    p = chol_stream.streaming_cholesky_plain(a)
+    lib = torch.linalg.cholesky(a)
+    a64 = torch.tril(a.double()) + torch.tril(a.double(), -1).T  # the lower triangle each version reads
+    l64 = torch.linalg.cholesky(a64)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(l).all()), "K5 factor finite")
+    check(bool((torch.triu(l, 1) == 0).all()), "K5 factor lower triangular")
+    err = {name: float((t.double() - l64).abs().max()) for name, t in (("kernel", l), ("plain", p), ("library", lib))}
+    largest = float(l64.abs().max())
+    check(err["kernel"] <= 2 * err["library"] + K5_FLOOR * largest,
+          f"K5 vs float64 {err['kernel']:.3g} within 2x potrf's {err['library']:.3g} (+{K5_FLOOR} x {largest:.3g})")
+    n = a.shape[-1]
+    gamma = (n + 1) * 2.0**-24 / (1 - (n + 1) * 2.0**-24)
+    lk = l.double()
+    resid = lk @ lk.T - a64
+    la = lk.abs()
+    ratio = float((resid.abs() / (gamma * (la @ la.T) + 1e-300)).max())
+    check(ratio <= 1.0, f"K5 backward error within γ_(N+1)|L||Lᵀ|: ratio {ratio:.3g} <= 1")
+    err.update(largest=largest, bound_ratio=ratio,
+               rel_residual=float(torch.linalg.matrix_norm(resid) / torch.linalg.matrix_norm(a64)),
+               max_abs_err=float((l - p).abs().max()))
+    return err
+
+
+def dense_gram(exact_largen, n: int, dev):
+    """K5's payload on the dense path: s²·RBF(x) + σ²I of the dense run's
+    data at its init pose, the matrix its first step factors."""
+    x, _ = exact_largen.dense_data((n,))[n]
+    model = exact_largen.dense_model(dev=dev)
+    with torch.no_grad():
+        k = model.kernel(x.to(dev))
+        return k + model.likelihood.noise * torch.eye(n, device=dev)
+
+
+def phase_k5(chol_stream, exact_largen, dev):
+    from nonstationary_precip_tpu_torch.ops.linalg import safe_cholesky
+
+    gen = torch.Generator().manual_seed(41)
+    b = torch.randn(K5_RAGGED, K5_RAGGED, generator=gen, dtype=torch.float64)
+    payloads = {"dense_gram": dense_gram(exact_largen, K5_N, dev),
+                "ragged_spd": (b @ b.T / K5_RAGGED + torch.eye(K5_RAGGED, dtype=torch.float64)).float().to(dev)}
+    del b
+    errs = {name: k5_errors(chol_stream, a) for name, a in payloads.items()}
+
+    # a rank-30 PSD matrix: K5's factor is not finite, and safe_cholesky's
+    # retry refactors it with jitter, each try a K5 call
+    lr = torch.randn(K5_RAGGED, 30, generator=gen, dtype=torch.float64)
+    bad = (lr @ lr.T).float().to(dev)
+    check(not bool(torch.isfinite(chol_stream.streaming_cholesky_cuda(bad)).all()), "K5 on a non-SPD input: non-finite")
+    before = chol_stream.LAUNCHES
+    fixed = safe_cholesky(bad)
+    tries = chol_stream.LAUNCHES - before
+    check(bool(torch.isfinite(fixed).all()) and tries >= 2, f"safe_cholesky retried through K5 ({tries} calls), finite")
+
+    a = payloads["dense_gram"]
+    t = timed_pair(lambda: chol_stream.streaming_cholesky_cuda(a), lambda: chol_stream.streaming_cholesky_plain(a),
+                   K5_TIMED)
+    lib = block_times_ms(lambda: torch.linalg.cholesky(a), K5_TIMED) + block_times_ms(
+        lambda: torch.linalg.cholesky(a), K5_TIMED)
+    # N³/3 operations; reads A once, writes L
+    b_ms, b_by = bound(chol_stream.cholesky_ops(K5_N), 4 * 2 * K5_N * K5_N)
+    out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "library_ms": statistics.median(lib),
+           "bound_ms": b_ms, "bound_by": b_by, **t}
+    emit("k5", n=K5_N, ragged=K5_RAGGED, errors=errs, retry_calls=tries, timed_calls=2 * K5_TIMED, **out)
+    return out
+
+
+def phase_exact_dense(exact_largen, chol_stream, dev_name: str):
+    """bench_scaling.py's exact loop at N = 1024..8192: K5 is called once
+    per step at N = 8192 and nowhere else; then the N = 8192 loop with the
+    plain version in K5's place."""
+    reset_launches()
+    out = exact_largen.dense(dev="cuda")
+    steps = len(out[K5_N]["losses"])
+    launches = check_launches({"streaming_cholesky": steps}, "exact_dense")["streaming_cholesky"]
+    real = chol_stream.streaming_cholesky
+    chol_stream.streaming_cholesky = chol_stream.streaming_cholesky_plain
+    try:
+        plain = exact_largen.dense(ns=(K5_N,), dev="cuda")[K5_N]
+    finally:
+        chol_stream.streaming_cholesky = real
+    check(chol_stream.LAUNCHES == launches, "the plain run launched no K5")
+    got, ref = out[K5_N]["losses"], plain["losses"]
+    rel = np.abs(got - ref) / np.abs(ref)
+    for n, o in out.items():
+        check(bool(np.isfinite(o["losses"]).all()) and o["losses"][-1] < o["losses"][0], f"N = {n}: losses fall")
+    check(float(rel[0]) <= DENSE_RTOL_STEP0, f"step-0 loss vs the plain run: {rel[0]:.3g} <= {DENSE_RTOL_STEP0}")
+    check(float(rel[-1]) <= DENSE_RTOL_STEP19, f"step-19 loss vs the plain run: {rel[-1]:.3g} <= {DENSE_RTOL_STEP19}")
+    emit("exact_dense", steps=steps, launches=launches, ms_per_step={n: o["ms_per_step"] for n, o in out.items()},
+         plain_ms_per_step_8192=plain["ms_per_step"], step0_rel_err=float(rel[0]), step19_rel_err=float(rel[-1]),
+         losses_8192=got.tolist(), device=dev_name)
+    return launches
+
+
+def phase_seard_ref(seard_spatial, dev):
+    """2 splits × 51 steps of the seard fit against the pinned JAX losses."""
+    from nonstationary_precip_tpu_torch.data.dataprep import load_csv
+    from nonstationary_precip_tpu_torch.train.vmapped import fit_splits
+    from nonstationary_precip_tpu_torch.utils.config import DATASET_DIR
+
+    ref = np.load(EXACT_REF)
+    cfg = seard_spatial.default_config().parse_args(["--device", "cuda"])
+    data = load_csv(DATASET_DIR / "uib_spatial.csv")
+    splits = [seard_spatial.make_split(data, int(rs), cfg, torch.float32, dev) for rs in ref["seard_splits"]]
+    x = np.stack([s[1][0].cpu().numpy() for s in splits]).astype(np.float64)
+    y = np.stack([s[1][1].cpu().numpy() for s in splits]).astype(np.float64)
+    sums = np.stack([x.sum(axis=(-1, -2)), (x * x).sum(axis=(-1, -2)), y.sum(axis=-1)], axis=-1)
+    # the pinned sums are of the float64 splits, the port's of their f32 values
+    check(np.allclose(sums, ref["seard_checksums"], rtol=1e-6, atol=1e-4), "the pinned run trains the port's splits")
+    steps = ref["seard_losses"].shape[0]
+    reset_launches()
+    res = fit_splits([s[0] for s in splits], seard_spatial._loss, [s[1][0] for s in splits],
+                     [s[1][1] for s in splits], lr=float(ref["seard_lr"]), num_steps=steps)
+    check_launches({}, "seard_ref")
+    rel = np.abs(res.losses - ref["seard_losses"]) / np.abs(ref["seard_losses"])
+    check(float(rel[0].max()) <= SEARD_RTOL_STEP0, f"step-0 losses vs JAX: {rel[0].max():.3g} <= {SEARD_RTOL_STEP0}")
+    check(float(rel[-1].max()) <= SEARD_RTOL_STEP50,
+          f"step-{steps - 1} losses vs JAX: {rel[-1].max():.3g} <= {SEARD_RTOL_STEP50}")
+    emit("seard_ref", splits=ref["seard_splits"].tolist(), steps=steps, step0_rel_err=float(rel[0].max()),
+         step50_rel_err=float(rel[-1].max()), max_rel_err=float(rel.max()))
+
+
+def phase_seard(seard_spatial, dev_name: str):
+    """The whole 10-split experiment inside its RESULTS band; no kernel of
+    the port's runs at N = 315."""
+    reset_launches()
+    out = seard_spatial.run(seard_spatial.default_config().parse_args(["--device", "cuda"]))
+    check_launches({}, "seard")
+    losses = out["losses"]
+    check(bool(np.isfinite(losses).all()) and bool((losses[-1] < losses[0]).all()), "every split's loss falls")
+    check(out["rmse"] <= SEARD_RMSE, f"10-split RMSE {out['rmse']:.4f} <= {SEARD_RMSE}")
+    check(out["nlpd"] <= SEARD_NLPD, f"10-split NLPD {out['nlpd']:.4f} <= {SEARD_NLPD}")
+    emit("seard", steps=out["steps"], rmse=out["rmse"], nlpd=out["nlpd"], rmses=out["rmses"].tolist(),
+         nlpds=out["nlpds"].tolist(), steps_per_s=out["steps_per_s"], train_seconds=out["train_seconds"],
+         wall_seconds=out["wall_seconds"], device=dev_name)
+
+
+def phase_temporal(temporal, dev_name: str):
+    """The whole 2000-step experiment inside its RESULTS band; no kernel of
+    the port's runs at N = 273."""
+    reset_launches()
+    out = temporal.run(temporal.default_config().parse_args(["--device", "cuda"]))
+    check_launches({}, "temporal")
+    check(bool(np.isfinite(out["losses"]).all()) and out["losses"][-1] < out["losses"][0], "the loss falls")
+    check(out["rmse"] <= TEMPORAL_RMSE, f"RMSE {out['rmse']:.4f} <= {TEMPORAL_RMSE}")
+    check(out["nlpd"] <= TEMPORAL_NLPD, f"NLPD {out['nlpd']:.4f} <= {TEMPORAL_NLPD}")
+    emit("temporal", steps=out["steps"], rmse=out["rmse"], nlpd=out["nlpd"], raw_rmse=out["raw_rmse"],
+         steps_per_s=out["steps_per_s"], train_seconds=out["train_seconds"], wall_seconds=out["wall_seconds"],
+         device=dev_name)
+
+
+def phase_exact_lazy_ref(exact_largen):
+    """The matrix-free ExactGP at the pinned run's N on its data and probe
+    draws: the losses at steps 0 and 19 against JAX's."""
+    ref = np.load(EXACT_REF)
+    out = exact_largen.lazy(n=int(ref["lazy_n"]), steps=int(ref["lazy_steps"]), rank=int(ref["lazy_rank"]),
+                            iters=int(ref["lazy_iters"]), block=int(ref["lazy_block"]), lr=float(ref["lazy_lr"]),
+                            dev="cuda", data=(ref["lazy_x"], ref["lazy_y"]),
+                            probe_noise=(ref["lazy_u1"], ref["lazy_u2"]))
+    losses = out["losses"]
+    rel = np.abs(losses - ref["lazy_losses"]) / np.abs(ref["lazy_losses"])
+    check(losses.shape == ref["lazy_losses"].shape, f"loss trace shape {losses.shape}")
+    check(float(rel[0]) <= LAZY_RTOL_STEP0, f"step-0 loss vs JAX: {rel[0]:.3g} <= {LAZY_RTOL_STEP0}")
+    check(float(rel[-1]) <= LAZY_RTOL_STEP19, f"step-19 loss vs JAX: {rel[-1]:.3g} <= {LAZY_RTOL_STEP19}")
+    emit("exact_lazy_ref", n=int(ref["lazy_n"]), step0_rel_err=float(rel[0]), step19_rel_err=float(rel[-1]),
+         losses=losses.tolist(), jax_losses=ref["lazy_losses"].tolist(), loss_lazy=out["loss_lazy"],
+         jax_loss_lazy=float(ref["lazy_loss_lazy"]), loss_dense=out["loss_dense"],
+         jax_loss_dense=float(ref["lazy_loss_dense"]), relres_solve=out["relres_solve"])
+
+
+def phase_exact_lazy(exact_largen, dev_name: str):
+    """The matrix-free gate at N = 16384, counting K6's launches."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = exact_largen.lazy(n=LARGEN_N, dev="cuda")
+    steps, iters = len(out["losses"]), out["iters"]
+    # one K6 launch per mBCG iteration: in each training step, in the
+    # trained-pose diagnostics, in the lazy loss the oracle is held to and in
+    # the predictive's solve; K5 is not on this path (N > 8192, and the
+    # oracle is float64)
+    launches = check_launches({"rbf_matvec": (steps + 3) * iters}, "exact_lazy")["rbf_matvec"]
+    check(out["relres_solve"] <= GATE_RELRES, f"relres_solve {out['relres_solve']:.3g} <= {GATE_RELRES}")
+    check(out["loss_rel_diff"] <= GATE_LOSS_REL, f"loss vs dense {out['loss_rel_diff']:.3g} <= {GATE_LOSS_REL}")
+    check(out["grad_cosine"] >= GATE_COSINE, f"gradient cosine {out['grad_cosine']:.5f} >= {GATE_COSINE}")
+    for name in ("kernel.base.raw_lengthscale", "kernel.raw_outputscale", "likelihood.raw_noise"):
+        g = out["grads_lazy"][name]
+        check(bool(np.isfinite(g).all() and (g != 0).all()), f"the lazy gradient of {name} is finite and non-zero")
+    check(not out["diag"]["broke"], "no mBCG breakdown")
+    check(out["pred_mean_max_abs_diff"] <= LAZY_MEAN_TOL,
+          f"predictive mean vs dense {out['pred_mean_max_abs_diff']:.3g} <= {LAZY_MEAN_TOL}")
+    emit("exact_lazy", n=LARGEN_N, steps=steps, iters=iters, launches=launches, relres_solve=out["relres_solve"],
+         diag=out["diag"], loss_lazy=out["loss_lazy"], loss_dense=out["loss_dense"],
+         loss_rel_diff=out["loss_rel_diff"], grad_cosine=out["grad_cosine"],
+         grads_lazy={k: v.tolist() for k, v in out["grads_lazy"].items()},
+         grads_dense={k: v.tolist() for k, v in out["grads_dense"].items()},
+         pred_mean_max_abs_diff=out["pred_mean_max_abs_diff"], loss_first=float(out["losses"][0]),
+         loss_last=float(out["losses"][-1]), ms_per_step=out["ms_per_step"], train_seconds=out["train_seconds"],
+         wall_seconds=out["wall_seconds"], peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, device=dev_name)
+    return out, launches
+
+
+def phase_k6(matvec, exact_largen, lazy_out, dev):
+    """K6 against its plain version and float64 on the gate's trained
+    payload (N = 16384, R = 9) and a column-chunked R = 200; times."""
+    from nonstationary_precip_tpu_torch.kernels.stationary import _sq_dist
+
+    x, _, _ = exact_largen.lazy_data(LARGEN_N)
+    with torch.no_grad():
+        z = (x.to(dev) / lazy_out["model"].kernel.base.lengthscale).contiguous()
+    gen = torch.Generator().manual_seed(43)
+    v = torch.randn(LARGEN_N, 9, generator=gen).to(dev)
+    rows, wide_r = K6_WIDE
+    vw = torch.randn(LARGEN_N, wide_r, generator=gen).to(dev)
+    errs = {}
+
+    def compare(name, z1, z2, vv):
+        k = matvec.rbf_gram_matvec_cuda(z1, z2, vv)
+        again = matvec.rbf_gram_matvec_cuda(z1, z2, vv)
+        p = matvec.rbf_gram_matvec_plain(z1, z2, vv)
+        z1d, z2d, vd = z1.double(), z2.double(), vv.double()
+        ref = torch.cat([torch.exp(-0.5 * _sq_dist(z1d[i:i + 2048], z2d)) @ vd for i in range(0, z1.shape[0], 2048)])
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(k).all()), f"K6 {name} finite")
+        check(torch.equal(k, again), f"K6 {name} bitwise repeatable")
+        ek, ep = float((k.double() - ref).abs().max()), float((p.double() - ref).abs().max())
+        largest = float(ref.abs().max())
+        check(ek <= 2 * ep + K6_FLOOR * largest,
+              f"K6 {name} vs float64 {ek:.3g} within 2x the plain version's {ep:.3g} (+{K6_FLOOR} x {largest:.3g})")
+        errs[name] = {"kernel_vs_f64": ek, "plain_vs_f64": ep, "largest": largest,
+                      "max_abs_err": float((k - p).abs().max())}
+
+    compare("trained", z, z, v)
+    compare("wide", z[:rows].contiguous(), z, vw)
+    t = timed_pair(lambda: matvec.rbf_gram_matvec_cuda(z, z, v), lambda: matvec.rbf_gram_matvec_plain(z, z, v),
+                   N_TIMED_GRAM)
+    ops = matvec.rbf_matvec_ops(LARGEN_N, LARGEN_N, 2, 9)
+    # reads z1, z2 and V once, writes the output
+    b_ms, b_by = bound(ops, 4 * (2 * LARGEN_N * 2 + 2 * LARGEN_N * 9))
+    out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "bound_ms": b_ms, "bound_by": b_by, **t}
+    emit("k6", shape=[LARGEN_N, LARGEN_N, 2, 9], wide=[rows, LARGEN_N, 2, wide_r], errors=errs, ops=ops,
+         timed_calls=2 * N_TIMED_GRAM, **out)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=300, help="Adam steps of the slice run")
@@ -677,26 +1009,32 @@ def main(argv=None):
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    from nonstationary_precip_tpu_torch.experiments import deepgp_spatial, gibbs_largen, spatial_gibbs
-    from nonstationary_precip_tpu_torch.ops import chol_inv, matvec, svgp_precompute
+    from nonstationary_precip_tpu_torch.experiments import (deepgp_spatial, exact_largen, gibbs_largen, seard_spatial,
+                                                            spatial_gibbs, temporal)
+    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, matvec, svgp_precompute
     from nonstationary_precip_tpu_torch.utils import config
 
     dev = config.device("cuda")
-    build_all(chol_inv, matvec, svgp_precompute)
+    build_all(chol_inv, matvec, svgp_precompute, chol_stream)
 
     errs, ms, plain_ms = phase_k1(chol_inv, spatial_gibbs, dev)
-    reset_launches(chol_inv, matvec, svgp_precompute)
     launches = phase_slice(chol_inv, spatial_gibbs, args.steps, name)
-    check(not any(matvec.LAUNCHES.values()) and svgp_precompute.LAUNCHES == 0,
-          "K2-K4 are not on the slice's path")
     phase_largen_ref(gibbs_largen)
-    out, largen_launches = phase_largen(gibbs_largen, matvec, chol_inv, svgp_precompute, name)
+    out, largen_launches = phase_largen(gibbs_largen, name)
     payloads = largen_payloads(gibbs_largen, out, dev)
     k2_errs, k2_t, k2_bound, k2_by = phase_k2(matvec, payloads, dev)
     k3_errs, k3_t, k3_bound, k3_by = phase_k3(matvec, payloads, dev)
     phase_dgp_ref(deepgp_spatial, svgp_precompute, dev)
-    dgp_out, dgp_launches = phase_dgp(deepgp_spatial, chol_inv, matvec, svgp_precompute, name)
+    dgp_out, dgp_launches = phase_dgp(deepgp_spatial, svgp_precompute, name)
     k4_errs, k4_t, k4_bound, k4_by = phase_k4(deepgp_spatial, svgp_precompute, dgp_out["model"], dev)
+    k5 = phase_k5(chol_stream, exact_largen, dev)
+    k5_launches = phase_exact_dense(exact_largen, chol_stream, name)
+    phase_seard_ref(seard_spatial, dev)
+    phase_seard(seard_spatial, name)
+    phase_temporal(temporal, name)
+    phase_exact_lazy_ref(exact_largen)
+    lazy_out, k6_launches = phase_exact_lazy(exact_largen, name)
+    k6 = phase_k6(matvec, exact_largen, lazy_out, dev)
 
     # K1 at (10, 316): 2N³/3 flops per matrix (Cholesky and triangular
     # inverse, N³/3 each); reads A once, writes L and L⁻¹
@@ -723,6 +1061,15 @@ def main(argv=None):
          "replaces": "nonstationary_precip_tpu/ops/pallas_svgp.py:367", "launches": dgp_launches,
          "max_abs_err": max(e["max_abs_err"] for e in k4_errs.values()), "ms": k4_t["ms"],
          "plain_ms": k4_t["plain_ms"], "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
+        {"name": "streaming_cholesky", "route": "cuda",
+         "source": "nonstationary_precip_tpu_torch/csrc/chol_stream.cu",
+         "replaces": "nonstationary_precip_tpu/ops/pallas_chol.py:818", "launches": k5_launches,
+         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]},
+        {"name": "rbf_matvec", "route": "cuda", "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
+         "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:527", "launches": k6_launches,
+         "max_abs_err": k6["max_abs_err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+         "bound_by": k6["bound_by"], "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)

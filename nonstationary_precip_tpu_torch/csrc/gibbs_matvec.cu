@@ -1,9 +1,10 @@
-// Gibbs Gram-times-V (K2) and the fused backward panel sweep of the
-// matrix-free MLL (K3), with the Gram never in memory.  Hopper (sm_90a)
-// ports of the TPU kernels
+// Gibbs Gram-times-V (K2), the fused backward panel sweep of the
+// matrix-free MLL (K3) and the SE-ARD (RBF) Gram-times-V (K6), with the
+// Gram never in memory.  Hopper (sm_90a) ports of the TPU kernels
 //   K2 nonstationary_precip_tpu/ops/pallas_matvec.py::make_gibbs_matvec
 //   K3 nonstationary_precip_tpu/ops/pallas_matvec.py::packed_gibbs_panel_grads
-//      (and packed_gibbs_panel_grads_rows).
+//      (and packed_gibbs_panel_grads_rows)
+//   K6 nonstationary_precip_tpu/ops/pallas_matvec.py::make_rbf_matvec.
 // The wrappers, the plain PyTorch versions and the design notes are in
 // nonstationary_precip_tpu_torch/ops/matvec.py.
 //
@@ -16,7 +17,11 @@
 // reads the same address (a broadcast).  Each Gram element is built from
 // the plain formula and used at once:
 //   K(i,j) = prod_k sqrt(2 l_ik l_jk / ss_k) * exp(-sum_k (x_ik - x_jk)^2 / ss_k),
-//   ss_k = l_ik^2 + l_jk^2.
+//   ss_k = l_ik^2 + l_jk^2,
+// or, for K6, from the payload z = x / ell that the wrapper prescales once
+// (the TPU kernel's _pack_scaled):
+//   K(i,j) = exp(-0.5 sum_k (z_ik - z_jk)^2),
+// the quadratic formed from the differences (no cancellation, so no clamp).
 // Each slice writes its partial row sums to a scratch buffer; a second
 // kernel adds the slices in a fixed order.  No atomics: the result is the
 // same bits on every run.  Plain f32 arithmetic, IEEE division and sqrtf /
@@ -82,9 +87,26 @@ __device__ __forceinline__ void load_row(const float* __restrict__ x,
   }
 }
 
-// Columns [c0, c0 + jn) of (x, l) into cp[j] = [x_j0..x_j(D-1), l_j0..].
+// K6's Gram element from the prescaled row payload zi in registers and the
+// column payload zj in shared memory.
 template <int D>
-__device__ __forceinline__ void stage_cols(float (*cp)[2 * D],
+__device__ __forceinline__ float rbf_elem(const float* zi, const float* zj,
+                                          int d) {
+  float quad = 0.0f;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    if (live<D>(k, d)) {
+      const float dk = zi[k] - zj[k];
+      quad += dk * dk;
+    }
+  }
+  return expf(-0.5f * quad);
+}
+
+// Columns [c0, c0 + jn) of (x, l) into cp[j] = [x_j0..x_j(D-1), l_j0..];
+// with W = D (K6) only x is staged.
+template <int D, int W>
+__device__ __forceinline__ void stage_cols(float (*cp)[W],
                                            const float* __restrict__ x,
                                            const float* __restrict__ l, int c0,
                                            int jn, int d) {
@@ -94,13 +116,14 @@ __device__ __forceinline__ void stage_cols(float (*cp)[2 * D],
     const bool ok = live<D>(k, d);
     const size_t g = static_cast<size_t>(c0 + j) * d + k;
     cp[j][k] = ok ? x[g] : 0.0f;
-    cp[j][D + k] = ok ? l[g] : 1.0f;
+    if constexpr (W == 2 * D) cp[j][D + k] = ok ? l[g] : 1.0f;
   }
 }
 
-// K2.  part[s, i, g0 + r] = sum over slice s of K(i, j) v[j, g0 + r], for
-// the rhs group g0 = kGroup * blockIdx.z, r < min(kGroup, rc - g0).
-template <int D, int RB>
+// K2 (kRbf false) and K6 (kRbf true, x the prescaled z, l unread).
+// part[s, i, g0 + r] = sum over slice s of K(i, j) v[j, g0 + r], for the
+// rhs group g0 = kGroup * blockIdx.z, r < min(kGroup, rc - g0).
+template <int D, int RB, bool kRbf>
 __global__ void __launch_bounds__(kRows)
 gibbs_matvec_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
                     int n1, const float* __restrict__ x2,
@@ -108,7 +131,8 @@ gibbs_matvec_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
                     const float* __restrict__ v, int ldv, int rc, int d,
                     int cols_per_split, float* __restrict__ part) {
   constexpr int RP = pad4(RB);
-  __shared__ __align__(16) float cp[kCols][2 * D];
+  constexpr int W = kRbf ? D : 2 * D;
+  __shared__ __align__(16) float cp[kCols][W];
   __shared__ __align__(16) float vs[kCols][RP];
   const int i = blockIdx.x * kRows + threadIdx.x;
   const int s = blockIdx.y;
@@ -116,7 +140,7 @@ gibbs_matvec_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
   const int gw = min(kGroup, rc - g0);  // <= RB by the host's choice of RB
   const bool active = i < n1;
   float xi[D], li[D];
-  load_row<D>(x1, l1, i, active, d, xi, li);
+  load_row<D>(x1, kRbf ? x1 : l1, i, active, d, xi, li);  // K6: li unused
   float acc[RB];
 #pragma unroll
   for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
@@ -126,7 +150,7 @@ gibbs_matvec_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
   for (int c0 = c_begin; c0 < c_end; c0 += kCols) {
     const int jn = min(kCols, c_end - c0);
     __syncthreads();  // the previous pass is done with cp / vs
-    stage_cols<D>(cp, x2, l2, c0, jn, d);
+    stage_cols<D, W>(cp, x2, l2, c0, jn, d);
     for (int e = threadIdx.x; e < jn * RP; e += kRows) {
       const int j = e / RP;
       const int r = e % RP;
@@ -136,9 +160,13 @@ gibbs_matvec_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
     if (active) {
 #pragma unroll 2
       for (int j = 0; j < jn; ++j) {
-        float diff[D], inv_ss[D];
-        const float kij =
-            gibbs_elem<D>(xi, li, &cp[j][0], &cp[j][D], d, diff, inv_ss);
+        float kij;
+        if constexpr (kRbf) {
+          kij = rbf_elem<D>(xi, &cp[j][0], d);
+        } else {
+          float diff[D], inv_ss[D];
+          kij = gibbs_elem<D>(xi, li, &cp[j][0], &cp[j][D], d, diff, inv_ss);
+        }
 #pragma unroll
         for (int r = 0; r < RB; ++r) acc[r] = fmaf(kij, vs[j][r], acc[r]);
       }
@@ -199,7 +227,7 @@ gibbs_panel_grads_kernel(const float* __restrict__ xr,
   for (int c0 = c_begin; c0 < c_end; c0 += kCols) {
     const int jn = min(kCols, c_end - c0);
     __syncthreads();
-    stage_cols<D>(cp, xc, lc, c0, jn, d);
+    stage_cols<D, 2 * D>(cp, xc, lc, c0, jn, d);
     for (int e = threadIdx.x; e < jn * FP; e += kRows) {
       const int j = e / FP;
       const int f = e % FP;
@@ -277,25 +305,51 @@ struct MatvecArgs {
   int n1, n2, d, ldv, rc, ldo, splits, cols_per_split;
 };
 
-template <int D, int RB>
+template <int D, int RB, bool kRbf>
 void launch_matvec(const MatvecArgs& a, cudaStream_t s) {
   const dim3 grid((a.n1 + kRows - 1) / kRows, a.splits,
                   (a.rc + kGroup - 1) / kGroup);
-  gibbs_matvec_kernel<D, RB><<<grid, kRows, 0, s>>>(
+  gibbs_matvec_kernel<D, RB, kRbf><<<grid, kRows, 0, s>>>(
       a.x1, a.l1, a.n1, a.x2, a.l2, a.n2, a.v, a.ldv, a.rc, a.d,
       a.cols_per_split, a.part);
 }
 
 // Accumulators per thread: the smallest bucket that holds one rhs group
 // (mBCG's 1 + 8 probes take 9 exactly).
-template <int D>
+template <int D, bool kRbf>
 void matvec_rb(const MatvecArgs& a, cudaStream_t s) {
   const int w = a.rc < kGroup ? a.rc : kGroup;
-  if (w <= 1) launch_matvec<D, 1>(a, s);
-  else if (w <= 4) launch_matvec<D, 4>(a, s);
-  else if (w <= 9) launch_matvec<D, 9>(a, s);
-  else if (w <= 16) launch_matvec<D, 16>(a, s);
-  else launch_matvec<D, kGroup>(a, s);
+  if (w <= 1) launch_matvec<D, 1, kRbf>(a, s);
+  else if (w <= 4) launch_matvec<D, 4, kRbf>(a, s);
+  else if (w <= 9) launch_matvec<D, 9, kRbf>(a, s);
+  else if (w <= 16) launch_matvec<D, 16, kRbf>(a, s);
+  else launch_matvec<D, kGroup, kRbf>(a, s);
+}
+
+// The launches of K2 (kRbf false) or K6: the kernel, then the fixed-order
+// sum of the column slices.
+template <bool kRbf>
+int run_matvec(const MatvecArgs& a, cudaStream_t s) {
+  switch (a.d) {
+    case 1: matvec_rb<1, kRbf>(a, s); break;
+    case 2: matvec_rb<2, kRbf>(a, s); break;
+    case 3: matvec_rb<3, kRbf>(a, s); break;
+    default: matvec_rb<kMaxD, kRbf>(a, s); break;
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t m = static_cast<size_t>(a.n1) * a.rc;
+  sum_splits_kernel<<<static_cast<unsigned>((m + 255) / 256), 256, 0, s>>>(
+      a.part, a.splits, a.n1, a.rc, a.out, a.ldo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool matvec_args_ok(int n1, int n2, int d, int ldv, int rc, int ldo,
+                    int splits, int cols_per_split) {
+  return n1 >= 1 && n2 >= 1 && d >= 1 && d <= kMaxD && rc >= 1 &&
+         rc <= kMaxR && ldv >= rc && ldo >= rc && splits >= 1 &&
+         cols_per_split >= 1 &&
+         static_cast<long long>(splits) * cols_per_split >= n2;
 }
 
 struct GradsArgs {
@@ -335,28 +389,29 @@ int gibbs_matvec(const void* x1, const void* l1, int n1, const void* x2,
                  const void* l2, int n2, int d, const void* v, int ldv,
                  int rc, void* out, int ldo, void* part, int splits,
                  int cols_per_split, void* stream) {
-  if (n1 < 1 || n2 < 1 || d < 1 || d > kMaxD || rc < 1 || rc > kMaxR ||
-      ldv < rc || ldo < rc || splits < 1 || cols_per_split < 1 ||
-      static_cast<long long>(splits) * cols_per_split < n2)
+  if (!matvec_args_ok(n1, n2, d, ldv, rc, ldo, splits, cols_per_split))
     return static_cast<int>(cudaErrorInvalidValue);
   const MatvecArgs a{static_cast<const float*>(x1), static_cast<const float*>(l1),
                      static_cast<const float*>(x2), static_cast<const float*>(l2),
                      static_cast<const float*>(v),  static_cast<float*>(out),
                      static_cast<float*>(part),     n1, n2, d, ldv, rc, ldo,
                      splits, cols_per_split};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 1: matvec_rb<1>(a, s); break;
-    case 2: matvec_rb<2>(a, s); break;
-    case 3: matvec_rb<3>(a, s); break;
-    default: matvec_rb<kMaxD>(a, s); break;
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t m = static_cast<size_t>(n1) * rc;
-  sum_splits_kernel<<<static_cast<unsigned>((m + 255) / 256), 256, 0, s>>>(
-      a.part, splits, n1, rc, a.out, ldo);
-  return static_cast<int>(cudaGetLastError());
+  return run_matvec<false>(a, static_cast<cudaStream_t>(stream));
+}
+
+// K6.  z1: (n1, d) and z2: (n2, d), the prescaled x / ell; v, out and part
+// as in gibbs_matvec.  Returns cudaGetLastError() as an int.
+int rbf_matvec(const void* z1, int n1, const void* z2, int n2, int d,
+               const void* v, int ldv, int rc, void* out, int ldo, void* part,
+               int splits, int cols_per_split, void* stream) {
+  if (!matvec_args_ok(n1, n2, d, ldv, rc, ldo, splits, cols_per_split))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* pz1 = static_cast<const float*>(z1);
+  const float* pz2 = static_cast<const float*>(z2);
+  const MatvecArgs a{pz1, pz1, pz2, pz2, static_cast<const float*>(v),
+                     static_cast<float*>(out), static_cast<float*>(part),
+                     n1, n2, d, ldv, rc, ldo, splits, cols_per_split};
+  return run_matvec<true>(a, static_cast<cudaStream_t>(stream));
 }
 
 // K3.  Rows xr, lr: (nr, d), f1r: (nr, fw); columns xc, lc: (n, d),

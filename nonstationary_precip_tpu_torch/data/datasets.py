@@ -1,7 +1,8 @@
-"""Bundled Upper-Indus-Basin dataset loader (no pandas).
+"""Bundled Upper-Indus-Basin dataset loaders (no pandas).
 
-Counterpart of ``nonstationary_precip_tpu/data/datasets.py::load_uib_spatial``,
-which reads the CSV with pandas.  pandas' default C parser does not round
+Counterpart of ``nonstationary_precip_tpu/data/datasets.py``'s
+``load_uib_spatial`` and ``load_khyber_time_series``, which read the CSVs
+with pandas.  pandas' default C parser does not round
 every decimal string to the nearest double (on uib_spatial.csv 2 of 1182
 values land one ulp from ``float()``/``np.loadtxt``), so the values here go
 through a transcription of that parser: the port trains on bit-identical
@@ -71,18 +72,32 @@ def _parse_float(s: str) -> float:
     return number / _POW10[-exponent]
 
 
+def _read_columns(name: str, columns: tuple) -> np.ndarray:
+    """``data/<name>`` as float64 (rows, columns), each value read as pandas'
+    default parser reads it; the header must be ``columns``."""
+    path = DATASET_DIR / name
+    with open(path) as fh:
+        header = tuple(fh.readline().strip().split(","))
+        if header != columns:
+            raise ValueError(f"{path}: expected columns {columns}, found {header}")
+        rows = [[_parse_float(v) for v in line.split(",")] for line in fh if line.strip()]
+    arr = np.asarray(rows, dtype=np.float64)
+    if arr.ndim != 2 or arr.shape[1] != len(header):
+        raise ValueError(f"{path}: ragged rows")
+    return arr
+
+
 def load_uib_spatial():
     """(columns, x[394,2](lon,lat), y[394]) from ``data/uib_spatial.csv``.
 
     The first element is the column names where the JAX loader returns its
     DataFrame; x and y are the same float64 arrays, bit for bit."""
-    path = DATASET_DIR / "uib_spatial.csv"
-    with open(path) as fh:
-        header = tuple(fh.readline().strip().split(","))
-        if header != _UIB_SPATIAL_COLUMNS:
-            raise ValueError(f"{path}: expected columns {_UIB_SPATIAL_COLUMNS}, found {header}")
-        rows = [[_parse_float(v) for v in line.split(",")] for line in fh if line.strip()]
-    arr = np.asarray(rows, dtype=np.float64)
-    if arr.ndim != 2 or arr.shape[1] != len(header):
-        raise ValueError(f"{path}: ragged rows")
-    return header, arr[:, 0:2], arr[:, -1]
+    arr = _read_columns("uib_spatial.csv", _UIB_SPATIAL_COLUMNS)
+    return _UIB_SPATIAL_COLUMNS, arr[:, 0:2], arr[:, -1]
+
+
+def load_khyber_time_series():
+    """(time[342], tp[342]) from ``data/khyber_time_series.csv``, monthly
+    1979-2007 at one Khyber point: the JAX loader's arrays, bit for bit."""
+    arr = _read_columns("khyber_time_series.csv", ("time", "tp"))
+    return arr[:, 0], arr[:, 1]

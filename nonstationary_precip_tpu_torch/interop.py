@@ -12,8 +12,10 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from nonstationary_precip_tpu_torch.models.deep_gp import DeepGP
+from nonstationary_precip_tpu_torch.models.exact_gp import ExactGP
 from nonstationary_precip_tpu_torch.models.gibbs_gp import GibbsExactGP
 from nonstationary_precip_tpu_torch.models.likelihoods import GaussianLikelihood
 from nonstationary_precip_tpu_torch.models.svgp import SVGPLayer
@@ -91,3 +93,28 @@ def deepgp_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float3
         num_layers = n_stored
     return DeepGP(layers, layer("head"), GaussianLikelihood(t("likelihood.raw_noise")),
                   share_hidden=share_hidden, num_layers=num_layers)
+
+
+def exact_gp_from_jax(params: Mapping[str, np.ndarray], kernel: nn.Module, device,
+                      dtype=torch.float32) -> ExactGP:
+    """The port's ``ExactGP`` around ``kernel`` (the port's module of the
+    JAX model's kernel structure: its lower bounds and ``active_dims``, which
+    are static fields, not leaves) holding a JAX ``ExactGP``'s leaves.
+
+    ``params`` maps every parameter name of the port's model to a numpy
+    array, single or stacked on a leading split axis.  The names are the
+    JAX leaf paths, dotted: ``kernel.base.raw_lengthscale``,
+    ``kernel.raw_outputscale``, ``kernel.base.kernels.0.raw_lengthscale``
+    (JAX's ``.kernel.base.kernels[0].raw_lengthscale``), ``raw_period``,
+    ``likelihood.raw_noise`` and, for a constant mean, ``mean_const``."""
+    mean_type = "constant" if "mean_const" in params else "zero"
+    model = ExactGP.create(kernel, mean_type=mean_type, dtype=dtype, device=device)
+    names = [n for n, _ in model.named_parameters()]
+    missing, extra = sorted(set(names) - set(params)), sorted(set(params) - set(names))
+    if missing or extra:
+        raise KeyError(f"exact_gp_from_jax: missing leaves {missing}, unknown leaves {extra}")
+    for name in names:
+        owner, _, leaf = name.rpartition(".")
+        value = torch.tensor(np.array(params[name]), dtype=dtype, device=device)
+        setattr(model.get_submodule(owner) if owner else model, leaf, nn.Parameter(value))
+    return model

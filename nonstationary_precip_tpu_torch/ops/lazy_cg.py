@@ -2,7 +2,8 @@
 log-likelihood and its gradients with the N×N Gram never in memory.
 
 Counterpart of ``nonstationary_precip_tpu/ops/lazy_cg.py``, the part the
-large-N Gibbs path runs (``experiments/gibbs_largen.py``):
+large-N paths run (``experiments/gibbs_largen.py`` with a tensor kernel,
+``experiments/exact_largen.py`` with a module kernel):
   * the mBCG matvec rebuilds (block, N) row panels of K + σ²I from x, or
     goes through a fused ``matvec_builder`` (K2, ``ops/matvec.py``);
   * ``lazy_cg_mll`` is one ``torch.autograd.Function`` whose backward never
@@ -11,6 +12,9 @@ large-N Gibbs path runs (``experiments/gibbs_largen.py``):
     (``make_jnp_panel_vjp``) or by a fused ``panel_vjp`` (K3);
   * σ² rides the panel diagonal, so its gradient falls out of the same
     trace identity.
+
+``lazy_cg_posterior`` is the matrix-free posterior: one mBCG solve with
+1 + N* right-hand sides, no probes.
 
 Kernels whose state is per point (the Gibbs lengthscale field) use the
 packed payload ``x_aug = [x, log ℓ]`` with a ``cross_fn`` that unpacks it
@@ -26,6 +30,7 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch import nn
 
 from nonstationary_precip_tpu_torch.ops.bbmm import (
     lanczos_logdet,
@@ -102,7 +107,7 @@ def build_precond_factor(precond, kernel, x, rank, cross, key=None):
 
 
 # ---------------------------------------------------------------------------
-# MLL (differentiable w.r.t. the kernel's raw outputscale, x, resid, sigma2)
+# MLL (differentiable w.r.t. the kernel, x, resid, sigma2)
 # ---------------------------------------------------------------------------
 
 
@@ -148,15 +153,27 @@ def _core_fwd(s: _Settings, kernel, x, resid, probes, sigma2, lpc):
     return val, (alpha, solves, probe_rights)
 
 
+def kernel_params(kernel) -> tuple:
+    """The tensors a module kernel's gradient is taken for: its parameters,
+    in ``kernel.parameters()`` order.  Empty for a tensor or None kernel,
+    whose gradient is the kernel's own."""
+    return tuple(kernel.parameters()) if isinstance(kernel, nn.Module) else ()
+
+
 class _LazyCGMLL(torch.autograd.Function):
     """``core`` of the JAX package's ``_mll_machinery``: forward ``core_fwd``,
-    backward the fused ``panel_vjp`` or the panel-by-panel pullback."""
+    backward the fused ``panel_vjp`` or the panel-by-panel pullback.
+
+    A module kernel's parameters ride as the trailing inputs ``kparams``, so
+    autograd routes their gradients (the JAX package differentiates the
+    kernel pytree itself); a tensor kernel gets its gradient directly."""
 
     @staticmethod
-    def forward(ctx, kernel, x, resid, probes, sigma2, lpc, settings):
+    def forward(ctx, kernel, x, resid, probes, sigma2, lpc, settings, *kparams):
         val, (alpha, solves, rights) = _core_fwd(settings, kernel, x, resid, probes, sigma2, lpc)
         ctx.settings = settings
         ctx.kernel = kernel
+        ctx.num_kparams = len(kparams)
         ctx.save_for_backward(x, sigma2, alpha, solves, rights)
         return val
 
@@ -166,9 +183,12 @@ class _LazyCGMLL(torch.autograd.Function):
         s = ctx.settings
         pvjp = s.panel_vjp if s.panel_vjp is not None else make_jnp_panel_vjp(s.cross_fn, s.block)
         kg, xgrad, s2g = pvjp(ctx.kernel, x, sigma2, alpha, solves, rights, g)
-        if not isinstance(ctx.kernel, torch.Tensor):
-            kg = None
-        return kg, xgrad, -g * alpha, None, s2g, None, None
+        if isinstance(ctx.kernel, torch.Tensor):
+            kernel_grad, param_grads = kg, (None,) * ctx.num_kparams
+        else:
+            kernel_grad = None
+            param_grads = tuple(kg) if ctx.num_kparams else ()
+        return (kernel_grad, xgrad, -g * alpha, None, s2g, None, None, *param_grads)
 
 
 def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma2, *,
@@ -177,8 +197,9 @@ def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma
                 cross_fn: Optional[Callable] = None, matvec_builder: Optional[Callable] = None,
                 panel_vjp: Optional[Callable] = None) -> torch.Tensor:
     """−½ rᵀK⁻¹r − ½ log det K − (n/2) log 2π with K = kernel(x) + σ²I, K
-    never in memory.  Differentiable w.r.t. ``kernel`` (when it is a tensor:
-    the raw outputscale of ``packed_gibbs_cross``), ``x``, ``resid`` and
+    never in memory.  Differentiable w.r.t. ``kernel`` (a tensor, such as
+    the raw outputscale of ``packed_gibbs_cross``, or an ``nn.Module``,
+    whose parameters then get their gradients), ``x``, ``resid`` and
     ``sigma2``.
 
     ``probe_noise``: with a preconditioner (``precond_rank > 0`` or
@@ -192,7 +213,8 @@ def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma
     ``matvec_builder`` swaps the mBCG matvec for a fused one (K2);
     ``panel_vjp`` swaps the backward panel loop for a fused sweep (K3) with
     the contract ``(kernel, x, sigma2, alpha, solves, rights, g) ->
-    (kernel_grad, x_grad, sigma2_grad)``.  Both must compute the operator
+    (kernel_grad, x_grad, sigma2_grad)``; for a module kernel,
+    ``kernel_grad`` is a tuple aligned with ``kernel.parameters()``.  Both must compute the operator
     of ``cross_fn``.  ``block`` must divide N (it is clamped to N first)."""
     n = x.shape[0]
     block = min(block, n)
@@ -211,7 +233,7 @@ def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma
             lpc = torch.zeros((n, 0), dtype=x.dtype, device=x.device)
             probes = probe_noise.detach()
     settings = _Settings(block, max_iters, tol, precond_rank, cross, matvec_builder, panel_vjp)
-    return _LazyCGMLL.apply(kernel, x, resid, probes, sigma2, lpc, settings)
+    return _LazyCGMLL.apply(kernel, x, resid, probes, sigma2, lpc, settings, *kernel_params(kernel))
 
 
 @functools.lru_cache(maxsize=16)
@@ -222,6 +244,10 @@ def make_jnp_panel_vjp(cross_fn: Callable, block: int):
         panel_vjp(kernel, x, sigma2, alpha, solves, rights, g)
             -> (kernel_grad, x_grad, sigma2_grad)
 
+    ``kernel_grad`` is the gradient of a tensor kernel, a tuple aligned with
+    ``kernel.parameters()`` for a module kernel (None for a frozen
+    parameter), and None for a None kernel.
+
     Each (block, N) panel's cotangent rows of ½ααᵀ − (¼/R)(SZᵀ + ZSᵀ) are
     pulled back through ``_panel``.  x enters every panel twice, as the
     panel's rows and as the full column side; the two cotangents are summed."""
@@ -231,11 +257,13 @@ def make_jnp_panel_vjp(cross_fn: Callable, block: int):
         blk = min(block, n)
         check_divisible(n, blk, "x", "row-panel block")
         r = rights.shape[-1]
-        with_kernel = isinstance(kernel, torch.Tensor)
-        kern = kernel.detach().requires_grad_() if with_kernel else kernel
+        tensor_kernel = isinstance(kernel, torch.Tensor)
+        kern = kernel.detach().requires_grad_() if tensor_kernel else kernel
+        params = kernel_params(kernel)
+        kleaves = (kern,) if tensor_kernel else tuple(p for p in params if p.requires_grad)
         xf = x.detach().requires_grad_()
         s2 = sigma2.detach().requires_grad_()
-        leaves = ((kern,) if with_kernel else ()) + (xf, s2)
+        leaves = kleaves + (xf, s2)
         acc = [torch.zeros_like(t) for t in leaves]
         rows = []
         for i0 in range(0, n, blk):
@@ -248,7 +276,13 @@ def make_jnp_panel_vjp(cross_fn: Callable, block: int):
             grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip((xb, *leaves), grads)]
             rows.append(grads[0])
             acc = [a + gr for a, gr in zip(acc, grads[1:])]
-        kg = acc[0] if with_kernel else None
+        if tensor_kernel:
+            kg = acc[0]
+        elif params:
+            live = iter(acc[:len(kleaves)])
+            kg = tuple(next(live) if p.requires_grad else None for p in params)
+        else:
+            kg = None
         return kg, torch.cat(rows) + acc[-2], acc[-1]
 
     return panel_vjp
@@ -294,3 +328,47 @@ def lazy_cg_diagnostics(kernel, x: torch.Tensor, resid: torch.Tensor, probe_nois
         "iters_max": int(torch.max(res.iters)),
         "broke": bool(torch.any(res.broke)),
     }
+
+
+# ---------------------------------------------------------------------------
+# posterior (prediction: deterministic, no probes)
+# ---------------------------------------------------------------------------
+
+
+def lazy_cg_posterior(kernel, x: torch.Tensor, resid: torch.Tensor, x_test: torch.Tensor, sigma2, *,
+                      block: int = 1024, max_iters: int = 1000, tol: float = 1e-6, precond_rank: int = 0,
+                      precond_key=None, precond: str = "pivchol", cross_fn: Optional[Callable] = None,
+                      matvec_builder: Optional[Callable] = None):
+    """(mean, cov) of the zero-mean exact-GP posterior at ``x_test``:
+    mean = K*ₓK⁻¹r, cov = K** − K*ₓK⁻¹Kₓ*, the train-side solves by one
+    mBCG run over lazy row panels (or ``matvec_builder``'s fused matvec)
+    with all 1 + N* right-hand sides at once.  A breakdown poisons mean and
+    cov with NaN.  The caller adds its mean function and observation noise.
+    With a preconditioner, σ² carries no gradient (as in the JAX
+    package's ``_posterior_machinery``, :1309-1331); the JAX
+    ``precond_shift`` is not ported (shift 1).  Not differentiable through
+    a fused matvec, which has no backward."""
+    n = x.shape[0]
+    block = min(block, n)
+    check_divisible(n, block, "x", "row-panel block")
+    cross = cross_fn or default_cross
+    sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device)
+    if precond_rank > 0:
+        with torch.no_grad():
+            lpc = build_precond_factor(precond, kernel, x, precond_rank, cross, precond_key).detach()
+        sigma2 = sigma2.detach()
+        minv = woodbury_precond(lpc, sigma2)
+    else:
+        minv = None
+    if matvec_builder is not None:
+        matvec = matvec_builder(kernel, x, sigma2)
+    else:
+        matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
+    b_cols = cross(kernel, x, x_test)  # (N, N*)
+    res = mbcg(matvec, torch.cat([resid[:, None], b_cols], dim=1), max_iters=max_iters, tol=tol, precond=minv)
+    mean = b_cols.T @ res.x[:, 0]
+    cov_term = b_cols.T @ res.x[:, 1:]
+    cov = cross(kernel, x_test, x_test) - 0.5 * (cov_term + cov_term.T)
+    bad = torch.any(res.broke)
+    return (torch.where(bad, torch.full_like(mean, math.nan), mean),
+            torch.where(bad, torch.full_like(cov, math.nan), cov))

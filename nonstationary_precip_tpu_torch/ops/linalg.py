@@ -6,7 +6,9 @@ batched over leading dimensions (the JAX package's ``vmap`` written out).
 retry runs in the forward, and the backward is the closed-form Cholesky
 pullback from the saved factor, so autograd never differentiates the retry
 control flow (the jitter level is a non-differentiable choice, as in
-GPyTorch's ``psd_safe_cholesky``).
+GPyTorch's ``psd_safe_cholesky``).  ``cholesky`` is the one dispatch site:
+a single float32 matrix with 6144 ≤ N ≤ 8192 takes K5, the streaming
+Cholesky (``ops/chol_stream.py``), as on the TPU.
 """
 
 from __future__ import annotations
@@ -15,10 +17,12 @@ import math
 
 import torch
 
+from nonstationary_precip_tpu_torch.ops import chol_stream
 from nonstationary_precip_tpu_torch.utils.config import EPSILON
 
 __all__ = [
     "add_jitter",
+    "cholesky",
     "safe_cholesky",
     "tri_solve",
     "cho_solve",
@@ -76,8 +80,30 @@ def escalating_jitter(mat: torch.Tensor, factor, jitter: float, max_tries: int):
     return tuple(o.reshape(*batch, *o.shape[1:]) for o in out), j.reshape(batch)
 
 
-def _cholesky_attempt(mat):
-    chol, info = torch.linalg.cholesky_ex(mat)
+def cholesky_ex(mat: torch.Tensor):
+    """(L, info) of ``mat`` (..., n, n), the JAX package's ``cholesky``
+    dispatch: one float32 matrix with 6144 ≤ N ≤ 8192 goes through K5
+    (``ops/chol_stream``: the kernel on the card, its plain version on the
+    CPU; a failed factor is NaN and ``info`` is 0); everything else takes
+    ``torch.linalg.cholesky_ex``, as the JAX package leaves it to XLA."""
+    if chol_stream.stream_eligible(mat):
+        return chol_stream.streaming_cholesky(mat), torch.zeros((), dtype=torch.int32, device=mat.device)
+    return torch.linalg.cholesky_ex(mat)
+
+
+def cholesky(mat: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor with :func:`cholesky_ex`'s dispatch."""
+    return cholesky_ex(mat)[0]
+
+
+def _cholesky_attempt(mats):
+    """One try of ``safe_cholesky`` on ``escalating_jitter``'s (B, n, n)
+    stack; a single matrix keeps :func:`cholesky_ex`'s 2-D dispatch."""
+    if mats.shape[0] == 1:
+        chol, info = cholesky_ex(mats[0])
+        chol, info = chol[None], info.reshape(1)
+    else:
+        chol, info = torch.linalg.cholesky_ex(mats)
     return (chol,), cholesky_failed(chol, info)
 
 

@@ -1,5 +1,5 @@
-"""K2 and K3: the Gibbs Gram·V and the fused backward panel sweep of the
-matrix-free MLL, by hand for Hopper.
+"""K2, K3 and K6: the Gibbs Gram·V, the fused backward panel sweep of the
+matrix-free MLL, and the SE-ARD (RBF) Gram·V, by hand for Hopper.
 
 Replaces, in ``nonstationary_precip_tpu/ops/pallas_matvec.py``:
   * K2 ``make_gibbs_matvec`` (:240, ``pallas_call`` at :207; body
@@ -8,11 +8,15 @@ Replaces, in ``nonstationary_precip_tpu/ops/pallas_matvec.py``:
   * K3 ``packed_gibbs_panel_grads`` (:350, ``pallas_call`` at :384) and
     ``packed_gibbs_panel_grads_rows`` (:401 → :435; body
     ``_gibbs_panel_bwd_kernel``), reached through ``packed_gibbs_panel_vjp``
-    and ``packed_gibbs_panel_vjp_rows`` (:453-599).
-Both kernels are ``csrc/gibbs_matvec.cu``: CUDA C++ for sm_90a, built with
-nvcc at first use (``ops/cuda_build.py``) and bound through ctypes.
+    and ``packed_gibbs_panel_vjp_rows`` (:453-599);
+  * K6 ``make_rbf_matvec`` (:527, ``pallas_call`` at :207 through
+    ``_matvec_call``; body ``_rbf_kernel`` :493, payload ``_pack_scaled``
+    :518), reached through ``stationary_matvec_builder`` (:647-674), the
+    mBCG matvec of the matrix-free ``ExactGP``.
+All three kernels are ``csrc/gibbs_matvec.cu``: CUDA C++ for sm_90a, built
+with nvcc at first use (``ops/cuda_build.py``) and bound through ctypes.
 
-What bounds them on an H100.  Both are compute-bound.  They read O(N·(2D+R))
+What bounds them on an H100.  All three are compute-bound.  They read O(N·(2D+R))
 bytes and do O(N²) work: at N = 16384, D = 2, R = 9 a K2 call reads 1.4 MB
 (0.4 µs at 3.35 TB/s) but builds 2.7·10⁸ Gram elements.  Per element and
 dimension the tile costs ~10 f32 operations, one IEEE division and one
@@ -36,12 +40,22 @@ padded rows (the kernel masks the ragged edge), the MXU contraction modes
 (plain f32 FMAs, no tensor cores, no TF32, no fast-math intrinsics), and
 the d = 2 single-rsqrt rewrite, an optimisation left for later.
 
+K6 is K2's kernel with another element: the wrapper prescales z = x/ℓ once
+per build (the TPU kernel's ``_pack_scaled``), the column payload is z
+alone, and each element is exp(−½ Σ_k (z_ik − z_jk)²), its quadratic formed
+from the differences, where the TPU kernel (and the plain version here)
+uses ‖a‖² + ‖b‖² − 2a·b clamped at 0.  Per element it costs 3D + 2
+operations and one ``expf`` before the 2R of the contraction: far less than
+the Gibbs tile, so at R = 9 the FMAs of the contraction and the ``expf``
+share the time.  The caller adds s² and σ²V, as the JAX builder does.
+
 Dispatch: a CPU tensor takes the plain version (``gibbs_gram_matvec_plain``,
-``packed_gibbs_panel_grads_plain``); a CUDA tensor launches the kernel or
-raises, for D > 8, a dtype other than float32, a non-contiguous input or a
-failed build alike.  ``LAUNCHES`` counts kernel launches and nothing else.
+``packed_gibbs_panel_grads_plain``, ``rbf_gram_matvec_plain``); a CUDA
+tensor launches the kernel or raises, for D > 8, a dtype other than
+float32, a non-contiguous input or a failed build alike.  ``LAUNCHES`` counts kernel launches and nothing else.
 Forward-only, as on the TPU: the matvec sits inside ``lazy_cg_mll``'s
-autograd Function, and K3 is itself a backward.
+autograd Function, and K3 is itself a backward (K6's MLL backward is the
+panel pullback through the kernel module, ``lazy_cg.make_jnp_panel_vjp``).
 """
 
 from __future__ import annotations
@@ -51,14 +65,16 @@ import functools
 
 import torch
 
+from nonstationary_precip_tpu_torch.kernels.base import Scale
 from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram
+from nonstationary_precip_tpu_torch.kernels.stationary import RBF, _sq_dist
 from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
 from nonstationary_precip_tpu_torch.utils.transforms import positive
 
 SOURCE = CSRC / "gibbs_matvec.cu"
 
 MAX_D = 8  # input dims the kernels take
-MAX_R = 128  # K2: right-hand sides one launch takes; wider V is column-chunked
+MAX_R = 128  # K2, K6: right-hand sides one launch takes; wider V is column-chunked
 MAX_FACTORS = 65  # K3: 1 + 2R cotangent factors, so R ≤ 32
 ROWS = 128  # rows per block (csrc kRows)
 COLS = 128  # columns per shared-memory pass (csrc kCols)
@@ -66,9 +82,9 @@ GROUP = 32  # K2: right-hand sides one block contracts (csrc kGroup)
 BLOCKS_PER_SM = 8  # column splits are added until the grid has this many
 PLAIN_BLOCK = 2048  # row-panel height of the plain versions
 
-#: Kernel launches so far in this process, one per K2 or K3 call of the
+#: Kernel launches so far in this process, one per K2, K3 or K6 call of the
 #: library (each call is the kernel plus its fixed-order reduction pass).
-LAUNCHES = {"gibbs_matvec": 0, "gibbs_panel_grads": 0}
+LAUNCHES = {"gibbs_matvec": 0, "gibbs_panel_grads": 0, "rbf_matvec": 0}
 
 _lib = None
 
@@ -84,6 +100,8 @@ def build(force: bool = False) -> str:
     lib.gibbs_matvec.restype = i
     lib.gibbs_panel_grads.argtypes = [p, p, p, i, p, p, p, i, i, i, p, p, p, p, i, i, p]
     lib.gibbs_panel_grads.restype = i
+    lib.rbf_matvec.argtypes = [p, i, p, i, i, p, i, i, p, i, p, i, i, p]
+    lib.rbf_matvec.restype = i
     _lib = lib
     return log
 
@@ -225,6 +243,95 @@ def scaled_packed_gibbs_matvec_builder(d: int, precision: str = "highest"):
         return lambda v: s2 * mv(v) + sigma2 * v
 
     return builder
+
+
+# ---------------------------------------------------------------------------
+# K6: SE-ARD (RBF) Gram·V
+# ---------------------------------------------------------------------------
+
+
+def rbf_gram_matvec_cuda(z1, z2, v):
+    """K6's wrapper: exp(−½‖z1ᵢ − z2ⱼ‖²) @ v from ⌈R/MAX_R⌉ launches on the
+    current stream, z = x/ℓ prescaled.  z1 (N1, D ≤ 8), z2 (N2, D), v
+    (N2, R), all float32, contiguous, on one CUDA device.  Raises on
+    anything else."""
+    if z1.ndim != 2 or z2.ndim != 2 or z1.shape[1] != z2.shape[1]:
+        raise ValueError(f"rbf_matvec: z1, z2 must be (N, D) of one D, got {tuple(z1.shape)}, {tuple(z2.shape)}")
+    if not 1 <= z1.shape[1] <= MAX_D:
+        raise ValueError(f"rbf_matvec: D ≤ {MAX_D}, got D = {z1.shape[1]}")
+    if v.ndim != 2 or v.shape[0] != z2.shape[0]:
+        raise ValueError(f"rbf_matvec: v {tuple(v.shape)} against z2 {tuple(z2.shape)}")
+    _check_cuda("rbf_matvec", z1, z2, v)
+    if _lib is None:
+        build()
+    (n1, d), n2, r = z1.shape, z2.shape[0], v.shape[1]
+    out = torch.empty((n1, r), dtype=v.dtype, device=v.device)
+    sms, stream = _num_sms(v.device), _stream(v.device)
+    for c0 in range(0, r, MAX_R):
+        rc = min(MAX_R, r - c0)
+        splits, per = column_splits(n1, n2, -(-rc // GROUP), sms)
+        part = torch.empty(splits * n1 * rc, dtype=v.dtype, device=v.device)
+        err = _lib.rbf_matvec(z1.data_ptr(), n1, z2.data_ptr(), n2, d, v.data_ptr() + 4 * c0, r, rc,
+                              out.data_ptr() + 4 * c0, r, part.data_ptr(), splits, per, stream)
+        _launched(err, "rbf_matvec")
+    return out
+
+
+def rbf_gram_matvec_plain(z1, z2, v, block: int = PLAIN_BLOCK):
+    """The plain PyTorch version of K6 on the prescaled payloads: row panels
+    of exp(−½ d²) @ v, d² from the identity clamped at 0 (the JAX kernel's
+    form, and the RBF kernel's)."""
+    return torch.cat([torch.exp(-0.5 * _sq_dist(z1[i:i + block], z2)) @ v for i in range(0, z1.shape[0], block)])
+
+
+def make_rbf_matvec(x1, x2, ell, precision: str = "highest"):
+    """``matvec(v) = exp(−½‖(x1 − x2)/ℓ‖²) @ v``, K never in memory; x/ℓ is
+    prescaled once, outside the caller's iteration loop.  ell (D,) ARD
+    lengthscales, D ≤ 8.  ``precision='highest'`` (exact f32) is the only
+    mode ported; the TPU's 'high3' and 'default' raise."""
+    if precision in ("high3", "default"):
+        raise NotImplementedError(f"rbf matvec precision {precision!r} is not yet ported (only 'highest')")
+    if precision != "highest":
+        raise ValueError(f"precision must be highest/default/high3, got {precision!r}")
+    if x1.shape[-1] > MAX_D:
+        raise ValueError(f"rbf matvec: D ≤ {MAX_D}, got D = {x1.shape[-1]}")
+    z1, z2 = (x1 / ell).contiguous(), (x2 / ell).contiguous()
+
+    def matvec(v):
+        if v.device.type == "cpu":
+            return rbf_gram_matvec_plain(z1, z2, v)
+        return rbf_gram_matvec_cuda(z1, z2, v)
+
+    return matvec
+
+
+def rbf_gram_matvec(x1, x2, ell, v, precision: str = "highest"):
+    """One-shot SE-ARD Gram·v; inside an iteration loop use
+    :func:`make_rbf_matvec`."""
+    return make_rbf_matvec(x1, x2, ell, precision)(v)
+
+
+def stationary_matvec_builder(kernel, x, sigma2):
+    """mBCG matvec builder of the matrix-free ``ExactGP``, for RBF or
+    Scale(RBF) kernels: ``matvec(v) = s²·K_rbf(x, x) v + σ²v`` through K6,
+    the RBF's ``active_dims`` applied.  Other kernels raise TypeError.
+    Forward only: the MLL's backward rebuilds panels through the kernel."""
+    scale, base = None, kernel
+    if isinstance(kernel, Scale):
+        scale, base = kernel.outputscale, kernel.base
+    if not isinstance(base, RBF):
+        raise TypeError(f"stationary_matvec_builder supports RBF / Scale(RBF); got {type(base).__name__} — "
+                        "use cross_fn panels instead")
+    xs = base._slice(x)
+    mv = make_rbf_matvec(xs, xs, base.lengthscale)
+
+    def matvec(v):
+        kv = mv(v)
+        if scale is not None:
+            kv = scale * kv
+        return kv + sigma2 * v
+
+    return matvec
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +497,13 @@ def matvec_ops(n1: int, n2: int, d: int, r: int) -> int:
     """Operations of K2 over an n1 × n2 Gram with r right-hand sides: the
     tile plus one FMA (2 ops) per right-hand side."""
     return n1 * n2 * (_tile_ops(d) + 2 * r)
+
+
+def rbf_matvec_ops(n1: int, n2: int, d: int, r: int) -> int:
+    """Operations of K6 over an n1 × n2 Gram with r right-hand sides: per
+    element and dim the difference and its square-add (3), the −½ product
+    and ``expf`` (2), then one FMA (2 ops) per right-hand side."""
+    return n1 * n2 * (3 * d + 2 + 2 * r)
 
 
 def panel_grads_ops(nr: int, n: int, d: int, r: int) -> int:
