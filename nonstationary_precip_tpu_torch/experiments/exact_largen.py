@@ -43,6 +43,7 @@ from nonstationary_precip_tpu_torch.utils.config import device
 
 DENSE_NS = (1024, 2048, 4096, 8192)
 NUM_TEST = 64
+PROBE_SEED = 173
 
 
 def dense_data(ns=DENSE_NS):
@@ -60,17 +61,16 @@ def dense_data(ns=DENSE_NS):
     return out
 
 
-def dense_model(dtype=torch.float32, dev=None) -> ExactGP:
-    """Scale(RBF(2)), zero mean, the default noise (softplus(0) + 1e-4)."""
-    return ExactGP.create(Scale.create(RBF.create(2, dtype=dtype, device=dev), dtype=dtype, device=dev),
-                          mean_type="zero", dtype=dtype, device=dev)
+def dense_model(dev=None) -> ExactGP:
+    """Scale(RBF(2)), zero mean, the default noise (softplus(0) + 1e-4), float32."""
+    return ExactGP.create(Scale.create(RBF.create(2, device=dev), device=dev), mean_type="zero", device=dev)
 
 
 def _loss(m, x, y):
     return m.loss(x, y)
 
 
-def dense(ns=DENSE_NS, steps: int = 20, lr: float = 0.01, dev: str = "cuda") -> dict:
+def dense(ns=DENSE_NS, steps: int = 20, dev: str = "cuda") -> dict:
     """The dense loop at each N: {n: {losses, ms_per_step, seconds}}, the
     step time from the clock of ``train/optim.fit`` (CUDA events on the
     card) over the steps after the first."""
@@ -78,7 +78,7 @@ def dense(ns=DENSE_NS, steps: int = 20, lr: float = 0.01, dev: str = "cuda") -> 
     out = {}
     for n, (x, y) in dense_data(ns).items():
         x, y = x.to(dv), y.to(dv)
-        res = fit(dense_model(dev=dv), _loss, x, y, lr=lr, num_steps=steps)
+        res = fit(dense_model(dev=dv), _loss, x, y, lr=0.01, num_steps=steps)
         ms = 1e3 * res.seconds / (res.steps - 1) if res.steps > 1 else float("nan")
         out[n] = {"losses": res.losses, "ms_per_step": ms, "seconds": res.seconds}
         print(f"[exact_largen dense] n={n}: loss {res.losses[0]:.6f} -> {res.losses[-1]:.6f}, {ms:.3f} ms/step "
@@ -95,9 +95,9 @@ def lazy_data(n: int):
     return x, y, xs
 
 
-def lazy_model(dtype=torch.float32, dev=None) -> ExactGP:
-    return ExactGP.create(Scale.create(RBF.create(2, dtype=dtype, device=dev), dtype=dtype, device=dev),
-                          noise=0.05, mean_type="zero", dtype=dtype, device=dev)
+def lazy_model(dev=None) -> ExactGP:
+    return ExactGP.create(Scale.create(RBF.create(2, device=dev), device=dev), noise=0.05, mean_type="zero",
+                          device=dev)
 
 
 def _grads(model, loss_fn) -> tuple:
@@ -107,10 +107,10 @@ def _grads(model, loss_fn) -> tuple:
 
 
 def lazy(n: int = 16384, steps: int = 20, rank: int = 150, iters: int = 32, block: int = 2048, lr: float = 0.01,
-         seed: int = 173, dev: str = "cuda", data=None, probe_noise=None) -> dict:
+         dev: str = "cuda", data=None, probe_noise=None) -> dict:
     """The matrix-free run and its gate.  ``data`` = (x, y) and
     ``probe_noise`` = (u1, u2) replace the drawn data and the probe draws
-    (a pinned run's); the probes are drawn from ``default_rng(seed)``
+    (a pinned run's); the probes are drawn from ``default_rng(PROBE_SEED)``
     otherwise, and serve every step and the diagnostics."""
     dv = device(dev)
     t_wall = time.perf_counter()
@@ -119,7 +119,7 @@ def lazy(n: int = 16384, steps: int = 20, rank: int = 150, iters: int = 32, bloc
         x, y = (torch.tensor(np.asarray(a), dtype=torch.float32) for a in data)
     x, y, xs = x.to(dv), y.to(dv), xs.to(dv)
     noise = tuple(torch.tensor(np.asarray(a), dtype=torch.float32, device=dv)
-                  for a in (probe_noise if probe_noise is not None else probe_draws(seed, rank, n)))
+                  for a in (probe_noise if probe_noise is not None else probe_draws(PROBE_SEED, rank, n)))
     kw = dict(solver="cg", block=block, max_iters=iters, precond_rank=rank, matvec_builder=stationary_matvec_builder)
     model = lazy_model(dev=dv)
 

@@ -92,11 +92,11 @@ def stream_eligible(mat: torch.Tensor) -> bool:
             and MIN_N <= mat.shape[-1] <= MAX_N)
 
 
-def padded(mat: torch.Tensor, p: int = PANEL) -> torch.Tensor:
-    """``mat`` with an identity block appended to a multiple of ``p``
+def padded(mat: torch.Tensor) -> torch.Tensor:
+    """``mat`` with an identity block appended to a multiple of ``PANEL``
     (``_forward_streaming2``'s padding); ``mat`` itself when none is needed."""
     n = mat.shape[-1]
-    n_pad = -(-n // p) * p
+    n_pad = -(-n // PANEL) * PANEL
     if n_pad == n:
         return mat
     out = torch.zeros((n_pad, n_pad), dtype=mat.dtype, device=mat.device)
@@ -135,14 +135,15 @@ def streaming_cholesky_cuda(mat: torch.Tensor) -> torch.Tensor:
     return l[:n, :n] if n_pad != n else l
 
 
-def streaming_cholesky_plain(mat: torch.Tensor, p: int = PANEL) -> torch.Tensor:
+def streaming_cholesky_plain(mat: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the kernel: the same left-looking
     blocked algorithm, with ``torch.matmul`` for the update and the panel
     and ``cholesky_ex`` plus a triangular inverse for each diagonal tile.
     A tile whose factorisation fails is NaN, and the NaN spreads as in the
     kernel."""
     n = mat.shape[-1]
-    a = padded(mat, p)
+    p = PANEL
+    a = padded(mat)
     n_pad = a.shape[-1]
     l = torch.zeros_like(a)
     eye = torch.eye(p, dtype=a.dtype, device=a.device)

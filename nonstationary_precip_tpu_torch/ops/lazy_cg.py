@@ -337,25 +337,23 @@ def lazy_cg_diagnostics(kernel, x: torch.Tensor, resid: torch.Tensor, probe_nois
 
 def lazy_cg_posterior(kernel, x: torch.Tensor, resid: torch.Tensor, x_test: torch.Tensor, sigma2, *,
                       block: int = 1024, max_iters: int = 1000, tol: float = 1e-6, precond_rank: int = 0,
-                      precond_key=None, precond: str = "pivchol", cross_fn: Optional[Callable] = None,
                       matvec_builder: Optional[Callable] = None):
     """(mean, cov) of the zero-mean exact-GP posterior at ``x_test``:
     mean = K*ₓK⁻¹r, cov = K** − K*ₓK⁻¹Kₓ*, the train-side solves by one
     mBCG run over lazy row panels (or ``matvec_builder``'s fused matvec)
     with all 1 + N* right-hand sides at once.  A breakdown poisons mean and
     cov with NaN.  The caller adds its mean function and observation noise.
-    With a preconditioner, σ² carries no gradient (as in the JAX
-    package's ``_posterior_machinery``, :1309-1331); the JAX
-    ``precond_shift`` is not ported (shift 1).  Not differentiable through
-    a fused matvec, which has no backward."""
+    The preconditioner is the rank-``precond_rank`` pivoted Cholesky, and
+    with it σ² carries no gradient (as in the JAX package's
+    ``_posterior_machinery``, :1309-1331); the JAX ``precond_shift`` is not
+    ported (shift 1).  Not differentiable through a fused matvec, which has
+    no backward."""
     n = x.shape[0]
     block = min(block, n)
     check_divisible(n, block, "x", "row-panel block")
-    cross = cross_fn or default_cross
     sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device)
     if precond_rank > 0:
-        with torch.no_grad():
-            lpc = build_precond_factor(precond, kernel, x, precond_rank, cross, precond_key).detach()
+        lpc = lazy_pivoted_cholesky(kernel, x, precond_rank)
         sigma2 = sigma2.detach()
         minv = woodbury_precond(lpc, sigma2)
     else:
@@ -363,12 +361,12 @@ def lazy_cg_posterior(kernel, x: torch.Tensor, resid: torch.Tensor, x_test: torc
     if matvec_builder is not None:
         matvec = matvec_builder(kernel, x, sigma2)
     else:
-        matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
-    b_cols = cross(kernel, x, x_test)  # (N, N*)
+        matvec = _lazy_matvec(kernel, x, sigma2, block, default_cross)
+    b_cols = kernel(x, x_test)  # (N, N*)
     res = mbcg(matvec, torch.cat([resid[:, None], b_cols], dim=1), max_iters=max_iters, tol=tol, precond=minv)
     mean = b_cols.T @ res.x[:, 0]
     cov_term = b_cols.T @ res.x[:, 1:]
-    cov = cross(kernel, x_test, x_test) - 0.5 * (cov_term + cov_term.T)
+    cov = kernel(x_test, x_test) - 0.5 * (cov_term + cov_term.T)
     bad = torch.any(res.broke)
     return (torch.where(bad, torch.full_like(mean, math.nan), mean),
             torch.where(bad, torch.full_like(cov, math.nan), cov))

@@ -125,7 +125,7 @@ def profile_dense(args, dev):
 def profile_lazy(args, dev):
     n, rank, iters, block = 16384, 150, 32, 2048
     x, y, _ = (t.to(dev) for t in exact_largen.lazy_data(n))
-    noise = tuple(torch.as_tensor(u).to(dev) for u in probe_draws(173, rank, n))
+    noise = tuple(torch.as_tensor(u).to(dev) for u in probe_draws(exact_largen.PROBE_SEED, rank, n))
     model = exact_largen.lazy_model(dev=dev)
     step = adam_step(model, lambda m: m.loss(x, y, solver="cg", probe_noise=noise, block=block, max_iters=iters,
                                              precond_rank=rank, matvec_builder=matvec.stationary_matvec_builder))
