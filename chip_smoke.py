@@ -7,7 +7,8 @@ Gibbs MAP experiment of ``nonstationary_precip_tpu_torch.experiments.
 spatial_gibbs`` on the real UIB data (10 splits × 316 training points, K1),
 the large-N matrix-free gate of ``experiments.gibbs_largen`` at N = 16384
 (K2 and K3), the 10-split DSVI deep GP of ``experiments.deepgp_spatial``
-(K4), and the stationary exact GP of ``experiments.exact_largen`` (the dense
+and the field regression of ``experiments.field_regression`` (K4 and K7),
+and the stationary exact GP of ``experiments.exact_largen`` (the dense
 MLL loop at N = 1024..8192, K5; the matrix-free gate at N = 16384, K6) with
 ``experiments.seard_spatial`` and ``experiments.temporal``.  Each path is
 driven with every launch count set to 0 just before it and read just after.
@@ -15,8 +16,8 @@ Phases, one JSON line each:
 
   1. device     — the card's name; nvidia-smi's name and power limit;
   2. build      — K1 (csrc/chol_inv_batched.cu), K2/K3/K6 (csrc/gibbs_matvec.cu),
-                  K4 (csrc/svgp_precompute.cu) and K5 (csrc/chol_stream.cu),
-                  four nvcc runs started together, in seconds, with each
+                  K4 (csrc/svgp_precompute.cu), K5 (csrc/chol_stream.cu) and
+                  K7 (csrc/elbo_fused.cu), five nvcc runs started together, in seconds, with each
                   kernel's registers, spills and shared memory;
   3. k1         — K1 against its plain version at the slice's shape (10, 316)
                   on the real stacked Gibbs Gram and on random SPD stacks, a
@@ -45,42 +46,57 @@ Phases, one JSON line each:
   9. dgp_ref    — the deep GP on the card at full width (M = 250) for 2
                   splits and 10 steps, from the init, batch schedule and ε
                   of the JAX run pinned in tests/fixtures/jax_deepgp_ref.npz:
-                  its losses at steps 0 and 9 against JAX's, and each K_zz
-                  member's jitter at init against the pinned run's;
+                  its losses at steps 0 and 9 against JAX's, each K_zz
+                  member's jitter at init against the pinned run's, one K4
+                  call and one K7 forward and backward per step;
  10. dgp        — the whole experiment (10 splits, 400 steps, M = 250):
                   RMSE/NLPD against the deepgp_spatial_10split band, K4's
-                  launch count against what the code implies, steps/s;
+                  and K7's launch counts against what the code implies,
+                  steps/s;
  11. k4         — K4 against its plain version on the experiment's init and
                   trained payloads (50 × M = 250, D = 2, P = 501) and a
                   ragged (3, 37, D = 3), each held to float64 as in
                   tests/test_torch_svgp_precompute.py, and K4's L⁻¹
                   residual and W to entrywise γ_M bounds; the retry case (a
                   duplicated z at s² = 40) beside a healthy member; times;
- 12. k5         — K5, its plain version and torch.linalg.cholesky against
+ 12. k7         — K7's forward and backward, and the plain version in f32,
+                  against the plain version in float64 on the experiment's
+                  init and trained payloads (10 splits, B 315, S 3, M 250),
+                  a ragged (3, 37, 2, 19) and one whose variances hit the
+                  1e-10 floor; bitwise repeat; the times of the kernels, the
+                  plain version, and the fused term against the composed
+                  data term through autograd;
+ 13. field_regression — the whole experiment (spatial DeepGP, 400 steps,
+                  and the spatio-temporal one, 200 steps): the spatial field
+                  against the reference artifact inside the
+                  dgp_field_regression band, K7 launched once forward and
+                  once backward per spatial step, K4 once per step and
+                  predict of either half;
+ 14. k5         — K5, its plain version and torch.linalg.cholesky against
                   float64 on the dense run's N = 8192 Gram at init and a
                   ragged N = 6500 SPD matrix (padded to 6656), K5's backward
                   error against γ_(N+1)|L||Lᵀ|; a rank-30 matrix through
                   safe_cholesky's retry; times of all three;
- 13. exact_dense — bench_scaling.py's exact loop (N = 1024..8192, 20 Adam
+ 15. exact_dense — bench_scaling.py's exact loop (N = 1024..8192, 20 Adam
                   steps each): K5 called exactly once per step at N = 8192
                   and no other kernel, the N = 8192 losses at steps 0 and 19
                   against the same loop with the plain version in K5's
                   place, ms/step at every N;
- 14. seard_ref  — 2 splits × 51 steps of the seard fit against the JAX run
+ 16. seard_ref  — 2 splits × 51 steps of the seard fit against the JAX run
                   pinned in tests/fixtures/jax_exact_ref.npz (steps 0, 50);
- 15. seard      — the whole experiment (10 splits, 400 steps) inside the
+ 17. seard      — the whole experiment (10 splits, 400 steps) inside the
                   seard_spatial_10split band, no kernel launched;
- 16. temporal   — the whole experiment (2000 steps) inside the temporal
+ 18. temporal   — the whole experiment (2000 steps) inside the temporal
                   band, no kernel launched;
- 17. exact_lazy_ref — the matrix-free ExactGP at N = 2048 on the pinned JAX
+ 19. exact_lazy_ref — the matrix-free ExactGP at N = 2048 on the pinned JAX
                   run's data and probe draws: its losses at steps 0 and 19;
- 18. exact_lazy — the matrix-free gate at N = 16384 (20 steps, rank 150, 32
+ 20. exact_lazy — the matrix-free gate at N = 16384 (20 steps, rank 150, 32
                   mBCG iterations): relres, the loss against the float64
                   Cholesky oracle, the gradient cosine (lengthscale,
                   outputscale and noise gradients non-zero), the predictive
                   mean at 64 points against the dense posterior's, K6's
                   launch count against what the code implies;
- 19. k6         — K6 and its plain version against float64 on the gate's
+ 21. k6         — K6 and its plain version against float64 on the gate's
                   trained payload (16384², R = 9) and a column-chunked
                   (2048 × 16384, R = 200), bitwise repeat; times.
 
@@ -168,6 +184,23 @@ K4_RAGGED = (3, 37, 3)
 # the retried member: L Lᵀ reconstructs K + jitter·I to 5e-2 at s² = 40
 # (tests/test_pallas.py:449's band)
 K4_RETRY_RECON = 5e-2
+# K7 against float64: the value and every cotangent of the kernel within
+# twice the plain f32 version's error (relative to the largest float64
+# entry) plus a slack of 1e-6 for the value and 1e-4 for the cotangents:
+# both sum in f32 through a chain of exps, in other orders (on the TPU the
+# Pallas backward differed from the plain one by up to 2.3e-4 of the
+# largest entry in interpret mode).
+K7_SLACK = {"value": 1e-6, "cotangent": 1e-4}
+# Errors are relative to the largest float64 entry, or to K7_FLOOR where that
+# is smaller: at the deep GP's init (q(u) = N(0, I)) the z, ℓ and mean-weight
+# cotangents vanish in exact arithmetic (the two halves of outbar·Wᵀ cancel),
+# and what both f32 versions return there is rounding.
+K7_FLOOR = 1e-6
+K7_RAGGED = (3, 37, 2, 19)  # T, B, S, M: a ragged tile and chunk, M not a multiple of 32
+K7_CLIP = (2, 50, 3, 32)
+# The RESULTS band of dgp_field_regression (run_benchmarks.py:37),
+# hardware-independent: RMSE between the fields and 1 − their correlation.
+FIELD_RMSE, FIELD_1MCORR = 0.60, 0.10
 # K5 against float64, as tests/test_pallas.py holds the JAX kernel: its
 # factor's largest error must stay within twice torch.linalg.cholesky's own
 # (cuSOLVER potrf, f32) plus a floor of 1e-6 of the largest entry; and its
@@ -406,18 +439,19 @@ def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
 
 def launch_counts() -> dict:
     """Every hand-written kernel's launch count, by name."""
-    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, matvec, svgp_precompute
+    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, elbo_fused, matvec, svgp_precompute
 
     return {"chol_inv_batched": chol_inv.LAUNCHES, "svgp_precompute": svgp_precompute.LAUNCHES,
-            "streaming_cholesky": chol_stream.LAUNCHES, **matvec.LAUNCHES}
+            "streaming_cholesky": chol_stream.LAUNCHES, **matvec.LAUNCHES, **elbo_fused.LAUNCHES}
 
 
 def reset_launches():
-    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, matvec, svgp_precompute
+    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, elbo_fused, matvec, svgp_precompute
 
     chol_inv.LAUNCHES = svgp_precompute.LAUNCHES = chol_stream.LAUNCHES = 0
-    for k in matvec.LAUNCHES:
-        matvec.LAUNCHES[k] = 0
+    for counts in (matvec.LAUNCHES, elbo_fused.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def check_launches(want: dict, path: str) -> dict:
@@ -548,8 +582,8 @@ def phase_k3(matvec, payloads, dev):
     return errs, t, b_ms, b_by
 
 
-def build_all(chol_inv, matvec, svgp_precompute, chol_stream):
-    """The four nvcc runs at once, each timed on its own."""
+def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused):
+    """The five nvcc runs at once, each timed on its own."""
     def timed(build):
         t0 = time.perf_counter()
         log = build(force=True)
@@ -558,14 +592,15 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream):
     def lines(log):
         return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
-    with ThreadPoolExecutor(4) as pool:
-        jobs = [pool.submit(timed, m.build) for m in (chol_inv, matvec, svgp_precompute, chol_stream)]
-        (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log), (k5_s, k5_log) = (j.result() for j in jobs)
+    with ThreadPoolExecutor(5) as pool:
+        jobs = [pool.submit(timed, m.build) for m in (chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused)]
+        (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log), (k5_s, k5_log), (k7_s, k7_log) = (j.result() for j in jobs)
     emit("build", kernel="chol_inv_batched", seconds=k1_s,
          ptxas=[ln.strip() for ln in k1_log.splitlines() if "registers" in ln or "spill" in ln])
     emit("build", kernel="gibbs_matvec", seconds=gm_s, ptxas=ptxas_summary(gm_log))
     emit("build", kernel="svgp_precompute", seconds=k4_s, ptxas=lines(k4_log))
     emit("build", kernel="chol_stream", seconds=k5_s, ptxas=lines(k5_log))
+    emit("build", kernel="elbo_fused", seconds=k7_s, ptxas=lines(k7_log))
 
 
 def phase_dgp_ref(deepgp_spatial, svgp_precompute, dev):
@@ -599,11 +634,12 @@ def phase_dgp_ref(deepgp_spatial, svgp_precompute, dev):
     mismatch = [[k, i] for k, i in zip(*np.nonzero((jitter > 0) != ref["jitter_init"]))]
     eps = [tuple(torch.as_tensor(ref[f"eps_{i}"][:, k], device=dev) for i in range(cfg.num_layers))
            for k in range(len(splits))]
-    before = svgp_precompute.LAUNCHES
+    reset_launches()
     res = fit_minibatched_splits(unstack_module(init, len(splits)), deepgp_spatial._loss_fn(x.shape[1]),
                                  [p[1][0] for p in preps], [p[1][1] for p in preps], eps, num_epochs=steps,
                                  batch_size=cfg.batch_size, lr=float(ref["lr"]), seeds=splits)
-    check(svgp_precompute.LAUNCHES - before == steps, "one K4 launch per step")
+    # one K4 call and one K7 forward and backward per step
+    check_launches({"svgp_precompute": steps, "elbo_data_term_fwd": steps, "elbo_data_term_bwd": steps}, "dgp_ref")
     losses = res.losses
     rel = np.abs(losses - ref["losses"]) / np.abs(ref["losses"])
     check(bool(np.isfinite(losses).all()), "every loss finite")
@@ -619,14 +655,15 @@ def phase_dgp_ref(deepgp_spatial, svgp_precompute, dev):
 
 def phase_dgp(deepgp_spatial, svgp_precompute, dev_name: str):
     """The whole deep GP experiment at its default configuration (400
-    epochs), counting K4's launches over it."""
+    epochs), counting K4's and K7's launches over it."""
     cfg = deepgp_spatial.default_config().parse_args(["--device", "cuda"])
     reset_launches()
     out = deepgp_spatial.run(cfg)
-    launches = svgp_precompute.LAUNCHES
-    # one call per training step (each loss builds every layer's factors in
-    # one call) and one for the stacked predict; no other kernel
-    check_launches({"svgp_precompute": out["steps"] + 1}, "dgp")
+    # K4: one call per training step (each loss builds every layer's
+    # factors in one call) and one for the stacked predict; K7: one forward
+    # and one backward per training step; no other kernel
+    launches = check_launches({"svgp_precompute": out["steps"] + 1, "elbo_data_term_fwd": out["steps"],
+                               "elbo_data_term_bwd": out["steps"]}, "dgp")
     losses = out["losses"]
     check(losses.shape == (out["steps"], cfg.num_splits), f"loss trace shape {losses.shape}")
     check(bool(np.isfinite(losses).all()), "every loss finite")
@@ -746,6 +783,183 @@ def phase_k4(deepgp_spatial, svgp_precompute, trained_model, dev):
          retry={"jitter": jit.tolist(), "plain_jitter": pjit.tolist(), "recon_err": recon},
          ops=ops, bound_ms=b_ms, bound_by=b_by, timed_calls=2 * N_TIMED, **timed)
     return errs, timed, b_ms, b_by
+
+
+def k7_random(gen, t, b, s, m, clip, dev):
+    """K7's inputs at random (float32 on ``dev``): z ~ N(0, 1), ℓ, s² near 1,
+    W ~ 0.2·N(0, 1) with its A-block (columns M+1..2M) scaled by 0.1, or by
+    6 in layer 1's first group and the head when ``clip`` (their variances
+    then hit the 1e-10 floor at some rows)."""
+    w = 0.2 * torch.randn(t, 5, m, 2 * m + 1, generator=gen)
+    w[..., m + 1:] *= 0.1
+    if clip:
+        w[:, [0, 4], :, m + 1:] *= 60.0
+    params = {"z": torch.randn(t, 5, m, 2, generator=gen),
+              "ell": torch.exp(0.2 * torch.randn(t, 5, 2, generator=gen)) + 0.3,
+              "s2": torch.exp(0.2 * torch.randn(t, 5, generator=gen)), "w": w}
+    for k, shape in (("mw1", (2, 2)), ("mb1", (2,)), ("mw2", (2, 2)), ("mb2", (2,)), ("mbh", (1,))):
+        params[k] = 0.2 * torch.randn(t, *shape, generator=gen)
+    x = torch.randn(t, b, 2, generator=gen)
+    y = torch.sin(x[..., 0]) + 0.1 * torch.randn(t, b, generator=gen)
+    e1, e2 = (torch.randn(t, s, 2, b, generator=gen) for _ in range(2))
+    noise = 0.2 * torch.exp(0.3 * torch.randn(t, generator=gen))
+    return (x.to(dev), y.to(dev), e1.to(dev), e2.to(dev), {k: v.to(dev) for k, v in params.items()}, noise.to(dev))
+
+
+def k7_payload(model, xs, ys, eps):
+    """K7's inputs on the deep GP's path: the stacked model's packed
+    parameters (W from K4) at one step's batch and ε."""
+    with torch.no_grad():
+        params = {k: v.detach().contiguous() for k, v in model.elbo_params().items()}
+        noise = model.likelihood.noise.detach().reshape(-1).contiguous()
+    return xs, ys, eps[0].contiguous(), eps[1].contiguous(), params, noise
+
+
+def k7_errors(elbo_fused, args, gbar):
+    """K7's forward and backward and the plain version in float32, each
+    against the plain version in float64 on the same inputs, relative to
+    the largest float64 entry (at least K7_FLOOR): the kernel's error within
+    twice the plain f32 version's plus K7_SLACK, for the value and every
+    cotangent.
+    Returns the errors and the kernel's largest absolute differences from
+    the plain f32 version (forward, backward)."""
+    k_dt, k_h1, k_h2 = elbo_fused.elbo_fwd_cuda(*args)
+    k_bars, k_nb, k_yb = elbo_fused.elbo_bwd_cuda(*args, k_h1, k_h2, gbar)
+
+    def plain(dtype):
+        x, y, e1, e2, params, noise = args
+        a = [v.to(dtype) for v in (x, y, e1, e2)]
+        p = {k: v.to(dtype) for k, v in params.items()}
+        dt, res = elbo_fused.reference_fwd(*a, p, noise.to(dtype))
+        bars, nb, yb = elbo_fused.reference_bwd(*a, p, noise.to(dtype), res, gbar.to(dtype))
+        return {"value": dt, **bars, "noise": nb, "y": yb, "h1": res[1], "h2": res[2]}
+
+    p32, p64 = plain(torch.float32), plain(torch.float64)
+    got = {"value": k_dt, **k_bars, "noise": k_nb, "y": k_yb, "h1": k_h1.reshape(p64["h1"].shape),
+           "h2": k_h2.reshape(p64["h2"].shape)}
+    torch.cuda.synchronize()
+    errs, fwd_diff, bwd_diff = {}, 0.0, 0.0
+    for name, ref in p64.items():
+        largest = float(ref.abs().max())
+        scale = max(largest, K7_FLOOR)
+        ek = float((got[name].double() - ref).abs().max()) / scale
+        ep = float((p32[name].double() - ref).abs().max()) / scale
+        diff = float((got[name] - p32[name]).abs().max())
+        check(bool(torch.isfinite(got[name]).all()), f"K7 {name} finite")
+        errs[name] = {"kernel_vs_f64": ek, "plain_vs_f64": ep, "largest": largest, "kernel_vs_plain": diff}
+        if name in ("value", "h1", "h2"):
+            fwd_diff = max(fwd_diff, diff)
+        else:
+            bwd_diff = max(bwd_diff, diff)
+        if name not in ("h1", "h2"):  # the sampled layer outputs are reported, not held
+            slack = K7_SLACK["value" if name == "value" else "cotangent"]
+            check(ek <= 2 * ep + slack,
+                  f"K7 {name} vs float64 {ek:.3g} within 2x the plain version's {ep:.3g} (+{slack})")
+    return errs, fwd_diff, bwd_diff
+
+
+def phase_k7(deepgp_spatial, elbo_fused, trained_model, dev):
+    """K7 against its plain version in float64 on the deep GP's init and
+    trained payloads (10 splits, B 315, S 3, M 250), a ragged one and one
+    whose variances hit the floor; a bitwise repeat; the times of the
+    kernels, the plain version and the composed data term through
+    autograd."""
+    from nonstationary_precip_tpu_torch.data.dataprep import load_csv
+    from nonstationary_precip_tpu_torch.train.vmapped import stack_modules
+    from nonstationary_precip_tpu_torch.utils.config import DATASET_DIR
+
+    cfg = deepgp_spatial.default_config().parse_args(["--num_epochs", "1", "--device", "cuda"])
+    data = load_csv(DATASET_DIR / "uib_spatial.csv")
+    preps = [deepgp_spatial.prep_split(data, s, cfg, torch.float32, dev) for s in range(cfg.num_splits)]
+    xs = torch.stack([p[1][0] for p in preps])
+    ys = torch.stack([p[1][1] for p in preps])
+    eps = [torch.stack([p[3][i][0] for p in preps]) for i in range(cfg.num_layers)]  # step 0's ε, (T, S, O, B)
+    payloads = {"init": k7_payload(stack_modules([p[0] for p in preps]), xs, ys, eps),
+                "trained": k7_payload(trained_model, xs, ys, eps)}
+    t, b, m = xs.shape[0], xs.shape[1], payloads["init"][4]["z"].shape[2]
+    s = eps[0].shape[1]
+    check((t, b, s, m) == (10, 315, 3, 250), f"the path's K7 shape {(t, b, s, m)}")
+    gen = torch.Generator().manual_seed(41)
+    payloads["ragged"] = k7_random(gen, *K7_RAGGED, False, dev)
+    payloads["clip"] = k7_random(gen, *K7_CLIP, True, dev)
+    with torch.no_grad():
+        x, _, _, _, params, _ = payloads["clip"]
+        _, var, _, _ = elbo_fused._marginals(x.double(), *elbo_fused._groups(
+            {k: v.double() for k, v in params.items()}, slice(0, 2)))
+    clipped = float((var <= elbo_fused.VAR_FLOOR).double().mean())
+    check(0.0 < clipped < 1.0, f"the clip payload puts some of layer 1's variances on the floor: {clipped:.3g}")
+    errs, fwd_diff, bwd_diff = {}, 0.0, 0.0
+    for name, args in payloads.items():
+        gbar = torch.linspace(0.5, 1.5, args[0].shape[0], device=dev)
+        errs[name], fd, bd = k7_errors(elbo_fused, args, gbar)
+        fwd_diff, bwd_diff = max(fwd_diff, fd), max(bwd_diff, bd)
+
+    args = payloads["trained"]
+    gbar = torch.ones(t, device=dev)
+    runs = []
+    for _ in range(2):
+        dt, h1, h2 = elbo_fused.elbo_fwd_cuda(*args)
+        bars, nb, yb = elbo_fused.elbo_bwd_cuda(*args, h1, h2, gbar)
+        runs.append([dt, h1, h2, nb, yb, *bars.values()])
+    check(all(torch.equal(a, c) for a, c in zip(*runs)), "K7 bitwise repeatable")
+
+    x, y, e1, e2, params, noise = args
+    fwd = timed_pair(lambda: elbo_fused.elbo_fwd_cuda(*args), lambda: elbo_fused.reference_fwd(*args), N_TIMED)
+    res = elbo_fused.reference_fwd(*args)[1]
+    bwd = timed_pair(lambda: elbo_fused.elbo_bwd_cuda(*args, h1, h2, gbar),
+                     lambda: elbo_fused.reference_bwd(*args, res, gbar), N_TIMED)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    leaf_noise = noise.clone().requires_grad_(True)
+
+    def value_and_grad(fn):
+        def run():
+            dt = fn(x, y, e1, e2, leaves, leaf_noise)
+            torch.autograd.grad(dt.sum(), [*leaves.values(), leaf_noise])
+        return run
+
+    # the fused term (both kernels) against the composed data term: the
+    # plain forward in torch ops with autograd's backward
+    step = timed_pair(value_and_grad(elbo_fused.fused_data_term),
+                      value_and_grad(lambda *a: elbo_fused.reference_fwd(*a)[0]), N_TIMED)
+    p = 2 * m + 1
+    ops = 2.0 * t * (2 + 3 * s) * b * m * p  # the eleven K_xz·W products per x row
+    io = 4.0 * (t * b * 3 + 2 * t * s * 2 * b + t * 5 * m * 3 + t * 14)  # x, y, ε, z, ℓ, s², mean weights, σ²
+    fwd_bound = bound(ops, io + 4.0 * (t * 5 * m * p + t + 2 * t * s * b * 2))  # + W; value, h₁, h₂
+    # out again, outbar·Wᵀ and K_xzᵀ·outbar: three times the forward's
+    # products; reads W, h₁, h₂; writes W̄ and the small cotangents
+    bwd_bound = bound(3 * ops, io + 4.0 * (2 * t * 5 * m * p + 2 * t * s * b * 2 + t * 5 * m * 3 + t * b))
+    emit("k7", shape=[t, b, s, m], ragged=list(K7_RAGGED), clip=list(K7_CLIP), clipped_share=clipped, errors=errs,
+         ops_fwd=ops, ops_bwd=3 * ops, fwd={**fwd, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
+         bwd={**bwd, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
+         fused_vs_composed={"fused_ms": step["ms"], "composed_ms": step["plain_ms"], "blocks_ms": step["blocks_ms"]},
+         timed_calls=2 * N_TIMED)
+    return {"fwd": {**fwd, "bound": fwd_bound, "max_abs_err": fwd_diff},
+            "bwd": {**bwd, "bound": bwd_bound, "max_abs_err": bwd_diff}}
+
+
+def phase_field_regression(field_regression, dev_name: str):
+    """The whole field-regression experiment at its default configuration
+    (400 epochs, both halves): the spatial field inside the
+    dgp_field_regression band, K7 launched once forward and once backward
+    per spatial step and never by the D = 3 half."""
+    cfg = field_regression.default_config().parse_args(["--device", "cuda"])
+    reset_launches()
+    out = field_regression.run(cfg)
+    sp, st = out["spatial_steps"], out["st_steps"]
+    # K4: one call per step and one per predict of either half; K7: the
+    # spatial half's steps only (D = 3 is outside its gate)
+    launches = check_launches({"svgp_precompute": sp + st + 2, "elbo_data_term_fwd": sp,
+                               "elbo_data_term_bwd": sp}, "field_regression")
+    for key in ("rmse_vs_ref", "corr_vs_ref", "corr_truth", "st_corr"):
+        check(bool(np.isfinite(out[key])), f"{key} finite")
+    check(out["rmse_vs_ref"] <= FIELD_RMSE, f"field RMSE vs the reference {out['rmse_vs_ref']:.4f} <= {FIELD_RMSE}")
+    check(1 - out["corr_vs_ref"] <= FIELD_1MCORR,
+          f"1 − field corr vs the reference {1 - out['corr_vs_ref']:.4f} <= {FIELD_1MCORR}")
+    emit("field_regression", steps={"spatial": sp, "st": st}, launches=launches, rmse_vs_ref=out["rmse_vs_ref"],
+         one_minus_corr_vs_ref=1 - out["corr_vs_ref"], corr_truth=out["corr_truth"],
+         corr_truth_ref=out["corr_truth_ref"], st_corr=out["st_corr"], st_sites=out["st_sites"],
+         spatial_train_seconds=out["spatial_train_seconds"], st_train_seconds=out["st_train_seconds"],
+         wall_seconds=out["wall_seconds"], device=dev_name)
 
 
 def k5_errors(chol_stream, a):
@@ -1009,13 +1223,13 @@ def main(argv=None):
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    from nonstationary_precip_tpu_torch.experiments import (deepgp_spatial, exact_largen, gibbs_largen, seard_spatial,
-                                                            spatial_gibbs, temporal)
-    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, matvec, svgp_precompute
+    from nonstationary_precip_tpu_torch.experiments import (deepgp_spatial, exact_largen, field_regression,
+                                                            gibbs_largen, seard_spatial, spatial_gibbs, temporal)
+    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, elbo_fused, matvec, svgp_precompute
     from nonstationary_precip_tpu_torch.utils import config
 
     dev = config.device("cuda")
-    build_all(chol_inv, matvec, svgp_precompute, chol_stream)
+    build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused)
 
     errs, ms, plain_ms = phase_k1(chol_inv, spatial_gibbs, dev)
     launches = phase_slice(chol_inv, spatial_gibbs, args.steps, name)
@@ -1027,6 +1241,8 @@ def main(argv=None):
     phase_dgp_ref(deepgp_spatial, svgp_precompute, dev)
     dgp_out, dgp_launches = phase_dgp(deepgp_spatial, svgp_precompute, name)
     k4_errs, k4_t, k4_bound, k4_by = phase_k4(deepgp_spatial, svgp_precompute, dgp_out["model"], dev)
+    k7 = phase_k7(deepgp_spatial, elbo_fused, dgp_out["model"], dev)
+    phase_field_regression(field_regression, name)
     k5 = phase_k5(chol_stream, exact_largen, dev)
     k5_launches = phase_exact_dense(exact_largen, chol_stream, name)
     phase_seard_ref(seard_spatial, dev)
@@ -1058,9 +1274,15 @@ def main(argv=None):
          "plain_ms": k3_t["plain_ms"], "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "svgp_precompute", "route": "cuda",
          "source": "nonstationary_precip_tpu_torch/csrc/svgp_precompute.cu",
-         "replaces": "nonstationary_precip_tpu/ops/pallas_svgp.py:367", "launches": dgp_launches,
+         "replaces": "nonstationary_precip_tpu/ops/pallas_svgp.py:367", "launches": dgp_launches["svgp_precompute"],
          "max_abs_err": max(e["max_abs_err"] for e in k4_errs.values()), "ms": k4_t["ms"],
          "plain_ms": k4_t["plain_ms"], "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
+        *({"name": f"elbo_data_term_{d}", "route": "cuda",
+           "source": "nonstationary_precip_tpu_torch/csrc/elbo_fused.cu",
+           "replaces": f"nonstationary_precip_tpu/ops/pallas_elbo.py:{line}",
+           "launches": dgp_launches[f"elbo_data_term_{d}"], "max_abs_err": k7[d]["max_abs_err"], "ms": k7[d]["ms"],
+           "plain_ms": k7[d]["plain_ms"], "bound_ms": k7[d]["bound"][0], "bound_by": k7[d]["bound"][1],
+           "library_ms": None} for d, line in (("fwd", 282), ("bwd", 331))),
         {"name": "streaming_cholesky", "route": "cuda",
          "source": "nonstationary_precip_tpu_torch/csrc/chol_stream.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_chol.py:818", "launches": k5_launches,

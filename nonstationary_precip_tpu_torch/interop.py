@@ -95,6 +95,28 @@ def deepgp_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float3
                   share_hidden=share_hidden, num_layers=num_layers)
 
 
+#: The JAX fused data term's parameter dict (``pallas_elbo._reference_fwd``),
+#: by the port's key: the five output groups go side by side.
+ELBO_GROUPS = {"z": ("z1", "z2", "zh"), "ell": ("ell1", "ell2", "ellh"), "s2": ("s21", "s22", "s2h"),
+               "w": ("w1", "w2", "wh")}
+ELBO_MEANS = ("mw1", "mb1", "mw2", "mb2", "mbh")
+
+
+def elbo_params_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float32) -> dict:
+    """The port's fused-data-term parameters (``ops/elbo_fused.py``) from the
+    JAX package's stacked-group dict of numpy arrays, single (one model,
+    given a member axis of 1) or stacked on a leading member axis."""
+    stacked = np.ndim(params["z1"]) == 4
+
+    def a(key):
+        v = np.asarray(params[key])
+        return v if stacked else v[None]
+
+    out = {k: np.concatenate([a(g) for g in groups], axis=1) for k, groups in ELBO_GROUPS.items()}
+    out.update({k: a(k) for k in ELBO_MEANS})
+    return {k: torch.tensor(v, dtype=dtype, device=device) for k, v in out.items()}
+
+
 def exact_gp_from_jax(params: Mapping[str, np.ndarray], kernel: nn.Module, device,
                       dtype=torch.float32) -> ExactGP:
     """The port's ``ExactGP`` around ``kernel`` (the port's module of the

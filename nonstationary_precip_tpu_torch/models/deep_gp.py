@@ -15,8 +15,10 @@ take ε as one (..., S, O, B) tensor per hidden layer, where the JAX package
 draws it inside from a key.  Leading batch axes (the split axis of a
 stacked model) pass through.  Layers are distinct by default;
 ``share_hidden=True`` reapplies one hidden layer, with one KL, as the
-reference does.  The full-covariance propagation and the fused data term
-(K7) are not ported yet.
+reference does.  ``loss`` takes the fused data term (K7,
+``ops/elbo_fused.py``) where its gate admits the model and the batch, as
+the JAX package's ``_fused_loss`` does; the full-covariance propagation is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ from torch import nn
 
 from nonstationary_precip_tpu_torch.models.distributions import DiagNormal
 from nonstationary_precip_tpu_torch.models.likelihoods import GaussianLikelihood
-from nonstationary_precip_tpu_torch.models.svgp import SVGPLayer, precompute_layers
+from nonstationary_precip_tpu_torch.models.svgp import SVGPLayer, precompute_inputs, precompute_layers
+from nonstationary_precip_tpu_torch.ops import elbo_fused
+from nonstationary_precip_tpu_torch.ops.svgp_precompute import svgp_precompute_fused
 
 NUM_OUTPUT_DIMS = 2  # reference module constant, dgps.py:13
 
@@ -98,12 +102,65 @@ class DeepGP(nn.Module):
 
     # -- objective ---------------------------------------------------------------
 
+    def _fused_ineligible(self, x, y, eps, any_float: bool):
+        """Why the fused data term does not take this model and batch, or None
+        where it does: the JAX ``_fused_loss``'s topology checks, then
+        ``elbo_fused.ineligible``."""
+        if self.share_hidden or self.num_layers != 2 or len(self.layers) != 2:
+            return "the fused data term takes 2 distinct hidden layers"
+        l1, l2, hd = self.layers[0], self.layers[1], self.head
+        if (l1.mean_type, l2.mean_type, hd.mean_type) != ("linear", "linear", "constant"):
+            return "the fused data term takes linear hidden means and a constant head mean"
+        lead, b = l1.var_mean.shape[:-2], x.shape[-2]
+        if (x.shape[:-2] != lead or y.shape != (*lead, b) or len(eps) != 2
+                or any(e.shape[:-3] != lead or e.shape[-2:] != (2, b) or e.shape[-3] != eps[0].shape[-3]
+                       for e in eps)):
+            return "the fused data term takes x, y and ε with the model's batch axes and one S"
+        return elbo_fused.ineligible(x, l1.z.shape, l2.z.shape, hd.z.shape, any_float=any_float)
+
+    def elbo_params(self):
+        """The fused data term's parameters (``ops/elbo_fused.py``'s layout,
+        batch axes folded into the member axis T), W from one K4 call over
+        the three layers: the counterpart of the packing in the JAX
+        ``_fused_loss``."""
+        l1, l2, hd = self.layers[0], self.layers[1], self.head
+        z, ell, s2, packed = precompute_inputs([l1, l2, hd])
+        _, w, _ = svgp_precompute_fused(z, ell, s2, packed)
+        m = z.shape[-2]
+        t = z.shape[0] // 5
+        return {"z": z.reshape(t, 5, m, 2), "ell": ell.reshape(t, 5, 2), "s2": s2.reshape(t, 5),
+                "w": w.reshape(t, 5, m, w.shape[-1]), "mw1": l1.mean_w.reshape(t, 2, 2),
+                "mb1": l1.mean_b.reshape(t, 2), "mw2": l2.mean_w.reshape(t, 2, 2), "mb2": l2.mean_b.reshape(t, 2),
+                "mbh": hd.mean_b.reshape(t, 1)}
+
+    def _fused_loss(self, x, y, num_data: int, eps):
+        params = self.elbo_params()
+        t = params["z"].shape[0]
+        lead, b = self.layers[0].var_mean.shape[:-2], x.shape[-2]
+        s = eps[0].shape[-3]
+        data_term = elbo_fused.fused_data_term(
+            x.reshape(t, b, 2).contiguous(), y.reshape(t, b).contiguous(),
+            *(e.reshape(t, s, 2, b).contiguous() for e in eps), params,
+            self.likelihood.noise.reshape(t).contiguous())
+        kl = self.head.kl() + self.layers[0].kl() + self.layers[1].kl()
+        return -(data_term.reshape(lead) - kl / num_data)
+
     def loss(self, x, y, num_data: int, eps: Sequence[torch.Tensor], *, full_cov: bool = False, fused_elbo=None):
         """−ELBO per datum, one per batch entry; num_data is the full
-        training-set N for the KL scaling.  ``fused_elbo=True`` asks for the
-        fused data term (K7), which is not ported yet."""
-        if fused_elbo:
-            raise NotImplementedError("DeepGP.loss(fused_elbo=True) (K7) is not yet ported")
+        training-set N for the KL scaling.
+
+        ``fused_elbo``: None takes the fused data term (K7: the kernels on
+        the card, the plain version on the CPU) wherever its gate admits the
+        call, float32 only, and the composed path elsewhere, as the JAX
+        gate does; True takes the fused term or raises outside the gate (on
+        the CPU any float dtype, for checks in float64); False takes the
+        composed path."""
+        if not full_cov and fused_elbo is not False:
+            reason = self._fused_ineligible(x, y, eps, any_float=fused_elbo is True and x.device.type == "cpu")
+            if reason is None:
+                return self._fused_loss(x, y, num_data, eps)
+            if fused_elbo:
+                raise ValueError(f"DeepGP.loss(fused_elbo=True): {reason}")
         means, variances = self.propagate(x, eps, full_cov=full_cov)
         noise = self.likelihood.noise[..., None, None]
         ell = -0.5 * (torch.log(2.0 * math.pi * noise) + ((y[..., None, :] - means) ** 2 + variances) / noise)

@@ -33,7 +33,8 @@ from nonstationary_precip_tpu_torch import interop
 from nonstationary_precip_tpu_torch.data import dataprep
 from nonstationary_precip_tpu_torch.experiments import deepgp_spatial
 from nonstationary_precip_tpu_torch.train.optim import _epoch_schedule, fit_minibatched, fit_minibatched_splits
-from nonstationary_precip_tpu_torch.train.vmapped import unstack_module
+from nonstationary_precip_tpu_torch.models.deep_gp import DeepGP
+from nonstationary_precip_tpu_torch.train.vmapped import stack_modules, unstack_module
 
 torch.set_num_threads(1)
 
@@ -159,11 +160,111 @@ def test_not_yet_ported_raises():
     x = torch.zeros(4, 2, dtype=torch.float64)
     eps = [torch.zeros(1, 2, 4, dtype=torch.float64)] * 2
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        pm.loss(x, torch.zeros(4, dtype=torch.float64), 4, eps, fused_elbo=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
         pm.propagate(x, eps, full_cov=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         pm.layers[0].joint(x)
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+def test_fused_loss_and_every_gradient_match_jax_composed(splits):
+    """The port's loss through the fused data term (K7's plain version, its
+    hand-derived backward, and on into K4's plain backward) against JAX's
+    composed loss: the value and every leaf's gradient to 1e-8 in f64, for
+    one model and for two stacked on a split axis."""
+    jms = [jax_model(30 + k) for k in range(splits)]
+    rng = np.random.default_rng(31)
+    data = [_data(rng, 13) for _ in range(splits)]
+    keys = [jax.random.PRNGKey(32 + k) for k in range(splits)]
+    s = 3
+
+    def jloss(m, key, x, y):
+        return m.loss(key, jnp.asarray(x), jnp.asarray(y), num_data=40, num_samples=s, fused_elbo=False)
+
+    vg = jax.jit(jax.value_and_grad(jloss))
+    ref = [vg(jm, key, *d) for jm, key, d in zip(jms, keys, data)]
+    eps = [[torch.from_numpy(e) for e in jax_eps(key, s, 2, 13)] for key in keys]
+    if splits == 1:
+        pm, x, y, eps = port_model(jms[0]), torch.from_numpy(data[0][0]), torch.from_numpy(data[0][1]), eps[0]
+    else:
+        pm = stack_modules([port_model(jm) for jm in jms])
+        x = torch.stack([torch.from_numpy(d[0]) for d in data])
+        y = torch.stack([torch.from_numpy(d[1]) for d in data])
+        eps = [torch.stack(e) for e in zip(*eps)]
+    lp = pm.loss(x, y, 40, eps, fused_elbo=True)
+    torch.sum(lp).backward()
+    np.testing.assert_allclose(lp.detach().numpy(), np.squeeze([float(r[0]) for r in ref]), rtol=1e-8)
+    named = dict(pm.named_parameters())
+    for k, (_, gj) in enumerate(ref):
+        for name, g in jax_leaves(gj).items():
+            got = named[name].grad.numpy() if splits == 1 else named[name].grad.numpy()[k]
+            np.testing.assert_allclose(got, g, rtol=1e-8, atol=1e-8 * np.abs(g).max(), err_msg=name)
+
+
+def _spy_paths(monkeypatch):
+    """Counts of the fused and the composed data term's calls."""
+    from nonstationary_precip_tpu_torch.models import deep_gp
+
+    calls = {"fused": 0, "composed": 0}
+    fused, propagate = deep_gp.elbo_fused.fused_data_term, deep_gp.DeepGP.propagate
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(deep_gp.elbo_fused, "fused_data_term", count("fused", fused))
+    monkeypatch.setattr(deep_gp.DeepGP, "propagate", count("composed", propagate))
+    return calls
+
+
+@pytest.mark.parametrize(
+    "case,path",
+    [
+        ("eligible", "fused"),
+        ("f64", "composed"),
+        ("share_hidden", "composed"),
+        ("d3", "composed"),
+        ("m257", "composed"),
+        ("b1025", "composed"),
+        ("forced_f64", "fused"),
+        ("off", "composed"),
+    ],
+)
+def test_fused_elbo_dispatch(case, path, monkeypatch):
+    """``fused_elbo=None`` takes the fused term for an eligible f32 call and
+    the composed path elsewhere (f64, tied layers, D = 3, M = 257,
+    B = 1025); ``True`` takes it in f64 on the CPU; ``False`` never does."""
+    calls = _spy_paths(monkeypatch)
+    gen = torch.Generator().manual_seed(0)
+    d, m, b = (3 if case == "d3" else 2), (257 if case == "m257" else 8), (1025 if case == "b1025" else 6)
+    dtype = torch.float64 if case in ("f64", "forced_f64") else torch.float32
+    model = DeepGP.create(gen, input_dims=d, num_layers=2, num_inducing=m, share_hidden=case == "share_hidden",
+                          hidden_dims=d if case == "share_hidden" else 2, dtype=dtype)
+    x = torch.randn(b, d, generator=gen, dtype=dtype)
+    eps = [torch.randn(2, 2, b, generator=gen, dtype=dtype) for _ in range(2)]
+    fused_elbo = {"forced_f64": True, "off": False}.get(case)
+    with torch.no_grad():
+        loss = model.loss(x, torch.zeros(b, dtype=dtype), 10, eps, fused_elbo=fused_elbo)
+    assert torch.isfinite(loss)
+    assert calls == {"fused": int(path == "fused"), "composed": int(path == "composed")}
+
+
+@pytest.mark.parametrize("case", ["share_hidden", "d3", "m257", "b1025", "eps_shape"])
+def test_fused_elbo_true_outside_the_gate_raises(case):
+    """``fused_elbo=True`` raises outside the gate: it never returns to the
+    composed path quietly."""
+    gen = torch.Generator().manual_seed(1)
+    d = 3 if case == "d3" else 2
+    m, b = (257 if case == "m257" else 8), (1025 if case == "b1025" else 6)
+    model = DeepGP.create(gen, input_dims=d, num_layers=2, num_inducing=m, share_hidden=case == "share_hidden",
+                          hidden_dims=d if case == "share_hidden" else 2)
+    x = torch.randn(b, d, generator=gen)
+    eps = [torch.randn(2, 2, b, generator=gen) for _ in range(2)]
+    if case == "eps_shape":  # the layers are eligible; an ε of the wrong B is refused
+        eps = [eps[0], eps[1][:, :, :-1]]
+    with pytest.raises(ValueError, match="fused_elbo=True"):
+        model.loss(x, torch.zeros(b), 10, eps, fused_elbo=True)
 
 
 @pytest.mark.parametrize("seed,n,epochs,batch", [(0, 315, 3, 315), (3, 20, 3, 8), (5, 7, 2, 10), (1, 12, 2, 4)])
