@@ -8,34 +8,41 @@ spatial_gibbs`` on the real UIB data (10 splits × 316 training points, K1),
 the large-N matrix-free gate of ``experiments.gibbs_largen`` at N = 16384
 (K2 and K3), the 10-split DSVI deep GP of ``experiments.deepgp_spatial``
 and the field regression of ``experiments.field_regression`` (K4 and K7),
-and the stationary exact GP of ``experiments.exact_largen`` (the dense
-MLL loop at N = 1024..8192, K5; the matrix-free gate at N = 16384, K6) with
-``experiments.seard_spatial`` and ``experiments.temporal``.  Each path is
-driven with every launch count set to 0 just before it and read just after.
-Phases, one JSON line each:
+the stationary exact GP of ``experiments.exact_largen`` (the dense MLL loop
+at N = 1024..8192, K10a and K5; the matrix-free gate at N = 16384, K6) with
+``experiments.seard_spatial`` and ``experiments.temporal``, and the dense
+Gibbs MAP rows of ``experiments.exact_largen.gibbs_dense`` at N = 1024 and
+1280 with their predictive (K8, K9, K10a, K11).  Each path is driven with
+every launch count set to 0 just before it and read just after.  Phases,
+one JSON line each:
 
   1. device     — the card's name; nvidia-smi's name and power limit;
   2. build      — K1 (csrc/chol_inv_batched.cu), K2/K3/K6 (csrc/gibbs_matvec.cu),
-                  K4 (csrc/svgp_precompute.cu), K5 (csrc/chol_stream.cu) and
-                  K7 (csrc/elbo_fused.cu), five nvcc runs started together, in seconds, with each
-                  kernel's registers, spills and shared memory;
+                  K4 (csrc/svgp_precompute.cu), K5 (csrc/chol_stream.cu),
+                  K7 (csrc/elbo_fused.cu), K9 (csrc/gibbs_gram.cu), K10a
+                  (csrc/chol_blocked.cu), K11 (csrc/trsm.cu) and K8
+                  (csrc/gibbs_fused.cu), nine nvcc runs started together, in
+                  seconds, with each kernel's registers, spills and shared
+                  memory;
   3. k1         — K1 against its plain version at the slice's shape (10, 316)
                   on the real stacked Gibbs Gram and on random SPD stacks, a
                   rank-deficient member through the jitter retry, then the
                   median time of each;
   4. slice      — the experiment on the card (300 Adam steps by default): K1's
-                  launch count over the run, finite and falling losses, the
+                  launch count over the run (and K9's three in the last
+                  split's field prediction), finite and falling losses, the
                   per-split losses at steps 0 and 50 against the JAX package's
                   pinned float32 values (tests/fixtures/jax_spatial_gibbs_ref.npz),
                   steps/s, mean RMSE/NLPD, the field CSV's shape;
   5. largen_ref — the large-N experiment at N = 2048 on the data and probe
                   draws of the JAX run pinned in
                   tests/fixtures/jax_gibbs_largen_ref.npz: its losses at steps
-                  0 and 19 against JAX's;
+                  0 and 19 against JAX's, K2's and K3's launch counts (no K9);
   6. largen     — the gate at N = 16384 (20 Adam steps, rank 150, 16 mBCG
                   iterations): relres of the trained-pose solve, the loss
                   against the dense Cholesky oracle, the gradient cosine,
-                  K2's and K3's launch counts against what the code implies,
+                  K2's and K3's launch counts against what the code implies
+                  (no K9: the oracle builds its Gram with the plain Gram),
                   training and wall seconds;
   7. k2         — K2 against its plain version at (16384, 16384, D = 2,
                   R = 9) on the gate's init-pose and trained-pose payloads and
@@ -78,8 +85,8 @@ Phases, one JSON line each:
                   error against γ_(N+1)|L||Lᵀ|; a rank-30 matrix through
                   safe_cholesky's retry; times of all three;
  15. exact_dense — bench_scaling.py's exact loop (N = 1024..8192, 20 Adam
-                  steps each): K5 called exactly once per step at N = 8192
-                  and no other kernel, the N = 8192 losses at steps 0 and 19
+                  steps each): K5 called exactly once per step at N = 8192,
+                  K10a once per step at N = 1024, and no other kernel, the N = 8192 losses at steps 0 and 19
                   against the same loop with the plain version in K5's
                   place, ms/step at every N;
  16. seard_ref  — 2 splits × 51 steps of the seard fit against the JAX run
@@ -98,7 +105,27 @@ Phases, one JSON line each:
                   launch count against what the code implies;
  21. k6         — K6 and its plain version against float64 on the gate's
                   trained payload (16384², R = 9) and a column-chunked
-                  (2048 × 16384, R = 200), bitwise repeat; times.
+                  (2048 × 16384, R = 200), bitwise repeat; times;
+ 22. gibbs_dense_ref — the Gibbs row at N = 1024 from the init of the JAX run
+                  pinned in tests/fixtures/jax_gibbs_dense_ref.npz: its losses
+                  at steps 0 and 19 against JAX's, then the predictive mean
+                  and variance at the pinned trained pose against JAX's;
+ 23. gibbs_dense — bench_scaling.py's Gibbs rows (N = 1024 and 1280, 20 Adam
+                  steps each) and their predictive at a 16 × 16 grid: per N,
+                  K8 once per step, K9 three times, K10a and K11 once each,
+                  and no other kernel; ms/step, RMSE and NLPD;
+ 24. k9         — K9 and its plain version against float64 on the
+                  predictive's three Grams at the rows' init and trained
+                  poses and a ragged N = 1000, bitwise repeat; times;
+ 25. k10a       — K10a, its plain version and torch.linalg.cholesky against
+                  float64 on the predictive's noisy Gram at the same poses; a
+                  rank-30 matrix through safe_cholesky's retry; times;
+ 26. k11        — K11 and its plain version against float64 on L⁻¹K_xs (K =
+                  256) and on K = 70 at the same poses, bitwise repeat; times;
+ 27. k8         — K8 and its plain version against float64 on the MAP loss's
+                  payloads at the same poses; a singular payload on which
+                  the jitter ladder fires, on the plain version's rung;
+                  bitwise repeat; times at N = 1024 and 1280.
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line and
@@ -235,6 +262,37 @@ LAZY_MEAN_TOL = 1e-2
 # differences; both sum N products in f32) plus 1e-6 of the largest entry.
 K6_FLOOR = 1e-6
 K6_WIDE = (2048, 200)  # rows and right-hand sides of the column-chunked case
+# The dense Gibbs rows of bench_scaling.py (experiments/exact_largen.gibbs_dense)
+# and their kernels' ragged size: in K8's, K10a's and K11's windows, padded
+# (to 1024) by each; K11 also at the JAX tests' ragged K = 70.
+GIBBS_NS = (1024, 1280)
+GIBBS_RAGGED = 1000
+K11_WIDTHS = (256, 70)  # the predictive's right-hand sides (the 16 × 16 grid), and 70
+GIBBS_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_gibbs_dense_ref.npz"
+# The Gibbs row at N = 1024 from the pinned JAX run's init against its losses:
+# step 0 is the same MAP loss summed in another order (the port's CPU f32
+# run: 7.4e-6); Adam's sign-like first steps let the traces drift (CPU, step
+# 19: 9.0e-6).
+GIBBS_RTOL_STEP0, GIBBS_RTOL_STEP19 = 1e-4, 1e-2
+# The predictive at the pinned trained pose against JAX's, both f32: the
+# mean within 1e-3 absolute (its entries reach 1.03; the port's CPU run:
+# 2.3e-4); the variance within 5e-4 absolute: it is k_ss − vᵀv + 1e-4 + σ²,
+# two terms of size s² = 0.644 that cancel to ~0.012, so its f32 error is
+# absolute at the scale of s² (the port's CPU run: 7.4e-5).  The card sums
+# through K9, K10a and K11 in other orders than either CPU run.
+GIBBS_MEAN_ATOL, GIBBS_VAR_ATOL = 1e-3, 5e-4
+# K9, K10a and K11 against float64, K5's criterion: the kernel's error within
+# twice the plain f32 version's plus 1e-6 of the largest float64 entry: each
+# sums in f32 in another order than its plain version (torch's elementwise
+# ops, cuSOLVER potrf, cuBLAS trsm).
+DENSE_FLOOR = 1e-6
+# K8 against float64: L within twice the plain version's error plus 1e-5 of
+# the largest entry, α plus 1e-4: the sweep sums each 128-tile's Schur
+# complement in a serial chain of up to 128 rank-1 updates where potrf
+# blocks it, on a Gram whose condition number reaches ~1e4 (σ² = 0.011), and
+# α passes through an N-step substitution (tests/test_pallas.py:176 holds
+# the TPU kernel's α to 5e-3 absolute).
+K8_FLOOR = {"L": 1e-5, "alpha": 1e-4}
 # The card's peaks (H100 SXM data sheet, at the full 700 W): f32 outside the
 # tensor cores, and HBM.
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -270,8 +328,8 @@ def ptxas_summary(log: str) -> dict:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)ELi(\d+)E(?:Lb(\d)E)?E)?", m.group(1))
-            args = [a for a in (k.groups()[1:] if k else ()) if a is not None]
+            k = re.search(r"\d([a-z][a-z_]*_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2) or "") if k else []
             name = k.group(1) + (f"<{','.join(args)}>" if args else "") if k else m.group(1)
         elif name and "spill stores" in ln:
             out[name] = re.search(r"(\d+) bytes spill stores", ln).group(1) + " spill bytes"
@@ -420,7 +478,9 @@ def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
         field = np.loadtxt(out["csv"], delimiter=",", skiprows=1)
     losses = out["losses"]
     check(launches >= steps, f"K1 launched {launches} times over {steps} steps")
-    check_launches({"chol_inv_batched": launches}, "slice")
+    # the last split's field prediction builds three 2-D Grams inside K9's
+    # gate (train 316², all sites 394², 394 × 316)
+    check_launches({"chol_inv_batched": launches, "gibbs_gram": 3}, "slice")
     check(losses.shape == (steps, 10), f"loss trace shape {losses.shape}")
     check(bool(np.isfinite(losses).all()), "every loss finite")
     check(bool((losses[-1] < losses[0]).all()), "every split's final loss below its step-0 loss")
@@ -437,18 +497,28 @@ def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
     return launches
 
 
+def _counters():
+    """{kernel name: the module holding its plain LAUNCHES count}."""
+    from nonstationary_precip_tpu_torch.ops import (chol_blocked, chol_inv, chol_stream, gibbs_fused, gibbs_gram,
+                                                    svgp_precompute, trsm)
+
+    return {"chol_inv_batched": chol_inv, "svgp_precompute": svgp_precompute, "streaming_cholesky": chol_stream,
+            "gibbs_chol_solve_fused": gibbs_fused, "gibbs_gram": gibbs_gram, "blocked_cholesky": chol_blocked,
+            "blocked_trsm": trsm}
+
+
 def launch_counts() -> dict:
     """Every hand-written kernel's launch count, by name."""
-    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, elbo_fused, matvec, svgp_precompute
+    from nonstationary_precip_tpu_torch.ops import elbo_fused, matvec
 
-    return {"chol_inv_batched": chol_inv.LAUNCHES, "svgp_precompute": svgp_precompute.LAUNCHES,
-            "streaming_cholesky": chol_stream.LAUNCHES, **matvec.LAUNCHES, **elbo_fused.LAUNCHES}
+    return {**{k: m.LAUNCHES for k, m in _counters().items()}, **matvec.LAUNCHES, **elbo_fused.LAUNCHES}
 
 
 def reset_launches():
-    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, elbo_fused, matvec, svgp_precompute
+    from nonstationary_precip_tpu_torch.ops import elbo_fused, matvec
 
-    chol_inv.LAUNCHES = svgp_precompute.LAUNCHES = chol_stream.LAUNCHES = 0
+    for m in _counters().values():
+        m.LAUNCHES = 0
     for counts in (matvec.LAUNCHES, elbo_fused.LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -463,13 +533,23 @@ def check_launches(want: dict, path: str) -> dict:
     return got
 
 
+def largen_launches(cfg, out) -> dict:
+    """K2: one launch per mBCG iteration, in each training step, in the
+    trained-pose diagnostics and in the lazy loss the oracle is held to; K3:
+    one per backward, in each step and in that loss; no other kernel (the
+    dense oracle builds its Gram with the plain Gram, not K9)."""
+    return {"gibbs_matvec": cfg.steps * out["iters"] + 2 * out["iters"], "gibbs_panel_grads": cfg.steps + 1}
+
+
 def phase_largen_ref(gibbs_largen):
     """The large-N experiment at the pinned run's N on its data and probe
     draws: the losses at steps 0 and 19 against JAX's."""
     ref = np.load(LARGEN_REF)
     cfg = gibbs_largen.LargeNConfig(n=int(ref["n"]), steps=int(ref["steps"]), rank=int(ref["rank"]),
                                     iters=int(ref["iters"]), device="cuda")
+    reset_launches()
     out = gibbs_largen.run(cfg, probe_noise=(ref["u1"], ref["u2"]), data=(ref["x"], ref["y"]))
+    check_launches(largen_launches(cfg, out), "largen_ref")
     losses = out["losses"]
     rel = np.abs(losses - ref["losses"]) / np.abs(ref["losses"])
     check(losses.shape == ref["losses"].shape, f"loss trace shape {losses.shape}")
@@ -487,11 +567,7 @@ def phase_largen(gibbs_largen, dev_name: str):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     out = gibbs_largen.run(cfg)
-    # K2: one launch per mBCG iteration, in each training step, in the
-    # trained-pose diagnostics and in the lazy loss the oracle is held to;
-    # K3: one per backward, in each step and in that loss; no other kernel
-    want = {"gibbs_matvec": cfg.steps * out["iters"] + 2 * out["iters"], "gibbs_panel_grads": cfg.steps + 1}
-    launches = check_launches(want, "largen")
+    launches = check_launches(largen_launches(cfg, out), "largen")
     check(out["relres_solve"] <= GATE_RELRES, f"relres_solve {out['relres_solve']:.3g} <= {GATE_RELRES}")
     check(out["loss_rel_diff"] <= GATE_LOSS_REL, f"loss vs dense {out['loss_rel_diff']:.3g} <= {GATE_LOSS_REL}")
     check(out["grad_cosine"] >= GATE_COSINE, f"gradient cosine {out['grad_cosine']:.5f} >= {GATE_COSINE}")
@@ -582,8 +658,9 @@ def phase_k3(matvec, payloads, dev):
     return errs, t, b_ms, b_by
 
 
-def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused):
-    """The five nvcc runs at once, each timed on its own."""
+def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram, chol_blocked, trsm,
+              gibbs_fused):
+    """The nine nvcc runs at once, each timed on its own."""
     def timed(build):
         t0 = time.perf_counter()
         log = build(force=True)
@@ -592,15 +669,19 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused):
     def lines(log):
         return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
-    with ThreadPoolExecutor(5) as pool:
-        jobs = [pool.submit(timed, m.build) for m in (chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused)]
-        (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log), (k5_s, k5_log), (k7_s, k7_log) = (j.result() for j in jobs)
+    mods = (chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram, chol_blocked, trsm, gibbs_fused)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        jobs = [pool.submit(timed, m.build) for m in mods]
+        (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log), (k5_s, k5_log), (k7_s, k7_log), *dense = (j.result()
+                                                                                                 for j in jobs)
     emit("build", kernel="chol_inv_batched", seconds=k1_s,
          ptxas=[ln.strip() for ln in k1_log.splitlines() if "registers" in ln or "spill" in ln])
     emit("build", kernel="gibbs_matvec", seconds=gm_s, ptxas=ptxas_summary(gm_log))
     emit("build", kernel="svgp_precompute", seconds=k4_s, ptxas=lines(k4_log))
     emit("build", kernel="chol_stream", seconds=k5_s, ptxas=lines(k5_log))
     emit("build", kernel="elbo_fused", seconds=k7_s, ptxas=lines(k7_log))
+    for name, (sec, log) in zip(("gibbs_gram", "chol_blocked", "trsm", "gibbs_fused"), dense):
+        emit("build", kernel=name, seconds=sec, ptxas=ptxas_summary(log))
 
 
 def phase_dgp_ref(deepgp_spatial, svgp_precompute, dev):
@@ -1036,12 +1117,14 @@ def phase_k5(chol_stream, exact_largen, dev):
 
 def phase_exact_dense(exact_largen, chol_stream, dev_name: str):
     """bench_scaling.py's exact loop at N = 1024..8192: K5 is called once
-    per step at N = 8192 and nowhere else; then the N = 8192 loop with the
-    plain version in K5's place."""
+    per step at N = 8192 and K10a once per step at N = 1024, and nothing
+    else; then the N = 8192 loop with the plain version in K5's place."""
     reset_launches()
     out = exact_largen.dense(dev="cuda")
     steps = len(out[K5_N]["losses"])
-    launches = check_launches({"streaming_cholesky": steps}, "exact_dense")["streaming_cholesky"]
+    # K5 once per step at N = 8192, K10a once per step at N = 1024
+    launches = check_launches({"streaming_cholesky": steps, "blocked_cholesky": len(out[1024]["losses"])},
+                              "exact_dense")["streaming_cholesky"]
     real = chol_stream.streaming_cholesky
     chol_stream.streaming_cholesky = chol_stream.streaming_cholesky_plain
     try:
@@ -1211,6 +1294,254 @@ def phase_k6(matvec, exact_largen, lazy_out, dev):
     return out
 
 
+def gibbs_row_launches(rows: int, steps: int) -> dict:
+    """What the Gibbs rows launch: for each row, K8 once per step (the MAP
+    loss), and in the predictive K9 three times (k_xx, k_ss, k_sx), K10a
+    once (its factor) and K11 once (L⁻¹K_xs); nothing else (the prior's
+    Cholesky stacks are 3-D and stay on the library)."""
+    return {"gibbs_chol_solve_fused": rows * steps, "gibbs_gram": 3 * rows, "blocked_cholesky": rows,
+            "blocked_trsm": rows}
+
+
+def phase_gibbs_dense_ref(exact_largen, dev):
+    """The Gibbs row at N = 1024 from the pinned JAX run's init: its losses
+    at steps 0 and 19 against JAX's; then the predictive at the pinned
+    trained pose against JAX's."""
+    ref = np.load(GIBBS_REF)
+    n, steps = int(ref["n"]), int(ref["steps"])
+    init = {k[len("init."):]: ref[k] for k in ref.files if k.startswith("init.")}
+    x, y = exact_largen.gibbs_data((n,))[n]
+    check(np.array_equal(x.numpy(), ref["x"]) and np.allclose(y.numpy(), ref["y"], rtol=0, atol=1e-6),
+          "the pinned run's data is the port's draw")
+    reset_launches()
+    out = exact_largen.gibbs_dense(ns=(n,), steps=steps, dev="cuda", init=init)[n]
+    check_launches(gibbs_row_launches(1, steps), "gibbs_dense_ref")
+    losses = out["losses"]
+    rel = np.abs(losses - ref["losses"]) / np.abs(ref["losses"])
+    check(losses.shape == ref["losses"].shape, f"loss trace shape {losses.shape}")
+    check(float(rel[0]) <= GIBBS_RTOL_STEP0, f"step-0 loss vs JAX: {rel[0]:.3g} <= {GIBBS_RTOL_STEP0}")
+    check(float(rel[-1]) <= GIBBS_RTOL_STEP19, f"step-19 loss vs JAX: {rel[-1]:.3g} <= {GIBBS_RTOL_STEP19}")
+    model = out["model"]
+    with torch.no_grad():
+        model.log_ell.copy_(torch.as_tensor(ref["log_ell"], device=dev))
+    pred = exact_largen.gibbs_predict(model, x.to(dev), y.to(dev))
+    dmean = float(np.abs(pred["mean"].cpu().numpy() - ref["pred_mean"]).max())
+    dvar = float(np.abs(pred["var"].cpu().numpy() - ref["pred_var"]).max())
+    check(dmean <= GIBBS_MEAN_ATOL, f"predictive mean vs JAX {dmean:.3g} <= {GIBBS_MEAN_ATOL}")
+    check(dvar <= GIBBS_VAR_ATOL, f"predictive variance vs JAX {dvar:.3g} <= {GIBBS_VAR_ATOL}")
+    emit("gibbs_dense_ref", n=n, step0_rel_err=float(rel[0]), step19_rel_err=float(rel[-1]), losses=losses.tolist(),
+         jax_losses=ref["losses"].tolist(), pred_mean_max_abs_diff=dmean, pred_var_max_abs_diff=dvar,
+         rmse=pred["rmse"], jax_rmse=float(ref["rmse"]), nlpd=pred["nlpd"], jax_nlpd=float(ref["nlpd"]))
+
+
+def phase_gibbs_dense(exact_largen, dev_name: str):
+    """bench_scaling.py's Gibbs rows (N = 1024 and 1280, 20 Adam steps each)
+    and their predictive, counting the launches of K8, K9, K10a and K11."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = exact_largen.gibbs_dense(ns=GIBBS_NS, dev="cuda")
+    steps = len(out[GIBBS_NS[0]]["losses"])
+    launches = check_launches(gibbs_row_launches(len(GIBBS_NS), steps), "gibbs_dense")
+    for n, o in out.items():
+        check(bool(np.isfinite(o["losses"]).all()) and o["losses"][-1] < o["losses"][0], f"N = {n}: losses fall")
+        check(np.isfinite(o["rmse"]) and np.isfinite(o["nlpd"]), f"N = {n}: RMSE and NLPD finite")
+        check(bool(torch.isfinite(o["mean"]).all() and (o["var"] > 0).all()), f"N = {n}: predictive finite")
+    emit("gibbs_dense", steps=steps, launches=launches, ms_per_step={n: o["ms_per_step"] for n, o in out.items()},
+         rmse={n: o["rmse"] for n, o in out.items()}, nlpd={n: o["nlpd"] for n, o in out.items()},
+         loss_first={n: float(o["losses"][0]) for n, o in out.items()},
+         loss_last={n: float(o["losses"][-1]) for n, o in out.items()},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, device=dev_name)
+    return out, launches
+
+
+def gibbs_payloads(exact_largen, out, dev) -> dict:
+    """{name: (x, ℓ, y, s², σ², x_q, ℓ_q)}: the Gibbs rows at init (ℓ = 0.3)
+    and at their trained pose, with the grid and its conditioned field
+    (what the loss and the predictive hand the kernels), and a ragged
+    N = 1000 at init."""
+    pay = {}
+    xq = exact_largen.gibbs_grid().to(dev)
+    for n in (*GIBBS_NS, GIBBS_RAGGED):
+        x, y = (t.to(dev) for t in exact_largen.gibbs_data((n,))[n])
+        init, _ = exact_largen.gibbs_model(x)
+        poses = {"init": init, **({"trained": out[n]["model"]} if n in out else {})}
+        for pose, m in poses.items():
+            with torch.no_grad():
+                ell = torch.exp(m.log_ell).contiguous()
+                ellq = m.prior.conditional_mean(xq, (x, ell)).contiguous()
+            pay[f"{n}_{pose}"] = (x, ell, y, m.outputscale.detach(), m.likelihood.noise.detach(), xq, ellq)
+    return pay
+
+
+def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest entrywise error of ``a`` from the float64 ``ref``, relative
+    to ``ref``'s largest entry."""
+    return float((a.double() - ref).abs().max() / ref.abs().max())
+
+
+def check_f64(what: str, kernel: torch.Tensor, plain: torch.Tensor, ref: torch.Tensor, floor: float) -> dict:
+    """The kernel's error from float64 within twice the plain f32 version's
+    plus ``floor`` (both relative to the largest float64 entry)."""
+    check(bool(torch.isfinite(kernel).all()), f"{what} finite")
+    ek, ep = rel_err(kernel, ref), rel_err(plain, ref)
+    check(ek <= 2 * ep + floor, f"{what} vs float64 {ek:.3g} within 2x the plain version's {ep:.3g} (+{floor})")
+    return {"kernel_vs_f64": ek, "plain_vs_f64": ep, "max_abs_err": float((kernel - plain).abs().max())}
+
+
+def phase_k9(gibbs_gram, payloads, dev):
+    """K9 and its plain version against float64 on the predictive's three
+    Grams at each payload; bitwise repeat; times at N = 1280."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
+
+    errs = {}
+    for name, (x, ell, _, _, _, xq, ellq) in payloads.items():
+        for pair, args in (("xx", (x, ell, x, ell)), ("sx", (xq, ellq, x, ell)), ("ss", (xq, ellq, xq, ellq))):
+            k = gibbs_gram.gibbs_gram_cuda(*args)
+            again = gibbs_gram.gibbs_gram_cuda(*args)
+            p = gibbs_gram_reference(*args)
+            ref = gibbs_gram_reference(*(a.double() for a in args))
+            torch.cuda.synchronize()
+            check(torch.equal(k, again), f"K9 {name} {pair} bitwise repeatable")
+            errs[f"{name}_{pair}"] = check_f64(f"K9 {name} {pair}", k, p, ref, DENSE_FLOOR)
+    n = GIBBS_NS[-1]
+    x, ell = payloads[f"{n}_trained"][:2]
+    t = timed_pair(lambda: gibbs_gram.gibbs_gram_cuda(x, ell, x, ell), lambda: gibbs_gram_reference(x, ell, x, ell),
+                   N_TIMED)
+    # ~10·D operations an element; reads the four (N, D) payloads, writes the Gram
+    b_ms, b_by = bound(10 * 2 * n * n, gibbs_gram.gram_bytes(n, n, 2))
+    out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "bound_ms": b_ms, "bound_by": b_by, **t}
+    emit("k9", n=n, errors=errs, timed_calls=2 * N_TIMED, **out)
+    return out
+
+
+def phase_k10a(chol_blocked, payloads, dev):
+    """K10a, its plain version and torch.linalg.cholesky against float64 on
+    the predictive's noisy train Gram at each payload; a rank-30 matrix
+    through safe_cholesky's retry; times at N = 1280."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
+    from nonstationary_precip_tpu_torch.ops.linalg import safe_cholesky
+
+    def gram(x, ell, s2, noise):
+        with torch.no_grad():
+            return s2 * gibbs_gram_reference(x, ell, x, ell) + noise * torch.eye(x.shape[0], device=dev)
+
+    errs, mats = {}, {}
+    for name, (x, ell, _, s2, noise, _, _) in payloads.items():
+        a = mats[name] = gram(x, ell, s2, noise)
+        l = chol_blocked.blocked_cholesky_cuda(a)
+        p = chol_blocked.blocked_cholesky_plain(a)
+        ref = torch.linalg.cholesky(a.double())
+        torch.cuda.synchronize()
+        check(bool((torch.triu(l, 1) == 0).all()), f"K10a {name} lower triangular")
+        errs[name] = check_f64(f"K10a {name}", l, p, ref, DENSE_FLOOR)
+        errs[name]["library_vs_f64"] = rel_err(torch.linalg.cholesky(a), ref)
+    gen = torch.Generator().manual_seed(47)
+    lr = torch.randn(GIBBS_RAGGED, 30, generator=gen, dtype=torch.float64)
+    bad = (lr @ lr.T).float().to(dev)
+    check(not bool(torch.isfinite(chol_blocked.blocked_cholesky_cuda(bad)).all()),
+          "K10a on a rank-30 input: non-finite")
+    before = chol_blocked.LAUNCHES
+    fixed = safe_cholesky(bad)
+    tries = chol_blocked.LAUNCHES - before
+    check(bool(torch.isfinite(fixed).all()) and tries >= 2,
+          f"safe_cholesky retried through K10a ({tries} calls), finite")
+    n = GIBBS_NS[-1]
+    a = mats[f"{n}_trained"]
+    t = timed_pair(lambda: chol_blocked.blocked_cholesky_cuda(a), lambda: chol_blocked.blocked_cholesky_plain(a),
+                   N_TIMED)
+    lib = block_times_ms(lambda: torch.linalg.cholesky(a), N_TIMED) + block_times_ms(
+        lambda: torch.linalg.cholesky(a), N_TIMED)
+    b_ms, b_by = bound(n**3 / 3, 4 * 2 * n * n)  # N³/3 operations; reads A, writes L
+    out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "library_ms": statistics.median(lib),
+           "bound_ms": b_ms, "bound_by": b_by, **t}
+    emit("k10a", n=n, errors=errs, retry_calls=tries, timed_calls=2 * N_TIMED, **out)
+    return out
+
+
+def phase_k11(trsm, payloads, dev):
+    """K11 and its plain version against float64 on L⁻¹K_xs of the
+    predictive (the factor of the noisy train Gram, the 256 grid columns)
+    and on K = 70 random columns at each payload; bitwise repeat; times at
+    N = 1280, K = 256."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
+
+    gen = torch.Generator().manual_seed(53)
+    errs, cases = {}, {}
+    for name, (x, ell, _, s2, noise, xq, ellq) in payloads.items():
+        with torch.no_grad():
+            a = s2 * gibbs_gram_reference(x, ell, x, ell) + noise * torch.eye(x.shape[0], device=dev)
+            l = torch.linalg.cholesky(a)
+            cases[f"{name}_256"] = (l, (s2 * gibbs_gram_reference(xq, ellq, x, ell)).mT)
+        cases[f"{name}_70"] = (l, torch.randn(x.shape[0], K11_WIDTHS[1], generator=gen).to(dev))
+    for name, (l, b) in cases.items():
+        xk = trsm.trsm_cuda(l, b)
+        again = trsm.trsm_cuda(l, b)
+        p = trsm.trsm_plain(l, b)
+        ref = torch.linalg.solve_triangular(l.double(), b.double(), upper=False)
+        torch.cuda.synchronize()
+        check(torch.equal(xk, again), f"K11 {name} bitwise repeatable")
+        errs[name] = check_f64(f"K11 {name}", xk, p, ref, DENSE_FLOOR)
+    n, k = GIBBS_NS[-1], K11_WIDTHS[0]
+    l, b = cases[f"{n}_trained_{k}"]
+    t = timed_pair(lambda: trsm.trsm_cuda(l, b), lambda: trsm.trsm_plain(l, b), N_TIMED)
+    lib = block_times_ms(lambda: torch.linalg.solve_triangular(l, b, upper=False), N_TIMED)
+    b_ms, b_by = bound(n * n * k, 4 * (n * n + 2 * n * k))  # N²K operations; reads L and B, writes X
+    out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "library_ms": statistics.median(lib),
+           "bound_ms": b_ms, "bound_by": b_by, **t}
+    emit("k11", n=n, k=k, errors=errs, timed_calls=2 * N_TIMED, **out)
+    return out
+
+
+def phase_k8(gibbs_fused, payloads, dev):
+    """K8 and its plain version against float64 on the MAP loss's payloads
+    (the Gibbs rows at init and trained, the ragged N = 1000); a payload on
+    which the ladder fires, against the plain version's ladder; bitwise
+    repeat; times at N = 1024 and 1280."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
+
+    def f64(x, ell, y, s2, noise):
+        k = s2.double() * gibbs_gram_reference(*(t.double() for t in (x, ell, x, ell)))
+        l = torch.linalg.cholesky(k + noise.double() * torch.eye(x.shape[0], dtype=torch.float64, device=dev))
+        return l, torch.linalg.solve_triangular(l, y.double()[:, None], upper=False)[:, 0]
+
+    def compare(name, x, ell, y, s2, noise, rung=1):
+        lk, ak, state = gibbs_fused.gibbs_chol_solve_cuda(x, ell, y, s2, noise)
+        lp, ap, tries = gibbs_fused.gibbs_chol_solve_plain(x, ell, y, s2, noise)
+        extra = gibbs_fused.EXTRA_JITTER[rung - 1]
+        l64, a64 = f64(x, ell, y, s2, noise + extra)
+        torch.cuda.synchronize()
+        got = int(state[0])
+        check(got == tries == rung, f"K8 {name}: attempt {got}, the plain version's {tries}, want {rung}")
+        check(bool((torch.triu(lk, 1) == 0).all()), f"K8 {name} L lower triangular")
+        errs[name] = {"L": check_f64(f"K8 {name} L", lk, lp, l64, K8_FLOOR["L"]),
+                      "alpha": check_f64(f"K8 {name} alpha", ak, ap, a64, K8_FLOOR["alpha"]), "attempt": got}
+
+    errs = {}
+    for name, (x, ell, y, s2, noise, _, _) in payloads.items():
+        compare(name, x, ell, y, s2, noise)
+    # the ladder: every row twice and no noise, so s²K is singular; the
+    # first attempt fails, the second (extra 1e-4) holds
+    x, ell, y, s2, _, _, _ = payloads[f"{GIBBS_NS[0]}_init"]
+    half = x.shape[0] // 2
+    xd, ed = x[:half].repeat(2, 1), ell[:half].repeat(2, 1)
+    compare("ladder", xd, ed, torch.sin(xd[:, 0]), s2, torch.zeros_like(s2), rung=2)
+    x, ell, y, s2, noise, _, _ = payloads[f"{GIBBS_NS[-1]}_trained"]
+    runs = [gibbs_fused.gibbs_chol_solve_cuda(x, ell, y, s2, noise)[:2] for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), "K8 bitwise repeatable")
+    times = {}
+    for n in GIBBS_NS:
+        x, ell, y, s2, noise, _, _ = payloads[f"{n}_trained"]
+        t = timed_pair(lambda: gibbs_fused.gibbs_chol_solve_cuda(x, ell, y, s2, noise),
+                       lambda: gibbs_fused.gibbs_chol_solve_plain(x, ell, y, s2, noise), N_TIMED)
+        # reads x, ℓ (N, 2) and y; writes L and α
+        b_ms, b_by = bound(gibbs_fused.fused_ops(n, 2), 4 * (4 * n + n + n * n + n))
+        times[n] = {**t, "bound_ms": b_ms, "bound_by": b_by}
+    out = {"max_abs_err": max(max(e["L"]["max_abs_err"], e["alpha"]["max_abs_err"]) for e in errs.values()),
+           **{k: times[GIBBS_NS[0]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+    emit("k8", n=GIBBS_NS[0], errors=errs, times=times, timed_calls=2 * N_TIMED, **out)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=300, help="Adam steps of the slice run")
@@ -1225,11 +1556,12 @@ def main(argv=None):
 
     from nonstationary_precip_tpu_torch.experiments import (deepgp_spatial, exact_largen, field_regression,
                                                             gibbs_largen, seard_spatial, spatial_gibbs, temporal)
-    from nonstationary_precip_tpu_torch.ops import chol_inv, chol_stream, elbo_fused, matvec, svgp_precompute
+    from nonstationary_precip_tpu_torch.ops import (chol_blocked, chol_inv, chol_stream, elbo_fused, gibbs_fused,
+                                                    gibbs_gram, matvec, svgp_precompute, trsm)
     from nonstationary_precip_tpu_torch.utils import config
 
     dev = config.device("cuda")
-    build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused)
+    build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram, chol_blocked, trsm, gibbs_fused)
 
     errs, ms, plain_ms = phase_k1(chol_inv, spatial_gibbs, dev)
     launches = phase_slice(chol_inv, spatial_gibbs, args.steps, name)
@@ -1251,6 +1583,13 @@ def main(argv=None):
     phase_exact_lazy_ref(exact_largen)
     lazy_out, k6_launches = phase_exact_lazy(exact_largen, name)
     k6 = phase_k6(matvec, exact_largen, lazy_out, dev)
+    phase_gibbs_dense_ref(exact_largen, dev)
+    gibbs_out, gibbs_launches = phase_gibbs_dense(exact_largen, name)
+    gibbs_pay = gibbs_payloads(exact_largen, gibbs_out, dev)
+    k9 = phase_k9(gibbs_gram, gibbs_pay, dev)
+    k10a = phase_k10a(chol_blocked, gibbs_pay, dev)
+    k11 = phase_k11(trsm, gibbs_pay, dev)
+    k8 = phase_k8(gibbs_fused, gibbs_pay, dev)
 
     # K1 at (10, 316): 2N³/3 flops per matrix (Cholesky and triangular
     # inverse, N³/3 each); reads A once, writes L and L⁻¹
@@ -1292,6 +1631,14 @@ def main(argv=None):
          "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:527", "launches": k6_launches,
          "max_abs_err": k6["max_abs_err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
          "bound_by": k6["bound_by"], "library_ms": None},
+        *({"name": kname, "route": "cuda", "source": f"nonstationary_precip_tpu_torch/csrc/{src}",
+           "replaces": f"nonstationary_precip_tpu/ops/{tpu}", "launches": gibbs_launches[kname],
+           "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+           "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
+          for kname, src, tpu, k in (("gibbs_chol_solve_fused", "gibbs_fused.cu", "pallas_fused.py:276", k8),
+                                     ("gibbs_gram", "gibbs_gram.cu", "pallas_gram.py:136", k9),
+                                     ("blocked_cholesky", "chol_blocked.cu", "pallas_chol.py:251", k10a),
+                                     ("blocked_trsm", "trsm.cu", "pallas_trsm.py:106", k11))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)

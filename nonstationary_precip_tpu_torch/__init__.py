@@ -7,9 +7,14 @@ never imports jax (nor the JAX package, whose config imports jax).
 Layering (bottom-up), as far as the port reaches today:
   ops/      — dense linear algebra, mBCG/SLQ and the lazy MLL; wrappers of
               the hand-written CUDA kernels in ``csrc/``: ``chol_inv`` (K1,
-              batched (L, L⁻¹)), ``matvec`` (K2/K3, the Gibbs Gram·V and its
-              backward sweep), ``svgp_precompute`` (K4, the SVGP K_zz
-              precompute); K1 and K4 share one sweep (``csrc/chol_sweep.cuh``)
+              batched (L, L⁻¹)), ``matvec`` (K2/K3/K6, the Gibbs and RBF
+              Gram·V and the Gibbs backward sweep), ``svgp_precompute`` (K4,
+              the SVGP K_zz precompute), ``chol_stream`` (K5) and
+              ``chol_blocked`` (K10a), the blocked Cholesky at two sizes,
+              ``elbo_fused`` (K7, the DSVI data term), ``gibbs_fused`` (K8,
+              the Gibbs MAP solve), ``gibbs_gram`` (K9) and ``trsm`` (K11);
+              K1, K4, K5, K8 and K10a share one sweep
+              (``csrc/chol_sweep.cuh``)
   kernels/  — the Gibbs and squared-distance covariance functions
   priors/   — the log-normal latent-lengthscale process (dense part)
   models/   — Gaussian likelihood, DiagNormal/MVN, the Gibbs exact GP (MAP),

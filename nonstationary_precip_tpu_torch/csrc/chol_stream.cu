@@ -6,159 +6,26 @@
 // notes are in nonstationary_precip_tpu_torch/ops/chol_stream.py.
 //
 // The matrix is padded by the wrapper to n, a multiple of kP = 256.  One C
-// call runs, for each block column j (jp = j kP), three kernels on one
-// stream:
-//  1. gemm_nt_kernel<true>: C = A[jp:, jp:jp+kP] - L[jp:, :jp] L[jp:jp+kP, :jp]^T
-//     into the (n - jp) x kP scratch `cbuf`;
-//  2. diag_kernel, one 1024-thread block: the lower triangle of C's top
-//     kP x kP tile into shared memory (131.6 KB), the fused (L, L^-1) sweep
-//     of chol_sweep.cuh (K1's and K4's), L_jj into L and L_jj^-1 into a
-//     kP x kP scratch;
-//  3. gemm_nt_kernel<false>: L[jp+kP:, jp:jp+kP] = C_below (L_jj^-1)^T.
-// The GEMM is a tiled SIMT kernel: 64 x 64 output tiles, 16-deep k-slabs
-// of both operands staged in shared memory, each thread a 4 x 4 block of
-// f32 FMAs summed over k in ascending order, in 128-deep partial sums
-// added in order (fixed order, no atomics, no tensor cores).  A diagonal tile whose sweep fails (a pivot that is not
-// > 0, or a non-finite L_jj or L_jj^-1) is written as NaN, and the NaN
-// reaches every later column through the updates, as the TPU kernel's
-// factor goes NaN from the failing column on.  The caller zero-fills L, so
-// the upper triangle outside the diagonal tiles stays 0.
+// call runs blocked_chol.cuh's left-looking factorisation at kP = 256: for
+// each block column, the update GEMM, the diagonal tile's fused (L, L^-1)
+// sweep of chol_sweep.cuh (K1's and K4's) in one 1024-thread block with the
+// packed triangle in shared memory (131.6 KB), and the panel GEMM.  A
+// diagonal tile whose sweep fails is written as NaN, and the NaN reaches
+// every later column through the updates, as the TPU kernel's factor goes
+// NaN from the failing column on.
 
 #include <cuda_runtime.h>
 
-#include <cstddef>
-
-#include "chol_sweep.cuh"
+#include "blocked_chol.cuh"
 
 namespace {
 
-using chol_sweep::tri_off;
-
 constexpr int kP = 256;          // panel width (the TPU kernel's p)
 constexpr int kDiagThreads = 1024;
-constexpr int kBM = 64;          // GEMM output tile rows
-constexpr int kBN = 64;          // GEMM output tile columns
-constexpr int kBK = 16;          // k-slab depth
-constexpr int kGemmThreads = 256;
-constexpr int kTM = 4;           // outputs per thread, rows
-constexpr int kTN = 4;           // outputs per thread, columns
-constexpr int kKBlock = 128;     // k-depth of one partial sum
-static_assert(kBM == kBN && kBM == 16 * kTM && kBN == 16 * kTN &&
-                  kBM * kBK % kGemmThreads == 0 && kP % kBN == 0 &&
-                  kP % kKBlock == 0 && kKBlock % kBK == 0,
-              "the tile loaders and the 16 x 16 thread grid assume these shapes");
-
-// C[i, c] = (kBase ? B[i, c] - S : S),  S = sum_k X[i, k] Y[c, k], for an
-// M x Ncol output; X is M x K with row stride ldx, Y is Ncol x K with row
-// stride ldy (both "k contiguous"), B and C row strides ldb and ldc.  M,
-// Ncol and K are multiples of kBM, kBN and kKBlock (the wrapper pads).
-// Thread (ty, tx) owns rows ty + 16 a and columns tx + 16 b, a, b < 4.  S is
-// summed in two levels, a serial FMA chain over each kKBlock-deep block of
-// k and the blocks' partial sums added in order, so its rounding error
-// grows with kKBlock + K / kKBlock rather than with K (8192 at most).
-template <bool kBase>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_nt_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y,
-               int ldy, const float* __restrict__ B, int ldb, float* __restrict__ C,
-               int ldc, int K) {
-  __shared__ float xs[kBK][kBM + 1];  // xs[kk][r] = X[m0 + r, k0 + kk]
-  __shared__ float ys[kBK][kBN + 1];  // ys[kk][c] = Y[n0 + c, k0 + kk]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  float acc[kTM][kTN], part[kTM][kTN];
-#pragma unroll
-  for (int a = 0; a < kTM; ++a)
-#pragma unroll
-    for (int b = 0; b < kTN; ++b) acc[a][b] = part[a][b] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // 64 x 16 of each operand: 4 elements a thread, a warp reading two
-    // 64-byte row segments per instruction
-#pragma unroll
-    for (int q = 0; q < kBM * kBK / kGemmThreads; ++q) {
-      const int e = tid + q * kGemmThreads;
-      const int r = e / kBK;
-      const int kk = e % kBK;
-      xs[kk][r] = X[static_cast<size_t>(m0 + r) * ldx + k0 + kk];
-      ys[kk][r] = Y[static_cast<size_t>(n0 + r) * ldy + k0 + kk];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[kTM], bv[kTN];
-#pragma unroll
-      for (int a = 0; a < kTM; ++a) av[a] = xs[kk][ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < kTN; ++b) bv[b] = ys[kk][tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < kTM; ++a)
-#pragma unroll
-        for (int b = 0; b < kTN; ++b) part[a][b] = fmaf(av[a], bv[b], part[a][b]);
-    }
-    if ((k0 + kBK) % kKBlock == 0) {
-#pragma unroll
-      for (int a = 0; a < kTM; ++a)
-#pragma unroll
-        for (int b = 0; b < kTN; ++b) {
-          acc[a][b] += part[a][b];
-          part[a][b] = 0.f;
-        }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < kTM; ++a) {
-    const size_t i = static_cast<size_t>(m0 + ty + 16 * a);
-#pragma unroll
-    for (int b = 0; b < kTN; ++b) {
-      const int c = n0 + tx + 16 * b;
-      C[i * ldc + c] = kBase ? B[i * ldb + c] - acc[a][b] : acc[a][b];
-    }
-  }
-}
-
-// Factor the kP x kP tile at the top of `cbuf` (row stride kP; its lower
-// triangle is read): L_jj into L at (jp, jp) (row stride n) and into
-// `ljj`, L_jj^-1 into `linv` (both kP x kP scratch).  NaN tiles on failure.
-__global__ void __launch_bounds__(kDiagThreads)
-diag_kernel(const float* __restrict__ cbuf, float* __restrict__ L, int n, int jp,
-            float* __restrict__ ljj, float* __restrict__ linv) {
-  extern __shared__ float smem[];
-  __shared__ int bad;
-  float* u = smem;
-  float* w = smem + kP;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  for (int i = warp; i < kP; i += kDiagThreads / 32) {
-    float* row = w + tri_off(i);
-    const float* crow = cbuf + static_cast<size_t>(i) * kP;
-    for (int c = lane; c <= i; c += 32) row[c] = crow[c];
-  }
-  if (tid == 0) bad = 0;
-  __syncthreads();
-  const bool ok =
-      chol_sweep::chol_inv_sweep<kDiagThreads, kP, true>(w, u, ljj, linv, kP, &bad);
-  if (!ok) chol_sweep::fill_nan<kDiagThreads>(ljj, linv, static_cast<size_t>(kP) * kP);
-  __syncthreads();  // the tile's global writes are visible to the whole block
-  for (int e = tid; e < kP * kP; e += kDiagThreads) {
-    const int r = e / kP;
-    const int c = e % kP;
-    L[static_cast<size_t>(jp + r) * n + jp + c] = ljj[e];
-  }
-}
 
 }  // namespace
 
 extern "C" {
-
-// Dynamic shared memory of diag_kernel, in bytes.
-int chol_stream_smem_bytes() {
-  return static_cast<int>((kP + kP * (kP + 1) / 2) * sizeof(float));
-}
 
 // a: n x n f32 row-major, n a positive multiple of kP (identity-padded by
 // the caller); l: n x n output, zero-filled by the caller; cbuf: n x kP,
@@ -167,34 +34,10 @@ int chol_stream_smem_bytes() {
 // launched).
 int chol_stream(const void* a, void* l, void* cbuf, void* ljj, void* linv,
                 int n, void* stream) {
-  if (n < kP || n % kP != 0) return static_cast<int>(cudaErrorInvalidValue);
-  // every GEMM below has M a multiple of kP and K = jp or kP
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* A = static_cast<const float*>(a);
-  float* L = static_cast<float*>(l);
-  float* Cb = static_cast<float*>(cbuf);
-  float* Ljj = static_cast<float*>(ljj);
-  float* Li = static_cast<float*>(linv);
-  const int smem = chol_stream_smem_bytes();
-  cudaError_t e = cudaFuncSetAttribute(
-      diag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  for (int jp = 0; jp < n; jp += kP) {
-    const int m = n - jp;  // rows of block column j
-    const float* lrow = L + static_cast<size_t>(jp) * n;
-    gemm_nt_kernel<true><<<dim3(kP / kBN, m / kBM), kGemmThreads, 0, s>>>(
-        lrow, n, lrow, n, A + static_cast<size_t>(jp) * n + jp, n, Cb, kP, jp);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    diag_kernel<<<1, kDiagThreads, smem, s>>>(Cb, L, n, jp, Ljj, Li);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    if (m > kP) {
-      gemm_nt_kernel<false><<<dim3(kP / kBN, (m - kP) / kBM), kGemmThreads, 0, s>>>(
-          Cb + static_cast<size_t>(kP) * kP, kP, Li, kP, nullptr, 0,
-          L + static_cast<size_t>(jp + kP) * n + jp, n, kP);
-      if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    }
-  }
-  return 0;
+  return blocked_chol::left_looking<kP, kDiagThreads, false>(
+      static_cast<const float*>(a), static_cast<float*>(l), static_cast<float*>(cbuf),
+      static_cast<float*>(ljj), static_cast<float*>(linv), n,
+      static_cast<cudaStream_t>(stream), nullptr, nullptr);
 }
 
 }  // extern "C"

@@ -31,46 +31,20 @@
 
 #include <cstddef>
 
+#include "gibbs_elem.cuh"
+
 namespace {
+
+using gibbs::gibbs_elem;
+using gibbs::kMaxD;
+using gibbs::live;
 
 constexpr int kRows = 128;   // threads per block; one row each
 constexpr int kCols = 128;   // columns staged in shared memory per pass
-constexpr int kMaxD = 8;     // input dims (the generic template runs d <= 8)
 constexpr int kGroup = 32;   // K2: right-hand sides one block contracts
 constexpr int kMaxR = 128;   // K2: right-hand sides one launch takes
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
-
-// Whether dim k is live: always for an exact-D instantiation, k < d for the
-// generic one (D == kMaxD).
-template <int D>
-__device__ __forceinline__ bool live(int k, int d) {
-  return D != kMaxD || k < d;
-}
-
-// One Gram element K(i, j) from the row payload (xi, li) in registers and
-// the column payload (xj, lj) in shared memory.  Also leaves the per-dim
-// difference x_ik - x_jk and 1/ss_k in diff / inv_ss for K3's pullbacks.
-template <int D>
-__device__ __forceinline__ float gibbs_elem(const float* xi, const float* li,
-                                            const float* xj, const float* lj,
-                                            int d, float* diff, float* inv_ss) {
-  float pref = 1.0f;
-  float quad = 0.0f;
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    if (live<D>(k, d)) {
-      const float ss = li[k] * li[k] + lj[k] * lj[k];
-      const float inv = 1.0f / ss;
-      const float dk = xi[k] - xj[k];
-      pref *= sqrtf(2.0f * (li[k] * lj[k]) * inv);
-      quad += dk * dk * inv;
-      diff[k] = dk;
-      inv_ss[k] = inv;
-    }
-  }
-  return pref * expf(-quad);
-}
 
 // Row payload of row i into registers; an inactive row (i >= n) gets a
 // harmless x = 0, l = 1.

@@ -1,8 +1,18 @@
 #!/usr/bin/env python3
-"""The stationary exact GP at large N: the dense MLL loop and the
-matrix-free gate.
+"""The exact GP at large N: bench_scaling.py's Gibbs MAP rows and dense
+MLL loop, and the matrix-free gate.
 
-The port's counterpart of two JAX entry points, with no new behaviour:
+The port's counterpart of three JAX entry points, with no new behaviour:
+  * ``gibbs_dense`` is ``bench_scaling.py``'s Gibbs MAP rows (:33-88,
+    ``gibbs_map_step_ms``), nothing cut: x ~ N(0, 1)² from the first
+    1024 × 2, then 1280 × 2 normals of ``default_rng(0)``, y = sin x₀,
+    the ``LogNormalProcess(2, mean=log 0.3, outputscale=1, lengthscale=1.3)``
+    prior with its Cholesky stack hoisted, ``GibbsExactGP(noise=0.011,
+    outputscale=0.644)`` training its latent field only, Adam lr 0.01 × 20;
+    then the predictive at a 16 × 16 grid on [−2, 2]², as
+    ``examples/quickstart_gibbs_spatial.py`` predicts after its fit (the
+    RMSE of the mean against sin x₀ and the joint NLPD).  The loss runs K8
+    (``ops/gibbs_fused``), the predictive K9, K10a and K11;
   * ``dense`` is ``bench_scaling.py``'s exact-GP loop (:90-145,
     ``exact_gp_mll_step_ms``): x ~ N(0, 1)² from ``default_rng(0)`` (drawn
     after the Gibbs rows' 1024 and 1280 points, as that script draws them),
@@ -20,7 +30,7 @@ The port's counterpart of two JAX entry points, with no new behaviour:
     in float64, the gradient cosine) and the matrix-free predictive mean at
     the 64 test points against the dense posterior's.
 
-Run: python -m nonstationary_precip_tpu_torch.experiments.exact_largen {dense,lazy} [--device cuda|cpu]
+Run: python -m nonstationary_precip_tpu_torch.experiments.exact_largen {gibbs,dense,lazy} [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -32,32 +42,108 @@ import time
 import numpy as np
 import torch
 
+from nonstationary_precip_tpu_torch import interop
 from nonstationary_precip_tpu_torch.experiments.gibbs_largen import probe_draws
 from nonstationary_precip_tpu_torch.kernels.base import Scale
 from nonstationary_precip_tpu_torch.kernels.stationary import RBF
 from nonstationary_precip_tpu_torch.models.exact_gp import ExactGP
+from nonstationary_precip_tpu_torch.models.gibbs_gp import GibbsExactGP
 from nonstationary_precip_tpu_torch.ops.lazy_cg import lazy_cg_diagnostics
 from nonstationary_precip_tpu_torch.ops.matvec import stationary_matvec_builder
+from nonstationary_precip_tpu_torch.priors.lognormal_process import LogNormalProcess
+from nonstationary_precip_tpu_torch.train.metrics import nlpd_joint, rmse_raw
 from nonstationary_precip_tpu_torch.train.optim import fit
 from nonstationary_precip_tpu_torch.utils.config import device
 
+GIBBS_NS = (1024, 1280)
 DENSE_NS = (1024, 2048, 4096, 8192)
+GRID = 16  # the Gibbs predictive's grid: GRID × GRID points on [−2, 2]²
 NUM_TEST = 64
 PROBE_SEED = 173
 
 
-def dense_data(ns=DENSE_NS):
-    """{n: (x, y)} float32, drawn as ``bench_scaling.py`` draws them: one
-    ``default_rng(0)``, whose first 1024 × 2 and 1280 × 2 normals feed the
-    script's Gibbs rows."""
+def _scaling_draws(gibbs_ns=GIBBS_NS, dense_ns=()):
+    """The x of ``bench_scaling.py``'s rows, float64, in its draw order from
+    one ``default_rng(0)``: ({n: x} of the Gibbs rows, {n: x} of the dense
+    rows)."""
     rng = np.random.default_rng(0)
-    for n in (1024, 1280):
-        rng.normal(size=(n, 2))
+    gibbs = {n: rng.normal(size=(n, 2)) for n in gibbs_ns}
+    return gibbs, {n: rng.normal(size=(n, 2)) for n in dense_ns}
+
+
+def _sine_data(x: np.ndarray, dtype):
+    x = torch.tensor(x, dtype=dtype)
+    return x, torch.sin(x[:, 0])
+
+
+def gibbs_data(ns=GIBBS_NS, dtype=torch.float32):
+    """{n: (x, y)}, y = sin x₀, at the sizes ``ns``: ``bench_scaling.py``'s
+    Gibbs rows at theirs, another size drawn after them from the same
+    ``default_rng(0)``."""
+    draws = _scaling_draws(GIBBS_NS + tuple(n for n in ns if n not in GIBBS_NS))[0]
+    return {n: _sine_data(draws[n], dtype) for n in ns}
+
+
+def dense_data(ns=DENSE_NS):
+    """{n: (x, y)} float32, drawn as ``bench_scaling.py`` draws them, after
+    the Gibbs rows' normals."""
+    return {n: _sine_data(x, torch.float32) for n, x in _scaling_draws(GIBBS_NS, DENSE_NS)[1].items() if n in ns}
+
+
+def gibbs_grid(dtype=torch.float32) -> torch.Tensor:
+    """The predictive's GRID × GRID points on [−2, 2]², (GRID², 2)."""
+    g = np.linspace(-2.0, 2.0, GRID)
+    return torch.tensor(np.stack(np.meshgrid(g, g, indexing="ij"), axis=-1).reshape(-1, 2), dtype=dtype)
+
+
+def gibbs_model(x: torch.Tensor, init=None) -> tuple:
+    """(model, the prior's hoisted Cholesky stack): ``bench_scaling.py``'s
+    prior and ``GibbsExactGP``, or the JAX model whose leaves ``init`` maps
+    (``interop.GIBBS_EXACT_KEYS``), in x's dtype and on its device; only the
+    latent field trains."""
+    if init is None:
+        prior = LogNormalProcess.create(2, mean=float(np.log(0.3)), outputscale=1.0, lengthscale=1.3,
+                                        dtype=x.dtype, device=x.device)
+        model = GibbsExactGP.create(x, prior, noise=0.011, outputscale=0.644, dtype=x.dtype, device=x.device)
+    else:
+        model = interop.gibbs_exact_from_jax(init, x.device, x.dtype)
+    with torch.no_grad():
+        pc = model.prior.gram_chol(x)
+    return model, pc
+
+
+def _gibbs_loss(m, x, y, pc):
+    return m.loss(x, y, pc)
+
+
+def gibbs_predict(model: GibbsExactGP, x, y) -> dict:
+    """The predictive at the grid: its mean and variance, the RMSE of the
+    mean against sin x₀ and the joint NLPD per point."""
+    xq = gibbs_grid(x.dtype).to(x.device)
+    yq = torch.sin(xq[:, 0])
+    with torch.no_grad():
+        pred = model.predictive(x, y, xq)
+        rmse, nlpd = rmse_raw(pred.mean, yq), nlpd_joint(pred, yq, 1.0)
+    return {"mean": pred.mean, "var": pred.var, "rmse": float(rmse), "nlpd": float(nlpd)}
+
+
+def gibbs_dense(ns=GIBBS_NS, steps: int = 20, dev: str = "cuda", dtype=torch.float32, init=None) -> dict:
+    """The Gibbs rows at each N: {n: {losses, ms_per_step, seconds, rmse,
+    nlpd, mean, var, model}}, the step time from the clock of
+    ``train/optim.fit`` (CUDA events on the card) over the steps after the
+    first.  ``init`` carries a JAX model's leaves in place of the created
+    model (the same for every N)."""
+    dv = device(dev)
     out = {}
-    for n in DENSE_NS:
-        x = torch.tensor(rng.normal(size=(n, 2)), dtype=torch.float32)
-        if n in ns:
-            out[n] = (x, torch.sin(x[:, 0]))
+    for n, (x, y) in gibbs_data(ns, dtype).items():
+        x, y = x.to(dv), y.to(dv)
+        model, pc = gibbs_model(x, init)
+        res = fit(model, _gibbs_loss, x, y, pc, lr=0.01, num_steps=steps)
+        ms = 1e3 * res.seconds / (res.steps - 1) if res.steps > 1 else float("nan")
+        pred = gibbs_predict(model, x, y)
+        out[n] = {"losses": res.losses, "ms_per_step": ms, "seconds": res.seconds, "model": model, **pred}
+        print(f"[exact_largen gibbs] n={n}: loss {res.losses[0]:.6f} -> {res.losses[-1]:.6f}, {ms:.3f} ms/step; "
+              f"RMSE {pred['rmse']:.4f}, NLPD {pred['nlpd']:.4f} on {dv}", flush=True)
     return out
 
 
@@ -174,11 +260,13 @@ def lazy(n: int = 16384, steps: int = 20, rank: int = 150, iters: int = 32, bloc
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("which", choices=("dense", "lazy"))
+    ap.add_argument("which", choices=("gibbs", "dense", "lazy"))
     ap.add_argument("--n", type=int, default=16384, help="lazy: N")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.which == "gibbs":
+        return gibbs_dense(steps=args.steps, dev=args.device)
     if args.which == "dense":
         return dense(steps=args.steps, dev=args.device)
     out = lazy(n=args.n, steps=args.steps, dev=args.device)

@@ -31,7 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram, packed_gibbs_cross
+from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference, packed_gibbs_cross
 from nonstationary_precip_tpu_torch.ops import matvec
 from nonstationary_precip_tpu_torch.ops.lazy_cg import lazy_cg_diagnostics, lazy_cg_mll
 from nonstationary_precip_tpu_torch.ops.linalg import mvn_logpdf_from_chol, safe_cholesky
@@ -85,6 +85,18 @@ def _value_and_grad(f, params: dict):
     return val.detach(), torch.autograd.grad(val, list(params.values()))
 
 
+def loss_dense(p: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The dense Cholesky oracle of the lazy loss at the parameters ``p``
+    (``log_ell_pp``, ``raw_s2``, ``log_noise``): −log N(y; 0, s²K + σ²I)/N,
+    the Gram built by the plain ``gibbs_gram_reference``, as the JAX
+    experiment builds it (no kernel runs in the oracle)."""
+    n = y.shape[-1]
+    ell = torch.exp(p["log_ell_pp"])
+    k = positive(p["raw_s2"]) * gibbs_gram_reference(x, ell, x, ell)
+    k = k + torch.exp(p["log_noise"]) * torch.eye(n, dtype=x.dtype, device=x.device)
+    return -mvn_logpdf_from_chol(y, torch.zeros_like(y), safe_cholesky(k)) / n
+
+
 def run(cfg: LargeNConfig, probe_noise=None, data=None) -> dict:
     """The whole gate.  ``probe_noise`` = (u1, u2) and ``data`` = (x, y)
     replace the seeded draws and the synthetic data (a pinned run's, say).
@@ -114,12 +126,6 @@ def run(cfg: LargeNConfig, probe_noise=None, data=None) -> dict:
         aug = torch.cat([x, p["log_ell_pp"]], dim=1)
         return -lazy_cg_mll(p["raw_s2"], aug, y, noise, torch.exp(p["log_noise"]), panel_vjp=pvjp, **kw) / n
 
-    def loss_dense(p):
-        ell = torch.exp(p["log_ell_pp"])
-        k = positive(p["raw_s2"]) * gibbs_gram(x, ell, x, ell)
-        k = k + torch.exp(p["log_noise"]) * torch.eye(n, dtype=x.dtype, device=dev)
-        return -mvn_logpdf_from_chol(y, torch.zeros_like(y), safe_cholesky(k)) / n
-
     opt = torch.optim.Adam(list(params.values()), lr=cfg.lr)  # optax.adam's defaults
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -144,7 +150,7 @@ def run(cfg: LargeNConfig, probe_noise=None, data=None) -> dict:
     print(f"[gibbs_largen] trained-pose diagnostics: {diag}", flush=True)
 
     lv, lg = _value_and_grad(loss, params)
-    dv, dg = _value_and_grad(loss_dense, params)
+    dv, dg = _value_and_grad(lambda p: loss_dense(p, x, y), params)
     lf = torch.cat([g.reshape(-1) for g in lg]).double()
     df = torch.cat([g.reshape(-1) for g in dg]).double()
     cos = float(torch.dot(lf, df) / (torch.linalg.vector_norm(lf) * torch.linalg.vector_norm(df)))

@@ -6,8 +6,11 @@ Counterpart of ``nonstationary_precip_tpu/kernels/gibbs.py``:
                · exp( − Σ_d (x_d − x'_d)² / (ℓ_d(x)² + ℓ_d(x')²) )
 
 Layout: x and ell are (..., N, D), row per point; leading dimensions batch.
-The Gram is plain PyTorch (the TPU's Pallas Gram, K9, is opt-in there and
-off this path).
+``gibbs_gram`` is the dispatcher, as in the JAX package: a 2-D float32 pair
+inside K9's gate (``ops/gibbs_gram.eligible``: on the card, D ≤ 8,
+N₁·N₂ ≥ 128²) takes the hand-written Gram kernel, everything else
+``gibbs_gram_reference``, the plain batched Gram.  The matrix-free paths
+build their panels through the plain Gram by name, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -20,15 +23,26 @@ import torch
 from nonstationary_precip_tpu_torch.utils.transforms import positive
 
 
-def gibbs_gram(x1: torch.Tensor, ell1: torch.Tensor, x2: torch.Tensor, ell2: torch.Tensor) -> torch.Tensor:
+def gibbs_gram_reference(x1: torch.Tensor, ell1: torch.Tensor, x2: torch.Tensor,
+                         ell2: torch.Tensor) -> torch.Tensor:
     """Gibbs cross-Gram (..., N1, N2) of x1, ell1 (..., N1, D) and x2, ell2
-    (..., N2, D)."""
+    (..., N2, D), in plain PyTorch."""
     sq_sum = ell1[..., :, None, :] ** 2 + ell2[..., None, :, :] ** 2
     prod = ell1[..., :, None, :] * ell2[..., None, :, :]
     pref = torch.prod(torch.sqrt(2.0 * prod / sq_sum), dim=-1)
     diff = x1[..., :, None, :] - x2[..., None, :, :]
     quad = torch.sum(diff**2 / sq_sum, dim=-1)
     return pref * torch.exp(-quad)
+
+
+def gibbs_gram(x1: torch.Tensor, ell1: torch.Tensor, x2: torch.Tensor, ell2: torch.Tensor) -> torch.Tensor:
+    """:func:`gibbs_gram_reference`'s Gram, through K9 where its gate
+    admits the pair (on the card)."""
+    from nonstationary_precip_tpu_torch.ops import gibbs_gram as k9
+
+    if k9.eligible(x1, x2):
+        return k9.gibbs_gram_pallas(x1, ell1, x2, ell2)
+    return gibbs_gram_reference(x1, ell1, x2, ell2)
 
 
 @functools.lru_cache(maxsize=8)
@@ -40,7 +54,7 @@ def packed_gibbs_cross(d: int):
     of ``ops/matvec.scaled_packed_gibbs_matvec_builder(d)``."""
 
     def cross(raw_s2, xa, xb):
-        k = gibbs_gram(xa[:, :d], torch.exp(xa[:, d:]), xb[:, :d], torch.exp(xb[:, d:]))
+        k = gibbs_gram_reference(xa[:, :d], torch.exp(xa[:, d:]), xb[:, :d], torch.exp(xb[:, d:]))
         return k if raw_s2 is None else positive(raw_s2) * k
 
     return cross

@@ -22,6 +22,7 @@ from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram
 from nonstationary_precip_tpu_torch.models.distributions import MVN
 from nonstationary_precip_tpu_torch.models.likelihoods import GaussianLikelihood
 from nonstationary_precip_tpu_torch.ops.chol_inv import MAX_N, chol_inv_batched_safe
+from nonstationary_precip_tpu_torch.ops.gibbs_fused import gibbs_noisy_chol_alpha
 from nonstationary_precip_tpu_torch.ops.linalg import cho_solve, diag_part, safe_cholesky, tri_solve
 from nonstationary_precip_tpu_torch.priors.lognormal_process import LogNormalProcess
 from nonstationary_precip_tpu_torch.utils.transforms import positive, raw_init
@@ -74,10 +75,19 @@ class GibbsExactGP(nn.Module):
     def loss(self, x: torch.Tensor, y: torch.Tensor, prior_chols=None) -> torch.Tensor:
         """−(log N(y; 0, s²K_gibbs + σ²I) + prior_logprob) / N, per leading
         batch index.  ``prior_chols`` hoists the frozen prior's Gram algebra:
-        ``prior.gram_pre(x)`` or ``prior.gram_chol(x)``."""
+        ``prior.gram_pre(x)`` or ``prior.gram_chol(x)``.
+
+        An unbatched model (x (N, D), the field (N, D)) takes the JAX
+        package's dispatcher ``gibbs_noisy_chol_alpha``: K8 inside its gate on
+        the card, else the composed Gram → ``safe_cholesky`` → ``tri_solve``,
+        which a batched model always takes."""
         n = y.shape[-1]
-        chol = safe_cholesky(noisy_gibbs_gram(self, x))
-        alpha = tri_solve(chol, y)
+        if x.ndim == 2 and self.log_ell.ndim == 2:
+            chol, alpha = gibbs_noisy_chol_alpha(x, torch.exp(self.log_ell), y, self.outputscale,
+                                                 self.likelihood.noise)
+        else:
+            chol = safe_cholesky(noisy_gibbs_gram(self, x))
+            alpha = tri_solve(chol, y)
         quad = torch.sum(alpha * alpha, dim=-1)
         logdet = 2.0 * torch.sum(torch.log(diag_part(chol)), dim=-1)
         logp = -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))

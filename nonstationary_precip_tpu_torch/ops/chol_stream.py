@@ -21,7 +21,8 @@ diagonal sweeps (``tools/profile_torch_exact.py``), against cuSOLVER's
 What the design does about it.  The same left-looking block algorithm as
 the TPU kernel, with 256-wide panels, the matrix identity-padded to a
 multiple of 256 and the factor cut back at the end; per block column j,
-one C call issues three kernels on the stream:
+one C call issues three kernels on the stream
+(``csrc/blocked_chol.cuh``, which K10a and K8 share at 128-wide panels):
   * the update C = A[jp:, jp:jp+256] − L[jp:, :jp]·L[jp:jp+256, :jp]ᵀ, a
     hand-written tiled SIMT GEMM (64 × 64 tiles, 16-deep shared-memory
     k-slabs, a 4 × 4 block of f32 FMAs a thread, k summed in ascending
@@ -92,11 +93,11 @@ def stream_eligible(mat: torch.Tensor) -> bool:
             and MIN_N <= mat.shape[-1] <= MAX_N)
 
 
-def padded(mat: torch.Tensor) -> torch.Tensor:
-    """``mat`` with an identity block appended to a multiple of ``PANEL``
+def padded(mat: torch.Tensor, panel: int = PANEL) -> torch.Tensor:
+    """``mat`` with an identity block appended to a multiple of ``panel``
     (``_forward_streaming2``'s padding); ``mat`` itself when none is needed."""
     n = mat.shape[-1]
-    n_pad = -(-n // PANEL) * PANEL
+    n_pad = -(-n // panel) * panel
     if n_pad == n:
         return mat
     out = torch.zeros((n_pad, n_pad), dtype=mat.dtype, device=mat.device)

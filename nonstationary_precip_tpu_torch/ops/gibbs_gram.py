@@ -1,0 +1,131 @@
+"""K9: the diagonal-Gibbs cross-Gram, by hand for Hopper.
+
+Replaces ``nonstationary_precip_tpu/ops/pallas_gram.py::gibbs_gram_pallas``
+(:136, ``pallas_call`` at :113, body ``_kernel``), which the JAX package's
+``kernels/gibbs.py::gibbs_gram`` dispatches inside its gate.  The kernel is
+``csrc/gibbs_gram.cu``: CUDA C++ for sm_90a, built with nvcc at first use
+(``ops/cuda_build.py``) and bound through ctypes.
+
+What bounds it on an H100.  The output: 4·N₁·N₂ bytes written (6.6 MB at
+N = 1280, 2 µs at 3.35 TB/s), against ~10·D f32 operations an element,
+some of them divisions, square roots and an exponential.
+
+What the design does about it.  A 256-thread block owns a 64 × 64 tile; the
+tile's 64 row payloads sit in shared memory and every warp reads one of them
+at a time (a broadcast), each thread keeps one column's payload in registers
+and writes 16 elements down that column, a warp storing 128 consecutive
+bytes of a row at once.  The element is ``csrc/gibbs_elem.cuh``'s, which K2,
+K3 and K8 use too; no special case on the diagonal, as on the TPU.
+
+The backward is not a kernel: autograd through ``gibbs_gram_reference``
+recomputed from the saved inputs, as the JAX ``_bwd`` does.
+
+Dispatch: ``kernels/gibbs.gibbs_gram`` sends a pair that ``eligible``
+accepts here; ``gibbs_gram_pallas`` launches the kernel for a CUDA tensor
+(which raises on anything it does not take) and runs the plain version for
+a CPU one.  ``LAUNCHES`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
+from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
+
+MAX_D = 8  # input dims the kernel takes (pallas_gram.py's _MAX_D)
+MIN_ELEMS = 128 * 128  # the gate's least N₁·N₂
+
+#: Launches of the kernel so far in this process; a run reads it to show
+#: that its main path went through the kernel.
+LAUNCHES = 0
+
+SOURCE = CSRC / "gibbs_gram.cu"
+
+_lib = None
+
+
+def build(force: bool = False) -> str:
+    """Compile ``csrc/gibbs_gram.cu``, load it, and return nvcc's output.
+    Reused unless ``force``; a failed compile raises."""
+    global _lib
+    lib, log = build_library(SOURCE, force)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gibbs_gram.argtypes = [p, p, i, p, p, i, i, p, p]
+    lib.gibbs_gram.restype = i
+    _lib = lib
+    return log
+
+
+def eligible(x1: torch.Tensor, x2: torch.Tensor) -> bool:
+    """The JAX package's gate (``pallas_gram.py:41-66``) without its
+    environment switch, the backend test read as "on the card": float32,
+    both 2-D, D ≤ 8, N₁·N₂ ≥ 128²."""
+    return (x1.device.type == "cuda" and x1.dtype == torch.float32 and x2.dtype == torch.float32
+            and x1.ndim == 2 and x2.ndim == 2 and x1.shape[-1] <= MAX_D
+            and x1.shape[0] * x2.shape[0] >= MIN_ELEMS)
+
+
+def gibbs_gram_cuda(x1, ell1, x2, ell2) -> torch.Tensor:
+    """The kernel's wrapper: K(x1, ℓ1; x2, ℓ2), (N1, N2), from one launch on
+    the current stream.  x1, ell1 (N1, D ≤ 8) and x2, ell2 (N2, D), float32
+    CUDA tensors on one device; raises on anything else.  No autograd."""
+    global LAUNCHES
+    ts = (x1, ell1, x2, ell2)
+    if any(t.device.type != "cuda" or t.device != x1.device for t in ts):
+        raise ValueError("gibbs_gram kernel takes CUDA tensors on one device")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("gibbs_gram kernel takes float32")
+    if x1.ndim != 2 or x1.shape != ell1.shape or x2.shape != ell2.shape or x1.shape[1] != x2.shape[1]:
+        raise ValueError(f"gibbs_gram kernel: shapes {[tuple(t.shape) for t in ts]}")
+    if not 1 <= x1.shape[1] <= MAX_D:
+        raise ValueError(f"gibbs_gram kernel takes D ≤ {MAX_D}, got {x1.shape[1]}")
+    if _lib is None:
+        build()
+    x1, ell1, x2, ell2 = (t.contiguous() for t in ts)
+    (n1, d), n2 = x1.shape, x2.shape[0]
+    out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        err = _lib.gibbs_gram(x1.data_ptr(), ell1.data_ptr(), n1, x2.data_ptr(), ell2.data_ptr(), n2, d,
+                              out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"gibbs_gram kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return out
+
+
+class _GibbsGram(torch.autograd.Function):
+    """The kernel forward; the backward is autograd through the plain Gram
+    recomputed from the inputs (the JAX ``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x1, ell1, x2, ell2):
+        ctx.save_for_backward(x1, ell1, x2, ell2)
+        if x1.device.type == "cpu":
+            return gibbs_gram_reference(x1, ell1, x2, ell2)
+        if x1.device.type != "cuda":
+            raise ValueError(f"gibbs_gram: no path for device {x1.device}")
+        return gibbs_gram_cuda(x1, ell1, x2, ell2)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            wanted = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(gibbs_gram_reference(*ins), wanted, g) if wanted else ())
+        return tuple(next(grads) if t.requires_grad else None for t in ins)
+
+
+def gibbs_gram_pallas(x1, ell1, x2, ell2) -> torch.Tensor:
+    """K(x1, ℓ1; x2, ℓ2) through the kernel on the card (the plain version
+    on the CPU), differentiable."""
+    return _GibbsGram.apply(x1, ell1, x2, ell2)
+
+
+def gram_bytes(n1: int, n2: int, d: int) -> int:
+    """Bytes the Gram must move: the four (N, D) payloads read once and the
+    N₁ × N₂ output written once (the bound in ``chip_smoke.py``)."""
+    return 4 * (2 * d * (n1 + n2) + n1 * n2)

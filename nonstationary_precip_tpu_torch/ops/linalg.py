@@ -6,9 +6,12 @@ batched over leading dimensions (the JAX package's ``vmap`` written out).
 retry runs in the forward, and the backward is the closed-form Cholesky
 pullback from the saved factor, so autograd never differentiates the retry
 control flow (the jitter level is a non-differentiable choice, as in
-GPyTorch's ``psd_safe_cholesky``).  ``cholesky`` is the one dispatch site:
-a single float32 matrix with 6144 ≤ N ≤ 8192 takes K5, the streaming
-Cholesky (``ops/chol_stream.py``), as on the TPU.
+GPyTorch's ``psd_safe_cholesky``).  The dispatch sites are the JAX
+package's: ``cholesky`` sends a single float32 matrix with 768 ≤ N ≤ 1280 to
+K10a, the blocked Cholesky (``ops/chol_blocked.py``), and one with
+6144 ≤ N ≤ 8192 to K5, the streaming Cholesky (``ops/chol_stream.py``);
+``tri_solve`` sends a lower, non-transposed solve of 2-D operands inside
+K11's gate to the blocked triangular solve (``ops/trsm.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import math
 
 import torch
 
-from nonstationary_precip_tpu_torch.ops import chol_stream
+from nonstationary_precip_tpu_torch.ops import chol_blocked, chol_stream, trsm
 from nonstationary_precip_tpu_torch.utils.config import EPSILON
 
 __all__ = [
@@ -82,12 +85,16 @@ def escalating_jitter(mat: torch.Tensor, factor, jitter: float, max_tries: int):
 
 def cholesky_ex(mat: torch.Tensor):
     """(L, info) of ``mat`` (..., n, n), the JAX package's ``cholesky``
-    dispatch: one float32 matrix with 6144 ≤ N ≤ 8192 goes through K5
-    (``ops/chol_stream``: the kernel on the card, its plain version on the
-    CPU; a failed factor is NaN and ``info`` is 0); everything else takes
+    dispatch: one float32 matrix with 768 ≤ N ≤ 1280 goes through K10a
+    (``ops/chol_blocked``), one with 6144 ≤ N ≤ 8192 through K5
+    (``ops/chol_stream``), each the kernel on the card and its plain version
+    on the CPU, a failed factor NaN and ``info`` 0; everything else takes
     ``torch.linalg.cholesky_ex``, as the JAX package leaves it to XLA."""
+    ok = torch.zeros((), dtype=torch.int32, device=mat.device)
+    if chol_blocked.eligible(mat):
+        return chol_blocked.blocked_cholesky(mat), ok
     if chol_stream.stream_eligible(mat):
-        return chol_stream.streaming_cholesky(mat), torch.zeros((), dtype=torch.int32, device=mat.device)
+        return chol_stream.streaming_cholesky(mat), ok
     return torch.linalg.cholesky_ex(mat)
 
 
@@ -97,13 +104,16 @@ def cholesky(mat: torch.Tensor) -> torch.Tensor:
 
 
 def _cholesky_attempt(mats):
-    """One try of ``safe_cholesky`` on ``escalating_jitter``'s (B, n, n)
-    stack; a single matrix keeps :func:`cholesky_ex`'s 2-D dispatch."""
-    if mats.shape[0] == 1:
-        chol, info = cholesky_ex(mats[0])
-        chol, info = chol[None], info.reshape(1)
-    else:
-        chol, info = torch.linalg.cholesky_ex(mats)
+    """One try of ``safe_cholesky`` of a 2-D matrix on ``escalating_jitter``'s
+    (1, n, n) stack, through :func:`cholesky_ex`'s dispatch."""
+    chol, info = cholesky_ex(mats[0])
+    return (chol[None],), cholesky_failed(chol[None], info.reshape(1))
+
+
+def _batched_attempt(mats):
+    """One try of ``safe_cholesky`` of a stack: the library, as the JAX
+    package's dispatch takes 2-D matrices only."""
+    chol, info = torch.linalg.cholesky_ex(mats)
     return (chol,), cholesky_failed(chol, info)
 
 
@@ -113,7 +123,8 @@ class _SafeCholesky(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mat, jitter, max_tries):
-        (chol,), _ = escalating_jitter(mat, _cholesky_attempt, jitter, max_tries)
+        attempt = _cholesky_attempt if mat.ndim == 2 else _batched_attempt
+        (chol,), _ = escalating_jitter(mat, attempt, jitter, max_tries)
         ctx.save_for_backward(chol)
         return chol
 
@@ -138,7 +149,12 @@ def safe_cholesky(mat: torch.Tensor, jitter: float = EPSILON, max_tries: int = 6
 def tri_solve(chol: torch.Tensor, rhs: torch.Tensor, *, lower: bool = True, trans: bool = False) -> torch.Tensor:
     """Solve L x = rhs (or Lᵀ x = rhs when ``trans``) for triangular L.
 
-    rhs may be a vector (..., n) or a matrix (..., n, k)."""
+    rhs may be a vector (..., n) or a matrix (..., n, k).  A lower,
+    non-transposed solve of a 2-D L and a 2-D rhs inside K11's gate goes
+    through ``ops/trsm`` (the kernel on the card, its plain version on the
+    CPU), as the JAX package's ``tri_solve`` dispatches it."""
+    if lower and not trans and rhs.ndim == 2 and chol.ndim == 2 and trsm.eligible(chol, rhs):
+        return trsm.blocked_trsm(chol, rhs)
     vec = rhs.ndim == chol.ndim - 1
     if vec:
         rhs = rhs[..., None]

@@ -66,7 +66,7 @@ import functools
 import torch
 
 from nonstationary_precip_tpu_torch.kernels.base import Scale
-from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram
+from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
 from nonstationary_precip_tpu_torch.kernels.stationary import RBF, _sq_dist
 from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
 from nonstationary_precip_tpu_torch.utils.transforms import positive
@@ -184,8 +184,8 @@ def gibbs_gram_matvec_cuda(x1, ell1, x2, ell2, v):
 
 
 def gibbs_gram_matvec_plain(x1, ell1, x2, ell2, v, block: int = PLAIN_BLOCK):
-    """The plain PyTorch version of K2: row panels of ``gibbs_gram`` @ v."""
-    return torch.cat([gibbs_gram(x1[i:i + block], ell1[i:i + block], x2, ell2) @ v
+    """The plain PyTorch version of K2: row panels of ``gibbs_gram_reference`` @ v."""
+    return torch.cat([gibbs_gram_reference(x1[i:i + block], ell1[i:i + block], x2, ell2) @ v
                       for i in range(0, x1.shape[0], block)])
 
 

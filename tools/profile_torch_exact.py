@@ -1,26 +1,32 @@
-"""Where a training step of the port's stationary exact GP goes, on the card.
+"""Where a training step of the port's exact GPs goes, on the card.
 
-Two steps of ``nonstationary_precip_tpu_torch.experiments.exact_largen``,
+Three steps of ``nonstationary_precip_tpu_torch.experiments.exact_largen``,
 f32, Adam lr 0.01:
+  * ``gibbs``: bench_scaling.py's Gibbs MAP step at N = 1024 and 1280
+    (``gibbs_dense``: the field trains, the prior's Cholesky stack is
+    hoisted), whose loss runs K8; the same step with K8's gate closed (the
+    composed Gram → Cholesky → solve, through K9 and K10a) and with K8's,
+    K9's and K10a's gates closed (torch ops and cuSOLVER's potrf);
   * ``dense``: the Cholesky MLL of Scale(RBF(2)) at N = 8192 (the
     bench_scaling loop's last row), whose factorisation runs K5;
   * ``lazy``: the matrix-free MLL at N = 16384 (rank-150 pivoted-Cholesky
     preconditioner, 8 probes, 32 mBCG iterations, block 2048), whose mBCG
     matvec runs K6.
 For each it warms up, times ``--steps`` untraced steps with CUDA events and
-the host clock (and, for ``lazy``, the pivoted-Cholesky build alone), then
+the host clock (and, for ``lazy``, the pivoted-Cholesky build alone; for
+``gibbs``, K8's call alone and the composed step), then
 traces ``--steps`` more with ``torch.profiler`` (CPU and CUDA activities)
 and sums device kernel time by kernel.  Prints the top device kernels and
-one JSON line per step kind: the untraced step time, K5's GEMM and
-diagonal kernels (dense) or K6 and the pivoted-Cholesky build (lazy), the
-rest, the traced wall time, the device's busy time, its idle share against
+one JSON line per step kind: the untraced step time, K8's kernels (gibbs),
+K5's GEMM and diagonal kernels (dense) or K6 and the pivoted-Cholesky build
+(lazy), the rest, the traced wall time, the device's busy time, its idle share against
 the untraced step (1 − traced kernel time / untraced step time) and
 against the traced wall time (which the profiler's own cost inflates when
 a step launches thousands of kernels), and kernels per step.  The gzipped
-Chrome traces go to ``build/profiles/profile_torch_exact_{dense,lazy}.json.gz``.
+Chrome traces go to ``build/profiles/profile_torch_exact_{gibbs*,dense,lazy}.json.gz``.
 
 Run from the repository root on a CUDA card:
-    python tools/profile_torch_exact.py [--steps 5] [--only dense|lazy]
+    python tools/profile_torch_exact.py [--steps 5] [--only gibbs|dense|lazy]
 """
 
 import argparse
@@ -37,11 +43,14 @@ sys.path.insert(0, str(ROOT))
 
 from nonstationary_precip_tpu_torch.experiments import exact_largen  # noqa: E402
 from nonstationary_precip_tpu_torch.experiments.gibbs_largen import probe_draws  # noqa: E402
-from nonstationary_precip_tpu_torch.ops import chol_stream, matvec  # noqa: E402
+from nonstationary_precip_tpu_torch.ops import chol_blocked, chol_stream, gibbs_fused, gibbs_gram, matvec  # noqa: E402
 from nonstationary_precip_tpu_torch.ops.lazy_cg import build_precond_factor, default_cross  # noqa: E402
 from nonstationary_precip_tpu_torch.utils.config import device  # noqa: E402
 
 K5_GEMM, K5_DIAG = ("gemm_nt_kernel",), ("diag_kernel",)
+# K8's kernels (on the Gibbs step only K8 runs blocked_chol.cuh's GEMM and
+# diagonal kernels)
+K8_NAMES = ("build_kernel", "gemm_nt_kernel", "diag_kernel", "finite_kernel", "commit_kernel")
 K6_NAMES = ("gibbs_matvec_kernel", "sum_splits_kernel")  # only K6 runs them on this path
 
 
@@ -107,6 +116,43 @@ def adam_step(model, loss_fn):
     return step
 
 
+def profile_gibbs(args, dev):
+    out = []
+    for n in exact_largen.GIBBS_NS:
+        x, y = (t.to(dev) for t in exact_largen.gibbs_data((n,))[n])
+        model, pc = exact_largen.gibbs_model(x)
+        step = adam_step(model, lambda m: m.loss(x, y, pc))
+        for _ in range(args.warmup):
+            step()
+        step_ms, step_host_ms = event_ms(step, args.steps)
+        with torch.no_grad():
+            ell, s2, noise = torch.exp(model.log_ell), model.outputscale, model.likelihood.noise
+        k8_ms, k8_host_ms = event_ms(lambda: gibbs_fused.gibbs_chol_solve_cuda(x, ell, y, s2, noise), args.steps)
+        kernels, busy_us, wall = traced(step, args.steps, f"gibbs{n}")
+        k8 = ms_of(kernels, K8_NAMES, args.steps)
+        # K8's gate closed: the composed path (K9's Gram, K10a's factor, the
+        # library's solve); then K9's and K10a's gates closed too (torch ops
+        # and potrf)
+        composed = {}
+        for name, mods in (("composed", (gibbs_fused,)), ("library", (gibbs_fused, gibbs_gram, chol_blocked))):
+            gates = [m.eligible for m in mods]
+            for m in mods:
+                m.eligible = lambda *a, **k: False
+            try:
+                for _ in range(args.warmup):
+                    step()
+                composed[f"{name}_step_ms"], composed[f"{name}_step_host_ms"] = event_ms(step, args.steps)
+            finally:
+                for m, g in zip(mods, gates):
+                    m.eligible = g
+        out.append({"path": "gibbs", "n": n, "steps": args.steps, "step_ms": step_ms, "step_host_ms": step_host_ms,
+                    "k8_call_ms": k8_ms, "k8_call_host_ms": k8_host_ms, "k8_ms_per_step": k8,
+                    "rest_device_ms_per_step": busy_us / 1e3 / args.steps - k8,
+                    **_shares(busy_us, wall, step_ms, args.steps),
+                    "kernels_per_step": sum(e.count for e in kernels) / args.steps, **composed})
+    return out
+
+
 def profile_dense(args, dev):
     n = chol_stream.MAX_N
     x, y = (t.to(dev) for t in exact_largen.dense_data((n,))[n])
@@ -150,14 +196,18 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=3)
-    ap.add_argument("--only", choices=("dense", "lazy"))
+    ap.add_argument("--only", choices=("gibbs", "dense", "lazy"))
     args = ap.parse_args()
     dev = device("cuda")
     chol_stream.build()
     matvec.build()
-    for path, fn in (("dense", profile_dense), ("lazy", profile_lazy)):
+    for m in (gibbs_fused, gibbs_gram, chol_blocked):
+        m.build()
+    for path, fn in (("gibbs", profile_gibbs), ("dense", profile_dense), ("lazy", profile_lazy)):
         if args.only in (None, path):
-            print(json.dumps({"device": torch.cuda.get_device_name(0), **fn(args, dev)}), flush=True)
+            results = fn(args, dev)
+            for r in results if isinstance(results, list) else [results]:
+                print(json.dumps({"device": torch.cuda.get_device_name(0), **r}), flush=True)
 
 
 if __name__ == "__main__":
