@@ -12,120 +12,155 @@ the stationary exact GP of ``experiments.exact_largen`` (the dense MLL loop
 at N = 1024..8192, K10a and K5; the matrix-free gate at N = 16384, K6) with
 ``experiments.seard_spatial`` and ``experiments.temporal``, and the dense
 Gibbs MAP rows of ``experiments.exact_largen.gibbs_dense`` at N = 1024 and
-1280 with their predictive (K8, K9, K10a, K11).  Each path is driven with
+1280 with their predictive (K8, K9, K10a, K11), and the matrix-free Gibbs
+MAP flow with its prior of ``examples.quickstart_gibbs_largen`` at N = 16384
+(K2 and K3).  K10b and K10c, which no path runs, are driven through their
+own entries, ``ops.chol_inv.chol_inv_batched`` and
+``ops.chol_stream.streaming_cholesky_v1``.  Each path is driven with
 every launch count set to 0 just before it and read just after.  Phases,
 one JSON line each:
 
-  1. device     — the card's name; nvidia-smi's name and power limit;
-  2. build      — K1 (csrc/chol_inv_batched.cu), K2/K3/K6 (csrc/gibbs_matvec.cu),
+ 1. device     — the card's name; nvidia-smi's name and power limit;
+ 2. build      — K1 (csrc/chol_inv_batched.cu), K2/K3/K6 (csrc/gibbs_matvec.cu),
                   K4 (csrc/svgp_precompute.cu), K5 (csrc/chol_stream.cu),
                   K7 (csrc/elbo_fused.cu), K9 (csrc/gibbs_gram.cu), K10a
-                  (csrc/chol_blocked.cu), K11 (csrc/trsm.cu) and K8
-                  (csrc/gibbs_fused.cu), nine nvcc runs started together, in
+                  (csrc/chol_blocked.cu), K11 (csrc/trsm.cu), K8
+                  (csrc/gibbs_fused.cu), K10b (csrc/chol_inv_grid.cu) and K10c
+                  (csrc/chol_stream_v1.cu), eleven nvcc runs started together, in
                   seconds, with each kernel's registers, spills and shared
                   memory;
-  3. k1         — K1 against its plain version at the slice's shape (10, 316)
+ 3. k1         — K1 against its plain version at the slice's shape (10, 316)
                   on the real stacked Gibbs Gram and on random SPD stacks, a
                   rank-deficient member through the jitter retry, then the
                   median time of each;
-  4. slice      — the experiment on the card (300 Adam steps by default): K1's
+ 4. slice      — the experiment on the card (300 Adam steps by default): K1's
                   launch count over the run (and K9's three in the last
                   split's field prediction), finite and falling losses, the
                   per-split losses at steps 0 and 50 against the JAX package's
                   pinned float32 values (tests/fixtures/jax_spatial_gibbs_ref.npz),
                   steps/s, mean RMSE/NLPD, the field CSV's shape;
-  5. largen_ref — the large-N experiment at N = 2048 on the data and probe
+ 5. largen_ref — the large-N experiment at N = 2048 on the data and probe
                   draws of the JAX run pinned in
                   tests/fixtures/jax_gibbs_largen_ref.npz: its losses at steps
                   0 and 19 against JAX's, K2's and K3's launch counts (no K9);
-  6. largen     — the gate at N = 16384 (20 Adam steps, rank 150, 16 mBCG
+ 6. largen     — the gate at N = 16384 (20 Adam steps, rank 150, 16 mBCG
                   iterations): relres of the trained-pose solve, the loss
                   against the dense Cholesky oracle, the gradient cosine,
                   K2's and K3's launch counts against what the code implies
                   (no K9: the oracle builds its Gram with the plain Gram),
                   training and wall seconds;
-  7. k2         — K2 against its plain version at (16384, 16384, D = 2,
+ 7. k2         — K2 against its plain version at (16384, 16384, D = 2,
                   R = 9) on the gate's init-pose and trained-pose payloads and
                   at a ragged (1000, 1500, D = 3, R = 130), bitwise repeat,
                   then the median time of each;
-  8. k3         — K3 against its plain version at N = 16384, R = 8 on the
+ 8. k3         — K3 against its plain version at N = 16384, R = 8 on the
                   same payloads, and its row-block form on one block; times;
-  9. dgp_ref    — the deep GP on the card at full width (M = 250) for 2
+ 9. dgp_ref    — the deep GP on the card at full width (M = 250) for 2
                   splits and 10 steps, from the init, batch schedule and ε
                   of the JAX run pinned in tests/fixtures/jax_deepgp_ref.npz:
                   its losses at steps 0 and 9 against JAX's, each K_zz
                   member's jitter at init against the pinned run's, one K4
                   call and one K7 forward and backward per step;
- 10. dgp        — the whole experiment (10 splits, 400 steps, M = 250):
+10. dgp        — the whole experiment (10 splits, 400 steps, M = 250):
                   RMSE/NLPD against the deepgp_spatial_10split band, K4's
                   and K7's launch counts against what the code implies,
                   steps/s;
- 11. k4         — K4 against its plain version on the experiment's init and
+11. k4         — K4 against its plain version on the experiment's init and
                   trained payloads (50 × M = 250, D = 2, P = 501) and a
                   ragged (3, 37, D = 3), each held to float64 as in
                   tests/test_torch_svgp_precompute.py, and K4's L⁻¹
                   residual and W to entrywise γ_M bounds; the retry case (a
                   duplicated z at s² = 40) beside a healthy member; times;
- 12. k7         — K7's forward and backward, and the plain version in f32,
+12. k10b       — K10b (the retry-free grid-batched (L, L⁻¹)) and its plain
+                  version against float64 on the deep GP's K_zz stacks at
+                  init and trained (50 × 250²), the slice's Gram (10 × 316²),
+                  (3, 512) and a ragged (2, 130); a non-PD member beside
+                  healthy ones; bitwise repeat; its entry chol_inv_batched
+                  forward and backward, counted; times beside K1's;
+13. k7         — K7's forward and backward, and the plain version in f32,
                   against the plain version in float64 on the experiment's
                   init and trained payloads (10 splits, B 315, S 3, M 250),
                   a ragged (3, 37, 2, 19) and one whose variances hit the
                   1e-10 floor; bitwise repeat; the times of the kernels, the
                   plain version, and the fused term against the composed
                   data term through autograd;
- 13. field_regression — the whole experiment (spatial DeepGP, 400 steps,
+14. field_regression — the whole experiment (spatial DeepGP, 400 steps,
                   and the spatio-temporal one, 200 steps): the spatial field
                   against the reference artifact inside the
                   dgp_field_regression band, K7 launched once forward and
                   once backward per spatial step, K4 once per step and
                   predict of either half;
- 14. k5         — K5, its plain version and torch.linalg.cholesky against
+15. k5         — K5, its plain version and torch.linalg.cholesky against
                   float64 on the dense run's N = 8192 Gram at init and a
                   ragged N = 6500 SPD matrix (padded to 6656), K5's backward
                   error against γ_(N+1)|L||Lᵀ|; a rank-30 matrix through
                   safe_cholesky's retry; times of all three;
- 15. exact_dense — bench_scaling.py's exact loop (N = 1024..8192, 20 Adam
+16. k10c       — K10c (the right-looking v1 streaming Cholesky), its plain
+                  version, K5 and torch.linalg.cholesky against float64 on the
+                  dense run's Grams at N = 8192 and 4096 and a ragged N =
+                  1000; a rank-30 matrix non-finite; its entry
+                  streaming_cholesky_v1 forward and backward, counted; times
+                  of all four at 8192 and 4096;
+17. exact_dense — bench_scaling.py's exact loop (N = 1024..8192, 20 Adam
                   steps each): K5 called exactly once per step at N = 8192,
                   K10a once per step at N = 1024, and no other kernel, the N = 8192 losses at steps 0 and 19
                   against the same loop with the plain version in K5's
                   place, ms/step at every N;
- 16. seard_ref  — 2 splits × 51 steps of the seard fit against the JAX run
+18. seard_ref  — 2 splits × 51 steps of the seard fit against the JAX run
                   pinned in tests/fixtures/jax_exact_ref.npz (steps 0, 50);
- 17. seard      — the whole experiment (10 splits, 400 steps) inside the
+19. seard      — the whole experiment (10 splits, 400 steps) inside the
                   seard_spatial_10split band, no kernel launched;
- 18. temporal   — the whole experiment (2000 steps) inside the temporal
+20. temporal   — the whole experiment (2000 steps) inside the temporal
                   band, no kernel launched;
- 19. exact_lazy_ref — the matrix-free ExactGP at N = 2048 on the pinned JAX
+21. exact_lazy_ref — the matrix-free ExactGP at N = 2048 on the pinned JAX
                   run's data and probe draws: its losses at steps 0 and 19;
- 20. exact_lazy — the matrix-free gate at N = 16384 (20 steps, rank 150, 32
+22. exact_lazy — the matrix-free gate at N = 16384 (20 steps, rank 150, 32
                   mBCG iterations): relres, the loss against the float64
                   Cholesky oracle, the gradient cosine (lengthscale,
                   outputscale and noise gradients non-zero), the predictive
                   mean at 64 points against the dense posterior's, K6's
                   launch count against what the code implies;
- 21. k6         — K6 and its plain version against float64 on the gate's
+23. k6         — K6 and its plain version against float64 on the gate's
                   trained payload (16384², R = 9) and a column-chunked
                   (2048 × 16384, R = 200), bitwise repeat; times;
- 22. gibbs_dense_ref — the Gibbs row at N = 1024 from the init of the JAX run
+24. gibbs_dense_ref — the Gibbs row at N = 1024 from the init of the JAX run
                   pinned in tests/fixtures/jax_gibbs_dense_ref.npz: its losses
                   at steps 0 and 19 against JAX's, then the predictive mean
                   and variance at the pinned trained pose against JAX's;
- 23. gibbs_dense — bench_scaling.py's Gibbs rows (N = 1024 and 1280, 20 Adam
+25. gibbs_dense — bench_scaling.py's Gibbs rows (N = 1024 and 1280, 20 Adam
                   steps each) and their predictive at a 16 × 16 grid: per N,
                   K8 once per step, K9 three times, K10a and K11 once each,
                   and no other kernel; ms/step, RMSE and NLPD;
- 24. k9         — K9 and its plain version against float64 on the
+26. k9         — K9 and its plain version against float64 on the
                   predictive's three Grams at the rows' init and trained
                   poses and a ragged N = 1000, bitwise repeat; times;
- 25. k10a       — K10a, its plain version and torch.linalg.cholesky against
+27. k10a       — K10a, its plain version and torch.linalg.cholesky against
                   float64 on the predictive's noisy Gram at the same poses; a
                   rank-30 matrix through safe_cholesky's retry; times;
- 26. k11        — K11 and its plain version against float64 on L⁻¹K_xs (K =
+28. k11        — K11 and its plain version against float64 on L⁻¹K_xs (K =
                   256) and on K = 70 at the same poses, bitwise repeat; times;
- 27. k8         — K8 and its plain version against float64 on the MAP loss's
+29. k8         — K8 and its plain version against float64 on the MAP loss's
                   payloads at the same poses; a singular payload on which
                   the jitter ladder fires, on the plain version's rung;
-                  bitwise repeat; times at N = 1024 and 1280.
+                  bitwise repeat; times at N = 1024 and 1280;
+30. gibbs_mf_ref — the matrix-free Gibbs flow of examples/
+                  quickstart_gibbs_largen.py at N = 2048 on the data, prior
+                  SLQ probes and per-step probes of the JAX run pinned in
+                  tests/fixtures/jax_gibbs_mf_ref.npz: the prior's SLQ
+                  logdet against the float64 dense one, its losses at steps
+                  0 and 19 against JAX's (the prior's logdet the pinned one),
+                  the posterior at the pinned trained pose against the
+                  float64 dense posterior, K2's and K3's launches;
+31. gibbs_mf    — the same flow at N = 16384 (20 steps, data rank 150, prior
+                  rank 50, 8 probes, block 2048): the matrix-free loss against
+                  the dense MAP loss, prior included, the gradient cosine, the
+                  field's gradient term by term against float64 (the prior's
+                  against the exact one, the data term's against the same
+                  probes' estimator with exact solves), the trained-pose relres, the state's mean-only query against the
+                  one-shot posterior mean, a finite RMSE, K2's and K3's
+                  launches against what the code implies (K9 once, in the
+                  dense oracle); ms a step, the prior's share, the hoist, the
+                  state and a query batch.
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line and
@@ -293,6 +328,68 @@ DENSE_FLOOR = 1e-6
 # α passes through an N-step substitution (tests/test_pallas.py:176 holds
 # the TPU kernel's α to 5e-3 absolute).
 K8_FLOOR = {"L": 1e-5, "alpha": 1e-4}
+# K10b against float64 on the deep GP's K_zz stacks, the slice's Gram and
+# random SPD stacks: each output within twice the plain f32 version's error
+# (both relative to the largest float64 entry) plus a floor: 1e-5 in L
+# everywhere; in L⁻¹ K4's 1e-3 on the K_zz stacks (250 inducing points make
+# K_zz near-singular, so L⁻¹ carries f32 error that grows with its condition
+# in both versions: 4.3e-2–5.7e-2 measured) and 1e-5 on the slice's Gram
+# (measured: L 4.8e-6, L⁻¹ 3.2e-5, plain 3.9e-6 / 2.8e-5) and the random
+# stacks (≤ 4.7e-7 in both versions).  Neither
+# version retries, so a member that is singular to f32 working accuracy may
+# come out non-finite from either (``k10b_errors``).
+K10B_FLOOR = {"L": 1e-5, "Linv": 1e-5, "Linv_kzz": 1e-3}
+K10B_RANDOM = ((3, 512), (2, 130))  # the window's top; a ragged N that pads to 256
+# K10c against float64, K5's criterion (K5_FLOOR, Higham's bound), at the
+# dense run's Grams at N = 8192 and 4096 and a ragged N = 1000.
+K10C_NS, K10C_RAGGED = (8192, 4096), 1000
+# The matrix-free Gibbs flow at N = 2048 against the pinned JAX run
+# (tests/fixtures/jax_gibbs_mf_ref.npz).  Its losses with the prior's
+# constant logdet taken from the pinned run: at step 0 both compute the
+# same estimator on the same probes in another summation order (the port's
+# CPU f32 run: 4.0e-7); the data factor is rebuilt at steps 4, 8, 12 and 16
+# by greedy pivoting, whose pivot order follows the f32 rounding of the
+# residual diagonal, and another factor is another (unbiased) estimator, so
+# the traces part there (CPU: 4.5e-4 at step 4, 3.1e-3 at step 19; the JAX
+# run's step 13 is NaN, an mBCG breakdown flag the port's run does not
+# raise): 1e-2 at step 19, the other large-N runs' final-step band.  The
+# posterior at the pinned trained pose is held to the float64 dense
+# posterior there (``GibbsExactGP.posterior``), not to the pinned JAX one,
+# which is itself 0.110 (mean) and 0.0207 (variance) from it: JAX's float32
+# conditioning solves of the lengthscales at the test points (the prior's
+# Gram with 1e-4 jitter, 96 iterations to tol 1e-8) move with the rounding,
+# where the port runs them in float64 (ROADMAP §3, F6).  The port's mean
+# within 1e-4 and its variance within 1e-5 absolute (means reach 1.04,
+# variances lie in [0.0024, 0.018]; measured 5.7e-6 and 2.4e-7; the JAX
+# run's float32 prior would fail both).  The float64 dense posterior is the
+# port's, held to JAX's dense posterior by ``gibbs_dense_ref``.  The
+# prior's SLQ logdet is held to the float64 dense logdet within 1e-2 (the
+# SLQ estimator's noise at 16 probes; the port's CPU run: 1.5e-4), not to
+# JAX's: in float32 its 96 iterations run past convergence and the estimate
+# drifts with the rounding (the JAX run: 1658 and −5455 for two dims with
+# one Gram, whose float64 logdet is −18325; ROADMAP §3, F5).
+GIBBS_MF_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_gibbs_mf_ref.npz"
+GIBBS_MF_RTOL_STEP0, GIBBS_MF_RTOL_STEP19 = 1e-4, 1e-2
+GIBBS_MF_MEAN_ATOL, GIBBS_MF_VAR_ATOL, GIBBS_MF_LOGDET_RTOL = 1e-4, 1e-5, 1e-2
+# The matrix-free Gibbs flow at the gate's size: data rank 150, prior rank
+# 50, 8 probes, block 2048, 20 steps, the factor refreshed every 4; the
+# state's mean-only query against the one-shot posterior mean within 1e-3
+# (the JAX example's band).
+GIBBS_MF_N, GIBBS_MF_STEPS, GIBBS_MF_DRIFT = 16384, 20, 1e-3
+# The field's gradient at the trained pose, term by term, against float64
+# dense references (``gibbs_mf_field_grads``): cosine and relative error
+# ‖g − g_ref‖/‖g_ref‖.  The prior term's is a converged float64 solve with
+# no probes, held to the exact gradient of ``prior.log_prob``.  The data
+# term's carries the 8 probes' noise, so it is held to the same estimator on
+# the same probes with exact solves; what parts them is the f32 mBCG through
+# K2 (48 iterations, tol 1e-6) and K3's f32 sums.  Their sum against the
+# whole matrix-free field gradient at the gate's cosine.  (Against the exact
+# dense gradient, the field's cosine is the estimator's: 0.24 at 8 probes.)
+# Measured on an H100: prior 1.4e-7, data 4.2e-4 (cosines 1 − 1e-14 and
+# 1 − 9e-8); a factor 2 in the quadratic's pullback or 0.3 for ¼ in K3's
+# trace cotangent gives 0.5 and 0.19 (a CPU run at N = 256).
+GIBBS_MF_PRIOR_GRAD = {"cosine": 0.99999, "rel": 1e-5}
+GIBBS_MF_DATA_GRAD = {"cosine": 0.9999, "rel": 5e-3}
 # The card's peaks (H100 SXM data sheet, at the full 700 W): f32 outside the
 # tensor cores, and HBM.
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -498,27 +595,29 @@ def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
 
 
 def _counters():
-    """{kernel name: the module holding its plain LAUNCHES count}."""
+    """{kernel name: (the module holding its plain count, the count's name)}."""
     from nonstationary_precip_tpu_torch.ops import (chol_blocked, chol_inv, chol_stream, gibbs_fused, gibbs_gram,
                                                     svgp_precompute, trsm)
 
-    return {"chol_inv_batched": chol_inv, "svgp_precompute": svgp_precompute, "streaming_cholesky": chol_stream,
-            "gibbs_chol_solve_fused": gibbs_fused, "gibbs_gram": gibbs_gram, "blocked_cholesky": chol_blocked,
-            "blocked_trsm": trsm}
+    return {"chol_inv_batched": (chol_inv, "LAUNCHES"), "svgp_precompute": (svgp_precompute, "LAUNCHES"),
+            "streaming_cholesky": (chol_stream, "LAUNCHES"), "gibbs_chol_solve_fused": (gibbs_fused, "LAUNCHES"),
+            "gibbs_gram": (gibbs_gram, "LAUNCHES"), "blocked_cholesky": (chol_blocked, "LAUNCHES"),
+            "blocked_trsm": (trsm, "LAUNCHES"), "chol_inv_grid": (chol_inv, "GRID_LAUNCHES"),
+            "streaming_cholesky_v1": (chol_stream, "V1_LAUNCHES")}
 
 
 def launch_counts() -> dict:
     """Every hand-written kernel's launch count, by name."""
     from nonstationary_precip_tpu_torch.ops import elbo_fused, matvec
 
-    return {**{k: m.LAUNCHES for k, m in _counters().items()}, **matvec.LAUNCHES, **elbo_fused.LAUNCHES}
+    return {**{k: getattr(m, a) for k, (m, a) in _counters().items()}, **matvec.LAUNCHES, **elbo_fused.LAUNCHES}
 
 
 def reset_launches():
     from nonstationary_precip_tpu_torch.ops import elbo_fused, matvec
 
-    for m in _counters().values():
-        m.LAUNCHES = 0
+    for m, a in _counters().values():
+        setattr(m, a, 0)
     for counts in (matvec.LAUNCHES, elbo_fused.LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -660,7 +759,7 @@ def phase_k3(matvec, payloads, dev):
 
 def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram, chol_blocked, trsm,
               gibbs_fused):
-    """The nine nvcc runs at once, each timed on its own."""
+    """The eleven nvcc runs at once, each timed on its own."""
     def timed(build):
         t0 = time.perf_counter()
         log = build(force=True)
@@ -669,9 +768,10 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_
     def lines(log):
         return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
-    mods = (chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram, chol_blocked, trsm, gibbs_fused)
-    with ThreadPoolExecutor(len(mods)) as pool:
-        jobs = [pool.submit(timed, m.build) for m in mods]
+    builds = [m.build for m in (chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram,
+                                 chol_blocked, trsm, gibbs_fused)] + [chol_inv.build_grid, chol_stream.build_v1]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        jobs = [pool.submit(timed, b) for b in builds]
         (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log), (k5_s, k5_log), (k7_s, k7_log), *dense = (j.result()
                                                                                                  for j in jobs)
     emit("build", kernel="chol_inv_batched", seconds=k1_s,
@@ -680,7 +780,8 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_
     emit("build", kernel="svgp_precompute", seconds=k4_s, ptxas=lines(k4_log))
     emit("build", kernel="chol_stream", seconds=k5_s, ptxas=lines(k5_log))
     emit("build", kernel="elbo_fused", seconds=k7_s, ptxas=lines(k7_log))
-    for name, (sec, log) in zip(("gibbs_gram", "chol_blocked", "trsm", "gibbs_fused"), dense):
+    for name, (sec, log) in zip(("gibbs_gram", "chol_blocked", "trsm", "gibbs_fused", "chol_inv_grid",
+                                 "chol_stream_v1"), dense):
         emit("build", kernel=name, seconds=sec, ptxas=ptxas_summary(log))
 
 
@@ -1043,33 +1144,42 @@ def phase_field_regression(field_regression, dev_name: str):
          wall_seconds=out["wall_seconds"], device=dev_name)
 
 
-def k5_errors(chol_stream, a):
-    """K5, its plain version and torch.linalg.cholesky on the same f32
-    matrix, each against the float64 factor; K5's entrywise backward error
-    against γ_{N+1}|L||Lᵀ|."""
-    l = chol_stream.streaming_cholesky_cuda(a)
-    p = chol_stream.streaming_cholesky_plain(a)
+def chol_errors(what: str, kernel, a: torch.Tensor, others: dict) -> dict:
+    """A Cholesky kernel's factor of the f32 matrix ``a`` against float64
+    (K5's criterion: within twice potrf's error plus K5_FLOOR of the largest
+    entry, and the kernel's backward error within γ_{N+1}|L||Lᵀ|), beside
+    ``others``' factors of the same matrix (name: function), each reported."""
+    l = kernel(a)
+    facts = {name: fn(a) for name, fn in others.items()}
     lib = torch.linalg.cholesky(a)
     a64 = torch.tril(a.double()) + torch.tril(a.double(), -1).T  # the lower triangle each version reads
     l64 = torch.linalg.cholesky(a64)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(l).all()), "K5 factor finite")
-    check(bool((torch.triu(l, 1) == 0).all()), "K5 factor lower triangular")
-    err = {name: float((t.double() - l64).abs().max()) for name, t in (("kernel", l), ("plain", p), ("library", lib))}
+    check(bool(torch.isfinite(l).all()), f"{what} factor finite")
+    check(bool((torch.triu(l, 1) == 0).all()), f"{what} factor lower triangular")
+    err = {name: float((t.double() - l64).abs().max())
+           for name, t in (("kernel", l), ("library", lib), *facts.items())}
     largest = float(l64.abs().max())
     check(err["kernel"] <= 2 * err["library"] + K5_FLOOR * largest,
-          f"K5 vs float64 {err['kernel']:.3g} within 2x potrf's {err['library']:.3g} (+{K5_FLOOR} x {largest:.3g})")
+          f"{what} vs float64 {err['kernel']:.3g} within 2x potrf's {err['library']:.3g} (+{K5_FLOOR} x {largest:.3g})")
     n = a.shape[-1]
     gamma = (n + 1) * 2.0**-24 / (1 - (n + 1) * 2.0**-24)
     lk = l.double()
     resid = lk @ lk.T - a64
     la = lk.abs()
     ratio = float((resid.abs() / (gamma * (la @ la.T) + 1e-300)).max())
-    check(ratio <= 1.0, f"K5 backward error within γ_(N+1)|L||Lᵀ|: ratio {ratio:.3g} <= 1")
+    check(ratio <= 1.0, f"{what} backward error within γ_(N+1)|L||Lᵀ|: ratio {ratio:.3g} <= 1")
     err.update(largest=largest, bound_ratio=ratio,
-               rel_residual=float(torch.linalg.matrix_norm(resid) / torch.linalg.matrix_norm(a64)),
-               max_abs_err=float((l - p).abs().max()))
+               rel_residual=float(torch.linalg.matrix_norm(resid) / torch.linalg.matrix_norm(a64)))
+    if "plain" in facts:
+        err["max_abs_err"] = float((l - facts["plain"]).abs().max())
     return err
+
+
+def k5_errors(chol_stream, a):
+    """K5, its plain version and torch.linalg.cholesky on the same f32
+    matrix, each against the float64 factor (``chol_errors``)."""
+    return chol_errors("K5", chol_stream.streaming_cholesky_cuda, a, {"plain": chol_stream.streaming_cholesky_plain})
 
 
 def dense_gram(exact_largen, n: int, dev):
@@ -1542,6 +1652,335 @@ def phase_k8(gibbs_fused, payloads, dev):
     return out
 
 
+def k10b_errors(chol_inv, a: torch.Tensor, name: str) -> dict:
+    """K10b and its plain version on one stack against float64; bitwise
+    repeat.  Neither retries, so each may fail on a member that is singular
+    to f32 working accuracy: a member either version leaves non-finite must
+    fall short of Higham's sufficient condition for an f32 Cholesky to run
+    to completion (Thm 10.7, 20·N^{3/2}·u·κ₂(A) < 1); the members both
+    factor are held to float64."""
+    l, li = chol_inv.chol_inv_grid_cuda(a)
+    again = chol_inv.chol_inv_grid_cuda(a)
+    pl, pli = chol_inv.chol_inv_batched_plain(a)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip((l, li), again)),
+          f"K10b {name} bitwise repeatable (NaNs included)")
+
+    def finite(*ts):
+        return torch.stack([torch.isfinite(t).flatten(1).all(1) for t in ts]).all(0)
+
+    kfin, pfin = finite(l, li), finite(pl, pli)
+    n = a.shape[-1]
+    failed = ~(kfin & pfin)
+    if bool(failed.any()):
+        ev = torch.linalg.eigvalsh(a[failed].double())
+        kappa = ev[:, -1] / ev[:, 0].clamp_min(1e-300)
+        check(bool((kappa.isinf() | (ev[:, 0] <= 0) | (20 * n**1.5 * 2.0**-24 * kappa >= 1)).all()),
+              f"K10b {name}: the members left non-finite ({failed.nonzero()[:, 0].tolist()}) are singular to f32 "
+              f"(κ₂ {kappa.tolist()})")
+    check(bool((torch.triu(l[kfin], 1) == 0).all() and (torch.triu(li[kfin], 1) == 0).all()),
+          f"K10b {name} lower triangular")
+    ok = kfin & pfin
+    check(int(ok.sum()) > 0, f"K10b {name}: some member factored")
+    l64 = torch.linalg.cholesky(a[ok].double())
+    eye = torch.eye(n, dtype=torch.float64, device=a.device)
+    li64 = torch.linalg.solve_triangular(l64, eye.expand_as(l64), upper=False)
+    return {"L": check_f64(f"K10b {name} L", l[ok], pl[ok], l64, K10B_FLOOR["L"]),
+            "Linv": check_f64(f"K10b {name} L⁻¹", li[ok], pli[ok], li64,
+                              K10B_FLOOR["Linv_kzz" if name.startswith("kzz") else "Linv"]),
+            "kernel_nonfinite": (~kfin).nonzero()[:, 0].tolist(), "plain_nonfinite": (~pfin).nonzero()[:, 0].tolist()}
+
+
+def phase_k10b(chol_inv, svgp_precompute, spatial_gibbs, dgp_model, dev):
+    """K10b against float64 and its plain version on the deep GP's K_zz
+    stacks at its init and trained poses (50 × 250²), the slice's Gram (10 ×
+    316²), (3, 512) and a ragged (2, 130); a non-PD member beside healthy
+    ones; the entry ``chol_inv_batched`` forward and backward, counted; times
+    of K10b, its plain version and K1 with its retry off (the same function)
+    at the K_zz and slice shapes."""
+    from nonstationary_precip_tpu_torch.models.gibbs_gp import noisy_gibbs_gram
+    from nonstationary_precip_tpu_torch.train.config import ExperimentConfig
+    from nonstationary_precip_tpu_torch.train.vmapped import stack_modules
+    from nonstationary_precip_tpu_torch.data.datasets import load_uib_spatial
+    from nonstationary_precip_tpu_torch.data.dataprep import load_csv
+    from nonstationary_precip_tpu_torch.experiments import deepgp_spatial
+    from nonstationary_precip_tpu_torch.utils.config import DATASET_DIR
+
+    def kzz(model):
+        z, ell, s2, _ = k4_payload(model)
+        with torch.no_grad():
+            return svgp_precompute.gram_zz_plain(z, ell, s2).contiguous()
+
+    cfg = deepgp_spatial.default_config().parse_args(["--num_epochs", "1", "--device", "cuda"])
+    data = load_csv(DATASET_DIR / "uib_spatial.csv")
+    init_model = stack_modules([deepgp_spatial.prep_split(data, s, cfg, torch.float32, dev)[0]
+                                for s in range(cfg.num_splits)])
+    _, x, y = load_uib_spatial()
+    xn = (x - x.mean(0)) / x.std(0, ddof=1)
+    yn = (y - y.mean()) / y.std(ddof=1)
+    scfg = ExperimentConfig(device="cuda")
+    splits = [spatial_gibbs.make_split(xn, yn, s, scfg, torch.float32, dev) for s in range(10)]
+    with torch.no_grad():
+        slice_gram = noisy_gibbs_gram(stack_modules([s[0] for s in splits]),
+                                      torch.stack([s[1][0] for s in splits])).contiguous()
+    gen = torch.Generator().manual_seed(59)
+
+    def spd(b, n):
+        m = torch.randn(b, n, n, generator=gen, dtype=torch.float64)
+        return (m @ m.mT / n + 0.5 * torch.eye(n, dtype=torch.float64)).float().to(dev)
+
+    payloads = {"kzz_init": kzz(init_model), "kzz_trained": kzz(dgp_model), "slice": slice_gram,
+                **{f"random_{b}x{n}": spd(b, n) for b, n in K10B_RANDOM}}
+    check(tuple(payloads["kzz_trained"].shape) == (50, 250, 250), "the deep GP's K_zz stack is 50 × 250²")
+    errs = {name: k10b_errors(chol_inv, a, name) for name, a in payloads.items()}
+
+    # a negative-definite member beside healthy ones: non-finite there, the
+    # others bitwise as without it
+    good = spd(3, 250)
+    bad = good.clone()
+    bad[1] = -bad[1]
+    lg, lig = chol_inv.chol_inv_grid_cuda(good)
+    lb, lib = chol_inv.chol_inv_grid_cuda(bad)
+    torch.cuda.synchronize()
+    check(not bool(torch.isfinite(lb[1]).all()), "K10b's non-PD member non-finite")
+    check(torch.equal(lg[[0, 2]], lb[[0, 2]]) and torch.equal(lig[[0, 2]], lib[[0, 2]]),
+          "K10b's healthy members bitwise as in the run without the non-PD one")
+
+    # the entry, as a caller reaches it: forward and backward, counted
+    a = payloads["kzz_trained"].clone().requires_grad_()
+    reset_launches()
+    l, li = chol_inv.chol_inv_batched(a)
+    (l.sum() + li.sum()).backward()
+    launches = check_launches({"chol_inv_grid": 1}, "k10b entry")["chol_inv_grid"]
+    check(a.grad is not None and a.grad.shape == a.shape, "the entry's backward reached the stack")
+
+    times = {}
+    for name in ("kzz_trained", "slice"):
+        a = payloads[name]
+        t = timed_pair(lambda: chol_inv.chol_inv_grid_cuda(a), lambda: chol_inv.chol_inv_batched_plain(a), N_TIMED)
+        k1 = block_times_ms(lambda: chol_inv.chol_inv_batched_cuda(a, max_tries=0), N_TIMED)
+        b, n, _ = a.shape
+        # 2N³/3 operations a member (Cholesky and triangular inverse, N³/3
+        # each); reads A once, writes L and L⁻¹
+        b_ms, b_by = bound(b * 2 * n**3 / 3, 4 * 3 * b * n * n)
+        times[name] = {**t, "k1_ms": statistics.median(k1), "bound_ms": b_ms, "bound_by": b_by, "shape": [b, n]}
+    out = {"max_abs_err": max(max(e["L"]["max_abs_err"], e["Linv"]["max_abs_err"]) for e in errs.values()),
+           "launches": launches, **{k: times["kzz_trained"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+    emit("k10b", errors=errs, times=times, timed_calls=2 * N_TIMED, **out)
+    return out
+
+
+def phase_k10c(chol_stream, exact_largen, dev):
+    """K10c against float64, its plain version, K5 and potrf on the dense
+    run's Grams at N = 8192 and 4096 and a ragged SPD N = 1000; a rank-30
+    matrix comes out non-finite; the entry ``streaming_cholesky_v1`` forward
+    and backward, counted; times of all four at 8192 and 4096."""
+    gen = torch.Generator().manual_seed(61)
+    b = torch.randn(K10C_RAGGED, K10C_RAGGED, generator=gen, dtype=torch.float64)
+    payloads = {**{f"dense_gram_{n}": dense_gram(exact_largen, n, dev) for n in K10C_NS},
+                f"ragged_spd_{K10C_RAGGED}": (b @ b.T / K10C_RAGGED + torch.eye(K10C_RAGGED,
+                                                                             dtype=torch.float64)).float().to(dev)}
+    others = {"plain": chol_stream.streaming_cholesky_v1_plain, "k5": chol_stream.streaming_cholesky_cuda}
+    errs = {name: chol_errors(f"K10c {name}", chol_stream.streaming_cholesky_v1_cuda, a, others)
+            for name, a in payloads.items()}
+    lr = torch.randn(K10C_RAGGED, 30, generator=gen, dtype=torch.float64)
+    check(not bool(torch.isfinite(chol_stream.streaming_cholesky_v1_cuda((lr @ lr.T).float().to(dev))).all()),
+          "K10c on a rank-30 input: non-finite")
+
+    a = payloads[f"dense_gram_{K10C_NS[1]}"].clone().requires_grad_()
+    reset_launches()
+    l = chol_stream.streaming_cholesky_v1(a)
+    torch.sum(l * l).backward()  # d/dA of ‖L‖² = tr(A): the identity's symmetric part
+    launches = check_launches({"streaming_cholesky_v1": 1}, "k10c entry")["streaming_cholesky_v1"]
+    check(bool(torch.isfinite(a.grad).all()), "the entry's backward finite")
+    grad_err = float((a.grad - torch.eye(a.shape[-1], device=dev)).abs().max())  # reported: f32 solves in L
+
+    times = {}
+    for n in K10C_NS:
+        a = payloads[f"dense_gram_{n}"]
+        t = timed_pair(lambda: chol_stream.streaming_cholesky_v1_cuda(a),
+                       lambda: chol_stream.streaming_cholesky_v1_plain(a), K5_TIMED)
+        k5 = block_times_ms(lambda: chol_stream.streaming_cholesky_cuda(a), K5_TIMED)
+        lib = block_times_ms(lambda: torch.linalg.cholesky(a), K5_TIMED)
+        b_ms, b_by = bound(chol_stream.cholesky_ops(n), 4 * 2 * n * n)  # N³/3 operations; reads A, writes L
+        times[n] = {**t, "k5_ms": statistics.median(k5), "library_ms": statistics.median(lib), "bound_ms": b_ms,
+                    "bound_by": b_by}
+    out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "launches": launches,
+           **{k: times[K10C_NS[0]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    emit("k10c", errors=errs, times=times, entry_grad_vs_identity=grad_err, timed_calls=2 * K5_TIMED, **out)
+    return out
+
+
+def gibbs_mf_launches(iters: int, steps: int, post_iters: int, extra_steps: int = 0,
+                      queries: tuple = ()) -> dict:
+    """K2 once per mBCG iteration of the data term (``iters`` a step) and of
+    the posterior's solves (``post_iters`` each), K3 once per step's
+    backward; ``extra_steps`` untimed-then-timed steps and ``queries``
+    variance solves (their iteration counts) beside."""
+    return {"gibbs_matvec": (steps + extra_steps) * iters + sum(post_iters) + sum(queries),
+            "gibbs_panel_grads": steps + extra_steps}
+
+
+def phase_gibbs_mf_ref(quickstart, dev):
+    """The matrix-free Gibbs flow at N = 2048 from the pinned JAX run's data,
+    prior SLQ probes and per-step probes: the prior's SLQ logdet against the
+    float64 dense one, the losses at steps 0 and 19 against JAX's (the
+    prior's constant logdet the pinned run's), then the posterior mean and
+    variance at the pinned trained pose against the float64 dense ones."""
+    ref = np.load(GIBBS_MF_REF)
+    n, steps, block = int(ref["n"]), int(ref["steps"]), int(ref["block"])
+    rank, prior_rank = int(ref["rank"]), int(ref["prior_rank"])
+    x, y, xs = (torch.tensor(ref[k], device=dev) for k in ("x", "y", "xs"))
+    prior_noise = [(torch.tensor(ref["prior_u1"][d], device=dev), torch.tensor(ref["prior_u2"][d], device=dev))
+                   for d in range(2)]
+    step_noise = [(torch.tensor(ref["step_u1"][i], device=dev), torch.tensor(ref["step_u2"][i], device=dev))
+                  for i in range(steps)]
+    model = quickstart.build_model(x)
+    reset_launches()
+    lpc, logdet = model.prior_pre_matrixfree(x, prior_noise, rank=prior_rank, block=block,
+                                             max_iters=quickstart.PRIOR_ITERS, tol=1e-8)
+    with torch.no_grad():
+        dense_logdet = model.prior.gram_pre(x.double())[1]
+    logdet_err = float(((logdet - dense_logdet).abs() / dense_logdet.abs()).max())
+    check(logdet_err <= GIBBS_MF_LOGDET_RTOL,
+          f"prior SLQ logdet vs float64 dense {logdet_err:.3g} <= {GIBBS_MF_LOGDET_RTOL}")
+    pinned = torch.tensor(ref["prior_logdet"], device=dev)
+    losses, _ = quickstart.fit(model, x, y, (lpc, pinned), step_noise, refresh=int(ref["refresh"]), rank=rank,
+                               block=block)
+    rel = np.abs(losses - ref["losses"]) / np.abs(ref["losses"])
+    check(bool(np.isfinite(losses[[0, -1]]).all()) and bool(torch.isfinite(logdet).all()),
+          "compared losses and logdet finite")
+    check(float(rel[0]) <= GIBBS_MF_RTOL_STEP0, f"step-0 loss vs JAX: {rel[0]:.3g} <= {GIBBS_MF_RTOL_STEP0}")
+    check(float(rel[-1]) <= GIBBS_MF_RTOL_STEP19, f"step-19 loss vs JAX: {rel[-1]:.3g} <= {GIBBS_MF_RTOL_STEP19}")
+    with torch.no_grad():
+        model.log_ell.copy_(torch.tensor(ref["log_ell"], device=dev))
+        model.raw_outputscale.copy_(torch.tensor(ref["raw_outputscale"], device=dev))
+        model.likelihood.raw_noise.copy_(torch.tensor(ref["raw_noise"], device=dev))
+    post = model.posterior_matrixfree(x, y, xs, (lpc, pinned), block=block, max_iters=quickstart.PRIOR_ITERS,
+                                      tol=1e-8, precond_rank=rank)
+    launches = check_launches(gibbs_mf_launches(quickstart.ITERS, steps, (quickstart.PRIOR_ITERS,)), "gibbs_mf_ref")
+    with torch.no_grad():
+        dense = model.double().posterior(x.double(), y.double(), xs.double())
+    dm, dv = dense.mean.cpu().numpy(), torch.diagonal(dense.cov).cpu().numpy()
+    errs = {"mean": float(np.abs(post.mean.cpu().numpy() - dm).max()),
+            "var": float(np.abs(torch.diagonal(post.cov).cpu().numpy() - dv).max()),
+            "jax_mean": float(np.abs(ref["post_mean"] - dm).max()), "jax_var": float(np.abs(ref["post_var"] - dv).max()),
+            "mean_vs_jax": float(np.abs(post.mean.cpu().numpy() - ref["post_mean"]).max())}
+    for what, tol in (("mean", GIBBS_MF_MEAN_ATOL), ("var", GIBBS_MF_VAR_ATOL)):
+        check(errs[what] <= tol, f"posterior {what} vs float64 dense {errs[what]:.3g} <= {tol} "
+                                 f"(the JAX run's: {errs[f'jax_{what}']:.3g})")
+    emit("gibbs_mf_ref", n=n, step0_rel_err=float(rel[0]), step19_rel_err=float(rel[-1]), losses=losses.tolist(),
+         jax_losses=ref["losses"].tolist(), prior_logdet=logdet.tolist(), jax_prior_logdet=ref["prior_logdet"].tolist(),
+         dense_prior_logdet_f64=dense_logdet.tolist(), prior_logdet_rel_err=logdet_err, posterior_errors=errs,
+         launches=launches)
+
+
+def gibbs_mf_field_grads(quickstart, out: dict) -> dict:
+    """The field's gradient of ``loss_matrixfree`` at the quickstart's
+    trained pose, term by term, against float64 dense references.  Prior
+    term: ``log_prob_matrixfree``'s (as the loss calls it) against the exact
+    gradient of ``prior.log_prob``.  Data term: the whole matrix-free field
+    gradient less the prior's, against the same estimator on the same probes
+    with exact solves (dense Cholesky): ∂/∂ℓ of −(½αᵀKα − (1/2R)Σⱼ sⱼᵀK rⱼ)/N,
+    α = K⁻¹y, sⱼ = K⁻¹zⱼ, rⱼ = P⁻¹zⱼ for the probes zⱼ ~ N(0, P), summed over
+    row panels of K through autograd.  Then their sum against the whole."""
+    import copy
+
+    from nonstationary_precip_tpu_torch.kernels.gibbs import packed_gibbs_cross
+    from nonstationary_precip_tpu_torch.ops.bbmm import sample_precond_probes, woodbury_precond
+
+    model, x, y, block = out["model"], out["x"], out["y"], out["block"]
+    n, field = x.shape[0], model.log_ell.numel()
+    x64, ell64 = x.double(), model.log_ell.detach().double()
+
+    def compare(g, ref):
+        return {"cosine": float(g @ ref / (g.norm() * ref.norm())), "rel": float((g - ref).norm() / ref.norm())}
+
+    ell = model.log_ell.detach().clone().requires_grad_()
+    lp = model.prior.log_prob_matrixfree(x, ell, out["prior_pre"], block=block, max_iters=quickstart.PRIOR_ITERS,
+                                         tol=1e-6)
+    g_prior_mf = torch.autograd.grad(-lp / n, ell)[0].double().reshape(-1)
+    prior64 = copy.deepcopy(model.prior).double()
+    ellp = ell64.clone().requires_grad_()
+    with torch.no_grad():
+        chols = prior64.gram_chol(x64)
+    g_prior = torch.autograd.grad(-prior64.log_prob(x64, ellp, chols) / n, ellp)[0].reshape(-1)
+    del chols
+
+    raw, s2 = model.raw_outputscale.detach().double(), model.likelihood.noise.detach().double()
+    lpc = out["lpc"].double()
+    z = sample_precond_probes(lpc, s2, *(u.double() for u in out["check_noise"]))
+    rights = woodbury_precond(lpc, s2)(z)
+    cross = packed_gibbs_cross(x.shape[1])
+    with torch.no_grad():
+        aug = torch.cat([x64, ell64], dim=1)
+        k = torch.cat([cross(raw, aug[i:i + block], aug) for i in range(0, n, block)])
+        k.diagonal().add_(s2)
+        chol = torch.linalg.cholesky(k)
+        del k
+        sol = torch.cholesky_solve(torch.cat([y.double()[:, None], z], dim=1), chol)
+        del chol
+    alpha, solves = sol[:, 0], sol[:, 1:]
+    elld = ell64.clone().requires_grad_()
+    for i in range(0, n, block):
+        aug = torch.cat([x64, elld], dim=1)
+        panel = cross(raw, aug[i:i + block], aug)
+        sur = (0.5 * alpha[i:i + block] @ (panel @ alpha)
+               - 0.5 / z.shape[1] * torch.sum(solves[i:i + block] * (panel @ rights)))
+        (-sur / n).backward()
+    g_data = elld.grad.reshape(-1)
+    g_mf = out["grad_mf"][:field]
+    res = {"prior": compare(g_prior_mf, g_prior), "data": compare(g_mf - g_prior_mf, g_data),
+           "field": compare(g_mf, g_prior + g_data)}
+    for term, band in (("prior", GIBBS_MF_PRIOR_GRAD), ("data", GIBBS_MF_DATA_GRAD)):
+        check(res[term]["cosine"] >= band["cosine"] and res[term]["rel"] <= band["rel"],
+              f"{term} term's field gradient vs float64: cosine {res[term]['cosine']:.6f} >= {band['cosine']}, "
+              f"relative error {res[term]['rel']:.3g} <= {band['rel']}")
+    check(res["field"]["cosine"] >= GATE_COSINE,
+          f"field gradient vs float64 (same probes): cosine {res['field']['cosine']:.6f} >= {GATE_COSINE}")
+    return res
+
+
+def phase_gibbs_mf(quickstart, dev_name: str):
+    """The matrix-free Gibbs flow at the gate's size (the quickstart's run):
+    the matrix-free loss against the dense MAP loss, prior included, the
+    gradient cosine, the field's gradient term by term
+    (``gibbs_mf_field_grads``), the trained-pose relres, the state's
+    mean-only query against the one-shot mean, a finite RMSE; K2's and K3's launches against
+    what the code implies, K9 once (the dense oracle's Gram) and no other
+    kernel; the times of a step, its prior term, the hoist, the state and a
+    query batch."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = quickstart.run(n=GIBBS_MF_N, steps=GIBBS_MF_STEPS, refresh=4, block=2048, rank=150, prior_rank=50,
+                         dev="cuda", timings=True)
+    wall = time.perf_counter() - t0
+    it, post_it = quickstart.ITERS, quickstart.PRIOR_ITERS
+    # training steps; the trained-pose loss, its diagnostics; the posterior
+    # and the state's α solve; 4 timed steps (one warm-up) and 4 variance
+    # queries at the auto budget (16 at this N); the dense oracle's Gram
+    want = gibbs_mf_launches(it, GIBBS_MF_STEPS + 1, (it, post_it, post_it), extra_steps=4, queries=(16,) * 4)
+    launches = check_launches({**want, "gibbs_gram": 1}, "gibbs_mf")
+    check(out["loss_rel_diff"] <= GATE_LOSS_REL, f"loss vs dense {out['loss_rel_diff']:.3g} <= {GATE_LOSS_REL}")
+    check(out["grad_cosine"] >= GATE_COSINE, f"gradient cosine {out['grad_cosine']:.5f} >= {GATE_COSINE}")
+    check(out["diag"]["relres_solve"] <= GATE_RELRES,
+          f"trained-pose relres {out['diag']['relres_solve']:.3g} <= {GATE_RELRES}")
+    check(not out["diag"]["broke"], "no mBCG breakdown at the trained pose")
+    check(out["drift"] < GIBBS_MF_DRIFT, f"state mean vs one-shot {out['drift']:.3g} < {GIBBS_MF_DRIFT}")
+    check(bool(np.isfinite(out["losses"]).all()) and np.isfinite(out["rmse"]), "losses and RMSE finite")
+    field_grads = gibbs_mf_field_grads(quickstart, out)
+    emit("gibbs_mf", n=GIBBS_MF_N, steps=GIBBS_MF_STEPS, launches=launches, field_grads=field_grads,
+         **{k: out[k] for k in ("loss_mf", "loss_dense", "loss_rel_diff", "grad_cosine", "field_grad_cosine",
+                                "drift", "rmse", "state_alpha_relres", "ms_per_step", "train_seconds",
+                                "hoist_seconds", "posterior_seconds", "state_seconds", "step_ms", "prior_ms",
+                                "prior_share", "query_mean_ms", "query_var_ms")},
+         relres_solve=out["diag"]["relres_solve"], diag=out["diag"], prior_logdet=out["prior_logdet"].tolist(),
+         loss_first=float(out["losses"][0]), loss_last=float(out["losses"][-1]), wall_seconds=wall,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, device=dev_name)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=300, help="Adam steps of the slice run")
@@ -1554,6 +1993,7 @@ def main(argv=None):
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
+    from nonstationary_precip_tpu_torch.examples import quickstart_gibbs_largen as quickstart
     from nonstationary_precip_tpu_torch.experiments import (deepgp_spatial, exact_largen, field_regression,
                                                             gibbs_largen, seard_spatial, spatial_gibbs, temporal)
     from nonstationary_precip_tpu_torch.ops import (chol_blocked, chol_inv, chol_stream, elbo_fused, gibbs_fused,
@@ -1573,9 +2013,11 @@ def main(argv=None):
     phase_dgp_ref(deepgp_spatial, svgp_precompute, dev)
     dgp_out, dgp_launches = phase_dgp(deepgp_spatial, svgp_precompute, name)
     k4_errs, k4_t, k4_bound, k4_by = phase_k4(deepgp_spatial, svgp_precompute, dgp_out["model"], dev)
+    k10b = phase_k10b(chol_inv, svgp_precompute, spatial_gibbs, dgp_out["model"], dev)
     k7 = phase_k7(deepgp_spatial, elbo_fused, dgp_out["model"], dev)
     phase_field_regression(field_regression, name)
     k5 = phase_k5(chol_stream, exact_largen, dev)
+    k10c = phase_k10c(chol_stream, exact_largen, dev)
     k5_launches = phase_exact_dense(exact_largen, chol_stream, name)
     phase_seard_ref(seard_spatial, dev)
     phase_seard(seard_spatial, name)
@@ -1590,6 +2032,8 @@ def main(argv=None):
     k10a = phase_k10a(chol_blocked, gibbs_pay, dev)
     k11 = phase_k11(trsm, gibbs_pay, dev)
     k8 = phase_k8(gibbs_fused, gibbs_pay, dev)
+    phase_gibbs_mf_ref(quickstart, dev)
+    mf_launches = phase_gibbs_mf(quickstart, name)
 
     # K1 at (10, 316): 2N³/3 flops per matrix (Cholesky and triangular
     # inverse, N³/3 each); reads A once, writes L and L⁻¹
@@ -1602,13 +2046,14 @@ def main(argv=None):
          "max_abs_err": errs["gibbs_gram"]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "gibbs_matvec", "route": "cuda", "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
-         "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:240", "launches": largen_launches["gibbs_matvec"],
+         "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:240",
+         "launches": largen_launches["gibbs_matvec"] + mf_launches["gibbs_matvec"],
          "max_abs_err": max(e["max_abs_err"] for e in k2_errs.values()), "ms": k2_t["ms"],
          "plain_ms": k2_t["plain_ms"], "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "gibbs_panel_grads", "route": "cuda",
          "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:350",
-         "launches": largen_launches["gibbs_panel_grads"],
+         "launches": largen_launches["gibbs_panel_grads"] + mf_launches["gibbs_panel_grads"],
          "max_abs_err": max(e["max_abs_err"] for e in k3_errs.values()), "ms": k3_t["ms"],
          "plain_ms": k3_t["plain_ms"], "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "svgp_precompute", "route": "cuda",
@@ -1639,6 +2084,12 @@ def main(argv=None):
                                      ("gibbs_gram", "gibbs_gram.cu", "pallas_gram.py:136", k9),
                                      ("blocked_cholesky", "chol_blocked.cu", "pallas_chol.py:251", k10a),
                                      ("blocked_trsm", "trsm.cu", "pallas_trsm.py:106", k11))),
+        *({"name": kname, "route": "cuda", "source": f"nonstationary_precip_tpu_torch/csrc/{src}",
+           "replaces": f"nonstationary_precip_tpu/ops/{tpu}", "launches": k["launches"],
+           "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+           "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
+          for kname, src, tpu, k in (("chol_inv_grid", "chol_inv_grid.cu", "pallas_chol.py:348", k10b),
+                                     ("streaming_cholesky_v1", "chol_stream_v1.cu", "pallas_chol.py:601", k10c))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)

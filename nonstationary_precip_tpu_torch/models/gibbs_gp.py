@@ -9,20 +9,41 @@ the trained one through the log-normal process's conditional mean.
 Every parameter may carry a leading split axis: a stacked model holds the K
 benchmark splits at once, and every method then works on all of them (the
 JAX package's ``vmap`` written out as a batch dimension).
+
+The matrix-free methods (``loss_matrixfree``, ``posterior_matrixfree``,
+``posterior_state_matrixfree``, ``posterior_matrixfree_from_state``, with
+the hoists ``prior_pre_matrixfree`` and ``precond_factor``) serve one
+unbatched model at large N, where no N×N matrix, data Gram or prior Gram,
+may exist.  The data term's mBCG matvec is K2
+(``ops/matvec.scaled_packed_gibbs_matvec_builder``) and its backward K3
+(``packed_gibbs_panel_vjp``) on the card, their plain versions on the CPU;
+there is no switch to the panel paths.  The prior's per-dimension solves
+are plain torch panels, as in the JAX package, run in float64, a
+deliberate departure from its float32 (in float32 they diverge at
+N = 16384; ROADMAP §3, F6).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
-from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram
+from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram, packed_gibbs_cross
 from nonstationary_precip_tpu_torch.models.distributions import MVN
 from nonstationary_precip_tpu_torch.models.likelihoods import GaussianLikelihood
 from nonstationary_precip_tpu_torch.ops.chol_inv import MAX_N, chol_inv_batched_safe
 from nonstationary_precip_tpu_torch.ops.gibbs_fused import gibbs_noisy_chol_alpha
+from nonstationary_precip_tpu_torch.ops.lazy_cg import (
+    build_precond_factor,
+    lazy_cg_mll,
+    lazy_cg_posterior,
+    lazy_posterior_query,
+    lazy_posterior_state,
+)
+from nonstationary_precip_tpu_torch.ops.matvec import packed_gibbs_panel_vjp, scaled_packed_gibbs_matvec_builder
 from nonstationary_precip_tpu_torch.ops.linalg import cho_solve, diag_part, safe_cholesky, tri_solve
 from nonstationary_precip_tpu_torch.priors.lognormal_process import LogNormalProcess
 from nonstationary_precip_tpu_torch.utils.transforms import positive, raw_init
@@ -94,6 +115,57 @@ class GibbsExactGP(nn.Module):
         prior_term = self.prior.log_prob(x, self.log_ell, prior_chols)
         return -(logp + prior_term) / n
 
+    def prior_pre_matrixfree(self, x, probe_noise, **kw):
+        """Hoisted prior state for :meth:`loss_matrixfree`, the matrix-free
+        analogue of ``prior.gram_pre(x)``: per-dim preconditioner factors and
+        the frozen prior's constant SLQ logdet
+        (``LogNormalProcess.gram_pre_lazy``, which ``probe_noise`` and ``kw``
+        go to).  Once per fit; O(N·rank) memory."""
+        return self.prior.gram_pre_lazy(x, probe_noise, **kw)
+
+    @torch.no_grad()
+    def precond_factor(self, x: torch.Tensor, *, rank: int = 150, precond: str = "pivchol",
+                       key=None) -> torch.Tensor:
+        """(N, rank) pivoted-Cholesky factor of the data Gram at the current
+        pose, for the stale-preconditioner hoist: pass it to
+        :meth:`loss_matrixfree` as ``precond_lpc`` and refresh it every k
+        steps (the estimator is unbiased for any fixed SPD P)."""
+        d = x.shape[-1]
+        aug = torch.cat([x, self.log_ell], dim=1)
+        return build_precond_factor(precond, self.raw_outputscale, aug, min(rank, x.shape[0]),
+                                    packed_gibbs_cross(d), key)
+
+    def loss_matrixfree(self, x: torch.Tensor, y: torch.Tensor, probe_noise, prior_pre, *, block: int = 2048,
+                        max_iters: Optional[int] = None, tol: float = 1e-6, precond_rank: int = 150,
+                        precond_key=None, precond: str = "pivchol", precond_shift: float = 1.0,
+                        precond_lpc: Optional[torch.Tensor] = None, prior_max_iters: int = 64,
+                        prior_precond_shift: float = 1.0, matvec_precision: str = "highest") -> torch.Tensor:
+        """:meth:`loss` for large N, the same MAP estimand with no N×N matrix:
+        the data term is ``lazy_cg_mll``'s estimator (mBCG through K2, a
+        rank-``precond_rank`` pivoted-Cholesky/Woodbury preconditioner unless
+        ``precond_lpc`` is given, the backward through K3), the prior term
+        ``log_prob_matrixfree`` against ``prior_pre``
+        (:meth:`prior_pre_matrixfree`).  ``probe_noise`` = (u1 (rank, R),
+        u2 (N, R)), the normal draws of the R probes.  ``max_iters`` defaults
+        to 16 for N ≤ 32768, 32 above.  Gradients reach the field, the raw
+        outputscale and the noise (those that require them).
+        ``matvec_precision`` other than 'highest' raises (not yet ported)."""
+        n = y.shape[-1]
+        d = x.shape[-1]
+        if max_iters is None:
+            max_iters = 16 if n <= 32768 else 32
+        aug = torch.cat([x, self.log_ell], dim=1)
+        logp = lazy_cg_mll(self.raw_outputscale, aug, y, probe_noise, self.likelihood.noise, block=block,
+                           max_iters=max_iters, tol=tol, precond_rank=min(precond_rank, n), precond_key=precond_key,
+                           precond=precond, precond_shift=precond_shift, precond_lpc=precond_lpc,
+                           cross_fn=packed_gibbs_cross(d),
+                           matvec_builder=scaled_packed_gibbs_matvec_builder(d, matvec_precision),
+                           panel_vjp=packed_gibbs_panel_vjp(d))
+        prior_term = self.prior.log_prob_matrixfree(x, self.log_ell, prior_pre, block=block,
+                                                    max_iters=prior_max_iters, tol=tol,
+                                                    precond_shift=prior_precond_shift)
+        return -(logp + prior_term) / n
+
     # -- prediction ---------------------------------------------------------
 
     def posterior(self, x_train, y_train, x_new, *, noiseless: bool = True) -> MVN:
@@ -120,6 +192,83 @@ class GibbsExactGP(nn.Module):
 
     def predictive(self, x_train, y_train, x_new) -> MVN:
         return self.posterior(x_train, y_train, x_new, noiseless=False)
+
+    def _stabilised(self, cov: torch.Tensor, noiseless: bool) -> torch.Tensor:
+        """cov + 1e-4 I (the reference's stabiliser), + σ²I unless noiseless."""
+        eye = _eye(cov.shape[-1], cov)
+        cov = cov + 1e-4 * eye
+        return cov if noiseless else cov + self.likelihood.noise * eye
+
+    @torch.no_grad()
+    def posterior_matrixfree(self, x_train, y_train, x_new, prior_pre, *, noiseless: bool = True,
+                             block: int = 2048, max_iters: int = 64, tol: float = 1e-8, precond_rank: int = 150,
+                             precond_key=None, precond: str = "pivchol", precond_shift: float = 1.0) -> MVN:
+        """:meth:`posterior` for large N, no N×N matrix: the lengthscales at
+        ``x_new`` from the prior's matrix-free conditional mean (with
+        ``prior_pre``'s factors), then one preconditioned mBCG with 1 + N*
+        right-hand sides through K2 (``lazy_cg_posterior``).  Deterministic;
+        the reference's +1e-4 I on the covariance.  Not differentiable (the
+        fused matvec has no backward); ``max_iters`` is paid in full."""
+        d = x_train.shape[-1]
+        ell2 = self.prior.conditional_mean_matrixfree(x_new, (x_train, torch.exp(self.log_ell)), prior_pre,
+                                                      block=block, max_iters=max_iters, tol=tol)
+        aug = torch.cat([x_train, self.log_ell], dim=1)
+        aug_new = torch.cat([x_new, torch.log(ell2)], dim=1)
+        mean, cov = lazy_cg_posterior(self.raw_outputscale, aug, y_train, aug_new, self.likelihood.noise,
+                                      block=block, max_iters=max_iters, tol=tol,
+                                      precond_rank=min(precond_rank, y_train.shape[-1]), precond_key=precond_key,
+                                      precond=precond, precond_shift=precond_shift, cross_fn=packed_gibbs_cross(d),
+                                      matvec_builder=scaled_packed_gibbs_matvec_builder(d))
+        return MVN(mean, self._stabilised(cov, noiseless))
+
+    @torch.no_grad()
+    def posterior_state_matrixfree(self, x_train, y_train, prior_pre, *, block: int = 2048,
+                                   max_iters: Optional[int] = None, tol: float = 1e-8, precond_rank: int = 150,
+                                   precond: str = "pivchol", precond_key=None, precond_shift: float = 1.0,
+                                   prior_max_iters: int = 64, chunk_iters: Optional[int] = None):
+        """Once-per-fit serving state for :meth:`posterior_matrixfree_from_state`:
+        α = (K + σ²I)⁻¹y with the rank-``precond_rank`` factor
+        (``lazy_posterior_state``, through K2) and the prior's per-dim
+        conditioning solves (``conditional_pre_matrixfree``).  Returns
+        (state, cond).  ``chunk_iters`` (the host-chunked route) is not
+        ported."""
+        if chunk_iters is not None:
+            raise NotImplementedError(
+                "chunk_iters (the host-chunked serving state) is not yet ported: ROADMAP queue 1 item 5")
+        d = x_train.shape[-1]
+        aug = torch.cat([x_train, self.log_ell], dim=1)
+        st = lazy_posterior_state(self.raw_outputscale, aug, y_train, self.likelihood.noise, block=block,
+                                  max_iters=max_iters, tol=tol, precond_rank=min(precond_rank, y_train.shape[-1]),
+                                  precond=precond, precond_key=precond_key, precond_shift=precond_shift,
+                                  cross_fn=packed_gibbs_cross(d), matvec_builder=scaled_packed_gibbs_matvec_builder(d))
+        cond = self.prior.conditional_pre_matrixfree((x_train, torch.exp(self.log_ell)), prior_pre, block=block,
+                                                     max_iters=prior_max_iters, tol=tol)
+        return st, cond
+
+    @torch.no_grad()
+    def posterior_matrixfree_from_state(self, state, x_new, *, noiseless: bool = True, mean_only: bool = False,
+                                        block: int = 2048, max_iters: Optional[int] = None, tol: float = 1e-6,
+                                        precond_shift: float = 1.0, return_info: bool = False,
+                                        chunk_iters: Optional[int] = None):
+        """:meth:`posterior_matrixfree` from a prebuilt state: per query batch
+        one panel sweep for the lengthscales at ``x_new``, the cross build and
+        one contraction for the mean, and, unless ``mean_only``, one
+        preconditioned mBCG with N* right-hand sides at the auto budget
+        (``lazy_posterior_query``).  ``mean_only`` returns the (N*,) mean.
+        ``return_info`` appends the query's convergence evidence."""
+        if chunk_iters is not None:
+            raise NotImplementedError(
+                "chunk_iters (the host-chunked variance solves) is not yet ported: ROADMAP queue 1 item 5")
+        st, cond = state
+        d = x_new.shape[-1]
+        ell2 = self.prior.conditional_mean_from_pre(x_new, (st.x[:, :d], None), cond, block=block)
+        aug_new = torch.cat([x_new, torch.log(ell2)], dim=1)
+        mean, cov, *info = lazy_posterior_query(st, aug_new, mean_only=mean_only, block=block, max_iters=max_iters,
+                                                tol=tol, precond_shift=precond_shift, cross_fn=packed_gibbs_cross(d),
+                                                matvec_builder=scaled_packed_gibbs_matvec_builder(d),
+                                                return_info=return_info)
+        out = mean if mean_only else MVN(mean, self._stabilised(cov, noiseless))
+        return (out, info[0]) if return_info else out
 
     def lengthscale_field(self, x_train, x_new=None) -> torch.Tensor:
         """Trained (or conditionally extended) lengthscale field, (..., N, D)."""

@@ -37,6 +37,29 @@ The backward needs no kernel: it is the JAX package's matmul-only
 Dispatch: a CPU tensor takes ``chol_inv_batched_safe_plain``; a CUDA f32
 tensor launches the kernel; anything else raises.  ``LAUNCHES`` counts
 kernel launches (and nothing else).
+
+K10b, the retry-free grid-batched (L, L⁻¹), sits beside K1 here.  It
+replaces ``pallas_chol.py::chol_inv_batched`` (:348; forward
+``_chol_inv_forward`` :284, ``pallas_call`` at :303, body
+``_chol_inv_kernel`` :275), which the JAX package runs on no path (its
+gate ``cholinv_eligible``, :326, is opt-in): its entry here is
+``chol_inv_batched``, joined to no dispatch.  The kernel is
+``csrc/chol_inv_grid.cu``.  A member that is not PD comes out non-finite,
+the others unaffected; there is no jitter.  At the deep GP's K_zz stack,
+50 × 250², it is ~0.5 GFLOP of dependent steps: like K1, latency-bound.
+K1's sweep cannot serve as it is: a packed 512-triangle (525 KB) is more
+than a block's 227 KB of shared memory.  So one 1024-thread block per
+member runs a left-looking factorisation in 128-wide tiles over the member
+in device memory (L2-resident, 1 MB at N = 512), each diagonal tile by K1's
+fused sweep with its triangle in shared memory, the update as an in-block
+tiled GEMM in 128-deep partial sums, the panel by forward substitution
+against the tile (a product with its inverse lost accuracy on the deep GP's
+near-singular K_zz); then L⁻¹'s off-diagonal tiles block row by block row.  The TPU kernel pads to the next power of two;
+this one pads to the next multiple of 128 with an identity block.  Its
+backward is ``civ2_bwd``: the JAX ``_ci_bwd`` (:370) differs from ``_civ2_bwd``
+only in taking L̄ whole where ``_civ2_bwd`` takes tril(L̄), and L̄'s strict
+upper triangle never reaches tril(LᵀL̄), so the two are the same function.
+``GRID_LAUNCHES`` counts its launches.
 """
 
 from __future__ import annotations
@@ -194,3 +217,114 @@ def chol_inv_batched_v2(mats: torch.Tensor):
     """(L, L⁻¹) with the retry off: the same kernel, one try."""
     l, li, _ = _CholInvBatched.apply(mats, EPSILON, 0)
     return l, li
+
+
+# ---------------------------------------------------------------------------
+# K10b: grid-batched (L, L⁻¹), no retry
+# ---------------------------------------------------------------------------
+
+#: The JAX package's window for the grid-batched kernel (``BLOCK`` ≤ N ≤
+#: ``MAX_N_CHOLINV``) and this kernel's tile width (csrc kP).
+GRID_MIN_N, GRID_MAX_N, GRID_TILE = 128, 512, 128
+
+#: K10b launches so far in this process (no path of the package runs it).
+GRID_LAUNCHES = 0
+
+GRID_SOURCE = CSRC / "chol_inv_grid.cu"
+
+_grid_lib = None
+
+
+def build_grid(force: bool = False) -> str:
+    """Compile ``csrc/chol_inv_grid.cu``, load it, and return nvcc's output.
+    Reused unless ``force``; a failed compile raises."""
+    global _grid_lib
+    lib, log = build_library(GRID_SOURCE, force)
+    p = ctypes.c_void_p
+    lib.chol_inv_grid.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, p]
+    lib.chol_inv_grid.restype = ctypes.c_int
+    _grid_lib = lib
+    return log
+
+
+def _pad_identity(mats: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """The (B, n, n) stack with an identity block appended to (B, n_pad, n_pad)."""
+    b, n, _ = mats.shape
+    if n_pad == n:
+        return mats.contiguous()
+    out = torch.zeros((b, n_pad, n_pad), dtype=mats.dtype, device=mats.device)
+    out[:, :n, :n] = mats
+    out[:, n:, n:] = torch.eye(n_pad - n, dtype=mats.dtype, device=mats.device)
+    return out
+
+
+def chol_inv_grid_cuda(mats: torch.Tensor):
+    """K10b's wrapper: (L, L⁻¹) of a (B, N ≤ GRID_MAX_N, N) float32 CUDA
+    stack from one launch on the current stream, each member padded to a
+    multiple of 128.  Raises on anything the kernel does not take; no
+    autograd."""
+    global GRID_LAUNCHES
+    if mats.device.type != "cuda":
+        raise ValueError(f"chol_inv_grid kernel takes a CUDA tensor, got {mats.device}")
+    if mats.dtype != torch.float32:
+        raise TypeError(f"chol_inv_grid kernel takes float32, got {mats.dtype}")
+    if mats.ndim != 3 or mats.shape[-1] != mats.shape[-2]:
+        raise ValueError(f"chol_inv_grid kernel takes a (B, N, N) stack, got {tuple(mats.shape)}")
+    b, n, _ = mats.shape
+    if not 1 <= n <= GRID_MAX_N or b < 1:
+        raise ValueError(f"chol_inv_grid kernel takes 1 <= N <= {GRID_MAX_N} and B >= 1, got B={b}, N={n}")
+    if _grid_lib is None:
+        build_grid()
+    n_pad = -(-n // GRID_TILE) * GRID_TILE
+    a = _pad_identity(mats, n_pad)
+    l = torch.zeros_like(a)
+    li = torch.zeros_like(a)
+    scratch = torch.empty(b * (n_pad + 2 * GRID_TILE) * GRID_TILE, dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _grid_lib.chol_inv_grid(a.data_ptr(), l.data_ptr(), li.data_ptr(), scratch.data_ptr(), b, n_pad,
+                                      stream)
+    if err != 0:
+        raise RuntimeError(f"chol_inv_grid kernel launch failed: CUDA error {err}")
+    GRID_LAUNCHES += 1
+    if n_pad != n:
+        return l[:, :n, :n], li[:, :n, :n]
+    return l, li
+
+
+def chol_inv_batched_plain(mats: torch.Tensor):
+    """The plain PyTorch version of K10b: batched ``cholesky_ex`` and
+    ``solve_triangular`` against the identity, no retry; a member whose
+    factorisation fails is NaN."""
+    chol, info = torch.linalg.cholesky_ex(mats)
+    chol = torch.where(cholesky_failed(chol, info)[..., None, None], torch.full_like(chol, float("nan")), chol)
+    eye = torch.eye(mats.shape[-1], dtype=mats.dtype, device=mats.device).expand_as(mats)
+    return chol, torch.linalg.solve_triangular(chol, eye, upper=False)
+
+
+class _CholInvGrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mats):
+        if mats.device.type == "cpu":
+            l, li = chol_inv_batched_plain(mats)
+        elif mats.device.type == "cuda":
+            l, li = chol_inv_grid_cuda(mats)
+        else:
+            raise ValueError(f"chol_inv_batched: no path for device {mats.device}")
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(l, li)
+        return l, li
+
+    @staticmethod
+    def backward(ctx, lbar, libar):
+        l, li = ctx.saved_tensors
+        return civ2_bwd(l, li, lbar, libar)
+
+
+def chol_inv_batched(mats: torch.Tensor):
+    """(L, L⁻¹) of a (B, N, N) SPD stack with no jitter retry (the JAX
+    package's ``chol_inv_batched``): K10b on a CUDA tensor, its plain
+    version on a CPU one.  A member that is not PD comes out non-finite and
+    leaves the others unaffected.  The backward is matmul-only
+    (``civ2_bwd``), from the primal L⁻¹."""
+    return _CholInvGrid.apply(mats)

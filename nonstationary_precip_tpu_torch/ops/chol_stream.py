@@ -1,4 +1,11 @@
-"""K5: the streaming Cholesky of one large SPD matrix, by hand for Hopper.
+"""K5 and K10c: the streaming Cholesky of one large SPD matrix, by hand for
+Hopper.
+
+Names: the port's ``streaming_cholesky`` is the JAX package's
+``streaming_cholesky2`` (K5, the dispatched kernel), and
+``streaming_cholesky_v1`` is the JAX package's ``streaming_cholesky``
+(K10c, the v1 kernel that K5 superseded on the TPU).  K10c is described at
+the end of this docstring.
 
 Replaces ``nonstationary_precip_tpu/ops/pallas_chol.py::streaming_cholesky2``
 (:818, ``pallas_call`` at :791 in ``_forward_streaming2``; body
@@ -47,6 +54,20 @@ accepts here; a CPU tensor takes ``streaming_cholesky_plain``, the same
 blocked algorithm in torch ops; a CUDA tensor launches the kernel or
 raises.  ``LAUNCHES`` counts calls of the kernel's wrapper (each call is
 ~3·N/256 CUDA launches).
+
+K10c replaces ``pallas_chol.py::streaming_cholesky`` (:601; forward
+``_forward_streaming`` :561, ``pallas_call`` at :577, body ``_stream_kernel``
+:438; backward ``_sbwd`` :611, the closed-form pullback).  No path of the JAX
+package runs it; its entry here is ``streaming_cholesky_v1``, joined to no
+dispatch, for one matrix with N ≤ 8192 padded to a multiple of 256.  The
+kernel (``csrc/chol_stream_v1.cu``) computes what the TPU kernel computes by
+another algorithm: a plain right-looking factorisation at 256-wide panels.
+Per block column, the diagonal tile and the panel are K5's kernels
+(``csrc/blocked_chol.cuh``), and the trailing update W −= P·Pᵀ is one
+kernel with a block for each 64 × 64 tile of the lower triangle, in
+128-deep partial sums: (N/64)²/2 blocks at the first column, so unlike K5's
+left-looking GEMMs it fills the card early and thins out late.  Its bound
+is K5's (N³/3 operations).  ``V1_LAUNCHES`` counts calls of its wrapper.
 """
 
 from __future__ import annotations
@@ -174,3 +195,111 @@ def cholesky_ops(n: int) -> float:
     """Operations of one factorisation of order n, N³/3 (the count the
     bound in ``chip_smoke.py`` uses)."""
     return n**3 / 3
+
+
+# ---------------------------------------------------------------------------
+# K10c: the v1 streaming Cholesky, right-looking
+# ---------------------------------------------------------------------------
+
+#: Calls of K10c's wrapper so far in this process (no path of the package
+#: runs it).
+V1_LAUNCHES = 0
+
+V1_SOURCE = CSRC / "chol_stream_v1.cu"
+
+_v1_lib = None
+
+
+def build_v1(force: bool = False) -> str:
+    """Compile ``csrc/chol_stream_v1.cu``, load it, and return nvcc's output.
+    Reused unless ``force``; a failed compile raises."""
+    global _v1_lib
+    lib, log = build_library(V1_SOURCE, force)
+    p = ctypes.c_void_p
+    lib.chol_stream_v1.argtypes = [p, p, p, p, p, ctypes.c_int, p]
+    lib.chol_stream_v1.restype = ctypes.c_int
+    _v1_lib = lib
+    return log
+
+
+def streaming_cholesky_v1_cuda(mat: torch.Tensor) -> torch.Tensor:
+    """K10c's wrapper: the lower factor of a 2-D float32 CUDA matrix with
+    N ≤ MAX_N (its lower triangle is read), from one C call on the current
+    stream.  Raises on anything the kernel does not take; no autograd."""
+    global V1_LAUNCHES
+    if mat.ndim != 2 or mat.shape[0] != mat.shape[1]:
+        raise ValueError(f"chol_stream_v1 kernel takes one square matrix, got {tuple(mat.shape)}")
+    if mat.device.type != "cuda":
+        raise ValueError(f"chol_stream_v1 kernel takes a CUDA tensor, got {mat.device}")
+    if mat.dtype != torch.float32:
+        raise TypeError(f"chol_stream_v1 kernel takes float32, got {mat.dtype}")
+    n = mat.shape[-1]
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"chol_stream_v1 kernel takes 1 <= N <= {MAX_N}, got {n}")
+    if _v1_lib is None:
+        build_v1()
+    w = padded(mat).clone(memory_format=torch.contiguous_format)  # the trailing updates overwrite it
+    n_pad = w.shape[-1]
+    l = torch.zeros_like(w)
+    cbuf = torch.empty((n_pad, PANEL), dtype=w.dtype, device=w.device)
+    ljj = torch.empty((PANEL, PANEL), dtype=w.dtype, device=w.device)
+    linv = torch.empty_like(ljj)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = _v1_lib.chol_stream_v1(w.data_ptr(), l.data_ptr(), cbuf.data_ptr(), ljj.data_ptr(), linv.data_ptr(),
+                                     n_pad, stream)
+    if err != 0:
+        raise RuntimeError(f"chol_stream_v1 kernel launch failed: CUDA error {err}")
+    V1_LAUNCHES += 1
+    return l[:n, :n] if n_pad != n else l
+
+
+def streaming_cholesky_v1_plain(mat: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K10c: the same right-looking algorithm at
+    256-wide panels, ``cholesky_ex`` plus a triangular inverse for each
+    diagonal tile and ``torch.matmul`` for the panel and the trailing
+    update.  A tile whose factorisation fails is NaN, and the NaN spreads as
+    in the kernel."""
+    n = mat.shape[-1]
+    p = PANEL
+    w = torch.tril(padded(mat))
+    n_pad = w.shape[-1]
+    l = torch.zeros_like(w)
+    eye = torch.eye(p, dtype=w.dtype, device=w.device)
+    for jp in range(0, n_pad, p):
+        ljj, info = torch.linalg.cholesky_ex(w[jp:jp + p, jp:jp + p])
+        bad = (info > 0) | ~torch.isfinite(ljj).all()
+        ljj = torch.where(bad, torch.full_like(ljj, float("nan")), ljj)
+        l[jp:jp + p, jp:jp + p] = ljj
+        panel = w[jp + p:, jp:jp + p] @ torch.linalg.solve_triangular(ljj, eye, upper=False).T
+        l[jp + p:, jp:jp + p] = panel
+        w[jp + p:, jp + p:] -= panel @ panel.T
+    return l[:n, :n]
+
+
+class _StreamingCholeskyV1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat):
+        if mat.device.type == "cpu":
+            chol = streaming_cholesky_v1_plain(mat)
+        elif mat.device.type == "cuda":
+            chol = streaming_cholesky_v1_cuda(mat)
+        else:
+            raise ValueError(f"streaming_cholesky_v1: no path for device {mat.device}")
+        ctx.save_for_backward(chol)
+        return chol
+
+    @staticmethod
+    def backward(ctx, g):
+        from nonstationary_precip_tpu_torch.ops.linalg import cholesky_pullback
+
+        (chol,) = ctx.saved_tensors
+        return cholesky_pullback(chol, g)
+
+
+def streaming_cholesky_v1(mat: torch.Tensor) -> torch.Tensor:
+    """Lower factor of one SPD matrix by the v1 streaming algorithm (the JAX
+    package's ``streaming_cholesky``): K10c on a CUDA tensor, its plain
+    version on a CPU one.  The backward is the closed-form Cholesky
+    pullback from the saved factor (the JAX ``_sbwd``)."""
+    return _StreamingCholeskyV1.apply(mat)

@@ -14,7 +14,16 @@ large-N paths run (``experiments/gibbs_largen.py`` with a tensor kernel,
     trace identity.
 
 ``lazy_cg_posterior`` is the matrix-free posterior: one mBCG solve with
-1 + N* right-hand sides, no probes.
+1 + N* right-hand sides, no probes.  ``lazy_posterior_state`` hoists its
+query-independent half (α = K⁻¹r and the preconditioner factor) once per
+fit, and ``lazy_posterior_query`` serves a batch from it.  ``lazy_cg_quad``
+and ``lazy_slq_logdet`` are the frozen-operator primitives of the
+matrix-free prior: a quadratic form whose gradient goes to its vector
+only, and a constant SLQ logdet.
+
+Every preconditioned path takes ``precond_shift``: P = LLᵀ + c·I with
+c = shift·σ², the JAX package's Woodbury ridge (shift > 1 buys f32
+stability at large N; the estimators are P-generic).
 
 Kernels whose state is per point (the Gibbs lengthscale field) use the
 packed payload ``x_aug = [x, log ℓ]`` with a ``cross_fn`` that unpacks it
@@ -27,7 +36,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -119,6 +128,7 @@ class _Settings(NamedTuple):
     cross_fn: Callable
     matvec_builder: Optional[Callable]
     panel_vjp: Optional[Callable]
+    precond_shift: float
 
 
 def _core_fwd(s: _Settings, kernel, x, resid, probes, sigma2, lpc):
@@ -132,12 +142,13 @@ def _core_fwd(s: _Settings, kernel, x, resid, probes, sigma2, lpc):
     if s.precond_rank > 0:
         # the preconditioner parameterises the estimator, not the estimand:
         # σ² is frozen in it; z ~ N(0, P) and P⁻¹z keep E[z (P⁻¹z)ᵀ] = I
-        # (JAX's ``_woodbury`` is ``woodbury_precond``)
-        s2 = sigma2.detach()
-        minv = woodbury_precond(lpc, s2)
+        # (JAX's ``_woodbury`` is ``woodbury_precond``); its ridge is
+        # c = precond_shift·σ²
+        c = s.precond_shift * sigma2.detach()
+        minv = woodbury_precond(lpc, c)
         probe_rights = minv(probes)
         probe_w = torch.sum(probes * probe_rights, dim=0)
-        logdet_p = precond_logdet(lpc, s2, n)
+        logdet_p = precond_logdet(lpc, c, n)
     else:
         minv = None
         probe_rights = probes  # E[z zᵀ] = I for Rademacher probes
@@ -193,9 +204,9 @@ class _LazyCGMLL(torch.autograd.Function):
 
 def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma2, *,
                 block: int = 1024, max_iters: int = 100, tol: float = 1e-6, precond_rank: int = 0,
-                precond_key=None, precond: str = "pivchol", precond_lpc: Optional[torch.Tensor] = None,
-                cross_fn: Optional[Callable] = None, matvec_builder: Optional[Callable] = None,
-                panel_vjp: Optional[Callable] = None) -> torch.Tensor:
+                precond_key=None, precond: str = "pivchol", precond_shift: float = 1.0,
+                precond_lpc: Optional[torch.Tensor] = None, cross_fn: Optional[Callable] = None,
+                matvec_builder: Optional[Callable] = None, panel_vjp: Optional[Callable] = None) -> torch.Tensor:
     """−½ rᵀK⁻¹r − ½ log det K − (n/2) log 2π with K = kernel(x) + σ²I, K
     never in memory.  Differentiable w.r.t. ``kernel`` (a tensor, such as
     the raw outputscale of ``packed_gibbs_cross``, or an ``nn.Module``,
@@ -204,11 +215,11 @@ def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma
 
     ``probe_noise``: with a preconditioner (``precond_rank > 0`` or
     ``precond_lpc``), the standard normal draws (u1 (rank, R), u2 (N, R))
-    from which the probes z = L u₁ + σ u₂ ~ N(0, P) are made;
-    without one, the (N, R) Rademacher probes themselves.  (The JAX
-    package's ``precond_shift`` is not ported: the path runs shift 1.)  The preconditioner
-    factor (built by greedy pivoted Cholesky unless ``precond_lpc`` is
-    given), the probes and σ² inside P carry no gradient.
+    from which the probes z = L u₁ + √c u₂ ~ N(0, P) are made,
+    P = LLᵀ + c·I, c = ``precond_shift``·σ²; without one, the (N, R)
+    Rademacher probes themselves.  The preconditioner factor (built by
+    greedy pivoted Cholesky unless ``precond_lpc`` is given), the probes
+    and σ² inside P carry no gradient.
 
     ``matvec_builder`` swaps the mBCG matvec for a fused one (K2);
     ``panel_vjp`` swaps the backward panel loop for a fused sweep (K3) with
@@ -228,11 +239,12 @@ def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma
             lpc = (precond_lpc if precond_lpc is not None
                    else build_precond_factor(precond, kernel, x, precond_rank, cross, precond_key)).detach()
             u1, u2 = probe_noise
-            probes = sample_precond_probes(lpc, sigma2.detach(), u1, u2)
+            probes = sample_precond_probes(lpc, precond_shift * sigma2.detach(), u1, u2)
         else:
             lpc = torch.zeros((n, 0), dtype=x.dtype, device=x.device)
             probes = probe_noise.detach()
-    settings = _Settings(block, max_iters, tol, precond_rank, cross, matvec_builder, panel_vjp)
+    settings = _Settings(block, max_iters, tol, precond_rank, cross, matvec_builder, panel_vjp,
+                         float(precond_shift))
     return _LazyCGMLL.apply(kernel, x, resid, probes, sigma2, lpc, settings, *kernel_params(kernel))
 
 
@@ -296,8 +308,9 @@ def make_jnp_panel_vjp(cross_fn: Callable, block: int):
 @torch.no_grad()
 def lazy_cg_diagnostics(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma2, *,
                         block: int = 1024, max_iters: int = 100, tol: float = 1e-6, precond_rank: int = 0,
-                        precond_key=None, precond: str = "pivchol", precond_lpc: Optional[torch.Tensor] = None,
-                        cross_fn: Optional[Callable] = None, matvec_builder: Optional[Callable] = None) -> dict:
+                        precond_key=None, precond: str = "pivchol", precond_shift: float = 1.0,
+                        precond_lpc: Optional[torch.Tensor] = None, cross_fn: Optional[Callable] = None,
+                        matvec_builder: Optional[Callable] = None) -> dict:
     """Convergence evidence for the solves :func:`lazy_cg_mll` runs: the same
     matvec, preconditioner, probes and mBCG budget, returning
     {"relres_solve", "relres_max", "iters_max", "broke"}: relres_solve is
@@ -317,8 +330,9 @@ def lazy_cg_diagnostics(kernel, x: torch.Tensor, resid: torch.Tensor, probe_nois
         lpc = (precond_lpc if precond_lpc is not None
                else build_precond_factor(precond, kernel, x, precond_rank, cross, precond_key))
         u1, u2 = probe_noise
-        probes = sample_precond_probes(lpc, sigma2, u1, u2)
-        minv = woodbury_precond(lpc, sigma2)
+        c = precond_shift * sigma2
+        probes = sample_precond_probes(lpc, c, u1, u2)
+        minv = woodbury_precond(lpc, c)
     else:
         probes, minv = probe_noise, None
     res = mbcg(matvec, torch.cat([resid[:, None], probes], dim=1), max_iters=max_iters, tol=tol, precond=minv)
@@ -337,36 +351,238 @@ def lazy_cg_diagnostics(kernel, x: torch.Tensor, resid: torch.Tensor, probe_nois
 
 def lazy_cg_posterior(kernel, x: torch.Tensor, resid: torch.Tensor, x_test: torch.Tensor, sigma2, *,
                       block: int = 1024, max_iters: int = 1000, tol: float = 1e-6, precond_rank: int = 0,
-                      matvec_builder: Optional[Callable] = None):
+                      precond_key=None, precond: str = "pivchol", precond_shift: float = 1.0,
+                      cross_fn: Optional[Callable] = None, matvec_builder: Optional[Callable] = None):
     """(mean, cov) of the zero-mean exact-GP posterior at ``x_test``:
     mean = K*ₓK⁻¹r, cov = K** − K*ₓK⁻¹Kₓ*, the train-side solves by one
     mBCG run over lazy row panels (or ``matvec_builder``'s fused matvec)
     with all 1 + N* right-hand sides at once.  A breakdown poisons mean and
     cov with NaN.  The caller adds its mean function and observation noise.
-    The preconditioner is the rank-``precond_rank`` pivoted Cholesky, and
-    with it σ² carries no gradient (as in the JAX package's
-    ``_posterior_machinery``, :1309-1331); the JAX ``precond_shift`` is not
-    ported (shift 1).  Not differentiable through a fused matvec, which has
-    no backward."""
+    The preconditioner is the rank-``precond_rank`` pivoted Cholesky with
+    ridge ``precond_shift``·σ², and with it σ² carries no gradient (as in the
+    JAX package's ``_posterior_machinery``, :1309-1331).  Not differentiable
+    through a fused matvec, which has no backward."""
     n = x.shape[0]
     block = min(block, n)
     check_divisible(n, block, "x", "row-panel block")
+    cross = cross_fn or default_cross
     sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device)
     if precond_rank > 0:
-        lpc = lazy_pivoted_cholesky(kernel, x, precond_rank)
+        lpc = build_precond_factor(precond, kernel, x, precond_rank, cross, precond_key)
         sigma2 = sigma2.detach()
-        minv = woodbury_precond(lpc, sigma2)
+        minv = woodbury_precond(lpc, precond_shift * sigma2)
     else:
         minv = None
     if matvec_builder is not None:
         matvec = matvec_builder(kernel, x, sigma2)
     else:
-        matvec = _lazy_matvec(kernel, x, sigma2, block, default_cross)
-    b_cols = kernel(x, x_test)  # (N, N*)
+        matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
+    b_cols = cross(kernel, x, x_test)  # (N, N*)
     res = mbcg(matvec, torch.cat([resid[:, None], b_cols], dim=1), max_iters=max_iters, tol=tol, precond=minv)
     mean = b_cols.T @ res.x[:, 0]
     cov_term = b_cols.T @ res.x[:, 1:]
-    cov = kernel(x_test, x_test) - 0.5 * (cov_term + cov_term.T)
+    cov = cross(kernel, x_test, x_test) - 0.5 * (cov_term + cov_term.T)
     bad = torch.any(res.broke)
     return (torch.where(bad, torch.full_like(mean, math.nan), mean),
             torch.where(bad, torch.full_like(cov, math.nan), cov))
+
+
+# ---------------------------------------------------------------------------
+# frozen-operator primitives: quadratic form and SLQ logdet
+# ---------------------------------------------------------------------------
+
+
+class _LazyCGQuad(torch.autograd.Function):
+    """diffᵀ(K + σ²I)⁻¹diff with the pullback 2·g·(K + σ²I)⁻¹diff to
+    ``diff`` only (the JAX package's ``_quad_machinery``): the operator is
+    frozen by contract."""
+
+    @staticmethod
+    def forward(ctx, diff, matvec, minv, max_iters, tol):
+        res = mbcg(matvec, diff[:, None], max_iters=max_iters, tol=tol, precond=minv)
+        alpha = res.x[:, 0]
+        q = torch.dot(diff, alpha)
+        q = torch.where(torch.any(res.broke), torch.full_like(q, math.nan), q)
+        ctx.save_for_backward(alpha)
+        return q
+
+    @staticmethod
+    def backward(ctx, g):
+        (alpha,) = ctx.saved_tensors
+        return 2.0 * g * alpha, None, None, None, None
+
+
+def lazy_cg_quad(kernel, x: torch.Tensor, diff: torch.Tensor, sigma2, *, lpc: Optional[torch.Tensor] = None,
+                 block: int = 1024, max_iters: int = 64, tol: float = 1e-6, precond_shift: float = 1.0,
+                 cross_fn: Optional[Callable] = None) -> torch.Tensor:
+    """diffᵀ(K(x, x) + σ²I)⁻¹diff by one mBCG solve over lazy row panels.
+
+    Differentiable in ``diff`` only, with the pullback 2·(K + σ²I)⁻¹diff,
+    exact when CG has converged; ``kernel``, ``x``, σ² and ``lpc`` are
+    frozen (the per-step prior quadratic of MAP training under a frozen
+    prior).  A breakdown gives NaN.  ``lpc``: a hoisted (N, rank)
+    pivoted-Cholesky factor of the noise-free K, the Woodbury
+    preconditioner with ridge ``precond_shift``·σ²; without it the prior's
+    1e-4 jitter makes plain CG stall at large N."""
+    n = x.shape[0]
+    block = min(block, n)
+    check_divisible(n, block, "x", "row-panel block")
+    cross = cross_fn or default_cross
+    x = x.detach()
+    sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device).detach()
+    kern = kernel.detach() if isinstance(kernel, torch.Tensor) else kernel
+    minv = None if lpc is None else woodbury_precond(lpc.detach(), precond_shift * sigma2)
+    matvec = _lazy_matvec(kern, x, sigma2, block, cross)
+    return _LazyCGQuad.apply(diff, matvec, minv, max_iters, tol)
+
+
+@torch.no_grad()
+def lazy_slq_logdet(kernel, x: torch.Tensor, probe_noise, sigma2, *, lpc: Optional[torch.Tensor] = None,
+                    block: int = 1024, max_iters: int = 128, tol: float = 1e-10, precond_shift: float = 1.0,
+                    cross_fn: Optional[Callable] = None) -> torch.Tensor:
+    """SLQ estimate of log det(K(x, x) + σ²I), matrix-free: the estimator
+    ``lazy_cg_mll`` embeds, standalone for a frozen operator, whose logdet
+    is a constant of training.  Not differentiable.
+
+    ``probe_noise``: with ``lpc`` (P = LLᵀ + c·I, c = ``precond_shift``·σ²),
+    the standard normal draws (u1 (rank, R), u2 (N, R)) of the N(0, P)
+    probes (``bbmm.sample_precond_probes``); without it, the (N, R)
+    Rademacher probes.  The JAX package draws either from a key."""
+    n = x.shape[0]
+    block = min(block, n)
+    check_divisible(n, block, "x", "row-panel block")
+    cross = cross_fn or default_cross
+    sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device)
+    matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
+    if lpc is not None:
+        c = precond_shift * sigma2
+        minv = woodbury_precond(lpc, c)
+        u1, u2 = probe_noise
+        probes = sample_precond_probes(lpc, c, u1, u2)
+        probe_w = torch.sum(probes * minv(probes), dim=0)
+        base = precond_logdet(lpc, c, n)
+    else:
+        minv = None
+        probes = probe_noise
+        probe_w = torch.sum(probes * probes, dim=0)
+        base = torch.zeros((), dtype=x.dtype, device=x.device)
+    res = mbcg(matvec, probes, max_iters=max_iters, tol=tol, precond=minv)
+    est = base + lanczos_logdet(res.alphas, res.betas, probe_w)
+    return torch.where(torch.any(res.broke), torch.full_like(est, math.nan), est)
+
+
+# ---------------------------------------------------------------------------
+# amortized posterior: fit-time state, cheap per-query-batch serving
+# ---------------------------------------------------------------------------
+
+
+class LazyPosteriorState(NamedTuple):
+    """Once-per-fit state for repeated matrix-free posterior queries (the
+    JAX package's ``LazyPosteriorState``): α = (K + σ²I)⁻¹r, after which a
+    posterior mean is one cross build and one contraction; the (N, rank)
+    preconditioner factor the variance solves reuse; the operator (kernel,
+    payload, σ²); and the relative residual of the α solve, the evidence
+    that it converged (mBCG freezes silently when it does not)."""
+
+    kernel: Any
+    x: torch.Tensor  # (N, d) payload the cross_fn understands
+    alpha: torch.Tensor  # (N,) (K + σ²I)⁻¹ resid
+    lpc: torch.Tensor  # (N, rank) preconditioner factor ((N, 0) if none)
+    sigma2: torch.Tensor  # scalar ridge
+    alpha_relres: torch.Tensor
+
+
+def _auto_budget(n: int) -> int:
+    """The converged-iteration budget of the JAX package's matrix-free
+    paths (rank-150 preconditioning): 16 iterations for N ≤ 32768, 32 above."""
+    return 16 if n <= 32768 else 32
+
+
+@torch.no_grad()
+def lazy_posterior_state(kernel, x: torch.Tensor, resid: torch.Tensor, sigma2, *, block: int = 1024,
+                         max_iters: Optional[int] = None, tol: float = 1e-8, precond_rank: int = 150,
+                         precond: str = "pivchol", precond_key=None, precond_shift: float = 1.0,
+                         precond_lpc: Optional[torch.Tensor] = None, cross_fn: Optional[Callable] = None,
+                         matvec_builder: Optional[Callable] = None) -> LazyPosteriorState:
+    """The :class:`LazyPosteriorState` of a fit: one factor build (unless
+    ``precond_lpc`` is given) and one single-RHS mBCG solve for α, at twice
+    the auto budget unless ``max_iters`` is given.  A breakdown makes α NaN.
+    Frozen serving state: nothing here carries a gradient."""
+    n = x.shape[0]
+    block = min(block, n)
+    check_divisible(n, block, "x", "row-panel block")
+    cross = cross_fn or default_cross
+    if max_iters is None:
+        max_iters = 2 * _auto_budget(n)
+    precond_rank = min(precond_rank, n)
+    kernel = kernel.detach() if isinstance(kernel, torch.Tensor) else kernel
+    x = x.detach()
+    sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device).detach()
+    if precond_rank > 0:
+        lpc = (precond_lpc if precond_lpc is not None
+               else build_precond_factor(precond, kernel, x, precond_rank, cross, precond_key)).detach()
+        minv = woodbury_precond(lpc, precond_shift * sigma2)
+    else:
+        lpc = torch.zeros((n, 0), dtype=x.dtype, device=x.device)
+        minv = None
+    if matvec_builder is not None:
+        matvec = matvec_builder(kernel, x, sigma2)
+    else:
+        matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
+    res = mbcg(matvec, resid.detach()[:, None], max_iters=max_iters, tol=tol, precond=minv)
+    alpha = torch.where(torch.any(res.broke), torch.full_like(res.x[:, 0], math.nan), res.x[:, 0])
+    return LazyPosteriorState(kernel, x, alpha, lpc, sigma2, res.residnorm[0])
+
+
+@torch.no_grad()
+def lazy_posterior_query(state: LazyPosteriorState, x_test: torch.Tensor, *, mean_only: bool = False,
+                         block: int = 1024, max_iters: Optional[int] = None, tol: float = 1e-6,
+                         precond_shift: float = 1.0, cross_fn: Optional[Callable] = None,
+                         matvec_builder: Optional[Callable] = None, return_info: bool = False):
+    """(mean, cov) at ``x_test`` from a prebuilt state.
+
+    mean = Kₓ*ᵀα: one (N, N*) cross build and one contraction, no solve
+    (``mean_only=True`` returns ``(mean, None)``).  cov needs K⁻¹Kₓ*: one
+    preconditioned mBCG with N* right-hand sides at the auto budget, with
+    the state's factor.  A breakdown of that solve turns both mean and cov
+    to NaN, as the JAX package's ``lazy_posterior_query`` does (its chunked
+    form NaNs only cov; the port follows the one-shot query on purpose).
+
+    ``return_info=True`` appends {"relres": (N*,) final relative residuals of
+    the variance solves (empty when ``mean_only``), "relres_max": the worst
+    of them and of the state's α solve, "broke": the breakdown flag}."""
+    kernel, x, alpha, lpc, sigma2, alpha_relres = state
+    n = x.shape[0]
+    block = min(block, n)
+    check_divisible(n, block, "x", "row-panel block")
+    cross = cross_fn or default_cross
+    b_cols = cross(kernel, x, x_test)  # (N, N*)
+    mean = b_cols.T @ alpha
+    if mean_only:
+        if return_info:
+            info = {"relres": torch.zeros((0,), dtype=mean.dtype, device=mean.device),
+                    "relres_max": torch.as_tensor(alpha_relres, dtype=mean.dtype, device=mean.device),
+                    "broke": torch.zeros((), dtype=torch.bool, device=mean.device)}
+            return mean, None, info
+        return mean, None
+    if max_iters is None:
+        max_iters = _auto_budget(n)
+    minv = woodbury_precond(lpc, precond_shift * sigma2) if lpc.shape[-1] > 0 else None
+    if matvec_builder is not None:
+        matvec = matvec_builder(kernel, x, sigma2)
+    else:
+        matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
+    res = mbcg(matvec, b_cols, max_iters=max_iters, tol=tol, precond=minv)
+    cov_term = b_cols.T @ res.x  # (N*, N*)
+    cov = cross(kernel, x_test, x_test) - 0.5 * (cov_term + cov_term.T)
+    bad = torch.any(res.broke)
+    mean = torch.where(bad, torch.full_like(mean, math.nan), mean)
+    cov = torch.where(bad, torch.full_like(cov, math.nan), cov)
+    if return_info:
+        info = {"relres": res.residnorm,
+                "relres_max": torch.maximum(torch.max(res.residnorm),
+                                            torch.as_tensor(alpha_relres, dtype=res.residnorm.dtype,
+                                                            device=res.residnorm.device)),
+                "broke": bad}
+        return mean, cov, info
+    return mean, cov

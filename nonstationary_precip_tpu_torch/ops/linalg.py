@@ -131,12 +131,18 @@ class _SafeCholesky(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (chol,) = ctx.saved_tensors
-        # K̄ = sym(L⁻ᵀ Φ(LᵀL̄) L⁻¹), Φ = tril with halved diagonal
-        p = chol.mT @ g
-        phi = torch.tril(p) - 0.5 * torch.diag_embed(torch.diagonal(p, dim1=-2, dim2=-1))
-        w = torch.linalg.solve_triangular(chol.mT, phi, upper=True)
-        kbar_t = torch.linalg.solve_triangular(chol.mT, w.mT, upper=True)
-        return 0.5 * (kbar_t + kbar_t.mT), None, None
+        return cholesky_pullback(chol, g), None, None
+
+
+def cholesky_pullback(chol: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Closed-form Cholesky pullback from the saved factor (Murray 2016; the
+    JAX package's ``_chol_pullback``): K̄ = sym(L⁻ᵀ Φ(LᵀL̄) L⁻¹), Φ = tril
+    with halved diagonal; two triangular solves, no refactorisation."""
+    p = chol.mT @ g
+    phi = torch.tril(p) - 0.5 * torch.diag_embed(torch.diagonal(p, dim1=-2, dim2=-1))
+    w = torch.linalg.solve_triangular(chol.mT, phi, upper=True)
+    kbar_t = torch.linalg.solve_triangular(chol.mT, w.mT, upper=True)
+    return 0.5 * (kbar_t + kbar_t.mT)
 
 
 def safe_cholesky(mat: torch.Tensor, jitter: float = EPSILON, max_tries: int = 6) -> torch.Tensor:
