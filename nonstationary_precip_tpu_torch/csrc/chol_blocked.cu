@@ -1,42 +1,42 @@
 // K10a: the blocked Cholesky of one N x N SPD matrix with 768 <= N <= 1280.
-// Hopper (sm_90a) port of the TPU kernel
+// Hopper (sm_90a) kernel in place of the TPU kernel
 // nonstationary_precip_tpu/ops/pallas_chol.py::blocked_cholesky (body
 // _chol_kernel, pallas_call in _forward).  The wrapper, the plain PyTorch
 // version and the design notes are in
 // nonstationary_precip_tpu_torch/ops/chol_blocked.py.
 //
-// The TPU kernel holds the whole matrix in VMEM; 1280^2 f32 (6.5 MB) does
-// not fit in an SM's shared memory, but it fits in the 50 MB L2.  So this is
-// K5's left-looking factorisation (blocked_chol.cuh) at the TPU kernel's
-// own 128-wide blocks: per block column the update GEMM, the diagonal
-// tile's fused (L, L^-1) sweep in one 256-thread block (the packed
-// 128-triangle in shared memory, 33.5 KB), and the panel GEMM.  The matrix
-// is identity-padded by the wrapper to a multiple of 128.  A diagonal tile
-// whose sweep fails is NaN, and the NaN spreads to every later column.
+// The TPU kernel holds the whole matrix in VMEM and factors it right-looking
+// at 128-wide blocks.  1280^2 f32 (6.5 MB) does not fit in an SM's shared
+// memory but fits in the 50 MB L2, so K10a runs chol_rl.cuh's right-looking
+// factorisation in place on the factor, at the same 128-wide tiles as K5:
+// per block column the diagonal tile (one CTA, recursive 2 x 2 blocking in
+// shared memory), the panel through L_jj^-1 and the tiled trailing update,
+// in turn on one stream (factor<false>), 3 N / 128 - 2 CUDA launches a call
+// (28 at N = 1280).  What bounds it on an H100 is the chain of N / 128
+// diagonal tiles, each on one SM, and of single-wave tile kernels: the
+// N^3/3 operations take 10 us at the card's f32 rate.  Look-ahead does not
+// pay at these sizes: the trailing update of one column is a single wave,
+// no longer than the diagonal tile it would hide, and the second stream's
+// events add their own latency.  A diagonal tile that fails is NaN, and the
+// NaN spreads to every later column.
 
 #include <cuda_runtime.h>
 
-#include "blocked_chol.cuh"
-
-namespace {
-
-constexpr int kP = 128;  // block width (the TPU kernel's BLOCK)
-constexpr int kDiagThreads = 256;
-
-}  // namespace
+#include "chol_rl.cuh"
 
 extern "C" {
 
-// a: n x n f32 row-major, n a positive multiple of kP; l: n x n output,
-// zero-filled by the caller; cbuf: n x kP, ljj and linv: kP x kP f32
-// scratch.  Launches every kernel on `stream` and returns the first non-zero
-// cudaGetLastError() as an int (0 = all launched).
-int chol_blocked(const void* a, void* l, void* cbuf, void* ljj, void* linv, int n,
-                 void* stream) {
-  return blocked_chol::left_looking<kP, kDiagThreads, false>(
-      static_cast<const float*>(a), static_cast<float*>(l), static_cast<float*>(cbuf),
-      static_cast<float*>(ljj), static_cast<float*>(linv), n,
-      static_cast<cudaStream_t>(stream), nullptr, nullptr);
+// l: the n x n working matrix, row-major, n a positive multiple of 128: the
+// lower triangle of the identity-padded matrix, zeros above, factored in
+// place.  Launches every kernel on `stream` (and, with look-ahead, on a
+// second stream that `stream` waits for) and returns the first non-zero
+// CUDA error as an int (0 = all launched).
+int chol_blocked(void* l, int n, void* stream) {
+  return chol_rl::factor<false>(static_cast<float*>(l), n, static_cast<cudaStream_t>(stream));
 }
+
+// Registers, local (spill) bytes, static and dynamic shared memory of the
+// diagonal-tile, panel and trailing-update kernels into out[12].
+int chol_blocked_attributes(int* out) { return chol_rl::attributes<false>(out); }
 
 }  // extern "C"

@@ -1,43 +1,46 @@
-// K5: the streaming (left-looking, blocked) Cholesky of one N x N SPD
-// matrix held in device memory.  Hopper (sm_90a) port of the TPU kernel
+// K5: the streaming Cholesky of one N x N SPD matrix held in device memory,
+// 6144 <= N <= 8192.  Hopper (sm_90a) kernel in place of the TPU kernel
 // nonstationary_precip_tpu/ops/pallas_chol.py::streaming_cholesky2
 // (_forward_streaming2 -> body _stream2_kernel, diagonal tiles from
 // _chol_inv_rec).  The wrapper, the plain PyTorch version and the design
 // notes are in nonstationary_precip_tpu_torch/ops/chol_stream.py.
 //
-// The matrix is padded by the wrapper to n, a multiple of kP = 256.  One C
-// call runs blocked_chol.cuh's left-looking factorisation at kP = 256: for
-// each block column, the update GEMM, the diagonal tile's fused (L, L^-1)
-// sweep of chol_sweep.cuh (K1's and K4's) in one 1024-thread block with the
-// packed triangle in shared memory (131.6 KB), and the panel GEMM.  A
-// diagonal tile whose sweep fails is written as NaN, and the NaN reaches
-// every later column through the updates, as the TPU kernel's factor goes
-// NaN from the failing column on.
+// The TPU kernel is left-looking because the TPU runs one grid step at a
+// time and streams its operands through VMEM; on an H100 the work has to
+// spread over 132 SMs.  So K5 runs chol_rl.cuh's right-looking
+// factorisation in place on the factor, at 128-wide tiles (the wrapper pads
+// to a multiple of the TPU kernel's 256-wide panels): per block column the
+// diagonal tile (one CTA, recursive 2 x 2 blocking in shared memory, as
+// _chol_inv_rec), the panel through L_jj^-1, and the trailing update as one
+// CTA per 128 x 128 lower tile (2016 at the first column of N = 8192).
+// What bounds it on an H100 is the N^3/3 f32 FFMA operations of the
+// trailing updates (2.7 ms at 67 TFLOP/s), then the chain of N / 128
+// diagonal tiles; with look-ahead (factor<true>) each block column's first
+// update, diagonal tile and panel run on a second stream while the rest of
+// the previous column's trailing update runs, 4 N / 128 - 4 CUDA launches a
+// call (252 at N = 8192).  A diagonal
+// tile that fails is written as NaN, and the NaN reaches every later column
+// through the updates, as the TPU kernel's factor goes NaN from the failing
+// column on.
 
 #include <cuda_runtime.h>
 
-#include "blocked_chol.cuh"
-
-namespace {
-
-constexpr int kP = 256;          // panel width (the TPU kernel's p)
-constexpr int kDiagThreads = 1024;
-
-}  // namespace
+#include "chol_rl.cuh"
 
 extern "C" {
 
-// a: n x n f32 row-major, n a positive multiple of kP (identity-padded by
-// the caller); l: n x n output, zero-filled by the caller; cbuf: n x kP,
-// ljj and linv: kP x kP f32 scratch.  Launches every kernel on `stream`
-// and returns the first non-zero cudaGetLastError() as an int (0 = all
-// launched).
-int chol_stream(const void* a, void* l, void* cbuf, void* ljj, void* linv,
-                int n, void* stream) {
-  return blocked_chol::left_looking<kP, kDiagThreads, false>(
-      static_cast<const float*>(a), static_cast<float*>(l), static_cast<float*>(cbuf),
-      static_cast<float*>(ljj), static_cast<float*>(linv), n,
-      static_cast<cudaStream_t>(stream), nullptr, nullptr);
+// l: the n x n working matrix, row-major, n a positive multiple of 128: the
+// lower triangle of the identity-padded matrix, zeros above, factored in
+// place.  Launches every kernel on `stream` (and, with look-ahead, on a
+// second stream that `stream` waits for) and returns the first non-zero
+// CUDA error as an int (0 = all launched).
+int chol_stream(void* l, int n, void* stream) {
+  return chol_rl::factor<true>(static_cast<float*>(l), n, static_cast<cudaStream_t>(stream));
 }
+
+// Registers, local (spill) bytes, static and dynamic shared memory of the
+// diagonal-tile, panel, column-update and triangle-update kernels into
+// out[16].
+int chol_stream_attributes(int* out) { return chol_rl::attributes<true>(out); }
 
 }  // extern "C"

@@ -11,19 +11,26 @@ ctypes.
 What bounds it on an H100.  N³/3 operations (7.0·10⁸ at N = 1280, 10 µs
 at 67 TFLOP/s of f32 outside the tensor cores) over 2·N² floats moved (13 MB,
 4 µs at 3.35 TB/s): operations, on paper.  In practice a dependent chain:
-N/128 diagonal sweeps of 128 column steps each, one SM each, between GEMMs
-that cannot start before them.
+N/128 diagonal tiles, each on one SM, between kernels that cannot start
+before them, and 3·N/128 − 2 launches.
 
-What the design does about it.  The TPU kernel keeps the matrix in VMEM;
-1280² f32 is 6.5 MB, too much for an SM's shared memory but not for L2.  So
-K10a is K5's left-looking factorisation (``csrc/blocked_chol.cuh``) at the
-TPU kernel's 128-wide blocks: for each block column, the hand-written update
-GEMM, the diagonal tile's fused (L, L⁻¹) sweep of ``csrc/chol_sweep.cuh``
-in one 256-thread block, and the panel GEMM.  The matrix is identity-padded
-to a multiple of 128 (``_forward``'s padding, exact since
-chol(diag(A, I)) = diag(chol(A), I)) and the factor cut back; the upper
-triangle is zero.  A failed diagonal tile is NaN and the NaN spreads, so
-``safe_cholesky``'s retry sees a non-finite factor, as on the TPU.
+What the design does about it.  The TPU kernel keeps the matrix in VMEM and
+factors it right-looking at 128-wide blocks; 1280² f32 is 6.5 MB, too much
+for an SM's shared memory but not for L2.  So K10a is the right-looking
+factorisation of ``csrc/chol_rl.cuh``, which K5 shares, in place on the
+factor at the TPU kernel's 128-wide blocks: for each block column the
+diagonal tile in one CTA (recursive 2 × 2 blocking in shared memory down to
+32-wide leaves, one warp each, about twenty block barriers a tile), the
+panel by blocked forward substitution against L_jj, and the trailing update
+on the lower 128 × 128 tiles (f32 FFMA micro-tiles over a ``cp.async``
+ring, one CTA an SM; fixed-order sums, no atomics), in turn on the caller's
+stream.  K5's look-ahead does not pay here: at these sizes a column's
+trailing update is one wave, no longer than the diagonal tile it would
+hide.  The matrix is identity-padded to a multiple of 128 (``_forward``'s
+padding, exact since chol(diag(A, I)) = diag(chol(A), I)) and the factor
+cut back; the upper triangle is zero.  A failed diagonal tile
+is NaN and the NaN spreads, so ``safe_cholesky``'s retry sees a non-finite
+factor, as on the TPU.
 
 The backward is not a kernel: ``ops/linalg.safe_cholesky``'s closed-form
 pullback, the formula of the JAX ``_chol_pullback`` (:232).
@@ -31,7 +38,7 @@ pullback, the formula of the JAX ``_chol_pullback`` (:232).
 Dispatch: ``ops/linalg.cholesky_ex`` sends a matrix that ``eligible``
 accepts here; ``blocked_cholesky`` runs the plain version for a CPU tensor
 and the kernel for a CUDA one (which raises on anything it does not take).
-``LAUNCHES`` counts calls of the kernel's wrapper (each is ~3·N/128 CUDA
+``LAUNCHES`` counts calls of the kernel's wrapper (each is 3·N/128 − 2 CUDA
 launches).
 """
 
@@ -41,11 +48,15 @@ import ctypes
 
 import torch
 
-from nonstationary_precip_tpu_torch.ops.chol_stream import padded
+from nonstationary_precip_tpu_torch.ops.chol_stream import padded, rl_attributes
 from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
 
-#: Block width (the TPU kernel's ``BLOCK``; csrc kP).
+#: Padding width (the TPU kernel's ``BLOCK``; also the kernel's tile width,
+#: ``csrc/chol_rl.cuh`` kT).
 BLOCK = 128
+#: K10a's kernels (``csrc/chol_rl.cuh``, no look-ahead), in the order of its
+#: ``attributes()``.
+KERNELS = ("diag_kernel", "panel_kernel", "syrk_kernel<triangle>")
 #: The JAX dispatch window (``pallas_chol.py::eligible``; ``MAX_N``).
 MIN_N = 768
 MAX_N = 1280
@@ -65,10 +76,20 @@ def build(force: bool = False) -> str:
     global _lib
     lib, log = build_library(SOURCE, force)
     p = ctypes.c_void_p
-    lib.chol_blocked.argtypes = [p, p, p, p, p, ctypes.c_int, p]
+    lib.chol_blocked.argtypes = [p, ctypes.c_int, p]
     lib.chol_blocked.restype = ctypes.c_int
+    lib.chol_blocked_attributes.argtypes = [p]
+    lib.chol_blocked_attributes.restype = ctypes.c_int
     _lib = lib
     return log
+
+
+def kernel_attributes() -> dict:
+    """``chol_stream.rl_attributes`` of K10a's build (built first if need
+    be)."""
+    if _lib is None:
+        build()
+    return rl_attributes(_lib.chol_blocked_attributes, KERNELS)
 
 
 def eligible(mat: torch.Tensor) -> bool:
@@ -92,16 +113,11 @@ def blocked_cholesky_cuda(mat: torch.Tensor) -> torch.Tensor:
     if _lib is None:
         build()
     n = mat.shape[-1]
-    a = padded(mat.contiguous(), BLOCK)
-    n_pad = a.shape[-1]
-    l = torch.zeros_like(a)
-    cbuf = torch.empty((n_pad, BLOCK), dtype=a.dtype, device=a.device)
-    ljj = torch.empty((BLOCK, BLOCK), dtype=a.dtype, device=a.device)
-    linv = torch.empty_like(ljj)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _lib.chol_blocked(a.data_ptr(), l.data_ptr(), cbuf.data_ptr(), ljj.data_ptr(), linv.data_ptr(),
-                                n_pad, stream)
+    l = torch.tril(padded(mat.contiguous(), BLOCK))  # the working matrix, factored in place
+    n_pad = l.shape[-1]
+    with torch.cuda.device(l.device):
+        stream = torch.cuda.current_stream(l.device).cuda_stream
+        err = _lib.chol_blocked(l.data_ptr(), n_pad, stream)
     if err != 0:
         raise RuntimeError(f"chol_blocked kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -11,49 +11,58 @@ Replaces ``nonstationary_precip_tpu/ops/pallas_chol.py::streaming_cholesky2``
 (:818, ``pallas_call`` at :791 in ``_forward_streaming2``; body
 ``_stream2_kernel``, diagonal tiles from ``_chol_inv_rec``), which the JAX
 package's ``ops/linalg.py::cholesky`` dispatches for every 2-D float32
-matrix with 6144 ≤ N ≤ 8192.  The kernel is ``csrc/chol_stream.cu``: CUDA
-C++ for sm_90a, built with nvcc at first use (``ops/cuda_build.py``) and
-bound through ctypes.
+matrix with 6144 ≤ N ≤ 8192.  The kernel is ``csrc/chol_stream.cu`` over
+``csrc/chol_rl.cuh``: CUDA C++ for sm_90a, built with nvcc at first use
+(``ops/cuda_build.py``) and bound through ctypes.
 
 What bounds it on an H100.  The factorisation is N³/3 operations
 (1.8·10¹¹ at N = 8192, 2.7 ms at the card's 67 TFLOP/s of f32 outside the
 tensor cores) over 2·N² floats of input and output (0.5 GB, 0.16 ms at
-3.35 TB/s): operations bound it.  But this design's time is set by a
-dependent chain: each 256-wide diagonal tile is N/256 = 32 sweeps of 256
-column steps on one SM, between GEMMs that cannot start before it.  On an
-H100 (700 W) a factorisation at N = 8192 takes ~33.6 ms, half of it the
-diagonal sweeps (``tools/profile_torch_exact.py``), against cuSOLVER's
-~9.2 ms.
+3.35 TB/s): operations bound it, nearly all of them in the trailing
+updates.  Next comes the dependent chain of N/128 diagonal tiles, each on
+one SM while the kernels after it wait.
 
-What the design does about it.  The same left-looking block algorithm as
-the TPU kernel, with 256-wide panels, the matrix identity-padded to a
-multiple of 256 and the factor cut back at the end; per block column j,
-one C call issues three kernels on the stream
-(``csrc/blocked_chol.cuh``, which K10a and K8 share at 128-wide panels):
-  * the update C = A[jp:, jp:jp+256] − L[jp:, :jp]·L[jp:jp+256, :jp]ᵀ, a
-    hand-written tiled SIMT GEMM (64 × 64 tiles, 16-deep shared-memory
-    k-slabs, a 4 × 4 block of f32 FMAs a thread, k summed in ascending
-    order in 128-deep partial sums added in order: no atomics, the same
-    bits on every run, and a rounding error that grows with
-    128 + K/128 rather than with K);
-  * the diagonal tile's (L_jj, L_jj⁻¹) from K1's fused sweep
-    (``csrc/chol_sweep.cuh``) in one 1024-thread block, the packed
-    256-triangle in shared memory (131.6 KB);
-  * the panel L[jp+256:, j] = C_below·L_jj⁻ᵀ with the same GEMM.
-No cuBLAS, no ``torch.matmul``, no tensor cores, no TF32.  A failed
-diagonal tile comes out NaN, and so does everything to its right and
+What the design does about it.  The TPU kernel is left-looking because the
+TPU runs one grid step at a time and streams operands through VMEM; on the
+H100 the work has to spread over 132 SMs.  So K5 is the right-looking
+factorisation of ``csrc/chol_rl.cuh`` (which K10a shares), in place on the
+factor, at 128-wide tiles; the matrix is identity-padded to a multiple of
+``PANEL`` = 256 and the factor cut back at the end.  Per block column j,
+one C call issues these kernels, 4·N/128 − 4 launches a call (252 at
+N = 8192):
+  * the diagonal tile in one CTA: the 128 × 128 tile as a square in shared
+    memory beside its inverse (132 KB), factored and inverted by
+    ``_chol_inv_rec``'s recursive 2 × 2 blocking down to 32-wide leaves,
+    each leaf one warp in registers, the products between them over all
+    eight warps: about twenty block barriers where a column sweep takes 256;
+  * the panel L[jp+128:, j] = W[jp+128:, j]·L_jj⁻ᵀ by blocked forward
+    substitution against L_jj, one CTA per 64 rows (a product with L_jj⁻¹
+    is not backward stable: on the noisy Gibbs Gram at init it broke the
+    bound γ_{N+1}|L||Lᵀ| that ``chip_smoke.py`` holds the factor to);
+  * the trailing update W[jp+128:, jp+128:] −= P·Pᵀ on the lower 128 × 128
+    tiles only (2016 CTAs at the first column of N = 8192), 256 threads
+    each an 8 × 8 register micro-tile of f32 FFMAs over 16-deep k-slabs
+    brought into a 3-stage shared-memory ring by ``cp.async``;
+  * look-ahead: block column j + 1's update, its diagonal tile and its
+    panel run on a second stream of the highest priority while the rest of
+    column j's update runs on the caller's stream; events join the two
+    inside the C call, so the diagonal tiles and panels hide behind the
+    updates.
+No cuBLAS, no ``torch.matmul``, no tensor cores, no TF32, no atomics: each
+entry's 128 products are summed in ascending order and the block columns'
+updates applied in column order, so every run gives the same bits.  A
+failed diagonal tile comes out NaN, and so does everything to its right and
 below, so ``safe_cholesky``'s retry sees a non-finite factor, as it sees the
-TPU kernel's.  Look-ahead, a diagonal factor spread over the idle SMs and
-3×TF32 GEMMs are left to later work.
+TPU kernel's.  3×TF32 updates are left to later work.
 
 The backward is not a kernel: ``safe_cholesky``'s closed-form pullback in
 ``torch`` (the JAX ``_s2bwd`` is plain XLA too).
 
 Dispatch: ``ops/linalg.cholesky`` sends a matrix that ``stream_eligible``
-accepts here; a CPU tensor takes ``streaming_cholesky_plain``, the same
-blocked algorithm in torch ops; a CUDA tensor launches the kernel or
-raises.  ``LAUNCHES`` counts calls of the kernel's wrapper (each call is
-~3·N/256 CUDA launches).
+accepts here; a CPU tensor takes ``streaming_cholesky_plain``, a
+left-looking blocked algorithm in torch ops; a CUDA tensor launches the
+kernel or raises.  ``LAUNCHES`` counts calls of the kernel's wrapper (each
+call is 4·N/128 − 4 CUDA launches).
 
 K10c replaces ``pallas_chol.py::streaming_cholesky`` (:601; forward
 ``_forward_streaming`` :561, ``pallas_call`` at :577, body ``_stream_kernel``
@@ -62,9 +71,9 @@ package runs it; its entry here is ``streaming_cholesky_v1``, joined to no
 dispatch, for one matrix with N ≤ 8192 padded to a multiple of 256.  The
 kernel (``csrc/chol_stream_v1.cu``) computes what the TPU kernel computes by
 another algorithm: a plain right-looking factorisation at 256-wide panels.
-Per block column, the diagonal tile and the panel are K5's kernels
-(``csrc/blocked_chol.cuh``), and the trailing update W −= P·Pᵀ is one
-kernel with a block for each 64 × 64 tile of the lower triangle, in
+Per block column, the diagonal tile and the panel are the 256-wide
+column-sweep and GEMM kernels of ``csrc/blocked_chol.cuh`` (K8's), and the
+trailing update W −= P·Pᵀ is one kernel with a block for each 64 × 64 tile of the lower triangle, in
 128-deep partial sums: (N/64)²/2 blocks at the first column, so unlike K5's
 left-looking GEMMs it fills the card early and thins out late.  Its bound
 is K5's (N³/3 operations).  ``V1_LAUNCHES`` counts calls of its wrapper.
@@ -78,8 +87,10 @@ import torch
 
 from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
 
-#: Panel width (the TPU kernel's ``SPANEL``; csrc kP).
+#: Padding width (the TPU kernel's ``SPANEL``; K10c's csrc kP).
 PANEL = 256
+#: K5's kernels (``csrc/chol_rl.cuh``), in the order of its ``attributes()``.
+KERNELS = ("diag_kernel", "panel_kernel", "syrk_kernel<column>", "syrk_kernel<triangle>")
 #: The JAX dispatch window (``pallas_chol.py``: ``MIN_N_STREAM2``,
 #: ``MAX_N_STREAM``).
 MIN_N = 6144
@@ -101,10 +112,31 @@ def build(force: bool = False) -> str:
     global _lib
     lib, log = build_library(SOURCE, force)
     p = ctypes.c_void_p
-    lib.chol_stream.argtypes = [p, p, p, p, p, ctypes.c_int, p]
+    lib.chol_stream.argtypes = [p, ctypes.c_int, p]
     lib.chol_stream.restype = ctypes.c_int
+    lib.chol_stream_attributes.argtypes = [p]
+    lib.chol_stream_attributes.restype = ctypes.c_int
     _lib = lib
     return log
+
+
+def rl_attributes(query, kernels) -> dict:
+    """{kernel: {regs, local_bytes, static_smem, dynamic_smem}} of a
+    library's ``csrc/chol_rl.cuh`` kernels, named in the order of its
+    ``*_attributes`` entry ``query``, as the CUDA runtime reports them."""
+    out = (ctypes.c_int * (4 * len(kernels)))()
+    err = query(out)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+    keys = ("regs", "local_bytes", "static_smem", "dynamic_smem")
+    return {k: dict(zip(keys, out[4 * i:4 * i + 4])) for i, k in enumerate(kernels)}
+
+
+def kernel_attributes() -> dict:
+    """``rl_attributes`` of K5's build (built first if need be)."""
+    if _lib is None:
+        build()
+    return rl_attributes(_lib.chol_stream_attributes, KERNELS)
 
 
 def stream_eligible(mat: torch.Tensor) -> bool:
@@ -141,16 +173,11 @@ def streaming_cholesky_cuda(mat: torch.Tensor) -> torch.Tensor:
     if _lib is None:
         build()
     n = mat.shape[-1]
-    a = padded(mat.contiguous())
-    n_pad = a.shape[-1]
-    l = torch.zeros_like(a)
-    cbuf = torch.empty((n_pad, PANEL), dtype=a.dtype, device=a.device)
-    ljj = torch.empty((PANEL, PANEL), dtype=a.dtype, device=a.device)
-    linv = torch.empty_like(ljj)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _lib.chol_stream(a.data_ptr(), l.data_ptr(), cbuf.data_ptr(), ljj.data_ptr(), linv.data_ptr(),
-                               n_pad, stream)
+    l = torch.tril(padded(mat.contiguous()))  # the working matrix, factored in place
+    n_pad = l.shape[-1]
+    with torch.cuda.device(l.device):
+        stream = torch.cuda.current_stream(l.device).cuda_stream
+        err = _lib.chol_stream(l.data_ptr(), n_pad, stream)
     if err != 0:
         raise RuntimeError(f"chol_stream kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

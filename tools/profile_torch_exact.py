@@ -18,8 +18,10 @@ the host clock (and, for ``lazy``, the pivoted-Cholesky build alone; for
 traces ``--steps`` more with ``torch.profiler`` (CPU and CUDA activities)
 and sums device kernel time by kernel.  Prints the top device kernels and
 one JSON line per step kind: the untraced step time, K8's kernels (gibbs),
-K5's GEMM and diagonal kernels (dense) or K6 and the pivoted-Cholesky build
-(lazy), the rest, the traced wall time, the device's busy time, its idle share against
+K5's update-and-panel and diagonal-tile kernels (dense; the diagonal tiles
+run on a second stream beside the updates, so the device's busy time sums
+overlapping kernels there) or K6 and the pivoted-Cholesky build (lazy), the
+rest, the traced wall time, the device's busy time, its idle share against
 the untraced step (1 − traced kernel time / untraced step time) and
 against the traced wall time (which the profiler's own cost inflates when
 a step launches thousands of kernels), and kernels per step.  The gzipped
@@ -47,7 +49,9 @@ from nonstationary_precip_tpu_torch.ops import chol_blocked, chol_stream, gibbs_
 from nonstationary_precip_tpu_torch.ops.lazy_cg import build_precond_factor, default_cross  # noqa: E402
 from nonstationary_precip_tpu_torch.utils.config import device  # noqa: E402
 
-K5_GEMM, K5_DIAG = ("gemm_nt_kernel",), ("diag_kernel",)
+# K5's kernels (csrc/chol_rl.cuh): the trailing updates and panels, and the
+# diagonal tiles, which run on a second stream beside the updates
+K5_UPDATE, K5_DIAG = ("syrk_kernel", "panel_kernel"), ("diag_kernel",)
 # K8's kernels (on the Gibbs step only K8 runs blocked_chol.cuh's GEMM and
 # diagonal kernels)
 K8_NAMES = ("build_kernel", "gemm_nt_kernel", "diag_kernel", "finite_kernel", "commit_kernel")
@@ -161,10 +165,10 @@ def profile_dense(args, dev):
         step()
     step_ms, step_host_ms = event_ms(step, args.steps)
     kernels, busy_us, wall = traced(step, args.steps, "dense")
-    gemm, diag = ms_of(kernels, K5_GEMM, args.steps), ms_of(kernels, K5_DIAG, args.steps)
+    update, diag = ms_of(kernels, K5_UPDATE, args.steps), ms_of(kernels, K5_DIAG, args.steps)
     return {"path": "dense", "n": n, "steps": args.steps, "step_ms": step_ms, "step_host_ms": step_host_ms,
-            "k5_gemm_ms_per_step": gemm, "k5_diag_ms_per_step": diag,
-            "rest_device_ms_per_step": busy_us / 1e3 / args.steps - gemm - diag,
+            "k5_update_ms_per_step": update, "k5_diag_ms_per_step": diag,
+            "rest_device_ms_per_step": busy_us / 1e3 / args.steps - update - diag,
             **_shares(busy_us, wall, step_ms, args.steps), "kernels_per_step": sum(e.count for e in kernels) / args.steps}
 
 
