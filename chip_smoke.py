@@ -95,12 +95,14 @@ one JSON line each:
                   ragged N = 6500 SPD matrix (padded to 6656), K5's backward
                   error against γ_(N+1)|L||Lᵀ|, bitwise repeat; a rank-30
                   matrix through safe_cholesky's retry; times of all three;
-16. k10c       — K10c (the right-looking v1 streaming Cholesky), its plain
-                  version, K5 and torch.linalg.cholesky against float64 on the
-                  dense run's Grams at N = 8192 and 4096 and a ragged N =
-                  1000; a rank-30 matrix non-finite; its entry
-                  streaming_cholesky_v1 forward and backward, counted; times
-                  of all four at 8192 and 4096;
+16. k10c       — K10c (the v1 streaming Cholesky, on K5's right-looking
+                  factorisation), its plain version, K5 and
+                  torch.linalg.cholesky against float64 on the dense run's
+                  Grams at N = 8192 and 4096 and a ragged N = 1000 (K5's
+                  criterion, the backward error included), bitwise repeat; a
+                  rank-30 matrix non-finite; its entry streaming_cholesky_v1
+                  forward and backward, counted; times of all four at 8192
+                  and 4096;
 17. exact_dense — bench_scaling.py's exact loop (N = 1024..8192, 20 Adam
                   steps each): K5 called exactly once per step at N = 8192,
                   K10a once per step at N = 1024, and no other kernel, the N = 8192 losses at steps 0 and 19
@@ -130,7 +132,8 @@ one JSON line each:
 25. gibbs_dense — bench_scaling.py's Gibbs rows (N = 1024 and 1280, 20 Adam
                   steps each) and their predictive at a 16 × 16 grid: per N,
                   K8 once per step, K9 three times, K10a and K11 once each,
-                  and no other kernel; ms/step, RMSE and NLPD;
+                  and no other kernel; ms/step, RMSE and NLPD; then the
+                  trained predictive's time and K11's span on the device in it;
 26. k9         — K9 and its plain version against float64 on the
                   predictive's three Grams at the rows' init and trained
                   poses and a ragged N = 1000, bitwise repeat; times;
@@ -140,7 +143,10 @@ one JSON line each:
                   repeat; a rank-30 matrix through safe_cholesky's retry;
                   times;
 28. k11        — K11 and its plain version against float64 on L⁻¹K_xs (K =
-                  256) and on K = 70 at the same poses, bitwise repeat; times;
+                  256) and on K = 70 at the same poses, bitwise repeat, the
+                  backward-error ratio |LX − B| / γ_(N+1)|L||X| of K11 and of
+                  solve_triangular; times at K = 256 and 70, and the CUDA
+                  launches of one call (torch.profiler);
 29. k8         — K8 and its plain version against float64 on the MAP loss's
                   payloads at the same poses; a singular payload on which
                   the jitter ladder fires, on the plain version's rung;
@@ -165,9 +171,9 @@ one JSON line each:
                   state and a query batch.
 
 Any failed check raises, and the script exits non-zero without printing a
-result.  The last lines are nvidia-smi's line, the kernels' JSON line (K5's
-and K10a's entries with the registers, spills and shared memory of each of
-their kernels) and the result line.  Needs a CUDA card and nvcc; imports no
+result.  The last lines are nvidia-smi's line, the kernels' JSON line (K5's,
+K10c's, K10a's and K11's entries with the registers, spills and shared
+memory of each of their kernels) and the result line.  Needs a CUDA card and nvcc; imports no
 JAX.
 
 Run from the repository root: python3 chip_smoke.py [--steps N]
@@ -789,19 +795,21 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_
     for name, (sec, log) in zip(("gibbs_gram", "chol_blocked", "trsm", "gibbs_fused", "chol_inv_grid",
                                  "chol_stream_v1"), dense):
         emit("build", kernel=name, seconds=sec, ptxas=ptxas_summary(log))
-    return {"chol_stream": k5_log, "chol_blocked": dense[1][1]}
+    return {"chol_stream": k5_log, "chol_blocked": dense[1][1], "trsm": dense[2][1], "chol_stream_v1": dense[5][1]}
 
 
-def rl_resources(module, log: str) -> dict:
-    """{kernel: {regs, spill_bytes, smem_bytes}} of the csrc/chol_rl.cuh
-    kernels that one library launches: registers and spill stores from
-    ptxas's report, shared memory (static and dynamic) from the runtime."""
+def rl_resources(attributes: dict, log: str) -> dict:
+    """{kernel: {regs, spill_bytes, smem_bytes}} of the kernels that one
+    library launches (its ``kernel_attributes()``: csrc/chol_rl.cuh's, or
+    K11's): registers and spill stores from ptxas's report, shared memory
+    (static and dynamic) from the runtime."""
     ptxas = ptxas_summary(log)
-    # each library instantiates one SYRK kernel a mode: <mode, CTAs an SM>
+    # each chol_rl library instantiates one SYRK kernel a mode: <mode, CTAs an SM>
     prefix = {"diag_kernel": "diag_kernel", "panel_kernel": "panel_kernel",
-              "syrk_kernel<column>": "syrk_kernel<0,", "syrk_kernel<triangle>": "syrk_kernel<1,"}
+              "syrk_kernel<column>": "syrk_kernel<0,", "syrk_kernel<triangle>": "syrk_kernel<1,",
+              "trsm_row_kernel": "trsm_row_kernel"}
     out = {}
-    for name, a in module.kernel_attributes().items():
+    for name, a in attributes.items():
         p = prefix[name]
         (summary,) = [v for k, v in ptxas.items() if k == p or (p.endswith(",") and k.startswith(p))]
         regs, spill = re.fullmatch(r"(\d+) regs, (\d+) spill bytes", summary).groups()
@@ -1477,9 +1485,38 @@ def phase_gibbs_dense_ref(exact_largen, dev):
          rmse=pred["rmse"], jax_rmse=float(ref["rmse"]), nlpd=pred["nlpd"], jax_nlpd=float(ref["nlpd"]))
 
 
+def predictive_times(exact_largen, out) -> dict:
+    """Per row: the trained predictive's time (CUDA events around blocks of
+    10 calls, median; the call ends in host reads of RMSE and NLPD) and,
+    from one profiled call, K11's span on the device, from its first
+    launch's start to its last one's end (its launches overlap while each
+    waits for the one before, so their durations do not add up), and its
+    share of the predictive."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    res = {}
+    for n, o in out.items():
+        x, y = (t.cuda() for t in exact_largen.gibbs_data((n,))[n])
+
+        def predict():
+            return exact_largen.gibbs_predict(o["model"], x, y)
+
+        ms = statistics.median(block_times_ms(predict, 20))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            predict()
+            torch.cuda.synchronize()
+        k11 = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA and "trsm_row_kernel" in e.name]
+        check(len(k11) == -(-n // 128), f"N = {n}: the predictive launched K11's kernel {len(k11)} times")
+        span = (max(t.end for t in k11) - min(t.start for t in k11)) / 1e3
+        res[n] = {"ms": ms, "k11_ms": span, "k11_share": span / ms}
+    return res
+
+
 def phase_gibbs_dense(exact_largen, dev_name: str):
     """bench_scaling.py's Gibbs rows (N = 1024 and 1280, 20 Adam steps each)
-    and their predictive, counting the launches of K8, K9, K10a and K11."""
+    and their predictive, counting the launches of K8, K9, K10a and K11;
+    then the predictive's time and K11's share of it."""
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     out = exact_largen.gibbs_dense(ns=GIBBS_NS, dev="cuda")
@@ -1489,11 +1526,12 @@ def phase_gibbs_dense(exact_largen, dev_name: str):
         check(bool(np.isfinite(o["losses"]).all()) and o["losses"][-1] < o["losses"][0], f"N = {n}: losses fall")
         check(np.isfinite(o["rmse"]) and np.isfinite(o["nlpd"]), f"N = {n}: RMSE and NLPD finite")
         check(bool(torch.isfinite(o["mean"]).all() and (o["var"] > 0).all()), f"N = {n}: predictive finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     emit("gibbs_dense", steps=steps, launches=launches, ms_per_step={n: o["ms_per_step"] for n, o in out.items()},
+         predictive=predictive_times(exact_largen, out),
          rmse={n: o["rmse"] for n, o in out.items()}, nlpd={n: o["nlpd"] for n, o in out.items()},
          loss_first={n: float(o["losses"][0]) for n, o in out.items()},
-         loss_last={n: float(o["losses"][-1]) for n, o in out.items()},
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, device=dev_name)
+         loss_last={n: float(o["losses"][-1]) for n, o in out.items()}, peak_mem_gb=peak_gb, device=dev_name)
     return out, launches
 
 
@@ -1599,11 +1637,35 @@ def phase_k10a(chol_blocked, payloads, dev):
     return out
 
 
+def backward_ratio(l: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> float:
+    """Largest entrywise |L·X − B| / (γ_{N+1}|L||X| + (N + 1)·2⁻¹⁴⁹), in
+    float64: the bound of forward substitution (Higham, Theorem 8.5), with
+    gradual underflow's term as in ``chol_errors``."""
+    l64, x64 = l.double(), x.double()
+    n = l.shape[-1]
+    gamma = (n + 1) * 2.0**-24 / (1 - (n + 1) * 2.0**-24)
+    return float(((l64 @ x64 - b.double()).abs() / (gamma * (l64.abs() @ x64.abs()) + (n + 1) * 2.0**-149)).max())
+
+
+def cuda_launches(fn, name: str) -> int:
+    """Device kernels whose name holds ``name`` in one call of ``fn``, as
+    torch.profiler traces them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if name in e.key and e.device_time_total > 0)
+
+
 def phase_k11(trsm, payloads, dev):
     """K11 and its plain version against float64 on L⁻¹K_xs of the
     predictive (the factor of the noisy train Gram, the 256 grid columns)
-    and on K = 70 random columns at each payload; bitwise repeat; times at
-    N = 1280, K = 256."""
+    and on K = 70 random columns at each payload; bitwise repeat; the
+    backward-error ratios of K11 (held ≤ 1) and of solve_triangular; times
+    at N = 1280, K = 256 and 70; the CUDA launches of one call."""
     from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
 
     gen = torch.Generator().manual_seed(53)
@@ -1622,14 +1684,23 @@ def phase_k11(trsm, payloads, dev):
         torch.cuda.synchronize()
         check(torch.equal(xk, again), f"K11 {name} bitwise repeatable")
         errs[name] = check_f64(f"K11 {name}", xk, p, ref, DENSE_FLOOR)
-    n, k = GIBBS_NS[-1], K11_WIDTHS[0]
-    l, b = cases[f"{n}_trained_{k}"]
-    t = timed_pair(lambda: trsm.trsm_cuda(l, b), lambda: trsm.trsm_plain(l, b), N_TIMED)
-    lib = block_times_ms(lambda: torch.linalg.solve_triangular(l, b, upper=False), N_TIMED)
-    b_ms, b_by = bound(n * n * k, 4 * (n * n + 2 * n * k))  # N²K operations; reads L and B, writes X
-    out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "library_ms": statistics.median(lib),
-           "bound_ms": b_ms, "bound_by": b_by, **t}
-    emit("k11", n=n, k=k, errors=errs, timed_calls=2 * N_TIMED, **out)
+        errs[name].update(bound_ratio=backward_ratio(l, b, xk), library_bound_ratio=backward_ratio(l, b, p))
+        check(errs[name]["bound_ratio"] <= 1.0,
+              f"K11 {name} backward error within γ_(N+1)|L||X|: ratio {errs[name]['bound_ratio']:.3g} <= 1")
+    n = GIBBS_NS[-1]
+    times = {}
+    for k in K11_WIDTHS:
+        l, b = cases[f"{n}_trained_{k}"]
+        t = timed_pair(lambda: trsm.trsm_cuda(l, b), lambda: trsm.trsm_plain(l, b), N_TIMED)
+        lib = block_times_ms(lambda: torch.linalg.solve_triangular(l, b, upper=False), N_TIMED)
+        b_ms, b_by = bound(n * n * k, 4 * (n * n + 2 * n * k))  # N²K operations; reads L and B, writes X
+        times[k] = {**t, "library_ms": statistics.median(lib), "bound_ms": b_ms, "bound_by": b_by,
+                    "cuda_launches": cuda_launches(lambda: trsm.trsm_cuda(l, b), "trsm_row_kernel")}
+        check(times[k]["cuda_launches"] == -(-n // trsm.BLOCK), f"K11: {times[k]['cuda_launches']} launches a call")
+    k = K11_WIDTHS[0]
+    out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           **{key: times[k][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "cuda_launches")}}
+    emit("k11", n=n, k=k, errors=errs, times=times, timed_calls=2 * N_TIMED, **out)
     return out
 
 
@@ -1803,8 +1874,8 @@ def phase_k10b(chol_inv, svgp_precompute, spatial_gibbs, dgp_model, dev):
 
 def phase_k10c(chol_stream, exact_largen, dev):
     """K10c against float64, its plain version, K5 and potrf on the dense
-    run's Grams at N = 8192 and 4096 and a ragged SPD N = 1000; a rank-30
-    matrix comes out non-finite; the entry ``streaming_cholesky_v1`` forward
+    run's Grams at N = 8192 and 4096 and a ragged SPD N = 1000, and bitwise
+    repeat; a rank-30 matrix comes out non-finite; the entry ``streaming_cholesky_v1`` forward
     and backward, counted; times of all four at 8192 and 4096."""
     gen = torch.Generator().manual_seed(61)
     b = torch.randn(K10C_RAGGED, K10C_RAGGED, generator=gen, dtype=torch.float64)
@@ -1814,6 +1885,9 @@ def phase_k10c(chol_stream, exact_largen, dev):
     others = {"plain": chol_stream.streaming_cholesky_v1_plain, "k5": chol_stream.streaming_cholesky_cuda}
     errs = {name: chol_errors(f"K10c {name}", chol_stream.streaming_cholesky_v1_cuda, a, others)
             for name, a in payloads.items()}
+    for name, a in payloads.items():  # fixed-order sums, no atomics
+        check(torch.equal(chol_stream.streaming_cholesky_v1_cuda(a), chol_stream.streaming_cholesky_v1_cuda(a)),
+              f"K10c {name} bitwise repeatable")
     lr = torch.randn(K10C_RAGGED, 30, generator=gen, dtype=torch.float64)
     check(not bool(torch.isfinite(chol_stream.streaming_cholesky_v1_cuda((lr @ lr.T).float().to(dev))).all()),
           "K10c on a rank-30 input: non-finite")
@@ -1837,7 +1911,7 @@ def phase_k10c(chol_stream, exact_largen, dev):
         times[n] = {**t, "k5_ms": statistics.median(k5), "library_ms": statistics.median(lib), "bound_ms": b_ms,
                     "bound_by": b_by}
     out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "launches": launches,
-           **{k: times[K10C_NS[0]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+           **{k: times[K10C_NS[0]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "k5_ms")}}
     emit("k10c", errors=errs, times=times, entry_grad_vs_identity=grad_err, timed_calls=2 * K5_TIMED, **out)
     return out
 
@@ -2049,8 +2123,9 @@ def main(argv=None):
     k7 = phase_k7(deepgp_spatial, elbo_fused, dgp_out["model"], dev)
     phase_field_regression(field_regression, name)
     k5 = phase_k5(chol_stream, exact_largen, dev)
-    k5["resources"] = rl_resources(chol_stream, logs["chol_stream"])
+    k5["resources"] = rl_resources(chol_stream.kernel_attributes(), logs["chol_stream"])
     k10c = phase_k10c(chol_stream, exact_largen, dev)
+    k10c["resources"] = rl_resources(chol_stream.kernel_attributes_v1(), logs["chol_stream_v1"])
     k5_launches = phase_exact_dense(exact_largen, chol_stream, name)
     phase_seard_ref(seard_spatial, dev)
     phase_seard(seard_spatial, name)
@@ -2063,8 +2138,9 @@ def main(argv=None):
     gibbs_pay = gibbs_payloads(exact_largen, gibbs_out, dev)
     k9 = phase_k9(gibbs_gram, gibbs_pay, dev)
     k10a = phase_k10a(chol_blocked, gibbs_pay, dev)
-    k10a["resources"] = rl_resources(chol_blocked, logs["chol_blocked"])
+    k10a["resources"] = rl_resources(chol_blocked.kernel_attributes(), logs["chol_blocked"])
     k11 = phase_k11(trsm, gibbs_pay, dev)
+    k11["resources"] = rl_resources(trsm.kernel_attributes(), logs["trsm"])
     k8 = phase_k8(gibbs_fused, gibbs_pay, dev)
     phase_gibbs_mf_ref(quickstart, dev)
     mf_launches = phase_gibbs_mf(quickstart, name)
@@ -2122,7 +2198,8 @@ def main(argv=None):
         *({"name": kname, "route": "cuda", "source": f"nonstationary_precip_tpu_torch/csrc/{src}",
            "replaces": f"nonstationary_precip_tpu/ops/{tpu}", "launches": k["launches"],
            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-           "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
+           "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+           **({"resources": k["resources"]} if "resources" in k else {})}
           for kname, src, tpu, k in (("chol_inv_grid", "chol_inv_grid.cu", "pallas_chol.py:348", k10b),
                                      ("streaming_cholesky_v1", "chol_stream_v1.cu", "pallas_chol.py:601", k10c))),
     ]}), flush=True)

@@ -1,6 +1,5 @@
-// The left-looking blocked Cholesky that K5 (chol_stream.cu, 256-wide
-// panels), K10a (chol_blocked.cu, 128-wide) and K8 (gibbs_fused.cu, 128-wide,
-// with the forward substitution of y riding the factorisation) share.
+// The left-looking blocked Cholesky of K8 (gibbs_fused.cu, 128-wide panels),
+// with the forward substitution of y riding the factorisation.
 //
 // The matrix is padded by the caller to n, a multiple of the panel width kP.
 // For each block column j (jp = j kP), three kernels on one stream:
@@ -8,7 +7,7 @@
 //     into the (n - jp) x kP scratch `cbuf`;
 //  2. diag_kernel, one block: the lower triangle of C's top kP x kP tile into
 //     shared memory, the fused (L, L^-1) sweep of chol_sweep.cuh, L_jj into L
-//     and L_jj^-1 into a kP x kP scratch; for K8 also
+//     and L_jj^-1 into a kP x kP scratch, then
 //     alpha_j = L_jj^-1 (alpha_j - L[jp:jp+kP, :jp] alpha[:jp]);
 //  3. gemm_nt_kernel<false>: L[jp+kP:, jp:jp+kP] = C_below (L_jj^-1)^T.
 // The GEMM is a tiled SIMT kernel: 64 x 64 output tiles, 16-deep k-slabs of
@@ -18,10 +17,8 @@
 // sweep fails (a pivot that is not > 0, or a non-finite L_jj or L_jj^-1) is
 // written as NaN, and the NaN reaches every later column through the
 // updates.  The caller zero-fills L, so the upper triangle outside the
-// diagonal tiles stays 0.  The kFused instantiation (K8's) adds the
-// forward substitution of alpha, and every kernel first reads *skip and
-// returns at once if it is not 0 (K8's jitter ladder); the plain one
-// compiles to K5's kernels as they were before K8 shared them.
+// diagonal tiles stays 0.  Every kernel first reads *skip and returns at
+// once if it is not 0 (K8's jitter ladder).
 
 #pragma once
 
@@ -54,12 +51,12 @@ static_assert(kBM == kBN && kBM == 16 * kTM && kBN == 16 * kTN &&
 // summed in two levels, a serial FMA chain over each kKBlock-deep block of
 // k and the blocks' partial sums added in order, so its rounding error
 // grows with kKBlock + K / kKBlock rather than with K (8192 at most).
-template <bool kBase, bool kFused>
+template <bool kBase>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_nt_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y,
                int ldy, const float* __restrict__ B, int ldb, float* __restrict__ C,
                int ldc, int K, const int* __restrict__ skip) {
-  if (kFused && *skip != 0) return;
+  if (*skip != 0) return;
   __shared__ float xs[kBK][kBM + 1];  // xs[kk][r] = X[m0 + r, k0 + kk]
   __shared__ float ys[kBK][kBN + 1];  // ys[kk][c] = Y[n0 + c, k0 + kk]
   const int tid = threadIdx.x;
@@ -129,15 +126,15 @@ constexpr int diag_smem_bytes() {
 // Factor the kP x kP tile at the top of `cbuf` (row stride kP; its lower
 // triangle is read): L_jj into L at (jp, jp) (row stride n) and into `ljj`,
 // L_jj^-1 into `linv` (both kP x kP scratch).  NaN tiles on failure.
-// kFused: rows jp..jp+kP of `alpha` (n floats, rows < jp final) become
+// Rows jp..jp+kP of `alpha` (n floats, rows < jp final) become
 // L_jj^-1 (alpha_j - L[jp:jp+kP, :jp] alpha[:jp]): one warp a row, each dot
 // product summed by lanes in a fixed order.
-template <int kP, int kThreads, bool kFused>
+template <int kP, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 diag_kernel(const float* __restrict__ cbuf, float* __restrict__ L, int n, int jp,
             float* __restrict__ ljj, float* __restrict__ linv, float* __restrict__ alpha,
             const int* __restrict__ skip) {
-  if (kFused && *skip != 0) return;
+  if (*skip != 0) return;
   constexpr int kWarps = kThreads / 32;
   extern __shared__ float smem[];
   __shared__ int bad;
@@ -162,7 +159,6 @@ diag_kernel(const float* __restrict__ cbuf, float* __restrict__ L, int n, int jp
     const int c = e % kP;
     L[static_cast<size_t>(jp + r) * n + jp + c] = ljj[e];
   }
-  if (!kFused) return;
   // u is free after the sweep: rhs_r = alpha[jp + r] - L[jp + r, :jp] alpha[:jp]
   for (int r = warp; r < kP; r += kWarps) {
     const float* lrow = L + static_cast<size_t>(jp + r) * n;
@@ -185,28 +181,27 @@ diag_kernel(const float* __restrict__ cbuf, float* __restrict__ L, int n, int jp
 
 // The factorisation of the n x n matrix A (row stride n; its lower triangle
 // is read) into L (zero-filled by the caller): every kernel on `s`.  Scratch:
-// cbuf n x kP, ljj and linv kP x kP.  kFused: alpha and skip as above (both
-// unread otherwise).  Returns the first non-zero cudaGetLastError() as an int
+// cbuf n x kP, ljj and linv kP x kP; alpha and skip as above.  Returns the first non-zero cudaGetLastError() as an int
 // (0 = all launched).
-template <int kP, int kThreads, bool kFused>
+template <int kP, int kThreads>
 int left_looking(const float* A, float* L, float* Cb, float* Ljj, float* Li, int n,
                  cudaStream_t s, float* alpha, const int* skip) {
   static_assert(kP % kBN == 0 && kP % kKBlock == 0, "a panel is whole GEMM tiles and k-blocks");
   if (n < kP || n % kP != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = diag_smem_bytes<kP>();
   cudaError_t e = cudaFuncSetAttribute(
-      diag_kernel<kP, kThreads, kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      diag_kernel<kP, kThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   for (int jp = 0; jp < n; jp += kP) {
     const int m = n - jp;  // rows of block column j
     const float* lrow = L + static_cast<size_t>(jp) * n;
-    gemm_nt_kernel<true, kFused><<<dim3(kP / kBN, m / kBM), kGemmThreads, 0, s>>>(
+    gemm_nt_kernel<true><<<dim3(kP / kBN, m / kBM), kGemmThreads, 0, s>>>(
         lrow, n, lrow, n, A + static_cast<size_t>(jp) * n + jp, n, Cb, kP, jp, skip);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    diag_kernel<kP, kThreads, kFused><<<1, kThreads, smem, s>>>(Cb, L, n, jp, Ljj, Li, alpha, skip);
+    diag_kernel<kP, kThreads><<<1, kThreads, smem, s>>>(Cb, L, n, jp, Ljj, Li, alpha, skip);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
     if (m > kP) {
-      gemm_nt_kernel<false, kFused><<<dim3(kP / kBN, (m - kP) / kBM), kGemmThreads, 0, s>>>(
+      gemm_nt_kernel<false><<<dim3(kP / kBN, (m - kP) / kBM), kGemmThreads, 0, s>>>(
           Cb + static_cast<size_t>(kP) * kP, kP, Li, kP, nullptr, 0,
           L + static_cast<size_t>(jp + kP) * n + jp, n, kP, skip);
       if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);

@@ -121,7 +121,7 @@ int run(const float* x, const float* l, int n, int d, const float* y, const floa
                                                             A, alpha, n_pad, state);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
     const int err =
-        blocked_chol::left_looking<kP, kDiagThreads, true>(A, L, cbuf, ljj, linv, n_pad, s, alpha, state);
+        blocked_chol::left_looking<kP, kDiagThreads>(A, L, cbuf, ljj, linv, n_pad, s, alpha, state);
     if (err != 0) return err;
     finite_kernel<<<264, 256, 0, s>>>(L, static_cast<size_t>(n_pad) * n_pad, alpha, n_pad, state);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);

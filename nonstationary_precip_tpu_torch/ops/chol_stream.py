@@ -68,15 +68,14 @@ K10c replaces ``pallas_chol.py::streaming_cholesky`` (:601; forward
 ``_forward_streaming`` :561, ``pallas_call`` at :577, body ``_stream_kernel``
 :438; backward ``_sbwd`` :611, the closed-form pullback).  No path of the JAX
 package runs it; its entry here is ``streaming_cholesky_v1``, joined to no
-dispatch, for one matrix with N ≤ 8192 padded to a multiple of 256.  The
-kernel (``csrc/chol_stream_v1.cu``) computes what the TPU kernel computes by
-another algorithm: a plain right-looking factorisation at 256-wide panels.
-Per block column, the diagonal tile and the panel are the 256-wide
-column-sweep and GEMM kernels of ``csrc/blocked_chol.cuh`` (K8's), and the
-trailing update W −= P·Pᵀ is one kernel with a block for each 64 × 64 tile of the lower triangle, in
-128-deep partial sums: (N/64)²/2 blocks at the first column, so unlike K5's
-left-looking GEMMs it fills the card early and thins out late.  Its bound
-is K5's (N³/3 operations).  ``V1_LAUNCHES`` counts calls of its wrapper.
+dispatch, for one matrix with N ≤ 8192 padded to a multiple of 256.  It
+computes K5's function, so it has K5's bound (N³/3 operations, then the
+chain of diagonal tiles) and K5's design: ``csrc/chol_stream_v1.cu`` runs
+``csrc/chol_rl.cuh``'s look-ahead factorisation in place on the padded
+factor (4·N/128 − 4 launches a call): without look-ahead the same
+factorisation took 22 % longer at N = 8192 and as long at 4096
+(``tools/bench_chol_rl.py`` on an H100).  Its own library, entry, window, padding and
+plain version stay.  ``V1_LAUNCHES`` counts calls of its wrapper.
 """
 
 from __future__ import annotations
@@ -87,9 +86,10 @@ import torch
 
 from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
 
-#: Padding width (the TPU kernel's ``SPANEL``; K10c's csrc kP).
+#: Padding width (the TPU kernel's ``SPANEL``; K5 and K10c pad to it).
 PANEL = 256
-#: K5's kernels (``csrc/chol_rl.cuh``), in the order of its ``attributes()``.
+#: K5's and K10c's kernels (``csrc/chol_rl.cuh`` with look-ahead), in the
+#: order of its ``attributes()``.
 KERNELS = ("diag_kernel", "panel_kernel", "syrk_kernel<column>", "syrk_kernel<triangle>")
 #: The JAX dispatch window (``pallas_chol.py``: ``MIN_N_STREAM2``,
 #: ``MAX_N_STREAM``).
@@ -243,10 +243,19 @@ def build_v1(force: bool = False) -> str:
     global _v1_lib
     lib, log = build_library(V1_SOURCE, force)
     p = ctypes.c_void_p
-    lib.chol_stream_v1.argtypes = [p, p, p, p, p, ctypes.c_int, p]
+    lib.chol_stream_v1.argtypes = [p, ctypes.c_int, p]
     lib.chol_stream_v1.restype = ctypes.c_int
+    lib.chol_stream_v1_attributes.argtypes = [p]
+    lib.chol_stream_v1_attributes.restype = ctypes.c_int
     _v1_lib = lib
     return log
+
+
+def kernel_attributes_v1() -> dict:
+    """``rl_attributes`` of K10c's build (built first if need be)."""
+    if _v1_lib is None:
+        build_v1()
+    return rl_attributes(_v1_lib.chol_stream_v1_attributes, KERNELS)
 
 
 def streaming_cholesky_v1_cuda(mat: torch.Tensor) -> torch.Tensor:
@@ -265,16 +274,11 @@ def streaming_cholesky_v1_cuda(mat: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chol_stream_v1 kernel takes 1 <= N <= {MAX_N}, got {n}")
     if _v1_lib is None:
         build_v1()
-    w = padded(mat).clone(memory_format=torch.contiguous_format)  # the trailing updates overwrite it
-    n_pad = w.shape[-1]
-    l = torch.zeros_like(w)
-    cbuf = torch.empty((n_pad, PANEL), dtype=w.dtype, device=w.device)
-    ljj = torch.empty((PANEL, PANEL), dtype=w.dtype, device=w.device)
-    linv = torch.empty_like(ljj)
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = _v1_lib.chol_stream_v1(w.data_ptr(), l.data_ptr(), cbuf.data_ptr(), ljj.data_ptr(), linv.data_ptr(),
-                                     n_pad, stream)
+    l = torch.tril(padded(mat.contiguous()))  # the working matrix, factored in place
+    n_pad = l.shape[-1]
+    with torch.cuda.device(l.device):
+        stream = torch.cuda.current_stream(l.device).cuda_stream
+        err = _v1_lib.chol_stream_v1(l.data_ptr(), n_pad, stream)
     if err != 0:
         raise RuntimeError(f"chol_stream_v1 kernel launch failed: CUDA error {err}")
     V1_LAUNCHES += 1
@@ -282,7 +286,7 @@ def streaming_cholesky_v1_cuda(mat: torch.Tensor) -> torch.Tensor:
 
 
 def streaming_cholesky_v1_plain(mat: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of K10c: the same right-looking algorithm at
+    """The plain PyTorch version of K10c: a right-looking algorithm at
     256-wide panels, ``cholesky_ex`` plus a triangular inverse for each
     diagonal tile and ``torch.matmul`` for the panel and the trailing
     update.  A tile whose factorisation fails is NaN, and the NaN spreads as

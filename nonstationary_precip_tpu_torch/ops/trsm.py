@@ -1,29 +1,47 @@
 """K11: the blocked triangular solve X = L⁻¹B, by hand for Hopper.
 
 Replaces ``nonstationary_precip_tpu/ops/pallas_trsm.py::blocked_trsm``
-(:106, ``pallas_call`` at :88, body ``_trsm_kernel``), which the JAX
-package's ``ops/linalg.py::tri_solve`` dispatches for a lower,
-non-transposed solve with a 2-D L and a 2-D right-hand side inside its gate.
-The kernel is ``csrc/trsm.cu``: CUDA C++ for sm_90a, built with nvcc at
-first use (``ops/cuda_build.py``) and bound through ctypes.
+(:106, ``pallas_call`` at :88, body ``_trsm_kernel``; diagonal inverses from
+``pallas_chol._tri_inv_block`` :116), which the JAX package's
+``ops/linalg.py::tri_solve`` dispatches for a lower, non-transposed solve
+with a 2-D L and a 2-D right-hand side inside its gate.  The kernel is
+``csrc/trsm.cu``: CUDA C++ for sm_90a, built with nvcc at first use
+(``ops/cuda_build.py``) and bound through ctypes.
 
 What bounds it on an H100.  N²K operations, N²K/2 multiply-adds
 (N = 1280, K = 256: 4.2·10⁸, 6 µs at 67 TFLOP/s of f32 outside the tensor
 cores) against N² + 2NK floats moved (9.2 MB, 3 µs at 3.35 TB/s):
-operations, on paper.
-The substitution is sequential in the block rows, though, so the card's
-parallelism is the K columns.
+operations, on paper.  But the 128-row blocks are a dependent chain, and so
+is the substitution inside each diagonal block: the TPU kernel walks both in
+turn, and a port that gives each CTA a column tile to walk keeps 16 CTAs of
+132 SMs busy at K = 256.
 
-What the design does about it.  Columns of B are independent, so one
-256-thread block owns a 16-column tile of X and walks the 128-row blocks in
-order, with no synchronisation between blocks: rhs = B_i − L[i, :i]·X[:i],
-then X_i = L_ii⁻¹·rhs.  The L_ii⁻¹ come first, from a kernel that inverts
-every diagonal block at once (one block each, the inverse in shared memory,
-as the TPU kernel's ``_tri_inv_block`` forms it by forward substitution of
-the identity).  Both products stage 32-deep k-slabs in shared memory and
-sum over k in ascending order in f32 FMAs.  N is identity-padded to a
-multiple of 128 and K zero-padded to a multiple of 16 (``_forward``'s
-padding), and the result cut back.
+What the design does about it.  It keeps the TPU kernel's algorithm,
+X_i = L_ii⁻¹(B_i − Σ_{j<i} L_ij X_j), right-looking and spread over rows
+and columns: one launch per block row i (N/128 launches a call), with a CTA
+for each 32-wide column tile c and each block row j ≥ i (80 CTAs in the
+first launch at N = 1280, K = 256).  Each CTA solves L_ii X_i[:, c] =
+W_i[:, c] in shared memory, one 32-row block at a time: one warp, a lane a
+column, substitutes the block in registers, multiplying by the pivots'
+reciprocals, and then all 256 threads subtract the block's 32-deep product
+from the rows below it.  The CTA with j = i writes X_i's tile; those with
+j > i apply W_j[:, c] −= L_ji·X_i[:, c] (4 × 4 f32 FFMA micro-tiles over
+16-byte shared-memory reads).  Every CTA forms X_i's tile by the same code,
+so the update uses the bits written to X.  W is a working copy of B,
+separate from X.  L's tiles and W's come in by ``cp.async`` (L_ji's copy
+under the substitution), and each launch after the first is a programmatic
+dependent of the one before, so its CTAs copy L_ii while that one
+finishes.  Each product is a chain of FFMAs in ascending k (32 deep in the
+tile, 128 deep across block rows) subtracted once, so the rounding grows
+with 128 + N/128, and there are no atomics and no tensor cores: every run
+gives the same bits.  The TPU kernel multiplies by L_ii⁻¹; that product
+would be all FFMAs, but it is not backward stable: on the noisy Gibbs Gram
+at init (N = 1024) its residual |LX − B| reaches 1.38 × γ_{N+1}|L||X|, the
+substitution's 0.018 (``tests/test_torch_trsm_rl.py``).  N is
+identity-padded to a multiple of 128 and K zero-padded to a multiple of 32
+(``_forward``'s padding), and the result cut back.  A zero or non-finite
+pivot makes X non-finite from its row on, as the TPU kernel's division
+does.
 
 The backward is not a kernel: the JAX ``_bwd``'s closed form (:111-121) in
 torch, B̄ = L⁻ᵀX̄ and L̄ = −tril(B̄Xᵀ).
@@ -31,8 +49,8 @@ torch, B̄ = L⁻ᵀX̄ and L̄ = −tril(B̄Xᵀ).
 Dispatch: ``ops/linalg.tri_solve`` sends a lower, non-transposed solve of
 2-D operands that ``eligible`` accepts here; ``blocked_trsm`` runs the plain
 version for CPU tensors and the kernel for CUDA ones (which raises on
-anything it does not take).  ``LAUNCHES`` counts calls of the wrapper (two
-CUDA launches each).
+anything it does not take).  ``LAUNCHES`` counts calls of the wrapper
+(N/128 CUDA launches each).
 """
 
 from __future__ import annotations
@@ -41,11 +59,13 @@ import ctypes
 
 import torch
 
-from nonstationary_precip_tpu_torch.ops.chol_stream import padded
+from nonstationary_precip_tpu_torch.ops.chol_stream import padded, rl_attributes
 from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
 
 BLOCK = 128  # block rows (the TPU kernel's BLOCK; csrc kB)
-COLS = 16  # columns of X one CUDA block owns (csrc kCT)
+COLS = 32  # columns of X one CTA owns (csrc kCT)
+#: The kernel, as ``trsm_attributes`` reports it.
+KERNELS = ("trsm_row_kernel",)
 #: The JAX dispatch window (``pallas_trsm.py::eligible``).
 MIN_N = 768
 MAX_N = 1280
@@ -66,10 +86,20 @@ def build(force: bool = False) -> str:
     global _lib
     lib, log = build_library(SOURCE, force)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.trsm.argtypes = [p, p, p, p, i, i, p]
+    lib.trsm.argtypes = [p, p, p, i, i, p]
     lib.trsm.restype = i
+    lib.trsm_attributes.argtypes = [p]
+    lib.trsm_attributes.restype = i
     _lib = lib
     return log
+
+
+def kernel_attributes() -> dict:
+    """{"trsm_row_kernel": {regs, local_bytes, static_smem, dynamic_smem}}
+    as the CUDA runtime reports them (built first if need be)."""
+    if _lib is None:
+        build()
+    return rl_attributes(_lib.trsm_attributes, KERNELS)
 
 
 def eligible(l: torch.Tensor, b: torch.Tensor) -> bool:
@@ -97,15 +127,16 @@ def trsm_cuda(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         build()
     n, k = b.shape
     lp = padded(l.contiguous(), BLOCK)
+    if lp.data_ptr() % 16:  # the kernel copies 16-byte pieces
+        lp = lp.clone()
     n_pad = lp.shape[-1]
     k_pad = -(-k // COLS) * COLS
-    bp = torch.zeros((n_pad, k_pad), dtype=b.dtype, device=b.device)
-    bp[:n, :k] = b
-    x = torch.empty_like(bp)
-    inv = torch.empty((n_pad, BLOCK), dtype=b.dtype, device=b.device)
+    w = torch.zeros((n_pad, k_pad), dtype=b.dtype, device=b.device)  # the working copy of B
+    w[:n, :k] = b
+    x = torch.empty_like(w)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        err = _lib.trsm(lp.data_ptr(), bp.data_ptr(), x.data_ptr(), inv.data_ptr(), n_pad, k_pad, stream)
+        err = _lib.trsm(lp.data_ptr(), w.data_ptr(), x.data_ptr(), n_pad, k_pad, stream)
     if err != 0:
         raise RuntimeError(f"trsm kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

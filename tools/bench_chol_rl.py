@@ -1,18 +1,20 @@
-"""K5 and K10a (``csrc/chol_rl.cuh``) built as they are and as variants of
-the header, timed side by side on the card.
+"""K5, K10a and K10c (``csrc/chol_rl.cuh``) built as they are and as
+variants, timed side by side on the card.
 
-A variant is a list of (text, replacement) pairs applied to a copy of
+A variant is a list of (text, replacement) pairs applied to ``chol_rl.cuh``,
+or (file, text, replacement) triples applied to that file, in a copy of
 ``csrc/`` under ``build/chol_rl_variants/<name>/``; each is built with the
 port's nvcc flags and loaded in place of the wrappers' libraries.  For each
 build and round (two rounds, in turns): K5 at N = 8192 on the dense run's
-Gram at init (its error from float64 and a bitwise repeat) and K10a at
-N = 1280 (random SPD) and 1024 (the dense run's Gram), median ms of CUDA
-events over blocks of calls; then potrf's times, and each build's device
-time by kernel over three calls (``torch.profiler``).  One JSON line per
+Gram at init (its error from float64 and a bitwise repeat), K10a at
+N = 1280 (random SPD) and 1024 (the dense run's Gram) and K10c at
+N = 8192 and 4096 (the dense run's Grams), median ms of CUDA events over
+blocks of calls; then potrf's times, and each build's device time by
+kernel over three calls (``torch.profiler``).  One JSON line per
 measurement.
 
 Run from the repository root on a CUDA card:
-    python tools/bench_chol_rl.py ['{"name": [["text", "replacement"], ...], ...}']
+    python tools/bench_chol_rl.py ['{"name": [["text", "replacement"], ["file", "text", "replacement"], ...], ...}']
 """
 
 import ctypes
@@ -38,15 +40,14 @@ def build(name: str, subs: list) -> dict:
     d = ROOT / "build" / "chol_rl_variants" / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(cuda_build.CSRC, d)
-    header = d / "chol_rl.cuh"
-    text = header.read_text()
-    for old, new in subs:
+    for sub in subs:
+        file, old, new = sub if len(sub) == 3 else ("chol_rl.cuh", *sub)
+        text = (d / file).read_text()
         if old not in text:
-            raise ValueError(f"{name}: {old!r} is not in chol_rl.cuh")
-        text = text.replace(old, new)
-    header.write_text(text)
+            raise ValueError(f"{name}: {old!r} is not in {file}")
+        (d / file).write_text(text.replace(old, new))
     libs, log = {}, ""
-    for src in ("chol_stream", "chol_blocked"):
+    for src in ("chol_stream", "chol_blocked", "chol_stream_v1"):
         so = d / f"lib{src}.so"
         proc = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so), str(d / f"{src}.cu")],
                               capture_output=True, text=True)
@@ -63,6 +64,7 @@ def build(name: str, subs: list) -> dict:
 
 def use(libs: dict):
     chol_stream._lib, chol_blocked._lib = libs["chol_stream"], libs["chol_blocked"]
+    chol_stream._v1_lib = libs["chol_stream_v1"]
 
 
 def main():
@@ -76,7 +78,9 @@ def main():
     b = torch.randn(1280, 1280, generator=gen, dtype=torch.float64)
     a12 = (b @ b.T / 1280 + torch.eye(1280, dtype=torch.float64)).float().to(dev)
     a10 = cs.dense_gram(exact_largen, 1024, dev)
+    a4 = cs.dense_gram(exact_largen, 4096, dev)
     k5, k10a = chol_stream.streaming_cholesky_cuda, chol_blocked.blocked_cholesky_cuda
+    k10c = chol_stream.streaming_cholesky_v1_cuda
     for rnd in range(2):
         for name, libs in built.items():
             use(libs)
@@ -85,6 +89,9 @@ def main():
                               "k5_8192_ms": statistics.median(cs.block_times_ms(lambda: k5(a8), 20)),
                               "k10a_1280_ms": statistics.median(cs.block_times_ms(lambda: k10a(a12), 60)),
                               "k10a_1024_ms": statistics.median(cs.block_times_ms(lambda: k10a(a10), 60)),
+                              "k10c_8192_ms": statistics.median(cs.block_times_ms(lambda: k10c(a8), 20)),
+                              "k10c_4096_ms": statistics.median(cs.block_times_ms(lambda: k10c(a4), 20)),
+                              "k10c_vs_f64": float((k10c(a8).double() - ref8).abs().max()),
                               "k5_vs_f64": float((l.double() - ref8).abs().max()),
                               "k5_bitwise": bool(torch.equal(l, k5(a8)))}), flush=True)
     print(json.dumps({"potrf_8192_ms": statistics.median(cs.block_times_ms(lambda: torch.linalg.cholesky(a8), 20)),
@@ -94,7 +101,7 @@ def main():
 
     for name, libs in built.items():
         use(libs)
-        for what, fn, x in (("k5_8192", k5, a8), ("k10a_1280", k10a, a12)):
+        for what, fn, x in (("k5_8192", k5, a8), ("k10a_1280", k10a, a12), ("k10c_8192", k10c, a8)):
             fn(x)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
