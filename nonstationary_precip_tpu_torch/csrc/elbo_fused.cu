@@ -22,20 +22,17 @@
 // then a fixed-order sum over the 8 warps.  Each block writes its partial
 // sum of the log-likelihood terms; elbo_sum_kernel adds them in tile order.
 //
-// Backward: elbo_bwd_kernel, the same blocks, recomputes each group's K_xz
-// and out, writes K_xz and out to scratch, turns out into outbar in place
-// once the row's cotangents are known, forms kbar = outbar W^T with W
-// staged through shared memory 32 columns at a time (thread m owns row m
-// of W), and from g = kbar * K_xz the input cotangent (row sums over m,
-// transpose-reduced) and this block's z, ell and s2 cotangents.  Layer 1's
-// mean and variance cotangents are summed over each x row's samples inside
-// the block.  elbo_wbar_kernel then forms Wbar = K_xz^T outbar per group as
-// 64 x 64 tiles summed over rows in ascending order, and elbo_small_kernel
-// adds the blocks' small partials in tile order.  No atomics: every sum has
-// a fixed order, so a result is the same bits on every run.
+// Backward: ten launches over whole members, described above
+// elbo_bwd_k_kernel below: K_xz and out = K_xz W of every group at every
+// row (register-tiled GEMMs, W through a cp.async ring) into scratch, then
+// the chain backwards one layer a launch (the head's row cotangents, the
+// pullback kbar = outbar W^T and g = kbar * K_xz, layer 2's, its pullback,
+// layer 1's summed over each x row's samples, its pullback), Wbar =
+// K_xz^T outbar, and the small cotangents from the partials.  No atomics:
+// every sum has a fixed order, so a result is the same bits on every run.
 //
-// Ghost rows (past B, or past a chunk's end) have K_xz = 0, so they add
-// nothing to any product; columns past P and inducing points past M are
+// In the forward, ghost rows (past B, or past a chunk's end) have K_xz = 0,
+// so they add nothing to any product; columns past P and inducing points past M are
 // masked.  Plain f32 throughout: IEEE division, expf, sqrtf, logf, no
 // tensor cores.  Variances are clamped at 1e-10 in the forward; the
 // backward takes sqrt(max(var, 1e-10)) and zeroes the variance cotangent
@@ -54,15 +51,13 @@ constexpr int kMaxM = kThreads;  // one thread per inducing point
 constexpr int kMaxB = 1024;
 constexpr int kGroups = 5;
 constexpr int kKs = kR + 4;      // row stride of K_xz^T in shared memory (16-byte aligned)
-constexpr int kWT = 32;          // W columns staged per step of kbar
-constexpr int kObs = kR + 4;     // row stride of the staged outbar tile
-constexpr int kWbarTile = 64;    // Wbar output tile edge
-constexpr int kWbarK = 16;       // scratch rows staged per step of Wbar
+constexpr int kWbarTile = 128;   // Wbar output tile edge
+constexpr int kWbarK = 16;       // scratch rows a ring slab of Wbar
 constexpr int kWbarThreads = 256;
 constexpr float kVarFloor = 1e-10f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 
-// the per-block small partials: z-bar (5, M, 2) first, then these slots
+// the small cotangents: z-bar (5, M, 2) first, then these slots
 constexpr int kSlotEll = 0;     // (5, 2)
 constexpr int kSlotS2 = 10;     // (5,)
 constexpr int kSlotMw1 = 15;    // (2, 2) [d][o]
@@ -79,34 +74,21 @@ struct Params {
   const float *x, *y, *eps1, *eps2, *z, *ell, *s2, *w, *mw1, *mb1, *mw2, *mb2,
       *mbh, *noise;
   int t, b, s, m, p, xr, ntiles;
+  int ld;   // row stride of the backward's out scratch: P rounded up to 4
+  int kld;  // ... and of its K_xz scratch: M rounded up to 4
 };
 
-struct Shared {
+struct Shared {                 // the forward's
   float k[kMaxM * kKs];        // K_xz^T of the current group: k[m * kKs + r]
-  float ob[kWT * kObs];        // staged outbar tile: ob[c * kObs + r]
-  float wt[kMaxM * (kWT + 1)];  // staged W tile: wt[m * (kWT + 1) + c]
-  float zacc[kGroups * kMaxM * 2];  // this block's z-bar per group
   float zr[kMaxM * 2];         // z of the current group
-  float red[kWarps * 3 * kR];  // per-warp row sums
-  float red3[kWarps * 4];      // per-warp block scalars
+  float red[kWarps * 2 * kR];  // per-warp row sums
   float hx[kR * 2];            // the tile's x rows
   float h1[kR * 2];            // the chunk's layer-1 samples
   float h2[kR * 2];            // the chunk's layer-2 samples
-  float h1bar[kR * 2];
-  float h2bar[kR * 2];
   float mean[kR];              // the current group's mean (no prior mean)
   float var[kR];               // ... and unclipped variance
-  float meanbar[kR];
-  float varbar[kR];
-  float tmpa[kR];
-  float tmpb[kR];
-  float ybar[kR];
-  float m1[2 * kR];            // layer 1 per x row: mean (forward)
+  float m1[2 * kR];            // layer 1 per x row: mean
   float sd1[2 * kR];           // sqrt(max(var, floor))
-  float v1u[2 * kR];           // unclipped variance (backward)
-  float m1bar[2 * kR];
-  float v1bar[2 * kR];
-  float scal[32];              // this block's small partials (kSlots used)
 };
 
 __device__ __forceinline__ Shared& shared() {
@@ -136,13 +118,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ int rowbase(const Params& P, int g) {
+__host__ __device__ __forceinline__ int rowbase(const Params& P, int g) {
   // scratch rows per member: B for each layer-1 group, S * B for the others
   const int sb = P.s * P.b;
   return g < 2 ? g * P.b : 2 * P.b + (g - 2) * sb;
 }
 
-__device__ __forceinline__ size_t scratch_rows(const Params& P) {
+__host__ __device__ __forceinline__ size_t scratch_rows(const Params& P) {
   return static_cast<size_t>(2 * P.b + 3 * P.s * P.b);
 }
 
@@ -175,7 +157,7 @@ __device__ void build_k(Shared& sh, const Params& P, int t, int g, const float* 
       const float cross = xs0 * zs0 + xs1 * zs1;
       const float quad = fmaxf(xsq + zsq - 2.0f * cross, 0.f);
       kv = s2v * expf(-0.5f * quad);
-      if (kscr) kscr[static_cast<size_t>(r) * P.m + m] = kv;
+      if (kscr) kscr[static_cast<size_t>(r) * P.kld + m] = kv;
     }
     sh.k[m * kKs + r] = kv;
   }
@@ -257,129 +239,6 @@ __device__ void group_out(Shared& sh, const Params& P, int t, int g, int nrows, 
       s_a += sh.red[wi * 2 * kR + kR + tid];
     }
     sh.var[tid] = (P.s2[tg] - s_a) + s_as;
-  }
-  __syncthreads();
-}
-
-// The pullback of group g's marginals at rows h (the K_xz in sh.k, out in
-// oscr), given sh.meanbar and sh.varbar (already masked by the clip):
-// outbar replaces out in oscr; hbar (if given) gets the input cotangent
-// added; this block's z-bar, ell-bar and s2-bar of the group accumulate in
-// sh.zacc and sh.scal.
-__device__ void group_bwd(Shared& sh, const Params& P, int t, int g, const float* h, int nrows, float* oscr,
-                          float* hbar) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tg = t * kGroups + g;
-  const float* wg = P.w + static_cast<size_t>(tg) * P.m * P.p;
-  // (1) out -> outbar, each thread its own entries of group_out
-  for (int c = tid; c < P.p; c += kThreads) {
-    for (int r = 0; r < nrows; ++r) {
-      float* o = oscr + static_cast<size_t>(r) * P.p + c;
-      if (c == 0) *o = sh.meanbar[r];
-      else if (c <= P.m) *o = 2.0f * sh.varbar[r] * *o;
-      else *o = -2.0f * sh.varbar[r] * *o;
-    }
-  }
-  __syncthreads();
-  // (2) kbar[r][m] = sum_c outbar[r][c] W[m][c], thread m
-  float acc[kR];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) acc[r] = 0.f;
-  for (int c0 = 0; c0 < P.p; c0 += kWT) {
-    for (int idx = tid; idx < kMaxM * kWT; idx += kThreads) {
-      const int mm = idx / kWT, cc = idx % kWT;
-      sh.wt[mm * (kWT + 1) + cc] =
-          (mm < P.m && c0 + cc < P.p) ? wg[static_cast<size_t>(mm) * P.p + c0 + cc] : 0.f;
-    }
-    for (int idx = tid; idx < kR * kWT; idx += kThreads) {
-      const int r = idx / kWT, cc = idx % kWT;
-      sh.ob[cc * kObs + r] = (r < nrows && c0 + cc < P.p) ? oscr[static_cast<size_t>(r) * P.p + c0 + cc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int cc = 0; cc < kWT; ++cc) {
-      const float wv = sh.wt[tid * (kWT + 1) + cc];
-      const float4* obr = reinterpret_cast<const float4*>(sh.ob + cc * kObs);
-#pragma unroll
-      for (int q = 0; q < kR / 4; ++q) {
-        const float4 ov = obr[q];
-        acc[4 * q] += ov.x * wv;
-        acc[4 * q + 1] += ov.y * wv;
-        acc[4 * q + 2] += ov.z * wv;
-        acc[4 * q + 3] += ov.w * wv;
-      }
-    }
-    __syncthreads();
-  }
-  // (3) g = kbar * K_xz (zero at ghost rows and m >= M, where K_xz is 0)
-  const float4* kr = reinterpret_cast<const float4*>(sh.k + tid * kKs);
-#pragma unroll
-  for (int q = 0; q < kR / 4; ++q) {
-    const float4 kv = kr[q];
-    acc[4 * q] *= kv.x;
-    acc[4 * q + 1] *= kv.y;
-    acc[4 * q + 2] *= kv.z;
-    acc[4 * q + 3] *= kv.w;
-  }
-  const float z0 = sh.zr[tid * 2], z1 = sh.zr[tid * 2 + 1];
-  const float e0 = P.ell[tg * 2], e1 = P.ell[tg * 2 + 1];
-  const float il0 = 1.0f / (e0 * e0), il1 = 1.0f / (e1 * e1);
-  float gcol = 0.f, gh0 = 0.f, gh1 = 0.f, el0 = 0.f, el1 = 0.f;
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const float hr0 = h[r * 2], hr1 = h[r * 2 + 1];
-    gcol += acc[r];
-    gh0 += acc[r] * hr0;
-    gh1 += acc[r] * hr1;
-    el0 += acc[r] * ((hr0 - z0) * (hr0 - z0));
-    el1 += acc[r] * ((hr1 - z1) * (hr1 - z1));
-  }
-  float* za = sh.zacc + (g * kMaxM + tid) * 2;
-  za[0] += -(gcol * z0 - gh0) * il0;
-  za[1] += -(gcol * z1 - gh1) * il1;
-  // (4) the input cotangent: row sums over m of g, g z0, g z1
-  if (hbar) {
-    float tmp[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) tmp[r] = acc[r] * z0;
-    const float s1 = warp_transpose_sum(tmp);
-#pragma unroll
-    for (int r = 0; r < kR; ++r) tmp[r] = acc[r] * z1;
-    const float s2r = warp_transpose_sum(tmp);
-    const float s0 = warp_transpose_sum(acc);
-    sh.red[warp * 3 * kR + lane] = s0;
-    sh.red[warp * 3 * kR + kR + lane] = s1;
-    sh.red[warp * 3 * kR + 2 * kR + lane] = s2r;
-  }
-  // (5) the block's scalars: sum over m of g, and of the ell terms
-  const float wg_sum = warp_sum(gcol), we0 = warp_sum(el0), we1 = warp_sum(el1);
-  if (lane == 0) {
-    sh.red3[warp * 4] = wg_sum;
-    sh.red3[warp * 4 + 1] = we0;
-    sh.red3[warp * 4 + 2] = we1;
-  }
-  __syncthreads();
-  if (hbar && tid < nrows) {
-    float s0 = 0.f, s1 = 0.f, s2r = 0.f;
-    for (int wi = 0; wi < kWarps; ++wi) {
-      s0 += sh.red[wi * 3 * kR + tid];
-      s1 += sh.red[wi * 3 * kR + kR + tid];
-      s2r += sh.red[wi * 3 * kR + 2 * kR + tid];
-    }
-    hbar[tid * 2] += -(s0 * h[tid * 2] - s1) * il0;
-    hbar[tid * 2 + 1] += -(s0 * h[tid * 2 + 1] - s2r) * il1;
-  }
-  if (tid == 0) {
-    float gs = 0.f, es0 = 0.f, es1 = 0.f, vb = 0.f;
-    for (int wi = 0; wi < kWarps; ++wi) {
-      gs += sh.red3[wi * 4];
-      es0 += sh.red3[wi * 4 + 1];
-      es1 += sh.red3[wi * 4 + 2];
-    }
-    for (int r = 0; r < nrows; ++r) vb += sh.varbar[r];
-    sh.scal[kSlotEll + g * 2] += es0 / (e0 * e0 * e0);
-    sh.scal[kSlotEll + g * 2 + 1] += es1 / (e1 * e1 * e1);
-    sh.scal[kSlotS2 + g] += gs / P.s2[tg] + vb;
   }
   __syncthreads();
 }
@@ -477,231 +336,662 @@ __global__ void elbo_sum_kernel(const float* __restrict__ partial, float* __rest
   dt[i] = s / count;
 }
 
-__global__ void __launch_bounds__(kThreads)
-elbo_bwd_kernel(Params P, const float* __restrict__ h1i, const float* __restrict__ h2i,
-                const float* __restrict__ gbar, float* __restrict__ kscr, float* __restrict__ oscr,
-                float* __restrict__ partial, float* __restrict__ ybar) {
-  Shared& sh = shared();
-  const int tile = blockIdx.x, t = blockIdx.y, tid = threadIdx.x;
-  const int b0 = tile * P.xr;
-  const int nx = min(P.xr, P.b - b0);
-  const float noise = P.noise[t];
-  const float coef = gbar[t] / static_cast<float>(P.s * P.b);
-  const size_t rows = scratch_rows(P);
-  float* kmem = kscr + static_cast<size_t>(t) * rows * P.m;
-  float* omem = oscr + static_cast<size_t>(t) * rows * P.p;
-  auto krows = [&](int g, int row) { return kmem + static_cast<size_t>(rowbase(P, g) + row) * P.m; };
-  auto orows = [&](int g, int row) { return omem + static_cast<size_t>(rowbase(P, g) + row) * P.p; };
+// ---------------------------------------------------------------------------
+// The backward, in phases over whole members (elbo_bwd launches them in
+// turn on one stream):
+//   elbo_bwd_k_kernel       K_xz of every group at every row, into kscr;
+//   elbo_bwd_out_kernel     out = K_xz W of every group (64 x 128 tiles),
+//                           into oscr, with each row's sums of squares per
+//                           column tile;
+//   elbo_bwd_head_kernel    the head's row cotangents; outbar into oscr;
+//   elbo_bwd_pull_kernel    kbar = outbar W^T (64 x 128 tiles), g = kbar * K,
+//                           the input cotangent's partial per row and the
+//                           column sums of g per row tile, for the head;
+//   elbo_bwd_layer2_kernel  h2bar, layer 2's row cotangents, outbar;
+//   elbo_bwd_pull_kernel    ... for layer 2;
+//   elbo_bwd_layer1_kernel  h1bar, summed over each x row's samples, layer
+//                           1's row cotangents, outbar;
+//   elbo_bwd_pull_kernel    ... for layer 1 (no input cotangent);
+//   elbo_wbar_kernel        Wbar = K_xz^T outbar of every group (128 x 128);
+//   elbo_bwd_reduce_kernel  the small cotangents and ybar from the partials.
+// The three products are register-tiled FFMA GEMMs (a 8 x 4 or 8 x 8
+// micro-tile a thread) whose k-slabs come through a 3-stage cp.async ring;
+// each grid spans every member and group, so no phase leaves SMs idle for
+// want of blocks.  Every partial has its own slot and is added in a fixed
+// order (row tiles, column tiles and W's halves ascending), with no
+// atomics.  Scratch rows per member: B for each layer-1 group, S B for each
+// other (sample row q = s B + b), in group order.
+// ---------------------------------------------------------------------------
 
-  for (int g = 0; g < kGroups; ++g) {
-    sh.zacc[(g * kMaxM + tid) * 2] = 0.f;
-    sh.zacc[(g * kMaxM + tid) * 2 + 1] = 0.f;
-  }
-  if (tid < 32) sh.scal[tid] = 0.f;
-  if (tid < 2 * kR) sh.m1bar[tid] = sh.v1bar[tid] = 0.f;
-  if (tid < kR) sh.ybar[tid] = 0.f;
-  load_x(sh, P, t, b0, nx);
+constexpr int kRowTile = 64;         // rows a tile of the out and kbar products: 8 warps x 8
+constexpr int kColTile = 128;        // out's columns, or kbar's inducing points, a tile: 32 lanes x 4
+constexpr int kMaxCt = (2 * kMaxM + 1 + kColTile - 1) / kColTile;  // out's column tiles at most
+constexpr int kSlabK = 16;           // k a ring slab
+constexpr int kALd = kRowTile + 4;   // row stride of a k-major A slab
+constexpr int kBLd = kColTile + 4;   // ... and of a B slab
+constexpr int kRing = 3;             // cp.async stages
+constexpr int kSlabFloats = kSlabK * (kALd + kBLd);
+constexpr int kColSums = 5;          // per inducing point and row tile: g, g h0, g h1, g (h0-z0)^2, g (h1-z1)^2
+static_assert(kRowTile == 8 * kWarps && kColTile == 4 * 32, "warp w the rows 8w..8w+7, lane l the columns 4l..4l+3");
+static_assert(kRing * kSlabFloats >= kWarps * kColTile * kColSums, "the ring also holds the column sums");
 
-  // layer 1's variances (and out, into scratch) at the tile's x rows
-  for (int o = 0; o < 2; ++o) {
-    build_k(sh, P, t, o, sh.hx, nx, nullptr);
-    group_out(sh, P, t, o, nx, orows(o, b0));
-    if (tid < nx) {
-      sh.v1u[o * kR + tid] = sh.var[tid];
-      sh.sd1[o * kR + tid] = sqrtf(fmaxf(sh.var[tid], kVarFloor));
-    }
-    __syncthreads();
-  }
-
-  const int nq_all = nx * P.s;
-  for (int q0 = 0; q0 < nq_all; q0 += kR) {
-    const int nq = min(kR, nq_all - q0);
-    const int row0 = b0 * P.s + q0;  // scratch row of this chunk's first sample row
-    if (tid < kR * 2) {
-      const int q = tid / 2, o = tid % 2;
-      float v1 = 0.f, v2 = 0.f;
-      if (q < nq) {
-        const int s = (q0 + q) / nx, r = (q0 + q) % nx;
-        v1 = h1i[h_at(P, t, s, b0 + r, o)];
-        v2 = h2i[h_at(P, t, s, b0 + r, o)];
-      }
-      sh.h1[tid] = v1;
-      sh.h2[tid] = v2;
-      sh.h1bar[tid] = 0.f;
-      sh.h2bar[tid] = 0.f;
-    }
-    __syncthreads();
-
-    // head
-    build_k(sh, P, t, 4, sh.h2, nq, krows(4, row0));
-    group_out(sh, P, t, 4, nq, orows(4, row0));
-    if (tid < kR) {
-      float mb = 0.f, vb = 0.f, nb = 0.f, yb = 0.f;
-      if (tid < nq) {
-        const int r = (q0 + tid) % nx;
-        const float yv = P.y[static_cast<size_t>(t) * P.b + b0 + r];
-        const float mh = sh.mean[tid] + P.mbh[t];
-        const float vhu = sh.var[tid];
-        const float vh = fmaxf(vhu, kVarFloor);
-        const float diff = mh - yv;
-        mb = coef * (-diff / noise);
-        vb = vhu > kVarFloor ? coef * (-0.5f / noise) : 0.f;
-        nb = coef * (-0.5f / noise + 0.5f * ((yv - mh) * (yv - mh) + vh) / (noise * noise));
-        yb = coef * (diff / noise);
-      }
-      sh.meanbar[tid] = mb;
-      sh.varbar[tid] = vb;
-      sh.tmpa[tid] = nb;
-      sh.tmpb[tid] = yb;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int q = 0; q < nq; ++q) {
-        sh.scal[kSlotNoise] += sh.tmpa[q];
-        sh.scal[kSlotMbh] += sh.meanbar[q];
-        sh.ybar[(q0 + q) % nx] += sh.tmpb[q];
-      }
-    }
-    group_bwd(sh, P, t, 4, sh.h2, nq, orows(4, row0), sh.h2bar);
-
-    // layer 2
-    for (int o = 0; o < 2; ++o) {
-      build_k(sh, P, t, 2 + o, sh.h1, nq, krows(2 + o, row0));
-      group_out(sh, P, t, 2 + o, nq, orows(2 + o, row0));
-      if (tid < kR) {
-        float mb = 0.f, vb = 0.f;
-        if (tid < nq) {
-          const int s = (q0 + tid) / nx, r = (q0 + tid) % nx;
-          const float v2u = sh.var[tid];
-          mb = sh.h2bar[tid * 2 + o];
-          const float v2b = mb * P.eps2[eps_at(P, t, s, o, b0 + r)] * 0.5f / sqrtf(fmaxf(v2u, kVarFloor));
-          vb = v2u > kVarFloor ? v2b : 0.f;
-          sh.h1bar[tid * 2] += mb * P.mw2[t * 4 + o];
-          sh.h1bar[tid * 2 + 1] += mb * P.mw2[t * 4 + 2 + o];
-        }
-        sh.meanbar[tid] = mb;
-        sh.varbar[tid] = vb;
-      }
-      __syncthreads();
-      if (tid == 0) {
-        for (int q = 0; q < nq; ++q) {
-          sh.scal[kSlotMw2 + o] += sh.h1[q * 2] * sh.meanbar[q];
-          sh.scal[kSlotMw2 + 2 + o] += sh.h1[q * 2 + 1] * sh.meanbar[q];
-          sh.scal[kSlotMb2 + o] += sh.meanbar[q];
-        }
-      }
-      group_bwd(sh, P, t, 2 + o, sh.h1, nq, orows(2 + o, row0), sh.h1bar);
-    }
-
-    // layer 1's mean and variance cotangents, summed over each row's samples
-    if (tid < 2 * kR) {
-      const int o = tid / kR, r = tid % kR;
-      if (r < nx) {
-        for (int q = 0; q < nq; ++q) {
-          if ((q0 + q) % nx != r) continue;
-          const int s = (q0 + q) / nx;
-          const float hb = sh.h1bar[q * 2 + o];
-          sh.m1bar[o * kR + r] += hb;
-          sh.v1bar[o * kR + r] += hb * P.eps1[eps_at(P, t, s, o, b0 + r)] * 0.5f / sh.sd1[o * kR + r];
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // layer 1's pullback (x takes no cotangent)
-  for (int o = 0; o < 2; ++o) {
-    build_k(sh, P, t, o, sh.hx, nx, krows(o, b0));
-    if (tid < kR) {
-      const bool live = tid < nx;
-      sh.meanbar[tid] = live ? sh.m1bar[o * kR + tid] : 0.f;
-      sh.varbar[tid] = live && sh.v1u[o * kR + tid] > kVarFloor ? sh.v1bar[o * kR + tid] : 0.f;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int r = 0; r < nx; ++r) {
-        sh.scal[kSlotMw1 + o] += sh.hx[r * 2] * sh.meanbar[r];
-        sh.scal[kSlotMw1 + 2 + o] += sh.hx[r * 2 + 1] * sh.meanbar[r];
-        sh.scal[kSlotMb1 + o] += sh.meanbar[r];
-      }
-    }
-    group_bwd(sh, P, t, o, sh.hx, nx, orows(o, b0), nullptr);
-  }
-
-  if (tid < nx) ybar[static_cast<size_t>(t) * P.b + b0 + tid] = sh.ybar[tid];
-  const int kp = kGroups * P.m * 2 + kSlots;
-  float* part = partial + (static_cast<size_t>(t) * P.ntiles + tile) * kp;
-  if (tid < P.m) {
-    for (int g = 0; g < kGroups; ++g) {
-      part[(g * P.m + tid) * 2] = sh.zacc[(g * kMaxM + tid) * 2];
-      part[(g * P.m + tid) * 2 + 1] = sh.zacc[(g * kMaxM + tid) * 2 + 1];
-    }
-  }
-  if (tid < kSlots) part[kGroups * P.m * 2 + tid] = sh.scal[tid];
+// ---- cp.async: 4 bytes (W's and the k-contiguous operands' rows are not
+//      16-byte aligned) or 16 bytes, a copy that is not valid zero-filling ----
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Wbar[t][g][i][c] = sum over the group's scratch rows k of K[k][i] outbar[k][c],
-// one 64 x 64 output tile per block, 4 x 4 outputs per thread, the rows
-// staged 16 at a time and summed in ascending order
-__global__ void __launch_bounds__(kWbarThreads)
+// Where each piece of the backward's small scratch ("partial") lives, per
+// member, in floats.
+struct BwdLayout {
+  int b, sb, nt_b, nt_sb;
+  size_t var, head, l2, l1, h1lin, hb_head, hb_l2, col, total;
+  __host__ __device__ BwdLayout(int b_, int s_) : b(b_), sb(s_ * b_) {
+    nt_b = (b + kRowTile - 1) / kRowTile;
+    nt_sb = (sb + kRowTile - 1) / kRowTile;
+    var = 0;                                                   // [row][ct][sum of (A S)^2, sum of A^2]
+    head = var + static_cast<size_t>(2 * b + 3 * sb) * kMaxCt * 2;  // [q][meanbar, varbar, noisebar, ybar]
+    l2 = head + static_cast<size_t>(sb) * 4;                   // [o][q][meanbar, varbar]
+    l1 = l2 + static_cast<size_t>(2) * sb * 2;                 // [o][b][meanbar, varbar]
+    h1lin = l1 + static_cast<size_t>(2) * b * 2;               // [q][d]: h1bar through layer 2's mean weights
+    hb_head = h1lin + static_cast<size_t>(sb) * 2;             // [half][q][d]: h2bar from the head
+    hb_l2 = hb_head + static_cast<size_t>(2) * sb * 2;         // [o][half][q][d]: h1bar from layer 2
+    col = hb_l2 + static_cast<size_t>(4) * sb * 2;             // [g][tile][m][kColSums]
+    total = col + static_cast<size_t>(2 * nt_b + 3 * nt_sb) * kMaxM * kColSums;
+  }
+  __host__ __device__ int rows(int g) const { return g < 2 ? b : sb; }
+  __host__ __device__ int tiles(int g) const { return g < 2 ? nt_b : nt_sb; }
+  __host__ __device__ int tile0(int g) const { return g < 2 ? g * nt_b : 2 * nt_b + (g - 2) * nt_sb; }
+};
+
+// (group, row tile) of tile index `y` over the groups g0, g0 + 1, ..
+__device__ __forceinline__ void group_tile(const BwdLayout& Lb, int g0, int y, int& g, int& tile) {
+  g = g0;
+  tile = y;
+  while (tile >= Lb.tiles(g)) tile -= Lb.tiles(g++);
+}
+
+// the rows' inputs: x at layer 1, h1 at layer 2, h2 at the head
+__device__ __forceinline__ const float* group_h(const Params& P, const float* h1, const float* h2, int t, int g) {
+  if (g < 2) return P.x + static_cast<size_t>(t) * P.b * 2;
+  return (g < 4 ? h1 : h2) + static_cast<size_t>(t) * P.s * P.b * 2;
+}
+
+// K_xz of every group at every row, zero past M: kscr[t][rowbase(g) + r][m]
+__global__ void __launch_bounds__(kThreads)
+elbo_bwd_k_kernel(Params P, const float* __restrict__ h1, const float* __restrict__ h2, float* __restrict__ kscr) {
+  const int t = blockIdx.y;
+  const size_t rows = scratch_rows(P);
+  const size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= rows * P.kld) return;
+  const int row = static_cast<int>(e / P.kld), m = static_cast<int>(e % P.kld);
+  int g = 0;
+  while (g < kGroups - 1 && row >= rowbase(P, g + 1)) ++g;
+  float kv = 0.f;
+  if (m < P.m) {
+    const int tg = t * kGroups + g;
+    const float* h = group_h(P, h1, h2, t, g) + static_cast<size_t>(row - rowbase(P, g)) * 2;
+    const float e0 = P.ell[tg * 2], e1 = P.ell[tg * 2 + 1];
+    const float z0 = P.z[(static_cast<size_t>(tg) * P.m + m) * 2] / e0;
+    const float z1 = P.z[(static_cast<size_t>(tg) * P.m + m) * 2 + 1] / e1;
+    const float xs0 = h[0] / e0, xs1 = h[1] / e1;
+    const float quad = fmaxf((xs0 * xs0 + xs1 * xs1) + (z0 * z0 + z1 * z1) - 2.0f * (xs0 * z0 + xs1 * z1), 0.f);
+    kv = P.s2[tg] * expf(-0.5f * quad);
+  }
+  kscr[(static_cast<size_t>(t) * rows + row) * P.kld + m] = kv;
+}
+
+// The product of one 64-row tile: acc[i][j] = sum over k of A(k, 8w + i)
+// B(k, 4l + j), warp w and lane l, k in slabs of 16 through the ring; `load`
+// issues a slab's copies into the stage's A (k-major, row stride kALd) and
+// B (kBLd) buffers.
+template <class Load>
+__device__ __forceinline__ void tile_product(float* ring, int nslab, Load load, float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kRing - 1; ++s) {
+    if (s < nslab) load(s, ring + (s % kRing) * kSlabFloats);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nslab; ++s) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();  // slab s has landed for every thread; slab s - 1's stage is free
+    if (s + kRing - 1 < nslab) load(s + kRing - 1, ring + ((s + kRing - 1) % kRing) * kSlabFloats);
+    cp_async_commit();
+    const float* a = ring + (s % kRing) * kSlabFloats + warp * 8;
+    const float* b = ring + (s % kRing) * kSlabFloats + kSlabK * kALd + lane * 4;
+#pragma unroll
+    for (int kk = 0; kk < kSlabK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(a + kk * kALd);
+      const float4 a1 = *reinterpret_cast<const float4*>(a + kk * kALd + 4);
+      const float4 bv = *reinterpret_cast<const float4*>(b + kk * kBLd);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bb[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+}
+
+// out = K_xz W of group g, one (64-row, 128-column) tile a block: into oscr
+// (row stride P.ld; the columns past P come out zero), and each row's sums
+// of (A S)^2 and A^2 over the tile's columns into the var partial.
+__global__ void __launch_bounds__(kThreads, 2)
+elbo_bwd_out_kernel(Params P, const float* __restrict__ kscr, float* __restrict__ oscr, float* __restrict__ part) {
+  __shared__ __align__(16) float ring[kRing * kSlabFloats];
+  const BwdLayout Lb(P.b, P.s);
+  const int ct = blockIdx.x, t = blockIdx.z, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int g, tile;
+  group_tile(Lb, 0, blockIdx.y, g, tile);
+  const int tg = t * kGroups + g, nrows = Lb.rows(g), r0 = tile * kRowTile, c0 = ct * kColTile;
+  const size_t row0 = static_cast<size_t>(t) * scratch_rows(P) + rowbase(P, g) + r0;
+  const float* K = kscr + row0 * P.kld;
+  const float* W = P.w + static_cast<size_t>(tg) * P.m * P.p;
+  auto load = [&](int s, float* st) {
+    float* as = st;
+    float* bs = st + kSlabK * kALd;
+    const int m0 = s * kSlabK;
+#pragma unroll
+    for (int q = 0; q < kSlabK * kRowTile / kThreads; ++q) {  // A(k = m, i = r) = K[r][m]: k-contiguous
+      const int e = threadIdx.x + q * kThreads, i = e / kSlabK, kk = e % kSlabK;
+      const bool ok = r0 + i < nrows && m0 + kk < P.m;
+      cp_async4(as + kk * kALd + i, ok ? K + static_cast<size_t>(i) * P.kld + m0 + kk : K, ok);
+    }
+#pragma unroll
+    for (int q = 0; q < kSlabK * kColTile / kThreads; ++q) {  // B(k = m, j = c) = W[m][c]
+      const int e = threadIdx.x + q * kThreads, kk = e / kColTile, j = e % kColTile;
+      const bool ok = m0 + kk < P.m && c0 + j < P.p;
+      cp_async4(bs + kk * kBLd + j, ok ? W + static_cast<size_t>(m0 + kk) * P.p + c0 + j : W, ok);
+    }
+  };
+  float acc[8][4];
+  tile_product(ring, (P.m + kSlabK - 1) / kSlabK, load, acc);
+  float* var = part + static_cast<size_t>(t) * Lb.total + Lb.var;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + warp * 8 + i;
+    float sas = 0.f, sa = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + lane * 4 + j;
+      if (c >= 1 && c <= P.m) sas = fmaf(acc[i][j], acc[i][j], sas);
+      else if (c > P.m && c < P.p) sa = fmaf(acc[i][j], acc[i][j], sa);
+    }
+    sas = warp_sum(sas);
+    sa = warp_sum(sa);
+    if (r < nrows) {
+      if (c0 + lane * 4 < P.ld)
+        *reinterpret_cast<float4*>(oscr + (row0 + warp * 8 + i) * P.ld + c0 + lane * 4) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      if (lane == 0) {
+        float* v = var + (static_cast<size_t>(rowbase(P, g) + r) * kMaxCt + ct) * 2;
+        v[0] = sas;
+        v[1] = sa;
+      }
+    }
+  }
+}
+
+// mean (column 0 of out) and the unclipped variance of scratch row `row`
+// of group g: s2 - sum A^2 + sum (A S)^2, the column tiles in order
+__device__ __forceinline__ float row_var(const Params& P, const BwdLayout& Lb, const float* part, int t, int g,
+                                         int row) {
+  const float* v = part + static_cast<size_t>(t) * Lb.total + Lb.var + static_cast<size_t>(rowbase(P, g) + row) * kMaxCt * 2;
+  const int nct = (P.p + kColTile - 1) / kColTile;
+  float sas = 0.f, sa = 0.f;
+#pragma unroll
+  for (int ct = 0; ct < kMaxCt; ++ct) {
+    if (ct < nct) {
+      sas += v[ct * 2];
+      sa += v[ct * 2 + 1];
+    }
+  }
+  return (P.s2[t * kGroups + g] - sa) + sas;
+}
+
+// out -> outbar in place at scratch row `row` of group g, one warp, 16
+// bytes a lane a step: [meanbar, 2 varbar out_S, -2 varbar out_A]; the
+// columns past P stay zero
+__device__ __forceinline__ void to_outbar(const Params& P, float* oscr, int t, int g, int row, float mb, float vb) {
+  float4* o = reinterpret_cast<float4*>(oscr + (static_cast<size_t>(t) * scratch_rows(P) + rowbase(P, g) + row) * P.ld);
+  for (int c4 = threadIdx.x & 31; c4 < P.ld / 4; c4 += 32) {
+    float4 v = o[c4];
+    float* e = reinterpret_cast<float*>(&v);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = 4 * c4 + u;
+      e[u] = c == 0 ? mb : (c <= P.m ? 2.0f * vb * e[u] : -2.0f * vb * e[u]);
+    }
+    o[c4] = v;
+  }
+}
+
+// The head's cotangents, a warp a sample row q: meanbar, varbar (zero where
+// the variance is on the floor), and this row's noisebar and ybar terms
+__global__ void __launch_bounds__(kThreads)
+elbo_bwd_head_kernel(Params P, const float* __restrict__ gbar, float* __restrict__ oscr, float* __restrict__ part) {
+  const BwdLayout Lb(P.b, P.s);
+  const int t = blockIdx.y, lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (q >= Lb.sb) return;
+  float mb = 0.f, vb = 0.f;
+  if (lane == 0) {
+    const float noise = P.noise[t], coef = gbar[t] / static_cast<float>(P.s * P.b);
+    const float* o = oscr + (static_cast<size_t>(t) * scratch_rows(P) + rowbase(P, 4) + q) * P.ld;
+    const float yv = P.y[static_cast<size_t>(t) * P.b + q % P.b];
+    const float mh = o[0] + P.mbh[t];
+    const float vhu = row_var(P, Lb, part, t, 4, q);
+    const float diff = mh - yv;
+    mb = coef * (-diff / noise);
+    vb = vhu > kVarFloor ? coef * (-0.5f / noise) : 0.f;
+    float* h = part + static_cast<size_t>(t) * Lb.total + Lb.head + static_cast<size_t>(q) * 4;
+    h[0] = mb;
+    h[1] = vb;
+    h[2] = coef * (-0.5f / noise + 0.5f * ((yv - mh) * (yv - mh) + fmaxf(vhu, kVarFloor)) / (noise * noise));
+    h[3] = coef * (diff / noise);
+  }
+  mb = __shfl_sync(0xffffffffu, mb, 0);
+  vb = __shfl_sync(0xffffffffu, vb, 0);
+  __syncwarp();
+  to_outbar(P, oscr, t, 4, q, mb, vb);
+}
+
+// kbar = outbar W^T over one (64-row, 128-inducing-point) tile of group g
+// (blockIdx.x: which half of the inducing points), then g = kbar * K_xz:
+// the input cotangent's part from this half (-(sum g h - sum g z) / l^2,
+// a row's sums over the warp's lanes) into hbar[half][row][d] if given,
+// and the column sums of g, g h and g (h - z)^2 over the tile's rows (the
+// warps in order) into the col partial.
+__global__ void __launch_bounds__(kThreads, 2)
+elbo_bwd_pull_kernel(Params P, int g0, const float* __restrict__ h1, const float* __restrict__ h2,
+                     const float* __restrict__ kscr, const float* __restrict__ oscr, float* __restrict__ part,
+                     size_t hbar_at) {
+  __shared__ __align__(16) float ring[kRing * kSlabFloats];
+  const BwdLayout Lb(P.b, P.s);
+  const int half = blockIdx.x, t = blockIdx.z, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int g, tile;
+  group_tile(Lb, g0, blockIdx.y, g, tile);
+  const int tg = t * kGroups + g, nrows = Lb.rows(g), r0 = tile * kRowTile, mbase = half * kColTile;
+  const size_t row0 = static_cast<size_t>(t) * scratch_rows(P) + rowbase(P, g) + r0;
+  const float* O = oscr + row0 * P.ld;
+  const float* W = P.w + static_cast<size_t>(tg) * P.m * P.p;
+  auto load = [&](int s, float* st) {
+    float* as = st;
+    float* bs = st + kSlabK * kALd;
+    const int p0 = s * kSlabK;
+#pragma unroll
+    for (int q = 0; q < kSlabK * kRowTile / kThreads; ++q) {  // A(k = p, i = r) = outbar[r][p]
+      const int e = threadIdx.x + q * kThreads, i = e / kSlabK, kk = e % kSlabK;
+      const bool ok = r0 + i < nrows && p0 + kk < P.p;
+      cp_async4(as + kk * kALd + i, ok ? O + static_cast<size_t>(i) * P.ld + p0 + kk : O, ok);
+    }
+#pragma unroll
+    for (int q = 0; q < kSlabK * kColTile / kThreads; ++q) {  // B(k = p, j = m) = W[m][p]
+      const int e = threadIdx.x + q * kThreads, j = e / kSlabK, kk = e % kSlabK;
+      const bool ok = mbase + j < P.m && p0 + kk < P.p;
+      cp_async4(bs + kk * kBLd + j, ok ? W + static_cast<size_t>(mbase + j) * P.p + p0 + kk : W, ok);
+    }
+  };
+  float acc[8][4];
+  tile_product(ring, (P.p + kSlabK - 1) / kSlabK, load, acc);
+
+  const float e0 = P.ell[tg * 2], e1 = P.ell[tg * 2 + 1];
+  const float il0 = 1.0f / (e0 * e0), il1 = 1.0f / (e1 * e1);
+  const int m0 = mbase + lane * 4;
+  float z0[4], z1[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool live = m0 + j < P.m;
+    z0[j] = live ? P.z[(static_cast<size_t>(tg) * P.m + m0 + j) * 2] : 0.f;
+    z1[j] = live ? P.z[(static_cast<size_t>(tg) * P.m + m0 + j) * 2 + 1] : 0.f;
+  }
+  const float* hrow = group_h(P, h1, h2, t, g);
+  float cs[4][kColSums];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int u = 0; u < kColSums; ++u) cs[j][u] = 0.f;
+  float* pp = part + static_cast<size_t>(t) * Lb.total;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + warp * 8 + i;
+    if (r >= nrows) break;  // uniform over the warp
+    float kv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (m0 < P.m) {
+      const float4 k4 = *reinterpret_cast<const float4*>(kscr + (row0 + warp * 8 + i) * P.kld + m0);
+      kv[0] = k4.x;
+      kv[1] = k4.y;
+      kv[2] = k4.z;
+      kv[3] = k4.w;
+    }
+    const float hr0 = hrow[static_cast<size_t>(r) * 2], hr1 = hrow[static_cast<size_t>(r) * 2 + 1];
+    float rs0 = 0.f, rs1 = 0.f, rs2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float gv = acc[i][j] * kv[j];  // zero past M
+      rs0 += gv;
+      rs1 += gv * z0[j];
+      rs2 += gv * z1[j];
+      cs[j][0] += gv;
+      cs[j][1] += gv * hr0;
+      cs[j][2] += gv * hr1;
+      cs[j][3] += gv * ((hr0 - z0[j]) * (hr0 - z0[j]));
+      cs[j][4] += gv * ((hr1 - z1[j]) * (hr1 - z1[j]));
+    }
+    if (hbar_at) {
+      rs0 = warp_sum(rs0);
+      rs1 = warp_sum(rs1);
+      rs2 = warp_sum(rs2);
+      if (lane == 0) {
+        float* hb = pp + hbar_at + ((static_cast<size_t>(g - g0) * 2 + half) * Lb.sb + r) * 2;
+        hb[0] = -(rs0 * hr0 - rs1) * il0;
+        hb[1] = -(rs0 * hr1 - rs2) * il1;
+      }
+    }
+  }
+  float* red = ring;  // [warp][m][kColSums]
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int u = 0; u < kColSums; ++u) red[(warp * kColTile + lane * 4 + j) * kColSums + u] = cs[j][u];
+  __syncthreads();
+  if (threadIdx.x < kColTile && mbase + static_cast<int>(threadIdx.x) < P.m) {
+    const int m = threadIdx.x;
+    float* col = pp + Lb.col + (static_cast<size_t>(Lb.tile0(g) + tile) * kMaxM + mbase + m) * kColSums;
+#pragma unroll
+    for (int u = 0; u < kColSums; ++u) {
+      float v = 0.f;
+      for (int w = 0; w < kWarps; ++w) v += red[(w * kColTile + m) * kColSums + u];
+      col[u] = v;
+    }
+  }
+}
+
+// Layer 2's cotangents, a warp a sample row q: h2bar from the head's two
+// halves in order, then per output o meanbar = h2bar[o] and varbar =
+// meanbar eps2 / (2 sqrt(max(var, floor))) (zero on the floor), outbar;
+// h1bar's part through the mean weights
+__global__ void __launch_bounds__(kThreads)
+elbo_bwd_layer2_kernel(Params P, float* __restrict__ oscr, float* __restrict__ part) {
+  const BwdLayout Lb(P.b, P.s);
+  const int t = blockIdx.y, lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (q >= Lb.sb) return;
+  float* pp = part + static_cast<size_t>(t) * Lb.total;
+  float mb[2] = {0.f, 0.f}, vb[2] = {0.f, 0.f};
+  if (lane == 0) {
+    const int s = q / P.b, b = q % P.b;
+    float lin0 = 0.f, lin1 = 0.f;
+    for (int o = 0; o < 2; ++o) {
+      mb[o] = pp[Lb.hb_head + static_cast<size_t>(q) * 2 + o] + pp[Lb.hb_head + (static_cast<size_t>(Lb.sb) + q) * 2 + o];
+      const float v2u = row_var(P, Lb, part, t, 2 + o, q);
+      const float v2b = mb[o] * P.eps2[eps_at(P, t, s, o, b)] * 0.5f / sqrtf(fmaxf(v2u, kVarFloor));
+      vb[o] = v2u > kVarFloor ? v2b : 0.f;
+      lin0 += mb[o] * P.mw2[t * 4 + o];
+      lin1 += mb[o] * P.mw2[t * 4 + 2 + o];
+      float* l2 = pp + Lb.l2 + (static_cast<size_t>(o) * Lb.sb + q) * 2;
+      l2[0] = mb[o];
+      l2[1] = vb[o];
+    }
+    pp[Lb.h1lin + static_cast<size_t>(q) * 2] = lin0;
+    pp[Lb.h1lin + static_cast<size_t>(q) * 2 + 1] = lin1;
+  }
+  for (int o = 0; o < 2; ++o) {
+    const float m_o = __shfl_sync(0xffffffffu, mb[o], 0), v_o = __shfl_sync(0xffffffffu, vb[o], 0);
+    to_outbar(P, oscr, t, 2 + o, q, m_o, v_o);
+  }
+}
+
+// Layer 1's cotangents, a warp an x row b: h1bar of each of its samples
+// (the mean weights' part, then layer 2's two groups, each W half in
+// order), summed over the samples into meanbar and varbar (zero on the
+// floor), outbar
+__global__ void __launch_bounds__(kThreads)
+elbo_bwd_layer1_kernel(Params P, float* __restrict__ oscr, float* __restrict__ part) {
+  const BwdLayout Lb(P.b, P.s);
+  const int t = blockIdx.y, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= P.b) return;
+  float* pp = part + static_cast<size_t>(t) * Lb.total;
+  float mb[2] = {0.f, 0.f}, vb[2] = {0.f, 0.f};
+  if (lane == 0) {
+    float v1u[2], sd1[2];
+    for (int o = 0; o < 2; ++o) {
+      v1u[o] = row_var(P, Lb, part, t, o, b);
+      sd1[o] = sqrtf(fmaxf(v1u[o], kVarFloor));
+    }
+    float m1[2] = {0.f, 0.f}, v1[2] = {0.f, 0.f};
+    for (int s = 0; s < P.s; ++s) {
+      const int q = s * P.b + b;
+      for (int o = 0; o < 2; ++o) {
+        float hb = pp[Lb.h1lin + static_cast<size_t>(q) * 2 + o];
+        for (int k = 0; k < 4; ++k) hb += pp[Lb.hb_l2 + (static_cast<size_t>(k) * Lb.sb + q) * 2 + o];
+        m1[o] += hb;
+        v1[o] += hb * P.eps1[eps_at(P, t, s, o, b)] * 0.5f / sd1[o];
+      }
+    }
+    for (int o = 0; o < 2; ++o) {
+      mb[o] = m1[o];
+      vb[o] = v1u[o] > kVarFloor ? v1[o] : 0.f;
+      float* l1 = pp + Lb.l1 + (static_cast<size_t>(o) * P.b + b) * 2;
+      l1[0] = mb[o];
+      l1[1] = vb[o];
+    }
+  }
+  for (int o = 0; o < 2; ++o) {
+    const float m_o = __shfl_sync(0xffffffffu, mb[o], 0), v_o = __shfl_sync(0xffffffffu, vb[o], 0);
+    to_outbar(P, oscr, t, o, b, m_o, v_o);
+  }
+}
+
+// Wbar[t][g][i][c] = sum over the group's scratch rows k of K[k][i] outbar[k][c]:
+// one 128 x 128 output tile a block, 256 threads, each an 8 x 8 FFMA
+// micro-tile (rows ty 4 + {0..3} and 64 + ty 4 + {0..3}, columns likewise
+// in tx); 16-row slabs of both operands through a 3-stage cp.async ring of
+// 16-byte copies (the scratch rows are 16-byte aligned: strides P.kld and
+// P.ld); each entry summed over the rows in ascending order.
+__global__ void __launch_bounds__(kWbarThreads, 2)
 elbo_wbar_kernel(Params P, const float* __restrict__ kscr, const float* __restrict__ oscr,
                  float* __restrict__ wbar) {
-  __shared__ __align__(16) float a_tile[kWbarK][kWbarTile];  // a_tile[kk][ii] = K[k0 + kk][i0 + ii]
-  __shared__ __align__(16) float b_tile[kWbarK][kWbarTile];  // b_tile[kk][cc] = outbar[k0 + kk][c0 + cc]
+  extern __shared__ __align__(16) float wsm[];
+  float* as = wsm;                                  // [stage][kk][ii] = K[k0 + kk][i0 + ii]
+  float* bs = wsm + kRing * kWbarK * kWbarTile;     // [stage][kk][cc] = outbar[k0 + kk][c0 + cc]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int c0 = blockIdx.x * kWbarTile, i0 = blockIdx.y * kWbarTile;
   const int t = blockIdx.z / kGroups, g = blockIdx.z % kGroups;
   const int nrows = g < 2 ? P.b : P.s * P.b;
   const size_t base = static_cast<size_t>(t) * scratch_rows(P) + rowbase(P, g);
-  const float* K = kscr + base * P.m;
-  const float* O = oscr + base * P.p;
+  const float* K = kscr + base * P.kld;
+  const float* O = oscr + base * P.ld;
   float* W = wbar + static_cast<size_t>(t * kGroups + g) * P.m * P.p;
+  const int nslab = (nrows + kWbarK - 1) / kWbarK;
 
-  float acc[4][4];
+  auto load = [&](int sl) {
+    float* a = as + (sl % kRing) * kWbarK * kWbarTile;
+    float* b = bs + (sl % kRing) * kWbarK * kWbarTile;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < nrows; k0 += kWbarK) {
-#pragma unroll
-    for (int e = tid; e < kWbarK * kWbarTile; e += kWbarThreads) {
-      const int kk = e / kWbarTile, jj = e % kWbarTile;
-      const int k = k0 + kk;
-      a_tile[kk][jj] = (k < nrows && i0 + jj < P.m) ? K[static_cast<size_t>(k) * P.m + i0 + jj] : 0.f;
-      b_tile[kk][jj] = (k < nrows && c0 + jj < P.p) ? O[static_cast<size_t>(k) * P.p + c0 + jj] : 0.f;
+    for (int q = 0; q < kWbarK * kWbarTile / 4 / kWbarThreads; ++q) {
+      const int e = tid + q * kWbarThreads;
+      const int kk = e / (kWbarTile / 4), c4 = 4 * (e % (kWbarTile / 4));
+      const int k = sl * kWbarK + kk;
+      const bool row = k < nrows;
+      const int ab = row ? max(0, min(16, 4 * (P.kld - (i0 + c4)))) : 0;
+      const int bb = row ? max(0, min(16, 4 * (P.ld - (c0 + c4)))) : 0;
+      cp_async16z(a + kk * kWbarTile + c4, ab ? K + static_cast<size_t>(k) * P.kld + i0 + c4 : K, ab);
+      cp_async16z(b + kk * kWbarTile + c4, bb ? O + static_cast<size_t>(k) * P.ld + c0 + c4 : O, bb);
     }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int sl = 0; sl < kRing - 1; ++sl) {
+    if (sl < nslab) load(sl);
+    cp_async_commit();
+  }
+  for (int sl = 0; sl < nslab; ++sl) {
+    cp_async_wait<kRing - 2>();
     __syncthreads();
+    if (sl + kRing - 1 < nslab) load(sl + kRing - 1);
+    cp_async_commit();
+    const float* a = as + (sl % kRing) * kWbarK * kWbarTile;
+    const float* b = bs + (sl % kRing) * kWbarK * kWbarTile;
 #pragma unroll
     for (int kk = 0; kk < kWbarK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_tile[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&b_tile[kk][tx * 4]);
-      const float a[4] = {av.x, av.y, av.z, av.w}, b[4] = {bv.x, bv.y, bv.z, bv.w};
+      const float4 a0 = *reinterpret_cast<const float4*>(a + kk * kWbarTile + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(a + kk * kWbarTile + kWbarTile / 2 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(b + kk * kWbarTile + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(b + kk * kWbarTile + kWbarTile / 2 + tx * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ii = i0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int ii = i0 + (i < 4 ? 0 : kWbarTile / 2) + ty * 4 + (i & 3);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int cc = c0 + tx * 4 + j;
+    for (int j = 0; j < 8; ++j) {
+      const int cc = c0 + (j < 4 ? 0 : kWbarTile / 2) + tx * 4 + (j & 3);
       if (ii < P.m && cc < P.p) W[static_cast<size_t>(ii) * P.p + cc] = acc[i][j];
     }
   }
 }
 
-// small[t][k] = sum over tiles, in order, of the blocks' partials
-__global__ void elbo_small_kernel(const float* __restrict__ partial, float* __restrict__ small, int ntiles,
-                                  int kp) {
-  const int t = blockIdx.x;
-  for (int k = threadIdx.x; k < kp; k += blockDim.x) {
-    float s = 0.f;
-    for (int j = 0; j < ntiles; ++j) s += partial[(static_cast<size_t>(t) * ntiles + j) * kp + k];
-    small[static_cast<size_t>(t) * kp + k] = s;
+// The small cotangents of member blockIdx.x from the partials, each sum in
+// a fixed order: z-bar per (group, m) over the row tiles; per group the ell
+// and s2 terms over m; over the rows, the mean weights, mbh, sigma2-bar and
+// each group's varbar (for s2-bar); ybar per x row over its samples.  A
+// sum over m or over rows runs in two stages: each thread its strided
+// share in order, then a fixed tree over the block.  small: z-bar (5, M, 2),
+// then kSlots.
+constexpr int kRowSums = 19;  // layer 1: mw1 (4), mb1 (2), varbar (2); layer 2: the same; head: mbh, sigma2, varbar
+
+__device__ void tree_sum(float (*red)[kRowSums], int nq) {
+  for (int w = kThreads / 2; w >= 1; w >>= 1) {
+    if (static_cast<int>(threadIdx.x) < w)
+      for (int u = 0; u < nq; ++u) red[threadIdx.x][u] += red[threadIdx.x + w][u];
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+elbo_bwd_reduce_kernel(Params P, const float* __restrict__ h1, const float* __restrict__ part,
+                       float* __restrict__ small, float* __restrict__ ybar) {
+  __shared__ float red[kThreads][kRowSums];
+  const BwdLayout Lb(P.b, P.s);
+  const int t = blockIdx.x, tid = threadIdx.x;
+  const float* pp = part + static_cast<size_t>(t) * Lb.total;
+  float* out = small + static_cast<size_t>(t) * (kGroups * P.m * 2 + kSlots);
+  float* slots = out + kGroups * P.m * 2;
+  float ms[kGroups][3];  // per group: sum of g, g (h0 - z0)^2, g (h1 - z1)^2 over the rows and m
+  for (int g = 0; g < kGroups; ++g) {
+    const int tg = t * kGroups + g;
+    float c[kColSums] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    const int m = tid;
+    if (m < P.m) {
+      for (int tile = 0; tile < Lb.tiles(g); ++tile) {
+        const float* col = pp + Lb.col + (static_cast<size_t>(Lb.tile0(g) + tile) * kMaxM + m) * kColSums;
+#pragma unroll
+        for (int u = 0; u < kColSums; ++u) c[u] += col[u];
+      }
+      const float e0 = P.ell[tg * 2], e1 = P.ell[tg * 2 + 1];
+      const float z0 = P.z[(static_cast<size_t>(tg) * P.m + m) * 2], z1 = P.z[(static_cast<size_t>(tg) * P.m + m) * 2 + 1];
+      out[(g * P.m + m) * 2] = -(c[0] * z0 - c[1]) / (e0 * e0);
+      out[(g * P.m + m) * 2 + 1] = -(c[0] * z1 - c[2]) / (e1 * e1);
+    }
+    ms[g][0] = c[0];
+    ms[g][1] = c[3];
+    ms[g][2] = c[4];
+  }
+  for (int g = 0; g < kGroups; ++g)
+    for (int u = 0; u < 3; ++u) red[tid][g * 3 + u] = ms[g][u];
+  __syncthreads();
+  tree_sum(red, kGroups * 3);
+  for (int g = 0; g < kGroups; ++g)
+    for (int u = 0; u < 3; ++u) ms[g][u] = red[0][g * 3 + u];
+  __syncthreads();
+
+  float acc[kRowSums];
+#pragma unroll
+  for (int u = 0; u < kRowSums; ++u) acc[u] = 0.f;
+  for (int b = tid; b < P.b; b += kThreads) {
+    const float x0 = P.x[(static_cast<size_t>(t) * P.b + b) * 2], x1 = P.x[(static_cast<size_t>(t) * P.b + b) * 2 + 1];
+    for (int o = 0; o < 2; ++o) {
+      const float* l1 = pp + Lb.l1 + (static_cast<size_t>(o) * P.b + b) * 2;
+      acc[o] += x0 * l1[0];      // mw1[0][o]
+      acc[2 + o] += x1 * l1[0];  // mw1[1][o]
+      acc[4 + o] += l1[0];       // mb1[o]
+      acc[6 + o] += l1[1];       // varbar of group o
+    }
+  }
+  for (int q = tid; q < Lb.sb; q += kThreads) {
+    const float x0 = h1[(static_cast<size_t>(t) * Lb.sb + q) * 2], x1 = h1[(static_cast<size_t>(t) * Lb.sb + q) * 2 + 1];
+    for (int o = 0; o < 2; ++o) {
+      const float* l2 = pp + Lb.l2 + (static_cast<size_t>(o) * Lb.sb + q) * 2;
+      acc[8 + o] += x0 * l2[0];
+      acc[10 + o] += x1 * l2[0];
+      acc[12 + o] += l2[0];
+      acc[14 + o] += l2[1];
+    }
+    const float* hd = pp + Lb.head + static_cast<size_t>(q) * 4;
+    acc[16] += hd[0];  // mbh
+    acc[17] += hd[2];  // sigma2-bar
+    acc[18] += hd[1];  // varbar of the head
+  }
+#pragma unroll
+  for (int u = 0; u < kRowSums; ++u) red[tid][u] = acc[u];
+  __syncthreads();
+  tree_sum(red, kRowSums);
+  if (tid == 0) {
+    const float* r = red[0];
+    for (int o = 0; o < 2; ++o) {
+      slots[kSlotMw1 + o] = r[o];
+      slots[kSlotMw1 + 2 + o] = r[2 + o];
+      slots[kSlotMb1 + o] = r[4 + o];
+      slots[kSlotMw2 + o] = r[8 + o];
+      slots[kSlotMw2 + 2 + o] = r[10 + o];
+      slots[kSlotMb2 + o] = r[12 + o];
+    }
+    slots[kSlotMbh] = r[16];
+    slots[kSlotNoise] = r[17];
+    const float vb[kGroups] = {r[6], r[7], r[14], r[15], r[18]};
+    for (int g = 0; g < kGroups; ++g) {
+      const int tg = t * kGroups + g;
+      const float e0 = P.ell[tg * 2], e1 = P.ell[tg * 2 + 1];
+      slots[kSlotEll + g * 2] = ms[g][1] / (e0 * e0 * e0);
+      slots[kSlotEll + g * 2 + 1] = ms[g][2] / (e1 * e1 * e1);
+      slots[kSlotS2 + g] = ms[g][0] / P.s2[tg] + vb[g];
+    }
+  }
+  for (int b = tid; b < P.b; b += kThreads) {
+    float acc_y = 0.f;
+    for (int s = 0; s < P.s; ++s) acc_y += pp[Lb.head + (static_cast<size_t>(s) * P.b + b) * 4 + 3];
+    ybar[static_cast<size_t>(t) * P.b + b] = acc_y;
   }
 }
 
@@ -728,10 +1018,13 @@ cudaError_t prepare(Params& P, const void* const* in, int t, int b, int s, int m
   P.s = s;
   P.m = m;
   P.p = 2 * m + 1;
+  P.ld = (P.p + 3) / 4 * 4;
+  P.kld = (m + 3) / 4 * 4;
   P.xr = x_rows_per_tile(s);
   P.ntiles = (b + P.xr - 1) / P.xr;
   return cudaSuccess;
 }
+
 
 }  // namespace
 
@@ -744,6 +1037,17 @@ int elbo_num_tiles(int b, int s) {
   return (b + xr - 1) / xr;
 }
 int elbo_small_len(int m) { return kGroups * m * 2 + kSlots; }
+// the backward's small scratch per member, in floats, and the row strides
+// of its out and K_xz scratch
+int elbo_bwd_partial_len(int b, int s) { return static_cast<int>(BwdLayout(b, s).total); }
+int elbo_out_ld(int m) { return (2 * m + 1 + 3) / 4 * 4; }
+int elbo_k_ld(int m) { return (m + 3) / 4 * 4; }
+// dynamic shared memory of the forward's row kernel (0) and of the
+// backward's Wbar kernel (1); the others' is static
+int elbo_dyn_smem(int which) {
+  return which == 0 ? static_cast<int>(sizeof(Shared))
+                    : 2 * kRing * kWbarK * kWbarTile * static_cast<int>(sizeof(float));
+}
 
 // The forward: partial (T, ntiles) scratch; dt (T,), h1, h2 (T, S, B, 2)
 // out.  Returns the first launch error as an int (0 = launched).
@@ -769,9 +1073,11 @@ int elbo_fwd(const void* x, const void* y, const void* eps1, const void* eps2, c
 }
 
 // The backward, given the forward's h1, h2 and the output cotangent gbar
-// (T,): kscr (T, 2B + 3SB, M), oscr (T, 2B + 3SB, P) and partial
-// (T, ntiles, elbo_small_len(M)) scratch; wbar (T, 5, M, P), small
-// (T, elbo_small_len(M)) and ybar (T, B) out.
+// (T,): kscr (T, 2B + 3SB, elbo_k_ld(M)), oscr (T, 2B + 3SB,
+// elbo_out_ld(M)) and partial (T, elbo_bwd_partial_len(B, S)) scratch;
+// wbar (T, 5, M, P), small (T, elbo_small_len(M)) and ybar (T, B) out.
+// Ten launches in turn on `stream`; returns the first launch error as an
+// int (0 = launched).
 int elbo_bwd(const void* x, const void* y, const void* eps1, const void* eps2, const void* z, const void* ell,
              const void* s2, const void* w, const void* mw1, const void* mb1, const void* mw2, const void* mb2,
              const void* mbh, const void* noise, const void* h1, const void* h2, const void* gbar, void* kscr,
@@ -782,22 +1088,32 @@ int elbo_bwd(const void* x, const void* y, const void* eps1, const void* eps2, c
   cudaError_t e = prepare(P, in, t, b, s, m);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bytes = static_cast<int>(sizeof(Shared));
-  e = cudaFuncSetAttribute(elbo_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  elbo_bwd_kernel<<<dim3(P.ntiles, t), kThreads, bytes, st>>>(
-      P, static_cast<const float*>(h1), static_cast<const float*>(h2), static_cast<const float*>(gbar),
-      static_cast<float*>(kscr), static_cast<float*>(oscr), static_cast<float*>(partial),
-      static_cast<float*>(ybar));
+  const BwdLayout Lb(b, s);
+  const float* ph1 = static_cast<const float*>(h1);
+  const float* ph2 = static_cast<const float*>(h2);
+  float* pk = static_cast<float*>(kscr);
+  float* po = static_cast<float*>(oscr);
+  float* pp = static_cast<float*>(partial);
+  const size_t kel = scratch_rows(P) * P.kld;
+  elbo_bwd_k_kernel<<<dim3(static_cast<unsigned>((kel + kThreads - 1) / kThreads), t), kThreads, 0, st>>>(
+      P, ph1, ph2, pk);
+  elbo_bwd_out_kernel<<<dim3((P.p + kColTile - 1) / kColTile, 2 * Lb.nt_b + 3 * Lb.nt_sb, t), kThreads, 0, st>>>(
+      P, pk, po, pp);
+  const unsigned sb_blocks = (Lb.sb + kWarps - 1) / kWarps;
+  elbo_bwd_head_kernel<<<dim3(sb_blocks, t), kThreads, 0, st>>>(P, static_cast<const float*>(gbar), po, pp);
+  elbo_bwd_pull_kernel<<<dim3(2, Lb.nt_sb, t), kThreads, 0, st>>>(P, 4, ph1, ph2, pk, po, pp, Lb.hb_head);
+  elbo_bwd_layer2_kernel<<<dim3(sb_blocks, t), kThreads, 0, st>>>(P, po, pp);
+  elbo_bwd_pull_kernel<<<dim3(2, 2 * Lb.nt_sb, t), kThreads, 0, st>>>(P, 2, ph1, ph2, pk, po, pp, Lb.hb_l2);
+  elbo_bwd_layer1_kernel<<<dim3((b + kWarps - 1) / kWarps, t), kThreads, 0, st>>>(P, po, pp);
+  elbo_bwd_pull_kernel<<<dim3(2, 2 * Lb.nt_b, t), kThreads, 0, st>>>(P, 0, ph1, ph2, pk, po, pp, 0);
   e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int wbytes = elbo_dyn_smem(1);
+  e = cudaFuncSetAttribute(elbo_wbar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wbytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((P.p + kWbarTile - 1) / kWbarTile, (m + kWbarTile - 1) / kWbarTile, t * kGroups);
-  elbo_wbar_kernel<<<grid, kWbarThreads, 0, st>>>(
-      P, static_cast<const float*>(kscr), static_cast<const float*>(oscr), static_cast<float*>(wbar));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  elbo_small_kernel<<<t, kThreads, 0, st>>>(static_cast<const float*>(partial), static_cast<float*>(small),
-                                            P.ntiles, elbo_small_len(m));
+  elbo_wbar_kernel<<<grid, kWbarThreads, wbytes, st>>>(P, pk, po, static_cast<float*>(wbar));
+  elbo_bwd_reduce_kernel<<<t, kThreads, 0, st>>>(P, ph1, pp, static_cast<float*>(small), static_cast<float*>(ybar));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -115,9 +115,11 @@ def _loss_fn(n: int):
     return loss_fn
 
 
-def run_one_split(data, random_state: int, cfg: ExperimentConfig, dev=torch.device("cpu")):
-    """Sequential single-split fit: the oracle for the lockstep ``run``.
-    Returns (RMSE, NLPD, TrainResult)."""
+def run_one_split(data, random_state: int, cfg: ExperimentConfig, dev=None):
+    """Sequential single-split fit: the oracle for the lockstep ``run``, on
+    ``dev`` (default: ``cfg.device``, which raises where it names a card
+    that is not there).  Returns (RMSE, NLPD, TrainResult)."""
+    dev = device(cfg.device) if dev is None else dev
     model, (train_x, train_y, test_x, test_y), stdy, eps_train, eps_pred = prep_split(
         data, random_state, cfg, dev=dev)
     res = fit_minibatched(model, _loss_fn(train_x.shape[0]), train_x, train_y, eps_train,

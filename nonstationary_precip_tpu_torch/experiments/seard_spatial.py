@@ -73,9 +73,11 @@ def _metrics(m, xtr, ytr, xte, yte, stdy):
     return rmse_rescaled(pred.mean, yte, stdy), nlpd_joint(pred, yte, stdy)
 
 
-def run_one_split(data, random_state: int, cfg: ExperimentConfig, dev=torch.device("cpu")):
-    """Sequential single-split fit: the oracle for the lockstep ``run``.
-    Returns (RMSE, NLPD, TrainResult)."""
+def run_one_split(data, random_state: int, cfg: ExperimentConfig, dev=None):
+    """Sequential single-split fit: the oracle for the lockstep ``run``, on
+    ``dev`` (default: ``cfg.device``, which raises where it names a card
+    that is not there).  Returns (RMSE, NLPD, TrainResult)."""
+    dev = device(cfg.device) if dev is None else dev
     model, (xtr, ytr), (xte, yte, stdy) = make_split(data, random_state, cfg, dev=dev)
     res = fit(model, _loss, xtr, ytr, lr=cfg.lr, num_steps=cfg.max_iters)
     with torch.no_grad():

@@ -3,33 +3,37 @@
 Replaces ``nonstationary_precip_tpu/ops/pallas_chol.py::chol_inv_batched_safe``
 (:1054) and ``chol_inv_batched_v2`` (:997), whose Pallas body is
 ``_chol_inv_b_kernel`` → ``_chol_inv_nlevel_b`` (:862-929).  The kernel is
-``csrc/chol_inv_batched.cu``: CUDA C++ for sm_90a, built with nvcc at first
+``csrc/chol_inv_cluster.cu``: CUDA C++ for sm_90a, built with nvcc at first
 use into ``build/torch_kernels/`` and bound through ctypes.
 
 What bounds it on an H100.  At the slice's shape, T = 10 matrices of
-N = 316, one call is ~0.2 GFLOP, and each matrix is a chain of N dependent
-column steps.  It is latency-bound, far below any roofline: ten matrices
-can occupy at most ten of the card's 132 SMs, and each SM runs N steps of
-(pivot → scale → rank-1 update) separated by block barriers.
+N = 316, one call is ~0.2 GFLOP, 3 µs at the f32 peak: it is latency-bound.
+Each member is a chain of dependent steps, and ten members cannot fill the
+card on their own.
 
-What the design does about it.  One 1024-thread block per matrix keeps the
-whole factorisation and the inversion on one SM with no host round trip:
-  * L⁻¹ comes out of the same sweep as L — row k of L⁻¹ is final at step k,
-    and the elimination of L⁻¹ shares the rank-1 update loop with the Schur
-    complement — so there is one chain of N steps, not two;
-  * the working set is one packed lower triangle, held in shared memory
-    when it fits (≤ 227 KB: N ≤ ~339, 200 KB at N = 316) and otherwise in
-    an L2-resident global scratch slab, so the steps never touch HBM;
-  * each lane keeps its slice of the pivot vector in registers across the
-    rows it updates, so a shared-memory element update is one load and one
-    store;
-  * the jitter retry runs inside the block (a failing pivot restarts that
-    block from A + j·I), so a healthy member runs exactly once with j = 0
-    and no host synchronisation is needed.
+What the design does about it.  One launch a call; one thread-block
+cluster of ``cluster_size()`` CTAs a member, on as many SMs, so each
+member's work spreads over several SMs and N = 384's 78 tiles of 32 × 32
+(312 KB) stay in the cluster's shared memory:
+  * the member, padded inside the kernel to a multiple of 32 with an
+    identity block, is factored right-looking in 32-wide block columns,
+    each tile held by one CTA of the cluster;
+  * a block step is a one-warp leaf in registers (L_kk and L_kk⁻¹ in one
+    pass), the panel and row k of L⁻¹ by forward substitution, one warp a
+    tile, and a rank-32 FFMA update of every tile below row k in 4 × 4
+    register micro-tiles, each CTA on the tiles it owns, its operands
+    copied in through distributed shared memory; cluster barriers between;
+  * L⁻¹ comes out of the same sweep: below the diagonal, a tile holds L's
+    Schur complement until its block column is factored and the partial
+    substitution of the identity afterwards, so nb = ⌈N / 32⌉ steps give
+    both, where the column kernel this one replaced took N;
+  * the jitter retry runs inside the cluster (a failing pivot, the same in
+    every CTA, or a non-finite panel entry, OR-ed over the cluster, restarts
+    it from A + j·I), so a healthy member runs exactly once with j = 0 and
+    no host synchronisation is needed.
 The TPU kernel's 128-wide block algebra, its broadcast-and-reduce diagonal
 recurrence and its Newton refinements were shaped by Mosaic and the MXU and
 are not carried over.  Plain f32 FMAs throughout; no tensor cores, no TF32.
-Splitting a matrix over several SMs, wgmma and TMA are left to later work.
 
 The backward needs no kernel: it is the JAX package's matmul-only
 ``_civ2_bwd`` (:1011-1022), transcribed below with ``torch.matmul``.
@@ -47,11 +51,12 @@ gate ``cholinv_eligible``, :326, is opt-in): its entry here is
 ``csrc/chol_inv_grid.cu``.  A member that is not PD comes out non-finite,
 the others unaffected; there is no jitter.  At the deep GP's K_zz stack,
 50 × 250², it is ~0.5 GFLOP of dependent steps: like K1, latency-bound.
-K1's sweep cannot serve as it is: a packed 512-triangle (525 KB) is more
+The fused column sweep of ``csrc/chol_sweep.cuh`` (K1's until K1 moved to
+clusters) cannot serve as it is: a packed 512-triangle (525 KB) is more
 than a block's 227 KB of shared memory.  So one 1024-thread block per
 member runs a left-looking factorisation in 128-wide tiles over the member
-in device memory (L2-resident, 1 MB at N = 512), each diagonal tile by K1's
-fused sweep with its triangle in shared memory, the update as an in-block
+in device memory (L2-resident, 1 MB at N = 512), each diagonal tile by that
+sweep with its triangle in shared memory, the update as an in-block
 tiled GEMM in 128-deep partial sums, the panel by forward substitution
 against the tile (a product with its inverse lost accuracy on the deep GP's
 near-singular K_zz); then L⁻¹'s off-diagonal tiles block row by block row.  The TPU kernel pads to the next power of two;
@@ -79,45 +84,55 @@ MAX_N = 384
 #: main path went through the kernel.
 LAUNCHES = 0
 
-SOURCE = CSRC / "chol_inv_batched.cu"
-# static shared memory and the per-block reserve beside the dynamic slab
-_SMEM_RESERVE = 1024
+SOURCE = CSRC / "chol_inv_cluster.cu"
 
 _lib = None
-_max_smem: dict[int, int] = {}
 
 
 def build(force: bool = False) -> str:
-    """Compile ``csrc/chol_inv_batched.cu`` (``ops/cuda_build.py``), load
+    """Compile ``csrc/chol_inv_cluster.cu`` (``ops/cuda_build.py``), load
     it, and return nvcc's output (the ``-Xptxas -v`` register and
     shared-memory report).  A library already built from the same source is
     reused unless ``force``.  A failed compile raises."""
     global _lib
     lib, log = build_library(SOURCE, force)
-    lib.chol_inv_batched.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.chol_inv_batched.restype = ctypes.c_int
-    lib.chol_inv_max_smem.argtypes = [ctypes.c_int]
-    lib.chol_inv_max_smem.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.chol_inv_cluster.argtypes = [p] * 4 + [i, i, ctypes.c_float, i, p]
+    lib.chol_inv_cluster.restype = i
+    for name in ("chol_inv_cluster_smem", "chol_inv_max_smem", "chol_inv_max_clusters"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = i
+    lib.chol_inv_cluster_size.argtypes = []
+    lib.chol_inv_cluster_size.restype = i
     _lib = lib
     return log
 
 
-def smem_bytes(n: int) -> int:
-    """Dynamic shared memory of the in-shared-memory variant: the pivot
-    vector plus the packed lower triangle."""
-    return 4 * (n + n * (n + 1) // 2)
-
-
-def uses_smem(n: int, device: torch.device) -> bool:
-    """Whether the kernel keeps its working triangle in shared memory at
-    this N on this card (else in a global scratch slab)."""
+def _library():
     if _lib is None:
         build()
-    dev = device.index if device.index is not None else torch.cuda.current_device()
-    if dev not in _max_smem:
-        _max_smem[dev] = _lib.chol_inv_max_smem(dev)
-    return smem_bytes(n) + _SMEM_RESERVE <= _max_smem[dev]
+    return _lib
+
+
+def cluster_size() -> int:
+    """CTAs a member: the cluster size the kernel is built with."""
+    return _library().chol_inv_cluster_size()
+
+
+def smem_bytes(n: int) -> int:
+    """Dynamic shared memory each CTA of a member's cluster takes at this N."""
+    return _library().chol_inv_cluster_smem(n)
+
+
+def max_smem(device: int = 0) -> int:
+    """Largest dynamic shared memory one block may opt in to on the card."""
+    return _library().chol_inv_max_smem(device)
+
+
+def max_active_clusters(n: int) -> int:
+    """Members the card runs at once at this N (``cudaOccupancyMaxActiveClusters``
+    on the current card); negative is a CUDA error."""
+    return _library().chol_inv_max_clusters(n)
 
 
 def chol_inv_batched_cuda(mats: torch.Tensor, jitter: float = EPSILON, max_tries: int = 6):
@@ -134,18 +149,16 @@ def chol_inv_batched_cuda(mats: torch.Tensor, jitter: float = EPSILON, max_tries
         raise ValueError(f"chol_inv kernel takes 1 <= N <= {MAX_N} and T >= 1, got T={t}, N={n}")
     if not mats.is_contiguous():
         raise ValueError("chol_inv kernel takes a contiguous stack")
-    use_smem = uses_smem(n, mats.device)
+    if mats.device.type != "cuda":
+        raise ValueError(f"chol_inv kernel takes a CUDA tensor, got {mats.device}")
+    lib = _library()
     l = torch.empty_like(mats)
     li = torch.empty_like(mats)
     jit = torch.empty(t, dtype=mats.dtype, device=mats.device)
-    scratch = torch.empty(0 if use_smem else t * n * (n + 1) // 2, dtype=mats.dtype,
-                          device=mats.device)
     with torch.cuda.device(mats.device):
         stream = torch.cuda.current_stream(mats.device).cuda_stream
-        err = _lib.chol_inv_batched(
-            mats.data_ptr(), l.data_ptr(), li.data_ptr(), jit.data_ptr(),
-            scratch.data_ptr() if scratch.numel() else None,
-            t, n, float(jitter), int(max_tries), int(use_smem), stream)
+        err = lib.chol_inv_cluster(mats.data_ptr(), l.data_ptr(), li.data_ptr(), jit.data_ptr(), t, n,
+                                   float(jitter if jitter > 0 else EPSILON), int(max_tries), stream)
     if err != 0:
         raise RuntimeError(f"chol_inv kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

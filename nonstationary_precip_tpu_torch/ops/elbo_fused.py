@@ -35,22 +35,28 @@ that (out again, outbar·Wᵀ, and W̄ = K_xzᵀ·outbar); W (25 MB) is read onc
 and W̄ written once, so both passes are bound by operations: ≥ 0.13 ms and
 ≥ 0.39 ms at 67 TFLOP/s.
 
-What the design does about it (``csrc/elbo_fused.cu``).  A block owns one
-member and a tile of x rows with all S samples of each, so the whole
-per-row chain, layer 1 → layer 2 → head → likelihood, runs in one block
-with no global synchronisation; layer-2 and head rows go through in chunks
-of 32 sample rows.  W does not fit in shared memory and is streamed from
-L2 column by column; K_xz sits in shared memory, and ``out`` is reduced on
-the fly to the mean, Σ(A·S)² and ΣA², so in the forward it never reaches
-device memory.  The backward's row kernel runs the same chain backwards
-(head → h̄₂ → layer 2 → h̄₁ → layer 1, m̄₁ and v̄₁ summed over each row's
-samples inside the block), stages W through shared memory for outbar·Wᵀ,
-and writes K_xz and outbar per group to scratch (~10 MB a member); a tiled
-kernel then forms W̄ = K_xzᵀ·outbar.  Every cross-row sum (the data term,
-W̄, z̄, ℓ̄, s̄², the mean weights, σ̄²) is a per-block partial added in a
-fixed order by a second pass: no atomics, so the result is the same bits
-on every run.  Not carried over from the TPU: the 128-lane padding of P
-and M, the mask vectors, the (16, 128) packed small output.  Plain f32:
+What the design does about it (``csrc/elbo_fused.cu``).  The forward: a
+block owns one member and a tile of x rows with all S samples of each, so
+the whole per-row chain, layer 1 → layer 2 → head → likelihood, runs in
+one block with no global synchronisation; layer-2 and head rows go through
+in chunks of 32 sample rows.  W does not fit in shared memory and is
+streamed from L2 column by column; K_xz sits in shared memory, and ``out``
+is reduced on the fly to the mean, Σ(A·S)² and ΣA², so it never reaches
+device memory.  The backward runs in phases over whole members, one layer
+a launch, so that each of its three products is one large, evenly spread
+GEMM: K_xz and out = K_xz·W of every group at every row (64 × 128 tiles),
+then the chain backwards (the head's row cotangents; its pullback
+kbar = outbar·Wᵀ in 64-row × 128-inducing-point tiles, with g = kbar·K_xz,
+the input cotangent and the column sums of g in the epilogue; layer 2's;
+its pullback; layer 1's, summed over each x row's samples; its pullback),
+then W̄ = K_xzᵀ·outbar in 128 × 128 tiles, then the small cotangents.  The
+products are register-tiled FFMA GEMMs (8 × 4 or 8 × 8 a thread) whose
+k-slabs come through a 3-stage ``cp.async`` ring.  K_xz and out/outbar live
+in scratch (~10 MB a member).  Every cross-row sum (the data term, W̄, z̄,
+ℓ̄, s̄², the mean weights, σ̄², ȳ) is a partial with its own slot, added in
+a fixed order by a later launch: no atomics, so the result is the same
+bits on every run.  Not carried over from the TPU: the 128-lane padding of
+P and M, the mask vectors, the (16, 128) packed small output.  Plain f32:
 IEEE division, ``expf``, ``sqrtf``, ``logf``, no tensor cores; every
 product is written out in the kernel.
 
@@ -63,7 +69,7 @@ Dispatch: on a CPU tensor ``fused_data_term`` runs the plain version
 and hand-derived ``_reference_bwd``, batched over members); on a CUDA
 tensor the kernels, or it raises.  ``LAUNCHES`` counts calls of the two
 wrappers: one per forward pass and one per backward pass, whatever number
-of CUDA kernels each launches back to back.
+of CUDA kernels each launches back to back (two a forward, ten a backward).
 """
 
 from __future__ import annotations
@@ -262,14 +268,23 @@ def build(force: bool = False) -> str:
     lib, log = build_library(SOURCE, force)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.elbo_fwd.argtypes = [p] * 14 + [p, p, p, p] + [i] * 4 + [p]
-    lib.elbo_fwd.restype = i
     lib.elbo_bwd.argtypes = [p] * 14 + [p, p, p] + [p] * 6 + [i] * 4 + [p]
-    lib.elbo_bwd.restype = i
-    lib.elbo_num_tiles.argtypes = [i, i]
-    lib.elbo_small_len.argtypes = [i]
-    lib.elbo_num_tiles.restype = lib.elbo_small_len.restype = i
+    lib.elbo_num_tiles.argtypes = lib.elbo_bwd_partial_len.argtypes = [i, i]
+    for fn in (lib.elbo_small_len, lib.elbo_out_ld, lib.elbo_k_ld, lib.elbo_dyn_smem):
+        fn.argtypes = [i]
+    for fn in (lib.elbo_fwd, lib.elbo_bwd, lib.elbo_num_tiles, lib.elbo_bwd_partial_len, lib.elbo_small_len,
+               lib.elbo_out_ld, lib.elbo_k_ld, lib.elbo_dyn_smem):
+        fn.restype = i
     _lib = lib
     return log
+
+
+def dynamic_smem() -> dict:
+    """Dynamic shared memory a CTA takes, of the kernels that take any
+    (built first if need be); the others' is static, in nvcc's report."""
+    if _lib is None:
+        build()
+    return {"elbo_fwd_kernel": _lib.elbo_dyn_smem(0), "elbo_wbar_kernel": _lib.elbo_dyn_smem(1)}
 
 
 def _check_inputs(x, y, eps1, eps2, params, noise, extra=()):
@@ -344,9 +359,9 @@ def elbo_bwd_cuda(x, y, eps1, eps2, params, noise, h1, h2, gbar):
     rows = 2 * b + 3 * s * b  # scratch rows per member: B per layer-1 group, S·B per other group
     kp = _lib.elbo_small_len(m)
     opts = dict(dtype=x.dtype, device=x.device)
-    kscr = torch.empty((t, rows, m), **opts)
-    oscr = torch.empty((t, rows, p), **opts)
-    partial = torch.empty((t, _lib.elbo_num_tiles(b, s), kp), **opts)
+    kscr = torch.empty((t, rows, _lib.elbo_k_ld(m)), **opts)  # rows 16-byte aligned
+    oscr = torch.empty((t, rows, _lib.elbo_out_ld(m)), **opts)  # out, then outbar; rows 16-byte aligned
+    partial = torch.empty((t, _lib.elbo_bwd_partial_len(b, s)), **opts)
     wbar = torch.empty((t, 5, m, p), **opts)
     small = torch.empty((t, kp), **opts)
     ybar = torch.empty((t, b), **opts)

@@ -2,12 +2,14 @@
 
 Builds the 10-split exact Gibbs MAP problem of
 ``nonstationary_precip_tpu_torch.experiments.spatial_gibbs`` (real UIB data,
-10 splits × 316 points, f32), warms up, then traces ``--steps`` Adam steps
-with ``torch.profiler`` (CPU and CUDA activities).  Prints the top device
-kernels by time, and one JSON line: the window's wall time per step, the
-device's busy time per step (sum of kernel time; one stream, so kernels do
-not overlap), the idle share, and K1's share of the device time.  The
-Chrome trace goes to ``chiprun_out/profile_torch_slice.json``.
+10 splits × 316 points, f32), warms up, times ``--steps`` Adam steps with
+CUDA events (untraced), then traces as many with ``torch.profiler`` (CPU
+and CUDA activities).  Prints the top device kernels by time, and one JSON
+line: the untraced step time, the device's busy time per step (sum of
+kernel time; one stream, so kernels do not overlap), the idle share of an
+untraced step that this leaves, K1's time per step and share of the device
+time, and the traced window's wall time per step (the profiler's own cost
+included).  The Chrome trace goes to ``chiprun_out/profile_torch_slice.json``.
 
 Run from the repository root on a CUDA card:
     python tools/profile_torch_slice.py [--steps 50]
@@ -15,6 +17,7 @@ Run from the repository root on a CUDA card:
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -59,6 +62,13 @@ def main():
     for _ in range(args.warmup):
         step()
     torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(args.steps):
+        step()
+    stop.record()
+    stop.synchronize()
+    step_ms = start.elapsed_time(stop) / args.steps
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -76,18 +86,24 @@ def main():
                and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
-    k1_us = sum(e.self_device_time_total for e in kernels if "chol_inv_kernel" in e.key)
+    k1_us = sum(e.self_device_time_total for e in kernels if "chol_inv_cluster_kernel" in e.key)
     print(f"{'kernel':<90} {'calls':>6} {'us/step':>9} {'share':>6}")
     for e in kernels[:25]:
         print(f"{e.key[:90]:<90} {e.count:>6} {e.self_device_time_total / args.steps:>9.1f} "
               f"{e.self_device_time_total / busy_us:>6.1%}")
+    busy_ms = busy_us / 1e3 / args.steps
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi,
         "steps": args.steps,
-        "wall_ms_per_step": 1e3 * wall / args.steps,
-        "device_busy_ms_per_step": busy_us / 1e3 / args.steps,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "step_ms_untraced": step_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / step_ms,
+        "k1_ms_per_step": k1_us / 1e3 / args.steps,
         "k1_share_of_device_time": k1_us / busy_us,
+        "traced_wall_ms_per_step": 1e3 * wall / args.steps,
         "kernels_per_step": sum(e.count for e in kernels) / args.steps,
     }))
 
