@@ -52,10 +52,16 @@ one JSON line each:
                   K2's and K3's launch counts against what the code implies
                   (no K9: the oracle builds its Gram with the plain Gram),
                   training and wall seconds;
- 7. k2         — K2 against its plain version at (16384, 16384, D = 2,
+ 7. k2         — K2 against its plain version (the band K2_RTOL / K2_ATOL)
+                  and against float64 (within twice the plain version's error
+                  plus K6_FLOOR of the largest entry) at (16384, 16384, D = 2,
                   R = 9) on the gate's init-pose and trained-pose payloads and
-                  at a ragged (1000, 1500, D = 3, R = 130), bitwise repeat,
-                  then the median time of each;
+                  at a ragged (1000, 1500, D = 3, R = 130, the per-dim
+                  element), bitwise repeat, then the median time of each, the
+                  FP32 bound of the recounted operations and the
+                  special-function-unit bound (2 an element at 16 a clock an
+                  SM at nvidia-smi's maximum SM clock); the bound is the
+                  larger;
  8. k3         — K3 against its plain version at N = 16384, R = 8 on the
                   same payloads, and its row-block form on one block; times;
  9. dgp_ref    — the deep GP on the card at full width (M = 250) for 2
@@ -84,9 +90,12 @@ one JSON line each:
                   against the plain version in float64 on the experiment's
                   init and trained payloads (10 splits, B 315, S 3, M 250),
                   a ragged (3, 37, 2, 19) and one whose variances hit the
-                  1e-10 floor; bitwise repeat; the times of the kernels, the
-                  plain version, and the fused term against the composed
-                  data term through autograd;
+                  1e-10 floor; on each, the forward's per-row mean and
+                  variance (elbo_fused.forward_moments) against the
+                  backward's recomputed ones (backward_moments), to the bit;
+                  bitwise repeat; the times of the kernels, the plain
+                  version, and the fused term against the composed data term
+                  through autograd;
 14. field_regression — the whole experiment (spatial DeepGP, 400 steps,
                   and the spatio-temporal one, 200 steps): the spatial field
                   against the reference artifact inside the
@@ -154,9 +163,10 @@ one JSON line each:
                   payloads at the same poses; a singular payload on which
                   the jitter ladder fires, on the plain version's rung;
                   bitwise repeat; times at N = 1024 and 1280;
-30. traced     — torch.profiler after the paths' own traces: K1's CUDA
-                  launches in one call (every device kernel, checked = 1)
-                  and K7's backward time by kernel;
+30. traced     — torch.profiler after the paths' own traces: K1's and K2's
+                  CUDA launches in one call (every device kernel, checked 1
+                  and 2), K7's forward's (checked 10), and K7's forward and
+                  backward time by kernel;
 31. gibbs_mf_ref — the matrix-free Gibbs flow of examples/
                   quickstart_gibbs_largen.py at N = 2048 on the data, prior
                   SLQ probes and per-step probes of the JAX run pinned in
@@ -275,8 +285,12 @@ K7_SLACK = {"value": 1e-6, "cotangent": 1e-4}
 # cotangents vanish in exact arithmetic (the two halves of outbar·Wᵀ cancel),
 # and what both f32 versions return there is rounding.
 K7_FLOOR = 1e-6
-# K7's backward kernels (elbo_bwd_pull_kernel three launches a call, the others one)
-K7_BWD_KERNELS = ("elbo_bwd_k_kernel", "elbo_bwd_out_kernel", "elbo_bwd_head_kernel", "elbo_bwd_pull_kernel",
+# K7's forward kernels (elbo_k_kernel and elbo_out_kernel three launches a
+# call, one a layer, the others one) and backward kernels (elbo_bwd_pull_kernel
+# three, the others one); the marginals' two kernels are both passes'
+K7_FWD_KERNELS = ("elbo_k_kernel", "elbo_out_kernel", "elbo_fwd_layer1_kernel", "elbo_fwd_layer2_kernel",
+                  "elbo_fwd_head_kernel", "elbo_sum_kernel")
+K7_BWD_KERNELS = ("elbo_k_kernel", "elbo_out_kernel", "elbo_bwd_head_kernel", "elbo_bwd_pull_kernel",
                   "elbo_bwd_layer2_kernel", "elbo_bwd_layer1_kernel", "elbo_wbar_kernel", "elbo_bwd_reduce_kernel")
 K7_RAGGED = (3, 37, 2, 19)  # T, B, S, M: a ragged tile and chunk, M not a multiple of 32
 K7_CLIP = (2, 50, 3, 32)
@@ -423,6 +437,13 @@ def emit(phase: str, **fields):
 def check(cond: bool, what: str):
     if not cond:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock in MHz, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def nvidia_smi_line() -> str:
@@ -771,7 +792,20 @@ def largen_payloads(gibbs_largen, out, dev):
     return {"init": (x, torch.ones_like(x)), "trained": (x, ell)}
 
 
+def gibbs_matvec_f64(x1, l1, x2, l2, v, block: int = 2048):
+    """K(x1, x2) @ v in float64 on the card, row panels of the plain Gram."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
+
+    x2d, l2d, vd = x2.double(), l2.double(), v.double()
+    return torch.cat([gibbs_gram_reference(x1[i:i + block].double(), l1[i:i + block].double(), x2d, l2d) @ vd
+                      for i in range(0, x1.shape[0], block)])
+
+
 def phase_k2(matvec, payloads, dev):
+    """K2 against its plain version (K2_RTOL / K2_ATOL) and against float64
+    (K6's criterion) on the gate's init and trained payloads and a ragged
+    one at D = 3 (the per-dim element); bitwise repeat; times; the FP32
+    bound and the special-function-unit bound."""
     gen = torch.Generator().manual_seed(29)
     v = torch.randn(LARGEN_N, 9, generator=gen).to(dev)
     errs = {}
@@ -780,12 +814,18 @@ def phase_k2(matvec, payloads, dev):
         k = matvec.gibbs_gram_matvec_cuda(x1, l1, x2, l2, vv)
         again = matvec.gibbs_gram_matvec_cuda(x1, l1, x2, l2, vv)
         p = matvec.gibbs_gram_matvec_plain(x1, l1, x2, l2, vv)
+        ref = gibbs_matvec_f64(x1, l1, x2, l2, vv)
         torch.cuda.synchronize()
         err = (k - p).abs()
+        ek, ep = float((k.double() - ref).abs().max()), float((p.double() - ref).abs().max())
+        largest = float(ref.abs().max())
         errs[name] = {"max_abs_err": float(err.max()), "max_rel_err": float((err / p.abs().clamp_min(1e-30)).max()),
-                      "max_abs_ref": float(p.abs().max())}
+                      "max_abs_ref": float(p.abs().max()), "kernel_vs_f64": ek, "plain_vs_f64": ep,
+                      "largest": largest}
         check(bool(torch.isfinite(k).all()), f"K2 {name} finite")
         check(bool((err <= K2_ATOL + K2_RTOL * p.abs()).all()), f"K2 {name} within rtol {K2_RTOL} / atol {K2_ATOL}")
+        check(ek <= 2 * ep + K6_FLOOR * largest,
+              f"K2 {name} vs float64 {ek:.3g} within 2x the plain version's {ep:.3g} (+{K6_FLOOR} x {largest:.3g})")
         check(torch.equal(k, again), f"K2 {name} bitwise repeatable")
 
     for pose, (x, ell) in payloads.items():
@@ -799,10 +839,16 @@ def phase_k2(matvec, payloads, dev):
     t = timed_pair(lambda: matvec.gibbs_gram_matvec_cuda(x, ell, x, ell, v),
                    lambda: matvec.gibbs_gram_matvec_plain(x, ell, x, ell, v), N_TIMED_GRAM)
     ops = matvec.matvec_ops(LARGEN_N, LARGEN_N, 2, 9)
-    b_ms, b_by = bound(ops, 4 * (4 * LARGEN_N * 2 + 2 * LARGEN_N * 9))
-    emit("k2", shape=[LARGEN_N, LARGEN_N, 2, 9], ragged=list(RAGGED), errors=errs, ops=ops, bound_ms=b_ms,
-         bound_by=b_by, timed_calls=2 * N_TIMED_GRAM, **t)
-    return errs, t, b_ms, b_by
+    fp32_ms, fp32_by = bound(ops, 4 * (4 * LARGEN_N * 2 + 2 * LARGEN_N * 9))
+    # the SFU: 16 operations a clock an SM at the card's maximum SM clock
+    clock_hz = sm_clock_mhz() * 1e6
+    sfu_ms = matvec.matvec_sfu_ops(LARGEN_N, LARGEN_N, 2) / (16 * torch.cuda.get_device_properties(dev).multi_processor_count
+                                                            * clock_hz) * 1e3
+    b_ms, b_by = max((fp32_ms, fp32_by), (sfu_ms, "operations"))
+    emit("k2", shape=[LARGEN_N, LARGEN_N, 2, 9], ragged=list(RAGGED), errors=errs, ops=ops,
+         sfu_ops=matvec.matvec_sfu_ops(LARGEN_N, LARGEN_N, 2), fp32_bound_ms=fp32_ms, sfu_bound_ms=sfu_ms,
+         sm_clock_mhz=clock_hz / 1e6, bound_ms=b_ms, bound_by=b_by, timed_calls=2 * N_TIMED_GRAM, **t)
+    return errs, t, b_ms, b_by, lambda: matvec.gibbs_gram_matvec_cuda(x, ell, x, ell, v)
 
 
 def phase_k3(matvec, payloads, dev):
@@ -1155,8 +1201,8 @@ def k7_bwd_bytes(t: int, b: int, s: int, m: int) -> dict:
     k = {g: 4.0 * t * r * kl for g, r in rows.items()}
     o = {g: 4.0 * t * r * ol for g, r in rows.items()}
     w = {"l1": 4.0 * t * 2 * m * p, "l2": 4.0 * t * 2 * m * p, "head": 4.0 * t * m * p}
-    out = {"elbo_bwd_k_kernel": sum(k.values()),
-           "elbo_bwd_out_kernel": sum(k.values()) + sum(w.values()) + sum(o.values()),
+    out = {"elbo_k_kernel": sum(k.values()),
+           "elbo_out_kernel": sum(k.values()) + sum(w.values()) + sum(o.values()),
            "elbo_bwd_head_kernel": 2 * o["head"], "elbo_bwd_layer2_kernel": 2 * o["l2"],
            "elbo_bwd_layer1_kernel": 2 * o["l1"],
            "elbo_bwd_pull_kernel": sum(o.values()) + sum(k.values()) + sum(w.values()),
@@ -1213,11 +1259,19 @@ def phase_k7(deepgp_spatial, elbo_fused, trained_model, dev):
             {k: v.double() for k, v in params.items()}, slice(0, 2)))
     clipped = float((var <= elbo_fused.VAR_FLOOR).double().mean())
     check(0.0 < clipped < 1.0, f"the clip payload puts some of layer 1's variances on the floor: {clipped:.3g}")
-    errs, fwd_diff, bwd_diff = {}, 0.0, 0.0
+    errs, fwd_diff, bwd_diff, moments = {}, 0.0, 0.0, {}
     for name, args in payloads.items():
         gbar = torch.linspace(0.5, 1.5, args[0].shape[0], device=dev)
         errs[name], fd, bd = k7_errors(elbo_fused, args, gbar)
         fwd_diff, bwd_diff = max(fwd_diff, fd), max(bwd_diff, bd)
+        # the forward's per-row means and variances are the backward's, to the bit
+        _, h1, h2, fwd_mom = elbo_fused.forward_moments(*args)
+        bwd_mom = elbo_fused.backward_moments(*args, h1, h2)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(fwd_mom).all()), f"K7 {name} forward moments finite")
+        check(torch.equal(fwd_mom, bwd_mom), f"K7 {name}: the forward's per-row mean and variance are the "
+                                             f"backward's to the bit (largest gap {float((fwd_mom - bwd_mom).abs().max()):.3g})")
+        moments[name] = {"rows": int(fwd_mom.shape[0] * fwd_mom.shape[1]), "bitwise_equal": True}
 
     args = payloads["trained"]
     gbar = torch.ones(t, device=dev)
@@ -1254,26 +1308,36 @@ def phase_k7(deepgp_spatial, elbo_fused, trained_model, dev):
     # products; reads W, h₁, h₂; writes W̄ and the small cotangents
     bwd_bound = bound(3 * ops, io + 4.0 * (2 * t * 5 * m * p + 2 * t * s * b * 2 + t * 5 * m * 3 + t * b))
     emit("k7", shape=[t, b, s, m], ragged=list(K7_RAGGED), clip=list(K7_CLIP), clipped_share=clipped, errors=errs,
+         moments_fwd_vs_bwd=moments,
          ops_fwd=ops, ops_bwd=3 * ops, fwd={**fwd, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
          bwd={**bwd, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "least_mb_moved": k7_bwd_bytes(t, b, s, m)},
          fused_vs_composed={"fused_ms": step["ms"], "composed_ms": step["plain_ms"], "blocks_ms": step["blocks_ms"]},
          timed_calls=2 * N_TIMED)
     return {"fwd": {**fwd, "bound": fwd_bound, "max_abs_err": fwd_diff},
             "bwd": {**bwd, "bound": bwd_bound, "max_abs_err": bwd_diff},
+            "fwd_call": lambda: elbo_fused.elbo_fwd_cuda(*args),
             "bwd_call": lambda: elbo_fused.elbo_bwd_cuda(*args, h1, h2, gbar)}
 
 
-def phase_traced(chol_inv, k1_gram, k7_bwd_call) -> int:
-    """K1's CUDA launches in one call (every device kernel counted) and K7's
-    backward time by kernel, from torch.profiler.  These sessions run after
-    k11: in a process that had traced other kernels first, k11's count of
-    K11's programmatic dependent launches read 8 and 9 of 10 (PR 11's chip
-    runs), where it reads 10 when k11 traces first."""
+def phase_traced(chol_inv, k1_gram, k2_call, k7_fwd_call, k7_bwd_call) -> int:
+    """K1's and K2's CUDA launches in one call (every device kernel counted)
+    and K7's forward and backward time by kernel, with the forward's CUDA
+    launches a call, from torch.profiler.  These sessions run after k11: in
+    a process that had traced other kernels first, k11's count of K11's
+    programmatic dependent launches read 8 and 9 of 10 on an H100,
+    where it reads 10 when k11 traces first."""
     launches = cuda_launches(lambda: chol_inv.chol_inv_batched_cuda(k1_gram), "")
     check(launches == 1, f"K1 is one CUDA launch a call: {launches}")
+    k2_launches = cuda_launches(k2_call, "")
+    check(k2_launches == 2, f"K2 is 2 CUDA launches a call: {k2_launches}")
+    fwd_launches = cuda_launches(k7_fwd_call, "")
+    check(fwd_launches == 10, f"K7's forward is 10 CUDA launches a call: {fwd_launches}")
+    fwd_split = kernel_split_ms(k7_fwd_call, 10)
+    check(sorted(fwd_split) == sorted(K7_FWD_KERNELS), f"K7's forward launches {sorted(fwd_split)}")
     split = kernel_split_ms(k7_bwd_call, 10)
     check(sorted(split) == sorted(K7_BWD_KERNELS), f"K7's backward launches {sorted(split)}")
-    emit("traced", k1_cuda_launches_a_call=launches, k7_bwd_split_ms=split)
+    emit("traced", k1_cuda_launches_a_call=launches, k2_cuda_launches_a_call=k2_launches,
+         k7_fwd_cuda_launches_a_call=fwd_launches, k7_fwd_split_ms=fwd_split, k7_bwd_split_ms=split)
     return launches
 
 
@@ -2231,7 +2295,7 @@ def main(argv=None):
     phase_largen_ref(gibbs_largen)
     out, largen_launches = phase_largen(gibbs_largen, name)
     payloads = largen_payloads(gibbs_largen, out, dev)
-    k2_errs, k2_t, k2_bound, k2_by = phase_k2(matvec, payloads, dev)
+    k2_errs, k2_t, k2_bound, k2_by, k2_call = phase_k2(matvec, payloads, dev)
     k3_errs, k3_t, k3_bound, k3_by = phase_k3(matvec, payloads, dev)
     phase_dgp_ref(deepgp_spatial, svgp_precompute, dev)
     dgp_out, dgp_launches = phase_dgp(deepgp_spatial, svgp_precompute, name)
@@ -2260,7 +2324,7 @@ def main(argv=None):
     k11 = phase_k11(trsm, gibbs_pay, dev)
     k11["resources"] = rl_resources(trsm.kernel_attributes(), logs["trsm"])
     k8 = phase_k8(gibbs_fused, gibbs_pay, dev)
-    phase_traced(chol_inv, k1_design.pop("gram"), k7.pop("bwd_call"))
+    phase_traced(chol_inv, k1_design.pop("gram"), k2_call, k7.pop("fwd_call"), k7.pop("bwd_call"))
     phase_gibbs_mf_ref(quickstart, dev)
     mf_launches = phase_gibbs_mf(quickstart, name)
 
@@ -2300,8 +2364,7 @@ def main(argv=None):
            "library_ms": None, "resources": {k: {**ptxas_resources(logs["elbo_fused"], k),
                                                  "smem_bytes": k7_smem.get(k, 0) + ptxas_smem(logs["elbo_fused"], k)}
                                              for k in kernels}}
-          for d, line, kernels in (("fwd", 282, ("elbo_fwd_kernel", "elbo_sum_kernel")),
-                                   ("bwd", 331, K7_BWD_KERNELS))),
+          for d, line, kernels in (("fwd", 282, K7_FWD_KERNELS), ("bwd", 331, K7_BWD_KERNELS))),
         {"name": "streaming_cholesky", "route": "cuda",
          "source": "nonstationary_precip_tpu_torch/csrc/chol_stream.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_chol.py:818", "launches": k5_launches,

@@ -11,29 +11,35 @@
 // mw1/mw2 (T, 2, 2) as [input, output], mb1/mb2 (T, 2), mbh (T, 1),
 // noise (T,).  Groups 0-1 are layer 1, 2-3 layer 2, 4 the head.
 //
-// Forward: elbo_fwd_kernel, one 256-thread block per (x-row tile, member).
-// A tile holds XR = max(1, 32 / S) x rows and all S samples of each, so the
-// chain layer 1 -> layer 2 -> head -> likelihood runs inside the block; the
-// S * XR sample rows go through in chunks of 32.  Per group, K_xz (rows x M)
-// is built in shared memory (thread m owns inducing point m), then
-// out = K_xz W with one thread per two columns of W, W read from L2 (it
-// does not fit in shared memory), and out is reduced at once to its mean (column 0)
-// and the sums of squares of its two halves: a warp transpose-reduction,
-// then a fixed-order sum over the 8 warps.  Each block writes its partial
-// sum of the log-likelihood terms; elbo_sum_kernel adds them in tile order.
+// Both passes run in phases over whole members, on one stream, sharing the
+// marginals' two kernels: elbo_k_kernel builds K_xz of a range of groups at
+// every row into scratch, and elbo_out_kernel runs out = K_xz W over every
+// member and group of the range as a register-tiled GEMM (64 x 128 tiles,
+// W through a cp.async ring), with each row's sums of (A S)^2 and A^2 per
+// column tile as its epilogue; row_var adds a row's tiles in order.  So the
+// forward's per-row means and variances are the backward's, to the bit.
 //
-// Backward: ten launches over whole members, described above
-// elbo_bwd_k_kernel below: K_xz and out = K_xz W of every group at every
-// row (register-tiled GEMMs, W through a cp.async ring) into scratch, then
+// Forward: ten launches, one layer a phase: K_xz and out of layer 1's two
+// groups at the B x rows, then elbo_fwd_layer1_kernel (the means, the
+// variances and h1 = m + sqrt(max(v, 1e-10)) eps1 of every sample); the
+// same at the S B sample rows for layer 2 (h2) and for the head, whose row
+// kernel writes each 64-row tile's sum of the expected log-likelihood
+// terms; elbo_sum_kernel adds the tiles in order.  out itself never
+// reaches scratch: the forward keeps each row's mean (column 0) and
+// variance.
+//
+// Backward: ten launches over whole members, listed above elbo_k_kernel
+// below: K_xz and out = K_xz W of every group at every row into scratch,
+// then
 // the chain backwards one layer a launch (the head's row cotangents, the
 // pullback kbar = outbar W^T and g = kbar * K_xz, layer 2's, its pullback,
 // layer 1's summed over each x row's samples, its pullback), Wbar =
 // K_xz^T outbar, and the small cotangents from the partials.  No atomics:
 // every sum has a fixed order, so a result is the same bits on every run.
 //
-// In the forward, ghost rows (past B, or past a chunk's end) have K_xz = 0,
-// so they add nothing to any product; columns past P and inducing points past M are
-// masked.  Plain f32 throughout: IEEE division, expf, sqrtf, logf, no
+// Ghost rows (past a group's rows) are zero-filled in the GEMMs' slabs, so
+// they add nothing to any product; columns past P and inducing points past
+// M are masked.  Plain f32 throughout: IEEE division, expf, sqrtf, logf, no
 // tensor cores.  Variances are clamped at 1e-10 in the forward; the
 // backward takes sqrt(max(var, 1e-10)) and zeroes the variance cotangent
 // where the unclipped variance is <= 1e-10, as the JAX package does.
@@ -46,11 +52,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kR = 32;           // sample rows per chunk (one per lane in the reductions)
-constexpr int kMaxM = kThreads;  // one thread per inducing point
+constexpr int kMaxM = kThreads;  // one thread per inducing point in the reductions
 constexpr int kMaxB = 1024;
 constexpr int kGroups = 5;
-constexpr int kKs = kR + 4;      // row stride of K_xz^T in shared memory (16-byte aligned)
 constexpr int kWbarTile = 128;   // Wbar output tile edge
 constexpr int kWbarK = 16;       // scratch rows a ring slab of Wbar
 constexpr int kWbarThreads = 256;
@@ -68,49 +72,13 @@ constexpr int kSlotMbh = 27;
 constexpr int kSlotNoise = 28;
 constexpr int kSlots = 29;
 
-static_assert(kR == 32, "the transpose reduction gives lane l row l");
-
 struct Params {
   const float *x, *y, *eps1, *eps2, *z, *ell, *s2, *w, *mw1, *mb1, *mw2, *mb2,
       *mbh, *noise;
-  int t, b, s, m, p, xr, ntiles;
+  int t, b, s, m, p;
   int ld;   // row stride of the backward's out scratch: P rounded up to 4
-  int kld;  // ... and of its K_xz scratch: M rounded up to 4
+  int kld;  // ... and of the K_xz scratch: M rounded up to 4
 };
-
-struct Shared {                 // the forward's
-  float k[kMaxM * kKs];        // K_xz^T of the current group: k[m * kKs + r]
-  float zr[kMaxM * 2];         // z of the current group
-  float red[kWarps * 2 * kR];  // per-warp row sums
-  float hx[kR * 2];            // the tile's x rows
-  float h1[kR * 2];            // the chunk's layer-1 samples
-  float h2[kR * 2];            // the chunk's layer-2 samples
-  float mean[kR];              // the current group's mean (no prior mean)
-  float var[kR];               // ... and unclipped variance
-  float m1[2 * kR];            // layer 1 per x row: mean
-  float sd1[2 * kR];           // sqrt(max(var, floor))
-};
-
-__device__ __forceinline__ Shared& shared() {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  return *reinterpret_cast<Shared*>(smem_raw);
-}
-
-// lane l returns the sum over the warp's lanes of v[l]; v is destroyed
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[kR]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) {
-    const bool upper = (lane & off) != 0;
-#pragma unroll
-    for (int i = 0; i < off; ++i) {
-      const float send = upper ? v[i] : v[i + off];
-      const float keep = upper ? v[i + off] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-    }
-  }
-  return v[0];
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -128,203 +96,12 @@ __host__ __device__ __forceinline__ size_t scratch_rows(const Params& P) {
   return static_cast<size_t>(2 * P.b + 3 * P.s * P.b);
 }
 
-// K_xz^T of group g at the first `nrows` rows of h (shared, [r][2]) into
-// sh.k (zero for ghost rows and m >= M), and z of the group into sh.zr;
-// if kscr is given, K_xz's rows go there too ([r][M]).
-__device__ void build_k(Shared& sh, const Params& P, int t, int g, const float* h, int nrows, float* kscr) {
-  const int m = threadIdx.x;
-  const int tg = t * kGroups + g;
-  const float e0 = P.ell[tg * 2], e1 = P.ell[tg * 2 + 1];
-  const float s2v = P.s2[tg];
-  float zs0 = 0.f, zs1 = 0.f, zsq = 0.f;
-  if (m < P.m) {
-    const float z0 = P.z[(static_cast<size_t>(tg) * P.m + m) * 2];
-    const float z1 = P.z[(static_cast<size_t>(tg) * P.m + m) * 2 + 1];
-    sh.zr[m * 2] = z0;
-    sh.zr[m * 2 + 1] = z1;
-    zs0 = z0 / e0;
-    zs1 = z1 / e1;
-    zsq = zs0 * zs0 + zs1 * zs1;
-  } else {
-    sh.zr[m * 2] = 0.f;
-    sh.zr[m * 2 + 1] = 0.f;
-  }
-  for (int r = 0; r < kR; ++r) {
-    float kv = 0.f;
-    if (m < P.m && r < nrows) {
-      const float xs0 = h[r * 2] / e0, xs1 = h[r * 2 + 1] / e1;
-      const float xsq = xs0 * xs0 + xs1 * xs1;
-      const float cross = xs0 * zs0 + xs1 * zs1;
-      const float quad = fmaxf(xsq + zsq - 2.0f * cross, 0.f);
-      kv = s2v * expf(-0.5f * quad);
-      if (kscr) kscr[static_cast<size_t>(r) * P.kld + m] = kv;
-    }
-    sh.k[m * kKs + r] = kv;
-  }
-  __syncthreads();
-}
-
-// One column c of out for the rows in sh.k: its mean (column 0) or its
-// square into the sums of its half, and its rows into oscr if given.
-__device__ __forceinline__ void take_column(Shared& sh, const Params& P, int c, int nrows, float* oscr,
-                                            const float (&acc)[kR], float (&sas)[kR], float (&sa)[kR]) {
-  if (c == 0) {
-#pragma unroll
-    for (int r = 0; r < kR; ++r) sh.mean[r] = acc[r];
-  } else if (c <= P.m) {
-#pragma unroll
-    for (int r = 0; r < kR; ++r) sas[r] += acc[r] * acc[r];
-  } else {
-#pragma unroll
-    for (int r = 0; r < kR; ++r) sa[r] += acc[r] * acc[r];
-  }
-  if (oscr) {
-#pragma unroll
-    for (int r = 0; r < kR; ++r)
-      if (r < nrows) oscr[static_cast<size_t>(r) * P.p + c] = acc[r];
-  }
-}
-
-// out = K_xz W_g for the rows in sh.k, reduced to sh.mean (column 0) and
-// sh.var (s2 - sum A^2 + sum (A S)^2, unclipped); if oscr is given, out's
-// rows go there ([r][P], the first nrows rows).
-__device__ void group_out(Shared& sh, const Params& P, int t, int g, int nrows, float* oscr) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tg = t * kGroups + g;
-  const float* wg = P.w + static_cast<size_t>(tg) * P.m * P.p;
-  float sas[kR], sa[kR];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) sas[r] = sa[r] = 0.f;
-  // each thread takes two columns at once, c0 and c0 + kThreads (its
-  // second one past P is computed on c0's data and dropped), so every
-  // broadcast read of K_xz feeds two FMAs and two loads of W are in flight
-  for (int c0 = tid; c0 < P.p; c0 += 2 * kThreads) {
-    const int c1 = c0 + kThreads;
-    const bool has1 = c1 < P.p;
-    float acc0[kR], acc1[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) acc0[r] = acc1[r] = 0.f;
-    const float* w0 = wg + c0;
-    const float* w1 = wg + (has1 ? c1 : c0);
-#pragma unroll 4
-    for (int mm = 0; mm < P.m; ++mm) {
-      const float wv0 = w0[static_cast<size_t>(mm) * P.p];
-      const float wv1 = w1[static_cast<size_t>(mm) * P.p];
-      const float4* kr = reinterpret_cast<const float4*>(sh.k + mm * kKs);
-#pragma unroll
-      for (int q = 0; q < kR / 4; ++q) {
-        const float4 kv = kr[q];
-        acc0[4 * q] += kv.x * wv0;
-        acc0[4 * q + 1] += kv.y * wv0;
-        acc0[4 * q + 2] += kv.z * wv0;
-        acc0[4 * q + 3] += kv.w * wv0;
-        acc1[4 * q] += kv.x * wv1;
-        acc1[4 * q + 1] += kv.y * wv1;
-        acc1[4 * q + 2] += kv.z * wv1;
-        acc1[4 * q + 3] += kv.w * wv1;
-      }
-    }
-    take_column(sh, P, c0, nrows, oscr, acc0, sas, sa);
-    if (has1) take_column(sh, P, c1, nrows, oscr, acc1, sas, sa);
-  }
-  const float vas = warp_transpose_sum(sas);
-  const float va = warp_transpose_sum(sa);
-  sh.red[warp * 2 * kR + lane] = vas;
-  sh.red[warp * 2 * kR + kR + lane] = va;
-  __syncthreads();
-  if (tid < kR) {
-    float s_as = 0.f, s_a = 0.f;
-    for (int wi = 0; wi < kWarps; ++wi) {
-      s_as += sh.red[wi * 2 * kR + tid];
-      s_a += sh.red[wi * 2 * kR + kR + tid];
-    }
-    sh.var[tid] = (P.s2[tg] - s_a) + s_as;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void load_x(Shared& sh, const Params& P, int t, int b0, int nx) {
-  const int tid = threadIdx.x;
-  if (tid < kR * 2) {
-    const int r = tid / 2;
-    sh.hx[tid] = r < nx ? P.x[(static_cast<size_t>(t) * P.b + b0 + r) * 2 + tid % 2] : 0.f;
-  }
-  __syncthreads();
-}
-
 // index of eps (T, S, 2, B) and of h1/h2 (T, S, B, 2)
 __device__ __forceinline__ size_t eps_at(const Params& P, int t, int s, int o, int b) {
   return ((static_cast<size_t>(t) * P.s + s) * 2 + o) * P.b + b;
 }
 __device__ __forceinline__ size_t h_at(const Params& P, int t, int s, int b, int o) {
   return ((static_cast<size_t>(t) * P.s + s) * P.b + b) * 2 + o;
-}
-
-__global__ void __launch_bounds__(kThreads)
-elbo_fwd_kernel(Params P, float* __restrict__ partial, float* __restrict__ h1o, float* __restrict__ h2o) {
-  Shared& sh = shared();
-  const int tile = blockIdx.x, t = blockIdx.y, tid = threadIdx.x;
-  const int b0 = tile * P.xr;
-  const int nx = min(P.xr, P.b - b0);
-  const float noise = P.noise[t];
-  load_x(sh, P, t, b0, nx);
-
-  // layer 1, once per x row
-  for (int o = 0; o < 2; ++o) {
-    build_k(sh, P, t, o, sh.hx, nx, nullptr);
-    group_out(sh, P, t, o, nx, nullptr);
-    if (tid < nx) {
-      const float lin = sh.hx[tid * 2] * P.mw1[t * 4 + o] + sh.hx[tid * 2 + 1] * P.mw1[t * 4 + 2 + o];
-      sh.m1[o * kR + tid] = sh.mean[tid] + (lin + P.mb1[t * 2 + o]);
-      sh.sd1[o * kR + tid] = sqrtf(fmaxf(sh.var[tid], kVarFloor));
-    }
-    __syncthreads();
-  }
-
-  float total = 0.f;
-  const int nq_all = nx * P.s;
-  for (int q0 = 0; q0 < nq_all; q0 += kR) {
-    const int nq = min(kR, nq_all - q0);
-    if (tid < kR * 2) {
-      const int q = tid / 2, o = tid % 2;
-      float v = 0.f;
-      if (q < nq) {
-        const int s = (q0 + q) / nx, r = (q0 + q) % nx;
-        v = sh.m1[o * kR + r] + sh.sd1[o * kR + r] * P.eps1[eps_at(P, t, s, o, b0 + r)];
-        h1o[h_at(P, t, s, b0 + r, o)] = v;
-      }
-      sh.h1[tid] = v;
-    }
-    __syncthreads();
-    for (int o = 0; o < 2; ++o) {
-      build_k(sh, P, t, 2 + o, sh.h1, nq, nullptr);
-      group_out(sh, P, t, 2 + o, nq, nullptr);
-      if (tid < kR) {
-        float v = 0.f;
-        if (tid < nq) {
-          const int s = (q0 + tid) / nx, r = (q0 + tid) % nx;
-          const float lin = sh.h1[tid * 2] * P.mw2[t * 4 + o] + sh.h1[tid * 2 + 1] * P.mw2[t * 4 + 2 + o];
-          const float mean = sh.mean[tid] + (lin + P.mb2[t * 2 + o]);
-          v = mean + sqrtf(fmaxf(sh.var[tid], kVarFloor)) * P.eps2[eps_at(P, t, s, o, b0 + r)];
-          h2o[h_at(P, t, s, b0 + r, o)] = v;
-        }
-        sh.h2[tid * 2 + o] = v;
-      }
-      __syncthreads();
-    }
-    build_k(sh, P, t, 4, sh.h2, nq, nullptr);
-    group_out(sh, P, t, 4, nq, nullptr);
-    if (tid == 0) {
-      const float lg = logf(kTwoPi * noise);
-      for (int q = 0; q < nq; ++q) {
-        const int r = (q0 + q) % nx;
-        const float d = P.y[static_cast<size_t>(t) * P.b + b0 + r] - (sh.mean[q] + P.mbh[t]);
-        total += -0.5f * (lg + (d * d + fmaxf(sh.var[q], kVarFloor)) / noise);
-      }
-    }
-    __syncthreads();
-  }
-  if (tid == 0) partial[static_cast<size_t>(t) * P.ntiles + tile] = total;
 }
 
 __global__ void elbo_sum_kernel(const float* __restrict__ partial, float* __restrict__ dt, int t, int ntiles,
@@ -339,8 +116,8 @@ __global__ void elbo_sum_kernel(const float* __restrict__ partial, float* __rest
 // ---------------------------------------------------------------------------
 // The backward, in phases over whole members (elbo_bwd launches them in
 // turn on one stream):
-//   elbo_bwd_k_kernel       K_xz of every group at every row, into kscr;
-//   elbo_bwd_out_kernel     out = K_xz W of every group (64 x 128 tiles),
+//   elbo_k_kernel           K_xz of every group at every row, into kscr;
+//   elbo_out_kernel         out = K_xz W of every group (64 x 128 tiles),
 //                           into oscr, with each row's sums of squares per
 //                           column tile;
 //   elbo_bwd_head_kernel    the head's row cotangents; outbar into oscr;
@@ -427,16 +204,19 @@ __device__ __forceinline__ const float* group_h(const Params& P, const float* h1
   return (g < 4 ? h1 : h2) + static_cast<size_t>(t) * P.s * P.b * 2;
 }
 
-// K_xz of every group at every row, zero past M: kscr[t][rowbase(g) + r][m]
+// K_xz of groups [g0, g1) at every row, zero past M: kscr[t][rowbase(g) + r][m]
 __global__ void __launch_bounds__(kThreads)
-elbo_bwd_k_kernel(Params P, const float* __restrict__ h1, const float* __restrict__ h2, float* __restrict__ kscr) {
+elbo_k_kernel(Params P, int g0, int g1, const float* __restrict__ h1, const float* __restrict__ h2,
+              float* __restrict__ kscr) {
   const int t = blockIdx.y;
   const size_t rows = scratch_rows(P);
-  const size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= rows * P.kld) return;
+  const size_t first = rowbase(P, g0);
+  const size_t end = g1 < kGroups ? static_cast<size_t>(rowbase(P, g1)) : rows;
+  const size_t e = first * P.kld + static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= end * P.kld) return;
   const int row = static_cast<int>(e / P.kld), m = static_cast<int>(e % P.kld);
-  int g = 0;
-  while (g < kGroups - 1 && row >= rowbase(P, g + 1)) ++g;
+  int g = g0;
+  while (g < g1 - 1 && row >= rowbase(P, g + 1)) ++g;
   float kv = 0.f;
   if (m < P.m) {
     const int tg = t * kGroups + g;
@@ -491,16 +271,19 @@ __device__ __forceinline__ void tile_product(float* ring, int nslab, Load load, 
   __syncthreads();  // the ring is free
 }
 
-// out = K_xz W of group g, one (64-row, 128-column) tile a block: into oscr
-// (row stride P.ld; the columns past P come out zero), and each row's sums
-// of (A S)^2 and A^2 over the tile's columns into the var partial.
+// out = K_xz W of group g (of the groups from g0 on), one (64-row,
+// 128-column) tile a block: each row's sums of (A S)^2 and A^2 over the
+// tile's columns into the var partial; out into oscr if given (row stride
+// P.ld; the columns past P come out zero), and its column 0, the mean, into
+// mom[t][row][0] if given.
 __global__ void __launch_bounds__(kThreads, 2)
-elbo_bwd_out_kernel(Params P, const float* __restrict__ kscr, float* __restrict__ oscr, float* __restrict__ part) {
+elbo_out_kernel(Params P, int g0, const float* __restrict__ kscr, float* __restrict__ oscr, float* __restrict__ part,
+                float* __restrict__ mom) {
   __shared__ __align__(16) float ring[kRing * kSlabFloats];
   const BwdLayout Lb(P.b, P.s);
   const int ct = blockIdx.x, t = blockIdx.z, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int g, tile;
-  group_tile(Lb, 0, blockIdx.y, g, tile);
+  group_tile(Lb, g0, blockIdx.y, g, tile);
   const int tg = t * kGroups + g, nrows = Lb.rows(g), r0 = tile * kRowTile, c0 = ct * kColTile;
   const size_t row0 = static_cast<size_t>(t) * scratch_rows(P) + rowbase(P, g) + r0;
   const float* K = kscr + row0 * P.kld;
@@ -538,13 +321,14 @@ elbo_bwd_out_kernel(Params P, const float* __restrict__ kscr, float* __restrict_
     sas = warp_sum(sas);
     sa = warp_sum(sa);
     if (r < nrows) {
-      if (c0 + lane * 4 < P.ld)
+      if (oscr && c0 + lane * 4 < P.ld)
         *reinterpret_cast<float4*>(oscr + (row0 + warp * 8 + i) * P.ld + c0 + lane * 4) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       if (lane == 0) {
         float* v = var + (static_cast<size_t>(rowbase(P, g) + r) * kMaxCt + ct) * 2;
         v[0] = sas;
         v[1] = sa;
+        if (mom && ct == 0) mom[(row0 + warp * 8 + i) * 2] = acc[i][0];
       }
     }
   }
@@ -565,6 +349,92 @@ __device__ __forceinline__ float row_var(const Params& P, const BwdLayout& Lb, c
     }
   }
   return (P.s2[t * kGroups + g] - sa) + sas;
+}
+
+// ---- the forward's row kernels, a thread a row; mom[t][row] = (mean, the
+//      unclipped variance) of every scratch row, the mean without the prior
+//      mean (column 0 of out) ----
+
+__device__ __forceinline__ float* mom_at(const Params& P, float* mom, int t, int g, int row) {
+  return mom + (static_cast<size_t>(t) * scratch_rows(P) + rowbase(P, g) + row) * 2;
+}
+
+// layer 1 at x row b: each output's variance, mean and its S samples into h1
+__global__ void __launch_bounds__(kThreads)
+elbo_fwd_layer1_kernel(Params P, const float* __restrict__ part, float* __restrict__ mom, float* __restrict__ h1) {
+  const BwdLayout Lb(P.b, P.s);
+  const int t = blockIdx.y, b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= P.b) return;
+  const float x0 = P.x[(static_cast<size_t>(t) * P.b + b) * 2], x1 = P.x[(static_cast<size_t>(t) * P.b + b) * 2 + 1];
+  for (int o = 0; o < 2; ++o) {
+    float* mo = mom_at(P, mom, t, o, b);
+    const float var = row_var(P, Lb, part, t, o, b);
+    mo[1] = var;
+    const float lin = x0 * P.mw1[t * 4 + o] + x1 * P.mw1[t * 4 + 2 + o];
+    const float mean = mo[0] + (lin + P.mb1[t * 2 + o]);
+    const float sd = sqrtf(fmaxf(var, kVarFloor));
+    for (int s = 0; s < P.s; ++s) h1[h_at(P, t, s, b, o)] = mean + sd * P.eps1[eps_at(P, t, s, o, b)];
+  }
+}
+
+// layer 2 at sample row q = s B + b: each output's variance, mean and sample into h2
+__global__ void __launch_bounds__(kThreads)
+elbo_fwd_layer2_kernel(Params P, const float* __restrict__ part, const float* __restrict__ h1,
+                       float* __restrict__ mom, float* __restrict__ h2) {
+  const BwdLayout Lb(P.b, P.s);
+  const int t = blockIdx.y, q = blockIdx.x * kThreads + threadIdx.x;
+  if (q >= Lb.sb) return;
+  const int s = q / P.b, b = q % P.b;
+  const float hq0 = h1[(static_cast<size_t>(t) * Lb.sb + q) * 2], hq1 = h1[(static_cast<size_t>(t) * Lb.sb + q) * 2 + 1];
+  for (int o = 0; o < 2; ++o) {
+    float* mo = mom_at(P, mom, t, 2 + o, q);
+    const float var = row_var(P, Lb, part, t, 2 + o, q);
+    mo[1] = var;
+    const float lin = hq0 * P.mw2[t * 4 + o] + hq1 * P.mw2[t * 4 + 2 + o];
+    const float mean = mo[0] + (lin + P.mb2[t * 2 + o]);
+    h2[h_at(P, t, s, b, o)] = mean + sqrtf(fmaxf(var, kVarFloor)) * P.eps2[eps_at(P, t, s, o, b)];
+  }
+}
+
+// the head at the sample rows of one 64-row tile: each row's variance and
+// expected log-likelihood term, the terms added in row order into
+// lpart[t][tile]
+__global__ void __launch_bounds__(kRowTile)
+elbo_fwd_head_kernel(Params P, const float* __restrict__ part, float* __restrict__ mom, float* __restrict__ lpart) {
+  __shared__ float terms[kRowTile];
+  const BwdLayout Lb(P.b, P.s);
+  const int t = blockIdx.y, tile = blockIdx.x, q = tile * kRowTile + threadIdx.x;
+  float term = 0.f;
+  if (q < Lb.sb) {
+    float* mo = mom_at(P, mom, t, 4, q);
+    const float var = row_var(P, Lb, part, t, 4, q);
+    mo[1] = var;
+    const float noise = P.noise[t];
+    const float d = P.y[static_cast<size_t>(t) * P.b + q % P.b] - (mo[0] + P.mbh[t]);
+    term = -0.5f * (logf(kTwoPi * noise) + (d * d + fmaxf(var, kVarFloor)) / noise);
+  }
+  terms[threadIdx.x] = term;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+    for (int i = 0; i < kRowTile; ++i) sum += terms[i];
+    lpart[static_cast<size_t>(t) * Lb.nt_sb + tile] = sum;
+  }
+}
+
+// mom of every scratch row from the backward's own out scratch (column 0)
+// and var partial: what the backward recomputes, for a check against the
+// forward's
+__global__ void __launch_bounds__(kThreads)
+elbo_moments_kernel(Params P, const float* __restrict__ oscr, const float* __restrict__ part, float* __restrict__ mom) {
+  const BwdLayout Lb(P.b, P.s);
+  const int t = blockIdx.y, row = blockIdx.x * kThreads + threadIdx.x;
+  if (row >= static_cast<int>(scratch_rows(P))) return;
+  int g = 0;
+  while (g < kGroups - 1 && row >= rowbase(P, g + 1)) ++g;
+  float* mo = mom + (static_cast<size_t>(t) * scratch_rows(P) + row) * 2;
+  mo[0] = oscr[(static_cast<size_t>(t) * scratch_rows(P) + row) * P.ld];
+  mo[1] = row_var(P, Lb, part, t, g, row - rowbase(P, g));
 }
 
 // out -> outbar in place at scratch row `row` of group g, one warp, 16
@@ -995,8 +865,6 @@ elbo_bwd_reduce_kernel(Params P, const float* __restrict__ h1, const float* __re
   }
 }
 
-int x_rows_per_tile(int s) { return s >= kR ? 1 : kR / s; }
-
 cudaError_t prepare(Params& P, const void* const* in, int t, int b, int s, int m) {
   if (t < 1 || t * kGroups > 65535 || b < 1 || b > kMaxB || s < 1 || m < 1 || m > kMaxM) return cudaErrorInvalidValue;
   P.x = static_cast<const float*>(in[0]);
@@ -1020,61 +888,77 @@ cudaError_t prepare(Params& P, const void* const* in, int t, int b, int s, int m
   P.p = 2 * m + 1;
   P.ld = (P.p + 3) / 4 * 4;
   P.kld = (m + 3) / 4 * 4;
-  P.xr = x_rows_per_tile(s);
-  P.ntiles = (b + P.xr - 1) / P.xr;
   return cudaSuccess;
 }
 
+// The marginals of groups [g0, g1) at every row, two launches on `st`: K_xz
+// into kscr, then out = K_xz W with each row's sums of squares per column
+// tile into part's var region, out itself into oscr and the means into mom
+// where given.  Both passes call this, so their marginals are the same bits.
+void launch_marginals(const Params& P, int g0, int g1, const float* h1, const float* h2, float* kscr, float* oscr,
+                      float* part, float* mom, cudaStream_t st) {
+  const BwdLayout Lb(P.b, P.s);
+  const size_t end = g1 < kGroups ? static_cast<size_t>(rowbase(P, g1)) : scratch_rows(P);
+  const size_t kel = (end - rowbase(P, g0)) * P.kld;
+  elbo_k_kernel<<<dim3(static_cast<unsigned>((kel + kThreads - 1) / kThreads), P.t), kThreads, 0, st>>>(
+      P, g0, g1, h1, h2, kscr);
+  int tiles = 0;
+  for (int g = g0; g < g1; ++g) tiles += Lb.tiles(g);
+  elbo_out_kernel<<<dim3((P.p + kColTile - 1) / kColTile, tiles, P.t), kThreads, 0, st>>>(P, g0, kscr, oscr, part,
+                                                                                          mom);
+}
 
 }  // namespace
 
 extern "C" {
 
-// tiles of x rows per member (the grid's x extent), and the length of a
-// block's small partial (z-bar, then kSlots scalars)
-int elbo_num_tiles(int b, int s) {
-  const int xr = x_rows_per_tile(s);
-  return (b + xr - 1) / xr;
-}
+// the length of a member's small cotangents (z-bar, then kSlots scalars)
 int elbo_small_len(int m) { return kGroups * m * 2 + kSlots; }
-// the backward's small scratch per member, in floats, and the row strides
-// of its out and K_xz scratch
-int elbo_bwd_partial_len(int b, int s) { return static_cast<int>(BwdLayout(b, s).total); }
+// both passes' small scratch per member, in floats, the forward's
+// log-likelihood tiles per member, and the row strides of the out and K_xz
+// scratch
+int elbo_partial_len(int b, int s) { return static_cast<int>(BwdLayout(b, s).total); }
+int elbo_fwd_tiles(int b, int s) { return BwdLayout(b, s).nt_sb; }
 int elbo_out_ld(int m) { return (2 * m + 1 + 3) / 4 * 4; }
 int elbo_k_ld(int m) { return (m + 3) / 4 * 4; }
-// dynamic shared memory of the forward's row kernel (0) and of the
-// backward's Wbar kernel (1); the others' is static
-int elbo_dyn_smem(int which) {
-  return which == 0 ? static_cast<int>(sizeof(Shared))
-                    : 2 * kRing * kWbarK * kWbarTile * static_cast<int>(sizeof(float));
-}
+// dynamic shared memory of the backward's Wbar kernel; the others' is static
+int elbo_wbar_smem() { return 2 * kRing * kWbarK * kWbarTile * static_cast<int>(sizeof(float)); }
 
-// The forward: partial (T, ntiles) scratch; dt (T,), h1, h2 (T, S, B, 2)
-// out.  Returns the first launch error as an int (0 = launched).
+// The forward: kscr (T, 2B + 3SB, elbo_k_ld(M)), partial (T,
+// elbo_partial_len(B, S)) and lpart (T, elbo_fwd_tiles(B, S)) scratch; mom
+// (T, 2B + 3SB, 2), each scratch row's mean and unclipped variance, dt (T,),
+// h1, h2 (T, S, B, 2) out.  Ten launches in turn on `stream`, one layer a
+// phase; returns the first launch error as an int (0 = launched).
 int elbo_fwd(const void* x, const void* y, const void* eps1, const void* eps2, const void* z, const void* ell,
              const void* s2, const void* w, const void* mw1, const void* mb1, const void* mw2, const void* mb2,
-             const void* mbh, const void* noise, void* partial, void* dt, void* h1, void* h2, int t, int b,
-             int s, int m, void* stream) {
+             const void* mbh, const void* noise, void* kscr, void* partial, void* mom, void* lpart, void* dt,
+             void* h1, void* h2, int t, int b, int s, int m, void* stream) {
   const void* in[14] = {x, y, eps1, eps2, z, ell, s2, w, mw1, mb1, mw2, mb2, mbh, noise};
   Params P;
   cudaError_t e = prepare(P, in, t, b, s, m);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bytes = static_cast<int>(sizeof(Shared));
-  e = cudaFuncSetAttribute(elbo_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  elbo_fwd_kernel<<<dim3(P.ntiles, t), kThreads, bytes, st>>>(P, static_cast<float*>(partial),
-                                                              static_cast<float*>(h1), static_cast<float*>(h2));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  elbo_sum_kernel<<<(t + 127) / 128, 128, 0, st>>>(static_cast<const float*>(partial), static_cast<float*>(dt),
-                                                   t, P.ntiles, static_cast<float>(s) * static_cast<float>(b));
+  const BwdLayout Lb(b, s);
+  float* pk = static_cast<float*>(kscr);
+  float* pp = static_cast<float*>(partial);
+  float* pm = static_cast<float*>(mom);
+  float* lp = static_cast<float*>(lpart);
+  float* ph1 = static_cast<float*>(h1);
+  float* ph2 = static_cast<float*>(h2);
+  launch_marginals(P, 0, 2, ph1, ph2, pk, nullptr, pp, pm, st);
+  elbo_fwd_layer1_kernel<<<dim3((b + kThreads - 1) / kThreads, t), kThreads, 0, st>>>(P, pp, pm, ph1);
+  launch_marginals(P, 2, 4, ph1, ph2, pk, nullptr, pp, pm, st);
+  elbo_fwd_layer2_kernel<<<dim3((Lb.sb + kThreads - 1) / kThreads, t), kThreads, 0, st>>>(P, pp, ph1, pm, ph2);
+  launch_marginals(P, 4, kGroups, ph1, ph2, pk, nullptr, pp, pm, st);
+  elbo_fwd_head_kernel<<<dim3(Lb.nt_sb, t), kRowTile, 0, st>>>(P, pp, pm, lp);
+  elbo_sum_kernel<<<(t + 127) / 128, 128, 0, st>>>(lp, static_cast<float*>(dt), t, Lb.nt_sb,
+                                                   static_cast<float>(s) * static_cast<float>(b));
   return static_cast<int>(cudaGetLastError());
 }
 
 // The backward, given the forward's h1, h2 and the output cotangent gbar
 // (T,): kscr (T, 2B + 3SB, elbo_k_ld(M)), oscr (T, 2B + 3SB,
-// elbo_out_ld(M)) and partial (T, elbo_bwd_partial_len(B, S)) scratch;
+// elbo_out_ld(M)) and partial (T, elbo_partial_len(B, S)) scratch;
 // wbar (T, 5, M, P), small (T, elbo_small_len(M)) and ybar (T, B) out.
 // Ten launches in turn on `stream`; returns the first launch error as an
 // int (0 = launched).
@@ -1094,11 +978,7 @@ int elbo_bwd(const void* x, const void* y, const void* eps1, const void* eps2, c
   float* pk = static_cast<float*>(kscr);
   float* po = static_cast<float*>(oscr);
   float* pp = static_cast<float*>(partial);
-  const size_t kel = scratch_rows(P) * P.kld;
-  elbo_bwd_k_kernel<<<dim3(static_cast<unsigned>((kel + kThreads - 1) / kThreads), t), kThreads, 0, st>>>(
-      P, ph1, ph2, pk);
-  elbo_bwd_out_kernel<<<dim3((P.p + kColTile - 1) / kColTile, 2 * Lb.nt_b + 3 * Lb.nt_sb, t), kThreads, 0, st>>>(
-      P, pk, po, pp);
+  launch_marginals(P, 0, kGroups, ph1, ph2, pk, po, pp, nullptr, st);
   const unsigned sb_blocks = (Lb.sb + kWarps - 1) / kWarps;
   elbo_bwd_head_kernel<<<dim3(sb_blocks, t), kThreads, 0, st>>>(P, static_cast<const float*>(gbar), po, pp);
   elbo_bwd_pull_kernel<<<dim3(2, Lb.nt_sb, t), kThreads, 0, st>>>(P, 4, ph1, ph2, pk, po, pp, Lb.hb_head);
@@ -1108,12 +988,36 @@ int elbo_bwd(const void* x, const void* y, const void* eps1, const void* eps2, c
   elbo_bwd_pull_kernel<<<dim3(2, 2 * Lb.nt_b, t), kThreads, 0, st>>>(P, 0, ph1, ph2, pk, po, pp, 0);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int wbytes = elbo_dyn_smem(1);
+  const int wbytes = elbo_wbar_smem();
   e = cudaFuncSetAttribute(elbo_wbar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wbytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((P.p + kWbarTile - 1) / kWbarTile, (m + kWbarTile - 1) / kWbarTile, t * kGroups);
   elbo_wbar_kernel<<<grid, kWbarThreads, wbytes, st>>>(P, pk, po, static_cast<float*>(wbar));
   elbo_bwd_reduce_kernel<<<t, kThreads, 0, st>>>(P, ph1, pp, static_cast<float*>(small), static_cast<float*>(ybar));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's own recomputation of the marginals, for a check against
+// the forward's: its first two launches (launch_marginals over every
+// group, as elbo_bwd makes them, into kscr, oscr and partial as there),
+// then mom (T, 2B + 3SB, 2) from oscr's column 0 and the var partial.
+// Returns the first launch error as an int (0 = launched).
+int elbo_bwd_moments(const void* x, const void* y, const void* eps1, const void* eps2, const void* z,
+                     const void* ell, const void* s2, const void* w, const void* mw1, const void* mb1,
+                     const void* mw2, const void* mb2, const void* mbh, const void* noise, const void* h1,
+                     const void* h2, void* kscr, void* oscr, void* partial, void* mom, int t, int b, int s, int m,
+                     void* stream) {
+  const void* in[14] = {x, y, eps1, eps2, z, ell, s2, w, mw1, mb1, mw2, mb2, mbh, noise};
+  Params P;
+  cudaError_t e = prepare(P, in, t, b, s, m);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* po = static_cast<float*>(oscr);
+  float* pp = static_cast<float*>(partial);
+  launch_marginals(P, 0, kGroups, static_cast<const float*>(h1), static_cast<const float*>(h2),
+                   static_cast<float*>(kscr), po, pp, nullptr, st);
+  elbo_moments_kernel<<<dim3(static_cast<unsigned>((scratch_rows(P) + kThreads - 1) / kThreads), t), kThreads, 0,
+                        st>>>(P, po, pp, static_cast<float*>(mom));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,24 +8,35 @@
 // The wrappers, the plain PyTorch versions and the design notes are in
 // nonstationary_precip_tpu_torch/ops/matvec.py.
 //
-// Both kernels walk the (rows x columns) Gram in the same way.  A block of
+// K3 and K6 walk the (rows x columns) Gram in the same way.  A block of
 // kRows threads owns kRows consecutive rows, one row per thread, with the
 // row's payload (x_i, l_i) and its accumulators in registers.  The column
 // range is cut into `splits` slices (gridDim.y); a block walks its slice
 // kCols columns at a time, staging the columns' payload (and V's rows, or
 // K3's column factors) in shared memory, where every thread of the block
-// reads the same address (a broadcast).  Each Gram element is built from
-// the plain formula and used at once:
-//   K(i,j) = prod_k sqrt(2 l_ik l_jk / ss_k) * exp(-sum_k (x_ik - x_jk)^2 / ss_k),
-//   ss_k = l_ik^2 + l_jk^2,
-// or, for K6, from the payload z = x / ell that the wrapper prescales once
-// (the TPU kernel's _pack_scaled):
+// reads the same address (a broadcast).  K3 builds each element from the
+// plain formula (gibbs_elem.cuh, IEEE division, sqrtf, expf); K6 from the
+// payload z = x / ell that the wrapper prescales once (the TPU kernel's
+// _pack_scaled):
 //   K(i,j) = exp(-0.5 sum_k (z_ik - z_jk)^2),
 // the quadratic formed from the differences (no cancellation, so no clamp).
+//
+// K2 walks in register tiles of rows: a block of kK2Threads threads owns
+// kK2Rows rows, kK2RowsPerThread a thread (rows tid, tid + kK2Threads, ..),
+// with their payloads and their R accumulators each in registers, so every
+// column payload and V row read from shared memory feeds kK2RowsPerThread
+// elements; at d = 2 and R <= 9 the registers are capped so that
+// kK2MinBlocks blocks share an SM.  Column passes of kCols are double-buffered: the raw payload and
+// V's rows of pass n + 1 come in by cp.async while pass n is computed.  At
+// d = 2 the element is the JAX kernel's own (pallas_matvec.py:118-141):
+//   p = ss_0 ss_1,  rs = rsqrt(p),  quadnum = d_0^2 ss_1 + d_1^2 ss_0,
+//   K = (2 sqrt(l_i0 l_i1)) sqrt(l_j0 l_j1) rs exp(-quadnum rs^2),
+// with the row factors in registers and the column factors made once a pass
+// (gibbs_d2_elem below); every other d keeps gibbs_elem's per-dim element.
+//
 // Each slice writes its partial row sums to a scratch buffer; a second
 // kernel adds the slices in a fixed order.  No atomics: the result is the
-// same bits on every run.  Plain f32 arithmetic, IEEE division and sqrtf /
-// expf (no fast-math intrinsics, no tensor cores).
+// same bits on every run.  No tensor cores.
 
 #include <cuda_runtime.h>
 
@@ -39,10 +50,22 @@ using gibbs::gibbs_elem;
 using gibbs::kMaxD;
 using gibbs::live;
 
-constexpr int kRows = 128;   // threads per block; one row each
+constexpr int kRows = 128;   // K3, K6: threads per block; one row each
 constexpr int kCols = 128;   // columns staged in shared memory per pass
-constexpr int kGroup = 32;   // K2: right-hand sides one block contracts
-constexpr int kMaxR = 128;   // K2: right-hand sides one launch takes
+constexpr int kGroup = 32;   // K2, K6: right-hand sides one block contracts
+constexpr int kMaxR = 128;   // K2, K6: right-hand sides one launch takes
+constexpr int kK2Threads = 256;
+constexpr int kK2RowsPerThread = 2;
+constexpr int kK2Rows = kK2Threads * kK2RowsPerThread;  // rows a K2 block owns
+// K2 blocks an SM the compiler must fit (registers) at d = 2 and R <= 9, the
+// path's shape; elsewhere the accumulators need more registers than that
+// leaves (tools/bench_k2.py times the choices)
+constexpr int kK2MinBlocks = 4;
+constexpr int k2_min_blocks(int d, int rb) { return d == 2 && rb <= 9 ? kK2MinBlocks : 1; }
+// ln 2 and 2 ln 2: the d = 2 element scales its squared lengthscales by
+// ln 2 so that exp(-y) becomes 2^-(y / ln 2) with no multiply an element
+constexpr float kLn2 = 0.693147180559945309f;
+constexpr float kTwoLn2 = 1.386294361119890618f;
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
 
@@ -94,19 +117,17 @@ __device__ __forceinline__ void stage_cols(float (*cp)[W],
   }
 }
 
-// K2 (kRbf false) and K6 (kRbf true, x the prescaled z, l unread).
-// part[s, i, g0 + r] = sum over slice s of K(i, j) v[j, g0 + r], for the
-// rhs group g0 = kGroup * blockIdx.z, r < min(kGroup, rc - g0).
-template <int D, int RB, bool kRbf>
+// K6 (x the prescaled z).  part[s, i, g0 + r] = sum over slice s of
+// K(i, j) v[j, g0 + r], for the rhs group g0 = kGroup * blockIdx.z,
+// r < min(kGroup, rc - g0).
+template <int D, int RB>
 __global__ void __launch_bounds__(kRows)
-gibbs_matvec_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
-                    int n1, const float* __restrict__ x2,
-                    const float* __restrict__ l2, int n2,
-                    const float* __restrict__ v, int ldv, int rc, int d,
-                    int cols_per_split, float* __restrict__ part) {
+rbf_matvec_kernel(const float* __restrict__ x1, int n1,
+                  const float* __restrict__ x2, int n2,
+                  const float* __restrict__ v, int ldv, int rc, int d,
+                  int cols_per_split, float* __restrict__ part) {
   constexpr int RP = pad4(RB);
-  constexpr int W = kRbf ? D : 2 * D;
-  __shared__ __align__(16) float cp[kCols][W];
+  __shared__ __align__(16) float cp[kCols][D];
   __shared__ __align__(16) float vs[kCols][RP];
   const int i = blockIdx.x * kRows + threadIdx.x;
   const int s = blockIdx.y;
@@ -114,7 +135,7 @@ gibbs_matvec_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
   const int gw = min(kGroup, rc - g0);  // <= RB by the host's choice of RB
   const bool active = i < n1;
   float xi[D], li[D];
-  load_row<D>(x1, kRbf ? x1 : l1, i, active, d, xi, li);  // K6: li unused
+  load_row<D>(x1, x1, i, active, d, xi, li);  // li unused
   float acc[RB];
 #pragma unroll
   for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
@@ -124,7 +145,7 @@ gibbs_matvec_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
   for (int c0 = c_begin; c0 < c_end; c0 += kCols) {
     const int jn = min(kCols, c_end - c0);
     __syncthreads();  // the previous pass is done with cp / vs
-    stage_cols<D, W>(cp, x2, l2, c0, jn, d);
+    stage_cols<D, D>(cp, x2, x2, c0, jn, d);
     for (int e = threadIdx.x; e < jn * RP; e += kRows) {
       const int j = e / RP;
       const int r = e % RP;
@@ -134,13 +155,7 @@ gibbs_matvec_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
     if (active) {
 #pragma unroll 2
       for (int j = 0; j < jn; ++j) {
-        float kij;
-        if constexpr (kRbf) {
-          kij = rbf_elem<D>(xi, &cp[j][0], d);
-        } else {
-          float diff[D], inv_ss[D];
-          kij = gibbs_elem<D>(xi, li, &cp[j][0], &cp[j][D], d, diff, inv_ss);
-        }
+        const float kij = rbf_elem<D>(xi, &cp[j][0], d);
 #pragma unroll
         for (int r = 0; r < RB; ++r) acc[r] = fmaf(kij, vs[j][r], acc[r]);
       }
@@ -154,7 +169,209 @@ gibbs_matvec_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
   }
 }
 
-// K2, second pass: out[i, r] = sum_s part[s, i, r], s in order.
+// ---- K2 ----
+
+// 4-byte cp.async into shared memory; a copy that is not valid zero-fills
+// (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The special-function unit's approximations, one MUFU operation each
+// (PTX ISA: rsqrt.approx.f32 and ex2.approx.f32, relative error about
+// 2^-22 to 2^-23; .ftz flushes subnormal inputs and results to zero, so an
+// element below 2^-126 of its prefactor becomes 0).
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// K2's d = 2 element, the JAX kernel's rewrite with its squared
+// lengthscales prescaled by ln 2: from the row factors (x_i, q_i =
+// l_i^2 ln 2, n_i = 2 ln 2 sqrt(l_i0 l_i1)) and the column factors (x_j,
+// q_j = l_j^2 ln 2, n_j = sqrt(l_j0 l_j1)),
+//   s_k = q_ik + q_jk = ss_k ln 2,  rs = rsqrt(s_0 s_1) = rsqrt(p) / ln 2,
+//   y = (d_0^2 s_1 + d_1^2 s_0) rs^2 = quadnum / p / ln 2,
+//   K = (n_i n_j) rs 2^-y = 2 sqrt(l_i0 l_i1 l_j0 l_j1) rsqrt(p) exp(-quadnum / p):
+// 15 f32 operations (an FMA as 2) and 2 special-function ones.
+__device__ __forceinline__ float gibbs_d2_elem(float xi0, float xi1, float qi0,
+                                               float qi1, float ni,
+                                               const float4& cj, float nj) {
+  const float s0 = qi0 + cj.z;
+  const float s1 = qi1 + cj.w;
+  const float rs = rsqrt_approx(s0 * s1);
+  const float d0 = xi0 - cj.x;
+  const float d1 = xi1 - cj.y;
+  const float y = fmaf(d1 * d1, s0, (d0 * d0) * s1) * (rs * rs);
+  return ((ni * nj) * rs) * exp2_approx(-y);
+}
+
+// Shared memory of a K2 block, in floats: the raw column payload (x, then
+// l, kCols * D each) and V's rows (kCols * pad4(RB)) of two passes, then at
+// d = 2 the column factors of the current pass (x_j, q_j as a float4 and
+// n_j).
+template <int D, int RB>
+struct RowsSmem {
+  static constexpr int kRaw = 2 * kCols * D;
+  static constexpr int kV = kCols * pad4(RB);
+  static constexpr int kStage = kRaw + kV;
+  static constexpr int kCook = D == 2 ? 5 * kCols : 0;
+  static constexpr int kFloats = 2 * kStage + kCook;
+};
+
+// K2.  part[s, i, g0 + r] as rbf_matvec_kernel's, the Gibbs element, with
+// thread tid owning rows blockIdx.x * kK2Rows + tid + u * kK2Threads,
+// u < kK2RowsPerThread.
+template <int D, int RB>
+__global__ void __launch_bounds__(kK2Threads, k2_min_blocks(D, RB))
+gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
+                  int n1, const float* __restrict__ x2,
+                  const float* __restrict__ l2, int n2,
+                  const float* __restrict__ v, int ldv, int rc, int d,
+                  int cols_per_split, float* __restrict__ part) {
+  constexpr int RP = pad4(RB);
+  constexpr int TR = kK2RowsPerThread;
+  using S = RowsSmem<D, RB>;
+  __shared__ __align__(16) float sm[S::kFloats];
+  const int tid = threadIdx.x;
+  const int s = blockIdx.y;
+  const int g0 = blockIdx.z * kGroup;
+  const int gw = min(kGroup, rc - g0);  // <= RB by the host's choice of RB
+  const int row0 = blockIdx.x * kK2Rows + tid;
+
+  // the rows' payloads; an inactive row gets x = 0, l = 1
+  float xi[TR][D], li[TR][D];
+#pragma unroll
+  for (int u = 0; u < TR; ++u) {
+    const int i = row0 + u * kK2Threads;
+    load_row<D>(x1, l1, i, i < n1, d, xi[u], li[u]);
+  }
+  float qi0[TR], qi1[TR], ni[TR];  // d = 2: the element's row factors
+  if constexpr (D == 2) {
+#pragma unroll
+    for (int u = 0; u < TR; ++u) {
+      qi0[u] = (li[u][0] * li[u][0]) * kLn2;
+      qi1[u] = (li[u][1] * li[u][1]) * kLn2;
+      ni[u] = sqrtf(li[u][0] * li[u][1]) * kTwoLn2;
+    }
+  }
+  float acc[TR][RB];
+#pragma unroll
+  for (int u = 0; u < TR; ++u)
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[u][r] = 0.0f;
+
+  const int c_begin = s * cols_per_split;
+  const int c_end = min(n2, c_begin + cols_per_split);
+  const int npass = (c_end - c_begin + kCols - 1) / kCols;
+  // pass n's columns [c0, c0 + jn) into stage b: x and l at [j * D + k]
+  // (dims past d unread), V's rows at [j * RP + r] (columns past jn and
+  // right-hand sides past gw zero)
+  auto stage = [&](int n, int b) {
+    float* xs = sm + b * S::kStage;
+    float* ls = xs + kCols * D;
+    float* vs = xs + S::kRaw;
+    const int c0 = c_begin + n * kCols;
+    const int jn = min(kCols, c_end - c0);
+    for (int e = tid; e < kCols * d; e += kK2Threads) {
+      const int j = e / d, k = e % d;
+      const bool ok = j < jn;
+      const size_t g = static_cast<size_t>(c0 + j) * d + k;
+      cp_async4(xs + j * D + k, ok ? x2 + g : x2, ok);
+      cp_async4(ls + j * D + k, ok ? l2 + g : l2, ok);
+    }
+    for (int e = tid; e < kCols * RP; e += kK2Threads) {
+      const int j = e / RP, r = e % RP;
+      const bool ok = j < jn && r < gw;
+      cp_async4(vs + e, ok ? v + static_cast<size_t>(c0 + j) * ldv + g0 + r : v, ok);
+    }
+    cp_async_commit();
+  };
+
+  stage(0, 0);
+  for (int n = 0; n < npass; ++n) {
+    const int b = n & 1;
+    cp_async_wait_all();
+    __syncthreads();  // pass n has landed; every thread is done with pass n - 1
+    if (n + 1 < npass) stage(n + 1, b ^ 1);
+    const float* xs = sm + b * S::kStage;
+    const float* ls = xs + kCols * D;
+    const float* vs = xs + S::kRaw;
+    if constexpr (D == 2) {
+      // the column factors, once a pass; a zero-filled column past the
+      // slice's end gets n_j = 0, so its element is 0
+      float4* cq = reinterpret_cast<float4*>(sm + 2 * S::kStage);
+      float* cn = sm + 2 * S::kStage + 4 * kCols;
+      for (int j = tid; j < kCols; j += kK2Threads) {
+        const float l0 = ls[2 * j], l1j = ls[2 * j + 1];
+        cq[j] = make_float4(xs[2 * j], xs[2 * j + 1], (l0 * l0) * kLn2, (l1j * l1j) * kLn2);
+        cn[j] = sqrtf(l0 * l1j);
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int j = 0; j < kCols; ++j) {
+        const float4 cj = cq[j];
+        const float nj = cn[j];
+        float vj[RP];
+#pragma unroll
+        for (int r = 0; r < RP; r += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(vs + j * RP + r);
+          vj[r] = t.x;
+          vj[r + 1] = t.y;
+          vj[r + 2] = t.z;
+          vj[r + 3] = t.w;
+        }
+#pragma unroll
+        for (int u = 0; u < TR; ++u) {
+          const float kij = gibbs_d2_elem(xi[u][0], xi[u][1], qi0[u], qi1[u], ni[u], cj, nj);
+#pragma unroll
+          for (int r = 0; r < RB; ++r) acc[u][r] = fmaf(kij, vj[r], acc[u][r]);
+        }
+      }
+    } else {
+      // the per-dim element; a zero-filled column has l_j = 0, so its
+      // element is 0
+#pragma unroll 2
+      for (int j = 0; j < kCols; ++j) {
+#pragma unroll
+        for (int u = 0; u < TR; ++u) {
+          float diff[D], inv_ss[D];
+          const float kij = gibbs_elem<D>(xi[u], li[u], xs + j * D, ls + j * D, d, diff, inv_ss);
+#pragma unroll
+          for (int r = 0; r < RB; ++r) acc[u][r] = fmaf(kij, vs[j * RP + r], acc[u][r]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < TR; ++u) {
+    const int i = row0 + u * kK2Threads;
+    if (i < n1) {
+      float* out = part + (static_cast<size_t>(s) * n1 + i) * rc + g0;
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        if (r < gw) out[r] = acc[u][r];
+    }
+  }
+}
+
+// K2 and K6, second pass: out[i, r] = sum_s part[s, i, r], s in order.
 __global__ void sum_splits_kernel(const float* __restrict__ part, int splits,
                                   int n1, int rc, float* __restrict__ out,
                                   int ldo) {
@@ -279,36 +496,43 @@ struct MatvecArgs {
   int n1, n2, d, ldv, rc, ldo, splits, cols_per_split;
 };
 
-template <int D, int RB, bool kRbf>
+// K2 (kK2 true: gibbs_rows_kernel) or K6 (rbf_matvec_kernel)
+template <bool kK2, int D, int RB>
 void launch_matvec(const MatvecArgs& a, cudaStream_t s) {
-  const dim3 grid((a.n1 + kRows - 1) / kRows, a.splits,
+  const int rows = kK2 ? kK2Rows : kRows;
+  const dim3 grid((a.n1 + rows - 1) / rows, a.splits,
                   (a.rc + kGroup - 1) / kGroup);
-  gibbs_matvec_kernel<D, RB, kRbf><<<grid, kRows, 0, s>>>(
-      a.x1, a.l1, a.n1, a.x2, a.l2, a.n2, a.v, a.ldv, a.rc, a.d,
-      a.cols_per_split, a.part);
+  if constexpr (kK2)
+    gibbs_rows_kernel<D, RB><<<grid, kK2Threads, 0, s>>>(
+        a.x1, a.l1, a.n1, a.x2, a.l2, a.n2, a.v, a.ldv, a.rc, a.d,
+        a.cols_per_split, a.part);
+  else
+    rbf_matvec_kernel<D, RB><<<grid, kRows, 0, s>>>(
+        a.x1, a.n1, a.x2, a.n2, a.v, a.ldv, a.rc, a.d, a.cols_per_split,
+        a.part);
 }
 
-// Accumulators per thread: the smallest bucket that holds one rhs group
+// Accumulators per row: the smallest bucket that holds one rhs group
 // (mBCG's 1 + 8 probes take 9 exactly).
-template <int D, bool kRbf>
+template <bool kK2, int D>
 void matvec_rb(const MatvecArgs& a, cudaStream_t s) {
   const int w = a.rc < kGroup ? a.rc : kGroup;
-  if (w <= 1) launch_matvec<D, 1, kRbf>(a, s);
-  else if (w <= 4) launch_matvec<D, 4, kRbf>(a, s);
-  else if (w <= 9) launch_matvec<D, 9, kRbf>(a, s);
-  else if (w <= 16) launch_matvec<D, 16, kRbf>(a, s);
-  else launch_matvec<D, kGroup, kRbf>(a, s);
+  if (w <= 1) launch_matvec<kK2, D, 1>(a, s);
+  else if (w <= 4) launch_matvec<kK2, D, 4>(a, s);
+  else if (w <= 9) launch_matvec<kK2, D, 9>(a, s);
+  else if (w <= 16) launch_matvec<kK2, D, 16>(a, s);
+  else launch_matvec<kK2, D, kGroup>(a, s);
 }
 
-// The launches of K2 (kRbf false) or K6: the kernel, then the fixed-order
-// sum of the column slices.
-template <bool kRbf>
+// The launches of K2 or K6: the kernel, then the fixed-order sum of the
+// column slices.
+template <bool kK2>
 int run_matvec(const MatvecArgs& a, cudaStream_t s) {
   switch (a.d) {
-    case 1: matvec_rb<1, kRbf>(a, s); break;
-    case 2: matvec_rb<2, kRbf>(a, s); break;
-    case 3: matvec_rb<3, kRbf>(a, s); break;
-    default: matvec_rb<kMaxD, kRbf>(a, s); break;
+    case 1: matvec_rb<kK2, 1>(a, s); break;
+    case 2: matvec_rb<kK2, 2>(a, s); break;
+    case 3: matvec_rb<kK2, 3>(a, s); break;
+    default: matvec_rb<kK2, kMaxD>(a, s); break;
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -370,7 +594,7 @@ int gibbs_matvec(const void* x1, const void* l1, int n1, const void* x2,
                      static_cast<const float*>(v),  static_cast<float*>(out),
                      static_cast<float*>(part),     n1, n2, d, ldv, rc, ldo,
                      splits, cols_per_split};
-  return run_matvec<false>(a, static_cast<cudaStream_t>(stream));
+  return run_matvec<true>(a, static_cast<cudaStream_t>(stream));
 }
 
 // K6.  z1: (n1, d) and z2: (n2, d), the prescaled x / ell; v, out and part
@@ -385,7 +609,7 @@ int rbf_matvec(const void* z1, int n1, const void* z2, int n2, int d,
   const MatvecArgs a{pz1, pz1, pz2, pz2, static_cast<const float*>(v),
                      static_cast<float*>(out), static_cast<float*>(part),
                      n1, n2, d, ldv, rc, ldo, splits, cols_per_split};
-  return run_matvec<true>(a, static_cast<cudaStream_t>(stream));
+  return run_matvec<false>(a, static_cast<cudaStream_t>(stream));
 }
 
 // K3.  Rows xr, lr: (nr, d), f1r: (nr, fw); columns xc, lc: (n, d),

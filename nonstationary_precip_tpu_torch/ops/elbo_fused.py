@@ -35,17 +35,21 @@ that (out again, outbar·Wᵀ, and W̄ = K_xzᵀ·outbar); W (25 MB) is read onc
 and W̄ written once, so both passes are bound by operations: ≥ 0.13 ms and
 ≥ 0.39 ms at 67 TFLOP/s.
 
-What the design does about it (``csrc/elbo_fused.cu``).  The forward: a
-block owns one member and a tile of x rows with all S samples of each, so
-the whole per-row chain, layer 1 → layer 2 → head → likelihood, runs in
-one block with no global synchronisation; layer-2 and head rows go through
-in chunks of 32 sample rows.  W does not fit in shared memory and is
-streamed from L2 column by column; K_xz sits in shared memory, and ``out``
-is reduced on the fly to the mean, Σ(A·S)² and ΣA², so it never reaches
-device memory.  The backward runs in phases over whole members, one layer
-a launch, so that each of its three products is one large, evenly spread
-GEMM: K_xz and out = K_xz·W of every group at every row (64 × 128 tiles),
-then the chain backwards (the head's row cotangents; its pullback
+What the design does about it (``csrc/elbo_fused.cu``).  Both passes run
+in phases over whole members, one layer a launch, so that each product is
+one large, evenly spread GEMM, and they share the marginals' two kernels:
+K_xz of a layer's groups at every row, then out = K_xz·W over every member
+and group of the layer (64 × 128 tiles), with each row's Σ(A·S)² and ΣA²
+per column tile as its epilogue, added in tile order.  So the forward's
+per-row means and variances are the backward's to the bit
+(``forward_moments`` and ``backward_moments`` give both).  The forward: the
+marginals of layer 1 at the x rows, then a row kernel (the mean, the
+variance and h₁ = m₁ + √v₁·ε₁ of every sample); the same at the sample rows
+for layer 2 (h₂) and for the head, whose row kernel adds each 64-row tile's
+expected log-likelihood terms; then the tiles in order into the data term:
+ten launches.  ``out`` never reaches scratch in the forward; K_xz does
+(~3.5 MB a member).  The backward: K_xz and out of every group at every
+row, then the chain backwards (the head's row cotangents; its pullback
 kbar = outbar·Wᵀ in 64-row × 128-inducing-point tiles, with g = kbar·K_xz,
 the input cotangent and the column sums of g in the epilogue; layer 2's;
 its pullback; layer 1's, summed over each x row's samples; its pullback),
@@ -67,9 +71,10 @@ cotangent where the unclipped variance is ≤ 1e-10.
 Dispatch: on a CPU tensor ``fused_data_term`` runs the plain version
 (``reference_fwd``, ``reference_bwd``: the JAX package's ``_reference_fwd``
 and hand-derived ``_reference_bwd``, batched over members); on a CUDA
-tensor the kernels, or it raises.  ``LAUNCHES`` counts calls of the two
+tensor the kernels, or it raises.  ``LAUNCHES`` counts calls of the
 wrappers: one per forward pass and one per backward pass, whatever number
-of CUDA kernels each launches back to back (two a forward, ten a backward).
+of CUDA kernels each launches back to back (ten each), and one per call of
+``backward_moments``, which no path makes.
 """
 
 from __future__ import annotations
@@ -97,7 +102,7 @@ VAR_FLOOR = 1e-10
 #: Wrapper calls so far in this process, one per forward and one per
 #: backward pass; a run reads them to show that its main path went through
 #: the kernels.
-LAUNCHES = {"elbo_data_term_fwd": 0, "elbo_data_term_bwd": 0}
+LAUNCHES = {"elbo_data_term_fwd": 0, "elbo_data_term_bwd": 0, "elbo_bwd_moments": 0}
 
 SOURCE = CSRC / "elbo_fused.cu"
 
@@ -267,13 +272,15 @@ def build(force: bool = False) -> str:
     global _lib
     lib, log = build_library(SOURCE, force)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.elbo_fwd.argtypes = [p] * 14 + [p, p, p, p] + [i] * 4 + [p]
+    lib.elbo_fwd.argtypes = [p] * 14 + [p] * 7 + [i] * 4 + [p]
     lib.elbo_bwd.argtypes = [p] * 14 + [p, p, p] + [p] * 6 + [i] * 4 + [p]
-    lib.elbo_num_tiles.argtypes = lib.elbo_bwd_partial_len.argtypes = [i, i]
-    for fn in (lib.elbo_small_len, lib.elbo_out_ld, lib.elbo_k_ld, lib.elbo_dyn_smem):
+    lib.elbo_bwd_moments.argtypes = [p] * 14 + [p] * 6 + [i] * 4 + [p]
+    lib.elbo_partial_len.argtypes = lib.elbo_fwd_tiles.argtypes = [i, i]
+    for fn in (lib.elbo_small_len, lib.elbo_out_ld, lib.elbo_k_ld):
         fn.argtypes = [i]
-    for fn in (lib.elbo_fwd, lib.elbo_bwd, lib.elbo_num_tiles, lib.elbo_bwd_partial_len, lib.elbo_small_len,
-               lib.elbo_out_ld, lib.elbo_k_ld, lib.elbo_dyn_smem):
+    lib.elbo_wbar_smem.argtypes = []
+    for fn in (lib.elbo_fwd, lib.elbo_bwd, lib.elbo_bwd_moments, lib.elbo_partial_len, lib.elbo_fwd_tiles,
+               lib.elbo_small_len, lib.elbo_out_ld, lib.elbo_k_ld, lib.elbo_wbar_smem):
         fn.restype = i
     _lib = lib
     return log
@@ -284,7 +291,7 @@ def dynamic_smem() -> dict:
     (built first if need be); the others' is static, in nvcc's report."""
     if _lib is None:
         build()
-    return {"elbo_fwd_kernel": _lib.elbo_dyn_smem(0), "elbo_wbar_kernel": _lib.elbo_dyn_smem(1)}
+    return {"elbo_wbar_kernel": _lib.elbo_wbar_smem()}
 
 
 def _check_inputs(x, y, eps1, eps2, params, noise, extra=()):
@@ -321,27 +328,80 @@ def _pointers(x, y, eps1, eps2, params, noise):
     return [a.data_ptr() for a in (x, y, eps1, eps2, *(params[k] for k in PARAM_KEYS), noise)]
 
 
-def elbo_fwd_cuda(x, y, eps1, eps2, params, noise):
-    """The forward kernels' wrapper: (data term (T,), h₁ (T, S, B, 2),
-    h₂ (T, S, B, 2)) from one call on the current stream; h₁ and h₂ are the
-    sampled layer outputs the backward reads.  Raises on anything the
-    kernel does not take; no autograd."""
+def _scratch(t, b, s, m, opts, out: bool):
+    """Both passes' scratch: K_xz (T, 2B + 3SB, round4(M)), out's rows
+    (T, 2B + 3SB, round4(2M + 1)) where ``out``, and the small partials."""
+    rows = 2 * b + 3 * s * b  # scratch rows per member: B per layer-1 group, S·B per other group
+    kscr = torch.empty((t, rows, _lib.elbo_k_ld(m)), **opts)  # rows 16-byte aligned
+    oscr = torch.empty((t, rows, _lib.elbo_out_ld(m)), **opts) if out else None  # out, then outbar
+    return kscr, oscr, torch.empty((t, _lib.elbo_partial_len(b, s)), **opts)
+
+
+def forward_moments(x, y, eps1, eps2, params, noise):
+    """The forward kernels' wrapper with what their row kernels keep: (data
+    term (T,), h₁ (T, S, B, 2), h₂ (T, S, B, 2), moments (T, 2B + 3SB, 2)),
+    the last each scratch row's mean (without the prior mean) and
+    unclipped variance, rows B per layer-1 group and S·B (q = s·B + b) per
+    other group, in group order.  One call on the current stream; raises on
+    anything the kernels do not take; no autograd."""
     t, b, s, m = _check_inputs(x, y, eps1, eps2, params, noise)
     if _lib is None:
         build()
     opts = dict(dtype=x.dtype, device=x.device)
-    partial = torch.empty((t, _lib.elbo_num_tiles(b, s)), **opts)
+    kscr, _, partial = _scratch(t, b, s, m, opts, out=False)
+    lpart = torch.empty((t, _lib.elbo_fwd_tiles(b, s)), **opts)
+    mom = torch.empty((t, kscr.shape[1], 2), **opts)
     dt = torch.empty(t, **opts)
     h1 = torch.empty((t, s, b, 2), **opts)
     h2 = torch.empty_like(h1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib.elbo_fwd(*_pointers(x, y, eps1, eps2, params, noise), partial.data_ptr(), dt.data_ptr(),
-                            h1.data_ptr(), h2.data_ptr(), t, b, s, m, stream)
+        err = _lib.elbo_fwd(*_pointers(x, y, eps1, eps2, params, noise), kscr.data_ptr(), partial.data_ptr(),
+                            mom.data_ptr(), lpart.data_ptr(), dt.data_ptr(), h1.data_ptr(), h2.data_ptr(),
+                            t, b, s, m, stream)
     if err != 0:
         raise RuntimeError(f"elbo_data_term forward kernel launch failed: CUDA error {err}")
     LAUNCHES["elbo_data_term_fwd"] += 1
-    return dt, h1, h2
+    return dt, h1, h2, mom
+
+
+def elbo_fwd_cuda(x, y, eps1, eps2, params, noise):
+    """The forward kernels' wrapper: (data term (T,), h₁ (T, S, B, 2),
+    h₂ (T, S, B, 2)) from one call on the current stream; h₁ and h₂ are the
+    sampled layer outputs the backward reads.  Raises on anything the
+    kernels do not take; no autograd."""
+    return forward_moments(x, y, eps1, eps2, params, noise)[:3]
+
+
+def _check_h(t, b, s, h1, h2, gbar=None):
+    if tuple(h1.shape) != (t, s, b, 2) or tuple(h2.shape) != (t, s, b, 2) or (
+            gbar is not None and tuple(gbar.shape) != (t,)):
+        raise ValueError(f"elbo_data_term backward: h1 {tuple(h1.shape)}, h2 {tuple(h2.shape)} and gbar "
+                         f"{None if gbar is None else tuple(gbar.shape)} do not match T={t}, S={s}, B={b}")
+
+
+def backward_moments(x, y, eps1, eps2, params, noise, h1, h2):
+    """The backward's own recomputation of every scratch row's (mean,
+    unclipped variance), as :func:`forward_moments` gives the forward's:
+    the backward's first two launches at the forward's h₁ and h₂, then the
+    means from out's column 0 and the variances from its partials.  For a
+    check; no path calls it."""
+    t, b, s, m = _check_inputs(x, y, eps1, eps2, params, noise, (("h1", h1), ("h2", h2)))
+    _check_h(t, b, s, h1, h2)
+    if _lib is None:
+        build()
+    opts = dict(dtype=x.dtype, device=x.device)
+    kscr, oscr, partial = _scratch(t, b, s, m, opts, out=True)
+    mom = torch.empty((t, kscr.shape[1], 2), **opts)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib.elbo_bwd_moments(*_pointers(x, y, eps1, eps2, params, noise), h1.data_ptr(), h2.data_ptr(),
+                                    kscr.data_ptr(), oscr.data_ptr(), partial.data_ptr(), mom.data_ptr(),
+                                    t, b, s, m, stream)
+    if err != 0:
+        raise RuntimeError(f"elbo_data_term backward moments launch failed: CUDA error {err}")
+    LAUNCHES["elbo_bwd_moments"] += 1
+    return mom
 
 
 def elbo_bwd_cuda(x, y, eps1, eps2, params, noise, h1, h2, gbar):
@@ -350,18 +410,13 @@ def elbo_bwd_cuda(x, y, eps1, eps2, params, noise, h1, h2, gbar):
     call on the current stream, given the forward's h₁ and h₂.  Raises on
     anything the kernel does not take; no autograd."""
     t, b, s, m = _check_inputs(x, y, eps1, eps2, params, noise, (("h1", h1), ("h2", h2), ("gbar", gbar)))
-    if tuple(h1.shape) != (t, s, b, 2) or tuple(h2.shape) != (t, s, b, 2) or tuple(gbar.shape) != (t,):
-        raise ValueError(f"elbo_data_term backward: h1 {tuple(h1.shape)}, h2 {tuple(h2.shape)} and gbar "
-                         f"{tuple(gbar.shape)} do not match T={t}, S={s}, B={b}")
+    _check_h(t, b, s, h1, h2, gbar)
     if _lib is None:
         build()
     p = 2 * m + 1
-    rows = 2 * b + 3 * s * b  # scratch rows per member: B per layer-1 group, S·B per other group
     kp = _lib.elbo_small_len(m)
     opts = dict(dtype=x.dtype, device=x.device)
-    kscr = torch.empty((t, rows, _lib.elbo_k_ld(m)), **opts)  # rows 16-byte aligned
-    oscr = torch.empty((t, rows, _lib.elbo_out_ld(m)), **opts)  # out, then outbar; rows 16-byte aligned
-    partial = torch.empty((t, _lib.elbo_bwd_partial_len(b, s)), **opts)
+    kscr, oscr, partial = _scratch(t, b, s, m, opts, out=True)
     wbar = torch.empty((t, 5, m, p), **opts)
     small = torch.empty((t, kp), **opts)
     ybar = torch.empty((t, b), **opts)

@@ -19,30 +19,48 @@ with nvcc at first use (``ops/cuda_build.py``) and bound through ctypes.
 What bounds them on an H100.  All three are compute-bound.  They read O(N·(2D+R))
 bytes and do O(N²) work: at N = 16384, D = 2, R = 9 a K2 call reads 1.4 MB
 (0.4 µs at 3.35 TB/s) but builds 2.7·10⁸ Gram elements.  Per element and
-dimension the tile costs ~10 f32 operations, one IEEE division and one
-``sqrtf``; then one ``expf`` and the contraction, 2R flops for K2 and
-2(1 + 2R) + 6D for K3 (the cotangent's factors and the pullbacks).  The
-division, the square root and the exponential run partly on the SM's
-special-function units, a sixteenth of its FP32 rate, so they, and not the
-FMAs, may well set the pace.  ``chip_smoke.py`` reports the flop bound
-(operations counted as below, over 67 TFLOP/s) beside the measured time.
+dimension K3's tile costs ~10 f32 operations, one IEEE division and one
+``sqrtf``; then one ``expf`` and the contraction, 2(1 + 2R) + 6D.  K2's d = 2
+element costs 15 f32 operations (an FMA as 2) and 2 on the special-function
+units (SFU, 16 a clock an SM, a sixteenth of the FP32 lanes' rate), then
+the 2R of the contraction.  ``chip_smoke.py`` reports the FP32 bound
+(operations counted as below, over 67 TFLOP/s) and, for K2, the SFU bound
+(its two SFU operations an element over 16 a clock × 132 SMs at
+nvidia-smi's maximum SM clock) beside the measured time; K2's bound is the
+larger.
 
 What the design does about it.  K never reaches memory: each element is
-built in registers and contracted at once.  One thread owns one row, with
-the row's payload and its R (K2) or 1 + 2D (K3) accumulators in registers,
-so the inner loop is arithmetic on registers plus broadcast reads of the
-column payload from shared memory.  Accumulators are templated on R's
-bucket, so mBCG's R = 9 keeps exactly 9.  The column range is split over
-blocks until the card holds ~8 blocks per SM, and a second pass adds the
-slices in a fixed order: no float atomics, so a result is the same bits on
-every run.  Not carried over from the TPU: the (N, 128) lane packing and
-padded rows (the kernel masks the ragged edge), the MXU contraction modes
-(plain f32 FMAs, no tensor cores, no TF32, no fast-math intrinsics), and
-the d = 2 single-rsqrt rewrite, an optimisation left for later.
+built in registers and contracted at once.  K3 and K6: one thread owns one
+row, with the row's payload and its R (K6) or 1 + 2D (K3) accumulators in
+registers, so the inner loop is arithmetic on registers plus broadcast
+reads of the column payload from shared memory.  K2: one thread owns
+K2_ROWS_PER_THREAD rows (blocks of 256 threads, K2_ROWS rows), with their
+payloads and R accumulators each in registers, so each column payload and
+V row read from shared memory feeds two elements; at the path's d = 2 and
+R ≤ 9 the registers are capped at 64 so that four blocks share an SM (4
+rows a thread took 4–5 % longer on an H100, ``tools/bench_k2.py``);
+column passes are double-buffered through ``cp.async``, so staging
+overlaps the arithmetic.
+Its d = 2 element is the JAX kernel's own rewrite (``pallas_matvec.py:118-141``):
+one rsqrt(ss₀·ss₁) whose square is the reciprocal, the numerator
+√(∏ 2ℓ_ik ℓ_jk) split into a row factor and a column factor, each made once
+(the row's in registers, the column's once a pass), and, beyond JAX, the
+squared lengthscales prescaled by ln 2 so that exp becomes one ``ex2``:
+rsqrt and exp2 are the SFU's approximations (``rsqrt.approx.ftz``,
+``ex2.approx.ftz``, ~2⁻²² relative each; ``chip_smoke.py`` holds K2 to
+float64).  Every other d keeps the per-dim element of ``gibbs_elem.cuh``
+(IEEE division, ``sqrtf``, ``expf``), as the JAX package does.
+Accumulators are templated on R's bucket, so mBCG's R = 9 keeps exactly 9.
+The column range is split over blocks until the card holds ~8 blocks per
+SM, and a second pass adds the slices in a fixed order: no float atomics,
+so a result is the same bits on every run.  Not carried over from the TPU:
+the (N, 128) lane packing and padded rows (the kernels mask the ragged
+edge) and the MXU contraction modes (plain f32 FMAs, no tensor cores, no
+TF32).
 
-K6 is K2's kernel with another element: the wrapper prescales z = x/ℓ once
-per build (the TPU kernel's ``_pack_scaled``), the column payload is z
-alone, and each element is exp(−½ Σ_k (z_ik − z_jk)²), its quadratic formed
+K6 walks as K3 does (a thread a row, ``rbf_matvec_kernel``), with its own
+element: the wrapper prescales z = x/ℓ once per build (the TPU kernel's
+``_pack_scaled``), the column payload is z alone, and each element is exp(−½ Σ_k (z_ik − z_jk)²), its quadratic formed
 from the differences, where the TPU kernel (and the plain version here)
 uses ‖a‖² + ‖b‖² − 2a·b clamped at 0.  Per element it costs 3D + 2
 operations and one ``expf`` before the 2R of the contraction: far less than
@@ -76,9 +94,11 @@ SOURCE = CSRC / "gibbs_matvec.cu"
 MAX_D = 8  # input dims the kernels take
 MAX_R = 128  # K2, K6: right-hand sides one launch takes; wider V is column-chunked
 MAX_FACTORS = 65  # K3: 1 + 2R cotangent factors, so R ≤ 32
-ROWS = 128  # rows per block (csrc kRows)
+ROWS = 128  # K3, K6: rows per block (csrc kRows)
+K2_ROWS_PER_THREAD = 2  # K2: rows a thread owns (csrc kK2RowsPerThread)
+K2_ROWS = 256 * K2_ROWS_PER_THREAD  # K2: rows per block (csrc kK2Rows)
 COLS = 128  # columns per shared-memory pass (csrc kCols)
-GROUP = 32  # K2: right-hand sides one block contracts (csrc kGroup)
+GROUP = 32  # K2, K6: right-hand sides one block contracts (csrc kGroup)
 BLOCKS_PER_SM = 8  # column splits are added until the grid has this many
 PLAIN_BLOCK = 2048  # row-panel height of the plain versions
 
@@ -106,13 +126,14 @@ def build(force: bool = False) -> str:
     return log
 
 
-def column_splits(n_rows: int, n_cols: int, groups: int, sms: int) -> tuple[int, int]:
-    """(splits, columns per split) for a grid of ⌈n_rows/ROWS⌉ row blocks ×
-    ``groups``: slices of a whole number of COLS-wide passes each, as many
-    as bring the grid to about BLOCKS_PER_SM blocks per SM (the passes are
-    shared out evenly, so the grid may fall short by the rounding)."""
+def column_splits(n_rows: int, n_cols: int, groups: int, sms: int, rows: int = ROWS) -> tuple[int, int]:
+    """(splits, columns per split) for a grid of ⌈n_rows/rows⌉ row blocks ×
+    ``groups`` (``rows``: ROWS for K3 and K6, K2_ROWS for K2): slices of a
+    whole number of COLS-wide passes each, as many as bring the grid to
+    about BLOCKS_PER_SM blocks per SM (the passes are shared out evenly, so
+    the grid may fall short by the rounding)."""
     chunks = -(-n_cols // COLS)
-    blocks = -(-n_rows // ROWS) * groups
+    blocks = -(-n_rows // rows) * groups
     want = min(chunks, max(1, -(-BLOCKS_PER_SM * sms // blocks)))
     per = -(-chunks // want)
     return -(-chunks // per), per * COLS
@@ -173,7 +194,7 @@ def gibbs_gram_matvec_cuda(x1, ell1, x2, ell2, v):
     sms, stream = _num_sms(v.device), _stream(v.device)
     for c0 in range(0, r, MAX_R):
         rc = min(MAX_R, r - c0)
-        splits, per = column_splits(n1, n2, -(-rc // GROUP), sms)
+        splits, per = column_splits(n1, n2, -(-rc // GROUP), sms, K2_ROWS)
         part = torch.empty(splits * n1 * rc, dtype=v.dtype, device=v.device)
         err = _lib.gibbs_matvec(
             x1.data_ptr(), ell1.data_ptr(), n1, x2.data_ptr(), ell2.data_ptr(), n2, d,
@@ -485,18 +506,36 @@ def packed_gibbs_panel_vjp_rows(d: int):
 
 
 def _tile_ops(d: int) -> int:
-    """f32 operations per Gram element of the kernels' tile: per dim two
-    squares and their sum (3), the product and its doubling (2), 1/ss (1),
-    the ratio (1), its sqrtf (1), the prefactor product (1), the difference
-    (1), its square scaled by 1/ss (2) and the quad sum (1) = 13; then the
-    negation, expf and the final product (3)."""
+    """f32 operations per Gram element of the kernels' per-dim tile (K3,
+    and K2 at d ≠ 2): per dim two squares and their sum (3), the product
+    and its doubling (2), 1/ss (1), the ratio (1), its sqrtf (1), the
+    prefactor product (1), the difference (1), its square scaled by 1/ss
+    (2) and the quad sum (1) = 13; then the negation, expf and the final
+    product (3)."""
     return 13 * d + 3
+
+
+def _k2_elem_ops(d: int) -> int:
+    """FP32-lane operations per Gram element of K2's element: at d = 2
+    (``gibbs_d2_elem``) the two sums s_k (2), their product (1), the two
+    differences (2), d₀², d₁², d₀²·s₁ (3) and the FMA (2), rs² and its
+    product (2), then the prefactor n_i·n_j, ·rs and ·2⁻ʸ (3) = 15; its
+    rsqrt and ex2 run on the SFU and are counted by
+    :func:`matvec_sfu_ops` alone.  Else the per-dim tile."""
+    return 15 if d == 2 else _tile_ops(d)
 
 
 def matvec_ops(n1: int, n2: int, d: int, r: int) -> int:
     """Operations of K2 over an n1 × n2 Gram with r right-hand sides: the
-    tile plus one FMA (2 ops) per right-hand side."""
-    return n1 * n2 * (_tile_ops(d) + 2 * r)
+    element plus one FMA (2 ops) per right-hand side."""
+    return n1 * n2 * (_k2_elem_ops(d) + 2 * r)
+
+
+def matvec_sfu_ops(n1: int, n2: int, d: int) -> int:
+    """Special-function-unit operations of K2 over an n1 × n2 Gram: at
+    d = 2 one rsqrt and one ex2 an element; else per dim a division and a
+    square root, and one exp."""
+    return n1 * n2 * (2 if d == 2 else 2 * d + 1)
 
 
 def rbf_matvec_ops(n1: int, n2: int, d: int, r: int) -> int:

@@ -55,7 +55,7 @@ K5_UPDATE, K5_DIAG = ("syrk_kernel", "panel_kernel"), ("diag_kernel",)
 # K8's kernels (on the Gibbs step only K8 runs blocked_chol.cuh's GEMM and
 # diagonal kernels)
 K8_NAMES = ("build_kernel", "gemm_nt_kernel", "diag_kernel", "finite_kernel", "commit_kernel")
-K6_NAMES = ("gibbs_matvec_kernel", "sum_splits_kernel")  # only K6 runs them on this path
+K6_NAMES = ("rbf_matvec_kernel", "sum_splits_kernel")  # only K6 runs them on this path
 
 
 def event_ms(fn, reps):
