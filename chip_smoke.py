@@ -22,13 +22,15 @@ one JSON line each:
 
  1. device     — the card's name; nvidia-smi's name and power limit;
  2. build      — K1 (csrc/chol_inv_cluster.cu), K2/K3/K6 (csrc/gibbs_matvec.cu),
-                  K4 (csrc/svgp_precompute.cu), K5 (csrc/chol_stream.cu),
+                  K4 (csrc/svgp_precompute.cu; K1 and K4 on the cluster
+                  header csrc/chol_inv_cluster.cuh), K5 (csrc/chol_stream.cu),
                   K7 (csrc/elbo_fused.cu), K9 (csrc/gibbs_gram.cu), K10a
                   (csrc/chol_blocked.cu), K11 (csrc/trsm.cu), K8
                   (csrc/gibbs_fused.cu), K10b (csrc/chol_inv_grid.cu) and K10c
                   (csrc/chol_stream_v1.cu), eleven nvcc runs started together, in
                   seconds, with each kernel's registers, spills and shared
-                  memory;
+                  memory, and each library's sources (its .cu and the
+                  headers it includes);
  3. k1         — K1 against its plain version at the slice's shape (10, 316)
                   on the real stacked Gibbs Gram and on random SPD stacks at
                   316 and 384 (each also held to the backward-error bound
@@ -77,9 +79,12 @@ one JSON line each:
 11. k4         — K4 against its plain version on the experiment's init and
                   trained payloads (50 × M = 250, D = 2, P = 501) and a
                   ragged (3, 37, D = 3), each held to float64 as in
-                  tests/test_torch_svgp_precompute.py, and K4's L⁻¹
-                  residual and W to entrywise γ_M bounds; the retry case (a
-                  duplicated z at s² = 40) beside a healthy member; times;
+                  tests/test_torch_svgp_precompute.py, K4's L⁻¹ residual
+                  and W to entrywise γ_M bounds, and L's backward error to
+                  γ_(M+1)|L||Lᵀ|; the retry case (a duplicated z at s² =
+                  40) beside a healthy member; its cluster size, shared
+                  memory and co-resident clusters; times beside the
+                  two-launch design's it replaced;
 12. k10b       — K10b (the retry-free grid-batched (L, L⁻¹)) and its plain
                   version against float64 on the deep GP's K_zz stacks at
                   init and trained (50 × 250²), the slice's Gram (10 × 316²),
@@ -136,7 +141,9 @@ one JSON line each:
                   launch count against what the code implies;
 23. k6         — K6 and its plain version against float64 on the gate's
                   trained payload (16384², R = 9) and a column-chunked
-                  (2048 × 16384, R = 200), bitwise repeat; times;
+                  (2048 × 16384, R = 200), bitwise repeat; times, the FP32
+                  bound and the special-function-unit bound (1 an element),
+                  the larger its bound;
 24. gibbs_dense_ref — the Gibbs row at N = 1024 from the init of the JAX run
                   pinned in tests/fixtures/jax_gibbs_dense_ref.npz: its losses
                   at steps 0 and 19 against JAX's, then the predictive mean
@@ -163,10 +170,10 @@ one JSON line each:
                   payloads at the same poses; a singular payload on which
                   the jitter ladder fires, on the plain version's rung;
                   bitwise repeat; times at N = 1024 and 1280;
-30. traced     — torch.profiler after the paths' own traces: K1's and K2's
-                  CUDA launches in one call (every device kernel, checked 1
-                  and 2), K7's forward's (checked 10), and K7's forward and
-                  backward time by kernel;
+30. traced     — torch.profiler after the paths' own traces: K1's, K2's,
+                  K4's and K6's CUDA launches in one call (every device
+                  kernel, checked 1, 2, 1 and 2), K7's forward's (checked
+                  10), and K7's forward and backward time by kernel;
 31. gibbs_mf_ref — the matrix-free Gibbs flow of examples/
                   quickstart_gibbs_largen.py at N = 2048 on the data, prior
                   SLQ probes and per-step probes of the JAX run pinned in
@@ -188,9 +195,9 @@ one JSON line each:
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line (K1's,
-K7's, K5's, K10c's, K10a's and K11's entries with the registers, spills and
-shared memory of each of their kernels, K1's with its cluster size) and the
-result line.  Needs a CUDA card and nvcc; imports no
+K4's, K7's, K5's, K10c's, K10a's and K11's entries with the registers, spills
+and shared memory of each of their kernels, K1's and K4's with their cluster
+size) and the result line.  Needs a CUDA card and nvcc; imports no
 JAX.
 
 Run from the repository root: python3 chip_smoke.py [--steps N]
@@ -273,6 +280,14 @@ K4_RAGGED = (3, 37, 3)
 # the retried member: L Lᵀ reconstructs K + jitter·I to 5e-2 at s² = 40
 # (tests/test_pallas.py:449's band)
 K4_RETRY_RECON = 5e-2
+# The design K4's cluster kernel replaced (a 1024-thread block a member on
+# the column sweep, then a W kernel), at (50, 250, D 2, P 501) on an NVIDIA
+# H100 80GB HBM3 at 700 W: its median time on the trained payload in this
+# script's k4 phase, 0.699-0.728 ms (PERF.md §6, PRs 4, 5 and 12), 0.518 ms
+# of it the factor and 0.181 the W kernel (tools/profile_torch_dgp.py, PR 12),
+# 2 CUDA launches a call.  Printed beside the kernel's own time; no check
+# rests on it.
+K4_BEFORE = {"ms": 0.70, "factor_ms": 0.518, "w_ms": 0.181, "cuda_launches_a_call": 2}
 # K7 against float64: the value and every cotangent of the kernel within
 # twice the plain f32 version's error (relative to the largest float64
 # entry) plus a slack of 1e-6 for the value and 1e-4 for the cotangents:
@@ -461,18 +476,48 @@ def bound(ops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _template_args(rest: str) -> list:
+    """The arguments of a mangled ``I…E`` template argument list at the
+    start of ``rest``: integer literals by their value, classes by the last
+    component of their name (substitutions skipped)."""
+    args, i = [], 1
+    if not rest.startswith("I"):
+        return args
+    while i < len(rest) and rest[i] != "E":
+        if (lit := re.match(r"L[a-z](n?\d+)E", rest[i:])):
+            args.append(lit.group(1).replace("n", "-"))
+            i += lit.end()
+            continue
+        nested = rest[i] == "N"
+        i += nested
+        last = None
+        while i < len(rest) and rest[i] != "E":
+            if (sub := re.match(r"S[0-9A-Z]*_", rest[i:])):
+                i += sub.end()
+            elif (num := re.match(r"\d+", rest[i:])):
+                k = int(num.group())
+                last = rest[i + num.end():i + num.end() + k]
+                i += num.end() + k
+            else:
+                return args
+            if not nested:
+                break
+        i += nested
+        args.append(last)
+    return args
+
+
 def kernel_of(mangled: str) -> str:
-    """A kernel's name and template arguments ("syrk_kernel<0,2>") from its
-    mangled entry name: the first length-prefixed name component that ends
-    in ``_kernel``, then its ``I…E`` integer arguments; else the name as it
-    is."""
+    """A kernel's name and template arguments ("syrk_kernel<0,2>",
+    "gibbs_rows_kernel<RbfElem,2,9>") from its mangled entry name: the first
+    length-prefixed name component that ends in ``_kernel``, then its
+    ``I…E`` arguments; else the name as it is."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     while (d := re.match(r"\d+", rest)):
         n, rest = int(d.group()), rest[d.end():]
         name, rest = rest[:n], rest[n:]
         if name.endswith("_kernel"):
-            t = re.match(r"I((?:L[ib]\d+E)+)E", rest)
-            args = re.findall(r"L[ib](\d+)E", t.group(1)) if t else []
+            args = _template_args(rest)
             return name + (f"<{','.join(args)}>" if args else "")
     return mangled
 
@@ -904,16 +949,33 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_
         jobs = [pool.submit(timed, b) for b in builds]
         (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log), (k5_s, k5_log), (k7_s, k7_log), *dense = (j.result()
                                                                                                  for j in jobs)
-    emit("build", kernel="chol_inv_batched", seconds=k1_s, ptxas=ptxas_summary(k1_log))
-    emit("build", kernel="gibbs_matvec", seconds=gm_s, ptxas=ptxas_summary(gm_log))
-    emit("build", kernel="svgp_precompute", seconds=k4_s, ptxas=lines(k4_log))
-    emit("build", kernel="chol_stream", seconds=k5_s, ptxas=lines(k5_log))
-    emit("build", kernel="elbo_fused", seconds=k7_s, ptxas=ptxas_summary(k7_log))
-    for name, (sec, log) in zip(("gibbs_gram", "chol_blocked", "trsm", "gibbs_fused", "chol_inv_grid",
-                                 "chol_stream_v1"), dense):
-        emit("build", kernel=name, seconds=sec, ptxas=ptxas_summary(log))
-    return {"chol_inv": k1_log, "elbo_fused": k7_log, "chol_stream": k5_log, "chol_blocked": dense[1][1],
-            "trsm": dense[2][1], "chol_stream_v1": dense[5][1]}
+    emit("build", kernel="chol_inv_batched", seconds=k1_s, ptxas=ptxas_summary(k1_log),
+         sources=sources_of(chol_inv.SOURCE))
+    emit("build", kernel="gibbs_matvec", seconds=gm_s, ptxas=ptxas_summary(gm_log), sources=sources_of(matvec.SOURCE))
+    emit("build", kernel="svgp_precompute", seconds=k4_s, ptxas=ptxas_summary(k4_log),
+         sources=sources_of(svgp_precompute.SOURCE))
+    emit("build", kernel="chol_stream", seconds=k5_s, ptxas=lines(k5_log), sources=sources_of(chol_stream.SOURCE))
+    emit("build", kernel="elbo_fused", seconds=k7_s, ptxas=ptxas_summary(k7_log), sources=sources_of(elbo_fused.SOURCE))
+    for name, (sec, log), src in zip(("gibbs_gram", "chol_blocked", "trsm", "gibbs_fused", "chol_inv_grid",
+                                      "chol_stream_v1"), dense,
+                                     (gibbs_gram.SOURCE, chol_blocked.SOURCE, trsm.SOURCE, gibbs_fused.SOURCE,
+                                      chol_inv.GRID_SOURCE, chol_stream.V1_SOURCE)):
+        emit("build", kernel=name, seconds=sec, ptxas=ptxas_summary(log), sources=sources_of(src))
+    return {"chol_inv": k1_log, "svgp_precompute": k4_log, "elbo_fused": k7_log, "chol_stream": k5_log,
+            "chol_blocked": dense[1][1], "trsm": dense[2][1], "chol_stream_v1": dense[5][1]}
+
+
+def sources_of(source: Path) -> list:
+    """A CUDA source and the headers of the port it includes, in the order
+    met (names relative to its directory)."""
+    out, todo = [], [source.name]
+    while todo:
+        name = todo.pop(0)
+        if name in out:
+            continue
+        out.append(name)
+        todo += re.findall(r'^#include "([\w.]+)"', (source.parent / name).read_text(), flags=re.M)
+    return out
 
 
 def rl_resources(attributes: dict, log: str) -> dict:
@@ -1029,9 +1091,10 @@ def k4_errors(svgp_precompute, args):
         l = torch.linalg.cholesky(kk)
         eye = torch.eye(kk.shape[-1], dtype=torch.float64, device=kk.device).expand_as(kk)
         li = torch.linalg.solve_triangular(l, eye, upper=False)
-        return l, li.mT @ packed, li
+        return kk, (l, li.mT @ packed, li)
 
-    ref_k, ref_p = f64(k[3]), f64(p[3])
+    k_jit, ref_k = f64(k[3])
+    ref_p = f64(p[3])[1]
     err = {"max_abs_err": float(max((a - b).abs().max() for a, b in zip(k[:3], p[:3])))}
     for i, name in enumerate(("L", "W", "Linv")):
         ek = float((k[i].double() - ref_k[i]).abs().max())
@@ -1053,6 +1116,12 @@ def k4_errors(svgp_precompute, args):
         err[name]["bound_ratio"] = ratio
         check(ratio <= 1.0, f"K4 {name}: error within γ_M of its entrywise bound, ratio {ratio:.3g} <= 1")
     err["W"]["vs_own_Linv_rel_to_largest"] = float((w - w_ref).abs().max() / w_ref.abs().max())
+    # L's backward error against K + jI at the kernel's jitter (K in float64
+    # from the same f32 inputs; the kernel's f32 K differs from it by the
+    # rounding of its entries, far inside the bound)
+    err["L"]["bound_ratio"] = chol_bound_ratio(k[0], k_jit)
+    check(err["L"]["bound_ratio"] <= 1.0,
+          f"K4 L's backward error within γ_(M+1)|L||Lᵀ|: ratio {err['L']['bound_ratio']:.3g} <= 1")
     return err, k[3].cpu().numpy(), p[3].cpu().numpy()
 
 
@@ -1111,10 +1180,14 @@ def phase_k4(deepgp_spatial, svgp_precompute, trained_model, dev):
     # writes L, L⁻¹ and W
     ops = t * (2 * m**3 / 3 + m * m * p)
     b_ms, b_by = bound(ops, 4 * t * (m * d + d + 1 + m * p + 2 * m * m + m * p))
+    design = {"cluster": svgp_precompute.cluster_size(), "smem_bytes": svgp_precompute.smem_bytes(m, d),
+              "smem_limit": svgp_precompute.max_smem(dev.index or 0),
+              "max_active_clusters": svgp_precompute.max_active_clusters(m, d)}
+    check(design["max_active_clusters"] >= 1, f"a K4 cluster fits on the card: {design['max_active_clusters']}")
     emit("k4", shape=[t, m, d, p], ragged=list(K4_RAGGED), errors=errs, jitter=jitter,
          retry={"jitter": jit.tolist(), "plain_jitter": pjit.tolist(), "recon_err": recon},
-         ops=ops, bound_ms=b_ms, bound_by=b_by, timed_calls=2 * N_TIMED, **timed)
-    return errs, timed, b_ms, b_by
+         ops=ops, bound_ms=b_ms, bound_by=b_by, design=design, before=K4_BEFORE, timed_calls=2 * N_TIMED, **timed)
+    return errs, timed, b_ms, b_by, design, lambda: svgp_precompute.svgp_precompute_cuda(z, ell, s2, packed)
 
 
 def k7_random(gen, t, b, s, m, clip, dev):
@@ -1319,10 +1392,10 @@ def phase_k7(deepgp_spatial, elbo_fused, trained_model, dev):
             "bwd_call": lambda: elbo_fused.elbo_bwd_cuda(*args, h1, h2, gbar)}
 
 
-def phase_traced(chol_inv, k1_gram, k2_call, k7_fwd_call, k7_bwd_call) -> int:
-    """K1's and K2's CUDA launches in one call (every device kernel counted)
-    and K7's forward and backward time by kernel, with the forward's CUDA
-    launches a call, from torch.profiler.  These sessions run after k11: in
+def phase_traced(chol_inv, k1_gram, k2_call, k4_call, k6_call, k7_fwd_call, k7_bwd_call) -> int:
+    """K1's, K2's, K4's and K6's CUDA launches in one call (every device
+    kernel counted) and K7's forward and backward time by kernel, with the
+    forward's CUDA launches a call, from torch.profiler.  These sessions run after k11: in
     a process that had traced other kernels first, k11's count of K11's
     programmatic dependent launches read 8 and 9 of 10 on an H100,
     where it reads 10 when k11 traces first."""
@@ -1330,6 +1403,10 @@ def phase_traced(chol_inv, k1_gram, k2_call, k7_fwd_call, k7_bwd_call) -> int:
     check(launches == 1, f"K1 is one CUDA launch a call: {launches}")
     k2_launches = cuda_launches(k2_call, "")
     check(k2_launches == 2, f"K2 is 2 CUDA launches a call: {k2_launches}")
+    k4_launches = cuda_launches(k4_call, "")
+    check(k4_launches == 1, f"K4 is 1 CUDA launch a call: {k4_launches}")
+    k6_launches = cuda_launches(k6_call, "")
+    check(k6_launches == 2, f"K6 is 2 CUDA launches a call: {k6_launches}")
     fwd_launches = cuda_launches(k7_fwd_call, "")
     check(fwd_launches == 10, f"K7's forward is 10 CUDA launches a call: {fwd_launches}")
     fwd_split = kernel_split_ms(k7_fwd_call, 10)
@@ -1337,6 +1414,7 @@ def phase_traced(chol_inv, k1_gram, k2_call, k7_fwd_call, k7_bwd_call) -> int:
     split = kernel_split_ms(k7_bwd_call, 10)
     check(sorted(split) == sorted(K7_BWD_KERNELS), f"K7's backward launches {sorted(split)}")
     emit("traced", k1_cuda_launches_a_call=launches, k2_cuda_launches_a_call=k2_launches,
+         k4_cuda_launches_a_call=k4_launches, k6_cuda_launches_a_call=k6_launches,
          k7_fwd_cuda_launches_a_call=fwd_launches, k7_fwd_split_ms=fwd_split, k7_bwd_split_ms=split)
     return launches
 
@@ -1619,10 +1697,17 @@ def phase_k6(matvec, exact_largen, lazy_out, dev):
                    N_TIMED_GRAM)
     ops = matvec.rbf_matvec_ops(LARGEN_N, LARGEN_N, 2, 9)
     # reads z1, z2 and V once, writes the output
-    b_ms, b_by = bound(ops, 4 * (2 * LARGEN_N * 2 + 2 * LARGEN_N * 9))
+    fp32_ms, fp32_by = bound(ops, 4 * (2 * LARGEN_N * 2 + 2 * LARGEN_N * 9))
+    # the SFU: 16 operations a clock an SM at the card's maximum SM clock
+    clock_hz = sm_clock_mhz() * 1e6
+    sfu_ops = matvec.rbf_matvec_sfu_ops(LARGEN_N, LARGEN_N)
+    sfu_ms = sfu_ops / (16 * torch.cuda.get_device_properties(dev).multi_processor_count * clock_hz) * 1e3
+    b_ms, b_by = max((fp32_ms, fp32_by), (sfu_ms, "operations"))
     out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "bound_ms": b_ms, "bound_by": b_by, **t}
     emit("k6", shape=[LARGEN_N, LARGEN_N, 2, 9], wide=[rows, LARGEN_N, 2, wide_r], errors=errs, ops=ops,
+         sfu_ops=sfu_ops, fp32_bound_ms=fp32_ms, sfu_bound_ms=sfu_ms, sm_clock_mhz=clock_hz / 1e6,
          timed_calls=2 * N_TIMED_GRAM, **out)
+    out["call"] = lambda: matvec.rbf_gram_matvec_cuda(z, z, v)
     return out
 
 
@@ -2299,7 +2384,8 @@ def main(argv=None):
     k3_errs, k3_t, k3_bound, k3_by = phase_k3(matvec, payloads, dev)
     phase_dgp_ref(deepgp_spatial, svgp_precompute, dev)
     dgp_out, dgp_launches = phase_dgp(deepgp_spatial, svgp_precompute, name)
-    k4_errs, k4_t, k4_bound, k4_by = phase_k4(deepgp_spatial, svgp_precompute, dgp_out["model"], dev)
+    k4_errs, k4_t, k4_bound, k4_by, k4_design, k4_call = phase_k4(deepgp_spatial, svgp_precompute,
+                                                                  dgp_out["model"], dev)
     k10b = phase_k10b(chol_inv, svgp_precompute, spatial_gibbs, dgp_out["model"], dev)
     k7 = phase_k7(deepgp_spatial, elbo_fused, dgp_out["model"], dev)
     k7_smem = elbo_fused.dynamic_smem()
@@ -2324,7 +2410,8 @@ def main(argv=None):
     k11 = phase_k11(trsm, gibbs_pay, dev)
     k11["resources"] = rl_resources(trsm.kernel_attributes(), logs["trsm"])
     k8 = phase_k8(gibbs_fused, gibbs_pay, dev)
-    phase_traced(chol_inv, k1_design.pop("gram"), k2_call, k7.pop("fwd_call"), k7.pop("bwd_call"))
+    phase_traced(chol_inv, k1_design.pop("gram"), k2_call, k4_call, k6.pop("call"), k7.pop("fwd_call"),
+                 k7.pop("bwd_call"))
     phase_gibbs_mf_ref(quickstart, dev)
     mf_launches = phase_gibbs_mf(quickstart, name)
 
@@ -2355,7 +2442,10 @@ def main(argv=None):
          "source": "nonstationary_precip_tpu_torch/csrc/svgp_precompute.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_svgp.py:367", "launches": dgp_launches["svgp_precompute"],
          "max_abs_err": max(e["max_abs_err"] for e in k4_errs.values()), "ms": k4_t["ms"],
-         "plain_ms": k4_t["plain_ms"], "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
+         "plain_ms": k4_t["plain_ms"], "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
+         "resources": {"svgp_cluster_kernel": {**ptxas_resources(logs["svgp_precompute"], "svgp_cluster_kernel"),
+                                               "cluster": k4_design["cluster"],
+                                               "smem_bytes": k4_design["smem_bytes"]}}},
         *({"name": f"elbo_data_term_{d}", "route": "cuda",
            "source": "nonstationary_precip_tpu_torch/csrc/elbo_fused.cu",
            "replaces": f"nonstationary_precip_tpu/ops/pallas_elbo.py:{line}",

@@ -8,31 +8,36 @@
 // The wrappers, the plain PyTorch versions and the design notes are in
 // nonstationary_precip_tpu_torch/ops/matvec.py.
 //
-// K3 and K6 walk the (rows x columns) Gram in the same way.  A block of
-// kRows threads owns kRows consecutive rows, one row per thread, with the
-// row's payload (x_i, l_i) and its accumulators in registers.  The column
-// range is cut into `splits` slices (gridDim.y); a block walks its slice
-// kCols columns at a time, staging the columns' payload (and V's rows, or
-// K3's column factors) in shared memory, where every thread of the block
-// reads the same address (a broadcast).  K3 builds each element from the
-// plain formula (gibbs_elem.cuh, IEEE division, sqrtf, expf); K6 from the
-// payload z = x / ell that the wrapper prescales once (the TPU kernel's
-// _pack_scaled):
-//   K(i,j) = exp(-0.5 sum_k (z_ik - z_jk)^2),
-// the quadratic formed from the differences (no cancellation, so no clamp).
+// K2 and K6 are one Gram-times-V walk, gibbs_rows_kernel, whose element is
+// a template policy (GibbsElem, RbfElem).  It walks in register tiles of
+// rows: a block of kK2Threads threads owns Elem::kRows rows, kRowsPerThread
+// a thread (rows tid, tid + kK2Threads, ..; K2 2, K6 4), with their payloads
+// and their R accumulators each in registers, so every column payload and V
+// row read from shared memory feeds kRowsPerThread elements; at d = 2 and
+// R <= 9 K2's registers are capped so that kK2MinBlocks blocks share an SM
+// (K6's are left free).  Column
+// passes of kCols are double-buffered: the raw payload and V's rows of pass
+// n + 1 come in by cp.async while pass n is computed, and at d = 2 the
+// element's column factors are made once a pass.
+//   K2 at d = 2, the JAX kernel's own element (pallas_matvec.py:118-141):
+//     p = ss_0 ss_1,  rs = rsqrt(p),  quadnum = d_0^2 ss_1 + d_1^2 ss_0,
+//     K = (2 sqrt(l_i0 l_i1)) sqrt(l_j0 l_j1) rs exp(-quadnum rs^2)
+//   (gibbs_d2_elem below); other d, gibbs_elem.cuh's per-dim element.
+//   K6 from the payload z = x / ell that the wrapper prescales once (the TPU
+//   kernel's _pack_scaled): K(i,j) = exp(-0.5 sum_k (z_ik - z_jk)^2), the
+//   quadratic formed from the differences (no cancellation, so no clamp).
+//   At d = 2 the rows' payload (in registers) and each pass's columns are
+//   scaled by c = sqrt(log2(e) / 2), so K = 2^-((c z_i0 - c z_j0)^2 +
+//   (c z_i1 - c z_j1)^2): 5 f32 operations (an FMA as 2) and one ex2;
+//   other d, the per-dim differences and expf.
 //
-// K2 walks in register tiles of rows: a block of kK2Threads threads owns
-// kK2Rows rows, kK2RowsPerThread a thread (rows tid, tid + kK2Threads, ..),
-// with their payloads and their R accumulators each in registers, so every
-// column payload and V row read from shared memory feeds kK2RowsPerThread
-// elements; at d = 2 and R <= 9 the registers are capped so that
-// kK2MinBlocks blocks share an SM.  Column passes of kCols are double-buffered: the raw payload and
-// V's rows of pass n + 1 come in by cp.async while pass n is computed.  At
-// d = 2 the element is the JAX kernel's own (pallas_matvec.py:118-141):
-//   p = ss_0 ss_1,  rs = rsqrt(p),  quadnum = d_0^2 ss_1 + d_1^2 ss_0,
-//   K = (2 sqrt(l_i0 l_i1)) sqrt(l_j0 l_j1) rs exp(-quadnum rs^2),
-// with the row factors in registers and the column factors made once a pass
-// (gibbs_d2_elem below); every other d keeps gibbs_elem's per-dim element.
+// K3 walks with one row per thread: a block of kRows threads owns kRows
+// consecutive rows, with the row's payload (x_i, l_i) and its accumulators
+// in registers.  The column range is cut into `splits` slices (gridDim.y);
+// a block walks its slice kCols columns at a time, staging the columns'
+// payload and K3's column factors in shared memory, where every thread of
+// the block reads the same address (a broadcast).  K3 builds each element
+// from the plain formula (gibbs_elem.cuh, IEEE division, sqrtf, expf).
 //
 // Each slice writes its partial row sums to a scratch buffer; a second
 // kernel adds the slices in a fixed order.  No atomics: the result is the
@@ -50,22 +55,27 @@ using gibbs::gibbs_elem;
 using gibbs::kMaxD;
 using gibbs::live;
 
-constexpr int kRows = 128;   // K3, K6: threads per block; one row each
+constexpr int kRows = 128;   // K3: threads per block; one row each
 constexpr int kCols = 128;   // columns staged in shared memory per pass
 constexpr int kGroup = 32;   // K2, K6: right-hand sides one block contracts
 constexpr int kMaxR = 128;   // K2, K6: right-hand sides one launch takes
-constexpr int kK2Threads = 256;
+constexpr int kK2Threads = 256;  // threads a block of the walk
+// Rows a thread owns, and blocks an SM the compiler must fit (registers) at
+// d = 2 and R <= 9, the paths' shape (elsewhere the accumulators need more
+// registers than that leaves; 1 leaves them free), for K2 and for K6, as
+// measured (tools/bench_k2.py times the choices)
 constexpr int kK2RowsPerThread = 2;
-constexpr int kK2Rows = kK2Threads * kK2RowsPerThread;  // rows a K2 block owns
-// K2 blocks an SM the compiler must fit (registers) at d = 2 and R <= 9, the
-// path's shape; elsewhere the accumulators need more registers than that
-// leaves (tools/bench_k2.py times the choices)
 constexpr int kK2MinBlocks = 4;
-constexpr int k2_min_blocks(int d, int rb) { return d == 2 && rb <= 9 ? kK2MinBlocks : 1; }
+constexpr int kK6RowsPerThread = 4;
+constexpr int kK6MinBlocks = 1;
+constexpr int kK2Rows = kK2Threads * kK2RowsPerThread;  // rows a K2 block owns
+constexpr int kK6Rows = kK2Threads * kK6RowsPerThread;  // rows a K6 block owns
 // ln 2 and 2 ln 2: the d = 2 element scales its squared lengthscales by
 // ln 2 so that exp(-y) becomes 2^-(y / ln 2) with no multiply an element
 constexpr float kLn2 = 0.693147180559945309f;
 constexpr float kTwoLn2 = 1.386294361119890618f;
+// sqrt(log2(e) / 2): K6's d = 2 payload scale, exp(-q / 2) = 2^-(c^2 q)
+constexpr float kRbfScale = 0.849321800288019111f;
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
 
@@ -84,26 +94,9 @@ __device__ __forceinline__ void load_row(const float* __restrict__ x,
   }
 }
 
-// K6's Gram element from the prescaled row payload zi in registers and the
-// column payload zj in shared memory.
+// K3: columns [c0, c0 + jn) of (x, l) into cp[j] = [x_j0..x_j(D-1), l_j0..].
 template <int D>
-__device__ __forceinline__ float rbf_elem(const float* zi, const float* zj,
-                                          int d) {
-  float quad = 0.0f;
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    if (live<D>(k, d)) {
-      const float dk = zi[k] - zj[k];
-      quad += dk * dk;
-    }
-  }
-  return expf(-0.5f * quad);
-}
-
-// Columns [c0, c0 + jn) of (x, l) into cp[j] = [x_j0..x_j(D-1), l_j0..];
-// with W = D (K6) only x is staged.
-template <int D, int W>
-__device__ __forceinline__ void stage_cols(float (*cp)[W],
+__device__ __forceinline__ void stage_cols(float (*cp)[2 * D],
                                            const float* __restrict__ x,
                                            const float* __restrict__ l, int c0,
                                            int jn, int d) {
@@ -113,63 +106,11 @@ __device__ __forceinline__ void stage_cols(float (*cp)[W],
     const bool ok = live<D>(k, d);
     const size_t g = static_cast<size_t>(c0 + j) * d + k;
     cp[j][k] = ok ? x[g] : 0.0f;
-    if constexpr (W == 2 * D) cp[j][D + k] = ok ? l[g] : 1.0f;
+    cp[j][D + k] = ok ? l[g] : 1.0f;
   }
 }
 
-// K6 (x the prescaled z).  part[s, i, g0 + r] = sum over slice s of
-// K(i, j) v[j, g0 + r], for the rhs group g0 = kGroup * blockIdx.z,
-// r < min(kGroup, rc - g0).
-template <int D, int RB>
-__global__ void __launch_bounds__(kRows)
-rbf_matvec_kernel(const float* __restrict__ x1, int n1,
-                  const float* __restrict__ x2, int n2,
-                  const float* __restrict__ v, int ldv, int rc, int d,
-                  int cols_per_split, float* __restrict__ part) {
-  constexpr int RP = pad4(RB);
-  __shared__ __align__(16) float cp[kCols][D];
-  __shared__ __align__(16) float vs[kCols][RP];
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  const int s = blockIdx.y;
-  const int g0 = blockIdx.z * kGroup;
-  const int gw = min(kGroup, rc - g0);  // <= RB by the host's choice of RB
-  const bool active = i < n1;
-  float xi[D], li[D];
-  load_row<D>(x1, x1, i, active, d, xi, li);  // li unused
-  float acc[RB];
-#pragma unroll
-  for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
-
-  const int c_begin = s * cols_per_split;
-  const int c_end = min(n2, c_begin + cols_per_split);
-  for (int c0 = c_begin; c0 < c_end; c0 += kCols) {
-    const int jn = min(kCols, c_end - c0);
-    __syncthreads();  // the previous pass is done with cp / vs
-    stage_cols<D, D>(cp, x2, x2, c0, jn, d);
-    for (int e = threadIdx.x; e < jn * RP; e += kRows) {
-      const int j = e / RP;
-      const int r = e % RP;
-      vs[j][r] = r < gw ? v[static_cast<size_t>(c0 + j) * ldv + g0 + r] : 0.0f;
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll 2
-      for (int j = 0; j < jn; ++j) {
-        const float kij = rbf_elem<D>(xi, &cp[j][0], d);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) acc[r] = fmaf(kij, vs[j][r], acc[r]);
-      }
-    }
-  }
-  if (active) {
-    float* out = part + (static_cast<size_t>(s) * n1 + i) * rc + g0;
-#pragma unroll
-    for (int r = 0; r < RB; ++r)
-      if (r < gw) out[r] = acc[r];
-  }
-}
-
-// ---- K2 ----
+// ---- the Gram-times-V walk (K2, K6) ----
 
 // 4-byte cp.async into shared memory; a copy that is not valid zero-fills
 // (src is then not read)
@@ -202,58 +143,138 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// K2's d = 2 element, the JAX kernel's rewrite with its squared
-// lengthscales prescaled by ln 2: from the row factors (x_i, q_i =
+// The element policies of the walk.  Each says whether the columns' l is
+// staged beside x (kL), the floats of a column's d = 2 factors made once a
+// pass (kCook), and at d = 2 the row factors (Row, from x_i and l_i in
+// registers), the column factors (cook, into the pass's cook area; Col,
+// read back) and the element from both (elem2); at other d, the per-dim
+// element (elem).
+
+// K2: the Gibbs element.  At d = 2 the JAX kernel's rewrite with its
+// squared lengthscales prescaled by ln 2: from the row factors (x_i, q_i =
 // l_i^2 ln 2, n_i = 2 ln 2 sqrt(l_i0 l_i1)) and the column factors (x_j,
 // q_j = l_j^2 ln 2, n_j = sqrt(l_j0 l_j1)),
 //   s_k = q_ik + q_jk = ss_k ln 2,  rs = rsqrt(s_0 s_1) = rsqrt(p) / ln 2,
 //   y = (d_0^2 s_1 + d_1^2 s_0) rs^2 = quadnum / p / ln 2,
 //   K = (n_i n_j) rs 2^-y = 2 sqrt(l_i0 l_i1 l_j0 l_j1) rsqrt(p) exp(-quadnum / p):
-// 15 f32 operations (an FMA as 2) and 2 special-function ones.
-__device__ __forceinline__ float gibbs_d2_elem(float xi0, float xi1, float qi0,
-                                               float qi1, float ni,
-                                               const float4& cj, float nj) {
-  const float s0 = qi0 + cj.z;
-  const float s1 = qi1 + cj.w;
-  const float rs = rsqrt_approx(s0 * s1);
-  const float d0 = xi0 - cj.x;
-  const float d1 = xi1 - cj.y;
-  const float y = fmaf(d1 * d1, s0, (d0 * d0) * s1) * (rs * rs);
-  return ((ni * nj) * rs) * exp2_approx(-y);
-}
+// 15 f32 operations (an FMA as 2) and 2 special-function ones.  A
+// zero-filled column past the slice's end gets n_j = 0 (other d: l_j = 0),
+// so its element is 0.
+struct GibbsElem {
+  static constexpr int kRowsPerThread = kK2RowsPerThread;
+  static constexpr int kRows = kK2Rows;
+  static constexpr int kMinBlocks = kK2MinBlocks;
+  static constexpr bool kL = true;
+  static constexpr int kCook = 5;  // (x_j, q_j) as a float4, then n_j
+  struct Row {
+    float x0, x1, q0, q1, n;
+  };
+  struct Col {
+    float4 xq;
+    float n;
+  };
+  __device__ static Row row(const float* xi, const float* li) {
+    return {xi[0], xi[1], (li[0] * li[0]) * kLn2, (li[1] * li[1]) * kLn2, sqrtf(li[0] * li[1]) * kTwoLn2};
+  }
+  __device__ static void cook(float* ck, const float* xs, const float* ls, int j) {
+    const float l0 = ls[2 * j], l1 = ls[2 * j + 1];
+    reinterpret_cast<float4*>(ck)[j] = make_float4(xs[2 * j], xs[2 * j + 1], (l0 * l0) * kLn2, (l1 * l1) * kLn2);
+    ck[4 * kCols + j] = sqrtf(l0 * l1);
+  }
+  __device__ static Col col(const float* ck, int j) {
+    return {reinterpret_cast<const float4*>(ck)[j], ck[4 * kCols + j]};
+  }
+  __device__ static float elem2(const Row& r, const Col& c) {
+    const float s0 = r.q0 + c.xq.z;
+    const float s1 = r.q1 + c.xq.w;
+    const float rs = rsqrt_approx(s0 * s1);
+    const float d0 = r.x0 - c.xq.x;
+    const float d1 = r.x1 - c.xq.y;
+    const float y = fmaf(d1 * d1, s0, (d0 * d0) * s1) * (rs * rs);
+    return ((r.n * c.n) * rs) * exp2_approx(-y);
+  }
+  template <int D>
+  __device__ static float elem(const float* xi, const float* li, const float* xj, const float* lj, int d) {
+    float diff[D], inv_ss[D];
+    return gibbs_elem<D>(xi, li, xj, lj, d, diff, inv_ss);
+  }
+};
 
-// Shared memory of a K2 block, in floats: the raw column payload (x, then
-// l, kCols * D each) and V's rows (kCols * pad4(RB)) of two passes, then at
-// d = 2 the column factors of the current pass (x_j, q_j as a float4 and
-// n_j).
-template <int D, int RB>
+// K6: the RBF element on the prescaled z (x is z; l is not read).  At
+// d = 2 the rows' z and each pass's columns are scaled by kRbfScale once,
+// and K = 2^-(d_0^2 + d_1^2) from the differences: 5 f32 operations (an
+// FMA as 2) and one ex2.  Other d: exp(-0.5 sum_k (z_ik - z_jk)^2) with
+// expf.  A zero-filled column gets a finite element, and V's zero row.
+struct RbfElem {
+  static constexpr int kRowsPerThread = kK6RowsPerThread;
+  static constexpr int kRows = kK6Rows;
+  static constexpr int kMinBlocks = kK6MinBlocks;
+  static constexpr bool kL = false;
+  static constexpr int kCook = 2;  // c z_j as a float2
+  struct Row {
+    float z0, z1;
+  };
+  using Col = float2;
+  __device__ static Row row(const float* xi, const float*) { return {xi[0] * kRbfScale, xi[1] * kRbfScale}; }
+  __device__ static void cook(float* ck, const float* xs, const float*, int j) {
+    reinterpret_cast<float2*>(ck)[j] = make_float2(xs[2 * j] * kRbfScale, xs[2 * j + 1] * kRbfScale);
+  }
+  __device__ static Col col(const float* ck, int j) { return reinterpret_cast<const float2*>(ck)[j]; }
+  __device__ static float elem2(const Row& r, const Col& c) {
+    const float d0 = r.z0 - c.x;
+    const float d1 = r.z1 - c.y;
+    return exp2_approx(-fmaf(d1, d1, d0 * d0));
+  }
+  template <int D>
+  __device__ static float elem(const float* zi, const float*, const float* zj, const float*, int d) {
+    float quad = 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      if (live<D>(k, d)) {
+        const float dk = zi[k] - zj[k];
+        quad += dk * dk;
+      }
+    }
+    return expf(-0.5f * quad);
+  }
+};
+
+// Blocks an SM the registers of the walk must fit.
+template <class Elem>
+constexpr int min_blocks(int d, int rb) { return d == 2 && rb <= 9 ? Elem::kMinBlocks : 1; }
+
+// Shared memory of a block, in floats: the raw column payload (x, then
+// for K2 l, kCols * D each) and V's rows (kCols * pad4(RB)) of two passes,
+// then at d = 2 the column factors of the current pass.
+template <class Elem, int D, int RB>
 struct RowsSmem {
-  static constexpr int kRaw = 2 * kCols * D;
+  static constexpr int kRaw = (Elem::kL ? 2 : 1) * kCols * D;
   static constexpr int kV = kCols * pad4(RB);
   static constexpr int kStage = kRaw + kV;
-  static constexpr int kCook = D == 2 ? 5 * kCols : 0;
+  static constexpr int kCook = D == 2 ? Elem::kCook * kCols : 0;
   static constexpr int kFloats = 2 * kStage + kCook;
 };
 
-// K2.  part[s, i, g0 + r] as rbf_matvec_kernel's, the Gibbs element, with
-// thread tid owning rows blockIdx.x * kK2Rows + tid + u * kK2Threads,
-// u < kK2RowsPerThread.
-template <int D, int RB>
-__global__ void __launch_bounds__(kK2Threads, k2_min_blocks(D, RB))
+// K2 and K6.  part[s, i, g0 + r] = sum over slice s of K(i, j) v[j, g0 + r]
+// for the rhs group g0 = kGroup * blockIdx.z, r < min(kGroup, rc - g0),
+// with thread tid owning rows blockIdx.x * Elem::kRows + tid + u * kK2Threads,
+// u < Elem::kRowsPerThread.
+template <class Elem, int D, int RB>
+__global__ void __launch_bounds__(kK2Threads, min_blocks<Elem>(D, RB))
 gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
                   int n1, const float* __restrict__ x2,
                   const float* __restrict__ l2, int n2,
                   const float* __restrict__ v, int ldv, int rc, int d,
                   int cols_per_split, float* __restrict__ part) {
   constexpr int RP = pad4(RB);
-  constexpr int TR = kK2RowsPerThread;
-  using S = RowsSmem<D, RB>;
+  constexpr int TR = Elem::kRowsPerThread;
+  using S = RowsSmem<Elem, D, RB>;
   __shared__ __align__(16) float sm[S::kFloats];
   const int tid = threadIdx.x;
   const int s = blockIdx.y;
   const int g0 = blockIdx.z * kGroup;
   const int gw = min(kGroup, rc - g0);  // <= RB by the host's choice of RB
-  const int row0 = blockIdx.x * kK2Rows + tid;
+  const int row0 = blockIdx.x * Elem::kRows + tid;
 
   // the rows' payloads; an inactive row gets x = 0, l = 1
   float xi[TR][D], li[TR][D];
@@ -262,14 +283,10 @@ gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
     const int i = row0 + u * kK2Threads;
     load_row<D>(x1, l1, i, i < n1, d, xi[u], li[u]);
   }
-  float qi0[TR], qi1[TR], ni[TR];  // d = 2: the element's row factors
+  typename Elem::Row rf[TR];  // d = 2: the element's row factors
   if constexpr (D == 2) {
 #pragma unroll
-    for (int u = 0; u < TR; ++u) {
-      qi0[u] = (li[u][0] * li[u][0]) * kLn2;
-      qi1[u] = (li[u][1] * li[u][1]) * kLn2;
-      ni[u] = sqrtf(li[u][0] * li[u][1]) * kTwoLn2;
-    }
+    for (int u = 0; u < TR; ++u) rf[u] = Elem::row(xi[u], li[u]);
   }
   float acc[TR][RB];
 #pragma unroll
@@ -280,7 +297,7 @@ gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
   const int c_begin = s * cols_per_split;
   const int c_end = min(n2, c_begin + cols_per_split);
   const int npass = (c_end - c_begin + kCols - 1) / kCols;
-  // pass n's columns [c0, c0 + jn) into stage b: x and l at [j * D + k]
+  // pass n's columns [c0, c0 + jn) into stage b: x (and l) at [j * D + k]
   // (dims past d unread), V's rows at [j * RP + r] (columns past jn and
   // right-hand sides past gw zero)
   auto stage = [&](int n, int b) {
@@ -294,7 +311,7 @@ gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
       const bool ok = j < jn;
       const size_t g = static_cast<size_t>(c0 + j) * d + k;
       cp_async4(xs + j * D + k, ok ? x2 + g : x2, ok);
-      cp_async4(ls + j * D + k, ok ? l2 + g : l2, ok);
+      if constexpr (Elem::kL) cp_async4(ls + j * D + k, ok ? l2 + g : l2, ok);
     }
     for (int e = tid; e < kCols * RP; e += kK2Threads) {
       const int j = e / RP, r = e % RP;
@@ -314,20 +331,13 @@ gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
     const float* ls = xs + kCols * D;
     const float* vs = xs + S::kRaw;
     if constexpr (D == 2) {
-      // the column factors, once a pass; a zero-filled column past the
-      // slice's end gets n_j = 0, so its element is 0
-      float4* cq = reinterpret_cast<float4*>(sm + 2 * S::kStage);
-      float* cn = sm + 2 * S::kStage + 4 * kCols;
-      for (int j = tid; j < kCols; j += kK2Threads) {
-        const float l0 = ls[2 * j], l1j = ls[2 * j + 1];
-        cq[j] = make_float4(xs[2 * j], xs[2 * j + 1], (l0 * l0) * kLn2, (l1j * l1j) * kLn2);
-        cn[j] = sqrtf(l0 * l1j);
-      }
+      // the column factors, once a pass
+      float* ck = sm + 2 * S::kStage;
+      for (int j = tid; j < kCols; j += kK2Threads) Elem::cook(ck, xs, ls, j);
       __syncthreads();
 #pragma unroll 2
       for (int j = 0; j < kCols; ++j) {
-        const float4 cj = cq[j];
-        const float nj = cn[j];
+        const typename Elem::Col cj = Elem::col(ck, j);
         float vj[RP];
 #pragma unroll
         for (int r = 0; r < RP; r += 4) {
@@ -339,20 +349,17 @@ gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
         }
 #pragma unroll
         for (int u = 0; u < TR; ++u) {
-          const float kij = gibbs_d2_elem(xi[u][0], xi[u][1], qi0[u], qi1[u], ni[u], cj, nj);
+          const float kij = Elem::elem2(rf[u], cj);
 #pragma unroll
           for (int r = 0; r < RB; ++r) acc[u][r] = fmaf(kij, vj[r], acc[u][r]);
         }
       }
     } else {
-      // the per-dim element; a zero-filled column has l_j = 0, so its
-      // element is 0
 #pragma unroll 2
       for (int j = 0; j < kCols; ++j) {
 #pragma unroll
         for (int u = 0; u < TR; ++u) {
-          float diff[D], inv_ss[D];
-          const float kij = gibbs_elem<D>(xi[u], li[u], xs + j * D, ls + j * D, d, diff, inv_ss);
+          const float kij = Elem::template elem<D>(xi[u], li[u], xs + j * D, ls + j * D, d);
 #pragma unroll
           for (int r = 0; r < RB; ++r) acc[u][r] = fmaf(kij, vs[j * RP + r], acc[u][r]);
         }
@@ -418,7 +425,7 @@ gibbs_panel_grads_kernel(const float* __restrict__ xr,
   for (int c0 = c_begin; c0 < c_end; c0 += kCols) {
     const int jn = min(kCols, c_end - c0);
     __syncthreads();
-    stage_cols<D, 2 * D>(cp, xc, lc, c0, jn, d);
+    stage_cols<D>(cp, xc, lc, c0, jn, d);
     for (int e = threadIdx.x; e < jn * FP; e += kRows) {
       const int j = e / FP;
       const int f = e % FP;
@@ -496,43 +503,37 @@ struct MatvecArgs {
   int n1, n2, d, ldv, rc, ldo, splits, cols_per_split;
 };
 
-// K2 (kK2 true: gibbs_rows_kernel) or K6 (rbf_matvec_kernel)
-template <bool kK2, int D, int RB>
+// K2 (GibbsElem) or K6 (RbfElem)
+template <class Elem, int D, int RB>
 void launch_matvec(const MatvecArgs& a, cudaStream_t s) {
-  const int rows = kK2 ? kK2Rows : kRows;
-  const dim3 grid((a.n1 + rows - 1) / rows, a.splits,
+  const dim3 grid((a.n1 + Elem::kRows - 1) / Elem::kRows, a.splits,
                   (a.rc + kGroup - 1) / kGroup);
-  if constexpr (kK2)
-    gibbs_rows_kernel<D, RB><<<grid, kK2Threads, 0, s>>>(
-        a.x1, a.l1, a.n1, a.x2, a.l2, a.n2, a.v, a.ldv, a.rc, a.d,
-        a.cols_per_split, a.part);
-  else
-    rbf_matvec_kernel<D, RB><<<grid, kRows, 0, s>>>(
-        a.x1, a.n1, a.x2, a.n2, a.v, a.ldv, a.rc, a.d, a.cols_per_split,
-        a.part);
+  gibbs_rows_kernel<Elem, D, RB><<<grid, kK2Threads, 0, s>>>(
+      a.x1, a.l1, a.n1, a.x2, a.l2, a.n2, a.v, a.ldv, a.rc, a.d,
+      a.cols_per_split, a.part);
 }
 
 // Accumulators per row: the smallest bucket that holds one rhs group
 // (mBCG's 1 + 8 probes take 9 exactly).
-template <bool kK2, int D>
+template <class Elem, int D>
 void matvec_rb(const MatvecArgs& a, cudaStream_t s) {
   const int w = a.rc < kGroup ? a.rc : kGroup;
-  if (w <= 1) launch_matvec<kK2, D, 1>(a, s);
-  else if (w <= 4) launch_matvec<kK2, D, 4>(a, s);
-  else if (w <= 9) launch_matvec<kK2, D, 9>(a, s);
-  else if (w <= 16) launch_matvec<kK2, D, 16>(a, s);
-  else launch_matvec<kK2, D, kGroup>(a, s);
+  if (w <= 1) launch_matvec<Elem, D, 1>(a, s);
+  else if (w <= 4) launch_matvec<Elem, D, 4>(a, s);
+  else if (w <= 9) launch_matvec<Elem, D, 9>(a, s);
+  else if (w <= 16) launch_matvec<Elem, D, 16>(a, s);
+  else launch_matvec<Elem, D, kGroup>(a, s);
 }
 
-// The launches of K2 or K6: the kernel, then the fixed-order sum of the
+// The launches of K2 or K6: the walk, then the fixed-order sum of the
 // column slices.
-template <bool kK2>
+template <class Elem>
 int run_matvec(const MatvecArgs& a, cudaStream_t s) {
   switch (a.d) {
-    case 1: matvec_rb<kK2, 1>(a, s); break;
-    case 2: matvec_rb<kK2, 2>(a, s); break;
-    case 3: matvec_rb<kK2, 3>(a, s); break;
-    default: matvec_rb<kK2, kMaxD>(a, s); break;
+    case 1: matvec_rb<Elem, 1>(a, s); break;
+    case 2: matvec_rb<Elem, 2>(a, s); break;
+    case 3: matvec_rb<Elem, 3>(a, s); break;
+    default: matvec_rb<Elem, kMaxD>(a, s); break;
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -594,11 +595,12 @@ int gibbs_matvec(const void* x1, const void* l1, int n1, const void* x2,
                      static_cast<const float*>(v),  static_cast<float*>(out),
                      static_cast<float*>(part),     n1, n2, d, ldv, rc, ldo,
                      splits, cols_per_split};
-  return run_matvec<true>(a, static_cast<cudaStream_t>(stream));
+  return run_matvec<GibbsElem>(a, static_cast<cudaStream_t>(stream));
 }
 
 // K6.  z1: (n1, d) and z2: (n2, d), the prescaled x / ell; v, out and part
-// as in gibbs_matvec.  Returns cudaGetLastError() as an int.
+// as in gibbs_matvec.  Launches on `stream` and returns cudaGetLastError()
+// as an int.
 int rbf_matvec(const void* z1, int n1, const void* z2, int n2, int d,
                const void* v, int ldv, int rc, void* out, int ldo, void* part,
                int splits, int cols_per_split, void* stream) {
@@ -609,7 +611,7 @@ int rbf_matvec(const void* z1, int n1, const void* z2, int n2, int d,
   const MatvecArgs a{pz1, pz1, pz2, pz2, static_cast<const float*>(v),
                      static_cast<float*>(out), static_cast<float*>(part),
                      n1, n2, d, ldv, rc, ldo, splits, cols_per_split};
-  return run_matvec<false>(a, static_cast<cudaStream_t>(stream));
+  return run_matvec<RbfElem>(a, static_cast<cudaStream_t>(stream));
 }
 
 // K3.  Rows xr, lr: (nr, d), f1r: (nr, fw); columns xc, lc: (n, d),

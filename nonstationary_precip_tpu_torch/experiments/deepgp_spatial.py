@@ -63,12 +63,15 @@ def draw_eps(rng: np.random.Generator, lead: tuple, num_hidden: int, n: int) -> 
     return tuple(np.ascontiguousarray(z[..., i, :, :]) for i in range(num_hidden))
 
 
-def prep_split(data, random_state: int, cfg: ExperimentConfig, dtype=torch.float32, dev=torch.device("cpu")):
+def prep_split(data, random_state: int, cfg: ExperimentConfig, dtype=torch.float32, dev=None):
     """Host-side per-split prep: shuffle, transform and cut (numpy), the model
-    init, and the split's ε for every training step and for the prediction.
+    init, and the split's ε for every training step and for the prediction,
+    on ``dev`` (default: ``cfg.device``, which raises where it names a card
+    that is not there).
     Returns (model, (train_x, train_y, test_x, test_y), stdy, eps_train,
     eps_pred); each ε is a tuple of per-hidden-layer tensors, (T, S, O, B)
     and (S_pred, O, N_test)."""
+    dev = device(cfg.device) if dev is None else dev
     shuffled = sklearn_style_shuffle(data, random_state)
     if cfg.model == "boxcox":
         bc = box_cox_transform(shuffled)

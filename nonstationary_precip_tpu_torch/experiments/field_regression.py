@@ -104,10 +104,13 @@ def _fit_predict(x, y, x_pred, cfg: ExperimentConfig, batch_size: int, seed: int
     return dist, means, variances, res
 
 
-def spatial_field(cfg: ExperimentConfig, dev=torch.device("cpu")):
+def spatial_field(cfg: ExperimentConfig, dev=None):
     """Train the spatial DeepGP (split 0 of deepgp_spatial, whitened) and
     predict the field at all 394 sites in raw mm/day, in the CSV's row
-    order.  Returns ({pred, std, lat, lon, tp}, TrainResult)."""
+    order, on ``dev`` (default: ``cfg.device``, which raises where it names
+    a card that is not there).  Returns ({pred, std, lat, lon, tp},
+    TrainResult)."""
+    dev = device(cfg.device) if dev is None else dev
     data = load_csv(DATASET_DIR / "uib_spatial.csv")
     w = whitening_transform(sklearn_style_shuffle(data, 0))
     train_x, train_y, _, _ = train_test_split(w.x, w.y, cfg.train_percent / 100)
@@ -119,9 +122,11 @@ def spatial_field(cfg: ExperimentConfig, dev=torch.device("cpu")):
     return field, res
 
 
-def st_field_pattern(cfg: ExperimentConfig, dev=torch.device("cpu")):
+def st_field_pattern(cfg: ExperimentConfig, dev=None):
     """The month-5 site field of the spatio-temporal DeepGP in raw space, one
-    row per test site (the split's row order).  Returns (field, TrainResult)."""
+    row per test site (the split's row order), on ``dev`` (default:
+    ``cfg.device``).  Returns (field, TrainResult)."""
+    dev = device(cfg.device) if dev is None else dev
     x_train, y_train, x_test, _, meany, stdy, _, _ = spatio_temporal_month_split()
     dist, _, _, res = _fit_predict(x_train, y_train, x_test, cfg, ST_BATCH, BASE_SEED, cfg.num_samples, dev)
     return dist.mean.double().cpu().numpy() * stdy + meany, res

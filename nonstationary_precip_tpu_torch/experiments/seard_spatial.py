@@ -46,10 +46,12 @@ def default_config() -> ExperimentConfig:
     return ExperimentConfig(model="whitening", lr=0.01, max_iters=400)
 
 
-def make_split(data: np.ndarray, random_state: int, cfg: ExperimentConfig, dtype=torch.float32,
-               dev=torch.device("cpu")):
+def make_split(data: np.ndarray, random_state: int, cfg: ExperimentConfig, dtype=torch.float32, dev=None):
     """Per-split model and data: (model, (train_x, train_y), (test_x,
-    test_y, stdy)), the shapes identical across splits."""
+    test_y, stdy)), the shapes identical across splits, on ``dev``
+    (default: ``cfg.device``, which raises where it names a card that is
+    not there)."""
+    dev = device(cfg.device) if dev is None else dev
     shuffled = sklearn_style_shuffle(data, random_state)
     if cfg.model == "boxcox":
         bc = box_cox_transform(shuffled)

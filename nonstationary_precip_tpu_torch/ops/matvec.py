@@ -22,26 +22,28 @@ bytes and do O(N²) work: at N = 16384, D = 2, R = 9 a K2 call reads 1.4 MB
 dimension K3's tile costs ~10 f32 operations, one IEEE division and one
 ``sqrtf``; then one ``expf`` and the contraction, 2(1 + 2R) + 6D.  K2's d = 2
 element costs 15 f32 operations (an FMA as 2) and 2 on the special-function
-units (SFU, 16 a clock an SM, a sixteenth of the FP32 lanes' rate), then
-the 2R of the contraction.  ``chip_smoke.py`` reports the FP32 bound
-(operations counted as below, over 67 TFLOP/s) and, for K2, the SFU bound
-(its two SFU operations an element over 16 a clock × 132 SMs at
-nvidia-smi's maximum SM clock) beside the measured time; K2's bound is the
-larger.
+units (SFU, 16 a clock an SM, a sixteenth of the FP32 lanes' rate), K6's 5
+and 1, then the 2R of the contraction.  ``chip_smoke.py`` reports the FP32
+bound (operations counted as below, over 67 TFLOP/s) and, for K2 and K6,
+the SFU bound (their SFU operations an element over 16 a clock × 132 SMs
+at nvidia-smi's maximum SM clock) beside the measured time; their bound is
+the larger.
 
 What the design does about it.  K never reaches memory: each element is
-built in registers and contracted at once.  K3 and K6: one thread owns one
-row, with the row's payload and its R (K6) or 1 + 2D (K3) accumulators in
-registers, so the inner loop is arithmetic on registers plus broadcast
-reads of the column payload from shared memory.  K2: one thread owns
-K2_ROWS_PER_THREAD rows (blocks of 256 threads, K2_ROWS rows), with their
-payloads and R accumulators each in registers, so each column payload and
-V row read from shared memory feeds two elements; at the path's d = 2 and
-R ≤ 9 the registers are capped at 64 so that four blocks share an SM (4
-rows a thread took 4–5 % longer on an H100, ``tools/bench_k2.py``);
-column passes are double-buffered through ``cp.async``, so staging
-overlaps the arithmetic.
-Its d = 2 element is the JAX kernel's own rewrite (``pallas_matvec.py:118-141``):
+built in registers and contracted at once.  K2 and K6 are one walk,
+``gibbs_rows_kernel``, with the element a template policy: one thread owns
+K2_ROWS_PER_THREAD = 2 rows for K2 and K6_ROWS_PER_THREAD = 4 for K6
+(blocks of 256 threads), with their payloads and R accumulators each in
+registers, so each column payload and V row read from shared memory feeds
+that many elements; at the paths' d = 2 and R ≤ 9 K2's registers are
+capped at 64 so that four blocks share an SM, K6's are left free, and K6's
+columns are split for 4 blocks an SM, not 8 (``tools/bench_k2.py`` times
+both kernels at 2, 4 and 8 rows a thread, with and without the cap, at 4,
+8 and 16 blocks an SM: on an H100 K2 took 4 % longer at 4 rows, K6 10 %
+less); column passes are double-buffered through ``cp.async``, so staging
+overlaps the arithmetic, and at d = 2 the element's column factors are made
+once a pass.
+K2's d = 2 element is the JAX kernel's own rewrite (``pallas_matvec.py:118-141``):
 one rsqrt(ss₀·ss₁) whose square is the reciprocal, the numerator
 √(∏ 2ℓ_ik ℓ_jk) split into a row factor and a column factor, each made once
 (the row's in registers, the column's once a pass), and, beyond JAX, the
@@ -50,22 +52,25 @@ rsqrt and exp2 are the SFU's approximations (``rsqrt.approx.ftz``,
 ``ex2.approx.ftz``, ~2⁻²² relative each; ``chip_smoke.py`` holds K2 to
 float64).  Every other d keeps the per-dim element of ``gibbs_elem.cuh``
 (IEEE division, ``sqrtf``, ``expf``), as the JAX package does.
+K6's payload is z = x/ℓ, prescaled once per build by the wrapper (the TPU
+kernel's ``_pack_scaled``), and its element exp(−½ Σ_k (z_ik − z_jk)²)
+forms the quadratic from the differences, where the TPU kernel (and the
+plain version here) uses ‖a‖² + ‖b‖² − 2a·b clamped at 0.  At d = 2 the
+walk scales the rows' z (in registers) and each pass's columns by
+c = √(log₂e / 2), so the element is 2^−((cz_i0 − cz_j0)² + (cz_i1 − cz_j1)²):
+two differences, a square and an FMA, and one ``ex2.approx.ftz``; other d
+keep the per-dim differences and ``expf``.  The caller adds s² and σ²V, as
+the JAX builder does.
+K3: one thread owns one row, with the row's payload and its 1 + 2D
+accumulators in registers, so the inner loop is arithmetic on registers
+plus broadcast reads of the column payload from shared memory.
 Accumulators are templated on R's bucket, so mBCG's R = 9 keeps exactly 9.
 The column range is split over blocks until the card holds ~8 blocks per
-SM, and a second pass adds the slices in a fixed order: no float atomics,
+SM (K6: ~4), and a second pass adds the slices in a fixed order: no float atomics,
 so a result is the same bits on every run.  Not carried over from the TPU:
 the (N, 128) lane packing and padded rows (the kernels mask the ragged
 edge) and the MXU contraction modes (plain f32 FMAs, no tensor cores, no
 TF32).
-
-K6 walks as K3 does (a thread a row, ``rbf_matvec_kernel``), with its own
-element: the wrapper prescales z = x/ℓ once per build (the TPU kernel's
-``_pack_scaled``), the column payload is z alone, and each element is exp(−½ Σ_k (z_ik − z_jk)²), its quadratic formed
-from the differences, where the TPU kernel (and the plain version here)
-uses ‖a‖² + ‖b‖² − 2a·b clamped at 0.  Per element it costs 3D + 2
-operations and one ``expf`` before the 2R of the contraction: far less than
-the Gibbs tile, so at R = 9 the FMAs of the contraction and the ``expf``
-share the time.  The caller adds s² and σ²V, as the JAX builder does.
 
 Dispatch: a CPU tensor takes the plain version (``gibbs_gram_matvec_plain``,
 ``packed_gibbs_panel_grads_plain``, ``rbf_gram_matvec_plain``); a CUDA
@@ -94,12 +99,15 @@ SOURCE = CSRC / "gibbs_matvec.cu"
 MAX_D = 8  # input dims the kernels take
 MAX_R = 128  # K2, K6: right-hand sides one launch takes; wider V is column-chunked
 MAX_FACTORS = 65  # K3: 1 + 2R cotangent factors, so R ≤ 32
-ROWS = 128  # K3, K6: rows per block (csrc kRows)
+ROWS = 128  # K3: rows per block (csrc kRows)
 K2_ROWS_PER_THREAD = 2  # K2: rows a thread owns (csrc kK2RowsPerThread)
 K2_ROWS = 256 * K2_ROWS_PER_THREAD  # K2: rows per block (csrc kK2Rows)
+K6_ROWS_PER_THREAD = 4  # K6: rows a thread owns (csrc kK6RowsPerThread)
+K6_ROWS = 256 * K6_ROWS_PER_THREAD  # K6: rows per block (csrc kK6Rows)
 COLS = 128  # columns per shared-memory pass (csrc kCols)
 GROUP = 32  # K2, K6: right-hand sides one block contracts (csrc kGroup)
-BLOCKS_PER_SM = 8  # column splits are added until the grid has this many
+BLOCKS_PER_SM = 8  # column splits are added until the grid has this many (K2, K3)
+K6_BLOCKS_PER_SM = 4  # K6's (tools/bench_k2.py: 4 rows a thread with free registers, 4 an SM)
 PLAIN_BLOCK = 2048  # row-panel height of the plain versions
 
 #: Kernel launches so far in this process, one per K2, K3 or K6 call of the
@@ -126,15 +134,17 @@ def build(force: bool = False) -> str:
     return log
 
 
-def column_splits(n_rows: int, n_cols: int, groups: int, sms: int, rows: int = ROWS) -> tuple[int, int]:
+def column_splits(n_rows: int, n_cols: int, groups: int, sms: int, rows: int = ROWS,
+                  per_sm: int | None = None) -> tuple[int, int]:
     """(splits, columns per split) for a grid of ⌈n_rows/rows⌉ row blocks ×
-    ``groups`` (``rows``: ROWS for K3 and K6, K2_ROWS for K2): slices of a
-    whole number of COLS-wide passes each, as many as bring the grid to
-    about BLOCKS_PER_SM blocks per SM (the passes are shared out evenly, so
-    the grid may fall short by the rounding)."""
+    ``groups`` (``rows``: ROWS for K3, K2_ROWS for K2, K6_ROWS for K6):
+    slices of a whole number of COLS-wide passes each, as many as bring the
+    grid to about ``per_sm`` (default BLOCKS_PER_SM) blocks per SM (the
+    passes are shared out evenly, so the grid may fall short by the
+    rounding)."""
     chunks = -(-n_cols // COLS)
     blocks = -(-n_rows // rows) * groups
-    want = min(chunks, max(1, -(-BLOCKS_PER_SM * sms // blocks)))
+    want = min(chunks, max(1, -(-(BLOCKS_PER_SM if per_sm is None else per_sm) * sms // blocks)))
     per = -(-chunks // want)
     return -(-chunks // per), per * COLS
 
@@ -290,7 +300,7 @@ def rbf_gram_matvec_cuda(z1, z2, v):
     sms, stream = _num_sms(v.device), _stream(v.device)
     for c0 in range(0, r, MAX_R):
         rc = min(MAX_R, r - c0)
-        splits, per = column_splits(n1, n2, -(-rc // GROUP), sms)
+        splits, per = column_splits(n1, n2, -(-rc // GROUP), sms, K6_ROWS, K6_BLOCKS_PER_SM)
         part = torch.empty(splits * n1 * rc, dtype=v.dtype, device=v.device)
         err = _lib.rbf_matvec(z1.data_ptr(), n1, z2.data_ptr(), n2, d, v.data_ptr() + 4 * c0, r, rc,
                               out.data_ptr() + 4 * c0, r, part.data_ptr(), splits, per, stream)
@@ -538,11 +548,25 @@ def matvec_sfu_ops(n1: int, n2: int, d: int) -> int:
     return n1 * n2 * (2 if d == 2 else 2 * d + 1)
 
 
+def _rbf_elem_ops(d: int) -> int:
+    """FP32-lane operations per Gram element of K6's element: at d = 2 the
+    two differences (2), d₀² (1) and the FMA (2) = 5, its ex2 on the SFU;
+    else per dim the difference and its square-add (3), then the −½ product
+    and ``expf`` (2)."""
+    return 5 if d == 2 else 3 * d + 2
+
+
 def rbf_matvec_ops(n1: int, n2: int, d: int, r: int) -> int:
-    """Operations of K6 over an n1 × n2 Gram with r right-hand sides: per
-    element and dim the difference and its square-add (3), the −½ product
-    and ``expf`` (2), then one FMA (2 ops) per right-hand side."""
-    return n1 * n2 * (3 * d + 2 + 2 * r)
+    """Operations of K6 over an n1 × n2 Gram with r right-hand sides: the
+    element plus one FMA (2 ops) per right-hand side."""
+    return n1 * n2 * (_rbf_elem_ops(d) + 2 * r)
+
+
+def rbf_matvec_sfu_ops(n1: int, n2: int) -> int:
+    """Special-function-unit operations of K6 over an n1 × n2 Gram: one
+    exponential an element (``ex2.approx`` at d = 2; ``expf``'s ex2
+    elsewhere)."""
+    return n1 * n2
 
 
 def panel_grads_ops(nr: int, n: int, d: int, r: int) -> int:

@@ -16,24 +16,33 @@ outputs = 50 members, M = 250, P = 2M + 1 = 501) one call is ~2.1·10⁹
 operations (M³/3 each for the factor and the inverse, M²·P for the
 triangular W, per member) and moves ~75 MB (P read; L, L⁻¹ and W written),
 so the card could do it in ~0.03 ms.  It cannot: each member's
-factorisation is a chain of M dependent column steps, and 50 members
-occupy 50 of the 132 SMs.
+factorisation is a chain of dependent steps.
 
-What the design does about it.  Two hand-written kernels, launched back to
-back by one call:
-  * the factor kernel gives each member one 1024-thread block, builds its
-    Gram straight into a packed lower triangle in shared memory (125.5 KB
-    at M = 250; K_zz never reaches device memory) and runs the (L, L⁻¹)
-    sweep that K1 shares (``csrc/chol_sweep.cuh``): L⁻¹ rides along in the
-    same M steps, so there is one dependent chain, not two.  The retry runs
-    inside the block, so a healthy member runs once;
-  * the W kernel spreads L⁻ᵀ·P over 32 × 32 output tiles of all members
-    (6400 blocks at the path's shape), so the one part of the work with
-    no dependent chain fills the card.
+What the design does about it.  One launch a call, one thread-block
+cluster a member (``cluster_size()`` CTAs), on the block-step machinery
+that K1 uses (``csrc/chol_inv_cluster.cuh``):
+  * every CTA builds the Gram tiles it owns in place in shared memory from
+    z/ℓ and s² (K_zz never reaches device memory), and the member is
+    factored right-looking in 32-wide block columns: nb = ⌈M/32⌉ = 8 block
+    steps at M = 250, each a one-warp leaf, substitutions and a rank-32
+    update spread over the cluster, where the column sweep this replaced
+    (one 1024-thread block a member, ``csrc/chol_sweep.cuh``) took M
+    dependent steps on one SM.  L⁻¹ rides along in the same chain;
+  * W = L⁻ᵀP is the cluster's tail: after the last step the cluster's
+    shared memory holds every tile of L⁻¹, so each CTA takes chunks of P's
+    columns and forms its slice of W from register micro-tiles, with P's
+    row blocks double-buffered through ``cp.async`` and L⁻¹'s tiles copied
+    from the cluster's other CTAs.  L⁻¹ is not read back from device
+    memory, and the second launch of the two-kernel design is gone;
+  * the retry runs inside the cluster, so a healthy member runs once.
+The cluster size and the CTAs an SM are measured (``tools/bench_k4.py``).
 The TPU kernel's 256-padding, its 128-lane z layout, its batched
 broadcast-and-reduce recurrence and its Newton refinements were Mosaic's
-and are not carried over.  Plain f32: IEEE division, ``sqrtf``, ``expf``,
-no tensor cores, a fixed summation order and no atomics.
+and are not carried over.  Plain f32: IEEE division and ``expf`` in the
+Gram, K1's ``rsqrtf`` leaf, the substitutions by the IEEE reciprocal of
+the diagonal (K1 divides; ``tools/bench_k4.py`` times K4 with IEEE
+``sqrtf`` and division in the leaf, and with division in the
+substitutions), no tensor cores, a fixed summation order and no atomics.
 
 K4's jitter ladder, not K1's.  A member whose L or L⁻¹ is not finite is
 refactored from K + 1e-4·I, then from K + (1e-4 + 1e-2)·I, at most 3
@@ -90,8 +99,39 @@ def build(force: bool = False) -> str:
     lib.svgp_precompute.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                                                  ctypes.c_void_p]
     lib.svgp_precompute.restype = ctypes.c_int
+    for name, args in (("svgp_cluster_size", []), ("svgp_smem_bytes", [ctypes.c_int] * 2),
+                       ("svgp_max_smem", [ctypes.c_int]), ("svgp_max_clusters", [ctypes.c_int] * 2)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_int
     _lib = lib
     return log
+
+
+def _library():
+    if _lib is None:
+        build()
+    return _lib
+
+
+def cluster_size() -> int:
+    """CTAs a member: the cluster size the kernel is built with."""
+    return _library().svgp_cluster_size()
+
+
+def smem_bytes(m: int, d: int) -> int:
+    """Dynamic shared memory each CTA of a member's cluster takes at (M, D)."""
+    return _library().svgp_smem_bytes(m, d)
+
+
+def max_smem(device: int = 0) -> int:
+    """Largest dynamic shared memory one block may opt in to on the card."""
+    return _library().svgp_max_smem(device)
+
+
+def max_active_clusters(m: int, d: int) -> int:
+    """Members the card runs at once at (M, D) (``cudaOccupancyMaxActiveClusters``
+    on the current card); negative is a CUDA error."""
+    return _library().svgp_max_clusters(m, d)
 
 
 def svgp_precompute_cuda(z: torch.Tensor, ell: torch.Tensor, s2: torch.Tensor, packed: torch.Tensor):
@@ -118,15 +158,14 @@ def svgp_precompute_cuda(z: torch.Tensor, ell: torch.Tensor, s2: torch.Tensor, p
         raise ValueError("svgp_precompute kernel takes contiguous tensors")
     if any(a.device != z.device for a in args):
         raise ValueError("svgp_precompute kernel: all inputs must be on one device")
-    if _lib is None:
-        build()
+    lib = _library()
     l = torch.empty((t, m, m), dtype=z.dtype, device=z.device)
     li = torch.empty_like(l)
     w = torch.empty((t, m, p), dtype=z.dtype, device=z.device)
     jit = torch.empty(t, dtype=z.dtype, device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = _lib.svgp_precompute(
+        err = lib.svgp_precompute(
             z.data_ptr(), ell.data_ptr(), s2.data_ptr(), packed.data_ptr(),
             l.data_ptr(), w.data_ptr(), li.data_ptr(), jit.data_ptr(), t, m, d, p, EPSILON, stream)
     if err != 0:

@@ -1,17 +1,11 @@
-"""K1's cluster schedule (csrc/chol_inv_cluster.cu), emulated in torch.
+"""K1's cluster schedule (csrc/chol_inv_cluster.cu on
+csrc/chol_inv_cluster.cuh), emulated in torch.
 
-There is no card here, so the kernel cannot run; this file replays its
-arithmetic in the kernel's order, step by step, and holds the result to
-what chip_smoke.py's k1 phase holds the kernel to.  The member is padded
-to a multiple of 32 with an identity block and kept as 32 × 32 tiles of
-its lower triangle.  Block step k: the one-warp leaf factors S_kk and
-inverts L_kk in one pass of 32 column steps (rsqrt, rank-1 updates); the
-panel L_ik = S_ik L_kk⁻ᵀ and row k of L⁻¹, X_kj = L_kk⁻¹ W_kj, by forward
-substitution; then every tile below row k takes its rank-32 update, the 32
-products of each entry summed first and applied once: W_ij − L_ik X_kj
-(j < k), −L_ik X_kk (j = k), S_ij − L_ik L_jkᵀ (j > k).  A non-positive or
-non-finite pivot fails the try; a non-finite panel entry fails it after
-the last step; a failed try restarts from A + j·I up the ladder.
+There is no card here, so the kernel cannot run; tests/cluster_emulation.py
+replays the header's arithmetic in the kernel's order, step by step, and
+this file holds the result to what chip_smoke.py's k1 phase holds the
+kernel to, with K1's Source: the member A + j·I read as it is, and K1's
+ladder (j = 1e-5, ×10 after a jitter-free first try).
 
 The emulation runs in float32 (torch's f32 arithmetic, not the card's FMA:
 the criteria below are those the card is held to, not bitwise) on the
@@ -33,108 +27,26 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from cluster_emulation import B, PaddedSource
+from cluster_emulation import emulate as emulate_source
 from nonstationary_precip_tpu.ops import linalg as jax_linalg
 from nonstationary_precip_tpu.ops import pallas_chol
 from nonstationary_precip_tpu_torch.ops import chol_inv
+from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC
 
 torch.set_num_threads(1)
 
-B = 32  # the kernel's block width (kB)
 CLUSTER_SIZES = (1, 2, 4, 8)
 
 # chip_smoke.py's k1 criterion
 TOL_L_F64, TOL_LINV_RESIDUAL, TOL_KERNEL_PLAIN = 5e-6, 5e-5, 1e-5
 
 
-def _leaf(s):
-    """L_kk and L_kk⁻¹ of a 32 × 32 tile by the leaf's 32 column steps, or
-    None where a pivot is not > 0 or an entry is not finite."""
-    a = torch.tril(s).clone()
-    x = torch.eye(B, dtype=s.dtype)
-    lo = torch.zeros_like(s)
-    xo = torch.zeros_like(s)
-    for k in range(B):
-        d = a[k, k]
-        rs = torch.rsqrt(d)
-        lcol = torch.zeros(B, dtype=s.dtype)
-        lcol[k + 1:] = a[k + 1:, k] * rs
-        lcol[k] = d * rs
-        xk = x[k] * rs
-        if not (bool(d > 0) and bool(torch.isfinite(lcol).all()) and bool(torch.isfinite(xk).all())):
-            return None
-        lo[:, k] = lcol
-        xo[k] = xk
-        a[:, k + 1:] -= lcol[:, None] * lcol[None, k + 1:]
-        x[k + 1:] -= lcol[k + 1:, None] * xk[None, :]
-    return lo, xo
-
-
-def _substitute_rows(l, v):
-    """Each row y of v solved from L y = v_row by forward substitution."""
-    v = v.clone()
-    for m in range(B):
-        s = v[:, :m] @ l[m, :m] if m else torch.zeros(v.shape[0], dtype=v.dtype)
-        v[:, m] = (v[:, m] - s) / l[m, m]
-    return v
-
-
-def _one_try(a, n, jit):
-    """(L, L⁻¹) of the padded member A + jit·I by the block schedule, or
-    None where the try fails."""
-    nb = -(-n // B)
-    npad = nb * B
-    full = torch.eye(npad, dtype=a.dtype)
-    full[:n, :n] = a + jit * torch.eye(n, dtype=a.dtype)
-    w = {(i, j): full[i * B:(i + 1) * B, j * B:(j + 1) * B].clone() for i in range(nb) for j in range(i + 1)}
-    lo = torch.zeros(npad, npad, dtype=a.dtype)
-    xo = torch.zeros(npad, npad, dtype=a.dtype)
-    bad = False
-    for k in range(nb):
-        out = _leaf(w[k, k])
-        if out is None:
-            return None
-        lkk, xkk = out
-        lo[k * B:(k + 1) * B, k * B:(k + 1) * B] = lkk
-        xo[k * B:(k + 1) * B, k * B:(k + 1) * B] = xkk
-        for i in range(k + 1, nb):  # the panel, a row a lane
-            w[i, k] = _substitute_rows(lkk, w[i, k])
-            bad = bad or not bool(torch.isfinite(w[i, k]).all())
-            lo[i * B:(i + 1) * B, k * B:(k + 1) * B] = w[i, k]
-        for j in range(k):  # row k of L⁻¹, a column a lane
-            w[k, j] = _substitute_rows(lkk, w[k, j].T).T
-            bad = bad or not bool(torch.isfinite(w[k, j]).all())
-            xo[k * B:(k + 1) * B, j * B:(j + 1) * B] = w[k, j]
-        buf = {j: w[k, j] for j in range(k)}  # X_kj, natural
-        buf[k] = xkk
-        buf.update({i: w[i, k].T for i in range(k + 1, nb)})  # L_ik^T
-        for i in range(k + 1, nb):
-            for j in range(i + 1):
-                prod = buf[i].T @ buf[j]
-                w[i, j] = -prod if j == k else w[i, j] - prod
-    if bad:
-        return None
-    return lo[:n, :n], xo[:n, :n]
-
-
 def emulate(mats, jitter=1e-5, max_tries=6):
-    """The kernel's (L, L⁻¹, jitter per member), member by member."""
+    """The kernel's (L, L⁻¹, jitter per member)."""
     t, n, _ = mats.shape
-    ls, lis, jits = [], [], []
-    for m in range(t):
-        jit = np.array(0.0, dtype=np.float32 if mats.dtype == torch.float32 else np.float64)
-        out = None
-        for attempt in range(max_tries + 1):
-            if attempt:
-                jit = jit.dtype.type(jitter) if jit == 0 else jit * jit.dtype.type(10.0)
-            out = _one_try(mats[m], n, torch.tensor(jit, dtype=mats.dtype))
-            if out is not None:
-                break
-        if out is None:
-            out = (torch.full((n, n), float("nan"), dtype=mats.dtype),) * 2
-        ls.append(out[0])
-        lis.append(out[1])
-        jits.append(float(jit))
-    return torch.stack(ls), torch.stack(lis), torch.tensor(jits, dtype=mats.dtype)
+    l, li, jit, _ = emulate_source(PaddedSource(mats, jitter, max_tries), t, n, mats.dtype)
+    return l, li, jit
 
 
 def _spd(gen, t, n):
@@ -250,15 +162,17 @@ def test_schedule_matches_jax_chol_inv_batched_safe():
 
 def _constants():
     text = chol_inv.SOURCE.read_text()
-    get = {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1)) for name in ("kB", "kThreads")}
+    header = (CSRC / "chol_inv_cluster.cuh").read_text()
+    assert '#include "chol_inv_cluster.cuh"' in text
+    get = {name: int(re.search(rf"constexpr int {name} = (\d+);", header).group(1)) for name in ("kB", "kThreads")}
     get["kCluster"] = int(re.search(r"#define K1_CLUSTER (\d+)", text).group(1))
-    get["kLdPad"] = int(re.search(r"constexpr int kLd = kB \+ (\d+);", text).group(1))
+    get["kLdPad"] = int(re.search(r"constexpr int kLd = kB \+ (\d+);", header).group(1))
     return get
 
 
 def test_the_source_is_the_emulated_schedule_and_fits_shared_memory():
-    """The block width is the emulation's; the shipped cluster size is a
-    portable one; at every N the kernel takes, each tile lives in exactly
+    """The block width is the emulation's (the header's); the shipped
+    cluster size is a portable one; at every N the kernel takes, each tile lives in exactly
     one CTA's slot, and a CTA's shared memory (its slots, the operand
     buffer, L_kk, the leaf's columns and flags) fits the H100's 227 KB."""
     c = _constants()

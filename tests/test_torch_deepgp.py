@@ -337,7 +337,7 @@ def test_dataprep_and_prep_split_match_jax():
         for a, b in zip(parts, jax_dataprep.train_test_split(w_j.x, w_j.y, 0.8)):
             np.testing.assert_array_equal(a, b)
         _, tensors, stdy, eps_train, eps_pred = deepgp_spatial.prep_split(data, split, cfg.parse_args(
-            ["--num_inducing", str(M), "--num_epochs", "2"]))
+            ["--num_inducing", str(M), "--num_epochs", "2", "--device", "cpu"]))
         _, arrays_j, stdy_j, _, _ = jax_exp.prep_split(data, split, cfg_j)
         for a, b in zip(tensors, arrays_j):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -84,6 +84,17 @@ def test_builder_and_wrappers_refuse_what_they_do_not_take():
 
 
 def test_rbf_matvec_ops_count():
-    """The bound chip_smoke.py reports rests on this count: per element
-    3D + 2 operations, then 2R for the contraction."""
-    assert matvec.rbf_matvec_ops(16384, 16384, 2, 9) == 16384 * 16384 * 26
+    """The bound chip_smoke.py reports rests on this count, the element as
+    the kernel computes it: at d = 2, 5 FP32-lane operations (two
+    differences, a square and an FMA counted as 2; the ex2 runs on the SFU),
+    else per dim 3 and then 2 (the −½ product and expf); then 2R for the
+    contraction."""
+    assert matvec.rbf_matvec_ops(16384, 16384, 2, 9) == 16384 * 16384 * (5 + 18)
+    assert matvec.rbf_matvec_ops(100, 50, 3, 4) == 100 * 50 * (3 * 3 + 2 + 8)
+
+
+def test_rbf_matvec_sfu_ops_count():
+    """K6's special-function-unit count, for its SFU bound: one exponential
+    an element."""
+    assert matvec.rbf_matvec_sfu_ops(16384, 16384) == 16384 * 16384
+    assert matvec.rbf_matvec_sfu_ops(100, 50) == 5000

@@ -10,11 +10,14 @@ memory a CTA takes, the card's opt-in limit, the clusters that fit at once
 around blocks of 10 calls; blocks run in turns over the variants, twice),
 and L's and L⁻¹'s largest error from float64 relative to the largest
 entry.  A variant whose CTA needs more shared memory than the card allows
-reports that and is not timed.  The shipped size is the one the source
+reports that and is not timed.  ``--baseline PATH`` adds another source of
+the same C interface at its own default size (for example the parent
+commit's ``chol_inv_cluster.cu``, compiled with its own directory's
+headers), timed in the same turns.  The shipped size is the one the source
 defaults to (``K1_CLUSTER``); this probe is how it was chosen.
 
 Run from the repository root on a CUDA card:
-    python tools/bench_k1.py [--calls 60]
+    python tools/bench_k1.py [--calls 60] [--baseline PATH]
 """
 
 import argparse
@@ -37,13 +40,16 @@ SIZES = (1, 2, 4, 8)
 SHAPES = ((10, 316), (2, 384))
 
 
-def build(c: int) -> tuple:
-    """nvcc of the K1 source at cluster size c; (library, ptxas lines)."""
+def build(c, source=None) -> tuple:
+    """nvcc of the K1 source at cluster size c, or of ``source`` as it is;
+    (library, ptxas lines)."""
     out_dir = ROOT / "build" / "bench_k1"
     out_dir.mkdir(parents=True, exist_ok=True)
     out = out_dir / f"libk1_c{c}.so"
-    proc = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, f"-DK1_CLUSTER={c}", "-o", str(out),
-                           str(chol_inv.SOURCE)], capture_output=True, text=True)
+    src = source or chol_inv.SOURCE
+    flags = [] if source else [f"-DK1_CLUSTER={c}"]
+    proc = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-I", str(src.parent), "-o", str(out),
+                           str(src)], capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed at cluster size {c}:\n{log}")
@@ -88,11 +94,15 @@ def block_ms(fn, calls: int) -> list:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--calls", type=int, default=60)
+    ap.add_argument("--baseline", type=Path, help="another chol_inv_cluster.cu of the same C interface")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    with ThreadPoolExecutor(len(SIZES)) as pool:
-        libs = dict(zip(SIZES, pool.map(build, SIZES)))
+    jobs = {c: None for c in SIZES}
+    if args.baseline:
+        jobs["baseline"] = args.baseline.resolve()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda kv: build(*kv), jobs.items())))
     for c, (_, ptxas) in libs.items():
         print(json.dumps({"cluster": c, "ptxas": ptxas}))
     for t, n in SHAPES:
@@ -121,7 +131,7 @@ def main():
             for c in fits:
                 rows[c]["blocks_ms"].append(statistics.median(block_ms(lambda: call(libs[c][0], a), args.calls)))
         plain = statistics.median(block_ms(lambda: chol_inv.chol_inv_batched_safe_plain(a), args.calls))
-        for c in SIZES:
+        for c in libs:
             if rows[c]["fits"]:
                 rows[c]["ms"] = statistics.median(rows[c]["blocks_ms"])
             print(json.dumps({**rows[c], "plain_ms": plain, "nvidia_smi": smi}))

@@ -10,8 +10,9 @@ with the composed one (``fused_elbo=False``).  For each it warms up, times
 by time, and one JSON line per path: the untraced step time, the device's
 busy time per step (the sum of kernel time on the one stream), the idle
 share of an untraced step that this leaves, K4's and K7's time per step and
-share of the device time (K4: its factor and W kernels; K7: its forward,
-backward and reduction kernels), and the kernels launched per step.  The
+share of the device time (K4: its one cluster kernel, factor and W
+together, split by ``tools/bench_k4.py``; K7: its forward, backward and
+reduction kernels), and the kernels launched per step.  The
 gzipped Chrome traces go to ``build/profiles/profile_torch_dgp_{fused,composed}.json.gz``.
 
 Run from the repository root on a CUDA card:
@@ -36,7 +37,7 @@ from nonstationary_precip_tpu_torch.train.vmapped import stack_modules  # noqa: 
 from nonstationary_precip_tpu_torch.utils.config import DATASET_DIR, device  # noqa: E402
 
 
-K4_KERNELS = ("svgp_factor_kernel", "svgp_w_kernel")
+K4_KERNELS = ("svgp_cluster_kernel",)
 # the marginals' elbo_k_kernel and elbo_out_kernel run in both passes
 K7_KERNELS = ("elbo_k_kernel", "elbo_out_kernel", "elbo_fwd_layer1_kernel", "elbo_fwd_layer2_kernel",
               "elbo_fwd_head_kernel", "elbo_sum_kernel", "elbo_bwd_head_kernel", "elbo_bwd_pull_kernel",

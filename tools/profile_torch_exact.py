@@ -19,12 +19,13 @@ traces ``--steps`` more with ``torch.profiler`` (CPU and CUDA activities)
 and sums device kernel time by kernel.  Prints the top device kernels and
 one JSON line per step kind: the untraced step time, K8's kernels (gibbs),
 K5's update-and-panel and diagonal-tile kernels (dense; the diagonal tiles
-run on a second stream beside the updates, so the device's busy time sums
-overlapping kernels there) or K6 and the pivoted-Cholesky build (lazy), the
-rest, the traced wall time, the device's busy time, its idle share against
-the untraced step (1 − traced kernel time / untraced step time) and
-against the traced wall time (which the profiler's own cost inflates when
-a step launches thousands of kernels), and kernels per step.  The gzipped
+run on a second stream beside the updates) or K6 and the pivoted-Cholesky
+build (lazy), the rest, the traced wall time, the device's busy time (the
+union of the device kernels' intervals in the trace, so kernels that
+overlap on two streams count once), its idle share against the untraced
+step (1 − busy time / untraced step time) and against the traced wall time
+(which the profiler's own cost inflates when a step launches thousands of
+kernels), and kernels per step.  The gzipped
 Chrome traces go to ``build/profiles/profile_torch_exact_{gibbs*,dense,lazy}.json.gz``.
 
 Run from the repository root on a CUDA card:
@@ -55,7 +56,7 @@ K5_UPDATE, K5_DIAG = ("syrk_kernel", "panel_kernel"), ("diag_kernel",)
 # K8's kernels (on the Gibbs step only K8 runs blocked_chol.cuh's GEMM and
 # diagonal kernels)
 K8_NAMES = ("build_kernel", "gemm_nt_kernel", "diag_kernel", "finite_kernel", "commit_kernel")
-K6_NAMES = ("rbf_matvec_kernel", "sum_splits_kernel")  # only K6 runs them on this path
+K6_NAMES = ("gibbs_rows_kernel", "sum_splits_kernel")  # K6's walk and its sum; no K2 on this path
 
 
 def event_ms(fn, reps):
@@ -88,15 +89,31 @@ def traced(step, steps: int, name: str):
     out_dir = ROOT / "build" / "profiles"
     out_dir.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out_dir / f"profile_torch_exact_{name}.json.gz"))
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+    kernels = [e for e in prof.key_averages() if _device_kernel(e)]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    busy_us = busy_union_us([e for e in prof.events() if _device_kernel(e)])
     print(f"[{name}] {'kernel':<90} {'calls':>6} {'us/step':>10} {'share':>6}")
     for e in kernels[:25]:
         print(f"[{name}] {e.key[:90]:<90} {e.count / steps:>6.0f} {e.self_device_time_total / steps:>10.1f} "
               f"{e.self_device_time_total / busy_us:>6.1%}")
     return kernels, busy_us, wall
+
+
+def _device_kernel(e) -> bool:
+    return (e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer."))
+
+
+def busy_union_us(events) -> float:
+    """µs of the union of the events' [start, end) intervals: the time the
+    device ran at least one of them."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop <= end:
+            continue
+        total += stop - max(start, end)
+        end = stop
+    return total
 
 
 def ms_of(kernels, names, steps):
