@@ -64,8 +64,13 @@ one JSON line each:
                   special-function-unit bound (2 an element at 16 a clock an
                   SM at nvidia-smi's maximum SM clock); the bound is the
                   larger;
- 8. k3         — K3 against its plain version at N = 16384, R = 8 on the
-                  same payloads, and its row-block form on one block; times;
+ 8. k3         — K3 against its plain version (K3_TOL) and against float64
+                  (K2's criterion) at N = 16384, R = 8 on the same payloads,
+                  its row-block form on one block and a ragged row form
+                  (1000 of 1500 rows, D = 3, the per-dim element, R = 5),
+                  bitwise repeat; times, the FP32 bound of the recounted
+                  operations (beside the per-dim count's) and the
+                  special-function-unit bound; the bound is the larger;
  9. dgp_ref    — the deep GP on the card at full width (M = 250) for 2
                   splits and 10 steps, from the init, batch schedule and ε
                   of the JAX run pinned in tests/fixtures/jax_deepgp_ref.npz:
@@ -167,12 +172,15 @@ one JSON line each:
                   solve_triangular; times at K = 256 and 70, and the CUDA
                   launches of one call (torch.profiler);
 29. k8         — K8 and its plain version against float64 on the MAP loss's
-                  payloads at the same poses; a singular payload on which
-                  the jitter ladder fires, on the plain version's rung;
-                  bitwise repeat; times at N = 1024 and 1280;
+                  payloads at the same poses, L's backward error within
+                  γ_(N+1)|L||Lᵀ| (K10a's bound); a singular payload on
+                  which the jitter ladder fires, on the plain version's
+                  rung; bitwise repeat; times at N = 1024 and 1280, the
+                  CUDA launches of one call (3·N_pad/128 an attempt) and
+                  the device span of the happy path's empty attempts;
 30. traced     — torch.profiler after the paths' own traces: K1's, K2's,
-                  K4's and K6's CUDA launches in one call (every device
-                  kernel, checked 1, 2, 1 and 2), K7's forward's (checked
+                  K3's, K4's and K6's CUDA launches in one call (every device
+                  kernel, checked 1, 2, 2, 1 and 2), K7's forward's (checked
                   10), and K7's forward and backward time by kernel;
 31. gibbs_mf_ref — the matrix-free Gibbs flow of examples/
                   quickstart_gibbs_largen.py at N = 2048 on the data, prior
@@ -195,9 +203,9 @@ one JSON line each:
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line (K1's,
-K4's, K7's, K5's, K10c's, K10a's and K11's entries with the registers, spills
-and shared memory of each of their kernels, K1's and K4's with their cluster
-size) and the result line.  Needs a CUDA card and nvcc; imports no
+K2's, K3's, K4's, K6's, K7's, K5's, K10c's, K10a's, K11's and K8's entries
+with the registers, spills and shared memory of each of their kernels, K1's
+and K4's with their cluster size) and the result line.  Needs a CUDA card and nvcc; imports no
 JAX.
 
 Run from the repository root: python3 chip_smoke.py [--steps N]
@@ -252,6 +260,7 @@ LARGEN_N = 16384
 LARGEN_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_gibbs_largen_ref.npz"
 RAGGED = (1000, 1500, 3, 130)  # K2's ragged shape: R crosses the 128-column seam
 K3_ROWS = (2048, 4096)  # the row block of K3's row form
+K3_RAGGED = (1000, 1500, 3, 5)  # K3's ragged row form: rows, columns, D (the per-dim element), R
 N_TIMED_GRAM = 20  # calls per timed block at N = 16384 (the plain version takes ~40 ms)
 # The deep GP against the pinned JAX float32 losses: at step 0 both compute
 # the same ELBO from the same init and ε (the port's CPU run: 6e-8); Adam's
@@ -372,11 +381,11 @@ GIBBS_MEAN_ATOL, GIBBS_VAR_ATOL = 1e-3, 5e-4
 # ops, cuSOLVER potrf, cuBLAS trsm).
 DENSE_FLOOR = 1e-6
 # K8 against float64: L within twice the plain version's error plus 1e-5 of
-# the largest entry, α plus 1e-4: the sweep sums each 128-tile's Schur
-# complement in a serial chain of up to 128 rank-1 updates where potrf
-# blocks it, on a Gram whose condition number reaches ~1e4 (σ² = 0.011), and
-# α passes through an N-step substitution (tests/test_pallas.py:176 holds
-# the TPU kernel's α to 5e-3 absolute).
+# the largest entry, α plus 1e-4: the factorisation sums each 128-tile's
+# Schur complement in another order than potrf, on a Gram whose condition
+# number reaches ~1e4 (σ² = 0.011), and α passes through an N-step
+# substitution (tests/test_pallas.py:176 holds the TPU kernel's α to 5e-3
+# absolute).
 K8_FLOOR = {"L": 1e-5, "alpha": 1e-4}
 # K10b against float64 on the deep GP's K_zz stacks, the slice's Gram and
 # random SPD stacks: each output within twice the plain f32 version's error
@@ -440,6 +449,10 @@ GIBBS_MF_N, GIBBS_MF_STEPS, GIBBS_MF_DRIFT = 16384, 20, 1e-3
 # trace cotangent gives 0.5 and 0.19 (a CPU run at N = 256).
 GIBBS_MF_PRIOR_GRAD = {"cosine": 0.99999, "rel": 1e-5}
 GIBBS_MF_DATA_GRAD = {"cosine": 0.9999, "rel": 5e-3}
+# The walk's instantiations at the paths' shapes (csrc/gibbs_matvec.cu): K2
+# and K6 at D 2, R 9; K3 at D 2 and 1 + 2R = 17 factors.
+WALK = {"K2": "gibbs_rows_kernel<GibbsElem,2,9>", "K6": "gibbs_rows_kernel<RbfElem,2,9>",
+        "K3": "gibbs_rows_kernel<PanelElem,2,17>"}
 # The card's peaks (H100 SXM data sheet, at the full 700 W): f32 outside the
 # tensor cores, and HBM.
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -897,38 +910,71 @@ def phase_k2(matvec, payloads, dev):
 
 
 def phase_k3(matvec, payloads, dev):
+    """K3 against its plain version (K3_TOL of each output's largest entry)
+    and against float64 (K2's criterion: within twice the plain version's
+    error plus K6_FLOOR of the largest entry) on the gate's init and trained
+    payloads (16384, R 8), its row form on one block, and a ragged row form
+    at D = 3 (the per-dim element); bitwise repeat; times; the FP32 bound of
+    the recounted operations (and of the per-dim count it replaced) and the
+    special-function-unit bound (2 an element); the bound is the larger."""
     gen = torch.Generator().manual_seed(31)
     a, s, z = (torch.randn(*shape, generator=gen).to(dev) for shape in ((LARGEN_N,), (LARGEN_N, 8), (LARGEN_N, 8)))
     errs = {}
 
-    def compare(name, got, ref):
+    def compare(name, got, ref, ref64):
         torch.cuda.synchronize()
         e = {}
-        for g, p, what in zip(got, ref, ("gx", "gl", "sp")):
+        for g, p, q, what in zip(got, ref, ref64, ("gx", "gl", "sp")):
             check(bool(torch.isfinite(g).all()), f"K3 {name} {what} finite")
             e[what] = float((g - p).abs().max() / p.abs().max())
             check(e[what] <= K3_TOL, f"K3 {name} {what}: {e[what]:.3g} of its largest entry <= {K3_TOL}")
+            ek, ep = float((g.double() - q).abs().max()), float((p.double() - q).abs().max())
+            largest = float(q.abs().max())
+            e[f"{what}_vs_f64"], e[f"{what}_plain_vs_f64"] = ek / largest, ep / largest
+            check(ek <= 2 * ep + K6_FLOOR * largest,
+                  f"K3 {name} {what} vs float64 {ek:.3g} within 2x the plain version's {ep:.3g} "
+                  f"(+{K6_FLOOR} x {largest:.3g})")
         e["max_abs_err"] = max(float((g - p).abs().max()) for g, p in zip(got, ref))
         errs[name] = e
 
+    def f64(*args):
+        return tuple(t.double() for t in args)
+
     for pose, (x, ell) in payloads.items():
         compare(pose, matvec.packed_gibbs_panel_grads(x, ell, a, s, z),
-                matvec.packed_gibbs_panel_grads_plain(x, ell, a, s, z))
+                matvec.packed_gibbs_panel_grads_plain(x, ell, a, s, z),
+                matvec.packed_gibbs_panel_grads_plain(*f64(x, ell, a, s, z)))
     x, ell = payloads["trained"]
     sl = slice(*K3_ROWS)
     again = matvec.packed_gibbs_panel_grads(x, ell, a, s, z)
-    compare("rows", matvec.packed_gibbs_panel_grads_rows(x[sl], ell[sl], a[sl], s[sl], z[sl], x, ell, a, s, z),
-            matvec.packed_gibbs_panel_grads_rows_plain(x[sl], ell[sl], a[sl], s[sl], z[sl], x, ell, a, s, z))
+    rows = (x[sl], ell[sl], a[sl], s[sl], z[sl], x, ell, a, s, z)
+    compare("rows", matvec.packed_gibbs_panel_grads_rows(*rows), matvec.packed_gibbs_panel_grads_rows_plain(*rows),
+            matvec.packed_gibbs_panel_grads_rows_plain(*f64(*rows)))
+    nr, n, d, r = K3_RAGGED
+    xr, lr, ar, sr, zr = (t.to(dev) for t in (2 * torch.randn(n, d, generator=gen),
+                                              torch.exp(0.3 * torch.randn(n, d, generator=gen)),
+                                              *(torch.randn(*shape, generator=gen) for shape in ((n,), (n, r), (n, r)))))
+    rag = (xr[:nr], lr[:nr], ar[:nr], sr[:nr], zr[:nr], xr, lr, ar, sr, zr)
+    compare("ragged", matvec.packed_gibbs_panel_grads_rows(*rag), matvec.packed_gibbs_panel_grads_rows_plain(*rag),
+            matvec.packed_gibbs_panel_grads_rows_plain(*f64(*rag)))
     full = matvec.packed_gibbs_panel_grads(x, ell, a, s, z)
     check(all(torch.equal(p, q) for p, q in zip(full, again)), "K3 bitwise repeatable")
     t = timed_pair(lambda: matvec.packed_gibbs_panel_grads(x, ell, a, s, z),
                    lambda: matvec.packed_gibbs_panel_grads_plain(x, ell, a, s, z), N_TIMED_GRAM)
     ops = matvec.panel_grads_ops(LARGEN_N, LARGEN_N, 2, 8)
     # reads x, ℓ and α, S, Z once; writes ∂x, ∂ℓ and the row sums
-    b_ms, b_by = bound(ops, 4 * LARGEN_N * (2 * 2 + 1 + 2 * 8 + 2 * 2 + 1))
-    emit("k3", n=LARGEN_N, r=8, rows=list(K3_ROWS), errors=errs, ops=ops, bound_ms=b_ms, bound_by=b_by,
-         timed_calls=2 * N_TIMED_GRAM, **t)
-    return errs, t, b_ms, b_by
+    nbytes = 4 * LARGEN_N * (2 * 2 + 1 + 2 * 8 + 2 * 2 + 1)
+    fp32_ms, fp32_by = bound(ops, nbytes)
+    per_dim_ms = bound(matvec.panel_grads_ops_per_dim(LARGEN_N, LARGEN_N, 2, 8), nbytes)[0]
+    clock_hz = sm_clock_mhz() * 1e6
+    sfu_ops = matvec.panel_grads_sfu_ops(LARGEN_N, LARGEN_N, 2)
+    sfu_ms = sfu_ops / (16 * torch.cuda.get_device_properties(dev).multi_processor_count * clock_hz) * 1e3
+    b_ms, b_by = max((fp32_ms, fp32_by), (sfu_ms, "operations"))
+    emit("k3", n=LARGEN_N, r=8, rows=list(K3_ROWS), ragged=list(K3_RAGGED), errors=errs, ops=ops, sfu_ops=sfu_ops,
+         fp32_bound_ms=fp32_ms, sfu_bound_ms=sfu_ms, per_dim_count_bound_ms=per_dim_ms, sm_clock_mhz=clock_hz / 1e6,
+         bound_ms=b_ms, bound_by=b_by, timed_calls=2 * N_TIMED_GRAM, **t)
+    f1, f2 = matvec.cotangent_factors(a, s, z)  # the wrapper alone: the factors' torch ops are not K3's
+    return errs, t, b_ms, b_by, lambda: matvec._panel_grads_cuda(x, ell, f1, x, ell, f2)
 
 
 def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram, chol_blocked, trsm,
@@ -961,8 +1007,9 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_
                                      (gibbs_gram.SOURCE, chol_blocked.SOURCE, trsm.SOURCE, gibbs_fused.SOURCE,
                                       chol_inv.GRID_SOURCE, chol_stream.V1_SOURCE)):
         emit("build", kernel=name, seconds=sec, ptxas=ptxas_summary(log), sources=sources_of(src))
-    return {"chol_inv": k1_log, "svgp_precompute": k4_log, "elbo_fused": k7_log, "chol_stream": k5_log,
-            "chol_blocked": dense[1][1], "trsm": dense[2][1], "chol_stream_v1": dense[5][1]}
+    return {"chol_inv": k1_log, "gibbs_matvec": gm_log, "svgp_precompute": k4_log, "elbo_fused": k7_log,
+            "chol_stream": k5_log, "chol_blocked": dense[1][1], "trsm": dense[2][1], "gibbs_fused": dense[3][1],
+            "chol_stream_v1": dense[5][1]}
 
 
 def sources_of(source: Path) -> list:
@@ -984,14 +1031,15 @@ def rl_resources(attributes: dict, log: str) -> dict:
     K11's): registers and spill stores from ptxas's report, shared memory
     (static and dynamic) from the runtime."""
     ptxas = ptxas_summary(log)
-    # each chol_rl library instantiates one SYRK kernel a mode: <mode, CTAs an SM>
-    prefix = {"diag_kernel": "diag_kernel", "panel_kernel": "panel_kernel",
+    # each chol_rl library instantiates one kernel a role: diag_kernel<K8's
+    # hooks>, panel_kernel<hooks>, syrk_kernel<mode, CTAs an SM, hooks>
+    prefix = {"diag_kernel": "diag_kernel<", "panel_kernel": "panel_kernel<",
               "syrk_kernel<column>": "syrk_kernel<0,", "syrk_kernel<triangle>": "syrk_kernel<1,",
               "trsm_row_kernel": "trsm_row_kernel"}
     out = {}
     for name, a in attributes.items():
         p = prefix[name]
-        (summary,) = [v for k, v in ptxas.items() if k == p or (p.endswith(",") and k.startswith(p))]
+        (summary,) = [v for k, v in ptxas.items() if k == p or (p[-1] in "<," and k.startswith(p))]
         regs, spill = re.fullmatch(r"(\d+) regs, (\d+) spill bytes", summary).groups()
         out[name] = {"regs": int(regs), "spill_bytes": int(spill), "smem_bytes": a["static_smem"] + a["dynamic_smem"]}
     return out
@@ -1392,8 +1440,8 @@ def phase_k7(deepgp_spatial, elbo_fused, trained_model, dev):
             "bwd_call": lambda: elbo_fused.elbo_bwd_cuda(*args, h1, h2, gbar)}
 
 
-def phase_traced(chol_inv, k1_gram, k2_call, k4_call, k6_call, k7_fwd_call, k7_bwd_call) -> int:
-    """K1's, K2's, K4's and K6's CUDA launches in one call (every device
+def phase_traced(chol_inv, k1_gram, k2_call, k3_call, k4_call, k6_call, k7_fwd_call, k7_bwd_call) -> int:
+    """K1's, K2's, K3's, K4's and K6's CUDA launches in one call (every device
     kernel counted) and K7's forward and backward time by kernel, with the
     forward's CUDA launches a call, from torch.profiler.  These sessions run after k11: in
     a process that had traced other kernels first, k11's count of K11's
@@ -1403,6 +1451,8 @@ def phase_traced(chol_inv, k1_gram, k2_call, k4_call, k6_call, k7_fwd_call, k7_b
     check(launches == 1, f"K1 is one CUDA launch a call: {launches}")
     k2_launches = cuda_launches(k2_call, "")
     check(k2_launches == 2, f"K2 is 2 CUDA launches a call: {k2_launches}")
+    k3_launches = cuda_launches(k3_call, "")
+    check(k3_launches == 2, f"K3 is 2 CUDA launches a call: {k3_launches}")
     k4_launches = cuda_launches(k4_call, "")
     check(k4_launches == 1, f"K4 is 1 CUDA launch a call: {k4_launches}")
     k6_launches = cuda_launches(k6_call, "")
@@ -1414,7 +1464,7 @@ def phase_traced(chol_inv, k1_gram, k2_call, k4_call, k6_call, k7_fwd_call, k7_b
     split = kernel_split_ms(k7_bwd_call, 10)
     check(sorted(split) == sorted(K7_BWD_KERNELS), f"K7's backward launches {sorted(split)}")
     emit("traced", k1_cuda_launches_a_call=launches, k2_cuda_launches_a_call=k2_launches,
-         k4_cuda_launches_a_call=k4_launches, k6_cuda_launches_a_call=k6_launches,
+         k3_cuda_launches_a_call=k3_launches, k4_cuda_launches_a_call=k4_launches, k6_cuda_launches_a_call=k6_launches,
          k7_fwd_cuda_launches_a_call=fwd_launches, k7_fwd_split_ms=fwd_split, k7_bwd_split_ms=split)
     return launches
 
@@ -1970,29 +2020,53 @@ def phase_k11(trsm, payloads, dev):
     return out
 
 
+def device_kernels(fn) -> list:
+    """(name, start µs, end µs) of every device kernel in one call of
+    ``fn``, in order of start, as torch.profiler traces them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "kernel" in e.name), key=lambda k: k[1])
+
+
 def phase_k8(gibbs_fused, payloads, dev):
     """K8 and its plain version against float64 on the MAP loss's payloads
-    (the Gibbs rows at init and trained, the ragged N = 1000); a payload on
-    which the ladder fires, against the plain version's ladder; bitwise
-    repeat; times at N = 1024 and 1280."""
+    (the Gibbs rows at init and trained, the ragged N = 1000), each L also
+    held to the backward-error bound γ_(N+1)|L||Lᵀ| (``chol_bound_ratio``,
+    K10a's); a payload on which the ladder fires, against the plain
+    version's ladder; bitwise repeat; times at N = 1024 and 1280, with the
+    CUDA launches of one call and the span of the happy path's empty
+    attempts 2 and 3 on the device (torch.profiler)."""
     from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
 
     def f64(x, ell, y, s2, noise):
         k = s2.double() * gibbs_gram_reference(*(t.double() for t in (x, ell, x, ell)))
-        l = torch.linalg.cholesky(k + noise.double() * torch.eye(x.shape[0], dtype=torch.float64, device=dev))
-        return l, torch.linalg.solve_triangular(l, y.double()[:, None], upper=False)[:, 0]
+        a = k + noise.double() * torch.eye(x.shape[0], dtype=torch.float64, device=dev)
+        l = torch.linalg.cholesky(a)
+        return a, l, torch.linalg.solve_triangular(l, y.double()[:, None], upper=False)[:, 0]
 
     def compare(name, x, ell, y, s2, noise, rung=1):
         lk, ak, state = gibbs_fused.gibbs_chol_solve_cuda(x, ell, y, s2, noise)
         lp, ap, tries = gibbs_fused.gibbs_chol_solve_plain(x, ell, y, s2, noise)
         extra = gibbs_fused.EXTRA_JITTER[rung - 1]
-        l64, a64 = f64(x, ell, y, s2, noise + extra)
+        a64, l64, al64 = f64(x, ell, y, s2, noise + extra)
         torch.cuda.synchronize()
         got = int(state[0])
         check(got == tries == rung, f"K8 {name}: attempt {got}, the plain version's {tries}, want {rung}")
         check(bool((torch.triu(lk, 1) == 0).all()), f"K8 {name} L lower triangular")
         errs[name] = {"L": check_f64(f"K8 {name} L", lk, lp, l64, K8_FLOOR["L"]),
-                      "alpha": check_f64(f"K8 {name} alpha", ak, ap, a64, K8_FLOOR["alpha"]), "attempt": got}
+                      "alpha": check_f64(f"K8 {name} alpha", ak, ap, al64, K8_FLOOR["alpha"]), "attempt": got}
+        if rung == 1:
+            ratio = chol_bound_ratio(lk, a64)
+            check(ratio <= 1.0, f"K8 {name} backward error within γ_(N+1)|L||Lᵀ|: ratio {ratio:.3g} <= 1")
+            errs[name]["bound_ratio"] = ratio
+            errs[name]["plain_bound_ratio"] = chol_bound_ratio(lp, a64)
 
     errs = {}
     for name, (x, ell, y, s2, noise, _, _) in payloads.items():
@@ -2013,9 +2087,18 @@ def phase_k8(gibbs_fused, payloads, dev):
                        lambda: gibbs_fused.gibbs_chol_solve_plain(x, ell, y, s2, noise), N_TIMED)
         # reads x, ℓ (N, 2) and y; writes L and α
         b_ms, b_by = bound(gibbs_fused.fused_ops(n, 2), 4 * (4 * n + n + n * n + n))
-        times[n] = {**t, "bound_ms": b_ms, "bound_by": b_by}
+        # K8's own kernels (not the wrapper's zero fills): 3 N_pad / 128 an
+        # attempt, attempts 2 and 3 empty on the happy path
+        ks = [k for k in device_kernels(lambda: gibbs_fused.gibbs_chol_solve_cuda(x, ell, y, s2, noise))
+              if any(f in k[0] for f in ("build_kernel", "diag_kernel", "panel_kernel", "syrk_kernel",
+                                         "commit_kernel"))]
+        want = 3 * (3 * (-(-n // gibbs_fused.BLOCK)))
+        check(len(ks) == want, f"K8 at N = {n}: {len(ks)} CUDA launches a call, want {want}")
+        first_commit = next(end for name, _, end in ks if "commit_kernel" in name)
+        times[n] = {**t, "bound_ms": b_ms, "bound_by": b_by, "cuda_launches": len(ks),
+                    "empty_attempts_us": ks[-1][2] - first_commit, "attempt1_us": first_commit - ks[0][1]}
     out = {"max_abs_err": max(max(e["L"]["max_abs_err"], e["alpha"]["max_abs_err"]) for e in errs.values()),
-           **{k: times[GIBBS_NS[0]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+           **{k: times[GIBBS_NS[0]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "cuda_launches")}}
     emit("k8", n=GIBBS_NS[0], errors=errs, times=times, timed_calls=2 * N_TIMED, **out)
     return out
 
@@ -2381,7 +2464,7 @@ def main(argv=None):
     out, largen_launches = phase_largen(gibbs_largen, name)
     payloads = largen_payloads(gibbs_largen, out, dev)
     k2_errs, k2_t, k2_bound, k2_by, k2_call = phase_k2(matvec, payloads, dev)
-    k3_errs, k3_t, k3_bound, k3_by = phase_k3(matvec, payloads, dev)
+    k3_errs, k3_t, k3_bound, k3_by, k3_call = phase_k3(matvec, payloads, dev)
     phase_dgp_ref(deepgp_spatial, svgp_precompute, dev)
     dgp_out, dgp_launches = phase_dgp(deepgp_spatial, svgp_precompute, name)
     k4_errs, k4_t, k4_bound, k4_by, k4_design, k4_call = phase_k4(deepgp_spatial, svgp_precompute,
@@ -2410,7 +2493,8 @@ def main(argv=None):
     k11 = phase_k11(trsm, gibbs_pay, dev)
     k11["resources"] = rl_resources(trsm.kernel_attributes(), logs["trsm"])
     k8 = phase_k8(gibbs_fused, gibbs_pay, dev)
-    phase_traced(chol_inv, k1_design.pop("gram"), k2_call, k4_call, k6.pop("call"), k7.pop("fwd_call"),
+    k8["resources"] = rl_resources(gibbs_fused.kernel_attributes(), logs["gibbs_fused"])
+    phase_traced(chol_inv, k1_design.pop("gram"), k2_call, k3_call, k4_call, k6.pop("call"), k7.pop("fwd_call"),
                  k7.pop("bwd_call"))
     phase_gibbs_mf_ref(quickstart, dev)
     mf_launches = phase_gibbs_mf(quickstart, name)
@@ -2431,13 +2515,15 @@ def main(argv=None):
          "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:240",
          "launches": largen_launches["gibbs_matvec"] + mf_launches["gibbs_matvec"],
          "max_abs_err": max(e["max_abs_err"] for e in k2_errs.values()), "ms": k2_t["ms"],
-         "plain_ms": k2_t["plain_ms"], "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "plain_ms": k2_t["plain_ms"], "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+         "resources": {WALK["K2"]: ptxas_resources(logs["gibbs_matvec"], WALK["K2"])}},
         {"name": "gibbs_panel_grads", "route": "cuda",
          "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:350",
          "launches": largen_launches["gibbs_panel_grads"] + mf_launches["gibbs_panel_grads"],
          "max_abs_err": max(e["max_abs_err"] for e in k3_errs.values()), "ms": k3_t["ms"],
-         "plain_ms": k3_t["plain_ms"], "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
+         "plain_ms": k3_t["plain_ms"], "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
+         "resources": {WALK["K3"]: ptxas_resources(logs["gibbs_matvec"], WALK["K3"])}},
         {"name": "svgp_precompute", "route": "cuda",
          "source": "nonstationary_precip_tpu_torch/csrc/svgp_precompute.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_svgp.py:367", "launches": dgp_launches["svgp_precompute"],
@@ -2463,7 +2549,8 @@ def main(argv=None):
         {"name": "rbf_matvec", "route": "cuda", "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:527", "launches": k6_launches,
          "max_abs_err": k6["max_abs_err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
-         "bound_by": k6["bound_by"], "library_ms": None},
+         "bound_by": k6["bound_by"], "library_ms": None,
+         "resources": {WALK["K6"]: ptxas_resources(logs["gibbs_matvec"], WALK["K6"])}},
         *({"name": kname, "route": "cuda", "source": f"nonstationary_precip_tpu_torch/csrc/{src}",
            "replaces": f"nonstationary_precip_tpu/ops/{tpu}", "launches": gibbs_launches[kname],
            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -1,5 +1,6 @@
-// The right-looking blocked Cholesky that K10a (chol_blocked.cu) and K5
-// (chol_stream.cu) share, designed for Hopper (sm_90a).  It replaces the TPU
+// The right-looking blocked Cholesky that K10a (chol_blocked.cu), K5
+// (chol_stream.cu), K10c (chol_stream_v1.cu) and K8 (gibbs_fused.cu) share,
+// designed for Hopper (sm_90a).  It replaces the TPU
 // kernels nonstationary_precip_tpu/ops/pallas_chol.py::blocked_cholesky (body
 // _chol_kernel, whose right-looking order this is) and ::streaming_cholesky2
 // (body _stream2_kernel, whose diagonal tiles come from the recursive 2 x 2
@@ -47,6 +48,17 @@
 // What bounds it on an H100: the N^3/3 FFMA operations of the trailing
 // updates (67 TFLOP/s of f32 outside the tensor cores), then the chain of
 // N/128 diagonal tiles, each on one SM.
+// K8's two hooks are a compile-time template parameter of every kernel,
+// kFused, so that K5, K10a and K10c compile to the code they had without
+// them.  With kFused each kernel first reads state[0] (set once an attempt
+// of K8's jitter ladder has succeeded) and returns at once when it is set;
+// diag_kernel then forward-substitutes the right-hand side alpha_j against
+// the tile it has just factored (a substitution, not a product with
+// L_jj^-1: see panel_kernel) and sets state[1] if the tile failed, and
+// panel_kernel, once its rows X are solved, subtracts X alpha_j from its own
+// rows of alpha.  Each row of alpha is owned by one CTA and the block
+// columns are applied in order, so alpha = L^-1 y rides the factorisation
+// with no atomics, the same bits on every run.
 
 #pragma once
 
@@ -82,6 +94,15 @@ static_assert(kT % kBK == 0 && kBK % 4 == 0 && kCopies * 4 * kTileThreads == kT 
 
 // false for NaN and +-inf
 __device__ __forceinline__ bool finite(float x) { return fabsf(x) <= 3.402823466e+38f; }
+
+// K8's hooks (read only by the kFused instantiations): the right-hand side
+// and K8's state pair.  Each launch gets alpha at the block column's first
+// row jp: diag_kernel solves alpha[0, kT), panel_kernel updates the rows
+// below, alpha[kT + kPanelRows blockIdx.x, ...).
+struct Rhs {
+  float* alpha;  // y in, L^-1 y out
+  int* state;    // [0]: 1 + the attempt that succeeded, 0 while none has; [1]: a tile failed
+};
 
 // ---- cp.async: 16 bytes global -> shared, outside the register file ----
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -264,12 +285,52 @@ __device__ void chol_inv_rec(float* D, float* I, int o, float* col, int* bad) {
   }
 }
 
+// K8's right-hand side of the tile, by warp 0: a[0, kT) = L_jj^-1 a[0, kT)
+// by forward substitution in L_jj (the lower triangle of D), column by
+// column.  Lane r holds rows r, r + 32, r + 64 and r + 96 in registers; step
+// k divides row k by the pivot (its owner's value broadcast) and subtracts
+// L[i][k] x_k from every row i > k, one fused multiply-add each, so every
+// row's updates come in ascending k.  The 32 steps of a block of rows stay a
+// loop: fully unrolled, the 128 steps (a division each) took 14.6 us a tile
+// on an H100 against 9.7 rolled, and four steps a body no less than rolled
+// (tools/bench_k8.py), likely the unrolled code's size.  NaN whole if the
+// tile failed.
+__device__ __forceinline__ void rhs_solve(const float* D, float* a, bool ok) {
+  constexpr int kQ = kT / 32;  // rows a lane holds
+  const int lane = threadIdx.x;
+  float v[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) v[q] = a[32 * q + lane];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+#pragma unroll 1
+    for (int t = 0; t < 32; ++t) {
+      const int k = 32 * q + t;
+      const float xk = __shfl_sync(0xffffffffu, v[q], t) / D[k * kLds + k];
+      if (lane == t) v[q] = xk;
+#pragma unroll
+      for (int p = q; p < kQ; ++p) {
+        if (p > q || lane > t) v[p] = fmaf(-D[(32 * p + lane) * kLds + k], xk, v[p]);
+      }
+    }
+  }
+  const float nan = __int_as_float(0x7fc00000);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) a[32 * q + lane] = ok ? v[q] : nan;
+}
+
 // Factor the diagonal tile at (jp, jp) of L (row stride n; its lower
 // triangle is read): L_jj back into L, zeros above its diagonal; NaN whole
 // if a pivot was not > 0 or an entry of L_jj, or of the inverses on the
 // way, is not finite.  The tile comes in and goes out as 16-byte pieces,
-// sixteen a thread in flight.
-__global__ void __launch_bounds__(kDiagThreads) diag_kernel(float* __restrict__ L, int n, int jp) {
+// sixteen a thread in flight.  With kFused (K8): nothing once state[0] is
+// set; then alpha_j = L_jj^-1 alpha_j (rhs_solve) and state[1] = 1 if the
+// tile failed.
+template <bool kFused>
+__global__ void __launch_bounds__(kDiagThreads) diag_kernel(float* __restrict__ L, int n, int jp, Rhs rhs) {
+  if constexpr (kFused) {
+    if (rhs.state[0] != 0) return;
+  }
   extern __shared__ __align__(16) float smem[];
   __shared__ int bad;
   float* D = smem;              // the tile, then L_jj (T in its upper blocks)
@@ -312,6 +373,10 @@ __global__ void __launch_bounds__(kDiagThreads) diag_kernel(float* __restrict__ 
                                  c + 3 <= r ? dv.w : 0.f);
     *reinterpret_cast<float4*>(tile + static_cast<size_t>(r) * n + c) = ok ? w : nan4;
   }
+  if constexpr (kFused) {
+    if (tid < 32) rhs_solve(D, rhs.alpha, ok);
+    if (tid == 0 && !ok) rhs.state[1] = 1;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -327,8 +392,16 @@ __global__ void __launch_bounds__(kDiagThreads) diag_kernel(float* __restrict__ 
 // substitution against the 32 x 32 diagonal block, one thread a row,
 // dividing by the pivots.  Substitution is backward stable, as a product
 // with L_jj^-1 is not: its error grows with |W| |L_jj^-T|, which on the
-// noisy Gibbs Gram at init broke the bound gamma_(N+1) |L| |L^T|.
-__global__ void __launch_bounds__(kPanelThreads) panel_kernel(float* P, int ld, const float* __restrict__ Ljj) {
+// noisy Gibbs Gram at init broke the bound gamma_(N+1) |L| |L^T|.  With
+// kFused (K8): nothing once state[0] is set; then the CTA's rows of alpha
+// (at rhs.alpha + kT + r0) less X alpha_j (alpha_j at rhs.alpha, final),
+// four threads a row, thread p summing the columns p, p + 4, .. in
+// ascending order and the four sums added in a fixed order.
+template <bool kFused>
+__global__ void __launch_bounds__(kPanelThreads) panel_kernel(float* P, int ld, const float* __restrict__ Ljj, Rhs rhs) {
+  if constexpr (kFused) {
+    if (rhs.state[0] != 0) return;
+  }
   extern __shared__ __align__(16) float smem[];
   float* Ls = smem;              // L_jj, zeros above its diagonal
   float* Xs = smem + kT * kLds;  // the rows: W, then X
@@ -398,6 +471,21 @@ __global__ void __launch_bounds__(kPanelThreads) panel_kernel(float* P, int ld, 
     }
     __syncthreads();
   }
+  if constexpr (kFused) {
+    float* aj = Ls;  // L_jj is not read again: alpha_j over its first row
+    if (tid < kT) aj[tid] = rhs.alpha[tid];
+    __syncthreads();
+    const int r = tid / 4;
+    const int p = tid % 4;
+    const float* xr = Xs + r * kLds;
+    float s = 0.f;
+#pragma unroll 8
+    for (int c = p; c < kT; c += 4) s = fmaf(xr[c], aj[c], s);
+    const float s1 = __shfl_down_sync(0xffffffffu, s, 1);
+    const float s2 = __shfl_down_sync(0xffffffffu, s, 2);
+    const float s3 = __shfl_down_sync(0xffffffffu, s, 3);
+    if (p == 0) rhs.alpha[kT + blockIdx.x * kPanelRows + r] -= (s + s1) + (s2 + s3);
+  }
   for (int e = tid; e < kPanelRows * kQuads; e += kPanelThreads) {
     const int r = e / kQuads;
     const int c = (e % kQuads) * 4;
@@ -437,10 +525,14 @@ enum SyrkMode : int {
 // many-wave updates) caps a thread at 128 registers so that two CTAs share
 // an SM and one's loads and read-modify-write overlap the other's FFMAs, at
 // the cost of a few spilled registers; 1 (K10a's single-wave updates) lets
-// one CTA finish its tile sooner without spills.
-template <int kMode, int kCtasPerSm>
+// one CTA finish its tile sooner without spills.  With kFused (K8): nothing
+// once state[0] is set.
+template <int kMode, int kCtasPerSm, bool kFused>
 __global__ void __launch_bounds__(kTileThreads, kCtasPerSm)
-syrk_kernel(const float* __restrict__ P, float* __restrict__ C, int ld) {
+syrk_kernel(const float* __restrict__ P, float* __restrict__ C, int ld, Rhs rhs) {
+  if constexpr (kFused) {
+    if (rhs.state[0] != 0) return;
+  }
   extern __shared__ __align__(16) float ring[];
   int ti = blockIdx.x;
   int tj = 0;
@@ -523,27 +615,34 @@ syrk_kernel(const float* __restrict__ P, float* __restrict__ C, int ld) {
 // 3 n / kT - 2 launches.  With kLookAhead: block column j + 1's update from
 // panel j, its diagonal tile and its panel run on a second stream of the
 // highest priority while the rest of column j's update runs on `s`, and
-// events join the two; 4 n / kT - 4 launches.  Returns the first non-zero
-// CUDA error as an int (0 = all launched).
-template <bool kLookAhead>
-inline int factor(float* L, int n, cudaStream_t s) {
+// events join the two; 4 n / kT - 4 launches.  With kFused (K8), `rhs`
+// holds the right-hand side (n floats, L^-1 y on return) and K8's state
+// pair.  Returns the first non-zero CUDA error as an int (0 = all
+// launched).
+template <bool kLookAhead, bool kFused = false>
+inline int factor(float* L, int n, cudaStream_t s, Rhs rhs = {nullptr, nullptr}) {
   constexpr int kCtas = kLookAhead ? 2 : 1;  // SYRK CTAs an SM
   if (n < kT || n % kT != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(diag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDiagSmem);
+  cudaError_t e = cudaFuncSetAttribute(diag_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDiagSmem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPanelSmem);
+    e = cudaFuncSetAttribute(panel_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize, kPanelSmem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(syrk_kernel<kTriangle, kCtas>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+    e = cudaFuncSetAttribute(syrk_kernel<kTriangle, kCtas, kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTileSmem);
   if constexpr (kLookAhead) {
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(syrk_kernel<kColumn, kCtas>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+      e = cudaFuncSetAttribute(syrk_kernel<kColumn, kCtas, kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kTileSmem);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int nb = n / kT;
   constexpr int kPanelBlocks = kT / kPanelRows;  // panel CTAs a 128-row block
-  diag_kernel<<<1, kDiagThreads, kDiagSmem, s>>>(L, n, 0);
+  // the right-hand side from block column jp's first row on
+  auto at = [&](int jp) { return Rhs{rhs.alpha ? rhs.alpha + jp : nullptr, rhs.state}; };
+  diag_kernel<kFused><<<1, kDiagThreads, kDiagSmem, s>>>(L, n, 0, at(0));
   if ((e = cudaGetLastError()) != cudaSuccess || nb == 1) return static_cast<int>(e);
-  panel_kernel<<<(nb - 1) * kPanelBlocks, kPanelThreads, kPanelSmem, s>>>(L + static_cast<size_t>(kT) * n, n, L);
+  panel_kernel<kFused><<<(nb - 1) * kPanelBlocks, kPanelThreads, kPanelSmem, s>>>(L + static_cast<size_t>(kT) * n, n,
+                                                                                  L, at(0));
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
 
   if constexpr (!kLookAhead) {
@@ -551,13 +650,13 @@ inline int factor(float* L, int n, cudaStream_t s) {
       const int mt = (n - jp) / kT - 1;  // tile rows below the diagonal tile j
       const float* panel = L + static_cast<size_t>(jp + kT) * n + jp;
       float* trail = L + static_cast<size_t>(jp + kT) * n + jp + kT;  // the diagonal tile j + 1
-      syrk_kernel<kTriangle, kCtas><<<mt * (mt + 1) / 2, kTileThreads, kTileSmem, s>>>(panel, trail, n);
+      syrk_kernel<kTriangle, kCtas, kFused><<<mt * (mt + 1) / 2, kTileThreads, kTileSmem, s>>>(panel, trail, n, rhs);
       if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-      diag_kernel<<<1, kDiagThreads, kDiagSmem, s>>>(L, n, jp + kT);
+      diag_kernel<kFused><<<1, kDiagThreads, kDiagSmem, s>>>(L, n, jp + kT, at(jp + kT));
       if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
       if (mt > 1) {
-        panel_kernel<<<(mt - 1) * kPanelBlocks, kPanelThreads, kPanelSmem, s>>>(trail + static_cast<size_t>(kT) * n,
-                                                                                n, trail);
+        panel_kernel<kFused><<<(mt - 1) * kPanelBlocks, kPanelThreads, kPanelSmem, s>>>(
+            trail + static_cast<size_t>(kT) * n, n, trail, at(jp + kT));
         if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
       }
     }
@@ -582,15 +681,16 @@ inline int factor(float* L, int n, cudaStream_t s) {
       float* trail = L + static_cast<size_t>(jp + kT) * n + jp + kT;  // the diagonal tile j + 1
       float* next = trail + static_cast<size_t>(kT) * n;              // panel j + 1
       if ((e = cudaStreamWaitEvent(side, tri_done, 0)) != cudaSuccess) break;
-      syrk_kernel<kColumn, kCtas><<<mt, kTileThreads, kTileSmem, side>>>(panel, trail, n);
+      syrk_kernel<kColumn, kCtas, kFused><<<mt, kTileThreads, kTileSmem, side>>>(panel, trail, n, rhs);
       if ((e = cudaGetLastError()) != cudaSuccess) break;
-      diag_kernel<<<1, kDiagThreads, kDiagSmem, side>>>(L, n, jp + kT);
+      diag_kernel<kFused><<<1, kDiagThreads, kDiagSmem, side>>>(L, n, jp + kT, at(jp + kT));
       if ((e = cudaGetLastError()) != cudaSuccess) break;
       if (mt > 1) {
-        panel_kernel<<<(mt - 1) * kPanelBlocks, kPanelThreads, kPanelSmem, side>>>(next, n, trail);
+        panel_kernel<kFused><<<(mt - 1) * kPanelBlocks, kPanelThreads, kPanelSmem, side>>>(next, n, trail,
+                                                                                          at(jp + kT));
         if ((e = cudaGetLastError()) != cudaSuccess) break;
-        syrk_kernel<kTriangle, kCtas><<<(mt - 1) * mt / 2, kTileThreads, kTileSmem, s>>>(
-            panel + static_cast<size_t>(kT) * n, next + kT, n);
+        syrk_kernel<kTriangle, kCtas, kFused><<<(mt - 1) * mt / 2, kTileThreads, kTileSmem, s>>>(
+            panel + static_cast<size_t>(kT) * n, next + kT, n, rhs);
         if ((e = cudaGetLastError()) != cudaSuccess) break;
       }
       if ((e = cudaEventRecord(tri_done, s)) != cudaSuccess) break;
@@ -606,19 +706,20 @@ inline int factor(float* L, int n, cudaStream_t s) {
 }
 
 // Registers, local (spill) bytes, static and dynamic shared memory of the
-// kernels factor<kLookAhead> launches, as the runtime reports them, four
-// ints each into `out`: the diagonal tile, the panel, then the trailing
+// kernels factor<kLookAhead, kFused> launches, as the runtime reports them,
+// four ints each into `out`: the diagonal tile, the panel, then the trailing
 // update (with look-ahead its first column, then the rest).  Returns the
 // first non-zero error as an int.
-template <bool kLookAhead>
+template <bool kLookAhead, bool kFused = false>
 inline int attributes(int* out) {
   constexpr int kCtas = kLookAhead ? 2 : 1;
   constexpr int kKernels = kLookAhead ? 4 : 3;
-  const void* fns[4] = {reinterpret_cast<const void*>(&diag_kernel), reinterpret_cast<const void*>(&panel_kernel),
-                        reinterpret_cast<const void*>(&syrk_kernel<kTriangle, kCtas>), nullptr};
+  const void* fns[4] = {reinterpret_cast<const void*>(&diag_kernel<kFused>),
+                        reinterpret_cast<const void*>(&panel_kernel<kFused>),
+                        reinterpret_cast<const void*>(&syrk_kernel<kTriangle, kCtas, kFused>), nullptr};
   if constexpr (kLookAhead) {
-    fns[2] = reinterpret_cast<const void*>(&syrk_kernel<kColumn, kCtas>);
-    fns[3] = reinterpret_cast<const void*>(&syrk_kernel<kTriangle, kCtas>);
+    fns[2] = reinterpret_cast<const void*>(&syrk_kernel<kColumn, kCtas, kFused>);
+    fns[3] = reinterpret_cast<const void*>(&syrk_kernel<kTriangle, kCtas, kFused>);
   }
   const int dyn[4] = {kDiagSmem, kPanelSmem, kTileSmem, kTileSmem};
   for (int k = 0; k < kKernels; ++k) {

@@ -1,8 +1,7 @@
-// The fused (L, L^-1) column sweep that K10b (chol_inv_grid.cu) and K8
-// (gibbs_fused.cu, through blocked_chol.cuh) factor their diagonal tiles
-// with: one thread block factors one SPD matrix and inverts its factor in
-// the same pass.  K1 and K4 ran on it whole before they moved to the
-// cluster schedule of chol_inv_cluster.cuh.
+// The fused (L, L^-1) column sweep that K10b (chol_inv_grid.cu) factors
+// its members with: one thread block factors one SPD matrix and inverts its
+// factor in the same pass.  K1 and K4 ran on it whole before they moved to
+// the cluster schedule of chol_inv_cluster.cuh.
 //
 // The working set is one packed lower triangle W (row i at tri_off(i)) in
 // which row i holds L^-1[i, 0..k] (the partial forward substitution of the

@@ -8,17 +8,18 @@
 // The wrappers, the plain PyTorch versions and the design notes are in
 // nonstationary_precip_tpu_torch/ops/matvec.py.
 //
-// K2 and K6 are one Gram-times-V walk, gibbs_rows_kernel, whose element is
-// a template policy (GibbsElem, RbfElem).  It walks in register tiles of
-// rows: a block of kK2Threads threads owns Elem::kRows rows, kRowsPerThread
-// a thread (rows tid, tid + kK2Threads, ..; K2 2, K6 4), with their payloads
-// and their R accumulators each in registers, so every column payload and V
-// row read from shared memory feeds kRowsPerThread elements; at d = 2 and
-// R <= 9 K2's registers are capped so that kK2MinBlocks blocks share an SM
-// (K6's are left free).  Column
-// passes of kCols are double-buffered: the raw payload and V's rows of pass
-// n + 1 come in by cp.async while pass n is computed, and at d = 2 the
-// element's column factors are made once a pass.
+// K2, K6 and K3 are one Gram-times-V walk, gibbs_rows_kernel, whose element
+// is a template policy (GibbsElem, RbfElem, PanelElem).  It walks in
+// register tiles of rows: a block of kK2Threads threads owns Elem::kRows
+// rows, kRowsPerThread a thread (rows tid, tid + kK2Threads, ..; K2 2, K6 4,
+// K3 kK3RowsPerThread), with their payloads and their accumulators each in
+// registers, so every column payload and V row read from shared memory
+// feeds kRowsPerThread elements; at d = 2 and R <= Elem::kCapR the
+// registers are capped so that Elem::kMinBlocks blocks share an SM (1
+// leaves them free).  Column passes of Elem::kPass columns are
+// double-buffered: the raw payload and V's rows of pass n + 1 come in by
+// cp.async while pass n is computed, and at d = 2 the element's column
+// factors are made once a pass.
 //   K2 at d = 2, the JAX kernel's own element (pallas_matvec.py:118-141):
 //     p = ss_0 ss_1,  rs = rsqrt(p),  quadnum = d_0^2 ss_1 + d_1^2 ss_0,
 //     K = (2 sqrt(l_i0 l_i1)) sqrt(l_j0 l_j1) rs exp(-quadnum rs^2)
@@ -30,18 +31,20 @@
 //   scaled by c = sqrt(log2(e) / 2), so K = 2^-((c z_i0 - c z_j0)^2 +
 //   (c z_i1 - c z_j1)^2): 5 f32 operations (an FMA as 2) and one ex2;
 //   other d, the per-dim differences and expf.
+//   K3 walks with the rows' cotangent factors f1_i (fw = 1 + 2R of them) in
+//   registers where K2 holds V's accumulators, each pass's column factors
+//   f2_j staged where K2 stages V's rows, and 1 + 2D pullback sums a row:
+//   P = (f1_i . f2_j) K(i, j), then sum P, sum P d_k/ss_k and
+//   sum P (2 d_k^2/ss_k - 1)/ss_k.  At d = 2 its element is K2's rewrite
+//   with the reciprocals read off rs^2 = 1/(s_0 s_1) (no division):
+//   h_k = s_(1-k) rs^2 = 1/(ss_k ln 2), m_k = d_k^2 h_k = d_k^2/(ss_k ln 2),
+//   K = (n_i n_j) rs 2^-(m_0 + m_1), and the sums carry the ln 2 that the
+//   second kernel puts back; other d, gibbs_elem.cuh's per-dim element.
 //
-// K3 walks with one row per thread: a block of kRows threads owns kRows
-// consecutive rows, with the row's payload (x_i, l_i) and its accumulators
-// in registers.  The column range is cut into `splits` slices (gridDim.y);
-// a block walks its slice kCols columns at a time, staging the columns'
-// payload and K3's column factors in shared memory, where every thread of
-// the block reads the same address (a broadcast).  K3 builds each element
-// from the plain formula (gibbs_elem.cuh, IEEE division, sqrtf, expf).
-//
-// Each slice writes its partial row sums to a scratch buffer; a second
-// kernel adds the slices in a fixed order.  No atomics: the result is the
-// same bits on every run.  No tensor cores.
+// The column range is cut into `splits` slices (gridDim.y).  Each slice
+// writes its partial row sums to a scratch buffer; a second kernel adds the
+// slices in a fixed order (and for K3 applies the closed forms).  No
+// atomics: the result is the same bits on every run.  No tensor cores.
 
 #include <cuda_runtime.h>
 
@@ -55,21 +58,26 @@ using gibbs::gibbs_elem;
 using gibbs::kMaxD;
 using gibbs::live;
 
-constexpr int kRows = 128;   // K3: threads per block; one row each
-constexpr int kCols = 128;   // columns staged in shared memory per pass
+constexpr int kCols = 128;   // K2, K6: columns staged in shared memory per pass
 constexpr int kGroup = 32;   // K2, K6: right-hand sides one block contracts
 constexpr int kMaxR = 128;   // K2, K6: right-hand sides one launch takes
+constexpr int kMaxF = 65;    // K3: cotangent factors a launch takes, 1 + 2R with R <= 32
 constexpr int kK2Threads = 256;  // threads a block of the walk
 // Rows a thread owns, and blocks an SM the compiler must fit (registers) at
-// d = 2 and R <= 9, the paths' shape (elsewhere the accumulators need more
-// registers than that leaves; 1 leaves them free), for K2 and for K6, as
-// measured (tools/bench_k2.py times the choices)
+// d = 2 and R <= 9 (K3: 1 + 2R <= 17), the paths' shape (elsewhere the
+// accumulators need more registers than that leaves; 1 leaves them free),
+// for K2, K6 and K3, as measured (tools/bench_k2.py and tools/bench_k3.py
+// time the choices)
 constexpr int kK2RowsPerThread = 2;
 constexpr int kK2MinBlocks = 4;
 constexpr int kK6RowsPerThread = 4;
 constexpr int kK6MinBlocks = 1;
+constexpr int kK3RowsPerThread = 2;
+constexpr int kK3MinBlocks = 3;
+constexpr int kK3Cols = 64;  // K3's columns a pass: 1 + 2R factors a column fit 48 KB at R <= 32
 constexpr int kK2Rows = kK2Threads * kK2RowsPerThread;  // rows a K2 block owns
 constexpr int kK6Rows = kK2Threads * kK6RowsPerThread;  // rows a K6 block owns
+constexpr int kK3Rows = kK2Threads * kK3RowsPerThread;  // rows a K3 block owns
 // ln 2 and 2 ln 2: the d = 2 element scales its squared lengthscales by
 // ln 2 so that exp(-y) becomes 2^-(y / ln 2) with no multiply an element
 constexpr float kLn2 = 0.693147180559945309f;
@@ -94,23 +102,7 @@ __device__ __forceinline__ void load_row(const float* __restrict__ x,
   }
 }
 
-// K3: columns [c0, c0 + jn) of (x, l) into cp[j] = [x_j0..x_j(D-1), l_j0..].
-template <int D>
-__device__ __forceinline__ void stage_cols(float (*cp)[2 * D],
-                                           const float* __restrict__ x,
-                                           const float* __restrict__ l, int c0,
-                                           int jn, int d) {
-  for (int e = threadIdx.x; e < jn * D; e += kRows) {
-    const int j = e / D;
-    const int k = e % D;
-    const bool ok = live<D>(k, d);
-    const size_t g = static_cast<size_t>(c0 + j) * d + k;
-    cp[j][k] = ok ? x[g] : 0.0f;
-    cp[j][D + k] = ok ? l[g] : 1.0f;
-  }
-}
-
-// ---- the Gram-times-V walk (K2, K6) ----
+// ---- the Gram-times-V walk (K2, K6, K3) ----
 
 // 4-byte cp.async into shared memory; a copy that is not valid zero-fills
 // (src is then not read)
@@ -145,10 +137,12 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 // The element policies of the walk.  Each says whether the columns' l is
 // staged beside x (kL), the floats of a column's d = 2 factors made once a
-// pass (kCook), and at d = 2 the row factors (Row, from x_i and l_i in
-// registers), the column factors (cook, into the pass's cook area; Col,
-// read back) and the element from both (elem2); at other d, the per-dim
-// element (elem).
+// pass (kCook), the columns a pass (kPass), whether it accumulates K3's
+// pullback sums (kPull) in place of R products, and at d = 2 the row
+// factors (Row, from x_i and l_i in registers), the column factors (cook,
+// into the pass's cook area; Col, read back) and the element from both
+// (elem2; K3: pull2, the element with its pullback terms); at other d, the
+// per-dim element (elem).
 
 // K2: the Gibbs element.  At d = 2 the JAX kernel's rewrite with its
 // squared lengthscales prescaled by ln 2: from the row factors (x_i, q_i =
@@ -164,6 +158,9 @@ struct GibbsElem {
   static constexpr int kRowsPerThread = kK2RowsPerThread;
   static constexpr int kRows = kK2Rows;
   static constexpr int kMinBlocks = kK2MinBlocks;
+  static constexpr int kCapR = 9;
+  static constexpr int kPass = kCols;
+  static constexpr bool kPull = false;
   static constexpr bool kL = true;
   static constexpr int kCook = 5;  // (x_j, q_j) as a float4, then n_j
   struct Row {
@@ -176,13 +173,15 @@ struct GibbsElem {
   __device__ static Row row(const float* xi, const float* li) {
     return {xi[0], xi[1], (li[0] * li[0]) * kLn2, (li[1] * li[1]) * kLn2, sqrtf(li[0] * li[1]) * kTwoLn2};
   }
+  template <int kP>
   __device__ static void cook(float* ck, const float* xs, const float* ls, int j) {
     const float l0 = ls[2 * j], l1 = ls[2 * j + 1];
     reinterpret_cast<float4*>(ck)[j] = make_float4(xs[2 * j], xs[2 * j + 1], (l0 * l0) * kLn2, (l1 * l1) * kLn2);
-    ck[4 * kCols + j] = sqrtf(l0 * l1);
+    ck[4 * kP + j] = sqrtf(l0 * l1);
   }
+  template <int kP>
   __device__ static Col col(const float* ck, int j) {
-    return {reinterpret_cast<const float4*>(ck)[j], ck[4 * kCols + j]};
+    return {reinterpret_cast<const float4*>(ck)[j], ck[4 * kP + j]};
   }
   __device__ static float elem2(const Row& r, const Col& c) {
     const float s0 = r.q0 + c.xq.z;
@@ -209,6 +208,9 @@ struct RbfElem {
   static constexpr int kRowsPerThread = kK6RowsPerThread;
   static constexpr int kRows = kK6Rows;
   static constexpr int kMinBlocks = kK6MinBlocks;
+  static constexpr int kCapR = 9;
+  static constexpr int kPass = kCols;
+  static constexpr bool kPull = false;
   static constexpr bool kL = false;
   static constexpr int kCook = 2;  // c z_j as a float2
   struct Row {
@@ -216,9 +218,11 @@ struct RbfElem {
   };
   using Col = float2;
   __device__ static Row row(const float* xi, const float*) { return {xi[0] * kRbfScale, xi[1] * kRbfScale}; }
+  template <int kP>
   __device__ static void cook(float* ck, const float* xs, const float*, int j) {
     reinterpret_cast<float2*>(ck)[j] = make_float2(xs[2 * j] * kRbfScale, xs[2 * j + 1] * kRbfScale);
   }
+  template <int kP>
   __device__ static Col col(const float* ck, int j) { return reinterpret_cast<const float2*>(ck)[j]; }
   __device__ static float elem2(const Row& r, const Col& c) {
     const float d0 = r.z0 - c.x;
@@ -239,41 +243,105 @@ struct RbfElem {
   }
 };
 
+// K3: the pullback sums of P = W K with W(i, j) = f1_i . f2_j.  The walk's
+// V is f2 (RB its bucket of fw factors) and each row's accumulators are
+// acc[0] = sum P, acc[1 + k] = sum P d_k/ss_k, acc[1 + D + k] =
+// sum P (2 d_k^2/ss_k - 1)/ss_k.  At d = 2 K2's row and column factors and
+// the element with its pullback terms from rs^2 (pull2): 17 f32
+// operations (an FMA as 2) and 2 special-function ones for P given W, 7 a
+// dim for the sums; the d = 2 sums of d_k/ss_k and (..)/ss_k come out
+// divided by ln 2, which panel_grads_finish_kernel multiplies back.  A
+// zero-filled column past the slice's end gets n_j = 0 (other d: l_j = 0)
+// and f2_j = 0, so P = 0.
+struct PanelElem {
+  static constexpr int kRowsPerThread = kK3RowsPerThread;
+  static constexpr int kRows = kK3Rows;
+  static constexpr int kMinBlocks = kK3MinBlocks;
+  static constexpr int kCapR = 17;
+  static constexpr int kPass = kK3Cols;
+  static constexpr bool kPull = true;
+  static constexpr bool kL = true;
+  static constexpr int kCook = GibbsElem::kCook;
+  using Row = GibbsElem::Row;
+  using Col = GibbsElem::Col;
+  __device__ static Row row(const float* xi, const float* li) { return GibbsElem::row(xi, li); }
+  template <int kP>
+  __device__ static void cook(float* ck, const float* xs, const float* ls, int j) {
+    GibbsElem::cook<kP>(ck, xs, ls, j);
+  }
+  template <int kP>
+  __device__ static Col col(const float* ck, int j) { return GibbsElem::col<kP>(ck, j); }
+  template <int RB>
+  __device__ static void pull2(float (&acc)[5], const Row& r, const Col& c, const float (&fi)[RB],
+                               const float* vj) {
+    const float s0 = r.q0 + c.xq.z;
+    const float s1 = r.q1 + c.xq.w;
+    const float rs = rsqrt_approx(s0 * s1);
+    const float r2 = rs * rs;
+    const float d0 = r.x0 - c.xq.x;
+    const float d1 = r.x1 - c.xq.y;
+    const float h0 = s1 * r2;  // 1/(ss_0 ln 2)
+    const float h1 = s0 * r2;
+    const float m0 = (d0 * d0) * h0;  // d_0^2/(ss_0 ln 2)
+    const float m1 = (d1 * d1) * h1;
+    const float e = exp2_approx(-(m0 + m1));
+    float w = 0.0f;
+#pragma unroll
+    for (int f = 0; f < RB; ++f) w = fmaf(fi[f], vj[f], w);
+    const float p = ((w * (r.n * c.n)) * rs) * e;
+    acc[0] += p;
+    const float g0 = p * h0;
+    const float g1 = p * h1;
+    acc[1] = fmaf(g0, d0, acc[1]);
+    acc[2] = fmaf(g1, d1, acc[2]);
+    acc[3] = fmaf(g0, fmaf(m0, kTwoLn2, -1.0f), acc[3]);
+    acc[4] = fmaf(g1, fmaf(m1, kTwoLn2, -1.0f), acc[4]);
+  }
+};
+
 // Blocks an SM the registers of the walk must fit.
 template <class Elem>
-constexpr int min_blocks(int d, int rb) { return d == 2 && rb <= 9 ? Elem::kMinBlocks : 1; }
+constexpr int min_blocks(int d, int rb) { return d == 2 && rb <= Elem::kCapR ? Elem::kMinBlocks : 1; }
 
 // Shared memory of a block, in floats: the raw column payload (x, then
-// for K2 l, kCols * D each) and V's rows (kCols * pad4(RB)) of two passes,
-// then at d = 2 the column factors of the current pass.
+// for K2 and K3 l, kPass * D each) and V's rows (kPass * pad4(RB)) of two
+// passes, then at d = 2 the column factors of the current pass.
 template <class Elem, int D, int RB>
 struct RowsSmem {
-  static constexpr int kRaw = (Elem::kL ? 2 : 1) * kCols * D;
-  static constexpr int kV = kCols * pad4(RB);
+  static constexpr int kRaw = (Elem::kL ? 2 : 1) * Elem::kPass * D;
+  static constexpr int kV = Elem::kPass * pad4(RB);
   static constexpr int kStage = kRaw + kV;
-  static constexpr int kCook = D == 2 ? Elem::kCook * kCols : 0;
+  static constexpr int kCook = D == 2 ? Elem::kCook * Elem::kPass : 0;
   static constexpr int kFloats = 2 * kStage + kCook;
+  static_assert(kFloats * 4 <= 48 * 1024, "the walk's shared memory is static: 48 KB at most");
 };
 
 // K2 and K6.  part[s, i, g0 + r] = sum over slice s of K(i, j) v[j, g0 + r]
 // for the rhs group g0 = kGroup * blockIdx.z, r < min(kGroup, rc - g0),
 // with thread tid owning rows blockIdx.x * Elem::kRows + tid + u * kK2Threads,
 // u < Elem::kRowsPerThread.
+// K3 (Elem::kPull): v is f2 (rc = fw factors a column, one group), f1 the
+// rows' factors (n1 x fw), and part[s, i, :] = [sum P, sum P d_k/ss_k (k < d),
+// sum P (2 d_k^2/ss_k - 1)/ss_k (k < d)] over slice s (d = 2: the last 2d
+// divided by ln 2).
 template <class Elem, int D, int RB>
 __global__ void __launch_bounds__(kK2Threads, min_blocks<Elem>(D, RB))
 gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
                   int n1, const float* __restrict__ x2,
                   const float* __restrict__ l2, int n2,
                   const float* __restrict__ v, int ldv, int rc, int d,
-                  int cols_per_split, float* __restrict__ part) {
+                  int cols_per_split, float* __restrict__ part,
+                  const float* __restrict__ f1) {
   constexpr int RP = pad4(RB);
   constexpr int TR = Elem::kRowsPerThread;
+  constexpr int kP = Elem::kPass;
+  constexpr int kAcc = Elem::kPull ? 1 + 2 * D : RB;  // accumulators a row
   using S = RowsSmem<Elem, D, RB>;
   __shared__ __align__(16) float sm[S::kFloats];
   const int tid = threadIdx.x;
   const int s = blockIdx.y;
   const int g0 = blockIdx.z * kGroup;
-  const int gw = min(kGroup, rc - g0);  // <= RB by the host's choice of RB
+  const int gw = Elem::kPull ? rc : min(kGroup, rc - g0);  // <= RB by the host's choice of RB
   const int row0 = blockIdx.x * Elem::kRows + tid;
 
   // the rows' payloads; an inactive row gets x = 0, l = 1
@@ -288,32 +356,42 @@ gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
 #pragma unroll
     for (int u = 0; u < TR; ++u) rf[u] = Elem::row(xi[u], li[u]);
   }
-  float acc[TR][RB];
+  // K3: the rows' cotangent factors; an inactive row's are 0
+  float fi[TR][Elem::kPull ? RB : 1];
+  if constexpr (Elem::kPull) {
+#pragma unroll
+    for (int u = 0; u < TR; ++u) {
+      const int i = row0 + u * kK2Threads;
+#pragma unroll
+      for (int f = 0; f < RB; ++f) fi[u][f] = i < n1 && f < rc ? f1[static_cast<size_t>(i) * rc + f] : 0.0f;
+    }
+  }
+  float acc[TR][kAcc];
 #pragma unroll
   for (int u = 0; u < TR; ++u)
 #pragma unroll
-    for (int r = 0; r < RB; ++r) acc[u][r] = 0.0f;
+    for (int r = 0; r < kAcc; ++r) acc[u][r] = 0.0f;
 
   const int c_begin = s * cols_per_split;
   const int c_end = min(n2, c_begin + cols_per_split);
-  const int npass = (c_end - c_begin + kCols - 1) / kCols;
+  const int npass = (c_end - c_begin + kP - 1) / kP;
   // pass n's columns [c0, c0 + jn) into stage b: x (and l) at [j * D + k]
   // (dims past d unread), V's rows at [j * RP + r] (columns past jn and
   // right-hand sides past gw zero)
   auto stage = [&](int n, int b) {
     float* xs = sm + b * S::kStage;
-    float* ls = xs + kCols * D;
+    float* ls = xs + kP * D;
     float* vs = xs + S::kRaw;
-    const int c0 = c_begin + n * kCols;
-    const int jn = min(kCols, c_end - c0);
-    for (int e = tid; e < kCols * d; e += kK2Threads) {
+    const int c0 = c_begin + n * kP;
+    const int jn = min(kP, c_end - c0);
+    for (int e = tid; e < kP * d; e += kK2Threads) {
       const int j = e / d, k = e % d;
       const bool ok = j < jn;
       const size_t g = static_cast<size_t>(c0 + j) * d + k;
       cp_async4(xs + j * D + k, ok ? x2 + g : x2, ok);
       if constexpr (Elem::kL) cp_async4(ls + j * D + k, ok ? l2 + g : l2, ok);
     }
-    for (int e = tid; e < kCols * RP; e += kK2Threads) {
+    for (int e = tid; e < kP * RP; e += kK2Threads) {
       const int j = e / RP, r = e % RP;
       const bool ok = j < jn && r < gw;
       cp_async4(vs + e, ok ? v + static_cast<size_t>(c0 + j) * ldv + g0 + r : v, ok);
@@ -328,16 +406,16 @@ gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
     __syncthreads();  // pass n has landed; every thread is done with pass n - 1
     if (n + 1 < npass) stage(n + 1, b ^ 1);
     const float* xs = sm + b * S::kStage;
-    const float* ls = xs + kCols * D;
+    const float* ls = xs + kP * D;
     const float* vs = xs + S::kRaw;
     if constexpr (D == 2) {
       // the column factors, once a pass
       float* ck = sm + 2 * S::kStage;
-      for (int j = tid; j < kCols; j += kK2Threads) Elem::cook(ck, xs, ls, j);
+      for (int j = tid; j < kP; j += kK2Threads) Elem::template cook<kP>(ck, xs, ls, j);
       __syncthreads();
 #pragma unroll 2
-      for (int j = 0; j < kCols; ++j) {
-        const typename Elem::Col cj = Elem::col(ck, j);
+      for (int j = 0; j < kP; ++j) {
+        const typename Elem::Col cj = Elem::template col<kP>(ck, j);
         float vj[RP];
 #pragma unroll
         for (int r = 0; r < RP; r += 4) {
@@ -349,19 +427,41 @@ gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
         }
 #pragma unroll
         for (int u = 0; u < TR; ++u) {
-          const float kij = Elem::elem2(rf[u], cj);
+          if constexpr (Elem::kPull) {
+            Elem::template pull2<RB>(acc[u], rf[u], cj, fi[u], vj);
+          } else {
+            const float kij = Elem::elem2(rf[u], cj);
 #pragma unroll
-          for (int r = 0; r < RB; ++r) acc[u][r] = fmaf(kij, vj[r], acc[u][r]);
+            for (int r = 0; r < RB; ++r) acc[u][r] = fmaf(kij, vj[r], acc[u][r]);
+          }
         }
       }
     } else {
 #pragma unroll 2
-      for (int j = 0; j < kCols; ++j) {
+      for (int j = 0; j < kP; ++j) {
 #pragma unroll
         for (int u = 0; u < TR; ++u) {
-          const float kij = Elem::template elem<D>(xi[u], li[u], xs + j * D, ls + j * D, d);
+          if constexpr (Elem::kPull) {
+            float diff[D], inv_ss[D];
+            const float kij = gibbs_elem<D>(xi[u], li[u], xs + j * D, ls + j * D, d, diff, inv_ss);
+            float w = 0.0f;
 #pragma unroll
-          for (int r = 0; r < RB; ++r) acc[u][r] = fmaf(kij, vs[j * RP + r], acc[u][r]);
+            for (int f = 0; f < RB; ++f) w = fmaf(fi[u][f], vs[j * RP + f], w);
+            const float p = w * kij;
+            acc[u][0] += p;
+#pragma unroll
+            for (int k = 0; k < D; ++k) {
+              if (live<D>(k, d)) {
+                acc[u][1 + k] = fmaf(p, diff[k] * inv_ss[k], acc[u][1 + k]);
+                acc[u][1 + D + k] =
+                    fmaf(p, inv_ss[k] * (2.0f * diff[k] * diff[k] * inv_ss[k] - 1.0f), acc[u][1 + D + k]);
+              }
+            }
+          } else {
+            const float kij = Elem::template elem<D>(xi[u], li[u], xs + j * D, ls + j * D, d);
+#pragma unroll
+            for (int r = 0; r < RB; ++r) acc[u][r] = fmaf(kij, vs[j * RP + r], acc[u][r]);
+          }
         }
       }
     }
@@ -370,10 +470,22 @@ gibbs_rows_kernel(const float* __restrict__ x1, const float* __restrict__ l1,
   for (int u = 0; u < TR; ++u) {
     const int i = row0 + u * kK2Threads;
     if (i < n1) {
-      float* out = part + (static_cast<size_t>(s) * n1 + i) * rc + g0;
+      if constexpr (Elem::kPull) {
+        float* out = part + (static_cast<size_t>(s) * n1 + i) * (1 + 2 * d);
+        out[0] = acc[u][0];
 #pragma unroll
-      for (int r = 0; r < RB; ++r)
-        if (r < gw) out[r] = acc[u][r];
+        for (int k = 0; k < D; ++k) {
+          if (live<D>(k, d)) {
+            out[1 + k] = acc[u][1 + k];
+            out[1 + d + k] = acc[u][1 + D + k];
+          }
+        }
+      } else {
+        float* out = part + (static_cast<size_t>(s) * n1 + i) * rc + g0;
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+          if (r < gw) out[r] = acc[u][r];
+      }
     }
   }
 }
@@ -391,88 +503,13 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, int splits,
   out[i * ldo + e % rc] = t;
 }
 
-// K3.  For the rows (xr, lr, f1r) against the columns (xc, lc, f2c), with
-// P(i,j) = W(i,j) K(i,j), W(i,j) = f1r[i] . f2c[j] (fw factors), writes
-// part[s, i, :] = [sum P, sum P d_k/ss_k (k < d), sum P (2 d_k^2/ss_k - 1)/ss_k
-// (k < d)] over slice s.
-template <int D, int FB>
-__global__ void __launch_bounds__(kRows)
-gibbs_panel_grads_kernel(const float* __restrict__ xr,
-                         const float* __restrict__ lr,
-                         const float* __restrict__ f1r, int nr,
-                         const float* __restrict__ xc,
-                         const float* __restrict__ lc,
-                         const float* __restrict__ f2c, int n, int d, int fw,
-                         int cols_per_split, float* __restrict__ part) {
-  constexpr int FP = pad4(FB);
-  __shared__ __align__(16) float cp[kCols][2 * D];
-  __shared__ __align__(16) float fs[kCols][FP];
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  const int s = blockIdx.y;
-  const bool active = i < nr;
-  float xi[D], li[D], fi[FB];
-  load_row<D>(xr, lr, i, active, d, xi, li);
-#pragma unroll
-  for (int f = 0; f < FB; ++f)
-    fi[f] = active && f < fw ? f1r[static_cast<size_t>(i) * fw + f] : 0.0f;
-  float sp = 0.0f;
-  float gx[D], gt[D];
-#pragma unroll
-  for (int k = 0; k < D; ++k) gx[k] = gt[k] = 0.0f;
-
-  const int c_begin = s * cols_per_split;
-  const int c_end = min(n, c_begin + cols_per_split);
-  for (int c0 = c_begin; c0 < c_end; c0 += kCols) {
-    const int jn = min(kCols, c_end - c0);
-    __syncthreads();
-    stage_cols<D>(cp, xc, lc, c0, jn, d);
-    for (int e = threadIdx.x; e < jn * FP; e += kRows) {
-      const int j = e / FP;
-      const int f = e % FP;
-      fs[j][f] = f < fw ? f2c[static_cast<size_t>(c0 + j) * fw + f] : 0.0f;
-    }
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < jn; ++j) {
-        float diff[D], inv_ss[D];
-        const float kij =
-            gibbs_elem<D>(xi, li, &cp[j][0], &cp[j][D], d, diff, inv_ss);
-        float w = 0.0f;
-#pragma unroll
-        for (int f = 0; f < FB; ++f) w = fmaf(fi[f], fs[j][f], w);
-        const float p = w * kij;
-        sp += p;
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-          if (live<D>(k, d)) {
-            gx[k] = fmaf(p, diff[k] * inv_ss[k], gx[k]);
-            gt[k] = fmaf(
-                p, inv_ss[k] * (2.0f * diff[k] * diff[k] * inv_ss[k] - 1.0f),
-                gt[k]);
-          }
-        }
-      }
-    }
-  }
-  if (active) {
-    float* out = part + (static_cast<size_t>(s) * nr + i) * (1 + 2 * d);
-    out[0] = sp;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      if (live<D>(k, d)) {
-        out[1 + k] = gx[k];
-        out[1 + d + k] = gt[k];
-      }
-    }
-  }
-}
-
 // K3, second pass: adds the slices in order and applies the per-row
 // closed forms  gx_k = -2 sum P d_k/ss_k,
-//               gl_k = sp / (2 l_ik) + l_ik sum P (2 d_k^2/ss_k - 1)/ss_k.
+//               gl_k = sp / (2 l_ik) + l_ik sum P (2 d_k^2/ss_k - 1)/ss_k,
+// each sum of the last two the walk's times `scale` (ln 2 at d = 2, else 1).
 __global__ void panel_grads_finish_kernel(const float* __restrict__ part,
                                           int splits, int nr, int d,
-                                          const float* __restrict__ lr,
+                                          const float* __restrict__ lr, float scale,
                                           float* __restrict__ gx,
                                           float* __restrict__ gl,
                                           float* __restrict__ sp) {
@@ -492,8 +529,8 @@ __global__ void panel_grads_finish_kernel(const float* __restrict__ part,
       t += p[s * stride + 1 + d + k];
     }
     const float l = lr[static_cast<size_t>(i) * d + k];
-    gx[static_cast<size_t>(i) * d + k] = -2.0f * a;
-    gl[static_cast<size_t>(i) * d + k] = spi / (2.0f * l) + l * t;
+    gx[static_cast<size_t>(i) * d + k] = (-2.0f * scale) * a;
+    gl[static_cast<size_t>(i) * d + k] = spi / (2.0f * l) + l * (scale * t);
   }
 }
 
@@ -501,16 +538,17 @@ struct MatvecArgs {
   const float *x1, *l1, *x2, *l2, *v;
   float *out, *part;
   int n1, n2, d, ldv, rc, ldo, splits, cols_per_split;
+  const float* f1;  // K3: the rows' cotangent factors (v: the columns')
 };
 
-// K2 (GibbsElem) or K6 (RbfElem)
+// K2 (GibbsElem), K6 (RbfElem) or K3 (PanelElem: one group of rc factors)
 template <class Elem, int D, int RB>
 void launch_matvec(const MatvecArgs& a, cudaStream_t s) {
   const dim3 grid((a.n1 + Elem::kRows - 1) / Elem::kRows, a.splits,
-                  (a.rc + kGroup - 1) / kGroup);
+                  Elem::kPull ? 1 : (a.rc + kGroup - 1) / kGroup);
   gibbs_rows_kernel<Elem, D, RB><<<grid, kK2Threads, 0, s>>>(
       a.x1, a.l1, a.n1, a.x2, a.l2, a.n2, a.v, a.ldv, a.rc, a.d,
-      a.cols_per_split, a.part);
+      a.cols_per_split, a.part, a.f1);
 }
 
 // Accumulators per row: the smallest bucket that holds one rhs group
@@ -551,29 +589,15 @@ bool matvec_args_ok(int n1, int n2, int d, int ldv, int rc, int ldo,
          static_cast<long long>(splits) * cols_per_split >= n2;
 }
 
-struct GradsArgs {
-  const float *xr, *lr, *f1r, *xc, *lc, *f2c;
-  float *gx, *gl, *sp, *part;
-  int nr, n, d, fw, splits, cols_per_split;
-};
-
-template <int D, int FB>
-void launch_grads(const GradsArgs& a, cudaStream_t s) {
-  const dim3 grid((a.nr + kRows - 1) / kRows, a.splits);
-  gibbs_panel_grads_kernel<D, FB><<<grid, kRows, 0, s>>>(
-      a.xr, a.lr, a.f1r, a.nr, a.xc, a.lc, a.f2c, a.n, a.d, a.fw,
-      a.cols_per_split, a.part);
-}
-
-// Factors per row, 1 + 2R: the smallest bucket that holds them (the
+// K3's factors a column, 1 + 2R: the smallest bucket that holds them (the
 // path's R = 8 probes take 17 exactly).
 template <int D>
-void grads_fb(const GradsArgs& a, cudaStream_t s) {
-  if (a.fw <= 3) launch_grads<D, 3>(a, s);
-  else if (a.fw <= 9) launch_grads<D, 9>(a, s);
-  else if (a.fw <= 17) launch_grads<D, 17>(a, s);
-  else if (a.fw <= 33) launch_grads<D, 33>(a, s);
-  else launch_grads<D, 65>(a, s);
+void panel_fb(const MatvecArgs& a, cudaStream_t s) {
+  if (a.rc <= 3) launch_matvec<PanelElem, D, 3>(a, s);
+  else if (a.rc <= 9) launch_matvec<PanelElem, D, 9>(a, s);
+  else if (a.rc <= 17) launch_matvec<PanelElem, D, 17>(a, s);
+  else if (a.rc <= 33) launch_matvec<PanelElem, D, 33>(a, s);
+  else launch_matvec<PanelElem, D, kMaxF>(a, s);
 }
 
 }  // namespace
@@ -616,32 +640,34 @@ int rbf_matvec(const void* z1, int n1, const void* z2, int n2, int d,
 
 // K3.  Rows xr, lr: (nr, d), f1r: (nr, fw); columns xc, lc: (n, d),
 // f2c: (n, fw); outputs gx, gl: (nr, d), sp: (nr,); part: splits*nr*(1+2d)
-// scratch.  All f32, row-major.  Returns cudaGetLastError() as an int.
+// scratch.  All f32, row-major.  Launches the walk and the fixed-order sum
+// on `stream` and returns cudaGetLastError() as an int.
 int gibbs_panel_grads(const void* xr, const void* lr, const void* f1r, int nr,
                       const void* xc, const void* lc, const void* f2c, int n,
                       int d, int fw, void* gx, void* gl, void* sp, void* part,
                       int splits, int cols_per_split, void* stream) {
-  if (nr < 1 || n < 1 || d < 1 || d > kMaxD || fw < 1 || fw > 65 ||
+  if (nr < 1 || n < 1 || d < 1 || d > kMaxD || fw < 1 || fw > kMaxF ||
       splits < 1 || cols_per_split < 1 ||
       static_cast<long long>(splits) * cols_per_split < n)
     return static_cast<int>(cudaErrorInvalidValue);
-  const GradsArgs a{static_cast<const float*>(xr), static_cast<const float*>(lr),
-                    static_cast<const float*>(f1r), static_cast<const float*>(xc),
-                    static_cast<const float*>(lc), static_cast<const float*>(f2c),
-                    static_cast<float*>(gx), static_cast<float*>(gl),
-                    static_cast<float*>(sp), static_cast<float*>(part),
-                    nr, n, d, fw, splits, cols_per_split};
+  const float* plr = static_cast<const float*>(lr);
+  const MatvecArgs a{static_cast<const float*>(xr), plr,
+                     static_cast<const float*>(xc), static_cast<const float*>(lc),
+                     static_cast<const float*>(f2c), nullptr, static_cast<float*>(part),
+                     nr, n, d, fw, fw, fw, splits, cols_per_split,
+                     static_cast<const float*>(f1r)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: grads_fb<1>(a, s); break;
-    case 2: grads_fb<2>(a, s); break;
-    case 3: grads_fb<3>(a, s); break;
-    default: grads_fb<kMaxD>(a, s); break;
+    case 1: panel_fb<1>(a, s); break;
+    case 2: panel_fb<2>(a, s); break;
+    case 3: panel_fb<3>(a, s); break;
+    default: panel_fb<kMaxD>(a, s); break;
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   panel_grads_finish_kernel<<<(nr + 127) / 128, 128, 0, s>>>(
-      a.part, splits, nr, d, a.lr, a.gx, a.gl, a.sp);
+      a.part, splits, nr, d, plr, d == 2 ? kLn2 : 1.0f, static_cast<float*>(gx),
+      static_cast<float*>(gl), static_cast<float*>(sp));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,22 +12,32 @@ What bounds it on an H100.  The factorisation's N³/3 operations (3.6·10⁸
 at N = 1024, 5 µs at 67 TFLOP/s of f32 outside the tensor cores) and the
 Gram's ~10·D per element; the bytes are the (N, D) inputs, y, and L and α
 written once (4 MB at N = 1024).  Operations bound it on paper; the
-dependent chain of diagonal sweeps sets its time, as in K10a.
+dependent chain of diagonal tiles and single-wave updates sets its time, as
+in K10a.
 
 What the design does about it.  One C call, three attempts on the stream.
-Each attempt builds s²K + (σ² + extra)I from ``csrc/gibbs_elem.cuh``'s
-element (K9's) into a workspace in device memory, the diagonal written
-exactly as s² + (σ² + extra) (``pallas_fused.py:126-130``) and the padded
-rows the identity, so nothing couples to them; factors it with K10a's
-left-looking blocked Cholesky (``csrc/blocked_chol.cuh``), α riding each
-diagonal block (α_j = L_jj⁻¹(y_j − L[j, :j]·α[:j])); and sets a device flag
-if L and α are finite.  The extra jitter is 0, then 1e-4, then 1e-2, the TPU
-kernel's ladder (``pallas_fused.py:184-199``), not ``safe_cholesky``'s: the
-second and third attempts always go on the stream and each of their kernels
-returns at once when the flag is set, so there is no host round trip and
-the happy path pays a few dozen empty launches.  The Gram lives in device
-memory (on the TPU it never left VMEM); at 1280² it is 6.5 MB and stays in
-the 50 MB L2.
+Each attempt builds the lower 128-blocks of s²K + (σ² + extra)I from
+``csrc/gibbs_elem.cuh``'s element (K9's) straight into the output L, the
+diagonal written exactly as s² + (σ² + extra) (``pallas_fused.py:126-130``)
+and the padded rows the identity, so nothing couples to them; factors L in
+place on ``csrc/chol_rl.cuh``'s right-looking tiles, K10a's schedule
+(``factor<false>``: per block column the diagonal tile, the panel and the
+trailing update, 3·N_pad/128 − 2 launches), with α riding it as the TPU
+kernel's α does: each diagonal tile forward-substitutes α_j against L_jj
+(a substitution, never a product with L_jj⁻¹, which broke the
+backward-error bound in K10a's panel), and each panel subtracts X·α_j from
+its own rows of α; then commits the attempt if no diagonal tile failed and
+α is finite.  A non-finite entry anywhere in L reaches a later diagonal
+tile through the panels and updates, so the tiles' flag stands in for a
+sweep over L (``tests/test_torch_gibbs_fused_rl.py``).  The extra jitter
+is 0, then 1e-4, then 1e-2, the TPU kernel's ladder
+(``pallas_fused.py:184-199``), not ``safe_cholesky``'s: the second and third
+attempts always go on the stream and each of their kernels returns at once
+when the first has succeeded, so there is no host round trip and the happy
+path pays 2·(3·N_pad/128) empty launches (3·N_pad/128 CUDA launches an
+attempt: 72 a call at N = 1024, 90 at 1280).  L lives in device memory (on
+the TPU it never left VMEM); at 1280² it is 6.5 MB and stays in the 50 MB
+L2.
 
 The backward is not a kernel: the JAX ``_bwd`` (:294-326) in torch, three
 triangular solves by ``torch.linalg.solve_triangular`` and the Gram's
@@ -39,7 +49,7 @@ Dispatch: ``gibbs_noisy_chol_alpha`` takes the kernel for a pair that
 CPU) and the composed path, ``gibbs_gram`` → ``safe_cholesky`` →
 ``tri_solve``, with ``safe_cholesky``'s own ladder, everywhere else.
 ``LAUNCHES`` counts calls of the kernel's wrapper, one per call however
-many CUDA launches it makes (~80).
+many CUDA launches it makes.
 """
 
 from __future__ import annotations
@@ -50,10 +60,14 @@ import torch
 
 from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram, gibbs_gram_reference
 from nonstationary_precip_tpu_torch.ops.chol_blocked import blocked_cholesky_plain
+from nonstationary_precip_tpu_torch.ops.chol_stream import rl_attributes
 from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
 from nonstationary_precip_tpu_torch.ops.linalg import safe_cholesky, tri_solve
 
-BLOCK = 128  # factorisation block (csrc kP)
+BLOCK = 128  # factorisation block (csrc/chol_rl.cuh kT)
+#: K8's factorisation kernels (``csrc/chol_rl.cuh`` with K8's hooks, no
+#: look-ahead), in the order of its ``attributes()``.
+KERNELS = ("diag_kernel", "panel_kernel", "syrk_kernel<triangle>")
 MAX_D = 8  # pallas_fused.py's _MAX_D
 #: The JAX dispatch window (``pallas_fused.py::eligible``).
 MIN_N = 768
@@ -76,10 +90,20 @@ def build(force: bool = False) -> str:
     global _lib
     lib, log = build_library(SOURCE, force)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gibbs_fused.argtypes = [p, p, i, i, p, p, p, p, p, p, p, p, p, p, i, p]
+    lib.gibbs_fused.argtypes = [p, p, i, i, p, p, p, p, p, p, i, p]
     lib.gibbs_fused.restype = i
+    lib.gibbs_fused_attributes.argtypes = [p]
+    lib.gibbs_fused_attributes.restype = i
     _lib = lib
     return log
+
+
+def kernel_attributes() -> dict:
+    """``chol_stream.rl_attributes`` of K8's factorisation kernels (built
+    first if need be)."""
+    if _lib is None:
+        build()
+    return rl_attributes(_lib.gibbs_fused_attributes, KERNELS)
 
 
 def eligible(x: torch.Tensor, ell: torch.Tensor) -> bool:
@@ -116,18 +140,13 @@ def gibbs_chol_solve_cuda(x, ell, y, s2, noise):
     n_pad = -(-n // BLOCK) * BLOCK
     x, ell, y = (t.detach().contiguous() for t in (x, ell, y))
     s2, noise = _scalar(s2, x), _scalar(noise, x)
-    work = torch.empty((n_pad, n_pad), dtype=torch.float32, device=dev)
-    l = torch.zeros_like(work)
+    l = torch.zeros((n_pad, n_pad), dtype=torch.float32, device=dev)
     alpha = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    cbuf = torch.empty((n_pad, BLOCK), dtype=torch.float32, device=dev)
-    ljj = torch.empty((BLOCK, BLOCK), dtype=torch.float32, device=dev)
-    linv = torch.empty_like(ljj)
     state = torch.zeros(2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib.gibbs_fused(x.data_ptr(), ell.data_ptr(), n, d, y.data_ptr(), s2.data_ptr(), noise.data_ptr(),
-                               work.data_ptr(), l.data_ptr(), alpha.data_ptr(), cbuf.data_ptr(), ljj.data_ptr(),
-                               linv.data_ptr(), state.data_ptr(), n_pad, stream)
+                               l.data_ptr(), alpha.data_ptr(), state.data_ptr(), n_pad, stream)
     if err != 0:
         raise RuntimeError(f"gibbs_fused kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

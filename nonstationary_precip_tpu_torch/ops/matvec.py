@@ -18,29 +18,32 @@ with nvcc at first use (``ops/cuda_build.py``) and bound through ctypes.
 
 What bounds them on an H100.  All three are compute-bound.  They read O(N·(2D+R))
 bytes and do O(N²) work: at N = 16384, D = 2, R = 9 a K2 call reads 1.4 MB
-(0.4 µs at 3.35 TB/s) but builds 2.7·10⁸ Gram elements.  Per element and
-dimension K3's tile costs ~10 f32 operations, one IEEE division and one
-``sqrtf``; then one ``expf`` and the contraction, 2(1 + 2R) + 6D.  K2's d = 2
+(0.4 µs at 3.35 TB/s) but builds 2.7·10⁸ Gram elements.  K2's d = 2
 element costs 15 f32 operations (an FMA as 2) and 2 on the special-function
 units (SFU, 16 a clock an SM, a sixteenth of the FP32 lanes' rate), K6's 5
-and 1, then the 2R of the contraction.  ``chip_smoke.py`` reports the FP32
-bound (operations counted as below, over 67 TFLOP/s) and, for K2 and K6,
-the SFU bound (their SFU operations an element over 16 a clock × 132 SMs
-at nvidia-smi's maximum SM clock) beside the measured time; their bound is
-the larger.
+and 1, then the 2R of the contraction; K3's 17 and 2 for P = W·K given W,
+the cotangent W = f1ᵢ·f2ⱼ 2(1 + 2R), P's row sum 1 and 7 a dim for the
+pullback sums.  ``chip_smoke.py`` reports the FP32 bound (operations
+counted as below, over 67 TFLOP/s) and the SFU bound (their SFU operations
+an element over 16 a clock × 132 SMs at nvidia-smi's maximum SM clock)
+beside the measured time; their bound is the larger.
 
 What the design does about it.  K never reaches memory: each element is
-built in registers and contracted at once.  K2 and K6 are one walk,
+built in registers and contracted at once.  K2, K6 and K3 are one walk,
 ``gibbs_rows_kernel``, with the element a template policy: one thread owns
-K2_ROWS_PER_THREAD = 2 rows for K2 and K6_ROWS_PER_THREAD = 4 for K6
-(blocks of 256 threads), with their payloads and R accumulators each in
-registers, so each column payload and V row read from shared memory feeds
-that many elements; at the paths' d = 2 and R ≤ 9 K2's registers are
-capped at 64 so that four blocks share an SM, K6's are left free, and K6's
-columns are split for 4 blocks an SM, not 8 (``tools/bench_k2.py`` times
-both kernels at 2, 4 and 8 rows a thread, with and without the cap, at 4,
-8 and 16 blocks an SM: on an H100 K2 took 4 % longer at 4 rows, K6 10 %
-less); column passes are double-buffered through ``cp.async``, so staging
+K2_ROWS_PER_THREAD = 2 rows for K2, K6_ROWS_PER_THREAD = 4 for K6 and
+K3_ROWS_PER_THREAD = 2 for K3 (blocks of 256 threads), with their payloads
+and accumulators each in registers, so each column payload and V row read
+from shared memory feeds that many elements; at the paths' d = 2 and R ≤ 9
+K2's registers are capped at 64 so that four blocks share an SM, K6's are
+left free, and K6's columns are split for 4 blocks an SM, not 8
+(``tools/bench_k2.py`` times both kernels at 2, 4 and 8 rows a thread,
+with and without the cap, at 4, 8 and 16 blocks an SM: on an H100 K2 took
+4 % longer at 4 rows, K6 10 % less); K3's, at 1 + 2R ≤ 17 factors, are
+capped at 80 so that three share an SM, its columns split for 8 an SM
+(``tools/bench_k3.py``: 0.541 ms, against 0.535–0.655 at 1, 2 or 4 rows,
+free or capped, at 4, 8 or 16 an SM); column passes are double-buffered
+through ``cp.async``, so staging
 overlaps the arithmetic, and at d = 2 the element's column factors are made
 once a pass.
 K2's d = 2 element is the JAX kernel's own rewrite (``pallas_matvec.py:118-141``):
@@ -61,13 +64,21 @@ c = √(log₂e / 2), so the element is 2^−((cz_i0 − cz_j0)² + (cz_i1 − c
 two differences, a square and an FMA, and one ``ex2.approx.ftz``; other d
 keep the per-dim differences and ``expf``.  The caller adds s² and σ²V, as
 the JAX builder does.
-K3: one thread owns one row, with the row's payload and its 1 + 2D
-accumulators in registers, so the inner loop is arithmetic on registers
-plus broadcast reads of the column payload from shared memory.
-Accumulators are templated on R's bucket, so mBCG's R = 9 keeps exactly 9.
+K3 is the walk's third policy (``PanelElem``): a thread holds its rows'
+cotangent factors f1ᵢ (fw = 1 + 2R) in registers where K2 holds V's
+accumulators, each pass stages the columns' factors f2ⱼ where K2 stages V's
+rows (read as float4 broadcasts), and each row accumulates the 1 + 2D
+pullback sums (Σ P, Σ P·d_k/ss_k, Σ P·(2d_k²/ss_k − 1)/ss_k, P = (f1ᵢ·f2ⱼ)·K)
+where K2 accumulates R products; a pass is K3_COLS = 64 columns, so the
+factors of R ≤ 32 probes fit the walk's 48 KB.  At d = 2 its element is
+K2's, with the reciprocals 1/ss_k read off rs² = 1/(s₀s₁) (no division:
+s₁·rs² = 1/(ss₀·ln 2)), the sums carrying the ln 2 that the fixed-order
+second pass puts back with the closed forms; other d, the per-dim element.
+Accumulators are templated on R's bucket, so mBCG's R = 9 keeps exactly 9
+(K3: the 1 + 2R = 17 factors of the paths' 8 probes, exactly).
 The column range is split over blocks until the card holds ~8 blocks per
-SM (K6: ~4), and a second pass adds the slices in a fixed order: no float atomics,
-so a result is the same bits on every run.  Not carried over from the TPU:
+SM (K6: ~4; K3: K3_BLOCKS_PER_SM), and a second pass adds the slices in a
+fixed order: no float atomics, so a result is the same bits on every run.  Not carried over from the TPU:
 the (N, 128) lane packing and padded rows (the kernels mask the ragged
 edge) and the MXU contraction modes (plain f32 FMAs, no tensor cores, no
 TF32).
@@ -98,13 +109,16 @@ SOURCE = CSRC / "gibbs_matvec.cu"
 
 MAX_D = 8  # input dims the kernels take
 MAX_R = 128  # K2, K6: right-hand sides one launch takes; wider V is column-chunked
-MAX_FACTORS = 65  # K3: 1 + 2R cotangent factors, so R ≤ 32
-ROWS = 128  # K3: rows per block (csrc kRows)
+MAX_FACTORS = 65  # K3: 1 + 2R cotangent factors, so R ≤ 32 (csrc kMaxF)
+K3_ROWS_PER_THREAD = 2  # K3: rows a thread owns (csrc kK3RowsPerThread)
+ROWS = 256 * K3_ROWS_PER_THREAD  # K3: rows per block (csrc kK3Rows)
+K3_COLS = 64  # K3: columns per shared-memory pass (csrc kK3Cols)
+K3_BLOCKS_PER_SM = 8  # K3's column splits (tools/bench_k3.py)
 K2_ROWS_PER_THREAD = 2  # K2: rows a thread owns (csrc kK2RowsPerThread)
 K2_ROWS = 256 * K2_ROWS_PER_THREAD  # K2: rows per block (csrc kK2Rows)
 K6_ROWS_PER_THREAD = 4  # K6: rows a thread owns (csrc kK6RowsPerThread)
 K6_ROWS = 256 * K6_ROWS_PER_THREAD  # K6: rows per block (csrc kK6Rows)
-COLS = 128  # columns per shared-memory pass (csrc kCols)
+COLS = 128  # K2, K6: columns per shared-memory pass (csrc kCols); every split is whole COLS
 GROUP = 32  # K2, K6: right-hand sides one block contracts (csrc kGroup)
 BLOCKS_PER_SM = 8  # column splits are added until the grid has this many (K2, K3)
 K6_BLOCKS_PER_SM = 4  # K6's (tools/bench_k2.py: 4 rows a thread with free registers, 4 an SM)
@@ -380,8 +394,9 @@ def cotangent_factors(alpha, solves, rights):
 
 
 def _panel_grads_cuda(x_rows, ell_rows, f1_rows, x, ell, f2):
-    """K3's wrapper: one launch of the sweep for rows (x_rows, ell_rows,
-    f1_rows) against all columns (x, ell, f2)."""
+    """K3's wrapper: one call of the sweep (the walk and its fixed-order
+    sum, 2 CUDA launches) for rows (x_rows, ell_rows, f1_rows) against all
+    columns (x, ell, f2)."""
     _check_payload("gibbs_panel_grads", x_rows, ell_rows)
     _check_payload("gibbs_panel_grads", x, ell)
     (nr, d), n, fw = x_rows.shape, x.shape[0], f2.shape[1]
@@ -396,7 +411,7 @@ def _panel_grads_cuda(x_rows, ell_rows, f1_rows, x, ell, f2):
     gx = torch.empty((nr, d), dtype=x.dtype, device=dev)
     gl = torch.empty((nr, d), dtype=x.dtype, device=dev)
     sp = torch.empty((nr,), dtype=x.dtype, device=dev)
-    splits, per = column_splits(nr, n, 1, _num_sms(dev))
+    splits, per = column_splits(nr, n, 1, _num_sms(dev), ROWS, K3_BLOCKS_PER_SM)
     part = torch.empty(splits * nr * (1 + 2 * d), dtype=x.dtype, device=dev)
     err = _lib.gibbs_panel_grads(
         x_rows.data_ptr(), ell_rows.data_ptr(), f1_rows.data_ptr(), nr,
@@ -569,8 +584,35 @@ def rbf_matvec_sfu_ops(n1: int, n2: int) -> int:
     return n1 * n2
 
 
+def _panel_elem_ops(d: int) -> int:
+    """FP32-lane operations per element of K3 for P = W·K given W: at d = 2
+    (``PanelElem::pull2``) the two sums s_k (2), their product (1), rs² (1),
+    the two differences (2), h_k = s_(1−k)·rs² (2), d_k² (2), m_k = d_k²·h_k
+    (2), their sum (1), then n_i·n_j, ·W, ·rs and ·2⁻ʸ (4) = 17; its rsqrt
+    and ex2 run on the SFU and are counted by :func:`panel_grads_sfu_ops`
+    alone.  Else the per-dim tile and P's product (1)."""
+    return 17 if d == 2 else _tile_ops(d) + 1
+
+
 def panel_grads_ops(nr: int, n: int, d: int, r: int) -> int:
-    """Operations of K3 over nr rows × n columns with r probes: the tile,
-    the cotangent (1 + 2r FMAs), P = Ŵ·K and its row sum (2), and per dim
-    the two pullback terms (d·inv, the FMA; inv·(2d²·inv − 1), the FMA = 9)."""
+    """Operations of K3 over nr rows × n columns with r probes: P = W·K,
+    the cotangent W (1 + 2r FMAs), P's row sum (1), and per dim the two
+    pullback sums: at d = 2 g_k = P·h_k, its FMA with d_k, 2 ln 2·m_k − 1
+    (an FMA) and its FMA with g_k (7); else d·inv, its FMA, inv·(2d²·inv −
+    1) and its FMA (9)."""
+    return nr * n * (_panel_elem_ops(d) + 2 * (1 + 2 * r) + 1 + (7 if d == 2 else 9) * d)
+
+
+def panel_grads_ops_per_dim(nr: int, n: int, d: int, r: int) -> int:
+    """The count of K3's operations when every element is built from the
+    per-dim tile (the walk's form at d ≠ 2), reported beside
+    :func:`panel_grads_ops` at d = 2: the tile, the cotangent, P and its row
+    sum (2) and 9 a dim; 83 an element at d = 2, r = 8."""
     return nr * n * (_tile_ops(d) + 2 * (1 + 2 * r) + 2 + 9 * d)
+
+
+def panel_grads_sfu_ops(nr: int, n: int, d: int) -> int:
+    """Special-function-unit operations of K3 over nr × n elements: at
+    d = 2 one rsqrt and one ex2 an element; else per dim a division and a
+    square root, and one exp."""
+    return nr * n * (2 if d == 2 else 2 * d + 1)

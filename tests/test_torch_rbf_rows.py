@@ -98,16 +98,17 @@ def test_replayed_matvec_matches_jax_k6(n1, n2, r):
 
 
 def test_source_has_one_gram_v_walk():
-    """K2 and K6 are one walk, ``gibbs_rows_kernel`` with an element policy:
-    no ``rbf_matvec_kernel``, no ``bool kK2`` switch; the C entries launch
-    it with ``GibbsElem`` and ``RbfElem``; the RBF scale is the replay's."""
+    """K2, K6 and K3 are one walk, ``gibbs_rows_kernel`` with an element
+    policy: no ``rbf_matvec_kernel``, no ``bool kK2`` switch, no K3 kernel
+    of its own; the C entries launch it with ``GibbsElem``, ``RbfElem``
+    and ``PanelElem``; the RBF scale is the replay's."""
     text = matvec.SOURCE.read_text()
     kernels = set(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\(", text, flags=re.S))
-    assert kernels == {"gibbs_rows_kernel", "sum_splits_kernel", "gibbs_panel_grads_kernel",
-                       "panel_grads_finish_kernel"}, kernels
+    assert kernels == {"gibbs_rows_kernel", "sum_splits_kernel", "panel_grads_finish_kernel"}, kernels
     assert "rbf_matvec_kernel" not in text and "bool kK2" not in text and "rbf_elem" not in text
     assert "template <class Elem, int D, int RB>" in text
     assert "run_matvec<GibbsElem>(" in text and "run_matvec<RbfElem>(" in text
+    assert "launch_matvec<PanelElem, D, " in text
     assert F32(float(re.search(r"constexpr float kRbfScale = ([\d.]+)f;", text).group(1))) == C
 
 

@@ -53,9 +53,10 @@ from nonstationary_precip_tpu_torch.utils.config import device  # noqa: E402
 # K5's kernels (csrc/chol_rl.cuh): the trailing updates and panels, and the
 # diagonal tiles, which run on a second stream beside the updates
 K5_UPDATE, K5_DIAG = ("syrk_kernel", "panel_kernel"), ("diag_kernel",)
-# K8's kernels (on the Gibbs step only K8 runs blocked_chol.cuh's GEMM and
-# diagonal kernels)
-K8_NAMES = ("build_kernel", "gemm_nt_kernel", "diag_kernel", "finite_kernel", "commit_kernel")
+# K8's kernels: its build and commit, and chol_rl.cuh's diagonal, panel and
+# update kernels with K8's hooks (on the Gibbs training step only K8 runs
+# chol_rl.cuh)
+K8_NAMES = ("build_kernel", "diag_kernel", "panel_kernel", "syrk_kernel", "commit_kernel")
 K6_NAMES = ("gibbs_rows_kernel", "sum_splits_kernel")  # K6's walk and its sum; no K2 on this path
 
 

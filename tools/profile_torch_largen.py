@@ -37,8 +37,8 @@ from nonstationary_precip_tpu_torch.ops import matvec  # noqa: E402
 from nonstationary_precip_tpu_torch.ops.lazy_cg import build_precond_factor, lazy_cg_mll  # noqa: E402
 from nonstationary_precip_tpu_torch.utils.config import device  # noqa: E402
 
-K2_NAMES = ("gibbs_rows_kernel", "sum_splits_kernel")
-K3_NAMES = ("gibbs_panel_grads_kernel", "panel_grads_finish_kernel")
+K2_NAMES = ("GibbsElem", "sum_splits_kernel")  # the walk's K2 instantiations and their sum
+K3_NAMES = ("PanelElem", "panel_grads_finish_kernel")  # the walk's K3 instantiations and their finish
 
 
 def event_ms(fn, reps):
