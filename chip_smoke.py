@@ -26,8 +26,8 @@ one JSON line each:
                   header csrc/chol_inv_cluster.cuh), K5 (csrc/chol_stream.cu),
                   K7 (csrc/elbo_fused.cu), K9 (csrc/gibbs_gram.cu), K10a
                   (csrc/chol_blocked.cu), K11 (csrc/trsm.cu), K8
-                  (csrc/gibbs_fused.cu), K10b (csrc/chol_inv_grid.cu) and K10c
-                  (csrc/chol_stream_v1.cu), eleven nvcc runs started together, in
+                  (csrc/gibbs_fused.cu) and K10c (csrc/chol_stream_v1.cu; K10b
+                  is K1's library with its retry off), ten nvcc runs started together, in
                   seconds, with each kernel's registers, spills and shared
                   memory, and each library's sources (its .cu and the
                   headers it includes);
@@ -94,8 +94,10 @@ one JSON line each:
                   version against float64 on the deep GP's K_zz stacks at
                   init and trained (50 × 250²), the slice's Gram (10 × 316²),
                   (3, 512) and a ragged (2, 130); a non-PD member beside
-                  healthy ones; bitwise repeat; its entry chol_inv_batched
-                  forward and backward, counted; times beside K1's;
+                  healthy ones; bitwise repeat; bitwise equal to K1 with its
+                  retry off on the K_zz and slice stacks; its entry
+                  chol_inv_batched forward and backward, counted; times at
+                  (50, 250), (10, 316) and (3, 512);
 13. k7         — K7's forward and backward, and the plain version in f32,
                   against the plain version in float64 on the experiment's
                   init and trained payloads (10 splits, B 315, S 3, M 250),
@@ -160,7 +162,12 @@ one JSON line each:
                   trained predictive's time and K11's span on the device in it;
 26. k9         — K9 and its plain version against float64 on the
                   predictive's three Grams at the rows' init and trained
-                  poses and a ragged N = 1000, bitwise repeat; times;
+                  poses and a ragged N = 1000, on the slice's field
+                  prediction's three Grams (316², 394², 394 × 316) at
+                  two ℓ fields, and on a random D = 3 pair, bitwise
+                  repeat; at D = 2 its first 9 columns bitwise equal to
+                  K2's product with I[:, :9]; times (CUDA events around
+                  blocks of calls);
 27. k10a       — K10a, its plain version and torch.linalg.cholesky against
                   float64 on the predictive's noisy Gram at the same poses
                   (K5's criterion, the backward error included), bitwise
@@ -179,9 +186,11 @@ one JSON line each:
                   CUDA launches of one call (3·N_pad/128 an attempt) and
                   the device span of the happy path's empty attempts;
 30. traced     — torch.profiler after the paths' own traces: K1's, K2's,
-                  K3's, K4's and K6's CUDA launches in one call (every device
-                  kernel, checked 1, 2, 2, 1 and 2), K7's forward's (checked
-                  10), and K7's forward and backward time by kernel;
+                  K3's, K4's, K6's, K9's and K10b's CUDA launches in one call
+                  (every device kernel, checked 1, 2, 2, 1, 2, 1 and 1), K7's
+                  forward's (checked 10), K7's forward and backward time by
+                  kernel, and K9's device time (the median of 60 launches'
+                  durations at 1280²);
 31. gibbs_mf_ref — the matrix-free Gibbs flow of examples/
                   quickstart_gibbs_largen.py at N = 2048 on the data, prior
                   SLQ probes and per-step probes of the JAX run pinned in
@@ -380,6 +389,18 @@ GIBBS_MEAN_ATOL, GIBBS_VAR_ATOL = 1e-3, 5e-4
 # sums in f32 in another order than its plain version (torch's elementwise
 # ops, cuSOLVER potrf, cuBLAS trsm).
 DENSE_FLOOR = 1e-6
+# K9's own cases beside the predictive's Grams: random pairs (x in [-2, 2],
+# ℓ = exp(0.3·N(0, 1))) of (rows, columns) at D = 3 (the per-dim element)
+# and at D = 2 (257 columns: a float at a time); the slice's field
+# prediction's three Grams (train 316² and 394 × 316: float4 stores; all
+# sites 394²: float2, which no other case runs at D = 2) on its last
+# split's sites, at their init ℓ and at ℓ = exp(0.3·N(0, 1)); at D = 2 its
+# first 9 columns (mBCG's 1 + 8 probes) against K2's.
+K9_D3, K9_D2_RAGGED, K9_ONE_HOT = (257, 394), (130, 257), 9
+# K9's device time in `traced`: the median of this many launches' durations
+# at 1280² (the CUDA-event time around blocks of calls is what a caller
+# pays, host included).
+K9_TRACED = 60
 # K8 against float64: L within twice the plain version's error plus 1e-5 of
 # the largest entry, α plus 1e-4: the factorisation sums each 128-tile's
 # Schur complement in another order than potrf, on a Gram whose condition
@@ -398,7 +419,10 @@ K8_FLOOR = {"L": 1e-5, "alpha": 1e-4}
 # version retries, so a member that is singular to f32 working accuracy may
 # come out non-finite from either (``k10b_errors``).
 K10B_FLOOR = {"L": 1e-5, "Linv": 1e-5, "Linv_kzz": 1e-3}
-K10B_RANDOM = ((3, 512), (2, 130))  # the window's top; a ragged N that pads to 256
+K10B_RANDOM = ((3, 512), (2, 130))  # the window's top; a ragged N that pads to 160
+# K10b is K1's kernel with its retry off: the stacks held bitwise to K1's
+# wrapper at max_tries = 0 (N ≤ 384, K1's window).
+K10B_AS_K1 = ("kzz_init", "kzz_trained", "slice")
 # K10c against float64, K5's criterion (K5_FLOOR, Higham's bound), at the
 # dense run's Grams at N = 8192 and 4096 and a ragged N = 1000.
 K10C_NS, K10C_RAGGED = (8192, 4096), 1000
@@ -979,7 +1003,7 @@ def phase_k3(matvec, payloads, dev):
 
 def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram, chol_blocked, trsm,
               gibbs_fused) -> dict:
-    """The eleven nvcc runs at once, each timed on its own; returns
+    """The ten nvcc runs at once, each timed on its own; returns
     {library: nvcc's output}."""
     def timed(build):
         t0 = time.perf_counter()
@@ -990,7 +1014,7 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_
         return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
     builds = [m.build for m in (chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram,
-                                 chol_blocked, trsm, gibbs_fused)] + [chol_inv.build_grid, chol_stream.build_v1]
+                                 chol_blocked, trsm, gibbs_fused)] + [chol_stream.build_v1]
     with ThreadPoolExecutor(len(builds)) as pool:
         jobs = [pool.submit(timed, b) for b in builds]
         (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log), (k5_s, k5_log), (k7_s, k7_log), *dense = (j.result()
@@ -1002,14 +1026,13 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_
          sources=sources_of(svgp_precompute.SOURCE))
     emit("build", kernel="chol_stream", seconds=k5_s, ptxas=lines(k5_log), sources=sources_of(chol_stream.SOURCE))
     emit("build", kernel="elbo_fused", seconds=k7_s, ptxas=ptxas_summary(k7_log), sources=sources_of(elbo_fused.SOURCE))
-    for name, (sec, log), src in zip(("gibbs_gram", "chol_blocked", "trsm", "gibbs_fused", "chol_inv_grid",
-                                      "chol_stream_v1"), dense,
+    for name, (sec, log), src in zip(("gibbs_gram", "chol_blocked", "trsm", "gibbs_fused", "chol_stream_v1"), dense,
                                      (gibbs_gram.SOURCE, chol_blocked.SOURCE, trsm.SOURCE, gibbs_fused.SOURCE,
-                                      chol_inv.GRID_SOURCE, chol_stream.V1_SOURCE)):
+                                      chol_stream.V1_SOURCE)):
         emit("build", kernel=name, seconds=sec, ptxas=ptxas_summary(log), sources=sources_of(src))
     return {"chol_inv": k1_log, "gibbs_matvec": gm_log, "svgp_precompute": k4_log, "elbo_fused": k7_log,
             "chol_stream": k5_log, "chol_blocked": dense[1][1], "trsm": dense[2][1], "gibbs_fused": dense[3][1],
-            "chol_stream_v1": dense[5][1]}
+            "chol_stream_v1": dense[4][1], "gibbs_gram": dense[0][1]}
 
 
 def sources_of(source: Path) -> list:
@@ -1440,10 +1463,12 @@ def phase_k7(deepgp_spatial, elbo_fused, trained_model, dev):
             "bwd_call": lambda: elbo_fused.elbo_bwd_cuda(*args, h1, h2, gbar)}
 
 
-def phase_traced(chol_inv, k1_gram, k2_call, k3_call, k4_call, k6_call, k7_fwd_call, k7_bwd_call) -> int:
-    """K1's, K2's, K3's, K4's and K6's CUDA launches in one call (every device
-    kernel counted) and K7's forward and backward time by kernel, with the
-    forward's CUDA launches a call, from torch.profiler.  These sessions run after k11: in
+def phase_traced(chol_inv, k1_gram, k2_call, k3_call, k4_call, k6_call, k7_fwd_call, k7_bwd_call, k9_call,
+                 k10b_call) -> dict:
+    """K1's, K2's, K3's, K4's, K6's, K9's and K10b's CUDA launches in one call
+    (every device kernel counted), K7's forward and backward time by kernel,
+    with the forward's CUDA launches a call, and K9's device time (the
+    median duration of K9_TRACED launches), from torch.profiler.  These sessions run after k11: in
     a process that had traced other kernels first, k11's count of K11's
     programmatic dependent launches read 8 and 9 of 10 on an H100,
     where it reads 10 when k11 traces first."""
@@ -1463,10 +1488,23 @@ def phase_traced(chol_inv, k1_gram, k2_call, k3_call, k4_call, k6_call, k7_fwd_c
     check(sorted(fwd_split) == sorted(K7_FWD_KERNELS), f"K7's forward launches {sorted(fwd_split)}")
     split = kernel_split_ms(k7_bwd_call, 10)
     check(sorted(split) == sorted(K7_BWD_KERNELS), f"K7's backward launches {sorted(split)}")
+    k9_launches = cuda_launches(k9_call, "")
+    check(k9_launches == 1, f"K9 is 1 CUDA launch a call: {k9_launches}")
+    k10b_launches = cuda_launches(k10b_call, "")
+    check(k10b_launches == 1, f"K10b is 1 CUDA launch a call: {k10b_launches}")
+    for _ in range(3):  # a session can come back short of records (cuda_launches)
+        k9_times = [(end - start) / 1e3 for name, start, end in device_kernels(k9_call, K9_TRACED)
+                    if "gibbs_gram_kernel" in name]
+        if len(k9_times) == K9_TRACED:
+            break
+    check(len(k9_times) == K9_TRACED, f"K9's traced launches {len(k9_times)} of {K9_TRACED}")
+    k9_device_ms = statistics.median(k9_times)
     emit("traced", k1_cuda_launches_a_call=launches, k2_cuda_launches_a_call=k2_launches,
          k3_cuda_launches_a_call=k3_launches, k4_cuda_launches_a_call=k4_launches, k6_cuda_launches_a_call=k6_launches,
-         k7_fwd_cuda_launches_a_call=fwd_launches, k7_fwd_split_ms=fwd_split, k7_bwd_split_ms=split)
-    return launches
+         k7_fwd_cuda_launches_a_call=fwd_launches, k7_fwd_split_ms=fwd_split, k7_bwd_split_ms=split,
+         k9_cuda_launches_a_call=k9_launches, k10b_cuda_launches_a_call=k10b_launches,
+         k9_device_ms={"median": k9_device_ms, "min": min(k9_times), "max": max(k9_times), "launches": len(k9_times)})
+    return {"k1_launches": launches, "k9_device_ms": k9_device_ms}
 
 
 def phase_field_regression(field_regression, dev_name: str):
@@ -1885,30 +1923,83 @@ def check_f64(what: str, kernel: torch.Tensor, plain: torch.Tensor, ref: torch.T
     return {"kernel_vs_f64": ek, "plain_vs_f64": ep, "max_abs_err": float((kernel - plain).abs().max())}
 
 
-def phase_k9(gibbs_gram, payloads, dev):
+def slice_field_payloads(spatial_gibbs, dev) -> dict:
+    """{name: (x_all, ℓ_all, x_train, ℓ_train)}: the slice's field
+    prediction's payloads (its last split's 316 train sites and all 394
+    sites, ℓ at the sites from the prior's conditional mean, as
+    ``GibbsExactGP.posterior`` makes them) at the split's init ℓ
+    (``init``) and at ℓ_train = exp(0.3·N(0, 1)) (``random_ell``)."""
+    from nonstationary_precip_tpu_torch.data.datasets import load_uib_spatial
+    from nonstationary_precip_tpu_torch.train.config import ExperimentConfig
+
+    _, x, y = load_uib_spatial()
+    xn = (x - x.mean(0)) / x.std(0, ddof=1)
+    yn = (y - y.mean()) / y.std(ddof=1)
+    cfg = ExperimentConfig(device="cuda")
+    model, (x_tr, _, _, _) = spatial_gibbs.make_split(xn, yn, cfg.num_splits - 1, cfg, torch.float32, dev)
+    x_all = torch.as_tensor(xn, dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(71)
+    out = {}
+    with torch.no_grad():
+        ell_init = torch.exp(model.log_ell)
+        for pose, ell in (("init", ell_init),
+                          ("random_ell", torch.exp(0.3 * torch.randn(ell_init.shape, generator=gen)).to(dev))):
+            ell = ell.contiguous()
+            out[pose] = (x_all, model.prior.conditional_mean(x_all, (x_tr, ell)).contiguous(), x_tr, ell)
+    return out
+
+
+def phase_k9(gibbs_gram, matvec, spatial_gibbs, payloads, dev):
     """K9 and its plain version against float64 on the predictive's three
-    Grams at each payload; bitwise repeat; times at N = 1280."""
+    Grams at each payload, on the slice's field prediction's three Grams
+    and on a random D = 3 pair (the per-dim element); bitwise repeat; at
+    D = 2 its first K9_ONE_HOT columns bitwise equal to K2's product with
+    the one-hot I[:, :K9_ONE_HOT] (the two compute one element); times at
+    N = 1280."""
     from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
 
     errs = {}
-    for name, (x, ell, _, _, _, xq, ellq) in payloads.items():
-        for pair, args in (("xx", (x, ell, x, ell)), ("sx", (xq, ellq, x, ell)), ("ss", (xq, ellq, xq, ellq))):
-            k = gibbs_gram.gibbs_gram_cuda(*args)
-            again = gibbs_gram.gibbs_gram_cuda(*args)
-            p = gibbs_gram_reference(*args)
-            ref = gibbs_gram_reference(*(a.double() for a in args))
+    gen = torch.Generator().manual_seed(67)
+
+    def random_pair(shape, d):
+        out = []
+        for n in shape:
+            out += [torch.rand(n, d, generator=gen) * 4 - 2, torch.exp(0.3 * torch.randn(n, d, generator=gen))]
+        return tuple(t.to(dev) for t in out)
+
+    cases = {f"{name}_{pair}": args for name, (x, ell, _, _, _, xq, ellq) in payloads.items()
+             for pair, args in (("xx", (x, ell, x, ell)), ("sx", (xq, ellq, x, ell)), ("ss", (xq, ellq, xq, ellq)))}
+    for pose, (xa, ella, xt, ellt) in slice_field_payloads(spatial_gibbs, dev).items():
+        cases.update({f"slice_{pose}_xx": (xt, ellt, xt, ellt), f"slice_{pose}_ss": (xa, ella, xa, ella),
+                      f"slice_{pose}_sx": (xa, ella, xt, ellt)})
+    check(tuple(cases["slice_init_sx"][0].shape) == (394, 2) and tuple(cases["slice_init_xx"][0].shape) == (316, 2),
+          "the slice's field payloads are 394 and 316 sites")
+    cases["d3_random"] = random_pair(K9_D3, 3)
+    cases["d2_ragged"] = random_pair(K9_D2_RAGGED, 2)
+    for name, args in cases.items():
+        k = gibbs_gram.gibbs_gram_cuda(*args)
+        again = gibbs_gram.gibbs_gram_cuda(*args)
+        p = gibbs_gram_reference(*args)
+        ref = gibbs_gram_reference(*(a.double() for a in args))
+        torch.cuda.synchronize()
+        check(torch.equal(k, again), f"K9 {name} bitwise repeatable")
+        errs[name] = check_f64(f"K9 {name}", k, p, ref, DENSE_FLOOR)
+        if args[0].shape[1] == 2:
+            eye = torch.eye(args[2].shape[0], K9_ONE_HOT, device=dev)
+            k2 = matvec.gibbs_gram_matvec_cuda(*args, eye)
             torch.cuda.synchronize()
-            check(torch.equal(k, again), f"K9 {name} {pair} bitwise repeatable")
-            errs[f"{name}_{pair}"] = check_f64(f"K9 {name} {pair}", k, p, ref, DENSE_FLOOR)
+            gap = float((k[:, :K9_ONE_HOT] - k2).abs().max())
+            check(torch.equal(k[:, :K9_ONE_HOT], k2),
+                  f"K9 {name}: columns 0..{K9_ONE_HOT - 1} bitwise K2's (largest gap {gap:.3g})")
     n = GIBBS_NS[-1]
     x, ell = payloads[f"{n}_trained"][:2]
     t = timed_pair(lambda: gibbs_gram.gibbs_gram_cuda(x, ell, x, ell), lambda: gibbs_gram_reference(x, ell, x, ell),
                    N_TIMED)
-    # ~10·D operations an element; reads the four (N, D) payloads, writes the Gram
-    b_ms, b_by = bound(10 * 2 * n * n, gibbs_gram.gram_bytes(n, n, 2))
+    # d2_elem's 15 operations an element; reads the four (N, D) payloads, writes the Gram
+    b_ms, b_by = bound(gibbs_gram.gram_ops(n, n, 2), gibbs_gram.gram_bytes(n, n, 2))
     out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "bound_ms": b_ms, "bound_by": b_by, **t}
-    emit("k9", n=n, errors=errs, timed_calls=2 * N_TIMED, **out)
-    return out
+    emit("k9", n=n, errors=errs, k2_one_hot_columns=K9_ONE_HOT, timed_calls=2 * N_TIMED, **out)
+    return {**out, "call": lambda: gibbs_gram.gibbs_gram_cuda(x, ell, x, ell)}
 
 
 def phase_k10a(chol_blocked, payloads, dev):
@@ -1963,17 +2054,23 @@ def backward_ratio(l: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> float:
     return float(((l64 @ x64 - b.double()).abs() / (gamma * (l64.abs() @ x64.abs()) + (n + 1) * 2.0**-149)).max())
 
 
-def cuda_launches(fn, name: str) -> int:
+def cuda_launches(fn, name: str, sessions: int = 3) -> int:
     """Device kernels whose name holds ``name`` in one call of ``fn``, as
-    torch.profiler traces them."""
+    torch.profiler traces them: the most over ``sessions`` traced calls.  A
+    session can come back short of records (an H100 run traced K9's one
+    launch as 0 where every other session read 1), never long, so the
+    largest reading is the call's."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if name in e.key and e.device_time_total > 0)
+    counts = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages() if name in e.key and e.device_time_total > 0))
+    return max(counts)
 
 
 def phase_k11(trsm, payloads, dev):
@@ -2020,16 +2117,18 @@ def phase_k11(trsm, payloads, dev):
     return out
 
 
-def device_kernels(fn) -> list:
-    """(name, start µs, end µs) of every device kernel in one call of
-    ``fn``, in order of start, as torch.profiler traces them."""
+def device_kernels(fn, calls: int = 1) -> list:
+    """(name, start µs, end µs) of every device kernel in ``calls`` calls of
+    ``fn`` after one untraced call, in order of start, as torch.profiler
+    traces them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and "kernel" in e.name), key=lambda k: k[1])
@@ -2146,9 +2245,10 @@ def phase_k10b(chol_inv, svgp_precompute, spatial_gibbs, dgp_model, dev):
     """K10b against float64 and its plain version on the deep GP's K_zz
     stacks at its init and trained poses (50 × 250²), the slice's Gram (10 ×
     316²), (3, 512) and a ragged (2, 130); a non-PD member beside healthy
-    ones; the entry ``chol_inv_batched`` forward and backward, counted; times
-    of K10b, its plain version and K1 with its retry off (the same function)
-    at the K_zz and slice shapes."""
+    ones; bitwise equal to K1 with its retry off (the same kernel) on the
+    K_zz and slice stacks; the entry ``chol_inv_batched`` forward and
+    backward, counted; times of K10b and its plain version at the K_zz,
+    slice and (3, 512) shapes."""
     from nonstationary_precip_tpu_torch.models.gibbs_gp import noisy_gibbs_gram
     from nonstationary_precip_tpu_torch.train.config import ExperimentConfig
     from nonstationary_precip_tpu_torch.train.vmapped import stack_modules
@@ -2197,6 +2297,14 @@ def phase_k10b(chol_inv, svgp_precompute, spatial_gibbs, dgp_model, dev):
     check(torch.equal(lg[[0, 2]], lb[[0, 2]]) and torch.equal(lig[[0, 2]], lib[[0, 2]]),
           "K10b's healthy members bitwise as in the run without the non-PD one")
 
+    # K1's kernel with its retry off, launched through K1's wrapper: the same bits
+    for name in K10B_AS_K1:
+        got = chol_inv.chol_inv_grid_cuda(payloads[name])
+        k1 = chol_inv.chol_inv_batched_cuda(payloads[name], max_tries=0)[:2]
+        torch.cuda.synchronize()
+        check(all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got, k1)),
+              f"K10b {name} bitwise K1's with max_tries = 0")
+
     # the entry, as a caller reaches it: forward and backward, counted
     a = payloads["kzz_trained"].clone().requires_grad_()
     reset_launches()
@@ -2206,19 +2314,19 @@ def phase_k10b(chol_inv, svgp_precompute, spatial_gibbs, dgp_model, dev):
     check(a.grad is not None and a.grad.shape == a.shape, "the entry's backward reached the stack")
 
     times = {}
-    for name in ("kzz_trained", "slice"):
+    for name in ("kzz_trained", "slice", "random_3x512"):
         a = payloads[name]
         t = timed_pair(lambda: chol_inv.chol_inv_grid_cuda(a), lambda: chol_inv.chol_inv_batched_plain(a), N_TIMED)
-        k1 = block_times_ms(lambda: chol_inv.chol_inv_batched_cuda(a, max_tries=0), N_TIMED)
         b, n, _ = a.shape
         # 2N³/3 operations a member (Cholesky and triangular inverse, N³/3
         # each); reads A once, writes L and L⁻¹
         b_ms, b_by = bound(b * 2 * n**3 / 3, 4 * 3 * b * n * n)
-        times[name] = {**t, "k1_ms": statistics.median(k1), "bound_ms": b_ms, "bound_by": b_by, "shape": [b, n]}
+        times[name] = {**t, "bound_ms": b_ms, "bound_by": b_by, "shape": [b, n]}
     out = {"max_abs_err": max(max(e["L"]["max_abs_err"], e["Linv"]["max_abs_err"]) for e in errs.values()),
            "launches": launches, **{k: times["kzz_trained"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
-    emit("k10b", errors=errs, times=times, timed_calls=2 * N_TIMED, **out)
-    return out
+    emit("k10b", errors=errs, as_k1_bitwise=list(K10B_AS_K1), times=times, timed_calls=2 * N_TIMED, **out)
+    big = payloads["random_3x512"]
+    return {**out, "call": lambda: chol_inv.chol_inv_grid_cuda(big)}
 
 
 def phase_k10c(chol_stream, exact_largen, dev):
@@ -2487,15 +2595,17 @@ def main(argv=None):
     phase_gibbs_dense_ref(exact_largen, dev)
     gibbs_out, gibbs_launches = phase_gibbs_dense(exact_largen, name)
     gibbs_pay = gibbs_payloads(exact_largen, gibbs_out, dev)
-    k9 = phase_k9(gibbs_gram, gibbs_pay, dev)
+    k9 = phase_k9(gibbs_gram, matvec, spatial_gibbs, gibbs_pay, dev)
     k10a = phase_k10a(chol_blocked, gibbs_pay, dev)
     k10a["resources"] = rl_resources(chol_blocked.kernel_attributes(), logs["chol_blocked"])
     k11 = phase_k11(trsm, gibbs_pay, dev)
     k11["resources"] = rl_resources(trsm.kernel_attributes(), logs["trsm"])
     k8 = phase_k8(gibbs_fused, gibbs_pay, dev)
     k8["resources"] = rl_resources(gibbs_fused.kernel_attributes(), logs["gibbs_fused"])
-    phase_traced(chol_inv, k1_design.pop("gram"), k2_call, k3_call, k4_call, k6.pop("call"), k7.pop("fwd_call"),
-                 k7.pop("bwd_call"))
+    traced = phase_traced(chol_inv, k1_design.pop("gram"), k2_call, k3_call, k4_call, k6.pop("call"),
+                          k7.pop("fwd_call"), k7.pop("bwd_call"), k9.pop("call"), k10b.pop("call"))
+    k9.update(device_ms=traced["k9_device_ms"],
+              resources={"gibbs_gram_kernel<2,4>": ptxas_resources(logs["gibbs_gram"], "gibbs_gram_kernel<2,4>")})
     phase_gibbs_mf_ref(quickstart, dev)
     mf_launches = phase_gibbs_mf(quickstart, name)
 
@@ -2555,7 +2665,7 @@ def main(argv=None):
            "replaces": f"nonstationary_precip_tpu/ops/{tpu}", "launches": gibbs_launches[kname],
            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
-           **({"resources": k["resources"]} if "resources" in k else {})}
+           **{key: k[key] for key in ("device_ms", "resources") if key in k}}
           for kname, src, tpu, k in (("gibbs_chol_solve_fused", "gibbs_fused.cu", "pallas_fused.py:276", k8),
                                      ("gibbs_gram", "gibbs_gram.cu", "pallas_gram.py:136", k9),
                                      ("blocked_cholesky", "chol_blocked.cu", "pallas_chol.py:251", k10a),
@@ -2565,7 +2675,7 @@ def main(argv=None):
            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
            **({"resources": k["resources"]} if "resources" in k else {})}
-          for kname, src, tpu, k in (("chol_inv_grid", "chol_inv_grid.cu", "pallas_chol.py:348", k10b),
+          for kname, src, tpu, k in (("chol_inv_grid", "chol_inv_cluster.cu", "pallas_chol.py:348", k10b),
                                      ("streaming_cholesky_v1", "chol_stream_v1.cu", "pallas_chol.py:601", k10c))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

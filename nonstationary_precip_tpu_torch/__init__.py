@@ -13,10 +13,11 @@ Layering (bottom-up), as far as the port reaches today:
               ``chol_blocked`` (K10a), the blocked Cholesky at two sizes,
               ``elbo_fused`` (K7, the DSVI data term), ``gibbs_fused`` (K8,
               the Gibbs MAP solve), ``gibbs_gram`` (K9) and ``trsm`` (K11);
-              K1 and K4 share one cluster schedule
-              (``csrc/chol_inv_cluster.cuh``), K5, K10a and K10c one
-              right-looking factorisation (``csrc/chol_rl.cuh``), K8 and
-              K10b one column sweep (``csrc/chol_sweep.cuh``)
+              K1, K4 and K10b share one cluster schedule
+              (``csrc/chol_inv_cluster.cuh``; K10b is K1's kernel with its
+              retry off), K5, K8, K10a and K10c one right-looking
+              factorisation (``csrc/chol_rl.cuh``), K2, K3 and K9 one d = 2
+              Gibbs element (``csrc/gibbs_elem.cuh``)
   kernels/  — the Gibbs and squared-distance covariance functions
   priors/   — the log-normal latent-lengthscale process (dense part)
   models/   — Gaussian likelihood, DiagNormal/MVN, the Gibbs exact GP (MAP),

@@ -10,7 +10,9 @@
 // member, padded to a multiple of 32 with an identity block, is read into
 // the cluster's tiles from global memory as A + j I, and the retry ladder
 // is j = base, x10, at most max_tries times after the first, jitter-free
-// try.
+// try.  With max_tries = 0 it is also K10b (pallas_chol.py::chol_inv_batched,
+// the retry-free grid-batched (L, L^-1)): one jitter-free try, a member
+// whose try fails left NaN, each member its own cluster.
 //
 // What bounds it on an H100: at (10, 316) the 2 N^3 / 3 operations a member
 // (0.2 GFLOP a call) would take 3 us at the f32 peak, so the chain of nb
@@ -37,7 +39,10 @@ namespace {
 using chol_cluster::kThreads;
 
 constexpr int kCluster = K1_CLUSTER;  // CTAs a member
-constexpr int kMaxN = 384;
+// K10b's window top (the JAX MAX_N_CHOLINV); K1's wrapper keeps its gate's
+// 384.  At 512 and a cluster of 8 a CTA takes 157 KB (a cluster of 4: 235 KB,
+// over the 227 KB a block may opt in to).
+constexpr int kMaxN = 512;
 static_assert(kCluster == 1 || kCluster == 2 || kCluster == 4 || kCluster == 8, "a portable cluster size");
 
 // K1's tiles and ladder: the padded, jittered member A + j I inside n, I

@@ -4,68 +4,157 @@
 // _kernel, pallas_call in _forward).  The wrapper, the plain PyTorch version
 // and the design notes are in nonstationary_precip_tpu_torch/ops/gibbs_gram.py.
 //
-// A block of 256 threads owns a kTile x kTile tile of the output.  The
-// tile's row payloads (x, l) are staged in shared memory, where every
-// thread of a warp reads the same address (a broadcast); each thread keeps
-// one column's payload in registers and writes kTile / 4 elements of that
-// column, a warp writing 32 consecutive floats of a row at a time.  Each
-// element is gibbs_elem.cuh's plain formula, with no special case on the
-// diagonal (the TPU kernel has none either).
+// What bounds it: the N1 N2 floats it writes.  A block of kThreads threads
+// owns a kTileM x kTileN tile of the output; thread (tr, tc) a register tile
+// of kRowsPerThread rows (tr, tr + kRowThreads, ..) by kColsPerThread
+// consecutive columns (kColsPerThread tc ..), so a warp writes two rows of
+// kTileN floats at once, each row one contiguous 256-byte run.
+//  * d = 2: the element is gibbs_elem.cuh's d2_elem, the one K2 computes.
+//    The tile's row factors (x_i, l_i^2, n_i) and column factors (x_j, q_j,
+//    n_j) are made once each, into shared memory, and each thread reads its
+//    rows' and columns' into registers; an element is then 15 f32
+//    operations (an FMA as 2), one rsqrt.approx and one ex2.approx.
+//  * other d (on no path): gibbs_elem.cuh's per-dim gibbs_elem, the one K2
+//    and K3 compute at d != 2, on payloads read into registers.
+// No special case on the diagonal (the TPU kernel has none either).  Each
+// thread writes its register tile row by row as float4 where the row stride
+// and the output's base allow it (N2 % 4 == 0), else float2 (N2 % 2 == 0:
+// the slice's 394-wide Grams, 2.78 us against 4.15 with a float at a time,
+// tools/bench_k9.py on an H100), else a float at a time; plain stores, since
+// the Gram is read again at once and fits the L2.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #include "gibbs_elem.cuh"
 
 namespace {
 
-using gibbs::gibbs_elem;
 using gibbs::kMaxD;
 using gibbs::live;
 
-constexpr int kTile = 64;
 constexpr int kThreads = 256;
-constexpr int kRowGroups = kThreads / kTile;  // threads sharing a column
+constexpr int kColsPerThread = 4;                      // one float4 of a row
+constexpr int kColThreads = 16;                        // threads across a tile's columns
+constexpr int kRowThreads = kThreads / kColThreads;    // threads down a tile's rows
+// Rows a thread owns: 8 (128 x 64 tiles, 200 blocks at 1280^2), measured
+// against 2 and 4 by tools/bench_k9.py (which builds copies of this file
+// with the value rewritten): the most at 1280^2, where the paths' largest
+// Gram sits; at the small Grams 2 would take ~0.6 us less.
+constexpr int kRowsPerThread = 8;
+constexpr int kTileN = kColThreads * kColsPerThread;   // columns a block owns
+constexpr int kTileM = kRowThreads * kRowsPerThread;   // rows a block owns
+static_assert(kColThreads * kRowThreads == kThreads && 32 % kColThreads == 0, "a warp writes whole rows of the tile");
 
+// Writes row i's kColsPerThread values v from column c on, kW floats a
+// store; columns past n2 are dropped (kW divides n2, so a store is wholly
+// inside or wholly past the row's end).
+template <int kW>
+__device__ __forceinline__ void store_row(float* __restrict__ out, int n2, int i, int c,
+                                          const float (&v)[kColsPerThread]) {
+  float* p = out + static_cast<size_t>(i) * n2 + c;
+#pragma unroll
+  for (int h = 0; h < kColsPerThread; h += kW) {
+    if (c + h >= n2) break;
+    if constexpr (kW == 4) {
+      *reinterpret_cast<float4*>(p + h) = make_float4(v[h], v[h + 1], v[h + 2], v[h + 3]);
+    } else if constexpr (kW == 2) {
+      *reinterpret_cast<float2*>(p + h) = make_float2(v[h], v[h + 1]);
+    } else {
+      p[h] = v[h];
+    }
+  }
+}
+
+// Row (or column) r's payload; past the end x = 0, l = 1: finite, never stored.
 template <int D>
+__device__ __forceinline__ void payload(const float* __restrict__ x, const float* __restrict__ l, int n, int r,
+                                        int d, float* xr, float* lr) {
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    const bool ok = r < n && live<D>(k, d);
+    xr[k] = ok ? x[static_cast<size_t>(r) * d + k] : 0.0f;
+    lr[k] = ok ? l[static_cast<size_t>(r) * d + k] : 1.0f;
+  }
+}
+
+template <int D, int kW>
 __global__ void __launch_bounds__(kThreads)
 gibbs_gram_kernel(const float* __restrict__ x1, const float* __restrict__ l1, int n1,
                   const float* __restrict__ x2, const float* __restrict__ l2, int n2,
                   int d, float* __restrict__ out) {
-  __shared__ float rp[kTile][2 * D];  // row r: x then l
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.y * kTile;
-  const int col = blockIdx.x * kTile + tid % kTile;
-  const int rg = tid / kTile;
-  for (int e = tid; e < kTile * D; e += kThreads) {
-    const int r = e / D;
-    const int k = e % D;
-    const bool ok = r0 + r < n1 && live<D>(k, d);
-    const size_t g = static_cast<size_t>(r0 + r) * d + k;
-    rp[r][k] = ok ? x1[g] : 0.0f;
-    rp[r][D + k] = ok ? l1[g] : 1.0f;
-  }
-  float xj[D], lj[D], diff[D], inv_ss[D];
+  const int tc = tid % kColThreads, tr = tid / kColThreads;
+  const int i0 = blockIdx.y * kTileM, j0 = blockIdx.x * kTileN;
+  const int c = j0 + kColsPerThread * tc;
+
+  if constexpr (D == 2) {
+    // the tile's row factors (x0, x1, a0, a1, n) and its columns' (x0, x1,
+    // q0, q1) and n
+    __shared__ __align__(16) float rs[kTileM * 5];
+    __shared__ __align__(16) float cs[kTileN * 5];
+    for (int e = tid; e < kTileM; e += kThreads) {
+      float xr[2], lr[2];
+      payload<2>(x1, l1, n1, i0 + e, d, xr, lr);
+      const gibbs::D2Row f = gibbs::d2_row(xr, lr);
+      float* s = rs + 5 * e;
+      s[0] = f.x0, s[1] = f.x1, s[2] = f.a0, s[3] = f.a1, s[4] = f.n;
+    }
+    for (int e = tid; e < kTileN; e += kThreads) {
+      float xc[2], lc[2];
+      payload<2>(x2, l2, n2, j0 + e, d, xc, lc);
+      reinterpret_cast<float4*>(cs)[e] = gibbs::d2_col_xq(xc[0], xc[1], lc[0], lc[1]);
+      cs[4 * kTileN + e] = gibbs::d2_col_n(lc[0], lc[1]);
+    }
+    __syncthreads();
+    if (c >= n2) return;
+    float4 xq[kColsPerThread];
+    float cn[kColsPerThread];
 #pragma unroll
-  for (int k = 0; k < D; ++k) {
-    const bool ok = col < n2 && live<D>(k, d);
-    xj[k] = ok ? x2[static_cast<size_t>(col) * d + k] : 0.0f;
-    lj[k] = ok ? l2[static_cast<size_t>(col) * d + k] : 1.0f;
-  }
-  __syncthreads();
-  if (col >= n2) return;
-  for (int r = rg; r < kTile && r0 + r < n1; r += kRowGroups) {
-    out[static_cast<size_t>(r0 + r) * n2 + col] =
-        gibbs_elem<D>(&rp[r][0], &rp[r][D], xj, lj, d, diff, inv_ss);
+    for (int v = 0; v < kColsPerThread; ++v) {
+      xq[v] = reinterpret_cast<const float4*>(cs)[kColsPerThread * tc + v];
+      cn[v] = cs[4 * kTileN + kColsPerThread * tc + v];
+    }
+#pragma unroll
+    for (int u = 0; u < kRowsPerThread; ++u) {
+      const int r = tr + u * kRowThreads;
+      if (i0 + r >= n1) break;
+      const float* s = rs + 5 * r;
+      const gibbs::D2Row f{s[0], s[1], s[2], s[3], s[4]};
+      float val[kColsPerThread];
+#pragma unroll
+      for (int v = 0; v < kColsPerThread; ++v) val[v] = gibbs::d2_elem(f, xq[v], cn[v]);
+      store_row<kW>(out, n2, i0 + r, c, val);
+    }
+  } else {
+    if (c >= n2) return;
+    float xj[kColsPerThread][D], lj[kColsPerThread][D];
+#pragma unroll
+    for (int v = 0; v < kColsPerThread; ++v) payload<D>(x2, l2, n2, c + v, d, xj[v], lj[v]);
+#pragma unroll 1
+    for (int u = 0; u < kRowsPerThread; ++u) {
+      const int i = i0 + tr + u * kRowThreads;
+      if (i >= n1) break;
+      float xi[D], li[D], diff[D], inv_ss[D];
+      payload<D>(x1, l1, n1, i, d, xi, li);
+      float val[kColsPerThread];
+#pragma unroll
+      for (int v = 0; v < kColsPerThread; ++v) val[v] = gibbs::gibbs_elem<D>(xi, li, xj[v], lj[v], d, diff, inv_ss);
+      store_row<kW>(out, n2, i, c, val);
+    }
   }
 }
 
 template <int D>
-void launch(const float* x1, const float* l1, int n1, const float* x2, const float* l2,
-            int n2, int d, float* out, cudaStream_t s) {
-  const dim3 grid((n2 + kTile - 1) / kTile, (n1 + kTile - 1) / kTile);
-  gibbs_gram_kernel<D><<<grid, kThreads, 0, s>>>(x1, l1, n1, x2, l2, n2, d, out);
+void launch(const float* x1, const float* l1, int n1, const float* x2, const float* l2, int n2, int d, float* out,
+            cudaStream_t s) {
+  const dim3 grid((n2 + kTileN - 1) / kTileN, (n1 + kTileM - 1) / kTileM);
+  const auto a = reinterpret_cast<std::uintptr_t>(out);
+  if (n2 % 4 == 0 && a % 16 == 0) gibbs_gram_kernel<D, 4><<<grid, kThreads, 0, s>>>(x1, l1, n1, x2, l2, n2, d, out);
+  else if (n2 % 2 == 0 && a % 8 == 0) gibbs_gram_kernel<D, 2><<<grid, kThreads, 0, s>>>(x1, l1, n1, x2, l2, n2, d, out);
+  else gibbs_gram_kernel<D, 1><<<grid, kThreads, 0, s>>>(x1, l1, n1, x2, l2, n2, d, out);
 }
 
 }  // namespace

@@ -23,7 +23,7 @@
 //   K2 at d = 2, the JAX kernel's own element (pallas_matvec.py:118-141):
 //     p = ss_0 ss_1,  rs = rsqrt(p),  quadnum = d_0^2 ss_1 + d_1^2 ss_0,
 //     K = (2 sqrt(l_i0 l_i1)) sqrt(l_j0 l_j1) rs exp(-quadnum rs^2)
-//   (gibbs_d2_elem below); other d, gibbs_elem.cuh's per-dim element.
+//   (gibbs_elem.cuh's d2_elem); other d, its per-dim element.
 //   K6 from the payload z = x / ell that the wrapper prescales once (the TPU
 //   kernel's _pack_scaled): K(i,j) = exp(-0.5 sum_k (z_ik - z_jk)^2), the
 //   quadratic formed from the differences (no cancellation, so no clamp).
@@ -54,9 +54,13 @@
 
 namespace {
 
+using gibbs::exp2_approx;
 using gibbs::gibbs_elem;
+using gibbs::kLn2;
 using gibbs::kMaxD;
+using gibbs::kTwoLn2;
 using gibbs::live;
+using gibbs::rsqrt_approx;
 
 constexpr int kCols = 128;   // K2, K6: columns staged in shared memory per pass
 constexpr int kGroup = 32;   // K2, K6: right-hand sides one block contracts
@@ -78,10 +82,6 @@ constexpr int kK3Cols = 64;  // K3's columns a pass: 1 + 2R factors a column fit
 constexpr int kK2Rows = kK2Threads * kK2RowsPerThread;  // rows a K2 block owns
 constexpr int kK6Rows = kK2Threads * kK6RowsPerThread;  // rows a K6 block owns
 constexpr int kK3Rows = kK2Threads * kK3RowsPerThread;  // rows a K3 block owns
-// ln 2 and 2 ln 2: the d = 2 element scales its squared lengthscales by
-// ln 2 so that exp(-y) becomes 2^-(y / ln 2) with no multiply an element
-constexpr float kLn2 = 0.693147180559945309f;
-constexpr float kTwoLn2 = 1.386294361119890618f;
 // sqrt(log2(e) / 2): K6's d = 2 payload scale, exp(-q / 2) = 2^-(c^2 q)
 constexpr float kRbfScale = 0.849321800288019111f;
 
@@ -120,21 +120,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The special-function unit's approximations, one MUFU operation each
-// (PTX ISA: rsqrt.approx.f32 and ex2.approx.f32, relative error about
-// 2^-22 to 2^-23; .ftz flushes subnormal inputs and results to zero, so an
-// element below 2^-126 of its prefactor becomes 0).
-__device__ __forceinline__ float rsqrt_approx(float x) {
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The element policies of the walk.  Each says whether the columns' l is
 // staged beside x (kL), the floats of a column's d = 2 factors made once a
 // pass (kCook), the columns a pass (kPass), whether it accumulates K3's
@@ -144,16 +129,11 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // (elem2; K3: pull2, the element with its pullback terms); at other d, the
 // per-dim element (elem).
 
-// K2: the Gibbs element.  At d = 2 the JAX kernel's rewrite with its
-// squared lengthscales prescaled by ln 2: from the row factors (x_i, q_i =
-// l_i^2 ln 2, n_i = 2 ln 2 sqrt(l_i0 l_i1)) and the column factors (x_j,
-// q_j = l_j^2 ln 2, n_j = sqrt(l_j0 l_j1)),
-//   s_k = q_ik + q_jk = ss_k ln 2,  rs = rsqrt(s_0 s_1) = rsqrt(p) / ln 2,
-//   y = (d_0^2 s_1 + d_1^2 s_0) rs^2 = quadnum / p / ln 2,
-//   K = (n_i n_j) rs 2^-y = 2 sqrt(l_i0 l_i1 l_j0 l_j1) rsqrt(p) exp(-quadnum / p):
-// 15 f32 operations (an FMA as 2) and 2 special-function ones.  A
-// zero-filled column past the slice's end gets n_j = 0 (other d: l_j = 0),
-// so its element is 0.
+// K2: the Gibbs element.  At d = 2 gibbs_elem.cuh's d2_elem (the JAX
+// kernel's rewrite with its squared lengthscales prescaled by ln 2) from
+// its row and column factors: 15 f32 operations (an FMA as 2) and 2
+// special-function ones.  A zero-filled column past the slice's end gets
+// n_j = 0 (other d: l_j = 0), so its element is 0.
 struct GibbsElem {
   static constexpr int kRowsPerThread = kK2RowsPerThread;
   static constexpr int kRows = kK2Rows;
@@ -163,35 +143,23 @@ struct GibbsElem {
   static constexpr bool kPull = false;
   static constexpr bool kL = true;
   static constexpr int kCook = 5;  // (x_j, q_j) as a float4, then n_j
-  struct Row {
-    float x0, x1, q0, q1, n;
-  };
+  using Row = gibbs::D2Row;
   struct Col {
     float4 xq;
     float n;
   };
-  __device__ static Row row(const float* xi, const float* li) {
-    return {xi[0], xi[1], (li[0] * li[0]) * kLn2, (li[1] * li[1]) * kLn2, sqrtf(li[0] * li[1]) * kTwoLn2};
-  }
+  __device__ static Row row(const float* xi, const float* li) { return gibbs::d2_row(xi, li); }
   template <int kP>
   __device__ static void cook(float* ck, const float* xs, const float* ls, int j) {
     const float l0 = ls[2 * j], l1 = ls[2 * j + 1];
-    reinterpret_cast<float4*>(ck)[j] = make_float4(xs[2 * j], xs[2 * j + 1], (l0 * l0) * kLn2, (l1 * l1) * kLn2);
-    ck[4 * kP + j] = sqrtf(l0 * l1);
+    reinterpret_cast<float4*>(ck)[j] = gibbs::d2_col_xq(xs[2 * j], xs[2 * j + 1], l0, l1);
+    ck[4 * kP + j] = gibbs::d2_col_n(l0, l1);
   }
   template <int kP>
   __device__ static Col col(const float* ck, int j) {
     return {reinterpret_cast<const float4*>(ck)[j], ck[4 * kP + j]};
   }
-  __device__ static float elem2(const Row& r, const Col& c) {
-    const float s0 = r.q0 + c.xq.z;
-    const float s1 = r.q1 + c.xq.w;
-    const float rs = rsqrt_approx(s0 * s1);
-    const float d0 = r.x0 - c.xq.x;
-    const float d1 = r.x1 - c.xq.y;
-    const float y = fmaf(d1 * d1, s0, (d0 * d0) * s1) * (rs * rs);
-    return ((r.n * c.n) * rs) * exp2_approx(-y);
-  }
+  __device__ static float elem2(const Row& r, const Col& c) { return gibbs::d2_elem(r, c.xq, c.n); }
   template <int D>
   __device__ static float elem(const float* xi, const float* li, const float* xj, const float* lj, int d) {
     float diff[D], inv_ss[D];
@@ -274,8 +242,8 @@ struct PanelElem {
   template <int RB>
   __device__ static void pull2(float (&acc)[5], const Row& r, const Col& c, const float (&fi)[RB],
                                const float* vj) {
-    const float s0 = r.q0 + c.xq.z;
-    const float s1 = r.q1 + c.xq.w;
+    const float s0 = gibbs::d2_s(r.a0, c.xq.z);
+    const float s1 = gibbs::d2_s(r.a1, c.xq.w);
     const float rs = rsqrt_approx(s0 * s1);
     const float r2 = rs * rs;
     const float d0 = r.x0 - c.xq.x;

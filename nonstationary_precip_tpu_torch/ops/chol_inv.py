@@ -47,24 +47,24 @@ replaces ``pallas_chol.py::chol_inv_batched`` (:348; forward
 ``_chol_inv_forward`` :284, ``pallas_call`` at :303, body
 ``_chol_inv_kernel`` :275), which the JAX package runs on no path (its
 gate ``cholinv_eligible``, :326, is opt-in): its entry here is
-``chol_inv_batched``, joined to no dispatch.  The kernel is
-``csrc/chol_inv_grid.cu``.  A member that is not PD comes out non-finite,
-the others unaffected; there is no jitter.  At the deep GP's K_zz stack,
-50 × 250², it is ~0.5 GFLOP of dependent steps: like K1, latency-bound.
-The fused column sweep of ``csrc/chol_sweep.cuh`` (K1's until K1 moved to
-clusters) cannot serve as it is: a packed 512-triangle (525 KB) is more
-than a block's 227 KB of shared memory.  So one 1024-thread block per
-member runs a left-looking factorisation in 128-wide tiles over the member
-in device memory (L2-resident, 1 MB at N = 512), each diagonal tile by that
-sweep with its triangle in shared memory, the update as an in-block
-tiled GEMM in 128-deep partial sums, the panel by forward substitution
-against the tile (a product with its inverse lost accuracy on the deep GP's
-near-singular K_zz); then L⁻¹'s off-diagonal tiles block row by block row.  The TPU kernel pads to the next power of two;
-this one pads to the next multiple of 128 with an identity block.  Its
-backward is ``civ2_bwd``: the JAX ``_ci_bwd`` (:370) differs from ``_civ2_bwd``
-only in taking L̄ whole where ``_civ2_bwd`` takes tril(L̄), and L̄'s strict
-upper triangle never reaches tril(LᵀL̄), so the two are the same function.
-``GRID_LAUNCHES`` counts its launches.
+``chol_inv_batched``, joined to no dispatch.  A member that is not PD
+comes out non-finite, the others unaffected; there is no jitter.  That is
+K1's kernel with its retry off, so K10b launches ``csrc/chol_inv_cluster.cu``
+with ``max_tries = 0``: one jitter-free try, a member whose try fails left
+NaN by the cluster header's ``factor()``, each member its own cluster and
+so untouched by the others.  ``chol_inv_batched_v2`` (K1 without its
+retry) launches the same kernel with the same arguments, so the two give
+the same bits.  The C entry takes N up to K10b's window top, 512, where a
+CTA of a cluster of 8 holds 17 tile slots, the operand buffer and L_kk
+(157 KB; at a cluster of 4, 235 KB would not fit the 227 KB); K1's wrapper
+keeps the JAX gate's 384.  The member is padded inside the kernel, by the
+Source's identity past N, to a multiple of 32: no host copy, no scratch.
+At the deep GP's K_zz stack, 50 × 250², it is ~0.5 GFLOP of dependent
+block steps: like K1, latency-bound.  Its backward is ``civ2_bwd``: the
+JAX ``_ci_bwd`` (:370) differs from ``_civ2_bwd`` only in taking L̄ whole
+where ``_civ2_bwd`` takes tril(L̄), and L̄'s strict upper triangle never
+reaches tril(LᵀL̄), so the two are the same function.  ``GRID_LAUNCHES``
+counts its launches, apart from K1's ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -151,17 +151,25 @@ def chol_inv_batched_cuda(mats: torch.Tensor, jitter: float = EPSILON, max_tries
         raise ValueError("chol_inv kernel takes a contiguous stack")
     if mats.device.type != "cuda":
         raise ValueError(f"chol_inv kernel takes a CUDA tensor, got {mats.device}")
+    out = _launch(mats, float(jitter if jitter > 0 else EPSILON), int(max_tries))
+    LAUNCHES += 1
+    return out
+
+
+def _launch(mats: torch.Tensor, jitter: float, max_tries: int):
+    """One launch of the cluster kernel on the current stream over a
+    checked, contiguous (T, N, N) float32 CUDA stack: (L, L⁻¹, jitter per
+    member)."""
     lib = _library()
     l = torch.empty_like(mats)
     li = torch.empty_like(mats)
-    jit = torch.empty(t, dtype=mats.dtype, device=mats.device)
+    jit = torch.empty(mats.shape[0], dtype=mats.dtype, device=mats.device)
     with torch.cuda.device(mats.device):
         stream = torch.cuda.current_stream(mats.device).cuda_stream
-        err = lib.chol_inv_cluster(mats.data_ptr(), l.data_ptr(), li.data_ptr(), jit.data_ptr(), t, n,
-                                   float(jitter if jitter > 0 else EPSILON), int(max_tries), stream)
+        err = lib.chol_inv_cluster(mats.data_ptr(), l.data_ptr(), li.data_ptr(), jit.data_ptr(), mats.shape[0],
+                                   mats.shape[-1], jitter, max_tries, stream)
     if err != 0:
         raise RuntimeError(f"chol_inv kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
     return l, li, jit
 
 
@@ -227,7 +235,8 @@ def chol_inv_batched_safe(mats: torch.Tensor, jitter: float = EPSILON, max_tries
 
 
 def chol_inv_batched_v2(mats: torch.Tensor):
-    """(L, L⁻¹) with the retry off: the same kernel, one try."""
+    """(L, L⁻¹) with the retry off: the same kernel, one try.  K10b
+    (``chol_inv_grid_cuda``) launches it with the same arguments."""
     l, li, _ = _CholInvBatched.apply(mats, EPSILON, 0)
     return l, li
 
@@ -237,45 +246,17 @@ def chol_inv_batched_v2(mats: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 #: The JAX package's window for the grid-batched kernel (``BLOCK`` ≤ N ≤
-#: ``MAX_N_CHOLINV``) and this kernel's tile width (csrc kP).
-GRID_MIN_N, GRID_MAX_N, GRID_TILE = 128, 512, 128
+#: ``MAX_N_CHOLINV``); the C entry takes 1 ≤ N ≤ GRID_MAX_N.
+GRID_MIN_N, GRID_MAX_N = 128, 512
 
 #: K10b launches so far in this process (no path of the package runs it).
 GRID_LAUNCHES = 0
 
-GRID_SOURCE = CSRC / "chol_inv_grid.cu"
-
-_grid_lib = None
-
-
-def build_grid(force: bool = False) -> str:
-    """Compile ``csrc/chol_inv_grid.cu``, load it, and return nvcc's output.
-    Reused unless ``force``; a failed compile raises."""
-    global _grid_lib
-    lib, log = build_library(GRID_SOURCE, force)
-    p = ctypes.c_void_p
-    lib.chol_inv_grid.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, p]
-    lib.chol_inv_grid.restype = ctypes.c_int
-    _grid_lib = lib
-    return log
-
-
-def _pad_identity(mats: torch.Tensor, n_pad: int) -> torch.Tensor:
-    """The (B, n, n) stack with an identity block appended to (B, n_pad, n_pad)."""
-    b, n, _ = mats.shape
-    if n_pad == n:
-        return mats.contiguous()
-    out = torch.zeros((b, n_pad, n_pad), dtype=mats.dtype, device=mats.device)
-    out[:, :n, :n] = mats
-    out[:, n:, n:] = torch.eye(n_pad - n, dtype=mats.dtype, device=mats.device)
-    return out
-
 
 def chol_inv_grid_cuda(mats: torch.Tensor):
     """K10b's wrapper: (L, L⁻¹) of a (B, N ≤ GRID_MAX_N, N) float32 CUDA
-    stack from one launch on the current stream, each member padded to a
-    multiple of 128.  Raises on anything the kernel does not take; no
-    autograd."""
+    stack from one launch of K1's kernel with its retry off, on the current
+    stream.  Raises on anything the kernel does not take; no autograd."""
     global GRID_LAUNCHES
     if mats.device.type != "cuda":
         raise ValueError(f"chol_inv_grid kernel takes a CUDA tensor, got {mats.device}")
@@ -286,22 +267,8 @@ def chol_inv_grid_cuda(mats: torch.Tensor):
     b, n, _ = mats.shape
     if not 1 <= n <= GRID_MAX_N or b < 1:
         raise ValueError(f"chol_inv_grid kernel takes 1 <= N <= {GRID_MAX_N} and B >= 1, got B={b}, N={n}")
-    if _grid_lib is None:
-        build_grid()
-    n_pad = -(-n // GRID_TILE) * GRID_TILE
-    a = _pad_identity(mats, n_pad)
-    l = torch.zeros_like(a)
-    li = torch.zeros_like(a)
-    scratch = torch.empty(b * (n_pad + 2 * GRID_TILE) * GRID_TILE, dtype=a.dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _grid_lib.chol_inv_grid(a.data_ptr(), l.data_ptr(), li.data_ptr(), scratch.data_ptr(), b, n_pad,
-                                      stream)
-    if err != 0:
-        raise RuntimeError(f"chol_inv_grid kernel launch failed: CUDA error {err}")
+    l, li, _ = _launch(mats.contiguous(), EPSILON, 0)  # one try: its jitter is 0
     GRID_LAUNCHES += 1
-    if n_pad != n:
-        return l[:, :n, :n], li[:, :n, :n]
     return l, li
 
 

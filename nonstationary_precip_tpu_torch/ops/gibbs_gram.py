@@ -7,15 +7,25 @@ Replaces ``nonstationary_precip_tpu/ops/pallas_gram.py::gibbs_gram_pallas``
 (``ops/cuda_build.py``) and bound through ctypes.
 
 What bounds it on an H100.  The output: 4·N₁·N₂ bytes written (6.6 MB at
-N = 1280, 2 µs at 3.35 TB/s), against ~10·D f32 operations an element,
-some of them divisions, square roots and an exponential.
+N = 1280, 2 µs at 3.35 TB/s), against 15 f32 operations an element at
+d = 2 (0.37 µs at 1280²) and two on the special-function unit.
 
-What the design does about it.  A 256-thread block owns a 64 × 64 tile; the
-tile's 64 row payloads sit in shared memory and every warp reads one of them
-at a time (a broadcast), each thread keeps one column's payload in registers
-and writes 16 elements down that column, a warp storing 128 consecutive
-bytes of a row at once.  The element is ``csrc/gibbs_elem.cuh``'s, which K2,
-K3 and K8 use too; no special case on the diagonal, as on the TPU.
+What the design does about it.  A 256-thread block owns a tile of 16·R
+rows by 64 columns (R = 8 rows a thread: 128 × 64, 200 blocks at 1280²);
+each thread a register tile of R rows, 16 apart, by 4 consecutive columns,
+so a warp writes two rows of 256 contiguous bytes at once.  At d = 2 the element is ``csrc/gibbs_elem.cuh``'s
+``d2_elem``, the one K2 computes (the JAX matvec kernel's rewrite: one
+rsqrt of ss₀·ss₁, the numerator split into a row and a column factor, the
+squared lengthscales prescaled by ln 2 so that exp is one ex2): the tile's
+row factors and column factors are made once each in shared memory and read
+into registers, and an element is then 15 f32 operations, one
+``rsqrt.approx`` and one ``ex2.approx``.  Other d (on no path) take
+``gibbs_elem``, the per-dim element K2 and K3 compute there.  No special
+case on the diagonal, as on the TPU.  Each thread stores its tile a row at
+a time as ``float4`` where the output's rows stay 16-byte aligned
+(N₂ % 4 == 0), ``float2`` where they stay 8-byte aligned (the slice's
+394-wide Grams), else a float at a time; the C entry picks the width.  The
+tile's R and the ``float2`` path are measured (``tools/bench_k9.py``).
 
 The backward is not a kernel: autograd through ``gibbs_gram_reference``
 recomputed from the saved inputs, as the JAX ``_bwd`` does.
@@ -34,6 +44,7 @@ import torch
 
 from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
 from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
+from nonstationary_precip_tpu_torch.ops.matvec import _k2_elem_ops
 
 MAX_D = 8  # input dims the kernel takes (pallas_gram.py's _MAX_D)
 MIN_ELEMS = 128 * 128  # the gate's least N₁·N₂
@@ -123,6 +134,13 @@ def gibbs_gram_pallas(x1, ell1, x2, ell2) -> torch.Tensor:
     """K(x1, ℓ1; x2, ℓ2) through the kernel on the card (the plain version
     on the CPU), differentiable."""
     return _GibbsGram.apply(x1, ell1, x2, ell2)
+
+
+def gram_ops(n1: int, n2: int, d: int) -> int:
+    """FP32-lane operations of the Gram: K2's element count an element
+    (``matvec._k2_elem_ops``: at d = 2 ``d2_elem``'s 15, an FMA as 2, its
+    rsqrt and ex2 on the special-function unit; else the per-dim element)."""
+    return n1 * n2 * _k2_elem_ops(d)
 
 
 def gram_bytes(n1: int, n2: int, d: int) -> int:

@@ -542,7 +542,7 @@ def _tile_ops(d: int) -> int:
 
 def _k2_elem_ops(d: int) -> int:
     """FP32-lane operations per Gram element of K2's element: at d = 2
-    (``gibbs_d2_elem``) the two sums s_k (2), their product (1), the two
+    (``gibbs_elem.cuh``'s ``d2_elem``) the two sums s_k (2), their product (1), the two
     differences (2), d₀², d₁², d₀²·s₁ (3) and the FMA (2), rs² and its
     product (2), then the prefactor n_i·n_j, ·rs and ·2⁻ʸ (3) = 15; its
     rsqrt and ex2 run on the SFU and are counted by

@@ -26,8 +26,7 @@ that K1 uses (``csrc/chol_inv_cluster.cuh``):
     factored right-looking in 32-wide block columns: nb = ⌈M/32⌉ = 8 block
     steps at M = 250, each a one-warp leaf, substitutions and a rank-32
     update spread over the cluster, where the column sweep this replaced
-    (one 1024-thread block a member, ``csrc/chol_sweep.cuh``) took M
-    dependent steps on one SM.  L⁻¹ rides along in the same chain;
+    (one 1024-thread block a member) took M dependent steps on one SM.  L⁻¹ rides along in the same chain;
   * W = L⁻ᵀP is the cluster's tail: after the last step the cluster's
     shared memory holds every tile of L⁻¹, so each CTA takes chunks of P's
     columns and forms its slice of W from register micro-tiles, with P's

@@ -1,17 +1,13 @@
-"""K2's d = 2 element (csrc/gibbs_matvec.cu, ``gibbs_d2_elem``) replayed in
-float32 numpy in the kernel's order of operations, and its walk's column
-splits.
+"""K2's d = 2 element (csrc/gibbs_elem.cuh's ``d2_elem``, on K2's walk in
+csrc/gibbs_matvec.cu) replayed in float32 numpy in the kernel's order of
+operations (tests/gibbs_d2_replay.py), and its walk's column splits.
 
-There is no card here, so the kernel cannot run.  The replay rounds every
-operation to float32 as the kernel does, fused multiply-adds once (the
-exact product and sum in float64, then one rounding), and takes rsqrt and
-exp2 correctly rounded where the card uses the special-function unit's
-approximations (``rsqrt.approx``, ``ex2.approx``, ~2⁻²² each):
-``chip_smoke.py`` holds the kernel itself to float64 on the card.
+There is no card here, so the kernel cannot run: ``chip_smoke.py`` holds
+the kernel itself to float64 on the card.
 
 The element's error bound, to first order in u = 2⁻²⁴, relative to K, with
 Q = quadnum / p the exponent: the scaled squares q = l²·ln 2 carry 3u (two
-roundings and ln 2's), their sums s_k 4u, p = s₀s₁ 9u, rs 5.5u, rs² 12u;
+roundings and ln 2's), the sums s_k = fma(l_ik², ln 2, q_jk) 4u, p = s₀s₁ 9u, rs 5.5u, rs² 12u;
 quadnum (a square, a product and one fused add of positive terms) 9u, so
 y = quadnum·rs² carries 22u and 2⁻ʸ carries 22u·Q + u; the prefactor
 (n_i n_j)·rs, 15u with 2 ln 2's rounding.  So |K − K₆₄| ≤ (16 + 22·Q)·u·K
@@ -27,39 +23,14 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from gibbs_d2_replay import LN2, TWO_LN2, bound_ratio, replay_d2
 from nonstationary_precip_tpu.ops import pallas_matvec as pm
-from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
 from nonstationary_precip_tpu_torch.ops import matvec
+from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC
 
 torch.set_num_threads(1)
-U = 2.0**-24
 F32 = np.float32
-LN2, TWO_LN2 = F32(0.693147180559945309), F32(1.386294361119890618)  # the kernel's kLn2, kTwoLn2
 RTOL, ATOL = 2e-5, 2e-4  # tests/test_torch_matvec.py's band against the JAX kernel
-
-
-def _fma(a, b, c):
-    """fmaf: the exact product and sum, one rounding to float32."""
-    return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(F32)
-
-
-def replay_d2(x1, l1, x2, l2):
-    """K(x1, x2) (N1, N2) in float32 as ``gibbs_d2_elem`` forms it: the row
-    factors once a row, the column factors once a column, then per element
-    s_k = q_ik + q_jk, rs = rsqrt(s₀s₁), y = fma(d₁², s₀, d₀²·s₁)·rs²,
-    K = ((n_i·n_j)·rs)·2⁻ʸ."""
-    qi0, qi1 = (l1[:, 0] * l1[:, 0]) * LN2, (l1[:, 1] * l1[:, 1]) * LN2
-    ni = np.sqrt(l1[:, 0] * l1[:, 1]) * TWO_LN2
-    qj0, qj1 = (l2[:, 0] * l2[:, 0]) * LN2, (l2[:, 1] * l2[:, 1]) * LN2
-    nj = np.sqrt(l2[:, 0] * l2[:, 1])
-    s0 = qi0[:, None] + qj0[None, :]
-    s1 = qi1[:, None] + qj1[None, :]
-    rs = (1.0 / np.sqrt((s0 * s1).astype(np.float64))).astype(F32)
-    d0 = x1[:, 0, None] - x2[None, :, 0]
-    d1 = x1[:, 1, None] - x2[None, :, 1]
-    y = _fma(d1 * d1, s0, (d0 * d0) * s1) * (rs * rs)
-    e = np.exp2(-y.astype(np.float64)).astype(F32)
-    return ((ni[:, None] * nj[None, :]) * rs) * e
 
 
 def _payload(rng, n, spread):
@@ -78,16 +49,8 @@ def test_element_meets_its_float64_bound(spread):
     x1, l1 = _payload(rng, 300, spread)
     x2, l2 = _payload(rng, 280, spread)
     k = replay_d2(x1, l1, x2, l2).astype(np.float64)
-    t = [torch.from_numpy(a.astype(np.float64)) for a in (x1, l1, x2, l2)]
-    ref = gibbs_gram_reference(*t).numpy()
-    ss0 = t[1][:, None, 0] ** 2 + t[3][None, :, 0] ** 2
-    ss1 = t[1][:, None, 1] ** 2 + t[3][None, :, 1] ** 2
-    d0, d1 = t[0][:, None, 0] - t[2][None, :, 0], t[0][:, None, 1] - t[2][None, :, 1]
-    q = ((d0**2 * ss1 + d1**2 * ss0) / (ss0 * ss1)).numpy()
     assert np.all(np.isfinite(k)) and np.all(k >= 0.0)
-    # below f32's least normal 2⁻¹²⁶ an element underflows (the card's .ftz
-    # flushes it to 0): that much more, absolute
-    ratio = np.abs(k - ref) / ((24.0 + 24.0 * q) * U * ref + 2.0**-126)
+    ratio = bound_ratio(k, x1, l1, x2, l2)
     assert ratio.max() <= 1.0, ratio.max()
 
 
@@ -113,13 +76,14 @@ def _constant(text, name):
 def test_walk_constants_are_the_kernels():
     """K2_ROWS, K2_ROWS_PER_THREAD and COLS are the source's kK2Rows (its
     threads × rows a thread), kK2RowsPerThread and kCols; the element's ln 2
-    constants are the replay's."""
+    constants (csrc/gibbs_elem.cuh's) are the replay's."""
     text = matvec.SOURCE.read_text()
+    elem = (CSRC / "gibbs_elem.cuh").read_text()
     threads, per = _constant(text, "kK2Threads"), _constant(text, "kK2RowsPerThread")
     assert "constexpr int kK2Rows = kK2Threads * kK2RowsPerThread;" in text
     assert (threads * per, per, _constant(text, "kCols")) == (matvec.K2_ROWS, matvec.K2_ROWS_PER_THREAD, matvec.COLS)
     for name, value in (("kLn2", LN2), ("kTwoLn2", TWO_LN2)):
-        assert F32(float(re.search(rf"constexpr float {name} = ([\d.]+)f;", text).group(1))) == value
+        assert F32(float(re.search(rf"constexpr float {name} = ([\d.]+)f;", elem).group(1))) == value
 
 
 @pytest.mark.parametrize("n_rows,n_cols,groups", [(16384, 16384, 1), (1000, 1500, 5), (2048, 16384, 1),

@@ -13,7 +13,7 @@ exp2 correctly rounded where the card uses the special-function unit's
 The element's terms and their error bounds, to first order in u = 2⁻²⁴,
 with λ = ln 2 rounded to float32 (the kernel's ``kLn2``; its ``kTwoLn2`` is
 2λ exactly), Δ_k = x_ik − x_jk and ss_k = ℓ_ik² + ℓ_jk²: the squared
-lengthscales q = ℓ²·λ carry 2u, s_k = q_ik + q_jk = ss_k·λ 3u; rs =
+lengthscales q = ℓ²·λ carry 2u, s_k = fma(ℓ_ik², λ, q_jk) = ss_k·λ 3u; rs =
 rsqrt(s₀s₁) 1.5u and rs² 4u relative to 1/(s₀s₁), so h₀ = s₁·rs² = 1/s₀
 carries 5u, and 1/(ss₀·λ) 8u: the factor s₁ cancels exactly.  Hence
   * λ·h_k·d_k, the kernel's d_k/ss_k, carries 9u (d_k = fl(Δ_k) adds u);
@@ -41,6 +41,7 @@ from chip_smoke import K3_TOL
 from nonstationary_precip_tpu.ops import pallas_matvec as pm
 from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
 from nonstationary_precip_tpu_torch.ops import matvec
+from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC
 
 torch.set_num_threads(1)
 U = 2.0**-24
@@ -56,11 +57,11 @@ def _fma(a, b, c):
 def elem_terms(xi, li, xj, lj):
     """``PanelElem::pull2``'s element for rows (xi, li) against columns
     (xj, lj), float32, broadcast: (K, h₀, h₁, d₀, d₁, m₀, m₁, rs, e, n_i·n_j)."""
-    qi0, qi1 = (li[..., 0] * li[..., 0]) * LAM, (li[..., 1] * li[..., 1]) * LAM
+    ai0, ai1 = li[..., 0] * li[..., 0], li[..., 1] * li[..., 1]
     ni = np.sqrt(li[..., 0] * li[..., 1]) * TWO_LAM
     qj0, qj1 = (lj[..., 0] * lj[..., 0]) * LAM, (lj[..., 1] * lj[..., 1]) * LAM
     nj = np.sqrt(lj[..., 0] * lj[..., 1])
-    s0, s1 = qi0 + qj0, qi1 + qj1
+    s0, s1 = _fma(ai0, LAM, qj0), _fma(ai1, LAM, qj1)
     rs = (1.0 / np.sqrt((s0 * s1).astype(np.float64))).astype(F32)
     r2 = rs * rs
     d0, d1 = xi[..., 0] - xj[..., 0], xi[..., 1] - xj[..., 1]
@@ -185,15 +186,17 @@ def test_k3_walk_constants_are_the_kernels():
     """ROWS and K3_ROWS_PER_THREAD are the source's kK3Rows and
     kK3RowsPerThread (256 threads a block), K3_COLS its kK3Cols and
     MAX_FACTORS its kMaxF; the wrapper cuts K3's columns for ROWS-row
-    blocks at K3_BLOCKS_PER_SM; the replay's λ is the kernel's."""
+    blocks at K3_BLOCKS_PER_SM; the replay's λ is the kernel's (its d = 2
+    element's, csrc/gibbs_elem.cuh)."""
     text = matvec.SOURCE.read_text()
+    elem = (CSRC / "gibbs_elem.cuh").read_text()
     threads, per = _constant(text, "kK2Threads"), _constant(text, "kK3RowsPerThread")
     assert "constexpr int kK3Rows = kK2Threads * kK3RowsPerThread;" in text
     assert (threads * per, per) == (matvec.ROWS, matvec.K3_ROWS_PER_THREAD)
     assert (_constant(text, "kK3Cols"), _constant(text, "kMaxF")) == (matvec.K3_COLS, matvec.MAX_FACTORS)
     assert "ROWS, K3_BLOCKS_PER_SM)" in inspect.getsource(matvec._panel_grads_cuda)
     for name, value in (("kLn2", LAM), ("kTwoLn2", TWO_LAM)):
-        assert F32(float(re.search(rf"constexpr float {name} = ([\d.]+)f;", text).group(1))) == value
+        assert F32(float(re.search(rf"constexpr float {name} = ([\d.]+)f;", elem).group(1))) == value
     assert TWO_LAM == 2 * LAM
 
 
