@@ -14,7 +14,12 @@ at N = 1024..8192, K10a and K5; the matrix-free gate at N = 16384, K6) with
 Gibbs MAP rows of ``experiments.exact_largen.gibbs_dense`` at N = 1024 and
 1280 with their predictive (K8, K9, K10a, K11), and the matrix-free Gibbs
 MAP flow with its prior of ``examples.quickstart_gibbs_largen`` at N = 16384
-(K2 and K3).  K10b and K10c, which no path runs, are driven through their
+(K2 and K3), and the sparse and spatio-temporal models: ``experiments.
+spatial_gibbs --inference sparse`` (K9 on split-stacked Grams),
+``experiments.spatio_temporal`` and ``spatiotemporal_stationary`` (K9 in
+the nonstationary model), ``experiments.sgpr_bench`` (K10a in its
+predictive's NLPD) and ``experiments.spatiotemporal_dgp`` (K4).  K10b and
+K10c, which no path runs, are driven through their
 own entries, ``ops.chol_inv.chol_inv_batched`` and
 ``ops.chol_stream.streaming_cholesky_v1``.  Each path is driven with
 every launch count set to 0 just before it and read just after.  Phases,
@@ -39,8 +44,9 @@ one JSON line each:
                   through the jitter retry, bitwise repeat, then the median
                   time of each;
  4. slice      — the experiment on the card (300 Adam steps by default): K1's
-                  launch count over the run (and K9's three in the last
-                  split's field prediction), finite and falling losses, the
+                  launch count over the run, K9's (one a step on the stacked
+                  Gram, two in the evaluation, three in the last split's
+                  field prediction), finite and falling losses, the
                   per-split losses at steps 0 and 50 against the JAX package's
                   pinned float32 values (tests/fixtures/jax_spatial_gibbs_ref.npz),
                   steps/s, mean RMSE/NLPD, the field CSV's shape;
@@ -166,8 +172,13 @@ one JSON line each:
                   prediction's three Grams (316², 394², 394 × 316) at
                   two ℓ fields, and on a random D = 3 pair, bitwise
                   repeat; at D = 2 its first 9 columns bitwise equal to
-                  K2's product with I[:, :9]; times (CUDA events around
-                  blocks of calls);
+                  K2's product with I[:, :9]; the stacked entry on the
+                  paths' stacks ((10, 316²), (10, 316 × 250), (10, 250²))
+                  and the ST model's 172 × 100 and 215 × 100 pairs, one
+                  launch a call, each member bit for bit the 2-D launch on
+                  it, against float64; times (CUDA events around blocks of
+                  calls), the stacked (10, 316 × 250) beside its plain
+                  version;
 27. k10a       — K10a, its plain version and torch.linalg.cholesky against
                   float64 on the predictive's noisy Gram at the same poses
                   (K5's criterion, the backward error included), bitwise
@@ -186,8 +197,9 @@ one JSON line each:
                   CUDA launches of one call (3·N_pad/128 an attempt) and
                   the device span of the happy path's empty attempts;
 30. traced     — torch.profiler after the paths' own traces: K1's, K2's,
-                  K3's, K4's, K6's, K9's and K10b's CUDA launches in one call
-                  (every device kernel, checked 1, 2, 2, 1, 2, 1 and 1), K7's
+                  K3's, K4's, K6's, K9's (2-D and stacked) and K10b's CUDA
+                  launches in one call (every device kernel, checked 1, 2,
+                  2, 1, 2, 1, 1 and 1), K7's
                   forward's (checked 10), K7's forward and backward time by
                   kernel, and K9's device time (the median of 60 launches'
                   durations at 1280²);
@@ -208,7 +220,26 @@ one JSON line each:
                   one-shot posterior mean, a finite RMSE, K2's and K3's
                   launches against what the code implies (K9 once, in the
                   dense oracle); ms a step, the prior's share, the hoist, the
-                  state and a query batch.
+                  state and a query batch;
+33. sparse_ref  — the sparse Gibbs slice (10 splits, M = 250), the ST
+                  nonstationary model (M = 100) and SGPR (M = 1900) for 20
+                  steps from the z of the JAX runs pinned in
+                  tests/fixtures/jax_sparse_ref.npz: losses at steps 0 and
+                  19 against JAX's (the sparse Gibbs slice's step 19 against
+                  its pinned float64 run, within twice JAX's float32
+                  distance from it), K9 2 / 1 / 0 a step;
+34. gibbs_sparse — spatial_gibbs --inference sparse (2000 steps, 10 splits):
+                  the gibbs_spatial_sparse_10split band, K9 twice a step
+                  plus 4 in the evaluation and 4 in the field, no other
+                  kernel;
+35. spatio_temporal — the three spatio_temporal_* rows (the exact baseline,
+                  200 steps; Stationary and Non-Stationary at 500 steps, M =
+                  100) in their bands, K9 only in the nonstationary run;
+36. sgpr        — sgpr_bench at 100 and 1000 iterations in their bands, K10a
+                  only in the predictive's NLPD;
+37. st_dgp      — spatiotemporal_dgp (200 steps, D = 3): its band, K4 once a
+                  step and once in predict, K7 never.
+Each of the last five phases prints its seconds.
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line (K1's,
@@ -397,6 +428,55 @@ DENSE_FLOOR = 1e-6
 # split's sites, at their init ℓ and at ℓ = exp(0.3·N(0, 1)); at D = 2 its
 # first 9 columns (mBCG's 1 + 8 probes) against K2's.
 K9_D3, K9_D2_RAGGED, K9_ONE_HOT = (257, 394), (130, 257), 9
+# K9's stacked entry (F-P5): a stack of pairs with one leading shape is one
+# launch, a member on the grid's third axis, as Pallas's vmap batching runs
+# the TPU kernel.  Held at the paths' stacks (the slice's (10, 316²), the
+# sparse Gibbs model's (10, 316 × 250) and (10, 250²)) and the ST model's
+# 2-D pairs (172 × 100 in its step, 215 × 100 in its field): each member
+# bit for bit the 2-D launch on it, float64 by check_f64 with DENSE_FLOOR.
+K9_STACK_TIMED = "sparse_316x250"
+
+# The quality bands of the sparse and spatio-temporal rows
+# (run_benchmarks.py:24-32, RMSE and NLPD ceilings).
+BANDS = {"gibbs_spatial_sparse_10split": (0.31, 0.15), "spatio_temporal_stationary_exact": (2.25, 3.9),
+         "spatio_temporal_stationary": (2.55, 4.3), "spatio_temporal_nonstationary": (2.45, 5.6),
+         "spatiotemporal_dgp": (1.80, 2.40), "sgpr_bench_100iter": (1.70, 2.10),
+         "sgpr_bench_converged": (1.70, 2.10)}
+# Their run_benchmarks.py arguments.
+SPARSE_STEPS = 2000  # spatial_gibbs --inference sparse --max_iters 2000
+ST_STEPS = 500  # spatio_temporal --max_iters 500 (both models); --num_inducing 100 for the nonstationary
+ST_INDUCING = 100
+SGPR_ITERS = (100, 1000)
+# The pinned float32 JAX runs of the three sparse models (20 Adam steps from
+# JAX's z): tests/fixtures/jax_sparse_ref.npz, tools/pin_jax_sparse.py.
+SPARSE_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_sparse_ref.npz"
+# Step 0 of the sparse Gibbs slice: its float32 loss sits 1.7e-3–4.0e-3
+# from float64 in JAX and in the port alike (K_zz of 250 k-means centres
+# takes safe_cholesky's first jitter rung), and the two sit up to 1.5e-4
+# apart on the CPU (tests/test_torch_sparse_gp.py, RTOL_STEP0_GIBBS); the
+# ST model and SGPR agree to 2e-6 there and keep RTOL_STEP0.  Its step 19:
+# the gradient in z passes through that K_zz, so float32 trajectories part
+# from float64 within 20 steps (JAX's by up to 18 % of the largest split's
+# loss on the CPU, the port's alike): each split's step-19 loss is held to
+# the pinned float64 run within twice JAX's float32 distance from it, plus
+# RTOL_STEP50.  The ST model and SGPR keep RTOL_STEP50 (on the CPU the port
+# is within 1.6e-4 and 1.7e-6 of JAX there).
+RTOL_STEP0_SPARSE_GIBBS = 5e-4
+# Checks of the sparse Gibbs slice that its float32 drift cannot pass
+# (tools/witness_sparse.py --only gibbs): both packages take the same
+# jitter on K_zz at every step (1e-5 in float32, none in float64), and
+# the float32 runs part from JAX's by 1e-2 within 5-9 steps with z
+# training or frozen (the field's float32 gradient carries 9-20 % of
+# rounding in either package).  Each split's step-0 gradient, relative in
+# norm to JAX's: in float32 the gradient in z within 5e-2 (measured 2.74e-2
+# on the card, 2.5e-2-2.8e-2 on the CPU; float32 against float64 differs
+# by 63-450 %, a wrong path by O(1)); the field's is reported only; in
+# float64 z within 1e-4 and the field within 1e-5 (card 3.5e-6 and 8.0e-8).
+# With z frozen, 20 float64 steps follow JAX's float64 run (card 5.4e-11
+# at step 0, 4.9e-9 at step 19; with z training the float64 runs part
+# too, by 1e-6 at step 12 and 9e-3 at step 19).
+SPARSE_GRAD_RTOL = {torch.float32: {"z": 5e-2}, torch.float64: {"z": 1e-4, "log_ell_z": 1e-5}}
+SPARSE_F64_RTOL = (1e-8, 1e-6)
 # K9's device time in `traced`: the median of this many launches' durations
 # at 1280² (the CUDA-event time around blocks of calls is what a caller
 # pays, host included).
@@ -761,9 +841,13 @@ def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
         field = np.loadtxt(out["csv"], delimiter=",", skiprows=1)
     losses = out["losses"]
     check(launches >= steps, f"K1 launched {launches} times over {steps} steps")
-    # the last split's field prediction builds three 2-D Grams inside K9's
-    # gate (train 316², all sites 394², 394 × 316)
-    check_launches({"chol_inv_batched": launches, "gibbs_gram": 3}, "slice")
+    # K9: the stacked (10, 316²) Gram of every step, as JAX's vmap gives it
+    # (F-P5); two stacked Grams in the evaluation (316², 79 × 316; the
+    # 79² test Grams stay plain, 6241 < 128², as in JAX); three 2-D Grams
+    # in the last split's field prediction (train 316², all sites 394²,
+    # 394 × 316)
+    k9 = steps + 2 + 3
+    check_launches({"chol_inv_batched": launches, "gibbs_gram": k9}, "slice")
     check(losses.shape == (steps, 10), f"loss trace shape {losses.shape}")
     check(bool(np.isfinite(losses).all()), "every loss finite")
     check(bool((losses[-1] < losses[0]).all()), "every split's final loss below its step-0 loss")
@@ -773,11 +857,11 @@ def phase_slice(chol_inv, spatial_gibbs, steps: int, dev_name: str):
     check(float(rel50.max()) <= RTOL_STEP50, f"step-50 losses vs JAX: {rel50.max():.3g} <= {RTOL_STEP50}")
     check(field.shape == (394, 6) and bool(np.isfinite(field).all()), f"field CSV {field.shape}, finite")
     check(np.isfinite(out["rmse"]) and np.isfinite(out["nlpd"]), "metrics finite")
-    emit("slice", steps=steps, launches=launches, steps_per_s=out["steps_per_s"],
+    emit("slice", steps=steps, launches=launches, k9_launches=k9, steps_per_s=out["steps_per_s"],
          train_seconds=out["train_seconds"], wall_seconds=out["wall_seconds"], rmse=out["rmse"],
          nlpd=out["nlpd"], step0_rel_err=float(rel0.max()), step50_rel_err=float(rel50.max()),
          final_loss=losses[-1].tolist(), device=dev_name)
-    return launches
+    return launches, k9
 
 
 def _counters():
@@ -1464,9 +1548,9 @@ def phase_k7(deepgp_spatial, elbo_fused, trained_model, dev):
 
 
 def phase_traced(chol_inv, k1_gram, k2_call, k3_call, k4_call, k6_call, k7_fwd_call, k7_bwd_call, k9_call,
-                 k10b_call) -> dict:
-    """K1's, K2's, K3's, K4's, K6's, K9's and K10b's CUDA launches in one call
-    (every device kernel counted), K7's forward and backward time by kernel,
+                 k10b_call, k9_stacked_call) -> dict:
+    """K1's, K2's, K3's, K4's, K6's, K9's (2-D and stacked) and K10b's CUDA
+    launches in one call (every device kernel counted), K7's forward and backward time by kernel,
     with the forward's CUDA launches a call, and K9's device time (the
     median duration of K9_TRACED launches), from torch.profiler.  These sessions run after k11: in
     a process that had traced other kernels first, k11's count of K11's
@@ -1490,6 +1574,8 @@ def phase_traced(chol_inv, k1_gram, k2_call, k3_call, k4_call, k6_call, k7_fwd_c
     check(sorted(split) == sorted(K7_BWD_KERNELS), f"K7's backward launches {sorted(split)}")
     k9_launches = cuda_launches(k9_call, "")
     check(k9_launches == 1, f"K9 is 1 CUDA launch a call: {k9_launches}")
+    k9_stacked_launches = cuda_launches(k9_stacked_call, "")
+    check(k9_stacked_launches == 1, f"K9's stacked entry is 1 CUDA launch a call: {k9_stacked_launches}")
     k10b_launches = cuda_launches(k10b_call, "")
     check(k10b_launches == 1, f"K10b is 1 CUDA launch a call: {k10b_launches}")
     for _ in range(3):  # a session can come back short of records (cuda_launches)
@@ -1502,7 +1588,8 @@ def phase_traced(chol_inv, k1_gram, k2_call, k3_call, k4_call, k6_call, k7_fwd_c
     emit("traced", k1_cuda_launches_a_call=launches, k2_cuda_launches_a_call=k2_launches,
          k3_cuda_launches_a_call=k3_launches, k4_cuda_launches_a_call=k4_launches, k6_cuda_launches_a_call=k6_launches,
          k7_fwd_cuda_launches_a_call=fwd_launches, k7_fwd_split_ms=fwd_split, k7_bwd_split_ms=split,
-         k9_cuda_launches_a_call=k9_launches, k10b_cuda_launches_a_call=k10b_launches,
+         k9_cuda_launches_a_call=k9_launches, k9_stacked_cuda_launches_a_call=k9_stacked_launches,
+         k10b_cuda_launches_a_call=k10b_launches,
          k9_device_ms={"median": k9_device_ms, "min": min(k9_times), "max": max(k9_times), "launches": len(k9_times)})
     return {"k1_launches": launches, "k9_device_ms": k9_device_ms}
 
@@ -1949,7 +2036,51 @@ def slice_field_payloads(spatial_gibbs, dev) -> dict:
     return out
 
 
-def phase_k9(gibbs_gram, matvec, spatial_gibbs, payloads, dev):
+def k9_stack_payloads(spatial_gibbs, spatio_temporal, dev) -> dict:
+    """{name: (x1, ℓ1, x2, ℓ2)}: the Grams K9 takes on this slice's paths,
+    at ℓ = exp(log 0.3 + 0.3·N(0, 1)) at the inducing inputs (or the
+    slice's training rows) and the prior's conditional mean at the rows:
+    the exact slice's stacked (10, 316²), the sparse Gibbs model's stacked
+    (10, 316 × 250) and (10, 250²) on its k-means z, and the ST model's 2-D
+    172 × 100 and 215 × 100 (its step's and its field's K_xz)."""
+    from nonstationary_precip_tpu_torch.data.datasets import load_uib_spatial, spatio_temporal_month_split
+    from nonstationary_precip_tpu_torch.train.config import ExperimentConfig
+
+    _, x, y = load_uib_spatial()
+    xn = (x - x.mean(0)) / x.std(0, ddof=1)
+    yn = (y - y.mean()) / y.std(ddof=1)
+    cfg = ExperimentConfig(inference="sparse", device="cuda")
+    splits = [spatial_gibbs.make_split(xn, yn, s, cfg, torch.float32, dev) for s in range(cfg.num_splits)]
+    gen = torch.Generator().manual_seed(73)
+
+    def field(shape):
+        return torch.exp(np.log(0.3) + 0.3 * torch.randn(shape, generator=gen)).to(dev).contiguous()
+
+    with torch.no_grad():
+        xt = torch.stack([s[1][0] for s in splits])
+        z = torch.stack([s[0].z for s in splits]).contiguous()
+        prior = splits[0][0].prior
+        ell_z, ell_t = field(z.shape), field(xt.shape)
+        ell_x = prior.conditional_mean(xt, (z, ell_z)).contiguous()
+        st_cfg = spatio_temporal.default_config().parse_args(
+            ["--model", "Non-Stationary", "--num_inducing", str(ST_INDUCING), "--device", "cuda"])
+        x_tr, _, _, _, _, _, x_all, _ = spatio_temporal_month_split()
+        x_tr, x_all = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (x_tr, x_all))
+        st = spatio_temporal.make_model(st_cfg, x_tr)
+        zs = st.z[:, [1, 2]].contiguous()
+        ell_zs = field(zs.shape)
+        out = {"slice_316x316": (xt, ell_t, xt, ell_t), "sparse_316x250": (xt, ell_x, z, ell_z),
+               "sparse_250x250": (z, ell_z, z, ell_z)}
+        for name, xq in (("st_172x100", x_tr), ("st_215x100", x_all)):
+            xs = xq[:, [1, 2]].contiguous()
+            out[name] = (xs, st.prior.conditional_mean(xs, (zs, ell_zs)).contiguous(), zs, ell_zs)
+    shapes = {k: (tuple(v[0].shape), tuple(v[2].shape)) for k, v in out.items()}
+    check(shapes["sparse_316x250"] == ((10, 316, 2), (10, 250, 2)) and shapes["st_172x100"] == ((172, 2), (100, 2))
+          and shapes["st_215x100"] == ((215, 2), (100, 2)), f"K9's path payloads {shapes}")
+    return out
+
+
+def phase_k9(gibbs_gram, matvec, spatial_gibbs, payloads, dev, stacks):
     """K9 and its plain version against float64 on the predictive's three
     Grams at each payload, on the slice's field prediction's three Grams
     and on a random D = 3 pair (the per-dim element); bitwise repeat; at
@@ -1991,15 +2122,40 @@ def phase_k9(gibbs_gram, matvec, spatial_gibbs, payloads, dev):
             gap = float((k[:, :K9_ONE_HOT] - k2).abs().max())
             check(torch.equal(k[:, :K9_ONE_HOT], k2),
                   f"K9 {name}: columns 0..{K9_ONE_HOT - 1} bitwise K2's (largest gap {gap:.3g})")
+    # the stacked entry (F-P5) and the ST model's pairs: one launch a call
+    # (the wrapper's count; the CUDA launches are traced in `traced`), each
+    # member bit for bit the 2-D launch on it, float64 as above
+    stack_errs = {}
+    for name, args in stacks.items():
+        before = gibbs_gram.LAUNCHES
+        k = gibbs_gram.gibbs_gram_cuda(*args)
+        check(gibbs_gram.LAUNCHES == before + 1, f"K9 {name}: one launch a call")
+        again = gibbs_gram.gibbs_gram_cuda(*args)
+        p = gibbs_gram_reference(*args)
+        ref = gibbs_gram_reference(*(a.double() for a in args))
+        torch.cuda.synchronize()
+        check(torch.equal(k, again), f"K9 {name} bitwise repeatable")
+        if args[0].ndim == 3:
+            for t in range(args[0].shape[0]):
+                one = gibbs_gram.gibbs_gram_cuda(*(a[t] for a in args))
+                check(torch.equal(k[t], one), f"K9 {name}: member {t} bitwise the 2-D launch on it")
+        stack_errs[name] = check_f64(f"K9 {name}", k, p, ref, DENSE_FLOOR)
     n = GIBBS_NS[-1]
     x, ell = payloads[f"{n}_trained"][:2]
     t = timed_pair(lambda: gibbs_gram.gibbs_gram_cuda(x, ell, x, ell), lambda: gibbs_gram_reference(x, ell, x, ell),
                    N_TIMED)
     # d2_elem's 15 operations an element; reads the four (N, D) payloads, writes the Gram
     b_ms, b_by = bound(gibbs_gram.gram_ops(n, n, 2), gibbs_gram.gram_bytes(n, n, 2))
+    errs.update(stack_errs)
     out = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()), "bound_ms": b_ms, "bound_by": b_by, **t}
-    emit("k9", n=n, errors=errs, k2_one_hot_columns=K9_ONE_HOT, timed_calls=2 * N_TIMED, **out)
-    return {**out, "call": lambda: gibbs_gram.gibbs_gram_cuda(x, ell, x, ell)}
+    sa = stacks[K9_STACK_TIMED]
+    nt, n1, n2 = sa[0].shape[0], sa[0].shape[1], sa[2].shape[1]
+    ts = timed_pair(lambda: gibbs_gram.gibbs_gram_cuda(*sa), lambda: gibbs_gram_reference(*sa), N_TIMED)
+    sb_ms, sb_by = bound(nt * gibbs_gram.gram_ops(n1, n2, 2), nt * gibbs_gram.gram_bytes(n1, n2, 2))
+    stacked = {"name": K9_STACK_TIMED, "ms": ts["ms"], "plain_ms": ts["plain_ms"], "bound_ms": sb_ms, "bound_by": sb_by}
+    emit("k9", n=n, errors=errs, k2_one_hot_columns=K9_ONE_HOT, timed_calls=2 * N_TIMED, stacked=stacked, **out)
+    return {**out, "stacked": stacked, "stacked_call": lambda: gibbs_gram.gibbs_gram_cuda(*sa),
+            "call": lambda: gibbs_gram.gibbs_gram_cuda(x, ell, x, ell)}
 
 
 def phase_k10a(chol_blocked, payloads, dev):
@@ -2543,6 +2699,253 @@ def phase_gibbs_mf(quickstart, dev_name: str):
     return launches
 
 
+def in_band(row: str, out: dict) -> tuple:
+    """Check ``out``'s RMSE and NLPD against ``row``'s band; (RMSE, NLPD)."""
+    r_max, n_max = BANDS[row]
+    check(np.isfinite(out["rmse"]) and out["rmse"] <= r_max, f"{row}: RMSE {out['rmse']:.4f} <= {r_max}")
+    check(np.isfinite(out["nlpd"]) and out["nlpd"] <= n_max, f"{row}: NLPD {out['nlpd']:.4f} <= {n_max}")
+    return out["rmse"], out["nlpd"]
+
+
+def phase_gibbs_sparse(spatial_gibbs, dev_name: str):
+    """``spatial_gibbs --inference sparse --max_iters 2000``: 10 splits ×
+    316 rows, M = 250, z and the field training.  Its band; K9 twice a step
+    (the stacked (10, 316 × 250) K_xz and (10, 250²) K_zz), four times in
+    the evaluation (train and test roots) and four in the last split's field
+    (2-D), and no other kernel."""
+    from nonstationary_precip_tpu_torch.train.config import ExperimentConfig
+
+    steps = SPARSE_STEPS
+    cfg = ExperimentConfig(lr=0.01, max_iters=5000).parse_args(
+        ["--max_iters", str(steps), "--inference", "sparse", "--device", "cuda"])
+    with tempfile.TemporaryDirectory() as out_dir:
+        os.environ["NSGP_RESULTS_DIR"] = out_dir
+        reset_launches()
+        out = spatial_gibbs.run(cfg)
+        got = check_launches({"gibbs_gram": 2 * steps + 8}, "gibbs_sparse")
+        field = np.loadtxt(out["csv"], delimiter=",", skiprows=1)
+    losses = out["losses"]
+    check(losses.shape == (steps, 10) and bool(np.isfinite(losses).all()), f"loss trace {losses.shape}, finite")
+    check(bool((losses[-1] < losses[0]).all()), "every split's final loss below its step-0 loss")
+    check(field.shape == (394, 4) and bool(np.isfinite(field).all()), f"field CSV {field.shape}, finite")
+    rmse, nlpd = in_band("gibbs_spatial_sparse_10split", out)
+    emit("gibbs_sparse", steps=steps, launches=got["gibbs_gram"], k9_launches_a_step=2, rmse=rmse, nlpd=nlpd,
+         steps_per_s=out["steps_per_s"], train_seconds=out["train_seconds"], wall_seconds=out["wall_seconds"],
+         jax_rmse_nlpd=[0.2659, -0.0928], device=dev_name)
+    return got["gibbs_gram"]
+
+
+def phase_spatio_temporal(spatiotemporal_stationary, spatio_temporal, dev_name: str):
+    """The three spatio-temporal rows at their run_benchmarks.py arguments:
+    the exact stationary baseline (Box-Cox, 200 steps) and
+    ``spatio_temporal`` at 500 steps, Stationary and Non-Stationary with
+    100 inducing inputs.  Each in its band; no kernel but K9 in the
+    nonstationary run: its 172 × 100 spatial K_xz once a step, twice in the
+    evaluation and four times in the 215-row field (the 100² K_zz and the
+    43 × 100 test Grams stay plain, under 128² a Gram, as in JAX)."""
+    from nonstationary_precip_tpu_torch.train.config import ExperimentConfig
+
+    rows, k9 = {}, 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        os.environ["NSGP_RESULTS_DIR"] = out_dir
+        for row, run, argv, want in (
+                ("spatio_temporal_stationary_exact", spatiotemporal_stationary.run,
+                 ExperimentConfig(lr=0.1, max_iters=200).parse_args(["--device", "cuda"]), {}),
+                ("spatio_temporal_stationary", spatio_temporal.run, spatio_temporal.default_config().parse_args(
+                    ["--model", "Stationary", "--max_iters", str(ST_STEPS), "--device", "cuda"]), {}),
+                ("spatio_temporal_nonstationary", spatio_temporal.run, spatio_temporal.default_config().parse_args(
+                    ["--model", "Non-Stationary", "--max_iters", str(ST_STEPS), "--num_inducing", str(ST_INDUCING),
+                     "--device", "cuda"]), {"gibbs_gram": ST_STEPS + 2 + 4})):
+            reset_launches()
+            out = run(argv)
+            got = check_launches(want, row)
+            check(bool(np.isfinite(out["losses"]).all()), f"{row}: every loss finite")
+            if "csv" in out:
+                field = np.loadtxt(out["csv"], delimiter=",", skiprows=1)
+                check(field.shape == (215, 5) and bool(np.isfinite(field).all()), f"{row}: field {field.shape}")
+            rmse, nlpd = in_band(row, out)
+            k9 += got["gibbs_gram"]
+            rows[row] = {"rmse": rmse, "nlpd": nlpd, "steps": out["steps"], "train_seconds": out["train_seconds"],
+                         "wall_seconds": out["wall_seconds"], "k9_launches": got["gibbs_gram"]}
+    emit("spatio_temporal", rows=rows, jax_rmse_nlpd={"spatio_temporal_stationary_exact": [1.961, 3.257],
+                                                      "spatio_temporal_stationary": [2.217, 3.743],
+                                                      "spatio_temporal_nonstationary": [2.112, 4.844]},
+         device=dev_name)
+    return k9
+
+
+def phase_sgpr(sgpr_bench, chol_blocked, dev, dev_name: str):
+    """``sgpr_bench`` at 100 and 1000 iterations (M = 1900, N = 4540), each
+    in its band.  No kernel in the fit; the test predictive's joint NLPD
+    factors its 1136² covariance through K10a (the dispatch's 768..1280
+    window, as in JAX), once unless its jitter ladder fires.  Then K10a on
+    the trained 1000-iteration model's covariance against its plain
+    version and float64 (``chol_errors``), after the counts are read."""
+    rows, k10a = {}, 0
+    for iters, row in zip(SGPR_ITERS, ("sgpr_bench_100iter", "sgpr_bench_converged")):
+        cfg = sgpr_bench.default_config().parse_args(["--max_iters", str(iters), "--device", "cuda"])
+        reset_launches()
+        out = sgpr_bench.run(cfg)
+        n = launch_counts()["blocked_cholesky"]
+        check(n >= 1, f"{row}: the predictive's 1136² Cholesky went through K10a ({n})")
+        check_launches({"blocked_cholesky": n}, row)
+        check(bool(np.isfinite(out["losses"]).all()), f"{row}: every loss finite")
+        rmse, nlpd = in_band(row, out)
+        k10a += n
+        rows[row] = {"rmse": rmse, "nlpd": nlpd, "steps": out["steps"], "train_seconds": out["train_seconds"],
+                     "ms_a_step": 1e3 * out["train_seconds"] / max(out["steps"] - 1, 1),
+                     "wall_seconds": out["wall_seconds"], "k10a_launches": n}
+    train_x, train_y, test_x, _, _ = sgpr_bench.prepare(cfg, torch.float32, dev)
+    with torch.no_grad():
+        cov = out["model"].predictive(train_x, train_y, test_x).cov.contiguous()
+    check(tuple(cov.shape) == (1136, 1136), f"SGPR's predictive covariance {tuple(cov.shape)}")
+    err = chol_errors("K10a sgpr_1136", chol_blocked.blocked_cholesky_cuda, cov,
+                      {"plain": chol_blocked.blocked_cholesky_plain})
+    emit("sgpr", rows=rows, k10a_errors=err, jax_rmse_nlpd={"sgpr_bench_100iter": [1.4455, 1.7948],
+                                                           "sgpr_bench_converged": [1.4441, 1.7855]},
+         device=dev_name)
+    return k10a, err
+
+
+def phase_st_dgp(spatiotemporal_dgp, svgp_precompute, dev, dev_name: str):
+    """``spatiotemporal_dgp`` (3 → 2 → 2 → 1, M = 250, 200 steps of 172 rows,
+    S = 10): its band; K4 once a step and once in the prediction (D ≤ 3);
+    K7 never (its gate takes D = 2, in both packages).  Then K4 at the
+    stack this path gives it, (5, 250, D = 3) with the D = 2 layers' ghost
+    dims, at init and trained: ``k4_errors``' plain-version and float64
+    checks (these launches come after the path's counts are read)."""
+    from nonstationary_precip_tpu_torch.experiments.field_regression import init_model
+
+    cfg = spatiotemporal_dgp.default_config().parse_args(["--device", "cuda"])
+    reset_launches()
+    out = spatiotemporal_dgp.run(cfg)
+    got = check_launches({"svgp_precompute": out["steps"] + 1}, "st_dgp")
+    check(out["steps"] == 200 and bool(np.isfinite(out["losses"]).all()), f"{out['steps']} steps, finite losses")
+    rmse, nlpd = in_band("spatiotemporal_dgp", out)
+    errs, jitter = {}, {}
+    for name, model in (("st_init", init_model(cfg, 3, dev)), ("st_trained", out["model"])):
+        args = k4_payload(model)
+        shape = (*args[0].shape, args[3].shape[-1])
+        check(shape == (5, 250, 3, 501), f"st_dgp's K4 shape {shape}")
+        errs[name], jk, jp = k4_errors(svgp_precompute, args)
+        jitter[name] = {"kernel": jk.tolist(), "plain": jp.tolist()}
+    emit("st_dgp", steps=out["steps"], launches=got, rmse=rmse, nlpd=nlpd, train_seconds=out["train_seconds"],
+         wall_seconds=out["wall_seconds"], jax_rmse_nlpd=[1.610, 2.151], k4_errors=errs, k4_jitter=jitter,
+         device=dev_name)
+    return got["svgp_precompute"], errs
+
+
+def _pinned_losses(what: str, losses: np.ndarray, ref: np.ndarray, rtol0: float, ref64=None) -> dict:
+    """``losses``' steps 0 and 19 against the pinned JAX run's: step 0 to
+    ``rtol0``, step 19 to RTOL_STEP50; or, given the pinned float64 run
+    ``ref64``, step 19 of each split within twice JAX's float32 distance
+    from it plus RTOL_STEP50 of it."""
+    rel0 = float(np.max(np.abs(losses[0] - ref[0]) / np.abs(ref[0])))
+    rel19 = float(np.max(np.abs(losses[19] - ref[19]) / np.abs(ref[19])))
+    check(rel0 <= rtol0, f"{what}: step-0 losses vs JAX {rel0:.3g} <= {rtol0}")
+    out = {"step0_rel_err": rel0, "step19_rel_err": rel19}
+    if ref64 is None:
+        check(rel19 <= RTOL_STEP50, f"{what}: step-19 losses vs JAX {rel19:.3g} <= {RTOL_STEP50}")
+        return out
+    gap, allowed = np.abs(losses[19] - ref64[19]), 2 * np.abs(ref[19] - ref64[19]) + RTOL_STEP50 * np.abs(ref64[19])
+    check(bool((gap <= allowed).all()), f"{what}: step-19 losses from JAX's float64 run {gap.tolist()} within "
+                                        f"{allowed.tolist()}")
+    return {**out, "step19_gap_to_f64": gap.tolist(), "step19_allowed": allowed.tolist(),
+            "jax_f32_gap_to_f64": np.abs(ref[19] - ref64[19]).tolist()}
+
+
+def phase_sparse_ref(spatial_gibbs, spatio_temporal, sgpr_bench, dev):
+    """The three sparse models for 20 Adam steps from the pinned JAX runs'
+    z (tests/fixtures/jax_sparse_ref.npz): the sparse Gibbs slice's 10
+    splits, the ST nonstationary model (M = 100) and SGPR (M = 1900, whose z
+    the port draws itself, bit for bit JAX's); losses at steps 0 and 19
+    against JAX's, K9 twice a step in the first, once in the second.  The
+    sparse Gibbs slice also: each split's step-0 gradient in z and in the
+    field against JAX's, in float32 and float64, and 20 float64 steps with
+    z frozen against JAX's float64 run (SPARSE_GRAD_RTOL, SPARSE_F64_RTOL)."""
+    from nonstationary_precip_tpu_torch.data.datasets import load_uib_spatial, spatio_temporal_month_split
+    from nonstationary_precip_tpu_torch.models.sgpr import SGPR
+    from nonstationary_precip_tpu_torch.train.config import ExperimentConfig
+    from nonstationary_precip_tpu_torch.train.optim import fit
+    from nonstationary_precip_tpu_torch.train.vmapped import fit_splits, stack_modules
+
+    ref = np.load(SPARSE_REF)
+    steps = int(ref["steps"])
+    out = {}
+    _, x, y = load_uib_spatial()
+    xn, yn = (x - x.mean(0)) / x.std(0, ddof=1), (y - y.mean()) / y.std(ddof=1)
+    cfg = ExperimentConfig(inference="sparse", device="cuda")
+
+    def splits(dtype):
+        models, xs, ys = [], [], []
+        for s in range(cfg.num_splits):
+            model, (x_tr, y_tr, _, _) = spatial_gibbs.make_split(xn, yn, s, cfg, dtype, dev)
+            with torch.no_grad():
+                model.z.copy_(torch.as_tensor(ref["gibbs.z"][s], dtype=dtype, device=dev))
+                model.log_ell_z.copy_(model.prior.init_log_field(model.z))
+            models.append(model)
+            xs.append(x_tr)
+            ys.append(y_tr)
+        return models, xs, ys
+
+    for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
+        models, xs, ys = splits(dtype)
+        # the step-0 gradients, every split at once, against JAX's
+        stacked = stack_modules(models)
+        stacked.loss(torch.stack(xs), torch.stack(ys)).sum().backward()
+        grads = {}
+        for name in ("z", "log_ell_z"):
+            got = getattr(stacked, name).grad.double().cpu().numpy()
+            want = ref[f"gibbs.grad0.{name}{suffix}"].astype(np.float64)
+            rel = (np.linalg.norm((got - want).reshape(len(models), -1), axis=1)
+                   / np.linalg.norm(want.reshape(len(models), -1), axis=1))
+            grads[name] = rel.tolist()
+            tol = SPARSE_GRAD_RTOL[dtype].get(name)
+            if tol is not None:
+                check(float(rel.max()) <= tol, f"sparse Gibbs {dtype} step-0 gradient in {name} vs JAX's: "
+                                               f"{float(rel.max()):.3g} <= {tol} (norm, per split)")
+        out[f"gibbs_grad0{suffix}_rel_err"] = grads
+        if dtype == torch.float32:
+            reset_launches()
+            res = fit_splits(models, lambda m, xx, yy: m.loss(xx, yy), xs, ys, lr=0.01, num_steps=steps)
+            check_launches({"gibbs_gram": 2 * steps}, "sparse_ref gibbs")
+            out["gibbs"] = _pinned_losses("sparse Gibbs", res.losses, ref["gibbs.losses"], RTOL_STEP0_SPARSE_GIBBS,
+                                          ref["gibbs.losses_f64"])
+        else:  # z frozen: a trajectory float64 runs share (its z-gradient path is held above)
+            for model in models:
+                model.z.requires_grad_(False)
+            res = fit_splits(models, lambda m, xx, yy: m.loss(xx, yy), xs, ys, lr=0.01, num_steps=steps)
+            want = ref["gibbs.frozen.losses_f64"]
+            rel = np.abs(res.losses - want).max(axis=1) / np.abs(want).max(axis=1)
+            for step, tol in ((0, SPARSE_F64_RTOL[0]), (steps - 1, SPARSE_F64_RTOL[1])):
+                check(rel[step] <= tol, f"sparse Gibbs float64, z frozen: step-{step} losses vs JAX's "
+                                        f"{rel[step]:.3g} <= {tol}")
+            out["gibbs_f64_z_frozen"] = {"rel_err_a_step": rel.tolist()}
+
+    st_cfg = spatio_temporal.default_config().parse_args(
+        ["--model", "Non-Stationary", "--num_inducing", str(ST_INDUCING), "--device", "cuda"])
+    x_tr, y_tr, *_ = spatio_temporal_month_split()
+    x_tr, y_tr = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (x_tr, y_tr))
+    model = spatio_temporal.make_model(st_cfg, x_tr)
+    with torch.no_grad():
+        model.z.copy_(torch.as_tensor(ref["st.z"], device=dev))
+        model.log_ell_z.copy_(model.prior.init_log_field(model.z[:, [1, 2]]))
+    reset_launches()
+    res = fit(model, lambda m, xx, yy: m.loss(xx, yy), x_tr, y_tr, lr=0.015, num_steps=steps)
+    check_launches({"gibbs_gram": steps}, "sparse_ref st")
+    out["st"] = _pinned_losses("ST nonstationary", res.losses[:, None], ref["st.losses"][:, None], RTOL_STEP0)
+
+    train_x, train_y, _, _, z = sgpr_bench.prepare(sgpr_bench.default_config(), torch.float32, dev)
+    check(np.array_equal(z.cpu().numpy(), ref["sgpr.z"]), "SGPR's z is the pinned JAX run's, bit for bit")
+    reset_launches()
+    res = fit(SGPR.create(sgpr_bench.make_kernel(torch.float32, dev), z, dtype=torch.float32, device=dev),
+              lambda m, xx, yy: m.loss(xx, yy), train_x, train_y, lr=0.05, num_steps=steps)
+    check_launches({}, "sparse_ref sgpr")
+    out["sgpr"] = _pinned_losses("SGPR", res.losses[:, None], ref["sgpr.losses"][:, None], RTOL_STEP0)
+    emit("sparse_ref", steps=steps, **out)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=300, help="Adam steps of the slice run")
@@ -2557,7 +2960,9 @@ def main(argv=None):
 
     from nonstationary_precip_tpu_torch.examples import quickstart_gibbs_largen as quickstart
     from nonstationary_precip_tpu_torch.experiments import (deepgp_spatial, exact_largen, field_regression,
-                                                            gibbs_largen, seard_spatial, spatial_gibbs, temporal)
+                                                            gibbs_largen, seard_spatial, sgpr_bench, spatial_gibbs,
+                                                            spatio_temporal, spatiotemporal_dgp,
+                                                            spatiotemporal_stationary, temporal)
     from nonstationary_precip_tpu_torch.ops import (chol_blocked, chol_inv, chol_stream, elbo_fused, gibbs_fused,
                                                     gibbs_gram, matvec, svgp_precompute, trsm)
     from nonstationary_precip_tpu_torch.utils import config
@@ -2567,7 +2972,7 @@ def main(argv=None):
                      gibbs_fused)
 
     errs, ms, plain_ms, k1_design = phase_k1(chol_inv, spatial_gibbs, dev)
-    launches = phase_slice(chol_inv, spatial_gibbs, args.steps, name)
+    launches, slice_k9 = phase_slice(chol_inv, spatial_gibbs, args.steps, name)
     phase_largen_ref(gibbs_largen)
     out, largen_launches = phase_largen(gibbs_largen, name)
     payloads = largen_payloads(gibbs_largen, out, dev)
@@ -2595,7 +3000,8 @@ def main(argv=None):
     phase_gibbs_dense_ref(exact_largen, dev)
     gibbs_out, gibbs_launches = phase_gibbs_dense(exact_largen, name)
     gibbs_pay = gibbs_payloads(exact_largen, gibbs_out, dev)
-    k9 = phase_k9(gibbs_gram, matvec, spatial_gibbs, gibbs_pay, dev)
+    k9 = phase_k9(gibbs_gram, matvec, spatial_gibbs, gibbs_pay, dev, k9_stack_payloads(spatial_gibbs, spatio_temporal,
+                                                                                     dev))
     k10a = phase_k10a(chol_blocked, gibbs_pay, dev)
     k10a["resources"] = rl_resources(chol_blocked.kernel_attributes(), logs["chol_blocked"])
     k11 = phase_k11(trsm, gibbs_pay, dev)
@@ -2603,11 +3009,27 @@ def main(argv=None):
     k8 = phase_k8(gibbs_fused, gibbs_pay, dev)
     k8["resources"] = rl_resources(gibbs_fused.kernel_attributes(), logs["gibbs_fused"])
     traced = phase_traced(chol_inv, k1_design.pop("gram"), k2_call, k3_call, k4_call, k6.pop("call"),
-                          k7.pop("fwd_call"), k7.pop("bwd_call"), k9.pop("call"), k10b.pop("call"))
+                          k7.pop("fwd_call"), k7.pop("bwd_call"), k9.pop("call"), k10b.pop("call"),
+                          k9.pop("stacked_call"))
     k9.update(device_ms=traced["k9_device_ms"],
               resources={"gibbs_gram_kernel<2,4>": ptxas_resources(logs["gibbs_gram"], "gibbs_gram_kernel<2,4>")})
     phase_gibbs_mf_ref(quickstart, dev)
     mf_launches = phase_gibbs_mf(quickstart, name)
+    timed = {}
+    for phase, run in (("sparse_ref", lambda: phase_sparse_ref(spatial_gibbs, spatio_temporal, sgpr_bench, dev)),
+                       ("gibbs_sparse", lambda: phase_gibbs_sparse(spatial_gibbs, name)),
+                       ("spatio_temporal", lambda: phase_spatio_temporal(spatiotemporal_stationary, spatio_temporal,
+                                                                         name)),
+                       ("sgpr", lambda: phase_sgpr(sgpr_bench, chol_blocked, dev, name)),
+                       ("st_dgp", lambda: phase_st_dgp(spatiotemporal_dgp, svgp_precompute, dev, name))):
+        t0 = time.perf_counter()
+        timed[phase] = run()
+        emit("seconds", of=phase, seconds=time.perf_counter() - t0)
+    k9_launches = gibbs_launches["gibbs_gram"] + slice_k9 + timed["gibbs_sparse"] + timed["spatio_temporal"]
+    k4_launches = dgp_launches["svgp_precompute"] + timed["st_dgp"][0]
+    k4_errs.update(timed["st_dgp"][1])
+    k10a_launches = gibbs_launches["blocked_cholesky"] + timed["sgpr"][0]
+    k10a["max_abs_err"] = max(k10a["max_abs_err"], timed["sgpr"][1]["max_abs_err"])
 
     # K1 at (10, 316): 2N³/3 flops per matrix (Cholesky and triangular
     # inverse, N³/3 each); reads A once, writes L and L⁻¹
@@ -2636,7 +3058,7 @@ def main(argv=None):
          "resources": {WALK["K3"]: ptxas_resources(logs["gibbs_matvec"], WALK["K3"])}},
         {"name": "svgp_precompute", "route": "cuda",
          "source": "nonstationary_precip_tpu_torch/csrc/svgp_precompute.cu",
-         "replaces": "nonstationary_precip_tpu/ops/pallas_svgp.py:367", "launches": dgp_launches["svgp_precompute"],
+         "replaces": "nonstationary_precip_tpu/ops/pallas_svgp.py:367", "launches": k4_launches,
          "max_abs_err": max(e["max_abs_err"] for e in k4_errs.values()), "ms": k4_t["ms"],
          "plain_ms": k4_t["plain_ms"], "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
          "resources": {"svgp_cluster_kernel": {**ptxas_resources(logs["svgp_precompute"], "svgp_cluster_kernel"),
@@ -2662,7 +3084,8 @@ def main(argv=None):
          "bound_by": k6["bound_by"], "library_ms": None,
          "resources": {WALK["K6"]: ptxas_resources(logs["gibbs_matvec"], WALK["K6"])}},
         *({"name": kname, "route": "cuda", "source": f"nonstationary_precip_tpu_torch/csrc/{src}",
-           "replaces": f"nonstationary_precip_tpu/ops/{tpu}", "launches": gibbs_launches[kname],
+           "replaces": f"nonstationary_precip_tpu/ops/{tpu}",
+           "launches": {"gibbs_gram": k9_launches, "blocked_cholesky": k10a_launches}.get(kname, gibbs_launches[kname]),
            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
            **{key: k[key] for key in ("device_ms", "resources") if key in k}}

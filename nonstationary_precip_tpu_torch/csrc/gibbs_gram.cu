@@ -16,6 +16,9 @@
 //    operations (an FMA as 2), one rsqrt.approx and one ex2.approx.
 //  * other d (on no path): gibbs_elem.cuh's per-dim gibbs_elem, the one K2
 //    and K3 compute at d != 2, on payloads read into registers.
+// A call may carry T members (a stack of pairs, as JAX's vmap hands the TPU
+// kernel a split-stacked Gram): member t is blockIdx.z, its inputs and its
+// output offset by t n1 d, t n2 d and t n1 n2 floats, one launch for all.
 // No special case on the diagonal (the TPU kernel has none either).  Each
 // thread writes its register tile row by row as float4 where the row stride
 // and the output's base allow it (N2 % 4 == 0), else float2 (N2 % 2 == 0:
@@ -85,6 +88,10 @@ __global__ void __launch_bounds__(kThreads)
 gibbs_gram_kernel(const float* __restrict__ x1, const float* __restrict__ l1, int n1,
                   const float* __restrict__ x2, const float* __restrict__ l2, int n2,
                   int d, float* __restrict__ out) {
+  // member blockIdx.z of the stack
+  const size_t t = blockIdx.z;
+  x1 += t * n1 * d, l1 += t * n1 * d, x2 += t * n2 * d, l2 += t * n2 * d;
+  out += t * n1 * n2;
   const int tid = threadIdx.x;
   const int tc = tid % kColThreads, tr = tid / kColThreads;
   const int i0 = blockIdx.y * kTileM, j0 = blockIdx.x * kTileN;
@@ -148,9 +155,12 @@ gibbs_gram_kernel(const float* __restrict__ x1, const float* __restrict__ l1, in
 }
 
 template <int D>
-void launch(const float* x1, const float* l1, int n1, const float* x2, const float* l2, int n2, int d, float* out,
-            cudaStream_t s) {
-  const dim3 grid((n2 + kTileN - 1) / kTileN, (n1 + kTileM - 1) / kTileM);
+void launch(const float* x1, const float* l1, int n1, const float* x2, const float* l2, int n2, int d, int nt,
+            float* out, cudaStream_t s) {
+  const dim3 grid((n2 + kTileN - 1) / kTileN, (n1 + kTileM - 1) / kTileM, nt);
+  // The store width holds for every member where it holds for the first:
+  // a member's output starts n1 n2 floats after the last's, a multiple of 4
+  // where n2 % 4 == 0 (16 bytes) and of 2 where n2 % 2 == 0 (8 bytes).
   const auto a = reinterpret_cast<std::uintptr_t>(out);
   if (n2 % 4 == 0 && a % 16 == 0) gibbs_gram_kernel<D, 4><<<grid, kThreads, 0, s>>>(x1, l1, n1, x2, l2, n2, d, out);
   else if (n2 % 2 == 0 && a % 8 == 0) gibbs_gram_kernel<D, 2><<<grid, kThreads, 0, s>>>(x1, l1, n1, x2, l2, n2, d, out);
@@ -161,12 +171,14 @@ void launch(const float* x1, const float* l1, int n1, const float* x2, const flo
 
 extern "C" {
 
-// x1, l1: n1 x d; x2, l2: n2 x d; out: n1 x n2, all f32 row-major on the
-// device, 1 <= d <= 8.  One launch on `stream`; returns cudaGetLastError()
-// as an int (0 = launched).
+// x1, l1: nt x n1 x d; x2, l2: nt x n2 x d; out: nt x n1 x n2, all f32
+// row-major on the device, 1 <= d <= 8, 1 <= nt <= 65535 (the grid's z
+// limit).  One launch on `stream` for all nt members; returns
+// cudaGetLastError() as an int (0 = launched).
 int gibbs_gram(const void* x1, const void* l1, int n1, const void* x2, const void* l2,
-               int n2, int d, void* out, void* stream) {
-  if (n1 < 1 || n2 < 1 || d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+               int n2, int d, int nt, void* out, void* stream) {
+  if (n1 < 1 || n2 < 1 || d < 1 || d > kMaxD || nt < 1 || nt > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* a = static_cast<const float*>(x1);
   const auto* b = static_cast<const float*>(l1);
   const auto* c = static_cast<const float*>(x2);
@@ -174,10 +186,10 @@ int gibbs_gram(const void* x1, const void* l1, int n1, const void* x2, const voi
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: launch<1>(a, b, n1, c, e, n2, d, o, s); break;
-    case 2: launch<2>(a, b, n1, c, e, n2, d, o, s); break;
-    case 3: launch<3>(a, b, n1, c, e, n2, d, o, s); break;
-    default: launch<kMaxD>(a, b, n1, c, e, n2, d, o, s); break;
+    case 1: launch<1>(a, b, n1, c, e, n2, d, nt, o, s); break;
+    case 2: launch<2>(a, b, n1, c, e, n2, d, nt, o, s); break;
+    case 3: launch<3>(a, b, n1, c, e, n2, d, nt, o, s); break;
+    default: launch<kMaxD>(a, b, n1, c, e, n2, d, nt, o, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -78,19 +78,25 @@ def _mixture_moments(means, variances):
     return mu, (variances + means**2).mean(axis=0) - mu**2
 
 
-def _fit_predict(x, y, x_pred, cfg: ExperimentConfig, batch_size: int, seed: int, num_pred: int, dev):
+def init_model(cfg: ExperimentConfig, input_dims: int, dev, dtype=torch.float32, draw_seed: int = BASE_SEED):
+    """The DeepGP that ``_fit_predict`` trains, before its first step."""
+    return DeepGP.create(torch.Generator().manual_seed(draw_seed), input_dims=input_dims,
+                         num_layers=cfg.num_layers, num_inducing=cfg.num_inducing, dtype=dtype, device=dev)
+
+
+def _fit_predict(x, y, x_pred, cfg: ExperimentConfig, batch_size: int, seed: int, num_pred: int, dev,
+                 dtype=torch.float32, draw_seed: int = BASE_SEED):
     """One DeepGP on (x, y) with the experiment's randomness, and its
-    predictive mixture at x_pred.  Returns (mixture, per-sample means,
-    per-sample variances, TrainResult)."""
-    dtype = torch.float32
+    predictive mixture at x_pred.  ``draw_seed`` seeds the init and the ε
+    (the experiments' BASE_SEED), ``seed`` the batch schedule.  Returns
+    (mixture, per-sample means, per-sample variances, TrainResult)."""
     x, y, x_pred = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (x, y, x_pred))
     n = x.shape[0]
     batch_size = min(batch_size, n)
-    model = DeepGP.create(torch.Generator().manual_seed(BASE_SEED), input_dims=x.shape[-1],
-                          num_layers=cfg.num_layers, num_inducing=cfg.num_inducing, dtype=dtype, device=dev)
-    rng = np.random.default_rng(BASE_SEED)
+    model = init_model(cfg, x.shape[-1], dev, dtype, draw_seed)
+    rng = np.random.default_rng(draw_seed)
     steps = num_minibatch_steps(n, cfg.num_epochs, batch_size)
-    eps_train, eps_pred = (tuple(torch.as_tensor(e, device=dev) for e in eps) for eps in (
+    eps_train, eps_pred = (tuple(torch.as_tensor(e, dtype=dtype, device=dev) for e in eps) for eps in (
         draw_eps(rng, (steps, cfg.num_samples), cfg.num_layers, batch_size),
         draw_eps(rng, (num_pred,), cfg.num_layers, x_pred.shape[0])))
 

@@ -16,8 +16,15 @@ from torch import nn
 
 from nonstationary_precip_tpu_torch.models.deep_gp import DeepGP
 from nonstationary_precip_tpu_torch.models.exact_gp import ExactGP
-from nonstationary_precip_tpu_torch.models.gibbs_gp import GibbsExactGP
+from nonstationary_precip_tpu_torch.models.gibbs_gp import GibbsExactGP, GibbsSparseGP
 from nonstationary_precip_tpu_torch.models.likelihoods import GaussianLikelihood
+from nonstationary_precip_tpu_torch.models.sgpr import SGPR
+from nonstationary_precip_tpu_torch.models.spatio_temporal import (
+    SparseSpatioTemporalNonstationary,
+    SpatioTemporalStationary,
+    make_stationary_st_kernel,
+    make_temporal_kernel,
+)
 from nonstationary_precip_tpu_torch.models.svgp import SVGPLayer
 from nonstationary_precip_tpu_torch.priors.lognormal_process import LogNormalProcess
 
@@ -131,12 +138,77 @@ def exact_gp_from_jax(params: Mapping[str, np.ndarray], kernel: nn.Module, devic
     ``likelihood.raw_noise`` and, for a constant mean, ``mean_const``."""
     mean_type = "constant" if "mean_const" in params else "zero"
     model = ExactGP.create(kernel, mean_type=mean_type, dtype=dtype, device=device)
+    return _load_leaves(model, params, device, dtype, "exact_gp_from_jax")
+
+
+def _load_leaves(model: nn.Module, params: Mapping[str, np.ndarray], device, dtype, who: str) -> nn.Module:
+    """Set every parameter of ``model`` from ``params`` (dotted JAX leaf
+    paths, the port's parameter names), keeping each parameter's
+    ``requires_grad``; raises on a missing or an unknown leaf."""
     names = [n for n, _ in model.named_parameters()]
     missing, extra = sorted(set(names) - set(params)), sorted(set(params) - set(names))
     if missing or extra:
-        raise KeyError(f"exact_gp_from_jax: missing leaves {missing}, unknown leaves {extra}")
+        raise KeyError(f"{who}: missing leaves {missing}, unknown leaves {extra}")
     for name in names:
         owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
         value = torch.tensor(np.array(params[name]), dtype=dtype, device=device)
-        setattr(model.get_submodule(owner) if owner else model, leaf, nn.Parameter(value))
+        setattr(mod, leaf, nn.Parameter(value, requires_grad=getattr(mod, leaf).requires_grad))
     return model
+
+
+#: The leaves of a JAX ``GibbsSparseGP``, by dotted path.
+GIBBS_SPARSE_KEYS = ("z", "log_ell_z", "raw_outputscale", "likelihood.raw_noise", "prior.mean_const",
+                     "prior.raw_outputscale", "prior.raw_lengthscale")
+
+
+def gibbs_sparse_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float32, *,
+                          scale_correction: bool = False) -> GibbsSparseGP:
+    """The port's ``GibbsSparseGP`` holding a JAX ``GibbsSparseGP``'s leaves
+    (``GIBBS_SPARSE_KEYS``), single or stacked on a leading split axis;
+    ``scale_correction`` is the JAX model's static field.  Default
+    trainability (the latent field and z train)."""
+    missing = [k for k in GIBBS_SPARSE_KEYS if k not in params]
+    if missing:
+        raise KeyError(f"gibbs_sparse_from_jax: missing leaves {missing}")
+
+    def t(key):
+        return torch.tensor(np.array(params[key]), dtype=dtype, device=device)
+
+    prior = LogNormalProcess(t("prior.mean_const"), t("prior.raw_outputscale"), t("prior.raw_lengthscale"))
+    return GibbsSparseGP(prior, GaussianLikelihood(t("likelihood.raw_noise")), t("raw_outputscale"), t("z"),
+                         t("log_ell_z"), scale_correction=scale_correction)
+
+
+def sgpr_from_jax(params: Mapping[str, np.ndarray], kernel: nn.Module, device, dtype=torch.float32) -> SGPR:
+    """The port's ``SGPR`` around ``kernel`` (the port's module of the JAX
+    kernel's structure, as for ``exact_gp_from_jax``) holding a JAX
+    ``SGPR``'s leaves: ``kernel.…``, ``likelihood.raw_noise`` and ``z``.
+    Every parameter trains."""
+    model = SGPR.create(kernel, np.zeros((1, 1)), dtype=dtype, device=device)
+    return _load_leaves(model, params, device, dtype, "sgpr_from_jax")
+
+
+def spatio_temporal_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float32, *,
+                             scale_correction: bool = False):
+    """The port's spatio-temporal model holding a JAX one's leaves:
+    ``SparseSpatioTemporalNonstationary`` where ``params`` has a latent
+    field (``log_ell_z``), else ``SpatioTemporalStationary``.  The
+    nonstationary model keeps its default trainability (prior and z
+    frozen)."""
+    if "log_ell_z" not in params:
+        model = SpatioTemporalStationary(make_stationary_st_kernel(dtype, device),
+                                         GaussianLikelihood.create(dtype=dtype, device=device), None, "zero")
+        return _load_leaves(model, params, device, dtype, "spatio_temporal_from_jax")
+
+    def t(key):
+        if key not in params:
+            raise KeyError(f"spatio_temporal_from_jax: missing leaf {key!r}")
+        return torch.tensor(np.array(params[key]), dtype=dtype, device=device)
+
+    prior = LogNormalProcess(t("prior.mean_const"), t("prior.raw_outputscale"), t("prior.raw_lengthscale"))
+    model = SparseSpatioTemporalNonstationary(prior, GaussianLikelihood(t("likelihood.raw_noise")), t("z"),
+                                              t("log_ell_z"), t("raw_spatial_outputscale"),
+                                              make_temporal_kernel(dtype, device),
+                                              scale_correction=scale_correction)
+    return _load_leaves(model, params, device, dtype, "spatio_temporal_from_jax")

@@ -6,10 +6,12 @@ Counterpart of ``nonstationary_precip_tpu/kernels/gibbs.py``:
                · exp( − Σ_d (x_d − x'_d)² / (ℓ_d(x)² + ℓ_d(x')²) )
 
 Layout: x and ell are (..., N, D), row per point; leading dimensions batch.
-``gibbs_gram`` is the dispatcher, as in the JAX package: a 2-D float32 pair
-inside K9's gate (``ops/gibbs_gram.eligible``: on the card, D ≤ 8,
-N₁·N₂ ≥ 128²) takes the hand-written Gram kernel, everything else
-``gibbs_gram_reference``, the plain batched Gram.  The matrix-free paths
+``gibbs_gram`` is the dispatcher, as in the JAX package: a float32 pair, or
+a stack of pairs with one leading shape (the JAX package's ``vmap`` written
+out), inside K9's gate (``ops/gibbs_gram.eligible``: on the card, D ≤ 8,
+N₁·N₂ ≥ 128² a member) takes the hand-written Gram kernel, one launch for
+the stack; everything else ``gibbs_gram_reference``, the plain batched
+Gram.  The matrix-free paths
 build their panels through the plain Gram by name, as the JAX package's do.
 """
 

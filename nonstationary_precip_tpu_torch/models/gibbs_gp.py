@@ -1,10 +1,14 @@
-"""MAP inference for the diagonal-Gibbs nonstationary exact GP.
+"""MAP inference for the diagonal-Gibbs nonstationary GP, exact and sparse.
 
 Counterpart of ``nonstationary_precip_tpu/models/gibbs_gp.py``
-(``GibbsExactGP`` and ``gibbs_map_loss_batched``).  A latent log-lengthscale
-field at the training inputs is optimised under MLL + prior log-prob (both
-÷N, GPyTorch convention); prediction conditions the field at new points on
-the trained one through the log-normal process's conditional mean.
+(``GibbsExactGP``, ``gibbs_map_loss_batched`` and ``GibbsSparseGP``).  A
+latent log-lengthscale field at the training inputs (exact) or at M
+inducing inputs (sparse) is optimised under MLL + prior log-prob (both ÷N,
+GPyTorch convention); prediction conditions the field at new points on the
+trained one through the log-normal process's conditional mean.  The sparse
+model's MLL is Titsias's collapsed bound on the Nyström root of the Gibbs
+kernel (``models/sgpr.py``'s Woodbury algebra); its mesh-sharded loss
+(``gibbs_sparse_sharded_loss``) is not ported yet (ROADMAP queue 1 item 13).
 
 Every parameter may carry a leading split axis: a stacked model holds the K
 benchmark splits at once, and every method then works on all of them (the
@@ -32,8 +36,10 @@ import torch
 from torch import nn
 
 from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram, packed_gibbs_cross
+from nonstationary_precip_tpu_torch.kernels.inducing import nystrom_root
 from nonstationary_precip_tpu_torch.models.distributions import MVN
 from nonstationary_precip_tpu_torch.models.likelihoods import GaussianLikelihood
+from nonstationary_precip_tpu_torch.models.sgpr import collapsed_bound_terms, sgpr_predict
 from nonstationary_precip_tpu_torch.ops.chol_inv import MAX_N, chol_inv_batched_safe
 from nonstationary_precip_tpu_torch.ops.gibbs_fused import gibbs_noisy_chol_alpha
 from nonstationary_precip_tpu_torch.ops.lazy_cg import (
@@ -317,3 +323,96 @@ def gibbs_map_loss_batched(models: GibbsExactGP, x, y, prior_pre) -> torch.Tenso
     logp = -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
     prior_term = models.prior.log_prob(x, models.log_ell, prior_pre)
     return -(logp + prior_term) / n
+
+
+class GibbsSparseGP(nn.Module):
+    """Sparse (SGPR, Titsias collapsed bound) Gibbs GP with the latent
+    log-lengthscale field at M inducing inputs z.
+
+    ``scale_correction=False`` keeps the reference's quirk: the trace term
+    is taken on the unscaled base kernel (the Scale wrapper sits outside the
+    inducing kernel, so GPyTorch's added-loss harvesting never sees the
+    outputscale).  True gives the consistent bound.  Every parameter may
+    carry a leading split axis, as ``GibbsExactGP``'s."""
+
+    def __init__(self, prior: LogNormalProcess, likelihood: GaussianLikelihood, raw_outputscale: torch.Tensor,
+                 z: torch.Tensor, log_ell_z: torch.Tensor, scale_correction: bool = False):
+        super().__init__()
+        self.prior = prior
+        self.likelihood = likelihood
+        self.raw_outputscale = nn.Parameter(raw_outputscale)
+        self.z = nn.Parameter(z)  # (..., M, D)
+        self.log_ell_z = nn.Parameter(log_ell_z)  # (..., M, D)
+        self.scale_correction = scale_correction
+        self.trainable()
+
+    @classmethod
+    def create(cls, z, prior: LogNormalProcess, noise=None, outputscale=1.0, dtype=torch.float32, device=None):
+        z = torch.as_tensor(z, dtype=dtype, device=device).clone()
+        return cls(
+            prior=prior,
+            likelihood=GaussianLikelihood.create(noise, dtype=dtype, device=device),
+            raw_outputscale=raw_init(torch.as_tensor(outputscale, dtype=dtype, device=device)),
+            z=z,
+            log_ell_z=prior.init_log_field(z).to(dtype).clone(),
+        )
+
+    @property
+    def outputscale(self) -> torch.Tensor:
+        return positive(self.raw_outputscale)
+
+    def trainable(self, train_noise: bool = False, train_scale: bool = False,
+                  train_z: bool = True) -> "GibbsSparseGP":
+        """The latent field always trains, the prior is always frozen; noise,
+        outputscale and z per flag.  In place; returns self."""
+        for p in self.prior.parameters():
+            p.requires_grad_(False)
+        self.likelihood.raw_noise.requires_grad_(train_noise)
+        self.raw_outputscale.requires_grad_(train_scale)
+        self.z.requires_grad_(train_z)
+        self.log_ell_z.requires_grad_(True)
+        return self
+
+    def _roots(self, x):
+        """Nyström root R (..., N, M) of the unscaled Gibbs kernel, and the
+        conditioned lengthscales at x.  K_xz and K_zz go through the
+        dispatcher, so a split-stacked model's reach K9 as one launch each."""
+        ell_z = torch.exp(self.log_ell_z)
+        ell_x = self.prior.conditional_mean(x, (self.z, ell_z))
+        k_xz = gibbs_gram(x, ell_x, self.z, ell_z)
+        k_zz = gibbs_gram(self.z, ell_z, self.z, ell_z)
+        root, _ = nystrom_root(k_xz, k_zz)
+        return root, ell_x
+
+    # -- objective ----------------------------------------------------------
+
+    def loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """−(log N(y; 0, s²RRᵀ + σ²I) + trace term + prior log-prob)/N, per
+        leading batch index, by Woodbury: no N × N matrix."""
+        n = y.shape[-1]
+        noise = self.likelihood.noise
+        s2 = self.outputscale
+        root_u, _ = self._roots(x)
+        logp, _, _ = collapsed_bound_terms(torch.sqrt(s2)[..., None, None] * root_u, y, noise)
+        # Titsias trace term; the Gibbs diagonal is identically 1 (unscaled)
+        resid = 1.0 - torch.sum(root_u * root_u, dim=-1)
+        if self.scale_correction:
+            resid = s2[..., None] * resid
+        added = -0.5 * torch.sum(resid, dim=-1) / noise
+        prior_term = self.prior.log_prob(self.z, self.log_ell_z)
+        return -(logp + added + prior_term) / n
+
+    # -- prediction ---------------------------------------------------------
+
+    def posterior(self, x_train, y_train, x_new, *, noiseless: bool = True) -> MVN:
+        """The SGPR predictive (exact marginals, low-rank joint) on the scaled
+        roots, with the diagonal correction against s²."""
+        s2 = self.outputscale
+        s = torch.sqrt(s2)[..., None, None]
+        root_x = s * self._roots(x_train)[0]
+        root_s = s * self._roots(x_new)[0]
+        k_ss_diag = s2[..., None] * torch.ones(root_s.shape[:-1], dtype=root_s.dtype, device=root_s.device)
+        return sgpr_predict(root_x, root_s, k_ss_diag, y_train, self.likelihood.noise, noiseless=noiseless)
+
+    def predictive(self, x_train, y_train, x_new) -> MVN:
+        return self.posterior(x_train, y_train, x_new, noiseless=False)

@@ -30,15 +30,23 @@ tile's R and the ``float2`` path are measured (``tools/bench_k9.py``).
 The backward is not a kernel: autograd through ``gibbs_gram_reference``
 recomputed from the saved inputs, as the JAX ``_bwd`` does.
 
-Dispatch: ``kernels/gibbs.gibbs_gram`` sends a pair that ``eligible``
-accepts here; ``gibbs_gram_pallas`` launches the kernel for a CUDA tensor
-(which raises on anything it does not take) and runs the plain version for
-a CPU one.  ``LAUNCHES`` counts the kernel's launches.
+A stack of pairs (..., N, D) with one leading shape, a member per leading
+index, is one launch: the members go on the grid's third axis, with strides
+N₁·D, N₂·D and N₁·N₂.  This is what Pallas's vmap batching does to the TPU
+kernel, which the JAX package runs under ``jax.vmap`` for every
+split-stacked Gibbs Gram (the slice's step and evaluation, the sparse
+model's roots); the port writes that vmap out as a leading axis.
+
+Dispatch: ``kernels/gibbs.gibbs_gram`` sends a pair or a stack that
+``eligible`` accepts here; ``gibbs_gram_pallas`` launches the kernel for a
+CUDA tensor (which raises on anything it does not take) and runs the plain
+version for a CPU one.  ``LAUNCHES`` counts the kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -48,6 +56,7 @@ from nonstationary_precip_tpu_torch.ops.matvec import _k2_elem_ops
 
 MAX_D = 8  # input dims the kernel takes (pallas_gram.py's _MAX_D)
 MIN_ELEMS = 128 * 128  # the gate's least N₁·N₂
+MAX_MEMBERS = 65535  # members a launch takes (the grid's third axis)
 
 #: Launches of the kernel so far in this process; a run reads it to show
 #: that its main path went through the kernel.
@@ -64,43 +73,58 @@ def build(force: bool = False) -> str:
     global _lib
     lib, log = build_library(SOURCE, force)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gibbs_gram.argtypes = [p, p, i, p, p, i, i, p, p]
+    lib.gibbs_gram.argtypes = [p, p, i, p, p, i, i, i, p, p]
     lib.gibbs_gram.restype = i
     _lib = lib
     return log
 
 
+def members(x1: torch.Tensor) -> int:
+    """The number of pairs in a stack (..., N, D): the product of its
+    leading dims, 1 for a 2-D pair."""
+    return math.prod(x1.shape[:-2])
+
+
 def eligible(x1: torch.Tensor, x2: torch.Tensor) -> bool:
     """The JAX package's gate (``pallas_gram.py:41-66``) without its
-    environment switch, the backend test read as "on the card": float32,
-    both 2-D, D ≤ 8, N₁·N₂ ≥ 128²."""
+    environment switch, the backend test read as "on the card", applied to
+    each member as JAX's vmap applies it: float32, (..., N, D) with the same
+    leading shape on both sides, D ≤ 8, N₁·N₂ ≥ 128² a member, and at most
+    ``MAX_MEMBERS`` members."""
     return (x1.device.type == "cuda" and x1.dtype == torch.float32 and x2.dtype == torch.float32
-            and x1.ndim == 2 and x2.ndim == 2 and x1.shape[-1] <= MAX_D
-            and x1.shape[0] * x2.shape[0] >= MIN_ELEMS)
+            and x1.ndim >= 2 and x2.ndim == x1.ndim and x1.shape[:-2] == x2.shape[:-2]
+            and x1.shape[-1] <= MAX_D and x1.shape[-2] * x2.shape[-2] >= MIN_ELEMS
+            and members(x1) <= MAX_MEMBERS)
 
 
 def gibbs_gram_cuda(x1, ell1, x2, ell2) -> torch.Tensor:
-    """The kernel's wrapper: K(x1, ℓ1; x2, ℓ2), (N1, N2), from one launch on
-    the current stream.  x1, ell1 (N1, D ≤ 8) and x2, ell2 (N2, D), float32
-    CUDA tensors on one device; raises on anything else.  No autograd."""
+    """The kernel's wrapper: K(x1, ℓ1; x2, ℓ2), (..., N1, N2), from one
+    launch on the current stream.  x1, ell1 (..., N1, D ≤ 8) and x2, ell2
+    (..., N2, D), float32 CUDA tensors on one device with one leading shape
+    of at most ``MAX_MEMBERS`` members; raises on anything else.  No
+    autograd."""
     global LAUNCHES
     ts = (x1, ell1, x2, ell2)
     if any(t.device.type != "cuda" or t.device != x1.device for t in ts):
         raise ValueError("gibbs_gram kernel takes CUDA tensors on one device")
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError("gibbs_gram kernel takes float32")
-    if x1.ndim != 2 or x1.shape != ell1.shape or x2.shape != ell2.shape or x1.shape[1] != x2.shape[1]:
+    if (x1.ndim < 2 or x1.shape != ell1.shape or x2.shape != ell2.shape or x2.ndim != x1.ndim
+            or x1.shape[:-2] != x2.shape[:-2] or x1.shape[-1] != x2.shape[-1]):
         raise ValueError(f"gibbs_gram kernel: shapes {[tuple(t.shape) for t in ts]}")
-    if not 1 <= x1.shape[1] <= MAX_D:
-        raise ValueError(f"gibbs_gram kernel takes D ≤ {MAX_D}, got {x1.shape[1]}")
+    if not 1 <= x1.shape[-1] <= MAX_D:
+        raise ValueError(f"gibbs_gram kernel takes D ≤ {MAX_D}, got {x1.shape[-1]}")
+    nt = members(x1)
+    if not 1 <= nt <= MAX_MEMBERS:
+        raise ValueError(f"gibbs_gram kernel takes 1..{MAX_MEMBERS} members, got {nt}")
     if _lib is None:
         build()
     x1, ell1, x2, ell2 = (t.contiguous() for t in ts)
-    (n1, d), n2 = x1.shape, x2.shape[0]
-    out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
+    n1, d, n2 = x1.shape[-2], x1.shape[-1], x2.shape[-2]
+    out = torch.empty((*x1.shape[:-2], n1, n2), dtype=torch.float32, device=x1.device)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
-        err = _lib.gibbs_gram(x1.data_ptr(), ell1.data_ptr(), n1, x2.data_ptr(), ell2.data_ptr(), n2, d,
+        err = _lib.gibbs_gram(x1.data_ptr(), ell1.data_ptr(), n1, x2.data_ptr(), ell2.data_ptr(), n2, d, nt,
                               out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"gibbs_gram kernel launch failed: CUDA error {err}")

@@ -19,7 +19,7 @@ class ExperimentConfig:
     checkpoint fields are not here yet)."""
 
     model: str = "DiagonalGibbs"
-    inference: str = "exact"  # 'exact' ('sparse' is not ported yet)
+    inference: str = "exact"  # 'exact' or 'sparse' (spatial_gibbs)
     train_percent: float = 80.0
     lr: float = 1e-2
     max_iters: int = 1000

@@ -1,10 +1,13 @@
-"""Evaluation metrics: RMSE (both reference conventions) and joint NLPD.
+"""Evaluation metrics: RMSE (both reference conventions), joint and marginal
+NLPD.
 
 Counterpart of ``nonstationary_precip_tpu/train/metrics.py``; reductions run
 over the last axis, so a leading split axis passes through.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,3 +27,10 @@ def nlpd_joint(pred_dist, y_test, y_std) -> torch.Tensor:
     lpd = pred_dist.log_prob(y_test)
     log_std = torch.log(torch.as_tensor(y_std, dtype=lpd.dtype, device=lpd.device))
     return -(lpd / y_test.shape[-1] - log_std)
+
+
+def nlpd_marginal(y_test, pred_mean, pred_var) -> torch.Tensor:
+    """Mean per-point Gaussian negative log density (the reference's
+    ``negative_log_predictive_density``)."""
+    lpd = -0.5 * ((y_test - pred_mean) ** 2 / pred_var + torch.log(2 * math.pi * pred_var))
+    return -torch.mean(lpd, dim=-1)

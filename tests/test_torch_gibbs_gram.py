@@ -66,7 +66,10 @@ def test_k9_backward_matches_jax_bwd_in_float64():
 
 def _jax_gate(x1, x2):
     """pallas_gram.py:41-66 as written, the environment switch on and the
-    backend a TPU."""
+    backend a TPU.  A stack with one leading shape is what JAX's vmap hands
+    the gate a member at a time: each member decides."""
+    if x1.ndim > 2 and x1.shape[:-2] == x2.shape[:-2]:
+        return _jax_gate(x1.reshape(-1, *x1.shape[-2:])[0], x2.reshape(-1, *x2.shape[-2:])[0])
     if x1.dtype != np.float32 or x2.dtype != np.float32:
         return False
     if x1.ndim != 2 or x2.ndim != 2:
@@ -85,7 +88,9 @@ def on_card(shape, dtype):
 @pytest.mark.parametrize("s1,s2,dtype", [
     ((128, 2), (128, 2), np.float32), ((127, 2), (129, 2), np.float32), ((1, 2), (16384, 2), np.float32),
     ((1, 2), (16383, 2), np.float32), ((200, 8), (200, 8), np.float32), ((200, 9), (200, 9), np.float32),
-    ((3, 200, 2), (3, 200, 2), np.float32), ((200, 2), (200, 2), np.float64)])
+    ((3, 200, 2), (3, 200, 2), np.float32), ((10, 316, 2), (10, 250, 2), np.float32),
+    ((10, 79, 2), (10, 79, 2), np.float32), ((2, 5, 200, 2), (2, 5, 200, 2), np.float32),
+    ((3, 200, 9), (3, 200, 9), np.float32), ((200, 2), (200, 2), np.float64)])
 def test_gate_is_jaxs(s1, s2, dtype):
     a1, a2 = np.zeros(s1, dtype), np.zeros(s2, dtype)
     tdt = torch.float32 if dtype == np.float32 else torch.float64
@@ -146,3 +151,65 @@ def test_matrix_free_paths_never_reach_k9_regression(monkeypatch):
     assert torch.isfinite(gibbs_largen.loss_dense(params, x, y))
     with pytest.raises(AssertionError, match="K9 reached"):
         gibbs.gibbs_gram(x, ell, x, ell)  # the dispatcher itself does reach it
+
+
+def test_stacked_pairs_reach_k9_as_jax_vmap_does_regression(monkeypatch):
+    """F-P5: the JAX package builds every split-stacked Gibbs Gram under
+    ``jax.vmap`` (the slice step's ``gibbs_map_loss_batched``, its
+    evaluation, ``GibbsSparseGP._roots``), where each member passes K9's 2-D
+    gate and Pallas runs the split axis as one more grid axis.  The port's
+    gate took 2-D pairs only, so on the card each of those Grams ran the
+    plain Gram.  With the device test patched open on the CPU: the slice's
+    stacked noisy Gram and the sparse model's two stacked Grams reach the
+    K9 entry as stacks, a stack whose member fails the 2-D gate (79 × 79)
+    or whose sides differ in leading shape does not, and the stacked plain
+    Gram equals the per-member 2-D Grams bit for bit."""
+    from nonstationary_precip_tpu_torch.models.gibbs_gp import GibbsExactGP, GibbsSparseGP, noisy_gibbs_gram
+    from nonstationary_precip_tpu_torch.priors.lognormal_process import LogNormalProcess
+    from nonstationary_precip_tpu_torch.train.vmapped import stack_modules
+
+    calls = []
+
+    def k9_entry(x1, ell1, x2, ell2):
+        calls.append((tuple(x1.shape), tuple(x2.shape)))
+        return gibbs.gibbs_gram_reference(x1, ell1, x2, ell2)
+
+    real_eligible = k9.eligible
+    monkeypatch.setattr(k9, "eligible", lambda a, b: real_eligible(on_card(a.shape, a.dtype), on_card(b.shape, b.dtype)))
+    monkeypatch.setattr(k9, "gibbs_gram_pallas", k9_entry)
+    rng = np.random.default_rng(316)
+    prior = LogNormalProcess.create(input_dim=2, mean=np.log(0.3), outputscale=1.0, lengthscale=1.3)
+    xs = [torch.tensor(rng.normal(size=(316, 2)), dtype=torch.float32) for _ in range(3)]
+    exact = stack_modules([GibbsExactGP.create(x, prior, noise=0.011, outputscale=0.644) for x in xs])
+    with torch.no_grad():
+        noisy_gibbs_gram(exact, torch.stack(xs))
+    assert calls == [((3, 316, 2), (3, 316, 2))]
+
+    calls.clear()
+    sparse = stack_modules([GibbsSparseGP.create(x[:250], prior, noise=0.011, outputscale=0.644) for x in xs])
+    with torch.no_grad():
+        sparse._roots(torch.stack(xs))
+    assert calls == [((3, 316, 2), (3, 250, 2)), ((3, 250, 2), (3, 250, 2))]
+
+    calls.clear()
+    x79, e79 = torch.stack([x[:79] for x in xs]), torch.ones(3, 79, 2)
+    out = gibbs.gibbs_gram(x79, e79, x79, e79)  # 79² < 128² a member: plain, as in JAX
+    out_mixed = gibbs.gibbs_gram(torch.stack(xs), torch.ones(3, 316, 2), xs[0], torch.ones(316, 2))
+    assert calls == [] and out.shape == (3, 79, 79) and out_mixed.shape == (3, 316, 316)
+
+    x1, e1, x2, e2 = (torch.tensor(rng.normal(size=(4, n, 2)) * s + c, dtype=torch.float32)
+                      for n, s, c in ((200, 1.0, 0.0), (200, 0.3, 1.0), (150, 1.0, 0.0), (150, 0.3, 1.0)))
+    e1, e2 = e1.abs(), e2.abs()
+    stacked = gibbs.gibbs_gram_reference(x1, e1, x2, e2)
+    for t in range(4):
+        assert torch.equal(stacked[t], gibbs.gibbs_gram_reference(x1[t], e1[t], x2[t], e2[t]))
+
+
+def test_stacked_wrapper_refuses_what_the_entry_does_not_take():
+    """The wrapper's shape checks on stacks (it raises before any launch)."""
+    assert k9.members(torch.empty(2, 5, 7, 3)) == 10 and k9.members(torch.empty(7, 3)) == 1
+    x = torch.zeros(2, 130, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k9.gibbs_gram_cuda(x, x, x, x)
+    assert not k9.eligible(on_card((70000, 130, 2), torch.float32), on_card((70000, 130, 2), torch.float32))
+    assert k9.eligible(on_card((65535, 130, 2), torch.float32), on_card((65535, 130, 2), torch.float32))

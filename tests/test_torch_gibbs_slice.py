@@ -314,8 +314,10 @@ def test_spatial_gibbs_main_writes_only_to_results_dir(tmp_path, monkeypatch):
 
 
 def test_spatial_gibbs_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        spatial_gibbs.main(["--inference", "sparse", "--device", "cpu"])
+    """Both of the JAX experiment's inference modes are ported; any other
+    is refused before a model is built."""
+    with pytest.raises(ValueError, match="exact or sparse"):
+        spatial_gibbs.main(["--inference", "variational", "--max_iters", "1", "--num_splits", "1", "--device", "cpu"])
 
 
 def test_device_helper_raises_without_cuda():

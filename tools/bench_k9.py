@@ -93,7 +93,9 @@ def build(name: str, source: Path, include: Path) -> tuple:
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     if hasattr(lib, "gibbs_gram"):
-        lib.gibbs_gram.argtypes = [p, p, i, p, p, i, i, p, p]
+        # the stacked entry takes a member count after d; an older source does not
+        lib.stacked = "int nt," in source.read_text()
+        lib.gibbs_gram.argtypes = [p, p, i, p, p, i, i] + [i] * lib.stacked + [p, p]
         lib.gibbs_gram.restype = i
     else:
         lib.gibbs_matvec.argtypes = [p, p, i, p, p, i, i, p, i, i, p, i, p, i, i, p]
@@ -110,8 +112,8 @@ def gram_call(lib, x1, l1, x2, l2):
     out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
-        err = lib.gibbs_gram(x1.data_ptr(), l1.data_ptr(), n1, x2.data_ptr(), l2.data_ptr(), n2, d, out.data_ptr(),
-                             stream)
+        err = lib.gibbs_gram(x1.data_ptr(), l1.data_ptr(), n1, x2.data_ptr(), l2.data_ptr(), n2, d,
+                             *([1] if lib.stacked else []), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"gibbs_gram launch failed: CUDA error {err}")
     return out

@@ -11,8 +11,21 @@ untraced step that this leaves, K1's time per step and share of the device
 time, and the traced window's wall time per step (the profiler's own cost
 included).  The Chrome trace goes to ``chiprun_out/profile_torch_slice.json``.
 
+``--inference sparse`` takes the sparse Gibbs slice instead (GibbsSparseGP,
+M = 250 k-means inducing inputs, z and the field training; its step is the
+stacked ``loss``, with K9 twice).  ``--gates`` also times the untraced step
+with K9's gate as shipped (stacks admitted, one launch a stack) and cut to
+2-D pairs (each stacked Gram the plain Gram, as before F-P5), in turns
+2-D, stacks, stacks, 2-D, each over ``--steps`` steps after the warm-up.
+``--segment N`` times the warm-up in blocks of N steps (CUDA events) and
+counts, for each block and for the traced window, ``safe_cholesky``'s
+calls, its factorisations (the first try and every jitter retry) and the
+members that ended with jitter; ``--warmup 1500 --segment 250`` profiles
+steps 1500 onwards of a run.
+
 Run from the repository root on a CUDA card:
-    python tools/profile_torch_slice.py [--steps 50]
+    python tools/profile_torch_slice.py [--steps 50] [--warmup 20] [--inference exact|sparse] [--gates]
+        [--segment N]
 """
 
 import argparse
@@ -30,20 +43,56 @@ sys.path.insert(0, str(ROOT))
 from nonstationary_precip_tpu_torch.data.datasets import load_uib_spatial  # noqa: E402
 from nonstationary_precip_tpu_torch.experiments.spatial_gibbs import build_prior, make_split  # noqa: E402
 from nonstationary_precip_tpu_torch.models.gibbs_gp import gibbs_map_loss_batched  # noqa: E402
-from nonstationary_precip_tpu_torch.ops import chol_inv  # noqa: E402
+from nonstationary_precip_tpu_torch.ops import chol_inv, gibbs_gram, linalg  # noqa: E402
 from nonstationary_precip_tpu_torch.train.config import ExperimentConfig  # noqa: E402
 from nonstationary_precip_tpu_torch.train.vmapped import stack_modules  # noqa: E402
 from nonstationary_precip_tpu_torch.utils.config import device  # noqa: E402
+
+
+class Tries:
+    """Counts ``safe_cholesky``'s calls, factorisations and jittered members
+    (``linalg.escalating_jitter`` wrapped; the jitter vectors are read only
+    in ``per_step``, so counting adds no sync to a step)."""
+
+    def __init__(self):
+        orig = linalg.escalating_jitter
+
+        def wrapped(mat, factor, jitter, max_tries):
+            def counted(mats):
+                self.factorisations += 1
+                return factor(mats)
+
+            self.calls += 1
+            out, j = orig(mat, counted, jitter, max_tries)
+            self.jitter.append(j.detach())
+            return out, j
+
+        linalg.escalating_jitter = wrapped
+        self.reset()
+
+    def reset(self):
+        self.calls, self.factorisations, self.jitter = 0, 0, []
+
+    def per_step(self, steps: int) -> dict:
+        jittered = sum(int((j > 0).sum()) for j in self.jitter)
+        return {"safe_cholesky_calls_a_step": self.calls / steps,
+                "retries_a_step": (self.factorisations - self.calls) / steps,
+                "jittered_members_a_step": jittered / steps}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--inference", choices=("exact", "sparse"), default="exact")
+    ap.add_argument("--gates", action="store_true", help="time the step with K9's gate for stacks and for 2-D pairs")
+    ap.add_argument("--segment", type=int, default=0, help="time the warm-up in blocks of this many steps")
     args = ap.parse_args()
+    tries = Tries()
     dev = device("cuda")
-    cfg = ExperimentConfig(device="cuda")
+    cfg = ExperimentConfig(device="cuda", inference=args.inference)
     chol_inv.build()
+    gibbs_gram.build()
     _, x, y = load_uib_spatial()
     x_norm = (x - x.mean(0)) / x.std(0, ddof=1)
     y_norm = (y - y.mean()) / y.std(ddof=1)
@@ -51,25 +100,63 @@ def main():
     model = stack_modules([s[0] for s in splits])
     xs = torch.stack([s[1][0] for s in splits])
     ys = torch.stack([s[1][1] for s in splits])
-    pre = build_prior(cfg, torch.float32, dev).gram_pre(xs)
     opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=cfg.lr)
+    if args.inference == "sparse":
+        def loss():
+            return model.loss(xs, ys)
+    else:
+        pre = build_prior(cfg, torch.float32, dev).gram_pre(xs)
+
+        def loss():
+            return gibbs_map_loss_batched(model, xs, ys, pre)
 
     def step():
         opt.zero_grad(set_to_none=True)
-        gibbs_map_loss_batched(model, xs, ys, pre).sum().backward()
+        loss().sum().backward()
         opt.step()
 
-    for _ in range(args.warmup):
-        step()
+    def timed_ms():
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.steps):
+            step()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / args.steps
+
+    segments = []
+    if args.segment:
+        for first in range(0, args.warmup, args.segment):
+            n = min(args.segment, args.warmup - first)
+            tries.reset()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                step()
+            stop.record()
+            stop.synchronize()
+            segments.append({"first_step": first, "steps": n, "ms_a_step": start.elapsed_time(stop) / n,
+                             **tries.per_step(n)})
+    else:
+        for _ in range(args.warmup):
+            step()
     torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(args.steps):
-        step()
-    stop.record()
-    stop.synchronize()
-    step_ms = start.elapsed_time(stop) / args.steps
+    gates = {}
+    if args.gates:
+        shipped = gibbs_gram.eligible
+
+        def two_d(x1, x2):
+            return x1.ndim == 2 and shipped(x1, x2)
+
+        for name in ("2d", "stacks", "stacks", "2d"):
+            gibbs_gram.eligible = two_d if name == "2d" else shipped
+            for _ in range(args.warmup):
+                step()
+            gates.setdefault(name, []).append(timed_ms())
+        gibbs_gram.eligible = shipped
+    step_ms = timed_ms()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    tries.reset()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -105,6 +192,12 @@ def main():
         "k1_share_of_device_time": k1_us / busy_us,
         "traced_wall_ms_per_step": 1e3 * wall / args.steps,
         "kernels_per_step": sum(e.count for e in kernels) / args.steps,
+        "inference": args.inference,
+        "k9_ms_per_step": sum(e.self_device_time_total for e in kernels if "gibbs_gram_kernel" in e.key) / 1e3
+        / args.steps,
+        "step_ms_by_k9_gate": gates,
+        "safe_cholesky_in_traced_window": tries.per_step(args.steps),
+        "warmup_segments": segments,
     }))
 
 
