@@ -18,7 +18,9 @@ MAP flow with its prior of ``examples.quickstart_gibbs_largen`` at N = 16384
 spatial_gibbs --inference sparse`` (K9 on split-stacked Grams),
 ``experiments.spatio_temporal`` and ``spatiotemporal_stationary`` (K9 in
 the nonstationary model), ``experiments.sgpr_bench`` (K10a in its
-predictive's NLPD) and ``experiments.spatiotemporal_dgp`` (K4).  K10b and
+predictive's NLPD) and ``experiments.spatiotemporal_dgp`` (K4), and the
+serving CLI, ``serve``, over its eight model families (K9, K4, K7, and K2
+and K3 on its matrix-free path).  K10b and
 K10c, which no path runs, are driven through their
 own entries, ``ops.chol_inv.chol_inv_batched`` and
 ``ops.chol_stream.streaming_cholesky_v1``.  Each path is driven with
@@ -238,8 +240,26 @@ one JSON line each:
 36. sgpr        — sgpr_bench at 100 and 1000 iterations in their bands, K10a
                   only in the predictive's NLPD;
 37. st_dgp      — spatiotemporal_dgp (200 steps, D = 3): its band, K4 once a
-                  step and once in predict, K7 never.
-Each of the last five phases prints its seconds.
+                  step and once in predict, K7 never;
+38. serve_ref   — the serving CLI (``serve.run``) for each of its eight
+                  families and the matrix-free path at N = 256 and 2048 from
+                  the init and draws of the JAX serves pinned in
+                  tests/fixtures/jax_serve_ref.npz, at their tiny budgets:
+                  the step-0 and last losses against JAX's, the step-0 loss in
+                  float64 against JAX's float64, the served mean and σ at
+                  JAX's fitted pose (its leaves as a port checkpoint, served
+                  with --checkpoint) within twice JAX's own float32 distance
+                  from its float64 serve, the matrix-free solves' relres, and
+                  every run's launches against what the code implies
+                  (``serve_launches``);
+39. serve       — ``python -m nonstationary_precip_tpu_torch serve`` for every
+                  family at the bundled data's full size and the CLI's default
+                  budget with --save_checkpoint, then the CLI's entry from the
+                  checkpoint: launches against ``serve_launches``, finite CSVs
+                  of (N, d + 2), the restored predictions and CSV bit for bit
+                  the fitted run's, fit seconds and steps/s (CUDA events),
+                  serve seconds, back-offs and the hindcast RMSE.
+Each of the last seven phases prints its seconds.
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line (K1's,
@@ -555,6 +575,56 @@ GIBBS_MF_PRIOR_GRAD = {"cosine": 0.99999, "rel": 1e-5}
 GIBBS_MF_DATA_GRAD = {"cosine": 0.9999, "rel": 5e-3}
 # The walk's instantiations at the paths' shapes (csrc/gibbs_matvec.cu): K2
 # and K6 at D 2, R 9; K3 at D 2 and 1 + 2R = 17 factors.
+# The serving CLI.  serve_ref: every family from the pinned JAX
+# serve's init and draws (tests/fixtures/jax_serve_ref.npz, made by
+# tools/pin_jax_serve.py), as tests/test_torch_serve.py holds it on the CPU:
+# the step-0 loss against JAX's float32 one at RTOL_STEP0 (the matrix-free
+# cases SERVE_MF_RTOL0: their loss is an SLQ estimate whose prior logdet the
+# port takes in float64, JAX in float32, F5/F6; the sparse MV model
+# SERVE_MVS_RTOL0: cond(U) ~ 1e7 of its prior lifts float32 rounding to
+# 5e-3 in the port's CPU run, 9e-4 in JAX's, so it is held in float64
+# instead), the step-0 loss in float64 on the card against JAX's float64 at
+# SERVE_F64_RTOL, the last loss at RTOL_STEP50, and the served marginals at
+# JAX's fitted pose (its leaves as a port checkpoint, served with
+# --checkpoint): from JAX's float64 serve within twice JAX's own float32
+# distance from it plus SERVE_F64_FLOOR of the largest value; the deep GP (no
+# float64 pin) within SERVE_DGP_RTOL of JAX's float32 serve.  JAX's distance
+# is one sample of float32 rounding amplified by the pose's conditioning.
+# For the ST nonstationary model (SERVE_REORDERED) that one sample is too
+# small to bound another: its Nyström roots factor K_zz of cond 5.4e6
+# (spatial) and of numerical rank 10 of 50 (temporal), so the float32
+# serve moves with the rounding order.  On an H100 its σ reads 0.00136
+# from JAX's float64 serve against twice JAX's gap, 0.00114; with its
+# training rows and inducing points in 16 other orders (the same function
+# in exact arithmetic), σ reads 0.00026 to 0.00188 on a CPU and 0.00012 to
+# 0.00184 on the H100 (tools/probe_serve_f32.py, which also reads models
+# 1 % off in one leaf).  So there the sample is widened by the card's own: the port's
+# float32 ``_predict`` in SERVE_REORDERS seeded orders against its float64
+# ``_predict``, on the card, and the allowance is twice the larger of JAX's
+# distance and that spread's largest, plus SERVE_F64_FLOOR of the largest
+# value.  The same pose is served in float64 on the card and held to JAX's
+# float64 serve at SERVE_POSE_F64 (the sparse MV model SERVE_POSE_F64_MVS:
+# cond(U) ~ 1e7 lifts float64 rounding to ~1e-6 in either package).
+SERVE_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_serve_ref.npz"
+SERVE_MF_RTOL0, SERVE_MVS_RTOL0, SERVE_F64_RTOL, SERVE_F64_FLOOR, SERVE_DGP_RTOL = 1e-3, 1e-2, 1e-8, 1e-5, 1e-4
+SERVE_POSE_F64, SERVE_POSE_F64_MVS = 1e-8, 1e-5
+# the leaves that follow the inducing points' order, by family
+SERVE_REORDERED, SERVE_REORDERS, SERVE_REORDER_SEED = {"st_nonstationary": ("z", "log_ell_z")}, 16, 17
+SERVE_RELRES = 1e-2  # the matrix-free variance solves' gate (serve.RELRES_GATE)
+# serve: every family through the CLI at the bundled data's full size and the
+# CLI's default budget (1000 Adam steps; the deep GP 400 epochs).
+# The sparse MV model diverges at the CLI's defaults (M = 250, lr 0.002) in
+# both packages: JAX's own serve on the CPU backs off to lr 0.001
+# twice and stops at a non-finite loss, the port's the same on the CPU and
+# the card, and the CLI refuses to serve.  ``serve`` checks that refusal at
+# the defaults, then serves the family at lr 0.0002, where the port's CPU
+# run trains (loss −1.447 → −5.280 over 1000 steps; M = 30, JAX's test
+# setting, still diverges on the card at lr 0.002).
+SERVE_DIVERGES = {"mv_gibbs_sparse": ("--lr", "0.0002")}
+SERVE_SPATIAL = (str(Path(__file__).resolve().parent / "data" / "uib_spatial.csv"),)
+SERVE_ST = (str(Path(__file__).resolve().parent / "data" / "uib_spatio_temporal.csv"), "--x_cols", "1,2,3",
+            "--y_col", "4")
+
 WALK = {"K2": "gibbs_rows_kernel<GibbsElem,2,9>", "K6": "gibbs_rows_kernel<RbfElem,2,9>",
         "K3": "gibbs_rows_kernel<PanelElem,2,17>"}
 # The card's peaks (H100 SXM data sheet, at the full 700 W): f32 outside the
@@ -2946,6 +3016,238 @@ def phase_sparse_ref(spatial_gibbs, spatio_temporal, sgpr_bench, dev):
     return out
 
 
+def serve_launches(serve, cfg, n: int, n_pts: int, executed: int) -> dict:
+    """Each kernel's launches in one serve, from the code: ``executed`` Adam
+    steps (retried chunks included) on n training rows, then the predictive
+    at n_pts query points in fixed chunks of 4096 (1024 matrix-free), the
+    tail padded.  K9 takes a Gibbs Gram wherever N₁·N₂ ≥ 128² (its gate at
+    D = 2, float32): the exact Gibbs step's noisy Gram (K8's 768..1280 window
+    is not entered), its predictive's K_xx, K_ss and K_sx; the
+    sparse Gibbs step's K_xz and K_zz and its predictive's two roots; the ST
+    model's spatial K_xz and K_zz a step and four roots a chunk.  The deep GP:
+    K4 once a step and once in predict, K7 once forward and once backward a
+    step.  Matrix-free: K2 once an mBCG iteration for each 128 right-hand
+    sides (16 iterations of 1 + 8 a step's loss, 32 of 1 for the state's α,
+    16 of a chunk's columns a chunk), K3 once a step.  The rest:
+    no kernel; N is checked outside K5's, K8's, K10a's and K11's windows."""
+    def k9(n1, n2):
+        return int(n1 * n2 >= 128 * 128)
+
+    check(not (768 <= n <= 1280 or 6144 <= n <= 8192),
+          f"serve_launches derives the counts outside K8's, K10a's, K11's and K5's N windows, got {n}")
+    if cfg.matrixfree:  # K2 takes 128 right-hand sides a launch (ops/matvec.MAX_R)
+        c, chunks, iters = min(n_pts, 1024), -(-n_pts // 1024), 16 if n <= 32768 else 32
+        return {"gibbs_matvec": iters * (executed * -(-(1 + serve.NUM_PROBES) // 128) + 2 + chunks * -(-c // 128)),
+                "gibbs_panel_grads": executed}
+    c, chunks = min(n_pts, 4096), -(-n_pts // 4096)
+    m = cfg.num_inducing
+    roots = k9(n, m) + k9(m, m) + k9(c, m) + k9(m, m)
+    return {"gibbs_exact": {"gibbs_gram": executed * k9(n, n) + chunks * (k9(n, n) + k9(c, c) + k9(c, n))},
+            "gibbs_sparse": {"gibbs_gram": executed * (k9(n, m) + k9(m, m)) + chunks * roots},
+            "st_nonstationary": {"gibbs_gram": executed * (k9(n, m) + k9(m, m)) + chunks * 2 * roots},
+            "deepgp": {"svgp_precompute": executed + 1, "elbo_data_term_fwd": executed,
+                       "elbo_data_term_bwd": executed}}.get(cfg.model, {})
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _served(serve, interop, cfg, params: dict, data, x, y, dev, dtype) -> tuple:
+    """The serve's ``_predict`` at ``params`` (a JAX model's leaves) on the
+    training rows (x, y) in ``dtype``, hindcast at x, in raw units."""
+    x, y = x.to(dtype), y.to(dtype)
+    _, _, extra = serve._build(cfg.model, x, y, cfg, {})
+    model = interop.serve_model_from_jax(cfg.model, params, x.shape[1], dev, dtype, num_layers=cfg.num_layers)
+    mean, var = serve._predict(cfg.model, model, x, y, x, cfg, extra=extra)
+    return mean.double().cpu().numpy() * data.stdy + data.meany, np.sqrt(var.double().cpu().numpy()) * data.stdy
+
+
+def _pose_f64(serve, interop, ref, case: str, cfg, fitted: dict, dev) -> float:
+    """The serve's ``_predict`` in float64 on ``dev`` at JAX's fitted pose,
+    in raw units, against JAX's float64 serve of it: the larger of the mean's
+    and σ's largest error over their largest value."""
+    data = serve.training_data(cfg, dev, torch.float64)
+    got = dict(zip(("mean", "std"), _served(serve, interop, cfg, fitted, data, data.x, data.y, dev, torch.float64)))
+    return max(float(np.max(np.abs(got[w] - ref[f"{case}.{w}_f64"])) / np.max(np.abs(ref[f"{case}.{w}_f64"])))
+               for w in ("mean", "std"))
+
+
+def _reorder_spread(serve, interop, cfg, fitted: dict, leaves: tuple, dev) -> dict:
+    """The float32 serve's rounding at ``fitted``, sampled on the card: the
+    port's float32 ``_predict`` with the training rows and the inducing
+    points (``leaves``) in SERVE_REORDERS seeded orders, each against its
+    float64 ``_predict`` in the given order, in raw units.  The largest
+    error of the mean and of σ over the orders."""
+    data = serve.training_data(cfg, dev, torch.float64)
+    want = _served(serve, interop, cfg, fitted, data, data.x, data.y, dev, torch.float64)
+    rng = np.random.default_rng(SERVE_REORDER_SEED)
+    worst = {"mean": 0.0, "std": 0.0}
+    for _ in range(SERVE_REORDERS):
+        px, pz = rng.permutation(len(data.y)), rng.permutation(len(fitted[leaves[0]]))
+        params = {k: v[pz] if k in leaves else v for k, v in fitted.items()}
+        rows = torch.as_tensor(px, device=dev)
+        got = _served(serve, interop, cfg, params, data, data.x[rows], data.y[rows], dev, torch.float32)
+        inv = np.argsort(px)
+        for what, g, w in zip(("mean", "std"), got, want):
+            worst[what] = max(worst[what], float(np.max(np.abs(g[inv] - w))))
+    return worst
+
+
+def phase_serve_ref(serve, dev):
+    """Every family, and the matrix-free path at N = 256 and 2048 (the data
+    of tools/pin_jax_gibbs_mf.py), served on the card from the pinned JAX
+    serve's init and draws at its tiny budget (SERVE_REF): the step-0 loss
+    against JAX's, the last loss, the float64 step-0 loss, the served
+    marginals at JAX's fitted pose through a port checkpoint, and each
+    run's launches against ``serve_launches``; the matrix-free cases also
+    their α and variance-solve relres."""
+    from nonstationary_precip_tpu_torch import interop
+    from nonstationary_precip_tpu_torch.train.checkpoint import save_pytree
+
+    ref = np.load(SERVE_REF)
+    rows, totals = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for case in (str(c) for c in ref["cases"]):
+            argv, init, fitted, draws = interop.serve_case_from_jax(ref, case, tmp)
+            argv += ["--device", "cuda"]
+            cfg = serve.config([*argv, "--output", os.path.join(tmp, f"{case}.out.csv")])
+            reset_launches()
+            out = serve.run(cfg, init=init, draws=draws)
+            n = out["n_train"]
+            got = check_launches(serve_launches(serve, cfg, n, n, out["executed"]), f"serve_ref {case} fit")
+            loss0, jax_losses = float(ref[f"{case}.loss0"]), ref[f"{case}.losses"]
+            rel0 = abs(float(out["losses"][0]) - loss0) / abs(loss0)
+            rel_last = abs(float(out["losses"][-1]) - float(jax_losses[-1])) / abs(float(jax_losses[-1]))
+            tol0 = SERVE_MF_RTOL0 if cfg.matrixfree else SERVE_MVS_RTOL0 if case == "mv_gibbs_sparse" else RTOL_STEP0
+            check(out["steps"] == len(jax_losses) and bool(np.isfinite(out["losses"]).all()),
+                  f"serve_ref {case}: {out['steps']} finite steps")
+            check(rel0 <= tol0, f"serve_ref {case}: step-0 loss vs JAX {rel0:.3g} <= {tol0}")
+            if case != "mv_gibbs_sparse":
+                check(rel_last <= RTOL_STEP50, f"serve_ref {case}: last loss vs JAX {rel_last:.3g} <= {RTOL_STEP50}")
+            row = {"steps": out["steps"], "step0_rel_err": rel0, "last_rel_err": rel_last, "launches": _nonzero(got),
+                   "end_to_end_mean_rel": float(np.max(np.abs(out["mean"] - ref[f"{case}.mean"]))
+                                                / np.max(np.abs(ref[f"{case}.mean"])))}
+            if f"{case}.loss0_f64" in ref.files:
+                data64 = serve.training_data(cfg, dev, torch.float64)
+                x64, y64 = data64.x, data64.y
+                _, loss_fn, extra = serve._build(cfg.model, x64, y64, cfg, {})
+                m64 = interop.serve_model_from_jax(cfg.model, init, x64.shape[1], dev, torch.float64,
+                                                   num_layers=cfg.num_layers)
+                want = float(ref[f"{case}.loss0_f64"])
+                row["step0_f64_rel_err"] = abs(float(loss_fn(m64, x64, y64, *extra).detach()) - want) / abs(want)
+                check(row["step0_f64_rel_err"] <= SERVE_F64_RTOL,
+                      f"serve_ref {case}: float64 step-0 loss vs JAX {row['step0_f64_rel_err']:.3g} <= "
+                      f"{SERVE_F64_RTOL}")
+            # JAX's fitted pose, as a port checkpoint, served with --checkpoint
+            ckpt = os.path.join(tmp, f"{case}.pt")
+            save_pytree(ckpt, interop.serve_model_from_jax(cfg.model, fitted, 3 if str(ref[f"{case}.data"]) == "st"
+                                                           else 2, dev, num_layers=cfg.num_layers))
+            reset_launches()
+            pose = serve.run(serve.config([*argv, "--output", "/dev/null", "--checkpoint", ckpt]), draws=draws)
+            pose_launches = check_launches(serve_launches(serve, cfg, n, n, 0), f"serve_ref {case} pose")
+            row["pose_launches"] = _nonzero(pose_launches)
+            spread = {}
+            if case in SERVE_REORDERED:
+                spread = _reorder_spread(serve, interop, cfg, fitted, SERVE_REORDERED[case], dev)
+                row["reorder_max_err"] = spread
+            for what in ("mean", "std"):
+                want32 = ref[f"{case}.{what}"]
+                if f"{case}.{what}_f64" in ref.files:
+                    want = ref[f"{case}.{what}_f64"]
+                    err, scale = float(np.max(np.abs(pose[what] - want))), float(np.max(np.abs(want)))
+                    gap = max(float(np.max(np.abs(want32 - want))), spread.get(what, 0.0))
+                    allowed = 2 * gap + SERVE_F64_FLOOR * scale
+                else:
+                    err = float(np.max(np.abs(pose[what] - want32)))
+                    allowed = SERVE_DGP_RTOL * float(np.max(np.abs(want32)))
+                check(bool(np.isfinite(pose[what]).all()) and err <= allowed,
+                      f"serve_ref {case}: served {what} at JAX's fitted pose {err:.3g} <= {allowed:.3g}")
+                row[f"pose_{what}_err"], row[f"pose_{what}_allowed"] = err, allowed
+            if f"{case}.mean_f64" in ref.files and not cfg.matrixfree:  # K2 takes float32 only: no float64 there
+                row["pose_f64_rel_err"] = _pose_f64(serve, interop, ref, case, cfg, fitted, dev)
+                tol = SERVE_POSE_F64_MVS if case == "mv_gibbs_sparse" else SERVE_POSE_F64
+                check(row["pose_f64_rel_err"] <= tol,
+                      f"serve_ref {case}: float64 serve at JAX's fitted pose {row['pose_f64_rel_err']:.3g} <= {tol}")
+            if cfg.matrixfree:
+                row.update(alpha_relres=out["alpha_relres"], worst_relres=out["worst_relres"],
+                           jax_alpha_relres=float(ref[f"{case}.alpha_relres"]),
+                           jax_worst_relres=float(ref[f"{case}.worst_relres"]))
+                check(max(out["worst_relres"], pose["worst_relres"]) <= SERVE_RELRES,
+                      f"serve_ref {case}: variance solves' relres {out['worst_relres']:.3g}, "
+                      f"{pose['worst_relres']:.3g} <= {SERVE_RELRES}")
+            for k, v in list(got.items()) + list(pose_launches.items()):
+                totals[k] = totals.get(k, 0) + v
+            rows[case] = row
+    emit("serve_ref", rows=rows, launches=_nonzero(totals))
+    return totals
+
+
+def phase_serve(serve, cli, dev_name: str):
+    """``python -m nonstationary_precip_tpu_torch serve`` for every family at
+    the bundled data's full size (uib_spatial.csv, 394 sites; the two
+    spatio-temporal families on uib_spatio_temporal.csv, 5676 rows) and the
+    CLI's default budget, with --save_checkpoint: each run's launches
+    against ``serve_launches``, a finite CSV of (N, d + 2), the fit's
+    seconds and steps/s (CUDA events), the serve seconds, the back-offs and
+    the hindcast RMSE at the training sites; then the CLI's entry
+    (``__main__.main(["serve", ...])``) from --checkpoint: predict-only
+    launches and the same predictions and CSV, bit for bit.  A family of
+    SERVE_DIVERGES must refuse to serve at the defaults (no CSV, no
+    checkpoint) and is then served with its flags."""
+    rows, totals, cuts = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model in serve.MODELS:
+            data = SERVE_ST if model.startswith("st_") else SERVE_SPATIAL
+            base = ["--model", model, "--train_csv", *data, "--device", "cuda"]
+            out_csv, ckpt = os.path.join(tmp, f"{model}.csv"), os.path.join(tmp, "ckpt", model)
+            if model in SERVE_DIVERGES:
+                refused = None
+                try:
+                    serve.run(serve.config([*base, "--output", out_csv, "--save_checkpoint", ckpt]))
+                except SystemExit as e:
+                    refused = str(e)
+                check(refused is not None and "non-finite" in refused and not os.path.exists(ckpt)
+                      and not os.path.exists(out_csv),
+                      f"serve {model}: refuses to serve a diverged fit at the defaults, no checkpoint left")
+                base += list(SERVE_DIVERGES[model])
+                cuts[model] = {"flags": list(SERVE_DIVERGES[model]), "reason": "diverges at the defaults (lr 0.002) "
+                               "in both packages; refused there, as JAX's CLI refuses"}
+            cfg = serve.config([*base, "--output", out_csv, "--save_checkpoint", ckpt])
+            reset_launches()
+            t0 = time.perf_counter()
+            out = serve.run(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n, d = out["n_train"], 3 if model.startswith("st_") else 2
+            got = check_launches(serve_launches(serve, cfg, n, n, out["executed"]), f"serve {model}")
+            field = np.loadtxt(out_csv, delimiter=",", skiprows=1)
+            check(field.shape == (n, d + 2) and bool(np.isfinite(field).all()), f"serve {model}: CSV {field.shape}")
+            check(bool(np.isfinite(out["losses"]).all()), f"serve {model}: every loss finite")
+            check(os.path.isfile(ckpt), f"serve {model}: checkpoint saved")
+            restored_csv = os.path.join(tmp, f"{model}.restored.csv")
+            reset_launches()
+            t0 = time.perf_counter()
+            mean, std = cli.main(["serve", *base, "--output", restored_csv, "--checkpoint", ckpt])
+            torch.cuda.synchronize()
+            restore_wall = time.perf_counter() - t0
+            got2 = check_launches(serve_launches(serve, cfg, n, n, 0), f"serve {model} restored")
+            same = bool(np.array_equal(mean, out["mean"]) and np.array_equal(std, out["std"]))
+            check(same and open(restored_csv).read() == open(out_csv).read(),
+                  f"serve {model}: --checkpoint serves the fitted run's predictions bit for bit")
+            for k, v in list(got.items()) + list(got2.items()):
+                totals[k] = totals.get(k, 0) + v
+            rows[model] = {"n": n, "steps": out["steps"], "backoffs": out["backoffs"],
+                           "fit_seconds": out["fit_seconds"], "train_seconds": out["train_seconds"],
+                           "steps_per_s": out["steps_per_s"], "serve_seconds": out["serve_seconds"],
+                           "wall_seconds": wall, "restore_wall_seconds": restore_wall,
+                           "hindcast_rmse": out["hindcast_rmse"], "final_loss": float(out["losses"][-1]),
+                           "launches": _nonzero(got), "restore_launches": _nonzero(got2)}
+    emit("serve", rows=rows, launches=_nonzero(totals),
+         budget={"max_iters": cfg.max_iters, "num_epochs": cfg.num_epochs, "cuts": cuts}, device=dev_name)
+    return totals
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=300, help="Adam steps of the slice run")
@@ -2965,6 +3267,8 @@ def main(argv=None):
                                                             spatiotemporal_stationary, temporal)
     from nonstationary_precip_tpu_torch.ops import (chol_blocked, chol_inv, chol_stream, elbo_fused, gibbs_fused,
                                                     gibbs_gram, matvec, svgp_precompute, trsm)
+    from nonstationary_precip_tpu_torch import __main__ as cli
+    from nonstationary_precip_tpu_torch import serve
     from nonstationary_precip_tpu_torch.utils import config
 
     dev = config.device("cuda")
@@ -3021,12 +3325,18 @@ def main(argv=None):
                        ("spatio_temporal", lambda: phase_spatio_temporal(spatiotemporal_stationary, spatio_temporal,
                                                                          name)),
                        ("sgpr", lambda: phase_sgpr(sgpr_bench, chol_blocked, dev, name)),
-                       ("st_dgp", lambda: phase_st_dgp(spatiotemporal_dgp, svgp_precompute, dev, name))):
+                       ("st_dgp", lambda: phase_st_dgp(spatiotemporal_dgp, svgp_precompute, dev, name)),
+                       ("serve_ref", lambda: phase_serve_ref(serve, dev)),
+                       ("serve", lambda: phase_serve(serve, cli, name))):
         t0 = time.perf_counter()
         timed[phase] = run()
         emit("seconds", of=phase, seconds=time.perf_counter() - t0)
-    k9_launches = gibbs_launches["gibbs_gram"] + slice_k9 + timed["gibbs_sparse"] + timed["spatio_temporal"]
-    k4_launches = dgp_launches["svgp_precompute"] + timed["st_dgp"][0]
+    served = {k: timed["serve_ref"].get(k, 0) + timed["serve"].get(k, 0)
+              for k in ("gibbs_gram", "svgp_precompute", "elbo_data_term_fwd", "elbo_data_term_bwd", "gibbs_matvec",
+                        "gibbs_panel_grads")}
+    k9_launches = (gibbs_launches["gibbs_gram"] + slice_k9 + timed["gibbs_sparse"] + timed["spatio_temporal"]
+                   + served["gibbs_gram"])
+    k4_launches = dgp_launches["svgp_precompute"] + timed["st_dgp"][0] + served["svgp_precompute"]
     k4_errs.update(timed["st_dgp"][1])
     k10a_launches = gibbs_launches["blocked_cholesky"] + timed["sgpr"][0]
     k10a["max_abs_err"] = max(k10a["max_abs_err"], timed["sgpr"][1]["max_abs_err"])
@@ -3045,14 +3355,15 @@ def main(argv=None):
                                                    **k1_design}}},
         {"name": "gibbs_matvec", "route": "cuda", "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:240",
-         "launches": largen_launches["gibbs_matvec"] + mf_launches["gibbs_matvec"],
+         "launches": largen_launches["gibbs_matvec"] + mf_launches["gibbs_matvec"] + served["gibbs_matvec"],
          "max_abs_err": max(e["max_abs_err"] for e in k2_errs.values()), "ms": k2_t["ms"],
          "plain_ms": k2_t["plain_ms"], "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
          "resources": {WALK["K2"]: ptxas_resources(logs["gibbs_matvec"], WALK["K2"])}},
         {"name": "gibbs_panel_grads", "route": "cuda",
          "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:350",
-         "launches": largen_launches["gibbs_panel_grads"] + mf_launches["gibbs_panel_grads"],
+         "launches": (largen_launches["gibbs_panel_grads"] + mf_launches["gibbs_panel_grads"]
+                      + served["gibbs_panel_grads"]),
          "max_abs_err": max(e["max_abs_err"] for e in k3_errs.values()), "ms": k3_t["ms"],
          "plain_ms": k3_t["plain_ms"], "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
          "resources": {WALK["K3"]: ptxas_resources(logs["gibbs_matvec"], WALK["K3"])}},
@@ -3067,7 +3378,8 @@ def main(argv=None):
         *({"name": f"elbo_data_term_{d}", "route": "cuda",
            "source": "nonstationary_precip_tpu_torch/csrc/elbo_fused.cu",
            "replaces": f"nonstationary_precip_tpu/ops/pallas_elbo.py:{line}",
-           "launches": dgp_launches[f"elbo_data_term_{d}"], "max_abs_err": k7[d]["max_abs_err"], "ms": k7[d]["ms"],
+           "launches": dgp_launches[f"elbo_data_term_{d}"] + served[f"elbo_data_term_{d}"],
+           "max_abs_err": k7[d]["max_abs_err"], "ms": k7[d]["ms"],
            "plain_ms": k7[d]["plain_ms"], "bound_ms": k7[d]["bound"][0], "bound_by": k7[d]["bound"][1],
            "library_ms": None, "resources": {k: {**ptxas_resources(logs["elbo_fused"], k),
                                                  "smem_bytes": k7_smem.get(k, 0) + ptxas_smem(logs["elbo_fused"], k)}

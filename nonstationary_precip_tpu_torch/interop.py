@@ -8,16 +8,21 @@ functions here build the port's module from it.  Leaves may be single
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
+from nonstationary_precip_tpu_torch.kernels.base import Scale
+from nonstationary_precip_tpu_torch.kernels.stationary import RBF
 from nonstationary_precip_tpu_torch.models.deep_gp import DeepGP
 from nonstationary_precip_tpu_torch.models.exact_gp import ExactGP
 from nonstationary_precip_tpu_torch.models.gibbs_gp import GibbsExactGP, GibbsSparseGP
 from nonstationary_precip_tpu_torch.models.likelihoods import GaussianLikelihood
+from nonstationary_precip_tpu_torch.models.multivariate_gibbs_gp import MultivariateGibbsGP, SparseMultivariateGibbsGP
 from nonstationary_precip_tpu_torch.models.sgpr import SGPR
 from nonstationary_precip_tpu_torch.models.spatio_temporal import (
     SparseSpatioTemporalNonstationary,
@@ -27,6 +32,7 @@ from nonstationary_precip_tpu_torch.models.spatio_temporal import (
 )
 from nonstationary_precip_tpu_torch.models.svgp import SVGPLayer
 from nonstationary_precip_tpu_torch.priors.lognormal_process import LogNormalProcess
+from nonstationary_precip_tpu_torch.priors.matrix_normal import MatrixNormalPrior
 
 #: The leaves of a JAX ``GibbsExactGP``, by dotted path.
 GIBBS_EXACT_KEYS = (
@@ -212,3 +218,90 @@ def spatio_temporal_from_jax(params: Mapping[str, np.ndarray], device, dtype=tor
                                               make_temporal_kernel(dtype, device),
                                               scale_correction=scale_correction)
     return _load_leaves(model, params, device, dtype, "spatio_temporal_from_jax")
+
+
+#: The leaves of a JAX ``MultivariateGibbsGP`` and ``SparseMultivariateGibbsGP``,
+#: by dotted path (the matrix-normal prior's three children by name).
+MV_GIBBS_KEYS = ("likelihood.raw_noise", "h", "d_mat", "h_prior.loc", "h_prior.row_cov", "h_prior.col_cov",
+                 "x_anchor")
+MV_GIBBS_SPARSE_KEYS = ("likelihood.raw_noise", "z", "h_z", "d_mat", "h_prior.loc", "h_prior.row_cov",
+                        "h_prior.col_cov")
+
+
+def _mv_leaves(params: Mapping[str, np.ndarray], keys, device, dtype, who: str) -> dict:
+    missing = [k for k in keys if k not in params]
+    if missing:
+        raise KeyError(f"{who}: missing leaves {missing}")
+    return {k: torch.tensor(np.array(params[k]), dtype=dtype, device=device) for k in keys}
+
+
+def _mv_prior(t: dict) -> MatrixNormalPrior:
+    return MatrixNormalPrior(t["h_prior.loc"], t["h_prior.row_cov"], t["h_prior.col_cov"])
+
+
+def mv_gibbs_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float32, *,
+                      detach_h: bool = False) -> MultivariateGibbsGP:
+    """The port's ``MultivariateGibbsGP`` holding a JAX one's leaves
+    (``MV_GIBBS_KEYS``); ``detach_h`` is the JAX model's static field.
+    Default trainability (H, D and the noise train)."""
+    t = _mv_leaves(params, MV_GIBBS_KEYS, device, dtype, "mv_gibbs_from_jax")
+    return MultivariateGibbsGP(GaussianLikelihood(t["likelihood.raw_noise"]), t["h"], t["d_mat"], _mv_prior(t),
+                               t["x_anchor"], detach_h=detach_h)
+
+
+def mv_gibbs_sparse_from_jax(params: Mapping[str, np.ndarray], device, dtype=torch.float32, *,
+                             detach_h: bool = False) -> SparseMultivariateGibbsGP:
+    """The port's ``SparseMultivariateGibbsGP`` holding a JAX one's leaves
+    (``MV_GIBBS_SPARSE_KEYS``); default trainability (z, H(z), D and the
+    noise train)."""
+    t = _mv_leaves(params, MV_GIBBS_SPARSE_KEYS, device, dtype, "mv_gibbs_sparse_from_jax")
+    return SparseMultivariateGibbsGP(GaussianLikelihood(t["likelihood.raw_noise"]), t["z"], t["h_z"], t["d_mat"],
+                                     _mv_prior(t), detach_h=detach_h)
+
+
+def serve_model_from_jax(name: str, params: Mapping[str, np.ndarray], d: int, device, dtype=torch.float32, *,
+                         num_layers: int = None) -> nn.Module:
+    """The model of serve's family ``name`` (``serve.MODELS``) holding a
+    JAX model's leaves, with the trainability ``serve._build`` gives it.
+    ``d`` is the input width (the SE-ARD kernel's dims), ``num_layers`` the
+    deep GP's."""
+    if name == "seard":
+        kernel = Scale.create(RBF.create(d, dtype=dtype, device=device), dtype=dtype, device=device)
+        return exact_gp_from_jax(params, kernel, device, dtype)
+    if name == "deepgp":
+        return deepgp_from_jax(params, device, dtype, num_layers=num_layers)
+    return {"gibbs_exact": gibbs_exact_from_jax, "gibbs_sparse": gibbs_sparse_from_jax,
+            "mv_gibbs": mv_gibbs_from_jax, "mv_gibbs_sparse": mv_gibbs_sparse_from_jax,
+            "st_stationary": spatio_temporal_from_jax,
+            "st_nonstationary": spatio_temporal_from_jax}[name](params, device, dtype)
+
+
+def serve_case_from_jax(ref, case: str, csv_dir) -> tuple:
+    """One case of a pinned JAX serve (``ref``: the opened npz that
+    ``tools/pin_jax_serve.py`` writes): ``(argv, init, fitted, draws)``.  ``argv`` is the JAX run's CLI
+    flags, with ``--train_csv`` its data written under ``csv_dir`` (no
+    ``--device``, no ``--output``); ``init`` and ``fitted`` are its model's
+    leaves by dotted path before and after the fit (``fitted`` holds the
+    frozen leaves too); ``draws`` is what ``serve.run`` takes in place of
+    its streams' draws (the deep GP's ε, the matrix-free probes)."""
+    name = str(ref[f"{case}.data"])
+    csv = Path(csv_dir) / f"{name}.csv"
+    if not csv.exists():
+        np.savetxt(csv, ref[f"data.{name}"], delimiter=",", header=str(ref[f"header.{name}"]), comments="",
+                   fmt="%.17g")
+    argv = ["--model", str(ref[f"{case}.model"]), "--train_csv", str(csv), *json.loads(str(ref[f"{case}.argv"]))]
+
+    def leaves(head):
+        return {k[len(head):]: ref[k] for k in ref.files if k.startswith(head)}
+
+    def layers(what):
+        return [ref[k] for k in sorted(k for k in ref.files if k.startswith(f"{case}.{what}_"))]
+
+    draws = {}
+    if f"{case}.eps_train_0" in ref.files:
+        draws.update(eps_train=layers("eps_train"), eps_pred=layers("eps_pred"))
+    if f"{case}.u1" in ref.files:
+        draws.update(prior_probes=list(zip(ref[f"{case}.prior_u1"], ref[f"{case}.prior_u2"])),
+                     probes=(ref[f"{case}.u1"], ref[f"{case}.u2"]))
+    init = leaves(f"{case}.init.")
+    return argv, init, {**init, **leaves(f"{case}.fitted.")}, draws

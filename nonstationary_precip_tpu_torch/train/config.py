@@ -14,9 +14,11 @@ from dataclasses import dataclass
 
 @dataclass
 class ExperimentConfig:
-    """The fields the ported experiments read; a later slice adds the
-    fields of the experiments it ports (the JAX config's logging and
-    checkpoint fields are not here yet)."""
+    """The fields the ported experiments and ``serve`` read; a later slice
+    adds the fields of the experiments it ports (the JAX config's path,
+    test and resume fields are not here yet)."""
+
+    log_interval: int = 50
 
     model: str = "DiagonalGibbs"
     inference: str = "exact"  # 'exact' or 'sparse' (spatial_gibbs)
@@ -25,6 +27,7 @@ class ExperimentConfig:
     max_iters: int = 1000
     num_inducing: int = 250
     num_splits: int = 10
+    seed: int = 173
 
     # Gibbs prior hypers (reference defaults, spatial_exp.py:76-80)
     prior_scale: float = 1.0

@@ -13,6 +13,7 @@ b2 0.999, eps 1e-8).
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Callable, NamedTuple, Optional, Sequence
 
@@ -27,6 +28,11 @@ class TrainResult(NamedTuple):
     #: wall time of every step after the first (the warm-up), measured with
     #: CUDA events on the card and the host clock on the CPU
     seconds: float
+    #: chunks retried at a halved lr (``fit``'s ``lr_backoff``)
+    backoffs: int = 0
+    #: steps run in those chunks before each was thrown away; ``seconds``
+    #: covers them too
+    retried_steps: int = 0
 
 
 class _Clock:
@@ -68,6 +74,8 @@ def fit(
     threshold: Optional[float] = None,
     chunk: int = 0,
     has_aux: bool = False,
+    lr_backoff: int = 0,
+    log_every: int = 0,
 ) -> TrainResult:
     """Adam-optimise ``model`` (in place) under ``loss_fn(model, *args)``.
 
@@ -82,17 +90,29 @@ def fit(
     loss.
     has_aux: loss_fn returns (scalar, trace); the trace (e.g. the per-split
     loss vector) is recorded instead of the scalar.
+    lr_backoff: divergence recovery, the JAX package's.  When a chunk's
+    trace holds a non-finite loss and backoffs remain, the parameters and
+    the Adam state go back to the chunk-start snapshot, the lr to half the
+    snapshot's, and the chunk runs again, at most ``lr_backoff`` times in
+    all.  The snapshot keeps its own lr, so a second failure in the same
+    chunk retries at the same halved lr, as the JAX loop does.  chunk=0
+    then defaults to min(num_steps, 500).  Off (0) the loop is the plain one.
+    log_every: print the loss at the first chunk boundary past each multiple
+    of ``log_every`` steps, and at the end (0: silent).
     """
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
         raise ValueError("fit: the model has no parameter that requires grad")
     optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if not chunk:
-        chunk = min(num_steps, 500) if threshold is not None else num_steps
+        chunk = min(num_steps, 500) if (threshold is not None or lr_backoff) else num_steps
     clock = _Clock(params[0].device)
     losses_all = []
     steps_done = 0
     prev_last = None
+    backoffs_left = lr_backoff
+    retried_steps = 0
+    snapshot = _snapshot(params, optimizer) if lr_backoff else None
     while steps_done < num_steps:
         n = min(chunk, num_steps - steps_done)
         trace = []
@@ -107,11 +127,27 @@ def fit(
                 clock.start()
         clock.stop()
         losses = torch.stack(trace).cpu().numpy()
+        # any step: a mid-chunk inf that recovers already contaminated Adam
+        if not np.all(np.isfinite(losses)) and backoffs_left > 0:
+            backoffs_left -= 1
+            retried_steps += n
+            new_lr = _restore(params, optimizer, snapshot) * 0.5
+            for group in optimizer.param_groups:
+                group["lr"] = new_lr
+            prev_last = None
+            print(f"fit: non-finite loss in steps {steps_done}..{steps_done + n}; restored step-{steps_done} "
+                  f"state, lr -> {new_lr:g} ({backoffs_left} backoffs left)")
+            continue
         losses_all.append(losses)
         steps_done += n
         if not np.all(np.isfinite(losses)):
             print(f"fit: non-finite loss at step {steps_done}; stopping")
             break
+        if lr_backoff:
+            snapshot = _snapshot(params, optimizer)
+        every = max(log_every, 1)
+        if log_every and (steps_done // every > (steps_done - n) // every or steps_done == num_steps):
+            print(f"step {steps_done}/{num_steps}  loss {float(np.sum(losses[-1])):.4f}")
         if threshold is not None:
             seq = losses if prev_last is None else np.concatenate([prev_last[None], losses], axis=0)
             if seq.shape[0] >= 2:
@@ -120,7 +156,25 @@ def fit(
                     break
         prev_last = losses[-1]
     losses = np.concatenate(losses_all) if losses_all else np.zeros((0,))
-    return TrainResult(model=model, losses=losses, steps=steps_done, seconds=clock.seconds())
+    return TrainResult(model=model, losses=losses, steps=steps_done, seconds=clock.seconds(),
+                       backoffs=lr_backoff - backoffs_left, retried_steps=retried_steps)
+
+
+def _snapshot(params, optimizer) -> tuple:
+    """Copies of the parameters and of the Adam state (its lr included)."""
+    state = copy.deepcopy(optimizer.state_dict())
+    return [p.detach().clone() for p in params], state
+
+
+def _restore(params, optimizer, snapshot) -> float:
+    """Put the parameters and the Adam state back to ``snapshot``; returns
+    the snapshot's lr."""
+    values, state = snapshot
+    with torch.no_grad():
+        for p, v in zip(params, values):
+            p.copy_(v)
+    optimizer.load_state_dict(copy.deepcopy(state))
+    return optimizer.param_groups[0]["lr"]
 
 
 def _epoch_schedule(seed: int, n: int, num_epochs: int, batch_size: int) -> np.ndarray:
