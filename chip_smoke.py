@@ -258,12 +258,42 @@ one JSON line each:
                   checkpoint: launches against ``serve_launches``, finite CSVs
                   of (N, d + 2), the restored predictions and CSV bit for bit
                   the fitted run's, fit seconds and steps/s (CUDA events),
-                  serve seconds, back-offs and the hindcast RMSE.
-Each of the last seven phases prints its seconds.
+                  serve seconds, back-offs and the hindcast RMSE;
+40. chunked_ref — the host-chunked surface (``make_chunked_map_loss``,
+                  ``fit_chunked``, the chunked serving state) on the data of
+                  examples/quickstart_gibbs_chunked.py at N = 384 and 2048
+                  against the JAX runs pinned in
+                  tests/fixtures/jax_chunked_ref.npz: the step-0 loss and
+                  gradients under greedy pivots and stride Nyström (at 384
+                  also keyed Nyström and RPCholesky, JAX's landmarks and
+                  Gumbel draws passed in), five Adam steps, the state's α
+                  relres and its mean-only query, float32 through K2 and
+                  K3; the 384 step-0 cases in float64 at 1e-10;
+41. chunked     — the JAX package's flagship large-N serving CLI
+                  (--matrixfree --chunked, Nyström rank 1024, shift 10) at
+                  N = 16384: its steps and a 4096-point query with
+                  variances, the step-0 chunked loss and gradient against
+                  the monolithic loss_matrixfree with the same factor and
+                  draws, each solve's relres and the Nyström directions kept
+                  (readings), K2's and K3's launches from the iterations
+                  each run reports, K9 none; then the prior-free chunked
+                  loss at N = 131072 with the backward whole and in 2 row
+                  blocks (K3's row entry), bit for bit.
+Each of the last nine phases prints its seconds.  After k3 come k2_modes
+(K2's 'default' and 'high3' tensor-core kernels against their plain
+versions and float64 within bf16's bound on the gate's trained payload and a
+ragged 1000 × 1300, 'default' against its plain version within MODE_TIGHT of
+the plain version's float64 error, both modes' bias on a V built to show it
+(MODE_BIAS), 'vpu' as the 'highest' walk refusing R = 33, each
+mode's times and bounds, one gate step under each mode: 'high3' in the
+gate's relres and loss bands, 'default''s relres a reading) and after k6
+k6_modes (K6's, with a 16-iteration solve through ``make_rbf_matvec`` under
+each mode).
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line (K1's,
-K2's, K3's, K4's, K6's, K7's, K5's, K10c's, K10a's, K11's and K8's entries
+K2's, K3's, K4's, K2's and K6's mode kernels', K6's, K7's, K5's, K10c's,
+K10a's, K11's and K8's entries
 with the registers, spills and shared memory of each of their kernels, K1's
 and K4's with their cluster size) and the result line.  Needs a CUDA card and nvcc; imports no
 JAX.
@@ -625,6 +655,49 @@ SERVE_SPATIAL = (str(Path(__file__).resolve().parent / "data" / "uib_spatial.csv
 SERVE_ST = (str(Path(__file__).resolve().parent / "data" / "uib_spatio_temporal.csv"), "--x_cols", "1,2,3",
             "--y_col", "4")
 
+# The contraction modes of K2 and K6 ('default', 'high3'; tests/
+# test_torch_matvec_modes.py derives the bounds): with u = 2⁻⁸, bf16's unit
+# roundoff, and S_ir = Σ_j |K_ij||V_jr| in float64, the kernel and its plain
+# version each within MODE_BOUND[mode]·S_ir of float64, plus twice the
+# 'highest' plain version's largest float64 error (the f32 accumulation)
+# and K6_FLOOR of the largest value.
+MODE_U = 2.0**-8
+MODE_BOUND = {"default": 2 * MODE_U + MODE_U**2, "high3": 4 * MODE_U**2 + 2.0**-20}
+# A bound alone admits a kernel that ignores its mode and computes the f32
+# product, which sits well inside it.  Two checks hold each kernel to its
+# mode's estimand.  'default' against its plain version, within
+# MODE_TIGHT of the plain version's largest float64 error: the two round
+# the same operands and differ only in the f32 sums, so an f32 kernel
+# fails.  (For 'high3' the rounding error is about as large as the f32
+# sums' own noise: its kernel is 7.6e-4 from its plain version where the
+# plain version is 7.1e-4 from float64, at the trained payload.)  And both
+# modes by their bias: on V = 2^e·(1 + 2⁻⁹ + 7·2⁻²⁰), positive like every
+# Gram element, the bf16 parts drop a fixed share of each product,
+# 2⁻⁹ + 7·2⁻²⁰ one pass and 7·2⁻²⁰ three (hi + lo keep 1 + 2⁻⁹, hi alone
+# 1).  The mean over every entry of (float64 − kernel) / float64 is that
+# share within MODE_BIAS_RTOL, the plain version's too.  Averaged over
+# 147456 entries, the sums' noise is far below it.  An f32 kernel's bias is
+# about 0 (the CPU replay: 5e-8, under 1 % of 'high3''s).
+MODE_TIGHT = 0.25
+MODE_BIAS = {"default": 2.0**-9 + 7 * 2.0**-20, "high3": 7 * 2.0**-20}
+MODE_BIAS_RTOL = 0.1
+MODE_RAGGED = (1000, 1300, 3)  # rows, columns, right-hand sides (D = 2)
+PEAK_BF16 = 989e12  # the tensor cores' dense bf16 rate (H100 SXM data sheet, 700 W)
+# The chunked surface against the pinned JAX runs (tools/pin_jax_chunked.py):
+# float32 as serve_ref's matrix-free case (1e-3 at step 0, 1e-2 at the
+# last step, the query's mean 1e-2 of its largest value), the gradients'
+# relative L2 error 1e-2 (the port's prior solves run in float64, JAX's in
+# float32: F6), float64 1e-10.
+CHUNKED_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_chunked_ref.npz"
+CHUNKED_F64_RTOL, CHUNKED_GRAD_RTOL = 1e-10, 1e-2
+# The chunked large-N phase: the flagship CLI (Nyström rank 1024, shift 10,
+# 8-iteration chunks) at N = 16384 for CHUNKED_STEPS steps and a
+# CHUNKED_QUERY-point query, then the prior-free ChunkedMAPLoss at
+# CHUNKED_BIG with the row-block backward split 1 and 2 ways.
+CHUNKED_N, CHUNKED_STEPS, CHUNKED_QUERY, CHUNKED_BIG = 16384, 3, 4096, 131072
+CHUNKED_FLAGSHIP = ("--precond_rank", "1024", "--precond", "nystrom", "--precond_shift", "10")
+
+MMA_WALK = {"gibbs_matvec": "gibbs_mma_kernel<GibbsElem,2,2>", "rbf_matvec": "gibbs_mma_kernel<RbfElem,2,2>"}
 WALK = {"K2": "gibbs_rows_kernel<GibbsElem,2,9>", "K6": "gibbs_rows_kernel<RbfElem,2,9>",
         "K3": "gibbs_rows_kernel<PanelElem,2,17>"}
 # The card's peaks (H100 SXM data sheet, at the full 700 W): f32 outside the
@@ -3248,6 +3321,430 @@ def phase_serve(serve, cli, dev_name: str):
     return totals
 
 
+def mode_f64(kind: str, a1, a2, v, block: int = 2048):
+    """(K V, |K||V|) in float64 on the card: K the Gibbs Gram of
+    a1 = (x1, ℓ1), a2 = (x2, ℓ2), or the RBF Gram of a1 = z1, a2 = z2."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
+    from nonstationary_precip_tpu_torch.kernels.stationary import _sq_dist
+
+    vd, out, sabs = v.double(), [], []
+    for i in range(0, (a1[0] if kind == "gibbs" else a1).shape[0], block):
+        if kind == "gibbs":
+            k = gibbs_gram_reference(a1[0][i:i + block].double(), a1[1][i:i + block].double(), a2[0].double(),
+                                     a2[1].double())
+        else:
+            k = torch.exp(-0.5 * _sq_dist(a1[i:i + block].double(), a2.double()))
+        out.append(k @ vd)
+        sabs.append(k.abs() @ vd.abs())
+    return torch.cat(out), torch.cat(sabs)
+
+
+def mode_fns(kind: str, matvec, a1, a2, v):
+    """(kernel, plain version), each a function of the mode, on (a1, a2, v)."""
+    if kind == "gibbs":
+        return (lambda mode: matvec.gibbs_gram_matvec_mma_cuda(*a1, *a2, v, mode),
+                lambda mode: matvec.gibbs_gram_matvec_plain(*a1, *a2, v, precision=mode))
+    return (lambda mode: matvec.rbf_gram_matvec_mma_cuda(a1, a2, v, mode),
+            lambda mode: matvec.rbf_gram_matvec_plain(a1, a2, v, precision=mode))
+
+
+def mode_errors(kind: str, matvec, a1, a2, v) -> dict:
+    """Each mode's kernel and plain version against float64 within
+    MODE_BOUND (module note), finite and bitwise repeatable; the 'default'
+    kernel against its plain version within MODE_TIGHT of the plain
+    version's float64 error."""
+    kern, plain = mode_fns(kind, matvec, a1, a2, v)
+    ref, sabs = mode_f64(kind, a1, a2, v)
+    e_hi = float((plain("highest").double() - ref).abs().max())
+    floor = 2 * e_hi + K6_FLOOR * float(ref.abs().max())
+    out = {}
+    for mode in ("default", "high3"):
+        k, again, p = kern(mode), kern(mode), plain(mode)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(k).all()), f"{kind} {mode} finite")
+        check(torch.equal(k, again), f"{kind} {mode} bitwise repeatable")
+        allowed = MODE_BOUND[mode] * sabs + floor
+        rk, rp = ((t.double() - ref).abs() / allowed for t in (k, p))
+        check(float(rk.max()) <= 1.0, f"{kind} {mode} kernel vs float64 within its bound: ratio {float(rk.max()):.3g}")
+        check(float(rp.max()) <= 1.0, f"{kind} {mode} plain vs float64 within its bound: ratio {float(rp.max()):.3g}")
+        out[mode] = {"max_abs_err": float((k - p).abs().max()), "kernel_vs_f64": float((k.double() - ref).abs().max()),
+                     "plain_vs_f64": float((p.double() - ref).abs().max()), "bound_ratio_kernel": float(rk.max()),
+                     "bound_ratio_plain": float(rp.max()), "largest": float(ref.abs().max())}
+        if mode == "default":
+            tight = out[mode]["max_abs_err"] / out[mode]["plain_vs_f64"]
+            check(tight <= MODE_TIGHT, f"{kind} default kernel vs plain {out[mode]['max_abs_err']:.3g}: "
+                  f"{tight:.3g} of the plain version's float64 error <= {MODE_TIGHT}")
+            out[mode]["kernel_vs_plain_over_plain_vs_f64"] = tight
+    return out
+
+
+def mode_bias_v(n: int, r: int, gen: torch.Generator) -> torch.Tensor:
+    """V = 2^e·(1 + 2⁻⁹ + 7·2⁻²⁰), e uniform in {−2, …, 2}: exact in f32,
+    and each mode's bf16 parts drop MODE_BIAS[mode] of it (module note)."""
+    return 2.0 ** torch.randint(-2, 3, (n, r), generator=gen).float() * (1 + 2.0**-9 + 7 * 2.0**-20)
+
+
+def mode_bias(kind: str, matvec, a1, a2, v) -> dict:
+    """Each mode's kernel and plain version carry the mode's bias on
+    ``v`` = :func:`mode_bias_v`'s: mean((float64 − result) / float64) within
+    MODE_BIAS_RTOL of MODE_BIAS[mode] (module note)."""
+    kern, plain = mode_fns(kind, matvec, a1, a2, v)
+    ref, _ = mode_f64(kind, a1, a2, v)
+    out = {}
+    for mode in ("default", "high3"):
+        got = {who: float(((ref - f(mode).double()) / ref).mean()) for who, f in (("kernel", kern), ("plain", plain))}
+        for who, b in got.items():
+            check(abs(b - MODE_BIAS[mode]) <= MODE_BIAS_RTOL * MODE_BIAS[mode],
+                  f"{kind} {mode} {who} carries the mode's bias: {b:.4g} against {MODE_BIAS[mode]:.4g}")
+        out[mode] = {"kernel_bias": got["kernel"], "plain_bias": got["plain"], "predicted": MODE_BIAS[mode]}
+    out["highest_plain_bias"] = float(((ref - plain("highest").double()) / ref).mean())
+    return out
+
+
+def mode_bound(matvec, n1: int, n2: int, d: int, r: int, mode: str, dev, elem_ops=None, sfu_ops=None) -> tuple:
+    """(least time in ms, what bounds it, its parts) of a mode kernel: the
+    FP32 lanes' operations (the element and its rounding), the SFU's (16 a
+    clock an SM at the maximum SM clock), the tensor cores' (2R an element
+    a pass at the bf16 rate) and the bytes (the payloads and V read, the
+    output written)."""
+    fp32 = matvec.mode_ops(n1, n2, d, mode, elem_ops)
+    mma = matvec.mma_ops(n1, n2, r, mode)
+    sfu = sfu_ops if sfu_ops is not None else matvec.matvec_sfu_ops(n1, n2, d)
+    nbytes = 4 * ((n1 + n2) * 2 * d + n2 * r + n1 * r)
+    clock_hz = sm_clock_mhz() * 1e6
+    parts = {"fp32_ms": fp32 / PEAK_F32 * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+             "sfu_ms": sfu / (16 * torch.cuda.get_device_properties(dev).multi_processor_count * clock_hz) * 1e3,
+             "mma_ms": mma / PEAK_BF16 * 1e3}
+    by = max(parts, key=parts.get)
+    return parts[by], "bytes" if by == "bytes_ms" else "operations", parts
+
+
+def gate_step(gibbs_largen, matvec, largen_out, precision: str, dev) -> dict:
+    """One loss_matrixfree step of the large-N gate at its trained pose
+    (lazy_cg_mll through K2 under ``precision``, its backward through K3),
+    and the trained-pose diagnostics through the same K2: the loss, the
+    relres and the launches, counted from 0."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import packed_gibbs_cross
+    from nonstationary_precip_tpu_torch.ops.lazy_cg import lazy_cg_diagnostics, lazy_cg_mll
+
+    cfg = gibbs_largen.LargeNConfig(n=LARGEN_N, device="cuda")
+    n, iters = cfg.n, 16
+    x, y = (t.to(dev) for t in gibbs_largen._data(n))
+    noise = tuple(torch.as_tensor(a, device=dev) for a in gibbs_largen.probe_draws(cfg.seed, cfg.rank, n))
+    p = {k: torch.tensor(v, device=dev, requires_grad=True) for k, v in largen_out["params"].items()}
+    kw = dict(block=gibbs_largen.BLOCK, max_iters=iters, tol=1e-6, precond_rank=cfg.rank, cross_fn=packed_gibbs_cross(2),
+              matvec_builder=matvec.scaled_packed_gibbs_matvec_builder(2, precision))
+    reset_launches()
+    aug = torch.cat([x, p["log_ell_pp"]], dim=1)
+    val = -lazy_cg_mll(p["raw_s2"], aug, y, noise, torch.exp(p["log_noise"]), panel_vjp=matvec.packed_gibbs_panel_vjp(2),
+                       **kw) / n
+    val.backward()
+    with torch.no_grad():
+        diag = lazy_cg_diagnostics(p["raw_s2"], aug, y, noise, torch.exp(p["log_noise"]), **kw)
+    name = "gibbs_matvec" if precision in ("highest", "vpu") else f"gibbs_matvec_{precision}"
+    launches = check_launches({name: 2 * iters, "gibbs_panel_grads": 1}, f"k2_modes gate step {precision}")
+    return {"loss": float(val.detach()), "relres_solve": diag["relres_solve"], "relres_max": diag["relres_max"],
+            "broke": diag["broke"], "grad_finite": all(bool(torch.isfinite(t.grad).all()) for t in p.values()),
+            "launches": _nonzero(launches)}
+
+
+def phase_k2_modes(gibbs_largen, matvec, payloads, largen_out, dev):
+    """K2's 'default' and 'high3' kernels against their plain versions and
+    float64 within MODE_BOUND on the gate's trained payload (16384², R 9)
+    and a ragged (1000 × 1300, R 3); 'vpu' is the 'highest' walk (bitwise)
+    and refuses R 33; each mode's time against 'highest' (kernel, plain
+    version, bound); one gate step under each mode: 'high3' in the gate's
+    bands against 'highest', 'default''s relres a reading."""
+    gen = torch.Generator().manual_seed(53)
+    x, ell = payloads["trained"]
+    v = torch.randn(LARGEN_N, 9, generator=gen).to(dev)
+    n1, n2, r = MODE_RAGGED
+    rag = [t.to(dev) for t in (2 * torch.randn(n1, 2, generator=gen), torch.exp(0.3 * torch.randn(n1, 2, generator=gen)),
+                               2 * torch.randn(n2, 2, generator=gen), torch.exp(0.3 * torch.randn(n2, 2, generator=gen)),
+                               torch.randn(n2, r, generator=gen))]
+    errs = {"trained": mode_errors("gibbs", matvec, (x, ell), (x, ell), v),
+            "ragged": mode_errors("gibbs", matvec, tuple(rag[:2]), tuple(rag[2:4]), rag[4])}
+    bias = mode_bias("gibbs", matvec, (x, ell), (x, ell), mode_bias_v(LARGEN_N, 9, gen).to(dev))
+    vpu = matvec.make_gibbs_matvec(x, ell, x, ell, "vpu")
+    check(torch.equal(vpu(v), matvec.gibbs_gram_matvec_cuda(x, ell, x, ell, v)), "'vpu' is the 'highest' walk")
+    try:
+        vpu(torch.randn(LARGEN_N, 33, device=dev))
+        check(False, "'vpu' refuses R = 33")
+    except ValueError:
+        pass
+    times = {"highest": timed_pair(lambda: matvec.gibbs_gram_matvec_cuda(x, ell, x, ell, v),
+                                   lambda: matvec.gibbs_gram_matvec_plain(x, ell, x, ell, v), N_TIMED_GRAM)}
+    bounds = {}
+    for mode in ("default", "high3"):
+        times[mode] = timed_pair(lambda m=mode: matvec.gibbs_gram_matvec_mma_cuda(x, ell, x, ell, v, m),
+                                 lambda m=mode: matvec.gibbs_gram_matvec_plain(x, ell, x, ell, v, precision=m),
+                                 N_TIMED_GRAM)
+        bounds[mode] = mode_bound(matvec, LARGEN_N, LARGEN_N, 2, 9, mode, dev)
+    steps = {mode: gate_step(gibbs_largen, matvec, largen_out, mode, dev) for mode in ("highest", "high3", "default")}
+    hi, h3 = steps["highest"], steps["high3"]
+    check(h3["relres_solve"] <= GATE_RELRES and not h3["broke"] and h3["grad_finite"],
+          f"'high3' gate step relres {h3['relres_solve']:.3g} <= {GATE_RELRES}")
+    rel = abs(h3["loss"] - hi["loss"]) / abs(hi["loss"])
+    check(rel <= GATE_LOSS_REL, f"'high3' gate step loss vs 'highest' {rel:.3g} <= {GATE_LOSS_REL}")
+    emit("k2_modes", shape=[LARGEN_N, LARGEN_N, 2, 9], ragged=list(MODE_RAGGED), errors=errs, bias=bias, times=times,
+         bounds={m: {"bound_ms": b[0], "bound_by": b[1], **b[2]} for m, b in bounds.items()}, gate_steps=steps,
+         high3_loss_rel=rel, timed_calls=2 * N_TIMED_GRAM)
+    return {mode: {"errs": [e[mode] for e in errs.values()], "t": times[mode], "bound": bounds[mode],
+                   "launches": steps[mode]["launches"][f"gibbs_matvec_{mode}"]} for mode in ("default", "high3")}
+
+
+def phase_k6_modes(exact_largen, matvec, lazy_out, dev):
+    """K6's 'default' and 'high3' kernels against their plain versions and
+    float64 within MODE_BOUND on the exact gate's trained payload (16384²,
+    R 9) and a ragged one; their times against 'highest'; and their path,
+    ``make_rbf_matvec(precision=...)``, driving one 16-iteration mBCG solve
+    of the gate's trained operator (preconditioned as the gate is, rank-150
+    pivoted Cholesky) from 0 launches, its relres a reading."""
+    from nonstationary_precip_tpu_torch.ops.bbmm import mbcg, woodbury_precond
+    from nonstationary_precip_tpu_torch.ops.lazy_cg import lazy_pivoted_cholesky
+
+    x, y, _ = exact_largen.lazy_data(LARGEN_N)
+    model = lazy_out["model"]
+    with torch.no_grad():
+        ell, s2, noise = model.kernel.base.lengthscale, model.kernel.outputscale, model.likelihood.noise
+        x = x.to(dev)
+        z = (x / ell).contiguous()
+    gen = torch.Generator().manual_seed(59)
+    v = torch.randn(LARGEN_N, 9, generator=gen).to(dev)
+    n1, n2, r = MODE_RAGGED
+    z1, z2, vr = (t.to(dev) for t in (torch.randn(n1, 2, generator=gen), torch.randn(n2, 2, generator=gen),
+                                       torch.randn(n2, r, generator=gen)))
+    errs = {"trained": mode_errors("rbf", matvec, z, z, v), "ragged": mode_errors("rbf", matvec, z1, z2, vr)}
+    bias = mode_bias("rbf", matvec, z, z, mode_bias_v(LARGEN_N, 9, gen).to(dev))
+    times = {"highest": timed_pair(lambda: matvec.rbf_gram_matvec_cuda(z, z, v),
+                                   lambda: matvec.rbf_gram_matvec_plain(z, z, v), N_TIMED_GRAM)}
+    bounds, solves = {}, {}
+    for mode in ("default", "high3"):
+        times[mode] = timed_pair(lambda m=mode: matvec.rbf_gram_matvec_mma_cuda(z, z, v, m),
+                                 lambda m=mode: matvec.rbf_gram_matvec_plain(z, z, v, precision=m), N_TIMED_GRAM)
+        bounds[mode] = mode_bound(matvec, LARGEN_N, LARGEN_N, 2, 9, mode, dev, matvec._rbf_elem_ops,
+                                  matvec.rbf_matvec_sfu_ops(LARGEN_N, LARGEN_N))
+    with torch.no_grad():
+        minv = woodbury_precond(lazy_pivoted_cholesky(model.kernel, x, 150), noise)
+    for mode in ("highest", "default", "high3"):
+        reset_launches()
+        with torch.no_grad():
+            mv = matvec.make_rbf_matvec(x, x, ell, mode)
+            res = mbcg(lambda w: s2 * mv(w) + noise * w, y.to(dev)[:, None], max_iters=16, tol=1e-6, precond=minv)
+        name = "rbf_matvec" if mode == "highest" else f"rbf_matvec_{mode}"
+        got = check_launches({name: 16}, f"k6_modes solve {mode}")
+        solves[mode] = {"relres": float(res.residnorm[0]), "launches": _nonzero(got)}
+    emit("k6_modes", shape=[LARGEN_N, LARGEN_N, 2, 9], ragged=list(MODE_RAGGED), errors=errs, bias=bias, times=times,
+         bounds={m: {"bound_ms": b[0], "bound_by": b[1], **b[2]} for m, b in bounds.items()}, solves=solves,
+         timed_calls=2 * N_TIMED_GRAM)
+    return {mode: {"errs": [e[mode] for e in errs.values()], "t": times[mode], "bound": bounds[mode],
+                   "launches": solves[mode]["launches"][f"rbf_matvec_{mode}"]} for mode in ("default", "high3")}
+
+
+def _chunked_case(quickstart, ref, tag: str, n: int, dtype, dev):
+    """The port's model, data and prior hoist for a pinned case: the
+    quickstart's data and model in ``dtype`` on ``dev``, its own prior
+    factors with JAX's pinned SLQ logdets (constants of training), and
+    JAX's probe draws."""
+    x, y, xs = quickstart.problem(n)
+    x, y, xs = (torch.tensor(a, dtype=dtype, device=dev) for a in (x, y, xs))
+    model = quickstart.build_model(x)
+    rng = np.random.default_rng(quickstart.PROBE_SEED)
+    slq = [tuple(torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+                 for s in ((32, quickstart.SLQ_PROBES), (n, quickstart.SLQ_PROBES))) for _ in range(2)]
+    lpc, _ = model.prior_pre_matrixfree(x, slq, rank=32, block=128, max_iters=96, tol=1e-8)
+    pre = (lpc, torch.tensor(ref[f"{tag}.prior_logdet"], dtype=torch.float64, device=dev))
+    probes = tuple(torch.tensor(ref[f"{tag}.{u}"], dtype=dtype, device=dev) for u in ("u1", "u2"))
+    return x, y, xs, model, pre, probes
+
+
+def _chunked_loss(rule: str, fused: bool, f64: bool = False):
+    """The pinned runs' chunked MAP loss (tools/pin_jax_chunked.py's LOSS;
+    in float64 its LOSS_F64: 8 iterations a solve, none stopped early)."""
+    from nonstationary_precip_tpu_torch.models.gibbs_gp import make_chunked_map_loss
+
+    budget = dict(tol=1e-14, chunk_iters=4, n_chunks=2, prior_chunk_iters=4, prior_n_chunks=2) if f64 else \
+        dict(tol=1e-6, chunk_iters=8, n_chunks=4, prior_chunk_iters=16, prior_n_chunks=8)
+    return make_chunked_map_loss(2, block=128, precond_rank=64, precond=rule, precond_shift=1.0, fused_matvec=fused,
+                                 **budget)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+def phase_chunked_ref(quickstart, dev):
+    """The chunked surface against the pinned JAX runs (CHUNKED_REF) at the
+    quickstart's N = 384 and at 2048: the step-0 loss and gradients of
+    ``make_chunked_map_loss`` under greedy pivots and stride Nyström (and at
+    384 keyed Nyström and RPCholesky, JAX's landmarks and Gumbel rows
+    passed in), five ``fit_chunked`` steps, the chunked state's α relres and
+    its mean-only query, in float32 through K2 and K3; the 384 step-0 cases
+    in float64 (the panel paths: K2 takes float32 only) at 1e-10."""
+    from nonstationary_precip_tpu_torch.train.optim import fit_chunked
+
+    ref = np.load(CHUNKED_REF)
+    rows, launches = {}, {}
+    for n in (int(v) for v in ref["ns"]):
+        tag = f"n{n}"
+        x, y, xs, model, pre, probes = _chunked_case(quickstart, ref, tag, n, torch.float32, dev)
+        reset_launches()
+        for case in ("pivchol", "nystrom", "nystrom_keyed", "pivchol_keyed"):
+            if f"{tag}.{case}.loss0" not in ref.files:
+                continue
+            pkey = (torch.as_tensor(ref[f"{tag}.landmarks"]) if case == "nystrom_keyed" else
+                    torch.as_tensor(ref[f"{tag}.gumbel"]) if case == "pivchol_keyed" else None)
+            val, g, info = _chunked_loss(case.split("_")[0], True).value_and_grad(model, x, y, pre, probes, pkey=pkey)
+            want = float(ref[f"{tag}.{case}.loss0"])
+            row = {"loss_rel_err": abs(float(val) - want) / abs(want), "relres_max": float(info["relres_max"]),
+                   "jax_relres_max": float(ref[f"{tag}.{case}.relres_max"]), "iters": info["iters"]}
+            for name, key in (("log_ell", "log_ell_grad"), ("raw_outputscale", "raw_outputscale_grad"),
+                              ("likelihood.raw_noise", "raw_noise_grad")):
+                row[f"{name}_grad_rel_err"] = _rel(g[name].cpu(), ref[f"{tag}.{case}.{key}"])
+            check(row["loss_rel_err"] <= SERVE_MF_RTOL0, f"chunked_ref {tag} {case}: step-0 loss vs JAX "
+                  f"{row['loss_rel_err']:.3g} <= {SERVE_MF_RTOL0}")
+            worst = max(v for k, v in row.items() if k.endswith("_grad_rel_err"))
+            check(worst <= CHUNKED_GRAD_RTOL, f"chunked_ref {tag} {case}: gradients vs JAX {worst:.3g} <= "
+                  f"{CHUNKED_GRAD_RTOL}")
+            rows[f"{tag}.{case}"] = row
+        res = fit_chunked(model, _chunked_loss("pivchol", True), x, y, pre, probe_noise=probes,
+                          num_steps=int(ref["steps"]), lr=2e-2)
+        jl = ref[f"{tag}.fit_losses"]
+        rel0, rel_last = (abs(res.losses[i] - jl[i]) / abs(jl[i]) for i in (0, -1))
+        check(res.steps == len(jl) and rel0 <= SERVE_MF_RTOL0 and rel_last <= RTOL_STEP50,
+              f"chunked_ref {tag} fit: step 0 {rel0:.3g} <= {SERVE_MF_RTOL0}, last {rel_last:.3g} <= {RTOL_STEP50}")
+        state = model.posterior_state_matrixfree(x, y, pre, block=128, tol=1e-8, precond_rank=64, chunk_iters=8,
+                                                 n_chunks=16)
+        mean, qinfo = model.posterior_matrixfree_from_state(state, xs, mean_only=True, block=128, chunk_iters=8,
+                                                            n_chunks=16, return_info=True)
+        jm = ref[f"{tag}.query_mean"]
+        mean_err = float(np.max(np.abs(mean.double().cpu().numpy() - jm)) / np.max(np.abs(jm)))
+        check(mean_err <= RTOL_STEP50 and not bool(qinfo["broke"]),
+              f"chunked_ref {tag}: mean-only query vs JAX {mean_err:.3g} <= {RTOL_STEP50}")
+        rows[f"{tag}.fit"] = {"losses": res.losses.tolist(), "jax_losses": jl.tolist(), "step0_rel_err": rel0,
+                              "last_rel_err": rel_last, "relres": res.relres.tolist(), "iters": res.iters.tolist(),
+                              "alpha_relres": float(state[0].alpha_relres), "alpha_iters": state[0].iters,
+                              "jax_alpha_relres": float(ref[f"{tag}.alpha_relres"]), "query_mean_rel_err": mean_err}
+        got = launch_counts()
+        check(got["gibbs_gram"] == 0 and got["gibbs_matvec"] > 0 and got["gibbs_panel_grads"] > 0,
+              f"chunked_ref {tag}: K2 and K3 ran, K9 did not: {_nonzero(got)}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    tag = "n384_f64"
+    x, y, _, model, pre, probes = _chunked_case(quickstart, ref, tag, 384, torch.float64, dev)
+    for case in ("pivchol", "nystrom"):
+        val, g, _ = _chunked_loss(case, False, f64=True).value_and_grad(model, x, y, pre, probes)
+        row = {"loss_rel_err": abs(float(val) - float(ref[f"{tag}.{case}.loss0"])) / abs(float(ref[f"{tag}.{case}.loss0"]))}
+        for name, key in (("log_ell", "log_ell_grad"), ("raw_outputscale", "raw_outputscale_grad"),
+                          ("likelihood.raw_noise", "raw_noise_grad")):
+            row[f"{name}_grad_rel_err"] = _rel(g[name].cpu(), ref[f"{tag}.{case}.{key}"])
+        worst = max(row.values())
+        check(worst <= CHUNKED_F64_RTOL, f"chunked_ref float64 {case}: loss and gradients vs JAX {worst:.3g} <= "
+              f"{CHUNKED_F64_RTOL}")
+        rows[f"{tag}.{case}"] = row
+    emit("chunked_ref", rows=rows, launches=_nonzero(launches))
+    return launches
+
+
+def phase_chunked(serve, quickstart, dev, dev_name: str):
+    """(a) The flagship CLI (CHUNKED_FLAGSHIP, --chunked true) at N = 16384
+    on a synthetic CSV of the quickstart's function: CHUNKED_STEPS steps and
+    a CHUNKED_QUERY-point query with variances; the step-0 chunked loss and
+    gradients against the port's monolithic loss_matrixfree with the same
+    factor and draws (to rounding); each solve's relres and the landmark
+    directions kept of 1024 (F4) as readings; K2's and K3's launches from
+    the iterations each run reports, K9 none.  (b) ChunkedMAPLoss without
+    the prior at N = 131072 (Nyström rank 1024, shift 10) with the backward
+    whole and in 2 row blocks: the row blocks' gradients the whole sweep's
+    bit for bit (K3's row entry takes the whole sweep's column splits),
+    every value finite; relres and the kept directions as readings."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import packed_gibbs_cross
+    from nonstationary_precip_tpu_torch.models.gibbs_gp import make_chunked_map_loss
+    from nonstationary_precip_tpu_torch.ops.lazy_cg import build_precond_factor
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(61)
+        xr = rng.uniform(-3, 3, size=(CHUNKED_N, 2))
+        yr = quickstart.truth(xr) + 0.1 * rng.normal(size=CHUNKED_N)
+        train = os.path.join(tmp, "train.csv")
+        np.savetxt(train, np.column_stack([xr, yr]), delimiter=",", header="x0,x1,y", comments="")
+        pts = os.path.join(tmp, "pts.csv")
+        np.savetxt(pts, rng.uniform(-3, 3, size=(CHUNKED_QUERY, 2)), delimiter=",", header="x0,x1", comments="")
+        argv = ["--model", "gibbs_exact", "--matrixfree", "true", "--chunked", "true", *CHUNKED_FLAGSHIP,
+                "--train_csv", train, "--points_csv", pts, "--max_iters", str(CHUNKED_STEPS), "--device", "cuda",
+                "--output", os.path.join(tmp, "p.csv")]
+        cfg = serve.config(argv)
+        reset_launches()
+        t0 = time.perf_counter()
+        run = serve.run(cfg)
+        seconds = time.perf_counter() - t0
+        queries = run["query_iters"]
+        chunk = min(CHUNKED_QUERY, 1024)
+        want = {"gibbs_matvec": int(sum(run["fit_iters"])) * -(-(1 + serve.NUM_PROBES) // 128) + run["alpha_iters"]
+                + sum(q * -(-chunk // 128) for q in queries), "gibbs_panel_grads": run["executed"]}
+        launches = check_launches(want, "chunked flagship CLI")
+        check(bool(np.isfinite(run["mean"]).all() and np.isfinite(run["std"]).all()), "chunked CLI served finite")
+        # step 0 again, chunked against the monolithic loss with the same factor and draws
+        data = serve.training_data(cfg, dev)
+        model, loss, extra = serve._build("gibbs_exact", data.x, data.y, cfg, {})
+        blk, rank, precond = serve._matrixfree_setup(cfg, CHUNKED_N)
+        lpc = model.precond_factor(data.x, rank=rank, precond=precond)
+        kept = int((lpc.abs().amax(0) > 0).sum())
+        val, g, info = loss.value_and_grad(model, data.x, data.y, extra[0], extra[1])
+        mono = model.loss_matrixfree(data.x, data.y, extra[1], extra[0], block=blk, precond_lpc=lpc,
+                                     precond_shift=cfg.precond_shift, max_iters=cfg.chunk_iters * cfg.n_chunks,
+                                     prior_max_iters=8 * 8)
+        mono.backward()
+        mono_rel = abs(float(val) - float(mono.detach())) / abs(float(mono.detach()))
+        grad_rel = _rel(g["log_ell"].cpu(), model.log_ell.grad.cpu())
+        check(mono_rel <= 1e-5 and grad_rel <= 1e-3,
+              f"chunked step 0 vs loss_matrixfree: loss {mono_rel:.3g} <= 1e-5, field gradient {grad_rel:.3g} <= 1e-3")
+        out["flagship"] = {"n": CHUNKED_N, "steps": run["steps"], "losses": run["losses"].tolist(),
+                           "fit_relres": run["fit_relres"].tolist(), "fit_iters": run["fit_iters"].tolist(),
+                           "alpha_relres": run["alpha_relres"], "alpha_iters": run["alpha_iters"],
+                           "worst_query_relres": run["worst_relres"], "query_iters": queries,
+                           "kept_directions": kept, "rank": rank, "step0_vs_monolithic_rel": mono_rel,
+                           "step0_field_grad_rel": grad_rel, "step0_relres_max": float(info["relres_max"]),
+                           "fit_seconds": run["fit_seconds"], "serve_seconds": run["serve_seconds"],
+                           "wall_seconds": seconds, "launches": _nonzero(launches)}
+    # (b) the prior-free loss at N = 131072, the backward whole and in 2 row blocks
+    rng = np.random.default_rng(67)
+    xb = torch.tensor(rng.uniform(-3, 3, size=(CHUNKED_BIG, 2)), dtype=torch.float32, device=dev)
+    yb = torch.tensor(quickstart.truth(xb.double().cpu().numpy()) + 0.1 * rng.normal(size=CHUNKED_BIG),
+                      dtype=torch.float32, device=dev)
+    model = quickstart.build_model(xb)
+    probes = (torch.tensor(rng.standard_normal((1024, 8)), dtype=torch.float32, device=dev),
+              torch.tensor(rng.standard_normal((CHUNKED_BIG, 8)), dtype=torch.float32, device=dev))
+    big = {}
+    for rows in (1, 2):
+        loss = make_chunked_map_loss(2, include_prior=False, bwd_row_chunks=rows)
+        reset_launches()
+        t0 = time.perf_counter()
+        val, g, info = loss.value_and_grad(model, xb, yb, None, probes)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        check(got["gibbs_gram"] == 0 and got["gibbs_matvec"] == info["iters"] and got["gibbs_panel_grads"] == rows,
+              f"chunked N = {CHUNKED_BIG}, {rows} row block(s): K2 once an iteration, K3 once a block: {_nonzero(got)}")
+        check(bool(torch.isfinite(val)) and all(bool(torch.isfinite(t).all()) for t in g.values()),
+              f"chunked N = {CHUNKED_BIG}: finite loss and gradients")
+        big[rows] = (val, g, info, time.perf_counter() - t0, _nonzero(got))
+    (v1, g1, i1, s1, l1), (v2, g2, _, s2, l2) = big[1], big[2]
+    grad_rel = max(_rel(g2[k].cpu(), g1[k].cpu()) for k in ("log_ell", "raw_outputscale", "likelihood.raw_noise"))
+    check(float(v1) == float(v2) and all(torch.equal(g1[k], g2[k]) for k in g1),
+          f"row-block gradients bit for bit the whole sweep's (relative difference {grad_rel:.3g})")
+    aug = torch.cat([xb, model.log_ell.detach()], dim=1)
+    lpc = build_precond_factor("nystrom", model.raw_outputscale.detach(), aug, 1024, packed_gibbs_cross(2))
+    out["prior_free"] = {"n": CHUNKED_BIG, "loss": float(v1), "relres_mll": i1["relres_mll"].tolist(),
+                         "iters": i1["iters"], "kept_directions": int((lpc.abs().amax(0) > 0).sum()),
+                         "row_block_grad_rel": grad_rel, "seconds": {"rows1": s1, "rows2": s2},
+                         "launches": {"rows1": l1, "rows2": l2}}
+    emit("chunked", device=dev_name, **out)
+    return {"gibbs_matvec": out["flagship"]["launches"].get("gibbs_matvec", 0) + l1["gibbs_matvec"]
+            + l2["gibbs_matvec"], "gibbs_panel_grads": out["flagship"]["launches"].get("gibbs_panel_grads", 0) + 3}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=300, help="Adam steps of the slice run")
@@ -3260,6 +3757,7 @@ def main(argv=None):
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
+    from nonstationary_precip_tpu_torch.examples import quickstart_gibbs_chunked as quickstart_chunked
     from nonstationary_precip_tpu_torch.examples import quickstart_gibbs_largen as quickstart
     from nonstationary_precip_tpu_torch.experiments import (deepgp_spatial, exact_largen, field_regression,
                                                             gibbs_largen, seard_spatial, sgpr_bench, spatial_gibbs,
@@ -3282,6 +3780,7 @@ def main(argv=None):
     payloads = largen_payloads(gibbs_largen, out, dev)
     k2_errs, k2_t, k2_bound, k2_by, k2_call = phase_k2(matvec, payloads, dev)
     k3_errs, k3_t, k3_bound, k3_by, k3_call = phase_k3(matvec, payloads, dev)
+    k2_modes = phase_k2_modes(gibbs_largen, matvec, payloads, out, dev)
     phase_dgp_ref(deepgp_spatial, svgp_precompute, dev)
     dgp_out, dgp_launches = phase_dgp(deepgp_spatial, svgp_precompute, name)
     k4_errs, k4_t, k4_bound, k4_by, k4_design, k4_call = phase_k4(deepgp_spatial, svgp_precompute,
@@ -3301,6 +3800,7 @@ def main(argv=None):
     phase_exact_lazy_ref(exact_largen)
     lazy_out, k6_launches = phase_exact_lazy(exact_largen, name)
     k6 = phase_k6(matvec, exact_largen, lazy_out, dev)
+    k6_modes = phase_k6_modes(exact_largen, matvec, lazy_out, dev)
     phase_gibbs_dense_ref(exact_largen, dev)
     gibbs_out, gibbs_launches = phase_gibbs_dense(exact_largen, name)
     gibbs_pay = gibbs_payloads(exact_largen, gibbs_out, dev)
@@ -3327,11 +3827,14 @@ def main(argv=None):
                        ("sgpr", lambda: phase_sgpr(sgpr_bench, chol_blocked, dev, name)),
                        ("st_dgp", lambda: phase_st_dgp(spatiotemporal_dgp, svgp_precompute, dev, name)),
                        ("serve_ref", lambda: phase_serve_ref(serve, dev)),
-                       ("serve", lambda: phase_serve(serve, cli, name))):
+                       ("serve", lambda: phase_serve(serve, cli, name)),
+                       ("chunked_ref", lambda: phase_chunked_ref(quickstart_chunked, dev)),
+                       ("chunked", lambda: phase_chunked(serve, quickstart_chunked, dev, name))):
         t0 = time.perf_counter()
         timed[phase] = run()
         emit("seconds", of=phase, seconds=time.perf_counter() - t0)
-    served = {k: timed["serve_ref"].get(k, 0) + timed["serve"].get(k, 0)
+    served = {k: timed["serve_ref"].get(k, 0) + timed["serve"].get(k, 0) + timed["chunked_ref"].get(k, 0)
+              + timed["chunked"].get(k, 0)
               for k in ("gibbs_gram", "svgp_precompute", "elbo_data_term_fwd", "elbo_data_term_bwd", "gibbs_matvec",
                         "gibbs_panel_grads")}
     k9_launches = (gibbs_launches["gibbs_gram"] + slice_k9 + timed["gibbs_sparse"] + timed["spatio_temporal"]
@@ -3390,6 +3893,14 @@ def main(argv=None):
          "replaces": "nonstationary_precip_tpu/ops/pallas_chol.py:818", "launches": k5_launches,
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
          "bound_by": k5["bound_by"], "library_ms": k5["library_ms"], "resources": k5["resources"]},
+        *({"name": f"{kname}_{mode}", "route": "cuda", "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
+           "replaces": f"nonstationary_precip_tpu/ops/pallas_matvec.py:{line}", "launches": k[mode]["launches"],
+           "max_abs_err": max(e["max_abs_err"] for e in k[mode]["errs"]), "ms": k[mode]["t"]["ms"],
+           "plain_ms": k[mode]["t"]["plain_ms"], "bound_ms": k[mode]["bound"][0], "bound_by": k[mode]["bound"][1],
+           "library_ms": None,
+           "resources": {MMA_WALK[kname]: ptxas_resources(logs["gibbs_matvec"], MMA_WALK[kname])}}
+          for kname, line, k in (("gibbs_matvec", 207, k2_modes), ("rbf_matvec", 493, k6_modes))
+          for mode in ("default", "high3")),
         {"name": "rbf_matvec", "route": "cuda", "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:527", "launches": k6_launches,
          "max_abs_err": k6["max_abs_err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],

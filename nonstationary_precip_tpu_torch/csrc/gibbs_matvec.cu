@@ -44,11 +44,29 @@
 // The column range is cut into `splits` slices (gridDim.y).  Each slice
 // writes its partial row sums to a scratch buffer; a second kernel adds the
 // slices in a fixed order (and for K3 applies the closed forms).  No
-// atomics: the result is the same bits on every run.  No tensor cores.
+// atomics: the result is the same bits on every run.  The walk uses no
+// tensor cores.
+//
+// K2's and K6's 'default' and 'high3' contractions (the TPU kernel's
+// _contract, pallas_matvec.py:90-112) are a second walk, gibbs_mma_kernel,
+// on the tensor cores: each Gram element is built in f32 by the same
+// element policy, rounded to bf16 (hi = bf16(k), lo = bf16(k - hi)) and
+// contracted with V's bf16 hi and lo parts, which the wrapper splits once a
+// call and packs in column pairs (the B fragments' layout), by
+// mma.sync.m16n8k16 with f32 accumulators: hi.hi for 'default' (one pass),
+// hi.hi + hi.lo + lo.hi for 'high3' (three).  A warp owns kMmaMT tiles of
+// 16 rows; in each 16-column step a thread builds its A fragments' elements
+// directly in registers: rows g and g + 8 of each tile (g = lane / 4)
+// against columns 2t, 2t + 1, 2t + 8, 2t + 9 (t = lane % 4), so every
+// element is built once.  Columns come in passes of kMmaPass through
+// shared memory, double-buffered by cp.async, as in the walk; the column
+// splits and their fixed-order sum are the walk's.  'vpu' is the walk.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #include "gibbs_elem.cuh"
 
@@ -568,6 +586,280 @@ void panel_fb(const MatvecArgs& a, cudaStream_t s) {
   else launch_matvec<PanelElem, D, kMaxF>(a, s);
 }
 
+
+// ---- the tensor-core contraction of K2 and K6 ('default', 'high3') ----
+
+constexpr int kMmaMT = 2;      // 16-row tiles a warp owns
+constexpr int kMmaRows = (kK2Threads / 32) * kMmaMT * 16;  // rows a block owns
+constexpr int kMmaPass = 64;   // columns a shared-memory pass
+constexpr int kMmaGroup = 32;  // right-hand sides a block contracts: 4 tiles of 8
+
+// u32 words between two packed column-pair rows of V in shared memory: the
+// group's tiles of 8, padded so that the B-fragment loads of a warp (pair
+// rows t and t + 4 at columns g) fall in 32 distinct banks.
+__host__ __device__ constexpr int mma_stride(int nt) { return nt * 8 + (nt % 2 == 0 ? 8 : 0); }
+
+// Two elements as bf16 hi parts (the lower column in the low half, as the
+// A fragment wants it) and the bf16 rounding of what they leave, the lo
+// parts (k - hi is exact in f32).
+__device__ __forceinline__ void bf16_split(float k0, float k1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(k0, k1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(k0 - hf.x, k1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// c += a b on the tensor cores: a the 16 x 16 bf16 A fragment (4 words), b
+// the 16 x 8 bf16 B fragment (2 words), c the 16 x 8 f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared memory of the tensor-core walk, in 4-byte words: the raw column
+// payload (x, then for K2 l, kMmaPass * D each) and V's packed hi and lo
+// pair rows (kMmaPass / 2 of them, mma_stride(NT) words each) of two
+// passes, then at d = 2 the column factors of the current pass.
+template <class Elem, int D, int NT>
+struct MmaSmem {
+  static constexpr int kRaw = (Elem::kL ? 2 : 1) * kMmaPass * D;
+  static constexpr int kS = mma_stride(NT);
+  static constexpr int kV = (kMmaPass / 2) * kS;
+  static constexpr int kStage = kRaw + 2 * kV;
+  static constexpr int kCook = D == 2 ? Elem::kCook * kMmaPass : 0;
+  static constexpr int kWords = 2 * kStage + kCook;
+  static_assert(kWords * 4 <= 48 * 1024, "the tensor-core walk's shared memory is static: 48 KB at most");
+};
+
+// part[s, i, g0 + r] = sum over slice s of contract(K(i, j), v[j, g0 + r])
+// for the rhs group g0 = kMmaGroup * blockIdx.z, r < min(kMmaGroup, rc - g0),
+// where contract is hi.hi ('default') or hi.hi + hi.lo + lo.hi ('high3').
+// vhi, vlo: V's bf16 parts packed in column pairs, word [p * ldp + r] =
+// (v[2p, r], v[2p + 1, r]), npair rows (v's rows padded to even with 0),
+// ldp >= rc words a row (the columns past rc 0).
+template <class Elem, int D, int NT>
+__global__ void __launch_bounds__(kK2Threads)
+gibbs_mma_kernel(const float* __restrict__ x1, const float* __restrict__ l1, int n1,
+                 const float* __restrict__ x2, const float* __restrict__ l2, int n2,
+                 const uint32_t* __restrict__ vhi, const uint32_t* __restrict__ vlo, int ldp,
+                 int npair, int rc, int d, int cols_per_split, int high3,
+                 float* __restrict__ part) {
+  using S = MmaSmem<Elem, D, NT>;
+  constexpr int kP = kMmaPass;
+  __shared__ __align__(16) float sm[S::kWords];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // the fragments' row (A, C) and column (B) within a tile
+  const int t = lane & 3;   // their column pair (A, C) and row pair (B)
+  const int s = blockIdx.y;
+  const int g0 = blockIdx.z * kMmaGroup;
+  const int gw = min(kMmaGroup, rc - g0);
+  const int row0 = blockIdx.x * kMmaRows + (tid >> 5) * (kMmaMT * 16) + g;
+
+  // the rows' payloads: rows row0 + 16 mt + 8 h; an inactive row gets x = 0, l = 1
+  float xi[kMmaMT][2][D], li[kMmaMT][2][D];
+  typename Elem::Row rf[kMmaMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMmaMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + 16 * mt + 8 * h;
+      load_row<D>(x1, l1, i, i < n1, d, xi[mt][h], li[mt][h]);
+      if constexpr (D == 2) rf[mt][h] = Elem::row(xi[mt][h], li[mt][h]);
+    }
+  float acc[kMmaMT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMmaMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0f;
+
+  const int c_begin = s * cols_per_split;  // even: a split is whole kCols
+  const int c_end = min(n2, c_begin + cols_per_split);
+  const int npass = (c_end - c_begin + kP - 1) / kP;
+  // pass n's columns [c0, c0 + jn) into stage b: x (and l) at [j * D + k],
+  // zero past jn; V's pair rows c0 / 2 + p at [p * kS + r] (hi, then lo
+  // for 'high3'), zero past npair and past the group
+  auto stage = [&](int n, int b) {
+    float* xs = sm + b * S::kStage;
+    float* ls = xs + kP * D;
+    uint32_t* vh = reinterpret_cast<uint32_t*>(xs + S::kRaw);
+    const int c0 = c_begin + n * kP;
+    const int jn = min(kP, c_end - c0);
+    for (int e = tid; e < kP * d; e += kK2Threads) {
+      const int j = e / d, k = e % d;
+      const bool ok = j < jn;
+      const size_t gi = static_cast<size_t>(c0 + j) * d + k;
+      cp_async4(xs + j * D + k, ok ? x2 + gi : x2, ok);
+      if constexpr (Elem::kL) cp_async4(ls + j * D + k, ok ? l2 + gi : l2, ok);
+    }
+    for (int e = tid; e < (kP / 2) * (NT * 8); e += kK2Threads) {
+      const int p = e / (NT * 8), r = e % (NT * 8);
+      const int pg = c0 / 2 + p;
+      const bool ok = pg < npair && r < gw;
+      const size_t gi = static_cast<size_t>(pg) * ldp + g0 + r;
+      cp_async4(reinterpret_cast<float*>(vh + p * S::kS + r),
+                reinterpret_cast<const float*>(ok ? vhi + gi : vhi), ok);
+      if (high3)
+        cp_async4(reinterpret_cast<float*>(vh + S::kV + p * S::kS + r),
+                  reinterpret_cast<const float*>(ok ? vlo + gi : vlo), ok);
+    }
+    cp_async_commit();
+  };
+
+  stage(0, 0);
+  for (int n = 0; n < npass; ++n) {
+    const int b = n & 1;
+    cp_async_wait_all();
+    __syncthreads();  // pass n has landed; every thread is done with pass n - 1
+    if (n + 1 < npass) stage(n + 1, b ^ 1);
+    const float* xs = sm + b * S::kStage;
+    const float* ls = xs + kP * D;
+    const uint32_t* vh = reinterpret_cast<const uint32_t*>(xs + S::kRaw);
+    const uint32_t* vl = vh + S::kV;
+    const int jn = min(kP, c_end - (c_begin + n * kP));
+    float* ck = sm + 2 * S::kStage;
+    if constexpr (D == 2) {
+      for (int j = tid; j < kP; j += kK2Threads) Elem::template cook<kP>(ck, xs, ls, j);
+      __syncthreads();
+    }
+#pragma unroll 1
+    for (int jb = 0; jb < kP; jb += 16) {
+      // this thread's columns of the step: the A fragment's 2t, 2t + 1,
+      // 2t + 8, 2t + 9; a column past the slice's end gives 0
+      int cj[4] = {jb + 2 * t, jb + 2 * t + 1, jb + 2 * t + 8, jb + 2 * t + 9};
+      float kv[kMmaMT][2][4];
+      if constexpr (D == 2) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const typename Elem::Col c = Elem::template col<kP>(ck, cj[q]);
+#pragma unroll
+          for (int mt = 0; mt < kMmaMT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) kv[mt][h][q] = cj[q] < jn ? Elem::elem2(rf[mt][h], c) : 0.0f;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int mt = 0; mt < kMmaMT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              kv[mt][h][q] = cj[q] < jn ? Elem::template elem<D>(xi[mt][h], li[mt][h], xs + cj[q] * D,
+                                                                 ls + cj[q] * D, d)
+                                        : 0.0f;
+      }
+      // B fragments: pair rows jb/2 + t (columns 2t, 2t + 1) and
+      // jb/2 + t + 4 (2t + 8, 2t + 9), right-hand side g of each tile
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int w0 = (jb / 2 + t) * S::kS + nt * 8 + g;
+        const int w1 = w0 + 4 * S::kS;
+        bh[nt][0] = vh[w0];
+        bh[nt][1] = vh[w1];
+        bl[nt][0] = high3 ? vl[w0] : 0u;
+        bl[nt][1] = high3 ? vl[w1] : 0u;
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMmaMT; ++mt) {
+        // A fragment words: (row g, cols 2t, 2t+1), (g+8, 2t, 2t+1),
+        // (g, 2t+8, 2t+9), (g+8, 2t+8, 2t+9)
+        uint32_t ah[4], al[4];
+        bf16_split(kv[mt][0][0], kv[mt][0][1], ah[0], al[0]);
+        bf16_split(kv[mt][1][0], kv[mt][1][1], ah[1], al[1]);
+        bf16_split(kv[mt][0][2], kv[mt][0][3], ah[2], al[2]);
+        bf16_split(kv[mt][1][2], kv[mt][1][3], ah[3], al[3]);
+        // the tensor cores' f32 accumulation truncates: chained over a
+        // split's columns it would drop up to an ulp of the running sum a
+        // step, all in one direction.  A step's mma run into a zeroed
+        // fragment, added to the sum in FP32 (round to nearest).
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_bf16(c, ah, bh[nt][0], bh[nt][1]);
+          if (high3) {
+            mma_bf16(c, ah, bl[nt][0], bl[nt][1]);
+            mma_bf16(c, al, bh[nt][0], bh[nt][1]);
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += c[q];
+        }
+      }
+    }
+  }
+  // C fragment: (row g, rhs 2t, 2t + 1) then (row g + 8, the same) of each tile
+#pragma unroll
+  for (int mt = 0; mt < kMmaMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + 16 * mt + 8 * h;
+      if (i >= n1) continue;
+      float* out = part + (static_cast<size_t>(s) * n1 + i) * rc + g0;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = nt * 8 + 2 * t + e;
+          if (r < gw) out[r] = acc[mt][nt][2 * h + e];
+        }
+    }
+}
+
+struct MmaArgs {
+  const float *x1, *l1, *x2, *l2;
+  const uint32_t *vhi, *vlo;
+  float *out, *part;
+  int n1, n2, d, ldp, npair, rc, ldo, splits, cols_per_split, high3;
+};
+
+template <class Elem, int D, int NT>
+void launch_mma(const MmaArgs& a, cudaStream_t s) {
+  const dim3 grid((a.n1 + kMmaRows - 1) / kMmaRows, a.splits, (a.rc + kMmaGroup - 1) / kMmaGroup);
+  gibbs_mma_kernel<Elem, D, NT><<<grid, kK2Threads, 0, s>>>(
+      a.x1, a.l1, a.n1, a.x2, a.l2, a.n2, a.vhi, a.vlo, a.ldp, a.npair, a.rc, a.d,
+      a.cols_per_split, a.high3, a.part);
+}
+
+// Tiles of 8 right-hand sides a block contracts: the fewest that hold one
+// group (mBCG's 1 + 8 probes take 2).
+template <class Elem, int D>
+void mma_nt(const MmaArgs& a, cudaStream_t s) {
+  const int w = a.rc < kMmaGroup ? a.rc : kMmaGroup;
+  if (w <= 8) launch_mma<Elem, D, 1>(a, s);
+  else if (w <= 16) launch_mma<Elem, D, 2>(a, s);
+  else launch_mma<Elem, D, 4>(a, s);
+}
+
+// The launches of K2's or K6's mode: the tensor-core walk, then the
+// fixed-order sum of the column slices.
+template <class Elem>
+int run_mma(const MmaArgs& a, cudaStream_t s) {
+  switch (a.d) {
+    case 1: mma_nt<Elem, 1>(a, s); break;
+    case 2: mma_nt<Elem, 2>(a, s); break;
+    case 3: mma_nt<Elem, 3>(a, s); break;
+    default: mma_nt<Elem, kMaxD>(a, s); break;
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t m = static_cast<size_t>(a.n1) * a.rc;
+  sum_splits_kernel<<<static_cast<unsigned>((m + 255) / 256), 256, 0, s>>>(
+      a.part, a.splits, a.n1, a.rc, a.out, a.ldo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool mma_args_ok(int n1, int n2, int d, int ldp, int npair, int rc, int ldo, int splits,
+                 int cols_per_split) {
+  return matvec_args_ok(n1, n2, d, ldp, rc, ldo, splits, cols_per_split) &&
+         npair == (n2 + 1) / 2 && cols_per_split % kCols == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -637,6 +929,42 @@ int gibbs_panel_grads(const void* xr, const void* lr, const void* f1r, int nr,
       a.part, splits, nr, d, plr, d == 2 ? kLn2 : 1.0f, static_cast<float*>(gx),
       static_cast<float*>(gl), static_cast<float*>(sp));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2's 'default' (high3 = 0) and 'high3' (high3 = 1) contractions.  x1, l1,
+// x2, l2 as in gibbs_matvec; vhi, vlo: V's bf16 hi and lo parts packed in
+// column pairs, npair = (n2 + 1) / 2 rows of ldp >= rc words (vlo unread
+// when high3 = 0); out, part as in gibbs_matvec; cols_per_split a multiple
+// of 128.  Launches on `stream` and returns cudaGetLastError() as an int.
+int gibbs_matvec_mma(const void* x1, const void* l1, int n1, const void* x2,
+                     const void* l2, int n2, int d, const void* vhi, const void* vlo,
+                     int ldp, int npair, int rc, void* out, int ldo, void* part,
+                     int splits, int cols_per_split, int high3, void* stream) {
+  if (!mma_args_ok(n1, n2, d, ldp, npair, rc, ldo, splits, cols_per_split))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MmaArgs a{static_cast<const float*>(x1), static_cast<const float*>(l1),
+                  static_cast<const float*>(x2), static_cast<const float*>(l2),
+                  static_cast<const uint32_t*>(vhi), static_cast<const uint32_t*>(vlo),
+                  static_cast<float*>(out), static_cast<float*>(part),
+                  n1, n2, d, ldp, npair, rc, ldo, splits, cols_per_split, high3 != 0};
+  return run_mma<GibbsElem>(a, static_cast<cudaStream_t>(stream));
+}
+
+// K6's 'default' and 'high3' contractions on the prescaled z = x / ell; the
+// rest as in gibbs_matvec_mma.
+int rbf_matvec_mma(const void* z1, int n1, const void* z2, int n2, int d,
+                   const void* vhi, const void* vlo, int ldp, int npair, int rc,
+                   void* out, int ldo, void* part, int splits, int cols_per_split,
+                   int high3, void* stream) {
+  if (!mma_args_ok(n1, n2, d, ldp, npair, rc, ldo, splits, cols_per_split))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* pz1 = static_cast<const float*>(z1);
+  const float* pz2 = static_cast<const float*>(z2);
+  const MmaArgs a{pz1, pz1, pz2, pz2,
+                  static_cast<const uint32_t*>(vhi), static_cast<const uint32_t*>(vlo),
+                  static_cast<float*>(out), static_cast<float*>(part),
+                  n1, n2, d, ldp, npair, rc, ldo, splits, cols_per_split, high3 != 0};
+  return run_mma<RbfElem>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

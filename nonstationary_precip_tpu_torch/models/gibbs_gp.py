@@ -18,7 +18,10 @@ The matrix-free methods (``loss_matrixfree``, ``posterior_matrixfree``,
 ``posterior_state_matrixfree``, ``posterior_matrixfree_from_state``, with
 the hoists ``prior_pre_matrixfree`` and ``precond_factor``) serve one
 unbatched model at large N, where no N×N matrix, data Gram or prior Gram,
-may exist.  The data term's mBCG matvec is K2
+may exist; ``ChunkedMAPLoss`` (``make_chunked_map_loss``) and the
+``chunk_iters`` routes of the posterior are their host-chunked forms, the
+JAX package's product surface for N past its TPU's execution wall, here
+the same methods with their solves stopped early.  The data term's mBCG matvec is K2
 (``ops/matvec.scaled_packed_gibbs_matvec_builder``) and its backward K3
 (``packed_gibbs_panel_vjp``) on the card, their plain versions on the CPU;
 there is no switch to the panel paths.  The prior's per-dimension solves
@@ -47,7 +50,9 @@ from nonstationary_precip_tpu_torch.ops.lazy_cg import (
     lazy_cg_mll,
     lazy_cg_posterior,
     lazy_posterior_query,
+    lazy_posterior_query_chunked,
     lazy_posterior_state,
+    lazy_posterior_state_chunked,
 )
 from nonstationary_precip_tpu_torch.ops.matvec import packed_gibbs_panel_vjp, scaled_packed_gibbs_matvec_builder
 from nonstationary_precip_tpu_torch.ops.linalg import cho_solve, diag_part, safe_cholesky, tri_solve
@@ -132,8 +137,9 @@ class GibbsExactGP(nn.Module):
     @torch.no_grad()
     def precond_factor(self, x: torch.Tensor, *, rank: int = 150, precond: str = "pivchol",
                        key=None) -> torch.Tensor:
-        """(N, rank) pivoted-Cholesky factor of the data Gram at the current
-        pose, for the stale-preconditioner hoist: pass it to
+        """(N, rank) preconditioner factor (``precond``: pivoted Cholesky or
+        Nyström) of the data Gram at the current pose, for the
+        stale-preconditioner hoist: pass it to
         :meth:`loss_matrixfree` as ``precond_lpc`` and refresh it every k
         steps (the estimator is unbiased for any fixed SPD P)."""
         d = x.shape[-1]
@@ -145,7 +151,10 @@ class GibbsExactGP(nn.Module):
                         max_iters: Optional[int] = None, tol: float = 1e-6, precond_rank: int = 150,
                         precond_key=None, precond: str = "pivchol", precond_shift: float = 1.0,
                         precond_lpc: Optional[torch.Tensor] = None, prior_max_iters: int = 64,
-                        prior_precond_shift: float = 1.0, matvec_precision: str = "highest") -> torch.Tensor:
+                        prior_precond_shift: float = 1.0, matvec_precision: str = "highest",
+                        include_prior: bool = True, fused_matvec: bool = True, bwd_row_chunks: int = 1,
+                        stop_every: int = 0, prior_stop_every: int = 0,
+                        info: Optional[dict] = None) -> torch.Tensor:
         """:meth:`loss` for large N, the same MAP estimand with no N×N matrix:
         the data term is ``lazy_cg_mll``'s estimator (mBCG through K2, a
         rank-``precond_rank`` pivoted-Cholesky/Woodbury preconditioner unless
@@ -155,21 +164,47 @@ class GibbsExactGP(nn.Module):
         u2 (N, R)), the normal draws of the R probes.  ``max_iters`` defaults
         to 16 for N ≤ 32768, 32 above.  Gradients reach the field, the raw
         outputscale and the noise (those that require them).
-        ``matvec_precision`` other than 'highest' raises (not yet ported)."""
+        ``matvec_precision`` is K2's contraction mode ('highest', the
+        default; 'vpu', 'high3' or 'default', ``ops/matvec.make_gibbs_matvec``);
+        K3's backward is exact f32 whatever it is, as in the JAX package.
+
+        The host-chunked loss (:class:`ChunkedMAPLoss`) is this one with:
+        ``include_prior=False`` (the raw MLL ÷ N, ``prior_pre`` unused),
+        ``fused_matvec=False`` (the panel paths through
+        ``packed_gibbs_cross`` in place of K2 and K3), ``bwd_row_chunks``
+        (K3's sweep in row blocks, ``packed_gibbs_panel_vjp(d, rows)``),
+        ``stop_every`` / ``prior_stop_every`` (the solves' early stop,
+        ``bbmm.mbcg``) and ``info``, a dict that receives the evidence:
+        ``mll`` the raw MLL, ``relres_mll`` its (1 + R,) residuals,
+        ``relres_prior`` a dim's, ``iters`` the MLL's mBCG iterations and
+        ``relres_max`` the worst."""
         n = y.shape[-1]
         d = x.shape[-1]
         if max_iters is None:
             max_iters = 16 if n <= 32768 else 32
+        if bwd_row_chunks > 1 and not fused_matvec:
+            raise ValueError("bwd_row_chunks > 1 needs the fused backward (K3's row entry): there is no panel "
+                             "row-block sweep")
         aug = torch.cat([x, self.log_ell], dim=1)
+        mll_info = {}
         logp = lazy_cg_mll(self.raw_outputscale, aug, y, probe_noise, self.likelihood.noise, block=block,
                            max_iters=max_iters, tol=tol, precond_rank=min(precond_rank, n), precond_key=precond_key,
                            precond=precond, precond_shift=precond_shift, precond_lpc=precond_lpc,
                            cross_fn=packed_gibbs_cross(d),
-                           matvec_builder=scaled_packed_gibbs_matvec_builder(d, matvec_precision),
-                           panel_vjp=packed_gibbs_panel_vjp(d))
+                           matvec_builder=scaled_packed_gibbs_matvec_builder(d, matvec_precision) if fused_matvec
+                           else None,
+                           panel_vjp=packed_gibbs_panel_vjp(d, bwd_row_chunks) if fused_matvec else None,
+                           stop_every=stop_every, info=mll_info)
+        prior_info = {"relres": torch.zeros((d,), dtype=x.dtype, device=x.device)}
         prior_term = self.prior.log_prob_matrixfree(x, self.log_ell, prior_pre, block=block,
                                                     max_iters=prior_max_iters, tol=tol,
-                                                    precond_shift=prior_precond_shift)
+                                                    precond_shift=prior_precond_shift, stop_every=prior_stop_every,
+                                                    info=prior_info) if include_prior else 0.0
+        if info is not None:
+            worst = torch.max(mll_info["relres"])
+            info.update(mll=logp.detach(), relres_mll=mll_info["relres"], relres_prior=prior_info["relres"],
+                        iters=mll_info["iters"],
+                        relres_max=torch.maximum(worst, torch.max(prior_info["relres"]).to(worst.dtype)))
         return -(logp + prior_term) / n
 
     # -- prediction ---------------------------------------------------------
@@ -231,48 +266,55 @@ class GibbsExactGP(nn.Module):
     def posterior_state_matrixfree(self, x_train, y_train, prior_pre, *, block: int = 2048,
                                    max_iters: Optional[int] = None, tol: float = 1e-8, precond_rank: int = 150,
                                    precond: str = "pivchol", precond_key=None, precond_shift: float = 1.0,
-                                   prior_max_iters: int = 64, chunk_iters: Optional[int] = None):
+                                   prior_max_iters: int = 64, chunk_iters: Optional[int] = None,
+                                   n_chunks: int = 8):
         """Once-per-fit serving state for :meth:`posterior_matrixfree_from_state`:
         α = (K + σ²I)⁻¹y with the rank-``precond_rank`` factor
         (``lazy_posterior_state``, through K2) and the prior's per-dim
         conditioning solves (``conditional_pre_matrixfree``).  Returns
-        (state, cond).  ``chunk_iters`` (the host-chunked route) is not
-        ported."""
-        if chunk_iters is not None:
-            raise NotImplementedError(
-                "chunk_iters (the host-chunked serving state) is not yet ported: ROADMAP queue 1 item 5")
+        (state, cond).  ``chunk_iters`` (with ``n_chunks``) runs the α solve
+        and the prior's solves host-chunked (``lazy_posterior_state_chunked``:
+        at most ``chunk_iters``·``n_chunks`` iterations, stopped early)."""
         d = x_train.shape[-1]
         aug = torch.cat([x_train, self.log_ell], dim=1)
-        st = lazy_posterior_state(self.raw_outputscale, aug, y_train, self.likelihood.noise, block=block,
-                                  max_iters=max_iters, tol=tol, precond_rank=min(precond_rank, y_train.shape[-1]),
-                                  precond=precond, precond_key=precond_key, precond_shift=precond_shift,
-                                  cross_fn=packed_gibbs_cross(d), matvec_builder=scaled_packed_gibbs_matvec_builder(d))
+        kw = dict(block=block, tol=tol, precond_rank=min(precond_rank, y_train.shape[-1]), precond=precond,
+                  precond_key=precond_key, precond_shift=precond_shift, cross_fn=packed_gibbs_cross(d),
+                  matvec_builder=scaled_packed_gibbs_matvec_builder(d))
+        if chunk_iters is not None:
+            st = lazy_posterior_state_chunked(self.raw_outputscale, aug, y_train, self.likelihood.noise,
+                                              chunk_iters=chunk_iters, n_chunks=n_chunks, **kw)
+        else:
+            st = lazy_posterior_state(self.raw_outputscale, aug, y_train, self.likelihood.noise, max_iters=max_iters,
+                                      **kw)
         cond = self.prior.conditional_pre_matrixfree((x_train, torch.exp(self.log_ell)), prior_pre, block=block,
-                                                     max_iters=prior_max_iters, tol=tol)
+                                                     max_iters=prior_max_iters, tol=tol, chunk_iters=chunk_iters)
         return st, cond
 
     @torch.no_grad()
     def posterior_matrixfree_from_state(self, state, x_new, *, noiseless: bool = True, mean_only: bool = False,
                                         block: int = 2048, max_iters: Optional[int] = None, tol: float = 1e-6,
                                         precond_shift: float = 1.0, return_info: bool = False,
-                                        chunk_iters: Optional[int] = None):
+                                        chunk_iters: Optional[int] = None, n_chunks: int = 8):
         """:meth:`posterior_matrixfree` from a prebuilt state: per query batch
         one panel sweep for the lengthscales at ``x_new``, the cross build and
         one contraction for the mean, and, unless ``mean_only``, one
         preconditioned mBCG with N* right-hand sides at the auto budget
-        (``lazy_posterior_query``).  ``mean_only`` returns the (N*,) mean.
-        ``return_info`` appends the query's convergence evidence."""
-        if chunk_iters is not None:
-            raise NotImplementedError(
-                "chunk_iters (the host-chunked variance solves) is not yet ported: ROADMAP queue 1 item 5")
+        (``lazy_posterior_query``; with ``chunk_iters``, host-chunked at
+        most ``chunk_iters``·``n_chunks`` iterations,
+        ``lazy_posterior_query_chunked``).  ``mean_only`` returns the (N*,)
+        mean.  ``return_info`` appends the query's convergence evidence."""
         st, cond = state
         d = x_new.shape[-1]
         ell2 = self.prior.conditional_mean_from_pre(x_new, (st.x[:, :d], None), cond, block=block)
         aug_new = torch.cat([x_new, torch.log(ell2)], dim=1)
-        mean, cov, *info = lazy_posterior_query(st, aug_new, mean_only=mean_only, block=block, max_iters=max_iters,
-                                                tol=tol, precond_shift=precond_shift, cross_fn=packed_gibbs_cross(d),
-                                                matvec_builder=scaled_packed_gibbs_matvec_builder(d),
-                                                return_info=return_info)
+        kw = dict(mean_only=mean_only, block=block, tol=tol, precond_shift=precond_shift,
+                  cross_fn=packed_gibbs_cross(d), matvec_builder=scaled_packed_gibbs_matvec_builder(d),
+                  return_info=return_info)
+        if chunk_iters is not None:
+            mean, cov, *info = lazy_posterior_query_chunked(st, aug_new, chunk_iters=chunk_iters, n_chunks=n_chunks,
+                                                            **kw)
+        else:
+            mean, cov, *info = lazy_posterior_query(st, aug_new, max_iters=max_iters, **kw)
         out = mean if mean_only else MVN(mean, self._stabilised(cov, noiseless))
         return (out, info[0]) if return_info else out
 
@@ -282,6 +324,81 @@ class GibbsExactGP(nn.Module):
         if x_new is None:
             return ell
         return self.prior.conditional_mean(x_new, (x_train, ell))
+
+
+# ---------------------------------------------------------------------------
+# the host-chunked MAP loss (the JAX package's product surface past its wall)
+# ---------------------------------------------------------------------------
+
+
+_HEADS = ("raw_outputscale", "log_ell", "likelihood.raw_noise")
+
+
+class ChunkedMAPLoss:
+    """Host-chunked :meth:`GibbsExactGP.loss_matrixfree`, the JAX package's
+    (``models/gibbs_gp.py:614-695``): that loss with its solves stopped
+    early (``loss_kw``, :func:`make_chunked_map_loss`'s budget).
+    ``value_and_grad(model, x, y, prior_pre, probe_noise)`` returns
+    ``(loss, grads, info)``: ``grads`` by parameter name
+    (``train/optim.fit_chunked`` applies them), those of the outputscale,
+    the field and the noise whether or not they train, zero for the
+    prior's, as JAX's phases give them; ``info`` the evidence
+    (``loss_matrixfree``'s)."""
+
+    def __init__(self, loss_kw: dict, include_prior: bool):
+        self._kw = loss_kw
+        self._include_prior = include_prior
+
+    def value_and_grad(self, model: GibbsExactGP, x, y, prior_pre, probe_noise, pkey=None, early_stop: bool = True):
+        """(loss, grads, info) at the model's pose.  ``prior_pre``: the
+        hoisted prior state (None without the prior); ``probe_noise``: the
+        MLL's probe draws, as ``lazy_cg_mll``'s; ``pkey``: the factor's keyed
+        rule, ``loss_matrixfree``'s ``precond_key``."""
+        if self._include_prior and prior_pre is None:
+            raise ValueError("ChunkedMAPLoss was built with include_prior=True: pass prior_pre "
+                             "(GibbsExactGP.prior_pre_matrixfree, hoisted once per fit)")
+        kw = dict(self._kw) if early_stop else {**self._kw, "stop_every": 0, "prior_stop_every": 0}
+        heads = [model.get_parameter(name) for name in _HEADS]
+        trains = [p.requires_grad for p in heads]
+        info = {}
+        try:
+            for p in heads:
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                loss = model.loss_matrixfree(x, y, probe_noise, prior_pre, precond_key=pkey,
+                                             include_prior=self._include_prior, info=info, **kw)
+                live = dict(zip(_HEADS, torch.autograd.grad(loss, heads)))
+        finally:
+            for p, t in zip(heads, trains):
+                p.requires_grad_(t)
+        grads = {name: live.get(name, torch.zeros_like(p)) for name, p in model.named_parameters()}
+        return loss.detach(), grads, info
+
+
+def make_chunked_map_loss(d: int, *, block: int = 2048, chunk_iters: int = 8, n_chunks: int = 4, tol: float = 1e-6,
+                          precond_rank: int = 1024, precond: str = "nystrom", precond_shift: float = 10.0,
+                          include_prior: bool = True, prior_chunk_iters: int = 8, prior_n_chunks: int = 8,
+                          prior_precond_shift: float = 1.0, fused_matvec: bool = True,
+                          matvec_precision: str = "highest", bwd_row_chunks: int = 1) -> ChunkedMAPLoss:
+    """A :class:`ChunkedMAPLoss` for d-dimensional inputs, with the JAX
+    package's defaults: its flagship large-N configuration (Nyström rank
+    1024, shift 10, 8-iteration chunks, 4 of them).  ``chunk_iters ×
+    n_chunks`` is the MLL's mBCG budget, stopped early every
+    ``chunk_iters``; the prior's solves likewise.  ``fused_matvec=True``
+    takes K2 (``matvec_precision`` its mode) and K3, their plain versions on
+    the CPU; False the panel paths through ``packed_gibbs_cross``.
+    ``bwd_row_chunks > 1`` splits K3's sweep into row blocks and needs the
+    fused path, as in the JAX package.  ``d`` is JAX's signature's; the
+    loss reads it from x."""
+    if bwd_row_chunks > 1 and not fused_matvec:
+        raise ValueError("bwd_row_chunks > 1 needs the fused backward (K3's row entry): there is no panel "
+                         "row-block sweep")
+    return ChunkedMAPLoss(dict(block=block, max_iters=chunk_iters * n_chunks, stop_every=chunk_iters, tol=tol,
+                               precond_rank=precond_rank, precond=precond, precond_shift=precond_shift,
+                               prior_max_iters=prior_chunk_iters * prior_n_chunks,
+                               prior_stop_every=prior_chunk_iters, prior_precond_shift=prior_precond_shift,
+                               fused_matvec=fused_matvec, matvec_precision=matvec_precision,
+                               bwd_row_chunks=bwd_row_chunks), include_prior)
 
 
 def gibbs_b_eligible(mats: torch.Tensor) -> bool:

@@ -5,8 +5,11 @@ Counterpart of ``nonstationary_precip_tpu/ops/bbmm.py`` (GPyTorch's mBCG,
 Gardner et al. 2018).  mBCG runs exactly ``max_iters`` masked iterations in
 a Python loop, with no early exit and no host synchronisation inside it:
 converged columns freeze through their masks, as in the JAX package's fixed
-``lax.scan``.  Randomness comes from the caller: ``sample_precond_probes``
-takes the normal draws, not a key.
+``lax.scan``.  ``mbcg_chunk`` runs the same loop from a carry; with
+``stop_every`` mBCG runs chunks of it and stops once every column has
+converged, the host-chunked solves' early stop (``ops/lazy_cg``).
+Randomness comes from the caller: ``sample_precond_probes`` takes the
+normal draws, not a key.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ class CGResult(NamedTuple):
     iters: torch.Tensor  # (R,) iterations to convergence (= T if never)
     broke: torch.Tensor  # (R,) True where CG hit pᵀKp ≤ 0 before converging
     resnorm_hist: torch.Tensor  # (T, R) relative residual after each iteration
+    ran: int  # iterations run (T unless stopped early)
 
 
 def mbcg_init(b: torch.Tensor, precond=None):
@@ -74,23 +78,52 @@ def _make_mbcg_step(matvec, precond, tol, safe_bnorm, dtype):
 
 
 def mbcg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor, max_iters: int = 100,
-         tol: float = 1e-6, precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> CGResult:
+         tol: float = 1e-6, precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+         stop_every: int = 0) -> CGResult:
     """Modified batched conjugate gradients: solves K x = b for all R
     columns of ``b`` at once and records the per-column CG coefficients
     (α, β) that define the Lanczos tridiagonal of the (preconditioned)
     operator.  ``matvec`` and ``precond`` (P⁻¹) map (N, R) → (N, R).
-    Runs exactly ``max_iters`` iterations; converged columns are masked."""
+    Runs exactly ``max_iters`` iterations; converged columns are masked.
+
+    ``stop_every`` > 0 reads the done flags every ``stop_every`` iterations
+    and stops once every column has converged (one host read a chunk).  The
+    iterations not run are those a full run would have masked, so the
+    coefficients are padded as it pads them (α = β = 0, the residual
+    unchanged) and the result is the full run's; ``ran`` counts the
+    iterations run."""
     b, safe_bnorm, carry = mbcg_init(b, precond)
-    step = _make_mbcg_step(matvec, precond, tol, safe_bnorm, b.dtype)
-    hist = []
-    for _ in range(max_iters):
-        carry, out = step(carry)
-        hist.append(out)
+    parts, ran = [], 0
+    while ran < max_iters:
+        carry, out = mbcg_chunk(matvec, carry, min(stop_every or max_iters, max_iters - ran), tol, safe_bnorm,
+                                precond)
+        parts.append(out)
+        ran += out[0].shape[0]
+        if stop_every and bool(carry[5].all()):
+            break
+    alphas, betas, resnorms = (torch.cat(p) for p in zip(*parts))
+    if ran < max_iters:
+        pad = torch.zeros((max_iters - ran, alphas.shape[1]), dtype=alphas.dtype, device=alphas.device)
+        alphas, betas = torch.cat([alphas, pad]), torch.cat([betas, pad])
+        resnorms = torch.cat([resnorms, resnorms[-1:].expand(max_iters - ran, -1)])
     x, res, _, _, _, _, iters, broke = carry
-    alphas, betas, resnorms = (torch.stack(h) for h in zip(*hist))
     return CGResult(x=x, alphas=alphas, betas=betas,
                     residnorm=torch.linalg.vector_norm(res, dim=0) / safe_bnorm,
-                    iters=iters, broke=broke, resnorm_hist=resnorms / safe_bnorm[None, :])
+                    iters=iters, broke=broke, resnorm_hist=resnorms / safe_bnorm[None, :], ran=ran)
+
+
+def mbcg_chunk(matvec: Callable[[torch.Tensor], torch.Tensor], carry: tuple, length: int, tol: float,
+               safe_bnorm: torch.Tensor, precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+    """``length`` mBCG iterations from ``carry`` (``mbcg_init``'s or a
+    previous chunk's): (carry', (alphas, betas, resnorms)), each (length, R).
+    :func:`mbcg` is a sequence of these, so chunks run from its carry are
+    its run, bit for bit (the JAX package's ``mbcg_chunk``)."""
+    step = _make_mbcg_step(matvec, precond, tol, safe_bnorm, carry[0].dtype)
+    hist = []
+    for _ in range(length):
+        carry, out = step(carry)
+        hist.append(out)
+    return carry, tuple(torch.stack(h) for h in zip(*hist))
 
 
 def lanczos_tridiag(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:

@@ -23,19 +23,33 @@ only, and a constant SLQ logdet.
 
 Every preconditioned path takes ``precond_shift``: P = LLᵀ + c·I with
 c = shift·σ², the JAX package's Woodbury ridge (shift > 1 buys f32
-stability at large N; the estimators are P-generic).
+stability at large N; the estimators are P-generic).  The factor L is the
+greedy pivoted Cholesky, RPCholesky's sampled pivots (``key``: the Gumbel
+draws) or the Nyström factor of ``rank`` landmarks (``lazy_nystrom_factor``).
+
+Every solve takes ``stop_every``: mBCG then reads its done flags every
+``stop_every`` iterations and stops once every column has converged
+(``bbmm.mbcg``), with the full run's result.  ``make_chunked_mll``,
+``make_chunked_solve``, ``lazy_posterior_state_chunked`` and
+``lazy_posterior_query_chunked`` are the JAX package's host-chunked entries
+(there, to keep each device program under its TPU's execution wall): here
+they call the paths above with a budget of ``chunk_iters``·``n_chunks``
+iterations, stopped every ``chunk_iters``.
 
 Kernels whose state is per point (the Gibbs lengthscale field) use the
 packed payload ``x_aug = [x, log ℓ]`` with a ``cross_fn`` that unpacks it
 (``kernels.gibbs.packed_gibbs_cross``).  Randomness comes from the caller:
 ``probe_noise`` is (u1 (rank, R), u2 (N, R)) standard normal draws with a
-preconditioner, else the (N, R) probes themselves.
+preconditioner, else the (N, R) probes themselves; a ``precond_key`` is
+RPCholesky's (rank, N) Gumbel draws or the Nyström landmarks' indices, or a
+``torch.Generator`` they are drawn from.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import warnings
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -80,22 +94,52 @@ def _lazy_matvec(kernel, x, sigma2, block, cross_fn):
     return matvec
 
 
+def _operator(kernel, x, sigma2, block, cross_fn, matvec_builder):
+    """The (N, R) → (N, R) multiply by K + σ²I: ``matvec_builder``'s fused
+    one (K2) if given, else lazy row panels through ``cross_fn``."""
+    if matvec_builder is not None:
+        return matvec_builder(kernel, x, sigma2)
+    return _lazy_matvec(kernel, x, sigma2, block, cross_fn)
+
+
+def _gumbel_rows(key, rank: int, n: int, x: torch.Tensor) -> torch.Tensor:
+    """RPCholesky's (rank, N) Gumbel draws on x's device: ``key`` itself (an
+    array of them, e.g. JAX's ``gumbel(fold_in(key, j), (N,))`` row j), or
+    drawn from ``key``, a ``torch.Generator``, as −log(−log u) with u
+    uniform on [tiny, 1), JAX's ``gumbel``."""
+    if isinstance(key, torch.Generator):
+        u = torch.rand((rank, n), generator=key, dtype=x.dtype, device=key.device)
+        g = -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(x.dtype).tiny)))
+    else:
+        g = torch.as_tensor(key, dtype=x.dtype)
+    if g.shape != (rank, n):
+        raise ValueError(f"RPCholesky draws must be (rank, N) = ({rank}, {n}), got {tuple(g.shape)}")
+    return g.to(x.device)
+
+
 @torch.no_grad()
 def lazy_pivoted_cholesky(kernel, x: torch.Tensor, rank: int, cross_fn: Callable = default_cross,
                           jitter: float = 1e-8, key=None) -> torch.Tensor:
-    """Rank-``rank`` greedy pivoted Cholesky (N, rank) of the noise-free
+    """Rank-``rank`` pivoted Cholesky (N, rank) of the noise-free
     K(x, x) without forming it: the diagonal from single-point evaluations,
     each pivot row from one (1, N) cross-Gram build.  The pivot stays on
     the device (argmax and index_select, no host read per pivot).  Same
-    recursion as ``ops/bbmm.pivoted_cholesky``.  ``key`` (RPCholesky's
-    sampled pivots) is not yet ported."""
-    if key is not None:
-        raise NotImplementedError("RPCholesky pivoting (lazy_pivoted_cholesky with a key) is not yet ported")
+    recursion as ``ops/bbmm.pivoted_cholesky``.
+
+    ``key=None``: the greedy pivot, argmax of the residual diagonal.  Else
+    RPCholesky (Chen, Epperly, Tropp & Webber 2022): pivot j is sampled with
+    probability ∝ the residual diagonal, as argmax(gⱼ + log d) with gⱼ the
+    j-th row of Gumbel draws (``_gumbel_rows``: ``key`` is the (rank, N)
+    draws or a ``torch.Generator`` they come from).  This is JAX's
+    ``categorical(fold_in(key, j), log d)``, so JAX's draws give JAX's
+    pivots; an exhausted pivot has d = 0, log d = −inf, probability 0."""
     n = x.shape[0]
+    gumbel = None if key is None else _gumbel_rows(key, rank, n, x)
     d = torch.vmap(lambda xi: cross_fn(kernel, xi[None], xi[None])[0, 0])(x)
     l = torch.zeros((n, rank), dtype=x.dtype, device=x.device)
     for j in range(rank):
-        piv = torch.argmax(d).reshape(1)
+        score = d if gumbel is None else gumbel[j] + torch.log(d)
+        piv = torch.argmax(score).reshape(1)
         dmax = d.index_select(0, piv)
         krow = cross_fn(kernel, x.index_select(0, piv), x)[0]
         resid = krow - l @ l.index_select(0, piv)[0]
@@ -106,12 +150,84 @@ def lazy_pivoted_cholesky(kernel, x: torch.Tensor, rank: int, cross_fn: Callable
     return l
 
 
+def _warn_dead_rank(lam: torch.Tensor, cutoff, rank: int) -> int:
+    """The capacity guard of the JAX package (DESIGN §30): when the landmark
+    Gram keeps fewer than rank/8 eigendirections above the cutoff, the other
+    columns add no preconditioning and widen the f32 Woodbury inner problem,
+    so warn, eagerly (one host read; the port has no traced mode in which
+    JAX's check skips).  Returns the count kept."""
+    k = int(torch.sum(lam > cutoff))
+    if k < rank // 8:
+        warnings.warn(
+            f"lazy_nystrom_factor: only {k}/{rank} landmark-Gram eigendirections sit above the cutoff "
+            f"{float(cutoff):.2e} — the remaining columns add no preconditioning capacity and erode the f32 "
+            f"Woodbury stability margin at scale.  Prefer rank ≈ {max(2 * k, 64)}, or raise ridge/precond_shift "
+            "(DESIGN.md §30).",
+            stacklevel=3,
+        )
+    return k
+
+
+def canonical_eigh(w: torch.Tensor):
+    """``torch.linalg.eigh`` with each eigenvector's sign fixed: its entry
+    of largest magnitude (the first of equals) made positive.  LAPACK and
+    cuSOLVER return either sign, and a Nyström column's sign meets the
+    caller's probe draws (z = L u₁ + √c u₂), so without this the CPU and
+    the card would draw different probes from the same u₁.  P = LLᵀ + cI
+    does not depend on it."""
+    lam, v = torch.linalg.eigh(w)
+    lead = v.gather(0, torch.argmax(v.abs(), dim=0, keepdim=True))
+    return lam, v * torch.where(lead < 0, -1.0, 1.0).to(v.dtype)
+
+
+def nystrom_landmarks(n: int, rank: int, key=None, device=None) -> torch.Tensor:
+    """The Nyström landmarks' row indices (rank,): JAX's stride
+    (arange(rank)·(n // rank)) mod n without a key; else ``key`` itself (an
+    index vector, e.g. JAX's ``permutation(key, n)[:rank]``) or the first
+    ``rank`` of a ``torch.Generator``'s permutation."""
+    if key is None:
+        return (torch.arange(rank, device=device) * (n // rank)) % n
+    if isinstance(key, torch.Generator):
+        return torch.randperm(n, generator=key, device=key.device)[:rank].to(device)
+    idx = torch.as_tensor(key, dtype=torch.int64, device=device)
+    if idx.shape != (rank,):
+        raise ValueError(f"Nyström landmarks must be ({rank},) indices, got {tuple(idx.shape)}")
+    return idx
+
+
+@torch.no_grad()
+def lazy_nystrom_factor(kernel, x: torch.Tensor, rank: int, cross_fn: Callable = default_cross, key=None,
+                        block: int = 4096, ridge: float = 1e-5) -> torch.Tensor:
+    """Rank-``rank`` Nyström factor (N, rank) of the noise-free K(x, x):
+    L = K(x, m) V Λ^(−½) from the landmark Gram K(m, m) = VΛVᵀ
+    (:func:`canonical_eigh`, outside any kernel, as JAX's ``eigh``), with the
+    directions whose eigenvalue is at most ``ridge``·λmax zeroed (a zero
+    column of L, not amplified noise): LLᵀ = K(x, m) W⁺ K(m, x) on the kept
+    subspace, PSD and ≼ K.  The (N, rank) cross panels, ``block`` rows at a
+    time, go through ``cross_fn`` (the plain Gram, never K9).  The same
+    contract as :func:`lazy_pivoted_cholesky`.  Landmarks:
+    :func:`nystrom_landmarks`.  Warns when fewer than rank/8 directions are
+    kept (:func:`_warn_dead_rank`)."""
+    n = x.shape[0]
+    rank = min(rank, n)
+    x_lm = x.index_select(0, nystrom_landmarks(n, rank, key, x.device))
+    lam, v = canonical_eigh(cross_fn(kernel, x_lm, x_lm))  # ascending
+    cutoff = ridge * lam[-1]
+    _warn_dead_rank(lam, cutoff, rank)
+    inv_sqrt = torch.where(lam > cutoff, 1.0 / torch.sqrt(torch.maximum(lam, cutoff)), torch.zeros_like(lam))
+    proj = v * inv_sqrt[None, :]
+    return torch.cat([cross_fn(kernel, x[i:i + block], x_lm) @ proj for i in range(0, n, block)])
+
+
 def build_precond_factor(precond, kernel, x, rank, cross, key=None):
-    """The (N, rank) preconditioner factor.  Only ``'pivchol'`` is ported."""
+    """The (N, rank) preconditioner factor: ``'pivchol'`` (greedy pivots, or
+    RPCholesky's with ``key``) or ``'nystrom'`` (stride landmarks, or the
+    keyed ones).  Public so that a caller can hoist the build
+    (``lazy_cg_mll(precond_lpc=...)``)."""
     if precond == "pivchol":
         return lazy_pivoted_cholesky(kernel, x, rank, cross, key=key)
     if precond == "nystrom":
-        raise NotImplementedError("precond='nystrom' (lazy_nystrom_factor) is not yet ported")
+        return lazy_nystrom_factor(kernel, x, rank, cross, key=key)
     raise ValueError(f"precond must be 'pivchol' or 'nystrom', got {precond!r}")
 
 
@@ -129,16 +245,15 @@ class _Settings(NamedTuple):
     matvec_builder: Optional[Callable]
     panel_vjp: Optional[Callable]
     precond_shift: float
+    stop_every: int
 
 
 def _core_fwd(s: _Settings, kernel, x, resid, probes, sigma2, lpc):
-    """The JAX package's ``core_fwd`` (:325-366): value, and the vectors the
-    backward needs (α = K⁻¹r, the probe solves, the trace's right vectors)."""
+    """The JAX package's ``core_fwd`` (:325-366): value, the vectors the
+    backward needs (α = K⁻¹r, the probe solves, the trace's right vectors)
+    and the mBCG result."""
     n = resid.shape[0]
-    if s.matvec_builder is not None:
-        matvec = s.matvec_builder(kernel, x, sigma2)
-    else:
-        matvec = _lazy_matvec(kernel, x, sigma2, s.block, s.cross_fn)
+    matvec = _operator(kernel, x, sigma2, s.block, s.cross_fn, s.matvec_builder)
     if s.precond_rank > 0:
         # the preconditioner parameterises the estimator, not the estimand:
         # σ² is frozen in it; z ~ N(0, P) and P⁻¹z keep E[z (P⁻¹z)ᵀ] = I
@@ -155,13 +270,13 @@ def _core_fwd(s: _Settings, kernel, x, resid, probes, sigma2, lpc):
         probe_w = torch.sum(probes * probes, dim=0)
         logdet_p = torch.zeros((), dtype=resid.dtype, device=resid.device)
     res = mbcg(matvec, torch.cat([resid[:, None], probes], dim=1), max_iters=s.max_iters, tol=s.tol,
-               precond=minv)
+               precond=minv, stop_every=s.stop_every)
     alpha, solves = res.x[:, 0], res.x[:, 1:]
     logdet = logdet_p + lanczos_logdet(res.alphas[:, 1:], res.betas[:, 1:], probe_w)
     two_pi = torch.tensor(2.0 * math.pi, dtype=resid.dtype, device=resid.device)
     val = -0.5 * torch.dot(resid, alpha) - 0.5 * logdet - 0.5 * n * torch.log(two_pi)
     val = torch.where(torch.any(res.broke), torch.full_like(val, math.nan), val)
-    return val, (alpha, solves, probe_rights)
+    return val, (alpha, solves, probe_rights), res
 
 
 def kernel_params(kernel) -> tuple:
@@ -177,11 +292,14 @@ class _LazyCGMLL(torch.autograd.Function):
 
     A module kernel's parameters ride as the trailing inputs ``kparams``, so
     autograd routes their gradients (the JAX package differentiates the
-    kernel pytree itself); a tensor kernel gets its gradient directly."""
+    kernel pytree itself); a tensor kernel gets its gradient directly.
+    ``info``, a dict or None, receives the run's evidence."""
 
     @staticmethod
-    def forward(ctx, kernel, x, resid, probes, sigma2, lpc, settings, *kparams):
-        val, (alpha, solves, rights) = _core_fwd(settings, kernel, x, resid, probes, sigma2, lpc)
+    def forward(ctx, kernel, x, resid, probes, sigma2, lpc, settings, info, *kparams):
+        val, (alpha, solves, rights), res = _core_fwd(settings, kernel, x, resid, probes, sigma2, lpc)
+        if info is not None:
+            info.update(relres=res.residnorm, iters=res.ran)
         ctx.settings = settings
         ctx.kernel = kernel
         ctx.num_kparams = len(kparams)
@@ -199,14 +317,15 @@ class _LazyCGMLL(torch.autograd.Function):
         else:
             kernel_grad = None
             param_grads = tuple(kg) if ctx.num_kparams else ()
-        return (kernel_grad, xgrad, -g * alpha, None, s2g, None, None, *param_grads)
+        return (kernel_grad, xgrad, -g * alpha, None, s2g, None, None, None, *param_grads)
 
 
 def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma2, *,
                 block: int = 1024, max_iters: int = 100, tol: float = 1e-6, precond_rank: int = 0,
                 precond_key=None, precond: str = "pivchol", precond_shift: float = 1.0,
                 precond_lpc: Optional[torch.Tensor] = None, cross_fn: Optional[Callable] = None,
-                matvec_builder: Optional[Callable] = None, panel_vjp: Optional[Callable] = None) -> torch.Tensor:
+                matvec_builder: Optional[Callable] = None, panel_vjp: Optional[Callable] = None,
+                stop_every: int = 0, info: Optional[dict] = None) -> torch.Tensor:
     """−½ rᵀK⁻¹r − ½ log det K − (n/2) log 2π with K = kernel(x) + σ²I, K
     never in memory.  Differentiable w.r.t. ``kernel`` (a tensor, such as
     the raw outputscale of ``packed_gibbs_cross``, or an ``nn.Module``,
@@ -226,7 +345,10 @@ def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma
     the contract ``(kernel, x, sigma2, alpha, solves, rights, g) ->
     (kernel_grad, x_grad, sigma2_grad)``; for a module kernel,
     ``kernel_grad`` is a tuple aligned with ``kernel.parameters()``.  Both must compute the operator
-    of ``cross_fn``.  ``block`` must divide N (it is clamped to N first)."""
+    of ``cross_fn``.  ``block`` must divide N (it is clamped to N first).
+    ``stop_every``: mBCG's early stop (``bbmm.mbcg``).  ``info``, a dict,
+    receives the evidence: ``relres`` the (1 + R,) final relative
+    residuals, ``iters`` the mBCG iterations run."""
     n = x.shape[0]
     block = min(block, n)
     check_divisible(n, block, "x", "row-panel block")
@@ -244,8 +366,8 @@ def lazy_cg_mll(kernel, x: torch.Tensor, resid: torch.Tensor, probe_noise, sigma
             lpc = torch.zeros((n, 0), dtype=x.dtype, device=x.device)
             probes = probe_noise.detach()
     settings = _Settings(block, max_iters, tol, precond_rank, cross, matvec_builder, panel_vjp,
-                         float(precond_shift))
-    return _LazyCGMLL.apply(kernel, x, resid, probes, sigma2, lpc, settings, *kernel_params(kernel))
+                         float(precond_shift), stop_every)
+    return _LazyCGMLL.apply(kernel, x, resid, probes, sigma2, lpc, settings, info, *kernel_params(kernel))
 
 
 @functools.lru_cache(maxsize=16)
@@ -322,10 +444,7 @@ def lazy_cg_diagnostics(kernel, x: torch.Tensor, resid: torch.Tensor, probe_nois
     sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device)
     if precond_lpc is not None:
         precond_rank = precond_lpc.shape[-1]
-    if matvec_builder is not None:
-        matvec = matvec_builder(kernel, x, sigma2)
-    else:
-        matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
+    matvec = _operator(kernel, x, sigma2, block, cross, matvec_builder)
     if precond_rank > 0:
         lpc = (precond_lpc if precond_lpc is not None
                else build_precond_factor(precond, kernel, x, precond_rank, cross, precond_key))
@@ -373,10 +492,7 @@ def lazy_cg_posterior(kernel, x: torch.Tensor, resid: torch.Tensor, x_test: torc
         minv = woodbury_precond(lpc, precond_shift * sigma2)
     else:
         minv = None
-    if matvec_builder is not None:
-        matvec = matvec_builder(kernel, x, sigma2)
-    else:
-        matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
+    matvec = _operator(kernel, x, sigma2, block, cross, matvec_builder)
     b_cols = cross(kernel, x, x_test)  # (N, N*)
     res = mbcg(matvec, torch.cat([resid[:, None], b_cols], dim=1), max_iters=max_iters, tol=tol, precond=minv)
     mean = b_cols.T @ res.x[:, 0]
@@ -398,8 +514,10 @@ class _LazyCGQuad(torch.autograd.Function):
     frozen by contract."""
 
     @staticmethod
-    def forward(ctx, diff, matvec, minv, max_iters, tol):
-        res = mbcg(matvec, diff[:, None], max_iters=max_iters, tol=tol, precond=minv)
+    def forward(ctx, diff, matvec, minv, max_iters, tol, stop_every, info):
+        res = mbcg(matvec, diff[:, None], max_iters=max_iters, tol=tol, precond=minv, stop_every=stop_every)
+        if info is not None:
+            info.update(relres=res.residnorm[0], iters=res.ran)
         alpha = res.x[:, 0]
         q = torch.dot(diff, alpha)
         q = torch.where(torch.any(res.broke), torch.full_like(q, math.nan), q)
@@ -409,12 +527,13 @@ class _LazyCGQuad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (alpha,) = ctx.saved_tensors
-        return 2.0 * g * alpha, None, None, None, None
+        return 2.0 * g * alpha, None, None, None, None, None, None
 
 
 def lazy_cg_quad(kernel, x: torch.Tensor, diff: torch.Tensor, sigma2, *, lpc: Optional[torch.Tensor] = None,
                  block: int = 1024, max_iters: int = 64, tol: float = 1e-6, precond_shift: float = 1.0,
-                 cross_fn: Optional[Callable] = None) -> torch.Tensor:
+                 cross_fn: Optional[Callable] = None, stop_every: int = 0,
+                 info: Optional[dict] = None) -> torch.Tensor:
     """diffᵀ(K(x, x) + σ²I)⁻¹diff by one mBCG solve over lazy row panels.
 
     Differentiable in ``diff`` only, with the pullback 2·(K + σ²I)⁻¹diff,
@@ -423,7 +542,8 @@ def lazy_cg_quad(kernel, x: torch.Tensor, diff: torch.Tensor, sigma2, *, lpc: Op
     prior).  A breakdown gives NaN.  ``lpc``: a hoisted (N, rank)
     pivoted-Cholesky factor of the noise-free K, the Woodbury
     preconditioner with ridge ``precond_shift``·σ²; without it the prior's
-    1e-4 jitter makes plain CG stall at large N."""
+    1e-4 jitter makes plain CG stall at large N.  ``stop_every`` and
+    ``info`` as :func:`lazy_cg_mll`'s (``relres`` the solve's)."""
     n = x.shape[0]
     block = min(block, n)
     check_divisible(n, block, "x", "row-panel block")
@@ -433,7 +553,7 @@ def lazy_cg_quad(kernel, x: torch.Tensor, diff: torch.Tensor, sigma2, *, lpc: Op
     kern = kernel.detach() if isinstance(kernel, torch.Tensor) else kernel
     minv = None if lpc is None else woodbury_precond(lpc.detach(), precond_shift * sigma2)
     matvec = _lazy_matvec(kern, x, sigma2, block, cross)
-    return _LazyCGQuad.apply(diff, matvec, minv, max_iters, tol)
+    return _LazyCGQuad.apply(diff, matvec, minv, max_iters, tol, stop_every, info)
 
 
 @torch.no_grad()
@@ -490,6 +610,7 @@ class LazyPosteriorState(NamedTuple):
     lpc: torch.Tensor  # (N, rank) preconditioner factor ((N, 0) if none)
     sigma2: torch.Tensor  # scalar ridge
     alpha_relres: torch.Tensor
+    iters: int = 0  # mBCG iterations the α solve ran (its whole budget unless stopped early)
 
 
 def _auto_budget(n: int) -> int:
@@ -503,11 +624,12 @@ def lazy_posterior_state(kernel, x: torch.Tensor, resid: torch.Tensor, sigma2, *
                          max_iters: Optional[int] = None, tol: float = 1e-8, precond_rank: int = 150,
                          precond: str = "pivchol", precond_key=None, precond_shift: float = 1.0,
                          precond_lpc: Optional[torch.Tensor] = None, cross_fn: Optional[Callable] = None,
-                         matvec_builder: Optional[Callable] = None) -> LazyPosteriorState:
+                         matvec_builder: Optional[Callable] = None, stop_every: int = 0) -> LazyPosteriorState:
     """The :class:`LazyPosteriorState` of a fit: one factor build (unless
     ``precond_lpc`` is given) and one single-RHS mBCG solve for α, at twice
-    the auto budget unless ``max_iters`` is given.  A breakdown makes α NaN.
-    Frozen serving state: nothing here carries a gradient."""
+    the auto budget unless ``max_iters`` is given (``stop_every``: its early
+    stop).  A breakdown makes α NaN.  Frozen serving state: nothing here
+    carries a gradient."""
     n = x.shape[0]
     block = min(block, n)
     check_divisible(n, block, "x", "row-panel block")
@@ -525,33 +647,34 @@ def lazy_posterior_state(kernel, x: torch.Tensor, resid: torch.Tensor, sigma2, *
     else:
         lpc = torch.zeros((n, 0), dtype=x.dtype, device=x.device)
         minv = None
-    if matvec_builder is not None:
-        matvec = matvec_builder(kernel, x, sigma2)
-    else:
-        matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
-    res = mbcg(matvec, resid.detach()[:, None], max_iters=max_iters, tol=tol, precond=minv)
+    matvec = _operator(kernel, x, sigma2, block, cross, matvec_builder)
+    res = mbcg(matvec, resid.detach()[:, None], max_iters=max_iters, tol=tol, precond=minv, stop_every=stop_every)
     alpha = torch.where(torch.any(res.broke), torch.full_like(res.x[:, 0], math.nan), res.x[:, 0])
-    return LazyPosteriorState(kernel, x, alpha, lpc, sigma2, res.residnorm[0])
+    return LazyPosteriorState(kernel, x, alpha, lpc, sigma2, res.residnorm[0], res.ran)
 
 
 @torch.no_grad()
 def lazy_posterior_query(state: LazyPosteriorState, x_test: torch.Tensor, *, mean_only: bool = False,
                          block: int = 1024, max_iters: Optional[int] = None, tol: float = 1e-6,
                          precond_shift: float = 1.0, cross_fn: Optional[Callable] = None,
-                         matvec_builder: Optional[Callable] = None, return_info: bool = False):
+                         matvec_builder: Optional[Callable] = None, return_info: bool = False,
+                         stop_every: int = 0):
     """(mean, cov) at ``x_test`` from a prebuilt state.
 
     mean = Kₓ*ᵀα: one (N, N*) cross build and one contraction, no solve
     (``mean_only=True`` returns ``(mean, None)``).  cov needs K⁻¹Kₓ*: one
     preconditioned mBCG with N* right-hand sides at the auto budget, with
-    the state's factor.  A breakdown of that solve turns both mean and cov
-    to NaN, as the JAX package's ``lazy_posterior_query`` does (its chunked
-    form NaNs only cov; the port follows the one-shot query on purpose).
+    the state's factor (``stop_every``: its early stop).  A breakdown of
+    that solve turns both mean and cov to NaN, as the JAX package's
+    ``lazy_posterior_query`` does (its chunked form NaNs only cov; the
+    port's chunked form is this one, F1).
 
     ``return_info=True`` appends {"relres": (N*,) final relative residuals of
     the variance solves (empty when ``mean_only``), "relres_max": the worst
-    of them and of the state's α solve, "broke": the breakdown flag}."""
-    kernel, x, alpha, lpc, sigma2, alpha_relres = state
+    of them and of the state's α solve, "broke": the variance solve's
+    breakdown flag, and under ``mean_only`` the α solve's (the state's NaN
+    α; F2), "iters": the mBCG iterations the variance solve ran}."""
+    kernel, x, alpha, lpc, sigma2, alpha_relres = state[:6]
     n = x.shape[0]
     block = min(block, n)
     check_divisible(n, block, "x", "row-panel block")
@@ -562,17 +685,14 @@ def lazy_posterior_query(state: LazyPosteriorState, x_test: torch.Tensor, *, mea
         if return_info:
             info = {"relres": torch.zeros((0,), dtype=mean.dtype, device=mean.device),
                     "relres_max": torch.as_tensor(alpha_relres, dtype=mean.dtype, device=mean.device),
-                    "broke": torch.zeros((), dtype=torch.bool, device=mean.device)}
+                    "broke": torch.any(torch.isnan(alpha)), "iters": 0}
             return mean, None, info
         return mean, None
     if max_iters is None:
         max_iters = _auto_budget(n)
     minv = woodbury_precond(lpc, precond_shift * sigma2) if lpc.shape[-1] > 0 else None
-    if matvec_builder is not None:
-        matvec = matvec_builder(kernel, x, sigma2)
-    else:
-        matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
-    res = mbcg(matvec, b_cols, max_iters=max_iters, tol=tol, precond=minv)
+    matvec = _operator(kernel, x, sigma2, block, cross, matvec_builder)
+    res = mbcg(matvec, b_cols, max_iters=max_iters, tol=tol, precond=minv, stop_every=stop_every)
     cov_term = b_cols.T @ res.x  # (N*, N*)
     cov = cross(kernel, x_test, x_test) - 0.5 * (cov_term + cov_term.T)
     bad = torch.any(res.broke)
@@ -583,6 +703,117 @@ def lazy_posterior_query(state: LazyPosteriorState, x_test: torch.Tensor, *, mea
                 "relres_max": torch.maximum(torch.max(res.residnorm),
                                             torch.as_tensor(alpha_relres, dtype=res.residnorm.dtype,
                                                             device=res.residnorm.device)),
-                "broke": bad}
+                "broke": bad, "iters": res.ran}
         return mean, cov, info
     return mean, cov
+
+
+# ---------------------------------------------------------------------------
+# the host-chunked entries: the paths above, stopped early
+# ---------------------------------------------------------------------------
+
+
+class ChunkedMLL:
+    """The host-chunked ``lazy_cg_mll`` with its gradients, the JAX
+    package's ``make_chunked_mll`` (:606-820): :func:`lazy_cg_mll` at a
+    budget of ``chunk_iters``·``n_chunks`` iterations, stopped early every
+    ``chunk_iters``, with its backward (``panel_vjp``: K3, or its row
+    blocks, ``ops/matvec.packed_gibbs_panel_vjp(d, row_blocks)``).
+    ``iters`` holds the mBCG iterations the last call ran.  Build it with
+    :func:`make_chunked_mll`."""
+
+    def __init__(self, chunk_iters: int, n_chunks: int, **mll_kw):
+        self.chunk_iters, self.n_chunks, self._kw = chunk_iters, n_chunks, mll_kw
+        self.iters = 0
+
+    def value_and_grad(self, kernel, x, resid, sigma2, probe_noise, pkey=None, early_stop: bool = True):
+        """(val, relres, (kernel_g, x_g, resid_g, sigma2_g)) of the raw MLL
+        (the caller applies its own −1/n), ``probe_noise`` as in
+        ``lazy_cg_mll``, the gradient None for a None kernel.  ``pkey``:
+        ``lazy_cg_mll``'s ``precond_key`` (None: greedy pivots, stride
+        landmarks; the JAX package's ADVICE r4 fix, :654-690).  ``relres``
+        is the (1 + R,) final relative residuals; the value is NaN on a
+        breakdown."""
+        sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device)
+        leaves = [None if t is None else t.detach().requires_grad_() for t in (kernel, x, resid, sigma2)]
+        info = {}
+        with torch.enable_grad():
+            val = lazy_cg_mll(leaves[0], leaves[1], leaves[2], probe_noise, leaves[3], precond_key=pkey,
+                              max_iters=self.chunk_iters * self.n_chunks,
+                              stop_every=self.chunk_iters if early_stop else 0, info=info, **self._kw)
+            grads = iter(torch.autograd.grad(val, [t for t in leaves if t is not None]))
+        self.iters = info["iters"]
+        return val.detach(), info["relres"], tuple(None if t is None else next(grads) for t in leaves)
+
+
+def make_chunked_mll(block: int, chunk_iters: int, n_chunks: int, tol: float, precond_rank: int, precond: str,
+                     precond_shift: float, cross_fn: Callable, matvec_builder: Optional[Callable],
+                     panel_vjp: Optional[Callable]) -> ChunkedMLL:
+    """A :class:`ChunkedMLL`.  ``chunk_iters × n_chunks`` is the whole mBCG
+    budget; ``panel_vjp=None`` takes the panel pullback
+    (:func:`make_jnp_panel_vjp`).  The JAX package's ``panel_vjp_rows`` and
+    ``bwd_row_chunks`` are the port's ``packed_gibbs_panel_vjp(d, rows)``."""
+    return ChunkedMLL(chunk_iters, n_chunks, block=block, tol=tol, precond_rank=precond_rank, precond=precond,
+                      precond_shift=precond_shift, cross_fn=cross_fn, matvec_builder=matvec_builder,
+                      panel_vjp=panel_vjp)
+
+
+class ChunkedSolve:
+    """The host-chunked preconditioned CG solve (K(x, x) + σ²I) X = B over a
+    lazy operator, the JAX package's ``make_chunked_solve`` (:822-893): one
+    ``bbmm.mbcg`` at a budget of ``chunk_iters``·``n_chunks``, stopped early
+    every ``chunk_iters``.  Build it with :func:`make_chunked_solve`."""
+
+    def __init__(self, block, chunk_iters, n_chunks, tol, cross_fn, matvec_builder, precond_shift):
+        self.block, self.chunk_iters, self.n_chunks, self.tol = block, chunk_iters, n_chunks, tol
+        self.cross_fn, self.matvec_builder, self.precond_shift = cross_fn, matvec_builder, precond_shift
+
+    def __call__(self, kernel, x, rhs, sigma2, lpc, early_stop: bool = True):
+        """(X, relres): X (N, R) NaN-poisoned on a breakdown, relres (R,)
+        the final relative residuals.  ``lpc`` the (N, rank) factor, (N, 0)
+        for none."""
+        return self.solve(kernel, x, rhs, sigma2, lpc, early_stop)[:2]
+
+    @torch.no_grad()
+    def solve(self, kernel, x, rhs, sigma2, lpc, early_stop: bool = True):
+        """(X, relres, broke, iters): :meth:`__call__`, the breakdown flag
+        and the mBCG iterations run."""
+        blk = min(self.block, x.shape[0])
+        check_divisible(x.shape[0], blk, "x", "row-panel block")
+        minv = woodbury_precond(lpc, self.precond_shift * sigma2) if lpc.shape[-1] > 0 else None
+        res = mbcg(_operator(kernel, x, sigma2, blk, self.cross_fn, self.matvec_builder), rhs,
+                   max_iters=self.chunk_iters * self.n_chunks, tol=self.tol, precond=minv,
+                   stop_every=self.chunk_iters if early_stop else 0)
+        bad = torch.any(res.broke)
+        return torch.where(bad, torch.full_like(res.x, math.nan), res.x), res.residnorm, bad, res.ran
+
+
+def make_chunked_solve(block: int, chunk_iters: int, n_chunks: int, tol: float, cross_fn: Callable,
+                       matvec_builder: Optional[Callable] = None, precond_shift: float = 1.0) -> ChunkedSolve:
+    """A :class:`ChunkedSolve`."""
+    return ChunkedSolve(block, chunk_iters, n_chunks, tol, cross_fn, matvec_builder, precond_shift)
+
+
+def lazy_posterior_state_chunked(kernel, x: torch.Tensor, resid: torch.Tensor, sigma2, *, block: int = 2048,
+                                 chunk_iters: int = 8, n_chunks: int = 8, **kw) -> LazyPosteriorState:
+    """:func:`lazy_posterior_state` with the α solve host-chunked: at most
+    ``chunk_iters``·``n_chunks`` iterations, stopped early every
+    ``chunk_iters``."""
+    return lazy_posterior_state(kernel, x, resid, sigma2, block=block, max_iters=chunk_iters * n_chunks,
+                                stop_every=chunk_iters, **kw)
+
+
+def lazy_posterior_query_chunked(state: LazyPosteriorState, x_test: torch.Tensor, *, block: int = 2048,
+                                 chunk_iters: int = 8, n_chunks: int = 8, **kw):
+    """:func:`lazy_posterior_query` with the variance solve host-chunked: at
+    most ``chunk_iters``·``n_chunks`` iterations, stopped early every
+    ``chunk_iters``.  Its conventions are the one-shot query's, where the
+    JAX package's chunked query departs from them:
+      * F1: a breakdown of the variance solve turns both mean and cov to NaN
+        (JAX's chunked query NaNs only cov, ``lazy_cg.py:1008-1023``);
+      * F2: ``info["broke"]`` is the CG carry's breakdown flag (JAX takes
+        isnan(sol[0])), and in the mean-only branch the α solve's, which the
+        state carries as a NaN α (JAX reports False).
+    F3: no retry; the α relres rides in ``relres_max``."""
+    return lazy_posterior_query(state, x_test, block=block, max_iters=chunk_iters * n_chunks,
+                                stop_every=chunk_iters, **kw)

@@ -80,13 +80,35 @@ The column range is split over blocks until the card holds ~8 blocks per
 SM (K6: ~4; K3: K3_BLOCKS_PER_SM), and a second pass adds the slices in a
 fixed order: no float atomics, so a result is the same bits on every run.  Not carried over from the TPU:
 the (N, 128) lane packing and padded rows (the kernels mask the ragged
-edge) and the MXU contraction modes (plain f32 FMAs, no tensor cores, no
-TF32).
+edge).
+
+The contraction modes (``precision``, the TPU kernel's ``_contract``,
+``pallas_matvec.py:90-112``).  'highest' is exact f32 (the walk above, FMAs
+in f32).  'vpu' is the TPU kernel's exact-f32 per-column contraction
+(``_gibbs_kernel_vpu``, :200, ``pallas_call`` at :225), the same estimand
+as 'highest' up to summation order, so it is the same walk: no kernel of its
+own, and JAX's refusal above ``VPU_R_MAX`` = 32 right-hand sides kept.
+'default' (one bf16 pass) and 'high3' (three) keep the TPU's own estimands,
+not TF32: each Gram element is rounded to bf16, hi = bf16(k) and
+lo = bf16(k − hi), V likewise, and 'default' contracts hi·hi, 'high3'
+hi·hi + hi·lo + lo·hi, with f32 accumulation.  On the card that is a second
+walk, ``gibbs_mma_kernel`` (K2's elements, and K6's), on the tensor cores:
+``mma.sync.m16n8k16`` with bf16 operands and f32 accumulators, the
+elements built by the same policies straight into each thread's A
+fragments, V's parts split once a call by the wrapper and packed in column
+pairs (``_bf16_pairs``), the B fragments' layout.  The plain versions round
+the Gram panel and V through ``torch.bfloat16`` as JAX's ``_contract`` does
+and multiply in f32.  What bounds the mode kernels: the element's FP32 and
+SFU work (the contraction's 2R FMAs leave the FP32 count; the rounding
+adds ``_split_ops``), and the mma work, 2R operations an element a pass, at
+the tensor cores' bf16 rate (``mode_ops``, ``mma_ops``).
 
 Dispatch: a CPU tensor takes the plain version (``gibbs_gram_matvec_plain``,
-``packed_gibbs_panel_grads_plain``, ``rbf_gram_matvec_plain``); a CUDA
-tensor launches the kernel or raises, for D > 8, a dtype other than
-float32, a non-contiguous input or a failed build alike.  ``LAUNCHES`` counts kernel launches and nothing else.
+``packed_gibbs_panel_grads_plain``, ``rbf_gram_matvec_plain``, each mode's
+through ``precision``); a CUDA tensor launches the kernel (the mode's) or
+raises, for D > 8, a dtype other than float32, a non-contiguous input or a
+failed build alike.  ``LAUNCHES`` counts kernel launches and nothing else,
+the mode kernels under their own names.
 Forward-only, as on the TPU: the matvec sits inside ``lazy_cg_mll``'s
 autograd Function, and K3 is itself a backward (K6's MLL backward is the
 panel pullback through the kernel module, ``lazy_cg.make_jnp_panel_vjp``).
@@ -120,13 +142,21 @@ K6_ROWS_PER_THREAD = 4  # K6: rows a thread owns (csrc kK6RowsPerThread)
 K6_ROWS = 256 * K6_ROWS_PER_THREAD  # K6: rows per block (csrc kK6Rows)
 COLS = 128  # K2, K6: columns per shared-memory pass (csrc kCols); every split is whole COLS
 GROUP = 32  # K2, K6: right-hand sides one block contracts (csrc kGroup)
+MMA_MT = 2  # the tensor-core walk: 16-row tiles a warp owns (csrc kMmaMT)
+MMA_ROWS = 8 * MMA_MT * 16  # its rows a block of 8 warps owns (csrc kMmaRows)
+MMA_PASS = 64  # its columns a shared-memory pass (csrc kMmaPass)
+MMA_GROUP = 32  # its right-hand sides a block contracts (csrc kMmaGroup)
+MMA_BLOCKS_PER_SM = 4  # its column splits
+VPU_R_MAX = 32  # 'vpu': right-hand sides a call takes (pallas_matvec.py:62)
+PRECISIONS = ("highest", "default", "high3", "vpu")  # K2's modes; K6 has all but 'vpu'
 BLOCKS_PER_SM = 8  # column splits are added until the grid has this many (K2, K3)
 K6_BLOCKS_PER_SM = 4  # K6's (tools/bench_k2.py: 4 rows a thread with free registers, 4 an SM)
 PLAIN_BLOCK = 2048  # row-panel height of the plain versions
 
 #: Kernel launches so far in this process, one per K2, K3 or K6 call of the
 #: library (each call is the kernel plus its fixed-order reduction pass).
-LAUNCHES = {"gibbs_matvec": 0, "gibbs_panel_grads": 0, "rbf_matvec": 0}
+LAUNCHES = {"gibbs_matvec": 0, "gibbs_panel_grads": 0, "rbf_matvec": 0, "gibbs_matvec_default": 0,
+            "gibbs_matvec_high3": 0, "rbf_matvec_default": 0, "rbf_matvec_high3": 0}
 
 _lib = None
 
@@ -144,6 +174,10 @@ def build(force: bool = False) -> str:
     lib.gibbs_panel_grads.restype = i
     lib.rbf_matvec.argtypes = [p, i, p, i, i, p, i, i, p, i, p, i, i, p]
     lib.rbf_matvec.restype = i
+    lib.gibbs_matvec_mma.argtypes = [p, p, i, p, p, i, i, p, p, i, i, i, p, i, p, i, i, i, p]
+    lib.gibbs_matvec_mma.restype = i
+    lib.rbf_matvec_mma.argtypes = [p, i, p, i, i, p, p, i, i, i, p, i, p, i, i, i, p]
+    lib.rbf_matvec_mma.restype = i
     _lib = lib
     return log
 
@@ -228,28 +262,120 @@ def gibbs_gram_matvec_cuda(x1, ell1, x2, ell2, v):
     return out
 
 
-def gibbs_gram_matvec_plain(x1, ell1, x2, ell2, v, block: int = PLAIN_BLOCK):
-    """The plain PyTorch version of K2: row panels of ``gibbs_gram_reference`` @ v."""
-    return torch.cat([gibbs_gram_reference(x1[i:i + block], ell1[i:i + block], x2, ell2) @ v
-                      for i in range(0, x1.shape[0], block)])
+def _bf16(t):
+    """``t`` rounded to bfloat16 (to nearest, ties to even) and widened back."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def contract_plain(tile, v, precision: str = "highest"):
+    """tile (M, N) · v (N, R) under a contraction mode, as the TPU kernel's
+    ``_contract`` computes it (``pallas_matvec.py:90-112``): 'highest' and
+    'vpu' exact; 'default' the bf16-rounded tile against the bf16-rounded v;
+    'high3' hi·hi + hi·lo + lo·hi of the bf16 hi = bf16(a) and
+    lo = bf16(a − hi) parts, each product in the working dtype."""
+    if precision in ("highest", "vpu"):
+        return tile @ v
+    th, vh = _bf16(tile), _bf16(v)
+    if precision == "default":
+        return th @ vh
+    if precision == "high3":
+        tl, vl = _bf16(tile - th), _bf16(v - vh)
+        return th @ vh + th @ vl + tl @ vh
+    raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+
+
+def gibbs_gram_matvec_plain(x1, ell1, x2, ell2, v, block: int = PLAIN_BLOCK, precision: str = "highest"):
+    """The plain PyTorch version of K2 and its modes: row panels of
+    ``gibbs_gram_reference`` contracted with v by :func:`contract_plain`."""
+    return torch.cat([contract_plain(gibbs_gram_reference(x1[i:i + block], ell1[i:i + block], x2, ell2), v,
+                                     precision) for i in range(0, x1.shape[0], block)])
+
+
+def _bf16_pairs(v, high3: bool):
+    """V's bf16 hi part (and, for 'high3', lo part) packed in column pairs,
+    the tensor-core walk's B operand: int32 word [p, r] holds bf16(v[2p, r])
+    in its low half and bf16(v[2p + 1, r]) in its high half, v's rows padded
+    to even with 0 and its columns to a multiple of 8.  Returns (hi, lo, ldp)
+    with lo = hi when unused."""
+    n, r = v.shape
+    ldp = -(-r // 8) * 8
+    vp = torch.zeros((n + n % 2, ldp), dtype=torch.float32, device=v.device)
+    vp[:n, :r] = v
+    vh = vp.to(torch.bfloat16)
+
+    def pack(b):
+        return b.view(torch.int16).reshape(-1, 2, ldp).transpose(1, 2).contiguous().view(torch.int32)[..., 0]
+
+    hi = pack(vh)
+    lo = pack((vp - vh.float()).to(torch.bfloat16)) if high3 else hi
+    return hi.contiguous(), lo.contiguous(), ldp
+
+
+def _mma_launches(lib_fn, name, x_args, n1, n2, d, v, out, precision):
+    """The mode kernel's ⌈R/MAX_R⌉ launches on the current stream: each
+    column chunk of V split and packed, its column splits, its scratch."""
+    r = v.shape[1]
+    high3 = precision == "high3"
+    sms, stream = _num_sms(v.device), _stream(v.device)
+    for c0 in range(0, r, MAX_R):
+        rc = min(MAX_R, r - c0)
+        hi, lo, ldp = _bf16_pairs(v[:, c0:c0 + rc], high3)
+        splits, per = column_splits(n1, n2, -(-rc // MMA_GROUP), sms, MMA_ROWS, MMA_BLOCKS_PER_SM)
+        part = torch.empty(splits * n1 * rc, dtype=v.dtype, device=v.device)
+        err = lib_fn(*x_args, hi.data_ptr(), lo.data_ptr(), ldp, hi.shape[0], rc, out.data_ptr() + 4 * c0, r,
+                     part.data_ptr(), splits, per, int(high3), stream)
+        _launched(err, f"{name}_{precision}")
+    return out
+
+
+def _check_mode(precision: str):
+    if precision not in ("default", "high3"):
+        raise ValueError(f"the tensor-core contraction takes 'default' or 'high3', got {precision!r}")
+
+
+def gibbs_gram_matvec_mma_cuda(x1, ell1, x2, ell2, v, precision: str):
+    """K2's 'default' or 'high3' wrapper: the tensor-core walk, ⌈R/MAX_R⌉
+    launches on the current stream, on the operands of
+    :func:`gibbs_gram_matvec_cuda`.  Raises on anything else."""
+    _check_mode(precision)
+    _check_payload("gibbs_matvec", x1, ell1)
+    _check_payload("gibbs_matvec", x2, ell2)
+    if v.ndim != 2 or v.shape[0] != x2.shape[0] or x1.shape[1] != x2.shape[1]:
+        raise ValueError(f"gibbs_matvec: shapes {tuple(x1.shape)}, {tuple(x2.shape)}, v {tuple(v.shape)}")
+    _check_cuda("gibbs_matvec", x1, ell1, x2, ell2, v)
+    if _lib is None:
+        build()
+    (n1, d), n2 = x1.shape, x2.shape[0]
+    out = torch.empty((n1, v.shape[1]), dtype=v.dtype, device=v.device)
+    args = (x1.data_ptr(), ell1.data_ptr(), n1, x2.data_ptr(), ell2.data_ptr(), n2, d)
+    return _mma_launches(_lib.gibbs_matvec_mma, "gibbs_matvec", args, n1, n2, d, v, out, precision)
+
+
+def _check_precision(precision: str, modes=PRECISIONS):
+    if precision not in modes:
+        raise ValueError(f"precision must be one of {'/'.join(modes)}, got {precision!r}")
 
 
 def make_gibbs_matvec(x1, ell1, x2, ell2, precision: str = "highest"):
     """``matvec(v) = K(x1, x2) @ v`` for the diagonal Gibbs kernel, K never
     in memory.  The payloads are made contiguous once, outside the caller's
-    iteration loop.  ``precision='highest'`` (exact f32) is the only mode
-    ported; the TPU's 'high3', 'default' and 'vpu' contraction modes raise."""
-    if precision in ("high3", "default", "vpu"):
-        raise NotImplementedError(f"gibbs matvec precision {precision!r} is not yet ported (only 'highest')")
-    if precision != "highest":
-        raise ValueError(f"precision must be highest/default/high3/vpu, got {precision!r}")
+    iteration loop.  ``precision`` is the contraction mode: 'highest' (exact
+    f32, the default), 'vpu' (the same walk; R ≤ ``VPU_R_MAX``, as JAX
+    refuses more), 'default' (one bf16 pass: measured divergent inside
+    preconditioned mBCG by the JAX package) or 'high3' (three bf16 passes,
+    ~1e-5 relative)."""
+    _check_precision(precision)
     _check_payload("gibbs_matvec", x1, ell1)
     _check_payload("gibbs_matvec", x2, ell2)
     x1, ell1, x2, ell2 = (t.contiguous() for t in (x1, ell1, x2, ell2))
 
     def matvec(v):
+        if precision == "vpu" and v.shape[-1] > VPU_R_MAX:
+            raise ValueError(f"gibbs matvec vpu: R ≤ {VPU_R_MAX}, got {v.shape[-1]}")
         if v.device.type == "cpu":
-            return gibbs_gram_matvec_plain(x1, ell1, x2, ell2, v)
+            return gibbs_gram_matvec_plain(x1, ell1, x2, ell2, v, precision=precision)
+        if precision in ("default", "high3"):
+            return gibbs_gram_matvec_mma_cuda(x1, ell1, x2, ell2, v, precision)
         return gibbs_gram_matvec_cuda(x1, ell1, x2, ell2, v)
 
     return matvec
@@ -322,29 +448,50 @@ def rbf_gram_matvec_cuda(z1, z2, v):
     return out
 
 
-def rbf_gram_matvec_plain(z1, z2, v, block: int = PLAIN_BLOCK):
-    """The plain PyTorch version of K6 on the prescaled payloads: row panels
-    of exp(−½ d²) @ v, d² from the identity clamped at 0 (the JAX kernel's
-    form, and the RBF kernel's)."""
-    return torch.cat([torch.exp(-0.5 * _sq_dist(z1[i:i + block], z2)) @ v for i in range(0, z1.shape[0], block)])
+def rbf_gram_matvec_plain(z1, z2, v, block: int = PLAIN_BLOCK, precision: str = "highest"):
+    """The plain PyTorch version of K6 and its modes on the prescaled
+    payloads: row panels of exp(−½ d²), d² from the identity clamped at 0
+    (the JAX kernel's form, and the RBF kernel's), contracted with v by
+    :func:`contract_plain`."""
+    return torch.cat([contract_plain(torch.exp(-0.5 * _sq_dist(z1[i:i + block], z2)), v, precision)
+                      for i in range(0, z1.shape[0], block)])
+
+
+def rbf_gram_matvec_mma_cuda(z1, z2, v, precision: str):
+    """K6's 'default' or 'high3' wrapper: the tensor-core walk on the
+    operands of :func:`rbf_gram_matvec_cuda`.  Raises on anything else."""
+    _check_mode(precision)
+    if z1.ndim != 2 or z2.ndim != 2 or z1.shape[1] != z2.shape[1]:
+        raise ValueError(f"rbf_matvec: z1, z2 must be (N, D) of one D, got {tuple(z1.shape)}, {tuple(z2.shape)}")
+    if not 1 <= z1.shape[1] <= MAX_D:
+        raise ValueError(f"rbf_matvec: D ≤ {MAX_D}, got D = {z1.shape[1]}")
+    if v.ndim != 2 or v.shape[0] != z2.shape[0]:
+        raise ValueError(f"rbf_matvec: v {tuple(v.shape)} against z2 {tuple(z2.shape)}")
+    _check_cuda("rbf_matvec", z1, z2, v)
+    if _lib is None:
+        build()
+    (n1, d), n2 = z1.shape, z2.shape[0]
+    out = torch.empty((n1, v.shape[1]), dtype=v.dtype, device=v.device)
+    args = (z1.data_ptr(), n1, z2.data_ptr(), n2, d)
+    return _mma_launches(_lib.rbf_matvec_mma, "rbf_matvec", args, n1, n2, d, v, out, precision)
 
 
 def make_rbf_matvec(x1, x2, ell, precision: str = "highest"):
     """``matvec(v) = exp(−½‖(x1 − x2)/ℓ‖²) @ v``, K never in memory; x/ℓ is
     prescaled once, outside the caller's iteration loop.  ell (D,) ARD
-    lengthscales, D ≤ 8.  ``precision='highest'`` (exact f32) is the only
-    mode ported; the TPU's 'high3' and 'default' raise."""
-    if precision in ("high3", "default"):
-        raise NotImplementedError(f"rbf matvec precision {precision!r} is not yet ported (only 'highest')")
-    if precision != "highest":
-        raise ValueError(f"precision must be highest/default/high3, got {precision!r}")
+    lengthscales, D ≤ 8.  ``precision``: 'highest' (exact f32, the default),
+    'default' or 'high3', as in :func:`make_gibbs_matvec` (the JAX kernel has
+    no 'vpu' here)."""
+    _check_precision(precision, PRECISIONS[:3])
     if x1.shape[-1] > MAX_D:
         raise ValueError(f"rbf matvec: D ≤ {MAX_D}, got D = {x1.shape[-1]}")
     z1, z2 = (x1 / ell).contiguous(), (x2 / ell).contiguous()
 
     def matvec(v):
         if v.device.type == "cpu":
-            return rbf_gram_matvec_plain(z1, z2, v)
+            return rbf_gram_matvec_plain(z1, z2, v, precision=precision)
+        if precision != "highest":
+            return rbf_gram_matvec_mma_cuda(z1, z2, v, precision)
         return rbf_gram_matvec_cuda(z1, z2, v)
 
     return matvec
@@ -393,10 +540,12 @@ def cotangent_factors(alpha, solves, rights):
     return f1.contiguous(), f2.contiguous()
 
 
-def _panel_grads_cuda(x_rows, ell_rows, f1_rows, x, ell, f2):
+def _panel_grads_cuda(x_rows, ell_rows, f1_rows, x, ell, f2, split_rows=None):
     """K3's wrapper: one call of the sweep (the walk and its fixed-order
     sum, 2 CUDA launches) for rows (x_rows, ell_rows, f1_rows) against all
-    columns (x, ell, f2)."""
+    columns (x, ell, f2).  The column splits are those of a sweep over
+    ``split_rows`` rows (default: these): a row block given the whole
+    sweep's N sums each row in the whole sweep's order, so its bits."""
     _check_payload("gibbs_panel_grads", x_rows, ell_rows)
     _check_payload("gibbs_panel_grads", x, ell)
     (nr, d), n, fw = x_rows.shape, x.shape[0], f2.shape[1]
@@ -411,7 +560,7 @@ def _panel_grads_cuda(x_rows, ell_rows, f1_rows, x, ell, f2):
     gx = torch.empty((nr, d), dtype=x.dtype, device=dev)
     gl = torch.empty((nr, d), dtype=x.dtype, device=dev)
     sp = torch.empty((nr,), dtype=x.dtype, device=dev)
-    splits, per = column_splits(nr, n, 1, _num_sms(dev), ROWS, K3_BLOCKS_PER_SM)
+    splits, per = column_splits(split_rows or nr, n, 1, _num_sms(dev), ROWS, K3_BLOCKS_PER_SM)
     part = torch.empty(splits * nr * (1 + 2 * d), dtype=x.dtype, device=dev)
     err = _lib.gibbs_panel_grads(
         x_rows.data_ptr(), ell_rows.data_ptr(), f1_rows.data_ptr(), nr,
@@ -438,10 +587,10 @@ def _panel_grads_plain(x_rows, ell_rows, f1_rows, x, ell, f2, block: int = PLAIN
     return tuple(torch.cat(o) for o in zip(*outs))
 
 
-def _panel_grads(x_rows, ell_rows, f1_rows, x, ell, f2):
+def _panel_grads(x_rows, ell_rows, f1_rows, x, ell, f2, split_rows=None):
     if x.device.type == "cpu":
         return _panel_grads_plain(x_rows, ell_rows, f1_rows, x, ell, f2)
-    return _panel_grads_cuda(x_rows, ell_rows, f1_rows, x, ell, f2)
+    return _panel_grads_cuda(x_rows, ell_rows, f1_rows, x, ell, f2, split_rows)
 
 
 def packed_gibbs_panel_grads_plain(x, ell, alpha, solves, rights):
@@ -464,11 +613,13 @@ def packed_gibbs_panel_grads_rows(x_rows, ell_rows, alpha_rows, solves_rows, rig
                                   x, ell, alpha, solves, rights):
     """:func:`packed_gibbs_panel_grads` restricted to ``x_rows`` on the row
     side (all of x on the column side): the same kernel with a row count and
-    the rows' own pointers.  Returns (gx (nr, D), gell (nr, D), sp (nr,))."""
+    the rows' own pointers, and the whole sweep's column splits, so each
+    row comes out bit for bit as in the whole sweep.  Returns (gx (nr, D),
+    gell (nr, D), sp (nr,))."""
     f1_rows, _ = cotangent_factors(alpha_rows, solves_rows, rights_rows)
     _, f2 = cotangent_factors(alpha, solves, rights)
     return _panel_grads(x_rows.contiguous(), ell_rows.contiguous(), f1_rows,
-                        x.contiguous(), ell.contiguous(), f2)
+                        x.contiguous(), ell.contiguous(), f2, x.shape[0])
 
 
 def packed_gibbs_panel_grads_rows_plain(x_rows, ell_rows, alpha_rows, solves_rows, rights_rows,
@@ -480,7 +631,29 @@ def packed_gibbs_panel_grads_rows_plain(x_rows, ell_rows, alpha_rows, solves_row
 
 
 @functools.lru_cache(maxsize=8)
-def packed_gibbs_panel_vjp(d: int):
+def packed_gibbs_panel_vjp_rows(d: int):
+    """Row-block form of :func:`packed_gibbs_panel_vjp` (K3's row entry):
+
+        rows(kernel, aug, sigma2, alpha, solves, rights, g, i0, nr)
+            -> (gaug_rows_raw (nr, 2d), sp_rows (nr,))
+
+    the rows' unscaled aug cotangent and their row sums of Ŵ ⊙ K.  The
+    JAX package's returns each block's Σ sp; the port returns the rows, so
+    that one sum over all of them gives the whole sweep's bits (each row
+    already does: K3's row entry takes the whole sweep's column splits)."""
+
+    def rows(kernel, aug, sigma2, alpha, solves, rights, g, i0, nr):
+        sl = slice(i0, i0 + nr)
+        x, ell = aug[:, :d], torch.exp(aug[:, d:])
+        gx, gl, sp = packed_gibbs_panel_grads_rows(
+            x[sl], ell[sl], alpha[sl], solves[sl], rights[sl], x, ell, alpha, solves, rights)
+        return 2.0 * g * torch.cat([gx, gl * ell[sl]], dim=1), sp
+
+    return rows
+
+
+@functools.lru_cache(maxsize=8)
+def packed_gibbs_panel_vjp(d: int, row_blocks: int = 1):
     """The fused backward of ``lazy_cg_mll`` for the packed Gibbs payload
     (``kernels.gibbs.packed_gibbs_cross(d)``'s operator, scaled when
     ``kernel`` is a raw outputscale, unscaled when it is None):
@@ -489,12 +662,21 @@ def packed_gibbs_panel_vjp(d: int):
             -> (kernel_grad, aug_grad, sigma2_grad)
 
     Valid only for the symmetric K(aug, aug) pullback: total = 2× the row
-    side (``pallas_matvec.py:469-483``)."""
+    side (``pallas_matvec.py:469-483``).  K3's sweep runs as ``row_blocks``
+    calls of :func:`packed_gibbs_panel_vjp_rows`, one a block of N /
+    ``row_blocks`` rows (the JAX package's ``bwd_row_chunks``, which keeps
+    each of its device programs under its TPU's execution wall; one card
+    has no such wall, so the port keeps it for parity: the blocks give the
+    whole sweep's bits)."""
+    rows = packed_gibbs_panel_vjp_rows(d)
 
     def panel_vjp(kernel, aug, sigma2, alpha, solves, rights, g):
-        x, ell = aug[:, :d], torch.exp(aug[:, d:])
-        gx, gl, sp = packed_gibbs_panel_grads(x, ell, alpha, solves, rights)
-        gaug = 2.0 * g * torch.cat([gx, gl * ell], dim=1)
+        n = aug.shape[0]
+        if n % row_blocks:
+            raise ValueError(f"x length {n} is not divisible by the bwd row chunks {row_blocks}")
+        nr = n // row_blocks
+        blocks = [rows(kernel, aug, sigma2, alpha, solves, rights, g, i * nr, nr) for i in range(row_blocks)]
+        gaug, sp = (torch.cat(b) for b in zip(*blocks))
         # σ²'s pullback is the trace identity g·tr(Ŵ)
         s2g = g * (0.5 * torch.dot(alpha, alpha) - (0.5 / solves.shape[-1]) * torch.sum(solves * rights))
         if kernel is None:
@@ -503,26 +685,6 @@ def packed_gibbs_panel_vjp(d: int):
         return g * torch.sum(sp) * torch.sigmoid(kernel), positive(kernel) * gaug, s2g
 
     return panel_vjp
-
-
-@functools.lru_cache(maxsize=8)
-def packed_gibbs_panel_vjp_rows(d: int):
-    """Row-block form of :func:`packed_gibbs_panel_vjp`:
-
-        rows(kernel, aug, sigma2, alpha, solves, rights, g, i0, nr)
-            -> (gaug_rows_raw (nr, 2d), sp_sum)
-
-    The caller concatenates the blocks, scales by s² when scaled, chains the
-    outputscale through Σ sp_sum and adds σ²'s trace identity itself."""
-
-    def rows(kernel, aug, sigma2, alpha, solves, rights, g, i0, nr):
-        sl = slice(i0, i0 + nr)
-        x, ell = aug[:, :d], torch.exp(aug[:, d:])
-        gx, gl, sp = packed_gibbs_panel_grads_rows(
-            x[sl], ell[sl], alpha[sl], solves[sl], rights[sl], x, ell, alpha, solves, rights)
-        return 2.0 * g * torch.cat([gx, gl * ell[sl]], dim=1), torch.sum(sp)
-
-    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -575,6 +737,31 @@ def rbf_matvec_ops(n1: int, n2: int, d: int, r: int) -> int:
     """Operations of K6 over an n1 × n2 Gram with r right-hand sides: the
     element plus one FMA (2 ops) per right-hand side."""
     return n1 * n2 * (_rbf_elem_ops(d) + 2 * r)
+
+
+def _split_ops(precision: str) -> int:
+    """FP32-lane operations per Gram element of a tensor-core mode's A
+    operand: 'default' the bf16 rounding (1); 'high3' the rounding, its
+    widening back, the remainder and its rounding (4)."""
+    return {"default": 1, "high3": 4}[precision]
+
+
+def mode_passes(precision: str) -> int:
+    """mma products an element and right-hand side: 1 ('default'), 3 ('high3')."""
+    return {"default": 1, "high3": 3}[precision]
+
+
+def mode_ops(n1: int, n2: int, d: int, precision: str, elem_ops=None) -> int:
+    """FP32-lane operations of K2's (``elem_ops`` K6's ``_rbf_elem_ops``)
+    tensor-core mode over an n1 × n2 Gram: the element and its rounding; the
+    contraction runs on the tensor cores (:func:`mma_ops`)."""
+    return n1 * n2 * ((elem_ops or _k2_elem_ops)(d) + _split_ops(precision))
+
+
+def mma_ops(n1: int, n2: int, r: int, precision: str) -> int:
+    """Tensor-core operations of a mode's contraction: 2r an element a pass
+    (a product and its sum), over the bf16 rate."""
+    return 2 * n1 * n2 * r * mode_passes(precision)
 
 
 def rbf_matvec_sfu_ops(n1: int, n2: int) -> int:

@@ -11,7 +11,8 @@ Counterpart of ``nonstationary_precip_tpu/priors/lognormal_process.py``:
     the constant SLQ logdet once per fit, ``log_prob_matrixfree`` solves
     each dim's quadratic by CG (``ops/lazy_cg.lazy_cg_quad``), and
     ``conditional_pre_matrixfree`` / ``conditional_mean_from_pre`` split
-    the conditional mean into its per-fit solves and its per-query panels.
+    the conditional mean into its per-fit solves and its per-query panels
+    (the solves host-chunked with ``chunk_iters``).
     Each dim's operator is a plain Scale(RBF-ARD) Gram built in row panels
     (``_dim_cross``), as the JAX package leaves it to XLA.  These take an
     unbatched prior and (N, D_in) inputs, and run their solves in
@@ -206,7 +207,10 @@ class LogNormalProcess(nn.Module):
 
         ``probe_noise``: one pair (u1 (rank, R), u2 (N, R)) of standard
         normal draws per output dim, the SLQ probes' (the JAX package draws
-        them from ``fold_in(key, d)``, R = 16 by default).  Returns
+        them from ``fold_in(key, d)``, R = 16 by default).  ``precond_key``:
+        RPCholesky's (rank, N) Gumbel draws, the same for every dim as the
+        JAX package passes one key to each, or a ``torch.Generator`` (which
+        advances from dim to dim).  Returns
         ``(lpc (D, N, rank), logdet (D,))``, both in ``SOLVE_DTYPE``, for
         :meth:`log_prob_matrixfree`."""
         xs = self._slice(x).to(SOLVE_DTYPE)
@@ -221,22 +225,28 @@ class LogNormalProcess(nn.Module):
         return torch.stack(lpcs), torch.stack(logdets)
 
     def log_prob_matrixfree(self, x: torch.Tensor, log_ell: torch.Tensor, pre, *, block: int = 1024,
-                            max_iters: int = 64, tol: float = 1e-6, precond_shift: float = 1.0) -> torch.Tensor:
+                            max_iters: int = 64, tol: float = 1e-6, precond_shift: float = 1.0,
+                            stop_every: int = 0, info: Optional[dict] = None) -> torch.Tensor:
         """:meth:`log_prob` for large N under the frozen-prior contract: each
         dim's quadratic by one preconditioned matrix-free CG solve
         (``lazy_cg_quad``, whose gradient in ``log_ell`` is the exact
         2K⁻¹diff at convergence), its logdet the hoisted constant of
-        :meth:`gram_pre_lazy`.  The prior's own parameters get no gradient."""
+        :meth:`gram_pre_lazy`.  The prior's own parameters get no gradient.
+        ``stop_every``: the solves' early stop; ``info``, a dict, receives
+        ``relres``, the (D,) solves' final relative residuals."""
         lpc, logdet = pre
         n = x.shape[-2]
         xs = self._slice(x).to(SOLVE_DTYPE)
         jitter = torch.tensor(_COND_JITTER, dtype=SOLVE_DTYPE, device=x.device)
         diff = (log_ell.mT - self.mean(x).mT).to(SOLVE_DTYPE)  # (D, N)
-        lp = 0.0
+        lp, dims = 0.0, [{} for _ in range(diff.shape[0])]
         for d, params in enumerate(self._dim_params()):
             quad = lazy_cg_quad(params, xs, diff[d], jitter, lpc=lpc[d].to(SOLVE_DTYPE), block=block,
-                                max_iters=max_iters, tol=tol, precond_shift=precond_shift, cross_fn=_dim_cross)
+                                max_iters=max_iters, tol=tol, precond_shift=precond_shift, cross_fn=_dim_cross,
+                                stop_every=stop_every, info=dims[d])
             lp = lp - 0.5 * (quad + logdet[d].to(SOLVE_DTYPE) + n * math.log(2.0 * math.pi))
+        if info is not None:
+            info["relres"] = torch.stack([dim["relres"] for dim in dims])
         return (lp / n).to(log_ell.dtype)
 
     @torch.no_grad()
@@ -248,11 +258,10 @@ class LogNormalProcess(nn.Module):
         each one preconditioned single-RHS mBCG over lazy panels with
         ``pre``'s factors (:meth:`gram_pre_lazy` of the same x_g; its logdet
         is ignored).  A breakdown makes that dim's α NaN.  Hoist once per
-        fit; returns (D, Ng) in ``SOLVE_DTYPE``.  ``chunk_iters`` (the
-        host-chunked route) is not ported."""
-        if chunk_iters is not None:
-            raise NotImplementedError(
-                "chunk_iters (the host-chunked conditioning solves) is not yet ported: ROADMAP queue 1 item 5")
+        fit; returns (D, Ng) in ``SOLVE_DTYPE``.  ``chunk_iters`` runs each
+        solve host-chunked, the JAX package's chunked route: ⌈max_iters /
+        chunk_iters⌉ chunks at most, stopped early once converged
+        (``bbmm.mbcg``'s ``stop_every``)."""
         xg, ell_g = given
         lpc, _ = pre
         xgs = self._slice(xg).to(SOLVE_DTYPE)
@@ -262,10 +271,13 @@ class LogNormalProcess(nn.Module):
         jitter = torch.tensor(_COND_JITTER, dtype=SOLVE_DTYPE, device=xg.device)
         resid = (torch.log(ell_g).mT - self.mean(xg).mT).to(SOLVE_DTYPE)  # (D, Ng)
         alphas = []
+        if chunk_iters is not None:
+            max_iters = -(-max_iters // chunk_iters) * chunk_iters
         for d, params in enumerate(self._dim_params()):
             matvec = _lazy_matvec(params, xgs, jitter, blk, _dim_cross)
             res = mbcg(matvec, resid[d][:, None], max_iters=max_iters, tol=tol,
-                       precond=woodbury_precond(lpc[d].to(SOLVE_DTYPE), precond_shift * jitter))
+                       precond=woodbury_precond(lpc[d].to(SOLVE_DTYPE), precond_shift * jitter),
+                       stop_every=chunk_iters or 0)
             alphas.append(torch.where(torch.any(res.broke), torch.full_like(res.x[:, 0], math.nan), res.x[:, 0]))
         return torch.stack(alphas)
 

@@ -24,9 +24,18 @@ CSV whose first columns are the input coordinates; without it the training
 sites are served (a hindcast).  ``--matrixfree true`` (``gibbs_exact``
 only) routes fit and predict through the matrix-free CG path
 (``GibbsExactGP.loss_matrixfree``, ``posterior_state_matrixfree``): no N×N
-matrix, with K2 and K3 on the card.  ``--chunked true`` and the Nyström
-preconditioner (``--precond nystrom``, or the auto rule above rank 200)
-raise until ROADMAP queue 1 items 5 and 4 port them.
+matrix, with K2 and K3 on the card.  ``--chunked true`` drives the fit and
+the serve through the host-chunked phases (``make_chunked_map_loss``,
+``fit_chunked``, the chunked posterior routes: ``--chunk_iters`` iterations
+a chunk, at most ``--n_chunks`` of them, 8 for the serving state, stopped
+early; ``--bwd_row_chunks`` row blocks of K3's sweep, for parity with the
+JAX CLI).  ``--precond``
+picks the preconditioner factor: pivoted Cholesky or Nyström, by default
+pivoted Cholesky up to rank 200 and Nyström above.  The JAX package's
+large-N flagship:
+
+    python -m nonstationary_precip_tpu_torch serve --model gibbs_exact --matrixfree true --chunked true \\
+        --precond_rank 1024 --precond nystrom --precond_shift 10 --train_csv big.csv
 
 Randomness comes from the caller, as everywhere in the port: every draw
 (the k-means seed row, H₀ and D₀, the deep GP's z and its ε, the matrix-free
@@ -91,11 +100,18 @@ class ServeConfig(ExperimentConfig):
     matrixfree: bool = False
     precond_rank: int = 150
     precond_shift: float = 1.0
-    # the host-chunked phases (ROADMAP queue 1 item 5: raises until ported;
-    # its chunk_iters, n_chunks and bwd_row_chunks come with it)
+    # the host-chunked phases for fit and predict (make_chunked_map_loss,
+    # fit_chunked): chunk_iters × n_chunks is the mBCG budget (the serving
+    # state takes max(n_chunks, 8) chunks); bwd_row_chunks splits K3's sweep
+    # into row blocks, for parity with the JAX CLI (there it keeps each
+    # device program under the TPU's execution wall; one card has none, and
+    # the blocks give the whole sweep's bits in the same time)
     chunked: bool = False
+    chunk_iters: int = 8
+    n_chunks: int = 4
+    bwd_row_chunks: int = 1
     # preconditioner factor rule: pivchol | nystrom | "" = auto (pivchol up
-    # to rank 200, nystrom above; nystrom is ROADMAP queue 1 item 4)
+    # to rank 200, nystrom above, the JAX package's measured crossover)
     precond: str = ""
 
 
@@ -123,19 +139,15 @@ def _normal(gen: torch.Generator, shape, dev) -> torch.Tensor:
 
 
 def _matrixfree_setup(cfg: ServeConfig, n: int):
-    """(block, rank, precond) of the matrix-free path, raising where the
-    configuration needs an unported piece."""
-    blk = _lazy_block(n)
+    """(block, rank, precond) of the matrix-free path."""
     rank = min(cfg.precond_rank, n)
-    precond = cfg.precond or ("nystrom" if rank > 200 else "pivchol")
-    if precond != "pivchol":
-        raise NotImplementedError(
-            f"--precond {precond} (rank {rank}): the Nyström preconditioner is not yet ported: ROADMAP queue 1 "
-            "item 4; pass --precond pivchol or --precond_rank ≤ 200")
-    if cfg.chunked:
-        raise NotImplementedError("--chunked (the host-chunked fit and predict) is not yet ported: ROADMAP queue 1 "
-                                  "item 5")
-    return blk, rank, precond
+    return _lazy_block(n), rank, cfg.precond or ("nystrom" if rank > 200 else "pivchol")
+
+
+def chunked_fit(name: str, cfg: ServeConfig) -> bool:
+    """Whether ``_build`` returns the host-chunked loss (a
+    ``ChunkedMAPLoss``, trained by ``fit_chunked``) for this run."""
+    return name == "gibbs_exact" and cfg.matrixfree and cfg.chunked
 
 
 def _build(name: str, train_x: torch.Tensor, train_y: torch.Tensor, cfg: ServeConfig, draws: Mapping):
@@ -210,6 +222,14 @@ def _build(name: str, train_x: torch.Tensor, train_y: torch.Tensor, cfg: ServeCo
                 pg = generator(cfg, "probes")
                 probes = (_normal(pg, (rank, NUM_PROBES), dev), _normal(pg, (n, NUM_PROBES), dev))
             pre = model.prior_pre_matrixfree(train_x, prior_probes, rank=prior_rank, block=blk)
+            if chunked_fit(name, cfg):
+                # the host-chunked phases, the same MAP estimand
+                from nonstationary_precip_tpu_torch.models.gibbs_gp import make_chunked_map_loss
+
+                loss = make_chunked_map_loss(d, block=blk, chunk_iters=cfg.chunk_iters, n_chunks=cfg.n_chunks,
+                                             tol=1e-6, precond_rank=rank, precond=precond,
+                                             precond_shift=cfg.precond_shift, bwd_row_chunks=cfg.bwd_row_chunks)
+                return model, loss, (pre, probes)
             return (model,
                     (lambda m, xx, yy, pc: m.loss_matrixfree(xx, yy, probes, pc, block=blk, precond_rank=rank,
                                                              precond=precond, precond_shift=cfg.precond_shift)),
@@ -260,7 +280,7 @@ def _fit(name: str, model, loss_fn, train_x, train_y, cfg: ServeConfig, extra=()
     """Adam on the family's loss at ``cfg``'s budget; returns the
     ``TrainResult``.  ``draws`` may hold the deep GP's per-step ε
     ("eps_train": one (T, S, O, B) array a hidden layer)."""
-    from nonstationary_precip_tpu_torch.train.optim import fit, fit_minibatched, num_minibatch_steps
+    from nonstationary_precip_tpu_torch.train.optim import fit, fit_chunked, fit_minibatched, num_minibatch_steps
 
     draws = draws or {}
     lr = cfg.lr
@@ -269,6 +289,15 @@ def _fit(name: str, model, loss_fn, train_x, train_y, cfg: ServeConfig, extra=()
         # whitened field data (JAX: lr 0.01 diverges at step 2-3, 0.002
         # trains); only when --lr was left at its default
         lr = 0.002
+    if chunked_fit(name, cfg):
+        # Adam on the host over the chunked loss, each step's relres kept;
+        # no lr back-off, as JAX's chunked serve (fit_chunked has none)
+        res = fit_chunked(model, loss_fn, train_x, train_y, extra[0], probe_noise=extra[1], num_steps=cfg.max_iters,
+                          lr=lr, log_every=max(cfg.log_interval, 1))
+        worst = float(res.relres.max()) if res.steps else float("nan")
+        print(f"chunked fit: {res.steps} steps, final loss {float(res.losses[-1]):.6f}, worst relres {worst:.2e}"
+              + ("" if worst <= RELRES_GATE else "  [NOT CONVERGED — raise --precond_rank / --precond_shift]"))
+        return res
     if name == "deepgp":
         n = train_x.shape[0]
         if "eps_train" in draws:
@@ -293,7 +322,8 @@ def _predict(name: str, model, train_x, train_y, pts, cfg: ServeConfig, chunk: i
     O(chunk²) memory a call.  ``draws`` may hold the deep GP's predictive
     ε ("eps_pred": one (10, O, N*) array a hidden layer).  ``report``, if
     given, receives the matrix-free solves' evidence ("alpha_relres",
-    "worst_relres")."""
+    "worst_relres"; chunked, also "alpha_iters" and each query chunk's
+    "query_iters")."""
     draws = draws or {}
     report = {} if report is None else report
     if name == "deepgp":
@@ -308,27 +338,38 @@ def _predict(name: str, model, train_x, train_y, pts, cfg: ServeConfig, chunk: i
         return mix.mean, mix.var
 
     if cfg.matrixfree and name == "gibbs_exact":
-        blk, rank, _ = _matrixfree_setup(cfg, train_x.shape[0])
+        blk, rank, precond = _matrixfree_setup(cfg, train_x.shape[0])
         pre = extra[0]
         # each chunk is an mBCG with 1 + chunk right-hand sides
         chunk = min(chunk, 1024)
         # amortised serving: α, the factor and the prior's conditioning
-        # solves once, then per chunk the cross build and one variance solve
+        # solves once, then per chunk the cross build and one variance solve;
+        # the chunked route takes the keyed rule's factor (--precond) and at
+        # least 8 chunks, as JAX's serve does (its monolithic state keeps
+        # pivoted Cholesky)
+        chunked = dict(precond=precond, chunk_iters=cfg.chunk_iters, n_chunks=max(cfg.n_chunks, 8)) \
+            if cfg.chunked else {}
         state = model.posterior_state_matrixfree(train_x, train_y, pre, block=blk, precond_rank=rank,
-                                                 precond_shift=cfg.precond_shift)
-        report["alpha_relres"] = float(state[0].alpha_relres)
-        print(f"posterior state built: alpha solve relres={report['alpha_relres']:.2e}")
-        relres_seen: list = []
+                                                 precond_shift=cfg.precond_shift, **chunked)
+        report["alpha_relres"], report["alpha_iters"] = float(state[0].alpha_relres), state[0].iters
+        print(f"posterior state built{' (chunked)' if cfg.chunked else ''}: alpha solve relres="
+              f"{report['alpha_relres']:.2e}")
+        relres_seen, iters_seen = [], []
+        chunked.pop("precond", None)
 
         def marginals(m, p):
             dist, info = m.posterior_matrixfree_from_state(state, p, noiseless=False, block=blk,
-                                                           precond_shift=cfg.precond_shift, return_info=True)
+                                                           precond_shift=cfg.precond_shift, return_info=True,
+                                                           **chunked)
             relres_seen.append(float(info["relres_max"]))
+            iters_seen.append(info.get("iters"))
             return dist.mean, torch.maximum(dist.var, m.likelihood.noise)
 
         marginals.relres_seen = relres_seen
         out = _run_chunked_predict(marginals, model, pts, chunk)
         report["worst_relres"] = max(relres_seen)
+        if cfg.chunked:
+            report["query_iters"] = iters_seen
         return out
 
     def marginals(m, p):
@@ -443,6 +484,8 @@ def run(cfg: ServeConfig, *, init: Optional[Mapping[str, np.ndarray]] = None,
         steps_per_s = (executed - 1) / res.seconds if res.seconds > 0 else float("nan")
         out.update(losses=res.losses, steps=res.steps, executed=executed, backoffs=res.backoffs,
                    fit_seconds=clock.seconds(), train_seconds=res.seconds, steps_per_s=steps_per_s)
+        if res.relres is not None:  # the chunked fit's evidence
+            out.update(fit_relres=res.relres, fit_iters=res.iters)
         print(f"fitted {cfg.model} in {out['fit_seconds']:.1f}s: {res.steps} steps ({executed} run), "
               f"{steps_per_s:.1f} steps/s after the first, {out['backoffs']} lr back-offs")
 

@@ -1,6 +1,7 @@
 """Training loops: Adam over the parameters that require grad.
 
-Counterpart of ``nonstationary_precip_tpu/train/optim.py``: ``fit`` and the
+Counterpart of ``nonstationary_precip_tpu/train/optim.py``: ``fit``, the
+host-driven ``fit_chunked`` over a ``ChunkedMAPLoss`` and the
 epoch-shuffled minibatch fits of the DSVI models (``fit_minibatched``,
 ``fit_minibatched_splits``).  The JAX package compiles fixed-length chunks
 of steps as one ``lax.scan``; here the chunk is a Python loop whose
@@ -33,6 +34,10 @@ class TrainResult(NamedTuple):
     #: steps run in those chunks before each was thrown away; ``seconds``
     #: covers them too
     retried_steps: int = 0
+    #: each step's worst solve relres and MLL mBCG iterations
+    #: (``fit_chunked``'s evidence), else None
+    relres: Optional[np.ndarray] = None
+    iters: Optional[np.ndarray] = None
 
 
 class _Clock:
@@ -158,6 +163,69 @@ def fit(
     losses = np.concatenate(losses_all) if losses_all else np.zeros((0,))
     return TrainResult(model=model, losses=losses, steps=steps_done, seconds=clock.seconds(),
                        backoffs=lr_backoff - backoffs_left, retried_steps=retried_steps)
+
+
+#: the JAX package's name for ``fit_chunked``'s result
+ChunkedTrainResult = TrainResult
+
+
+def fit_chunked(model: torch.nn.Module, loss, x, y, prior_pre=None, *, probe_noise, num_steps: int,
+                lr: float = 0.01, threshold: Optional[float] = None, nan_guard: bool = True, log_every: int = 0,
+                callback: Optional[Callable] = None) -> TrainResult:
+    """Adam (``torch.optim.Adam``, optax's defaults) over a host-chunked MAP
+    loss (``models.gibbs_gp.ChunkedMAPLoss``), the JAX package's
+    ``fit_chunked`` (:200-306): every step reads its loss and relres on the
+    host.  The parameters that require grad train (the JAX mask: pass
+    ``model.trainable(...)`` first); ``threshold`` stops at the first
+    |Δloss| below it; ``nan_guard`` stops at a non-finite loss and puts back
+    the last parameters whose loss was finite; ``callback(step, model,
+    losses)`` runs after every step (pair it with
+    ``train.checkpoint.BestCheckpointer``).  ``probe_noise``: the same draws
+    every step (common random numbers, the JAX default).  ``relres`` is
+    each step's worst solve residual: gate on it; ``iters`` each step's MLL
+    mBCG iterations; ``seconds`` as :func:`fit`'s, from the end of the
+    first step.
+
+    A loop of its own, as in the JAX package: a step's loss is read before
+    its update, so a non-finite one rolls the model back a step, where
+    :func:`fit` checks a chunk's losses after its updates.  There is no lr
+    back-off, as in JAX's ``fit_chunked``."""
+    params = [(name, p) for name, p in model.named_parameters() if p.requires_grad]
+    if not params:
+        raise ValueError("fit_chunked: the model has no parameter that requires grad")
+    optimizer = torch.optim.Adam([p for _, p in params], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    clock = _Clock(params[0][1].device)
+    losses, relres_hist, iters = [], [], []
+    prev, finite = None, None
+    for i in range(num_steps):
+        val, grads, info = loss.value_and_grad(model, x, y, prior_pre, probe_noise)
+        f, rr = float(val), float(info["relres_max"])
+        if nan_guard and not np.isfinite(f):
+            if finite is not None:
+                with torch.no_grad():
+                    for (_, p), v in zip(params, finite):
+                        p.copy_(v)
+            print(f"fit_chunked: non-finite loss at step {i}; stopping (returning the last finite-loss model)")
+            break
+        finite = [p.detach().clone() for _, p in params]
+        for name, p in params:
+            p.grad = grads[name]
+        optimizer.step()
+        losses.append(f)
+        relres_hist.append(rr)
+        iters.append(int(info["iters"]))
+        if clock.t0 is None:
+            clock.start()
+        clock.stop()
+        if log_every and (i + 1) % log_every == 0:
+            print(f"step {i + 1}/{num_steps}  loss {f:.6f}  relres {rr:.2e}", flush=True)
+        if callback is not None:
+            callback(i + 1, model, np.asarray(losses))
+        if threshold is not None and prev is not None and abs(f - prev) < threshold:
+            break
+        prev = f
+    return TrainResult(model=model, losses=np.asarray(losses), steps=len(losses), seconds=clock.seconds(),
+                       relres=np.asarray(relres_hist), iters=np.asarray(iters, dtype=np.int64))
 
 
 def _snapshot(params, optimizer) -> tuple:

@@ -106,8 +106,8 @@ def test_prior_log_prob_matrixfree_value_and_grad_match_jax():
 
 
 def test_prior_conditional_matrixfree_matches_jax():
-    """The conditioning solves, the per-query panels and their composition;
-    the host-chunked route raises."""
+    """The conditioning solves, the per-query panels and their composition,
+    and the host-chunked route of the solves."""
     x, _, xs, jm, tm = _setup(seed=2)
     pre, tpre = _jax_pre(jm, x)
     kw = dict(block=BLOCK, max_iters=ITERS, tol=1e-10)
@@ -120,14 +120,14 @@ def test_prior_conditional_matrixfree_matches_jax():
     tmean = tm.prior.conditional_mean_from_pre(_t(xs), given_t, ta, block=4)
     _close(tmean, jmean)
     _close(tm.prior.conditional_mean_matrixfree(_t(xs), given_t, tpre, **kw), jmean)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tm.prior.conditional_pre_matrixfree(given_t, tpre, chunk_iters=4, **kw)
+    # the host-chunked route (ported): the same iterations, stopped early once converged
+    _close(tm.prior.conditional_pre_matrixfree(given_t, tpre, chunk_iters=4, **kw), ja)
 
 
 def test_loss_matrixfree_value_and_grads_match_jax():
     """The MAP loss, prior included, and its gradients in the field, the
     raw outputscale and the raw noise, against JAX's panel path on the
-    same probes; a matvec precision other than 'highest' raises."""
+    same probes; the other matvec precisions, and an unknown one raising."""
     x, y, _, jm, tm = _setup(seed=3)
     pre, tpre = _jax_pre(jm, x)
     key = jax.random.PRNGKey(7)
@@ -143,14 +143,20 @@ def test_loss_matrixfree_value_and_grads_match_jax():
     _close(tm.log_ell.grad, jg.log_ell)
     _close(tm.raw_outputscale.grad, jg.raw_outputscale)
     _close(tm.likelihood.raw_noise.grad, jg.likelihood.raw_noise)
-    with pytest.raises(NotImplementedError, match="high3"):
-        tm.loss_matrixfree(_t(x), _t(y), _draws(key, RANK, N, 8), tpre, matvec_precision="high3", **kw)
+    # the other contraction modes (ported): 'vpu' is the same estimand, 'high3' within its bf16 3-pass error
+    draws = _draws(key, RANK, N, 8)
+    with torch.no_grad():
+        _close(tm.loss_matrixfree(_t(x), _t(y), draws, tpre, matvec_precision="vpu", **kw), jv)
+        hi3 = tm.loss_matrixfree(_t(x), _t(y), draws, tpre, matvec_precision="high3", **kw)
+    assert abs(float(hi3) - float(jv)) <= 1e-4 * abs(float(jv))
+    with pytest.raises(ValueError, match="precision"):
+        tm.loss_matrixfree(_t(x), _t(y), draws, tpre, matvec_precision="high", **kw)
 
 
 def test_posterior_matrixfree_and_state_match_jax():
     """The one-shot posterior (mean, noiseless and noisy cov), the state
-    and its queries (mean-only, with variance and ``return_info``); the
-    host-chunked routes raise."""
+    and its queries (mean-only, with variance and ``return_info``), and the
+    host-chunked routes at the same budget."""
     x, y, xs, jm, tm = _setup(seed=4)
     pre, tpre = _jax_pre(jm, x)
     kw = dict(block=BLOCK, max_iters=ITERS, tol=1e-10, precond_rank=RANK)
@@ -178,10 +184,14 @@ def test_posterior_matrixfree_and_state_match_jax():
     _close(tpost.mean, jpost.mean)
     _close(tpost.cov, jpost.cov)
     _close(tinfo["relres_max"], jinfo["relres_max"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tm.posterior_state_matrixfree(tx, ty, tpre, chunk_iters=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tm.posterior_matrixfree_from_state(tst, txs, chunk_iters=4)
+    # the host-chunked routes (ported; tests/test_torch_chunked.py holds them to JAX's): at a budget of
+    # ITERS = 8 iterations as 2 chunks of 4, the same state and query
+    cst = tm.posterior_state_matrixfree(tx, ty, tpre, chunk_iters=4, n_chunks=2, **skw)
+    _close(cst[0].alpha, tst[0].alpha)
+    _close(cst[1], tst[1])
+    cpost = tm.posterior_matrixfree_from_state(cst, txs, chunk_iters=4, n_chunks=2, **qkw)
+    _close(cpost.mean, tpost.mean)
+    _close(cpost.cov, tpost.cov)
 
 
 def test_quickstart_main_runs_on_the_cpu():

@@ -123,11 +123,19 @@ def test_lazy_cg_diagnostics_matches_jax():
 
 
 def test_unported_options_raise():
+    """The Nyström factor and RPCholesky's keyed pivots, which raised until
+    they were ported (tests/test_torch_precond.py holds them to JAX), build
+    finite (N, rank) factors whose LLᵀ stays below K's diagonal; an
+    unknown rule, malformed draws and an N the panels do not divide raise."""
     aug, _, _ = _problem()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        lazy_cg.build_precond_factor("nystrom", None, _t(aug), 4, packed_gibbs_cross(D))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        lazy_cg.lazy_pivoted_cholesky(None, _t(aug), 4, packed_gibbs_cross(D), key=1)
+    for rule, key in (("nystrom", None), ("pivchol", torch.Generator().manual_seed(1))):
+        lpc = lazy_cg.build_precond_factor(rule, None, _t(aug), 4, packed_gibbs_cross(D), key)
+        assert lpc.shape == (N, 4) and bool(torch.isfinite(lpc).all())
+        assert float((lpc * lpc).sum(1).max()) <= 1.0 + 1e-10
+    with pytest.raises(ValueError, match="'pivchol' or 'nystrom'"):
+        lazy_cg.build_precond_factor("svd", None, _t(aug), 4, packed_gibbs_cross(D))
+    with pytest.raises(ValueError, match="RPCholesky draws"):
+        lazy_cg.lazy_pivoted_cholesky(None, _t(aug), 4, packed_gibbs_cross(D), key=_t(np.zeros((4, 3))))
     with pytest.raises(ValueError, match="divisible"):
         lazy_cg.lazy_cg_mll(None, _t(aug[:100]), _t(np.zeros(100)), _t(np.ones((100, 2))), 0.1, block=64,
                             cross_fn=packed_gibbs_cross(D))

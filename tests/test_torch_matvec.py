@@ -97,13 +97,16 @@ def test_panel_grads_matches_jax_k3():
 
 def test_panel_vjp_rows_assemble_the_full_vjp():
     """Row blocks of ``packed_gibbs_panel_vjp_rows``, concatenated and
-    chained, give ``packed_gibbs_panel_vjp``'s gradients."""
+    chained, give ``packed_gibbs_panel_vjp``'s gradients; each block returns
+    its rows' sp (JAX's returns their sum), so one sum over all rows gives
+    the outputscale's gradient as the whole sweep sums it."""
     x, ell, a, s, z = (_t(v) for v in _panel_data(np.random.default_rng(7), 192, 2, 4))
     aug = torch.cat([x, torch.log(ell)], 1)
     raw, s2, g = torch.tensor(0.6), torch.tensor(0.1), torch.tensor(-1.5)
     kg, gaug, s2g = matvec.packed_gibbs_panel_vjp(2)(raw, aug, s2, a, s, z, g)
     parts = [matvec.packed_gibbs_panel_vjp_rows(2)(raw, aug, s2, a, s, z, g, i0, 64) for i0 in (0, 64, 128)]
-    sp = sum(p[1] for p in parts)
+    assert all(p[1].shape == (64,) for p in parts)
+    sp = torch.sum(torch.cat([p[1] for p in parts]))
     torch.testing.assert_close(torch.nn.functional.softplus(raw) * torch.cat([p[0] for p in parts]), gaug)
     torch.testing.assert_close(g * sp * torch.sigmoid(raw), kg)
 
@@ -141,8 +144,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="D"):
         matvec.gibbs_gram_matvec(x1, e1, x2, e2, v)
     x1, e1, x2, e2, v = (_t(a) for a in _gibbs_data(rng, 16, 16, 2, 1))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        matvec.make_gibbs_matvec(x1, e1, x2, e2, precision="high3")
+    # the TPU's other contraction modes are ported (tests/test_torch_matvec_modes.py): on the CPU each
+    # takes its plain version; an unknown one raises
+    torch.testing.assert_close(matvec.make_gibbs_matvec(x1, e1, x2, e2, precision="high3")(v),
+                               matvec.gibbs_gram_matvec_plain(x1, e1, x2, e2, v, precision="high3"))
     with pytest.raises(ValueError, match="precision"):
         matvec.make_gibbs_matvec(x1, e1, x2, e2, precision="high")
     with pytest.raises(ValueError, match="CUDA"):  # the kernel's wrapper never computes on the CPU

@@ -76,9 +76,12 @@ def test_builder_and_wrappers_refuse_what_they_do_not_take():
         matvec.stationary_matvec_builder(Scale.create(RBF.create(1) * Periodic.create(1)), x[:, :1], 0.1)
     with pytest.raises(ValueError, match="D ≤ 8"):
         matvec.rbf_gram_matvec(x, x, torch.ones(9), torch.randn(16, 2))
-    for precision in ("default", "high3"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            matvec.make_rbf_matvec(x[:, :2], x[:, :2], torch.ones(2), precision)
+    v = torch.randn(16, 2)
+    for precision in ("default", "high3"):  # ported: on the CPU each takes its plain version
+        torch.testing.assert_close(matvec.make_rbf_matvec(x[:, :2], x[:, :2], torch.ones(2), precision)(v),
+                                   matvec.rbf_gram_matvec_plain(x[:, :2], x[:, :2], v, precision=precision))
+    with pytest.raises(ValueError, match="precision"):  # K6 has no 'vpu', as the JAX kernel has none
+        matvec.make_rbf_matvec(x[:, :2], x[:, :2], torch.ones(2), "vpu")
     with pytest.raises(ValueError, match="CUDA"):
         matvec.rbf_gram_matvec_cuda(x[:, :2], x[:, :2], torch.randn(16, 2))
 

@@ -101,10 +101,14 @@ def test_source_has_one_gram_v_walk():
     """K2, K6 and K3 are one walk, ``gibbs_rows_kernel`` with an element
     policy: no ``rbf_matvec_kernel``, no ``bool kK2`` switch, no K3 kernel
     of its own; the C entries launch it with ``GibbsElem``, ``RbfElem``
-    and ``PanelElem``; the RBF scale is the replay's."""
+    and ``PanelElem``; the RBF scale is the replay's.  K2's and K6's
+    tensor-core contraction modes ('default', 'high3') are the one other
+    walk, ``gibbs_mma_kernel``, on the same element policies."""
     text = matvec.SOURCE.read_text()
     kernels = set(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\(", text, flags=re.S))
-    assert kernels == {"gibbs_rows_kernel", "sum_splits_kernel", "panel_grads_finish_kernel"}, kernels
+    assert kernels == {"gibbs_rows_kernel", "gibbs_mma_kernel", "sum_splits_kernel",
+                       "panel_grads_finish_kernel"}, kernels
+    assert "run_mma<GibbsElem>(" in text and "run_mma<RbfElem>(" in text
     assert "rbf_matvec_kernel" not in text and "bool kK2" not in text and "rbf_elem" not in text
     assert "template <class Elem, int D, int RB>" in text
     assert "run_matvec<GibbsElem>(" in text and "run_matvec<RbfElem>(" in text

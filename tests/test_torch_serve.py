@@ -19,8 +19,8 @@ sides.  Held to JAX's:
   * the CSV's header and shape.
 The rest of the CLI is checked on its own: the checkpoint round trip
 serves the same bits, ``fit``'s lr back-off retries and halves as JAX's
-does, the finite-prediction gate leaves no checkpoint, and the flags that
-raise do.
+does, the finite-prediction gate leaves no checkpoint, the flags that
+raise do, and the large-N flags (``--chunked``, ``--precond nystrom``) serve.
 """
 
 import contextlib
@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from nonstationary_precip_tpu.train.optim import fit as jax_fit
+from nonstationary_precip_tpu.train.optim import fit_chunked as jax_fit_chunked
 
 from nonstationary_precip_tpu_torch import __main__ as cli
 from nonstationary_precip_tpu_torch import interop, serve
@@ -227,13 +228,56 @@ def test_matrixfree_rejected_for_other_families(model, tmp_path):
         serve.main(["--model", model, "--matrixfree", "true", "--device", "cpu", "--output", "/dev/null"])
 
 
-@pytest.mark.parametrize("flags, item", [(["--chunked", "true"], "item 5"), (["--precond", "nystrom"], "item 4"),
-                                         (["--precond_rank", "300"], "item 4")],
+@pytest.mark.parametrize("flags, item", [(["--chunked", "true", "--precond_rank", "16"], "pivchol"),
+                                         (["--precond", "nystrom", "--precond_rank", "16"], "nystrom"),
+                                         (["--precond_rank", "300"], "nystrom")],
                          ids=["chunked", "nystrom", "auto_nystrom"])
-def test_unported_flags_raise_with_their_roadmap_item(flags, item):
-    argv = ["--model", "gibbs_exact", "--matrixfree", "true", "--device", "cpu", "--output", "/dev/null", *flags]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        serve.main(argv)
+def test_unported_flags_raise_with_their_roadmap_item(flags, item, tmp_path):
+    """The flags that raised until their ROADMAP items (queue 1, 4 and 5)
+    landed now serve: ``--chunked`` through the host-chunked fit and state,
+    ``--precond nystrom`` and the auto rule's Nyström above rank 200 (here
+    N = 208, rank 208), at a tiny budget on the CPU, each resolving the
+    factor rule ``item``, with finite served values."""
+    n = 208
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-3, 3, size=(n, 2))
+    csv = tmp_path / "train.csv"
+    np.savetxt(csv, np.column_stack([x, np.sin(x[:, 0]) + 0.1 * rng.normal(size=n)]), delimiter=",",
+               header="x0,x1,y", comments="")
+    argv = ["--model", "gibbs_exact", "--matrixfree", "true", "--device", "cpu", "--output", "/dev/null",
+            "--train_csv", str(csv), "--max_iters", "2", *flags]
+    assert serve._matrixfree_setup(serve.config(argv), n)[2] == item
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        mean, std = serve.main(argv)
+    assert mean.shape == std.shape == (n,) and np.isfinite(mean).all() and np.isfinite(std).all()
+    assert ("chunked fit: 2 steps" in printed.getvalue()) == ("--chunked" in flags)
+
+
+def test_chunked_fit_has_no_lr_backoff_as_jax(tmp_path):
+    """The chunked serve trains with ``fit_chunked``, which has no lr
+    back-off in either package (JAX's ``fit_chunked`` takes no
+    ``lr_backoff``; its serve passes one to ``fit`` alone): at an lr that
+    blows the field up, the port's chunked CLI stops at the first
+    non-finite loss with no back-off (the monolithic route backs off, then
+    refuses: ``test_nonfinite_predictions_raise_and_leave_no_checkpoint``)
+    and refuses to serve the diverged model."""
+    import inspect
+
+    assert "lr_backoff" not in inspect.signature(jax_fit_chunked).parameters
+    n = 64
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-3, 3, size=(n, 2))
+    csv = tmp_path / "train.csv"
+    np.savetxt(csv, np.column_stack([x, np.sin(x[:, 0]) + 0.1 * rng.normal(size=n)]), delimiter=",",
+               header="x0,x1,y", comments="")
+    argv = ["--model", "gibbs_exact", "--matrixfree", "true", "--device", "cpu", "--output", "/dev/null",
+            "--train_csv", str(csv), "--max_iters", "4", "--precond_rank", "16", "--lr", "1e6"]
+    assert serve.chunked_fit("gibbs_exact", serve.config([*argv, "--chunked", "true"]))
+    assert not serve.chunked_fit("gibbs_exact", serve.config(argv))
+    with contextlib.redirect_stdout(io.StringIO()) as printed, pytest.raises(SystemExit, match="non-finite"):
+        serve.main([*argv, "--chunked", "true"])
+    assert "fit_chunked: non-finite loss at step" in printed.getvalue()
+    assert "0 lr back-offs" in printed.getvalue() and "backoffs left" not in printed.getvalue()
 
 
 def test_unknown_model_and_no_card():
