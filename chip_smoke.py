@@ -20,7 +20,10 @@ spatial_gibbs --inference sparse`` (K9 on split-stacked Grams),
 the nonstationary model), ``experiments.sgpr_bench`` (K10a in its
 predictive's NLPD) and ``experiments.spatiotemporal_dgp`` (K4), and the
 serving CLI, ``serve``, over its eight model families (K9, K4, K7, and K2
-and K3 on its matrix-free path).  K10b and
+and K3 on its matrix-free path), and the production driver
+``experiments.precipitation_baselines`` (K9; K8, K10a and K11 at N = 1024),
+the deep GP's full-covariance loss (K4), the dense CG solver and the
+ported quickstarts (K9, K4, K7, K6).  K10b and
 K10c, which no path runs, are driven through their
 own entries, ``ops.chol_inv.chol_inv_batched`` and
 ``ops.chol_stream.streaming_cholesky_v1``.  Each path is driven with
@@ -279,7 +282,38 @@ one JSON line each:
                   each run reports, K9 none; then the prior-free chunked
                   loss at N = 131072 with the backward whole and in 2 row
                   blocks (K3's row entry), bit for bit.
-Each of the last nine phases prints its seconds.  After k3 come k2_modes
+42. baselines_ref — the production driver (``experiments.
+                  precipitation_baselines``) exact and sparse at the argv of
+                  the JAX driver's runs pinned in
+                  tests/fixtures/jax_baselines_ref.npz (20 steps, M = 20, the
+                  sparse run from JAX's k-means centres): the step-0 loss,
+                  the JSONL records' objectives, RMSEs and NLPDs and the run
+                  directory against JAX's, the launches
+                  (``baselines_launches``: K9 a step and in each predictive
+                  where N₁·N₂ ≥ 128²);
+43. baselines   — the driver at its defaults (uib_spatial.csv, 2000
+                  iterations, log 50, test 200), exact and sparse (M = 250):
+                  finite metrics, the JSONL and checkpoints, the launches,
+                  seconds and steps/s (CUDA events); then --resume from
+                  final/ with --max_iters 0 serves the trained predictive bit
+                  for bit;
+44. baselines_dense — the driver on a 1280-row CSV (N_train 1025): K8 once a
+                  step, each predictive K9 ×3, K10a and K11 once; K8 at the
+                  trained pose against its plain version and float64 (k8's
+                  criteria);
+45. full_cov    — ``DeepGP.loss(full_cov=True)`` at the dgp shapes (B 315,
+                  S 3, M 250) for 5 Adam steps: K4 once a step, K7 never;
+                  the loss and gradient against float64 on the card;
+46. dense_cg    — ``ExactGP.mll`` and ``predictive`` with the dense
+                  ``solver='cg'`` at quickstart_cg_largen's N = 1600: the CG
+                  MLL within 3σ (the SLQ spread over 8 probe sets) of the
+                  Cholesky MLL, float32 against float64 within σ and the
+                  gradient spread, the CG mean within 1e-2 of Cholesky's;
+47. quickstarts — the five ported examples/quickstart_* (exact_gp,
+                  gibbs_spatial, deepgp, cg_largen, lazy_largen) at their
+                  defaults with their asserts: K9 in gibbs_spatial, K4 and
+                  K7 in deepgp, K6 in lazy_largen, counted.
+Each of the last fifteen phases prints its seconds.  After k3 come k2_modes
 (K2's 'default' and 'high3' tensor-core kernels against their plain
 versions and float64 within bf16's bound on the gate's trained payload and a
 ragged 1000 × 1300, 'default' against its plain version within MODE_TIGHT of
@@ -304,6 +338,8 @@ Run from the repository root: python3 chip_smoke.py [--steps N]
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import re
@@ -696,6 +732,39 @@ CHUNKED_F64_RTOL, CHUNKED_GRAD_RTOL = 1e-10, 1e-2
 # CHUNKED_BIG with the row-block backward split 1 and 2 ways.
 CHUNKED_N, CHUNKED_STEPS, CHUNKED_QUERY, CHUNKED_BIG = 16384, 3, 4096, 131072
 CHUNKED_FLAGSHIP = ("--precond_rank", "1024", "--precond", "nystrom", "--precond_shift", "10")
+
+# The production driver (experiments/precipitation_baselines.py) against the
+# JAX driver's pinned float32 runs on tests/test_precip_baselines.py's argv
+# (tools/pin_jax_baselines.py), with tests/test_torch_baselines.py's
+# tolerances (their reasons in its docstring): the records' objectives
+# 1e-3·max(1, |objective|), RMSE 2e-3 and NLPD 2e-2 relative; the step-0
+# loss to RTOL_STEP0, the slice's bound for the same model at the same N,
+# where the CPU test holds 2e-5.
+BASELINES_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_baselines_ref.npz"
+BASELINES_OBJECTIVE_TOL = 1e-3
+BASELINES_METRIC_RTOL = {"rmse": 2e-3, "rmse_raw": 2e-3, "nlpd": 2e-2}
+# The dense driver run: a 1280-row CSV (x uniform on [−2, 2]², y = sin x₀ +
+# 0.1·ε from default_rng(BASELINES_DENSE_SEED)), --train_percent 80.  Both
+# drivers hold out int((1 − 80/100)·1280) = int(255.99999999999994) = 255
+# rows, so 1025 train: inside K8's, K10a's and K11's windows.
+BASELINES_DENSE_ROWS, BASELINES_DENSE_SEED = 1280, 19
+BASELINES_DENSE_TRAIN = BASELINES_DENSE_ROWS - int((1 - 80 / 100) * BASELINES_DENSE_ROWS)
+# The deep GP's full-covariance loss at the dgp shapes: FULL_COV_STEPS Adam
+# steps, then float32 against float64 with the same ε at the trained pose.
+# Bands from the CPU at the same shapes (float32 against float64 there: the
+# loss 1.1e-5 relative, the gradient's relative L2 3.4e-3, cosine
+# 0.999994): the loss within 1e-4, the gradient within 2e-2 and 0.9999.
+FULL_COV_STEPS = 5
+FULL_COV_LOSS_RTOL, FULL_COV_GRAD_REL, FULL_COV_GRAD_COS = 1e-4, 2e-2, 0.9999
+# The dense CG solver at quickstart_cg_largen's N = 1600: the estimator's
+# own spread over DENSE_CG_SETS independent probe sets of 16 (float64) is
+# the yardstick.  The CG MLL within 3 of its σ of the Cholesky MLL; float32
+# within 1 σ of float64 on the same probes, the float32 gradient within
+# twice the probe sets' gradient spread (‖std‖) of the float64 one (the CPU:
+# 9.8e-4 against σ 3.6e-3, 9.3e-3 against 7.5e-3).
+DENSE_CG_SETS, DENSE_CG_GRAD_SPREADS = 8, 3
+# The ported quickstarts, run at their defaults.
+QUICKSTARTS = ("exact_gp", "gibbs_spatial", "deepgp", "cg_largen", "lazy_largen")
 
 MMA_WALK = {"gibbs_matvec": "gibbs_mma_kernel<GibbsElem,2,2>", "rbf_matvec": "gibbs_mma_kernel<RbfElem,2,2>"}
 WALK = {"K2": "gibbs_rows_kernel<GibbsElem,2,9>", "K6": "gibbs_rows_kernel<RbfElem,2,9>",
@@ -2433,6 +2502,33 @@ def device_kernels(fn, calls: int = 1) -> list:
                    if e.device_type == DeviceType.CUDA and "kernel" in e.name), key=lambda k: k[1])
 
 
+def k8_errors(gibbs_fused, name: str, x, ell, y, s2, noise, rung: int = 1) -> dict:
+    """K8 and its plain version on one payload: both take attempt ``rung``,
+    L is lower triangular, L and α are held to float64 by ``check_f64``
+    (K8_FLOOR), and at rung 1 L's backward error to γ_(N+1)|L||Lᵀ|
+    (``chol_bound_ratio``)."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
+
+    lk, ak, state = gibbs_fused.gibbs_chol_solve_cuda(x, ell, y, s2, noise)
+    lp, ap, tries = gibbs_fused.gibbs_chol_solve_plain(x, ell, y, s2, noise)
+    extra = gibbs_fused.EXTRA_JITTER[rung - 1]
+    k = s2.double() * gibbs_gram_reference(*(t.double() for t in (x, ell, x, ell)))
+    a64 = k + (noise + extra).double() * torch.eye(x.shape[0], dtype=torch.float64, device=x.device)
+    l64 = torch.linalg.cholesky(a64)
+    al64 = torch.linalg.solve_triangular(l64, y.double()[:, None], upper=False)[:, 0]
+    torch.cuda.synchronize()
+    got = int(state[0])
+    check(got == tries == rung, f"K8 {name}: attempt {got}, the plain version's {tries}, want {rung}")
+    check(bool((torch.triu(lk, 1) == 0).all()), f"K8 {name} L lower triangular")
+    out = {"L": check_f64(f"K8 {name} L", lk, lp, l64, K8_FLOOR["L"]),
+           "alpha": check_f64(f"K8 {name} alpha", ak, ap, al64, K8_FLOOR["alpha"]), "attempt": got}
+    if rung == 1:
+        ratio = chol_bound_ratio(lk, a64)
+        check(ratio <= 1.0, f"K8 {name} backward error within γ_(N+1)|L||Lᵀ|: ratio {ratio:.3g} <= 1")
+        out.update(bound_ratio=ratio, plain_bound_ratio=chol_bound_ratio(lp, a64))
+    return out
+
+
 def phase_k8(gibbs_fused, payloads, dev):
     """K8 and its plain version against float64 on the MAP loss's payloads
     (the Gibbs rows at init and trained, the ragged N = 1000), each L also
@@ -2441,40 +2537,15 @@ def phase_k8(gibbs_fused, payloads, dev):
     version's ladder; bitwise repeat; times at N = 1024 and 1280, with the
     CUDA launches of one call and the span of the happy path's empty
     attempts 2 and 3 on the device (torch.profiler)."""
-    from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
-
-    def f64(x, ell, y, s2, noise):
-        k = s2.double() * gibbs_gram_reference(*(t.double() for t in (x, ell, x, ell)))
-        a = k + noise.double() * torch.eye(x.shape[0], dtype=torch.float64, device=dev)
-        l = torch.linalg.cholesky(a)
-        return a, l, torch.linalg.solve_triangular(l, y.double()[:, None], upper=False)[:, 0]
-
-    def compare(name, x, ell, y, s2, noise, rung=1):
-        lk, ak, state = gibbs_fused.gibbs_chol_solve_cuda(x, ell, y, s2, noise)
-        lp, ap, tries = gibbs_fused.gibbs_chol_solve_plain(x, ell, y, s2, noise)
-        extra = gibbs_fused.EXTRA_JITTER[rung - 1]
-        a64, l64, al64 = f64(x, ell, y, s2, noise + extra)
-        torch.cuda.synchronize()
-        got = int(state[0])
-        check(got == tries == rung, f"K8 {name}: attempt {got}, the plain version's {tries}, want {rung}")
-        check(bool((torch.triu(lk, 1) == 0).all()), f"K8 {name} L lower triangular")
-        errs[name] = {"L": check_f64(f"K8 {name} L", lk, lp, l64, K8_FLOOR["L"]),
-                      "alpha": check_f64(f"K8 {name} alpha", ak, ap, al64, K8_FLOOR["alpha"]), "attempt": got}
-        if rung == 1:
-            ratio = chol_bound_ratio(lk, a64)
-            check(ratio <= 1.0, f"K8 {name} backward error within γ_(N+1)|L||Lᵀ|: ratio {ratio:.3g} <= 1")
-            errs[name]["bound_ratio"] = ratio
-            errs[name]["plain_bound_ratio"] = chol_bound_ratio(lp, a64)
-
     errs = {}
     for name, (x, ell, y, s2, noise, _, _) in payloads.items():
-        compare(name, x, ell, y, s2, noise)
+        errs[name] = k8_errors(gibbs_fused, name, x, ell, y, s2, noise)
     # the ladder: every row twice and no noise, so s²K is singular; the
     # first attempt fails, the second (extra 1e-4) holds
     x, ell, y, s2, _, _, _ = payloads[f"{GIBBS_NS[0]}_init"]
     half = x.shape[0] // 2
     xd, ed = x[:half].repeat(2, 1), ell[:half].repeat(2, 1)
-    compare("ladder", xd, ed, torch.sin(xd[:, 0]), s2, torch.zeros_like(s2), rung=2)
+    errs["ladder"] = k8_errors(gibbs_fused, "ladder", xd, ed, torch.sin(xd[:, 0]), s2, torch.zeros_like(s2), rung=2)
     x, ell, y, s2, noise, _, _ = payloads[f"{GIBBS_NS[-1]}_trained"]
     runs = [gibbs_fused.gibbs_chol_solve_cuda(x, ell, y, s2, noise)[:2] for _ in range(2)]
     check(all(torch.equal(a, b) for a, b in zip(*runs)), "K8 bitwise repeatable")
@@ -3745,6 +3816,341 @@ def phase_chunked(serve, quickstart, dev, dev_name: str):
             + l2["gibbs_matvec"], "gibbs_panel_grads": out["flagship"]["launches"].get("gibbs_panel_grads", 0) + 3}
 
 
+def baselines_launches(cfg, n: int, n_test: int, steps: int, predictives: int) -> dict:
+    """What the driver launches, from the code: the exact Gibbs loss takes
+    K8 once a step at 768 ≤ N ≤ 1280 and otherwise its noisy Gram through
+    K9 where N² ≥ 128²; the sparse loss K9 for K_xz and K_zz (each where
+    N₁·N₂ ≥ 128²); each predictive (one per test_interval record, one at the
+    end) K9 for K_xx, K_ss and K_sx, K10a for its factor and K11 for
+    L⁻¹K_xs in their 768 ≤ N ≤ 1280 windows (K11 within its element
+    budget), or, sparse, K9 for both roots' K_xz and K_zz.  The SE-ARD
+    baseline launches nothing."""
+    from nonstationary_precip_tpu_torch.ops import trsm
+
+    def k9(n1, n2):
+        return int(n1 * n2 >= 128 * 128)
+
+    check(not 6144 <= n <= 8192, f"baselines_launches derives the counts outside K5's window, got {n}")
+    if cfg.model != "DiagonalGibbs":
+        return {}
+    if cfg.inference == "sparse":
+        m = cfg.num_inducing
+        return {"gibbs_gram": steps * (k9(n, m) + k9(m, m)) + predictives * (k9(n, m) + k9(n_test, m) + 2 * k9(m, m))}
+    dense = 768 <= n <= 1280
+    pred_k9 = k9(n, n) + k9(n_test, n_test) + k9(n_test, n)
+    return {"gibbs_chol_solve_fused": steps * dense,
+            "gibbs_gram": steps * (not dense) * k9(n, n) + predictives * pred_k9,
+            "blocked_cholesky": predictives * dense,
+            "blocked_trsm": predictives * (dense and n * n + 2 * n * n_test <= trsm.MAX_TOTAL_ELEMS)}
+
+
+def _run_driver(pb, argv: list, z=None) -> tuple:
+    """The driver on ``argv`` on the card, quietly, its launches counted from
+    0: (run's output, train.jsonl's records, the launch counts).  With
+    ``z``, its k-means returns these centres (JAX's, carried across)."""
+    cfg = pb.default_config().parse_args([*argv, "--device", "cuda"])
+    kmeans = pb.kmeans_inducing_points
+    if z is not None:
+        pb.kmeans_inducing_points = lambda first, x, m: torch.as_tensor(z, dtype=x.dtype, device=x.device)
+    try:
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            out = pb.run(cfg)
+        torch.cuda.synchronize()
+        got = launch_counts()
+    finally:
+        pb.kmeans_inducing_points = kmeans
+    out["printed"] = printed.getvalue()
+    recs = [json.loads(line) for line in (out["logdir"] / "train.jsonl").read_text().splitlines()]
+    n, n_test = out["tensors"][0].shape[0], out["tensors"][2].shape[0]
+    predictives = sum("rmse" in r for r in recs) + 1
+    want = baselines_launches(cfg, n, n_test, out["steps"], predictives)
+    expect = {k: want.get(k, 0) for k in got}
+    check(got == expect, f"driver {argv}: launches {got} == {expect}")
+    return out, recs, _nonzero(got)
+
+
+def phase_baselines_ref(pb):
+    """The driver, exact and sparse, at the pinned JAX runs' argv (20 steps,
+    M = 20, the sparse run from JAX's k-means centres): the step-0 loss, the
+    JSONL records and the final metrics against JAX's, the run directory's
+    entries (without tb/, which needs tensorboardX) and the launches."""
+    ref = np.load(BASELINES_REF)
+    keys = list(ref["record_keys"])
+    rows, totals = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for case in ("exact", "sparse"):
+            z = ref[f"{case}.z"] if f"{case}.z" in ref.files else None
+            out, recs, got = _run_driver(pb, [*ref[f"{case}.argv"], "--logdir", tmp, "--name", case], z)
+            losses, jrecs = ref[f"{case}.losses"], [dict(zip(keys, r)) for r in ref[f"{case}.records"]]
+            check(out["steps"] == len(losses) and bool(np.isfinite(out["losses"]).all()),
+                  f"{case}: {out['steps']} steps, finite losses")
+            rel0 = float(abs(out["losses"][0] - losses[0]) / abs(losses[0]))
+            check(rel0 <= RTOL_STEP0, f"baselines_ref {case}: step-0 loss vs JAX {rel0:.3g} <= {RTOL_STEP0}")
+            check([r["step"] for r in recs] == [int(r["step"]) for r in jrecs], f"{case}: the records' steps")
+            gaps = {k: [] for k in ("objective", *BASELINES_METRIC_RTOL)}
+            for got_r, want_r in zip(recs, jrecs):
+                gap = abs(got_r["objective"] - want_r["objective"])
+                check(gap <= BASELINES_OBJECTIVE_TOL * max(1.0, abs(want_r["objective"])),
+                      f"baselines_ref {case} step {got_r['step']}: objective {got_r['objective']} vs JAX's "
+                      f"{want_r['objective']}")
+                gaps["objective"].append(gap)
+                for k, rtol in BASELINES_METRIC_RTOL.items():
+                    rel = abs(got_r[k] - want_r[k]) / abs(want_r[k])
+                    check(rel <= rtol, f"baselines_ref {case} step {got_r['step']}: {k} {got_r[k]} vs JAX's "
+                                       f"{want_r[k]} ({rel:.3g} > {rtol})")
+                    gaps[k].append(rel)
+            files = {p.name for p in out["logdir"].iterdir()} - {"tb"}
+            check(files == set(ref[f"{case}.files"]) - {"tb"}, f"{case}: the run directory {sorted(files)}")
+            for k, v in got.items():
+                totals[k] = totals.get(k, 0) + v
+            rows[case] = {"step0_rel_err": rel0, "gaps": gaps, "rmse": out["rmse"], "nlpd": out["nlpd"],
+                          "jax_rmse": float(ref[f"{case}.rmse"]), "jax_nlpd": float(ref[f"{case}.nlpd"]),
+                          "launches": got}
+    emit("baselines_ref", rows=rows, launches=totals)
+    return totals
+
+
+def phase_baselines(pb, dev_name: str):
+    """The driver at its defaults (uib_spatial.csv, 316 training rows, 2000
+    iterations, log 50, test 200, threshold 1e-6), exact and sparse (M =
+    250): finite RMSE and NLPD, the JSONL and the best/ and final/
+    checkpoints written, the launches; seconds and steps/s from the fit's
+    CUDA events; then the driver resumed from final/ with --max_iters 0
+    serves the trained model's predictive bit for bit."""
+    rows, totals = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for case in ("exact", "sparse"):
+            t0 = time.perf_counter()
+            out, recs, got = _run_driver(pb, ["--inference", case, "--logdir", tmp, "--name", case])
+            wall = time.perf_counter() - t0
+            check(np.isfinite(out["rmse"]) and np.isfinite(out["nlpd"]), f"baselines {case}: RMSE and NLPD finite")
+            run = out["logdir"]
+            for tag in ("best", "final", "init_model"):
+                check((run / tag / "model").is_file() and (tag == "init_model" or (run / tag / "meta.json").is_file()),
+                      f"baselines {case}: {tag}/ written")
+            check(len(recs) == -(-out["steps"] // 50) and all("objective" in r for r in recs),
+                  f"baselines {case}: one record every 50 steps")
+            final = str(run / "final")
+            again, _, got2 = _run_driver(pb, ["--inference", case, "--logdir", tmp, "--name", f"{case}_resumed",
+                                              "--resume", final, "--max_iters", "0"])
+            stdy = out["stdy"]
+            p1 = pb.metrics(out["model"], out["tensors"], stdy)[0]
+            p2 = pb.metrics(again["model"], again["tensors"], stdy)[0]
+            check(torch.equal(p1.mean, p2.mean) and torch.equal(p1.cov, p2.cov)
+                  and (again["rmse"], again["nlpd"]) == (out["rmse"], out["nlpd"]),
+                  f"baselines {case}: --resume from final/ serves the trained predictive bit for bit")
+            for k, v in list(got.items()) + list(got2.items()):
+                totals[k] = totals.get(k, 0) + v
+            rows[case] = {"steps": out["steps"], "rmse": out["rmse"], "nlpd": out["nlpd"],
+                          "final_loss": float(out["losses"][-1]), "train_seconds": out["seconds"],
+                          "steps_per_s": (out["steps"] - 1) / out["seconds"], "wall_seconds": wall,
+                          "launches": got, "resume_launches": got2}
+    emit("baselines", rows=rows, launches=totals, device=dev_name)
+    return totals
+
+
+def phase_baselines_dense(pb, gibbs_fused, dev, dev_name: str):
+    """The driver on a 1280-row CSV (BASELINES_DENSE_*: N_train 1025, 255
+    test rows) at its defaults: K8 once a step, each predictive K9 three
+    times, K10a and K11 once; finite metrics; then K8 at the trained pose
+    against its plain version and float64 (``k8_errors``, phase k8's
+    criteria)."""
+    rng = np.random.default_rng(BASELINES_DENSE_SEED)
+    x = rng.uniform(-2.0, 2.0, size=(BASELINES_DENSE_ROWS, 2))
+    y = np.sin(x[:, 0]) + 0.1 * rng.normal(size=BASELINES_DENSE_ROWS)
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "dense.csv")
+        np.savetxt(csv, np.c_[x, y], delimiter=",", header="x0,x1,y", comments="")
+        t0 = time.perf_counter()
+        out, recs, got = _run_driver(pb, ["--data", csv, "--train_percent", "80", "--logdir", tmp, "--name", "dense"])
+        wall = time.perf_counter() - t0
+    x_tr, y_tr = out["tensors"][0], out["tensors"][1]
+    check(x_tr.shape[0] == BASELINES_DENSE_TRAIN and got.get("gibbs_chol_solve_fused") == out["steps"],
+          f"baselines_dense: N_train {x_tr.shape[0]} == {BASELINES_DENSE_TRAIN}, K8 once a step")
+    check(np.isfinite(out["rmse"]) and np.isfinite(out["nlpd"]), "baselines_dense: RMSE and NLPD finite")
+    m = out["model"]
+    with torch.no_grad():
+        errs = k8_errors(gibbs_fused, "baselines_dense_trained", x_tr, torch.exp(m.log_ell).contiguous(), y_tr,
+                         m.outputscale.detach(), m.likelihood.noise.detach())
+    emit("baselines_dense", steps=out["steps"], launches=got, rmse=out["rmse"], nlpd=out["nlpd"],
+         train_seconds=out["seconds"], steps_per_s=(out["steps"] - 1) / out["seconds"], wall_seconds=wall,
+         k8_trained=errs, device=dev_name)
+    return got, errs
+
+
+@contextlib.contextmanager
+def k4_plain(svgp_precompute):
+    """K4's plain version in the kernel's place, for a float64 reference on
+    the card (the kernel takes float32); nothing is counted."""
+    forward = svgp_precompute._forward
+    svgp_precompute._forward = svgp_precompute.svgp_precompute_plain
+    try:
+        yield
+    finally:
+        svgp_precompute._forward = forward
+
+
+def phase_full_cov(deepgp_spatial, svgp_precompute, dev, dev_name: str):
+    """``DeepGP.loss(full_cov=True)`` at the dgp shapes (split 0 of the
+    experiment: B 315, S 3, M 250, two hidden layers of width 2) for
+    FULL_COV_STEPS Adam steps: K4 once a step, K7 never; then the loss and
+    every gradient at the trained pose against the same computation in
+    float64 on the card with the same ε (K4's plain version there)."""
+    import copy
+
+    from nonstationary_precip_tpu_torch.data.dataprep import load_csv
+    from nonstationary_precip_tpu_torch.utils.config import DATASET_DIR
+
+    cfg = deepgp_spatial.default_config().parse_args(["--device", "cuda"])
+    data = load_csv(DATASET_DIR / "uib_spatial.csv")
+    model, (x, y, _, _), _, eps, _ = deepgp_spatial.prep_split(data, 0, cfg, dev=dev)
+    n = x.shape[0]
+    check(tuple(eps[0].shape[1:]) == (3, 2, 315) and model.layers[0].z.shape[-2] == 250,
+          f"full_cov at the dgp shapes: ε {tuple(eps[0].shape)}")
+    opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=cfg.lr)
+    reset_launches()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    losses = []
+    for t in range(FULL_COV_STEPS):
+        if t == 1:
+            start.record()
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(x, y, n, [e[t] for e in eps], full_cov=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    stop.record()
+    stop.synchronize()
+    got = check_launches({"svgp_precompute": FULL_COV_STEPS}, "full_cov")
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()), f"full_cov losses finite: {losses.tolist()}")
+
+    def value_and_grad(dtype):
+        m = copy.deepcopy(model).to(dtype)
+        m.zero_grad(set_to_none=True)
+        loss = m.loss(x.to(dtype), y.to(dtype), n, [e[FULL_COV_STEPS].to(dtype) for e in eps], full_cov=True)
+        loss.backward()
+        return float(loss.detach()), torch.cat([p.grad.flatten().double() for p in m.parameters()
+                                                if p.grad is not None])
+
+    reset_launches()
+    l32, g32 = value_and_grad(torch.float32)
+    with k4_plain(svgp_precompute):
+        l64, g64 = value_and_grad(torch.float64)
+    rel = abs(l32 - l64) / abs(l64)
+    grel = float((g32 - g64).norm() / g64.norm())
+    cos = float(g32 @ g64 / (g32.norm() * g64.norm()))
+    check(rel <= FULL_COV_LOSS_RTOL, f"full_cov loss vs float64 {rel:.3g} <= {FULL_COV_LOSS_RTOL}")
+    check(grel <= FULL_COV_GRAD_REL and cos >= FULL_COV_GRAD_COS,
+          f"full_cov gradient vs float64: relative L2 {grel:.3g} <= {FULL_COV_GRAD_REL}, cosine {cos:.6f}")
+    emit("full_cov", steps=FULL_COV_STEPS, launches=_nonzero(got), losses=losses.tolist(),
+         ms_per_step=start.elapsed_time(stop) / (FULL_COV_STEPS - 1), loss_rel_err_f64=rel, grad_rel_l2_f64=grel,
+         grad_cosine_f64=cos, device=dev_name)
+    return got["svgp_precompute"]
+
+
+def phase_dense_cg(quickstart_cg, dev, dev_name: str):
+    """``ExactGP.mll(solver='cg')`` and ``predictive(solver='cg')`` on the
+    dense Gram at quickstart_cg_largen's N = 1600 (its data, rank-15
+    pivoted-Cholesky preconditioner, 16 probes, 200 iterations; at init):
+    the CG MLL within 3σ of the Cholesky MLL, σ the estimator's spread
+    over DENSE_CG_SETS independent probe sets (float64); float32 against
+    float64 on the same probes, the value within σ and the gradient within
+    DENSE_CG_GRAD_SPREADS of the sets' gradient spreads; the CG predictive
+    mean within 1e-2 of Cholesky's (the quickstart's assert); no kernel (N
+    is outside K10a's and K5's windows; CG's products are cuBLAS's).  Times
+    (CUDA events) of the CG MLL with its backward and of the Cholesky MLL."""
+    import copy
+
+    from nonstationary_precip_tpu_torch.kernels.base import Scale
+    from nonstationary_precip_tpu_torch.kernels.stationary import RBF
+    from nonstationary_precip_tpu_torch.models.exact_gp import ExactGP
+
+    x_tr, y_tr, x_te, y_te = (torch.tensor(a, dtype=torch.float32, device=dev) for a in quickstart_cg.problem(2000))
+    n = x_tr.shape[0]
+    model = ExactGP.create(Scale.create(RBF.create(2, device=dev), device=dev), noise=0.1, device=dev)
+    kw = dict(solver="cg", max_iters=200, precond_rank=quickstart_cg.RANK)
+    probes = quickstart_cg.probe_noise(n, 16, dev, np.random.default_rng(quickstart_cg.PROBE_SEED))
+
+    def value_and_grad(m, xs, ys, noise):
+        m.zero_grad()
+        v = m.mll(xs, ys, probe_noise=noise, **kw)
+        v.backward()
+        return float(v.detach()), torch.cat([p.grad.flatten().double() for p in m.parameters()])
+
+    reset_launches()
+    m64 = copy.deepcopy(model).double()
+    x64, y64 = x_tr.double(), y_tr.double()
+    sets = [value_and_grad(m64, x64, y64, tuple(u.double() for u in quickstart_cg.probe_noise(
+        n, 16, dev, np.random.default_rng(1000 + k)))) for k in range(DENSE_CG_SETS)]
+    sigma = float(np.std([v for v, _ in sets], ddof=1))
+    gsigma = float(torch.stack([g for _, g in sets]).std(dim=0).norm())
+    v32, g32 = value_and_grad(model, x_tr, y_tr, probes)
+    v64, g64 = value_and_grad(m64, x64, y64, tuple(u.double() for u in probes))
+    with torch.no_grad():
+        chol = float(model.mll(x_tr, y_tr))
+        pred = model.predictive(x_tr, y_tr, x_te, solver="cg", max_iters=300, precond_rank=quickstart_cg.RANK)
+        pred_chol = model.predictive(x_tr, y_tr, x_te)
+        dmean = float((pred.mean - pred_chol.mean).abs().max())
+    got = check_launches({}, "dense_cg")
+    check(abs(v32 - chol) <= 3 * sigma, f"dense_cg: CG MLL {v32:.5f} within 3σ ({sigma:.3g}) of Cholesky's {chol:.5f}")
+    check(abs(v32 - v64) <= sigma, f"dense_cg: float32 value {v32:.6f} within σ {sigma:.3g} of float64's {v64:.6f}")
+    gap = float((g32 - g64).norm())
+    check(gap <= DENSE_CG_GRAD_SPREADS * gsigma,
+          f"dense_cg: float32 gradient {gap:.3g} from float64's, within {DENSE_CG_GRAD_SPREADS} × {gsigma:.3g}")
+    check(dmean < 1e-2, f"dense_cg: CG predictive mean within 1e-2 of Cholesky's: {dmean:.3g}")
+    cg_ms = statistics.median(block_times_ms(lambda: value_and_grad(model, x_tr, y_tr, probes), 10))
+    chol_ms = statistics.median(block_times_ms(lambda: model.mll(x_tr, y_tr), 10))
+    emit("dense_cg", n=n, mll_cg=v32, mll_cg_f64=v64, mll_chol=chol, slq_sigma=sigma, grad_gap_f64=gap,
+         grad_spread=gsigma, grad_rel_l2_f64=gap / float(g64.norm()), pred_mean_max_abs_diff=dmean,
+         cg_value_and_grad_ms=cg_ms, chol_mll_ms=chol_ms, launches=_nonzero(got), device=dev_name)
+
+
+def quickstart_launches(name: str, out, quickstart) -> dict:
+    """Each ported quickstart's launches at its defaults, from the code:
+    gibbs_spatial's loss K9 once a step (its noisy Gram, N = 315) and its
+    predictive K9 for K_xx and K_sx (K_ss, 79², is under K9's 128² gate);
+    deepgp's K4 once a step and once in predict, K7 once forward and once
+    backward a step; lazy_largen's K6 once an mBCG iteration for each 128
+    right-hand sides: 100 iterations of 1 + 8 in each of the 25 steps' and
+    the parity's losses, 1000 of 1 + 64 in the posterior; exact_gp and
+    cg_largen (N = 1600, outside K10a's window) none."""
+    if name == "gibbs_spatial":
+        return {"gibbs_gram": len(out["losses"]) + 2}
+    if name == "deepgp":
+        return {"svgp_precompute": out["steps"] + 1, "elbo_data_term_fwd": out["steps"],
+                "elbo_data_term_bwd": out["steps"]}
+    if name == "lazy_largen":
+        return {"rbf_matvec": 26 * quickstart.ITERS * -(-(1 + quickstart.NUM_PROBES) // 128) + 1000 * -(-65 // 128)}
+    return {}
+
+
+def phase_quickstarts(dev_name: str):
+    """The five ported quickstarts at their defaults on the card, each with
+    its own asserts and its "ok", their launches counted
+    (``quickstart_launches``) and their seconds."""
+    import importlib
+
+    rows, totals = {}, {}
+    for name in QUICKSTARTS:
+        quickstart = importlib.import_module(f"nonstationary_precip_tpu_torch.examples.quickstart_{name}")
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            out = quickstart.main(dev="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = printed.getvalue().splitlines()
+        check(lines[-1:] == ["ok"], f"quickstart {name} ends with ok: {lines[-3:]}")
+        got = check_launches(quickstart_launches(name, out, quickstart), f"quickstart {name}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+        rows[name] = {"seconds": wall, "launches": _nonzero(got), "printed": lines[-4:-1]}
+    emit("quickstarts", rows=rows, launches=_nonzero(totals), device=dev_name)
+    return totals
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=300, help="Adam steps of the slice run")
@@ -3758,7 +4164,9 @@ def main(argv=None):
          cuda=torch.version.cuda)
 
     from nonstationary_precip_tpu_torch.examples import quickstart_gibbs_chunked as quickstart_chunked
+    from nonstationary_precip_tpu_torch.examples import quickstart_cg_largen as quickstart_cg
     from nonstationary_precip_tpu_torch.examples import quickstart_gibbs_largen as quickstart
+    from nonstationary_precip_tpu_torch.experiments import precipitation_baselines as pb
     from nonstationary_precip_tpu_torch.experiments import (deepgp_spatial, exact_largen, field_regression,
                                                             gibbs_largen, seard_spatial, sgpr_bench, spatial_gibbs,
                                                             spatio_temporal, spatiotemporal_dgp,
@@ -3829,7 +4237,13 @@ def main(argv=None):
                        ("serve_ref", lambda: phase_serve_ref(serve, dev)),
                        ("serve", lambda: phase_serve(serve, cli, name)),
                        ("chunked_ref", lambda: phase_chunked_ref(quickstart_chunked, dev)),
-                       ("chunked", lambda: phase_chunked(serve, quickstart_chunked, dev, name))):
+                       ("chunked", lambda: phase_chunked(serve, quickstart_chunked, dev, name)),
+                       ("baselines_ref", lambda: phase_baselines_ref(pb)),
+                       ("baselines", lambda: phase_baselines(pb, name)),
+                       ("baselines_dense", lambda: phase_baselines_dense(pb, gibbs_fused, dev, name)),
+                       ("full_cov", lambda: phase_full_cov(deepgp_spatial, svgp_precompute, dev, name)),
+                       ("dense_cg", lambda: phase_dense_cg(quickstart_cg, dev, name)),
+                       ("quickstarts", lambda: phase_quickstarts(name))):
         t0 = time.perf_counter()
         timed[phase] = run()
         emit("seconds", of=phase, seconds=time.perf_counter() - t0)
@@ -3837,12 +4251,20 @@ def main(argv=None):
               + timed["chunked"].get(k, 0)
               for k in ("gibbs_gram", "svgp_precompute", "elbo_data_term_fwd", "elbo_data_term_bwd", "gibbs_matvec",
                         "gibbs_panel_grads")}
+    # the driver's, the quickstarts' and full_cov's launches
+    driven = {k: timed["baselines_ref"].get(k, 0) + timed["baselines"].get(k, 0) + timed["baselines_dense"][0].get(k, 0)
+              + timed["quickstarts"].get(k, 0)
+              for k in ("gibbs_gram", "svgp_precompute", "elbo_data_term_fwd", "elbo_data_term_bwd", "rbf_matvec",
+                        "gibbs_chol_solve_fused", "blocked_cholesky", "blocked_trsm")}
     k9_launches = (gibbs_launches["gibbs_gram"] + slice_k9 + timed["gibbs_sparse"] + timed["spatio_temporal"]
-                   + served["gibbs_gram"])
-    k4_launches = dgp_launches["svgp_precompute"] + timed["st_dgp"][0] + served["svgp_precompute"]
+                   + served["gibbs_gram"] + driven["gibbs_gram"])
+    k4_launches = (dgp_launches["svgp_precompute"] + timed["st_dgp"][0] + served["svgp_precompute"]
+                   + driven["svgp_precompute"] + timed["full_cov"])
     k4_errs.update(timed["st_dgp"][1])
-    k10a_launches = gibbs_launches["blocked_cholesky"] + timed["sgpr"][0]
+    k10a_launches = gibbs_launches["blocked_cholesky"] + timed["sgpr"][0] + driven["blocked_cholesky"]
     k10a["max_abs_err"] = max(k10a["max_abs_err"], timed["sgpr"][1]["max_abs_err"])
+    k8_dense = timed["baselines_dense"][1]
+    k8["max_abs_err"] = max(k8["max_abs_err"], k8_dense["L"]["max_abs_err"], k8_dense["alpha"]["max_abs_err"])
 
     # K1 at (10, 316): 2N³/3 flops per matrix (Cholesky and triangular
     # inverse, N³/3 each); reads A once, writes L and L⁻¹
@@ -3881,7 +4303,8 @@ def main(argv=None):
         *({"name": f"elbo_data_term_{d}", "route": "cuda",
            "source": "nonstationary_precip_tpu_torch/csrc/elbo_fused.cu",
            "replaces": f"nonstationary_precip_tpu/ops/pallas_elbo.py:{line}",
-           "launches": dgp_launches[f"elbo_data_term_{d}"] + served[f"elbo_data_term_{d}"],
+           "launches": (dgp_launches[f"elbo_data_term_{d}"] + served[f"elbo_data_term_{d}"]
+                        + driven[f"elbo_data_term_{d}"]),
            "max_abs_err": k7[d]["max_abs_err"], "ms": k7[d]["ms"],
            "plain_ms": k7[d]["plain_ms"], "bound_ms": k7[d]["bound"][0], "bound_by": k7[d]["bound"][1],
            "library_ms": None, "resources": {k: {**ptxas_resources(logs["elbo_fused"], k),
@@ -3902,13 +4325,15 @@ def main(argv=None):
           for kname, line, k in (("gibbs_matvec", 207, k2_modes), ("rbf_matvec", 493, k6_modes))
           for mode in ("default", "high3")),
         {"name": "rbf_matvec", "route": "cuda", "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
-         "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:527", "launches": k6_launches,
+         "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:527",
+         "launches": k6_launches + driven["rbf_matvec"],
          "max_abs_err": k6["max_abs_err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
          "bound_by": k6["bound_by"], "library_ms": None,
          "resources": {WALK["K6"]: ptxas_resources(logs["gibbs_matvec"], WALK["K6"])}},
         *({"name": kname, "route": "cuda", "source": f"nonstationary_precip_tpu_torch/csrc/{src}",
            "replaces": f"nonstationary_precip_tpu/ops/{tpu}",
-           "launches": {"gibbs_gram": k9_launches, "blocked_cholesky": k10a_launches}.get(kname, gibbs_launches[kname]),
+           "launches": {"gibbs_gram": k9_launches, "blocked_cholesky": k10a_launches}.get(
+               kname, gibbs_launches[kname] + driven[kname]),
            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
            **{key: k[key] for key in ("device_ms", "resources") if key in k}}

@@ -3,8 +3,9 @@
 Counterpart of ``nonstationary_precip_tpu/__main__.py``: lists and launches
 the experiment entry points (each also runs standalone via ``python -m
 nonstationary_precip_tpu_torch.experiments.<name>``) and the batch-inference
-CLI, ``serve``.  ``EXPERIMENTS`` is the JAX package's list; an experiment
-the port does not have yet raises with the ROADMAP item that ports it.
+CLI, ``serve``.  ``EXPERIMENTS`` is the JAX package's list, every one of
+them ported; ``NOT_PORTED`` would name one the port lacks, with the ROADMAP
+item that ports it, and ``_module`` would raise for it.
 """
 
 import importlib
@@ -23,8 +24,8 @@ EXPERIMENTS = [
     "field_regression",
 ]
 
-#: Experiments of ``EXPERIMENTS`` not ported yet, with the ROADMAP item that ports each.
-NOT_PORTED = {"precipitation_baselines": "ROADMAP queue 1 item 10"}
+#: Experiments of ``EXPERIMENTS`` not ported yet, with the ROADMAP item that ports each: none.
+NOT_PORTED: dict = {}
 
 
 def _module(name: str):

@@ -35,10 +35,34 @@ def prep_inputs(data: np.ndarray) -> np.ndarray:
     return (x - x.mean(axis=0)) / x.std(axis=0, ddof=1)
 
 
+def load_netcdf_precip(filepath, var: str = "observation") -> np.ndarray:
+    """The NWS CONUS netCDF precipitation loader (the reference's
+    precipitation_baselines.py:150-168 input path): (lon, lat, value) rows of
+    the finite cells.  It needs xarray, which neither package requires, and
+    raises ImportError without it, as the JAX package's does."""
+    try:
+        import xarray as xr
+    except ImportError as e:
+        raise ImportError("netCDF input needs xarray/netCDF4, which this image lacks; "
+                          "use the CSV path (load_csv)") from e
+    ds = xr.open_dataset(filepath)
+    lat = ds["lat"].values.reshape(-1)
+    lon = ds["lon"].values.reshape(-1)
+    vals = np.asarray(ds[var].values, dtype=np.float64).reshape(-1)
+    mask = np.isfinite(vals)
+    return np.stack([lon[mask], lat[mask], vals[mask]], axis=1)
+
+
 class BoxCox(NamedTuple):
     x: np.ndarray
     y: np.ndarray
     lmbda: float
+
+    def inverse(self, y_tr: np.ndarray) -> np.ndarray:
+        """Back to the raw space: scipy's ``inv_boxcox`` with the fitted λ."""
+        from scipy.special import inv_boxcox
+
+        return inv_boxcox(y_tr, self.lmbda)
 
 
 def box_cox_transform(data: np.ndarray) -> BoxCox:

@@ -1,7 +1,7 @@
-"""Stationary kernels: SE-ARD (RBF) and Periodic.
+"""Stationary kernels: SE-ARD (RBF), Matérn-5/2 and Periodic.
 
-Counterpart of ``nonstationary_precip_tpu/kernels/stationary.py``
-(``Matern52`` is not ported yet).  The RBF Gram uses the
+Counterpart of ``nonstationary_precip_tpu/kernels/stationary.py``.  The RBF
+and Matérn Grams use the
 ‖a‖² + ‖b‖² − 2·a·bᵀ identity clamped at 0, as the JAX package does, so
 both sides round alike.  Lengthscales and periods are softplus of their
 raw parameters, raw 0 at init (GPyTorch's, softplus(0) ≈ 0.6931).
@@ -53,6 +53,33 @@ class RBF(Kernel):
     def gram(self, x1, x2):
         ell = self.lengthscale[..., None, :]
         return torch.exp(-0.5 * _sq_dist(x1 / ell, x2 / ell))
+
+    def _diag(self, x):
+        return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+
+class Matern52(Kernel):
+    """Matérn-5/2 ARD: k = (1 + √5 d + 5d²/3) exp(−√5 d), d the scaled
+    distance, taken as √(d² + 1e-20) so its gradient stays finite at d = 0,
+    as in the JAX package."""
+
+    def __init__(self, raw_lengthscale: torch.Tensor, active_dims: Optional[tuple] = None):
+        super().__init__(active_dims)
+        self.raw_lengthscale = nn.Parameter(raw_lengthscale)  # (..., D)
+
+    @classmethod
+    def create(cls, ard_dims: int = 1, lengthscale=None, active_dims=None, dtype=torch.float32, device=None):
+        return cls(_raw(ard_dims, lengthscale, dtype, device), active_dims)
+
+    @property
+    def lengthscale(self) -> torch.Tensor:
+        return positive(self.raw_lengthscale)
+
+    def gram(self, x1, x2):
+        ell = self.lengthscale[..., None, :]
+        d = torch.sqrt(_sq_dist(x1 / ell, x2 / ell) + 1e-20)
+        sqrt5_d = math.sqrt(5.0) * d
+        return (1.0 + sqrt5_d + (5.0 / 3.0) * d * d) * torch.exp(-sqrt5_d)
 
     def _diag(self, x):
         return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)

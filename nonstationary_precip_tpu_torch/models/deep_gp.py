@@ -17,8 +17,9 @@ stacked model) pass through.  Layers are distinct by default;
 ``share_hidden=True`` reapplies one hidden layer, with one KL, as the
 reference does.  ``loss`` takes the fused data term (K7,
 ``ops/elbo_fused.py``) where its gate admits the model and the batch, as
-the JAX package's ``_fused_loss`` does; the full-covariance propagation is
-not ported yet.
+the JAX package's ``_fused_loss`` does; ``full_cov=True`` propagates
+batch-correlated samples from each hidden layer's joint instead (the
+reference's rsample from the joint), never through the fused term.
 """
 
 from __future__ import annotations
@@ -78,11 +79,15 @@ class DeepGP(nn.Module):
     # -- forward -----------------------------------------------------------------
 
     def propagate(self, x: torch.Tensor, eps: Sequence[torch.Tensor], *, full_cov: bool = False):
-        """Push S marginal samples through the stack.  x (..., B, Din); eps
-        holds one (..., S, O, B) standard-normal tensor per hidden layer.
-        Returns the head's marginals per sample: (mean, var), each (..., S, B)."""
-        if full_cov:
-            raise NotImplementedError("DeepGP.propagate(full_cov=True) is not yet ported")
+        """Push S samples through the stack.  x (..., B, Din); eps holds one
+        (..., S, O, B) standard-normal tensor per hidden layer, the draws the
+        JAX package makes for that layer in either mode.  ``full_cov=False``
+        propagates marginal samples (all the ELBO needs); ``full_cov=True``
+        samples every hidden layer from its joint over the batch
+        (``SVGPLayer.sample_joint``, a B × B Cholesky per output and
+        sample).  The first layer's joint does not depend on the sample and
+        is factored once.  Returns the head's marginals per sample: (mean,
+        var), each (..., S, B)."""
         stack = self._hidden_stack()
         if len(eps) != len(stack) or not stack:
             raise ValueError(f"propagate: {len(stack)} hidden layers need as many ε tensors, got {len(eps)}")
@@ -91,12 +96,17 @@ class DeepGP(nn.Module):
         pre_uniq = precompute_layers(list(self.layers) + [self.head])
         pre = [pre_uniq[0]] * len(stack) if self.share_hidden else pre_uniq[:-1]
 
-        # the first layer's input is the same for every sample: its marginals
-        # are computed once, outside the sample axis
-        m1, v1 = stack[0].marginals(x, pre[0])  # (.., O, B)
-        h = (m1[..., None, :, :] + torch.sqrt(v1)[..., None, :, :] * eps[0]).mT  # (.., S, B, O)
-        for layer, layer_pre, e in zip(stack[1:], pre[1:], eps[1:]):
-            h = layer.sample(h, e, layer_pre)
+        if full_cov:
+            h = x
+            for layer, layer_pre, e in zip(stack, pre, eps):
+                h = layer.sample_joint(h, e, layer_pre)  # (.., S, B, O)
+        else:
+            # the first layer's input is the same for every sample: its
+            # marginals are computed once, outside the sample axis
+            m1, v1 = stack[0].marginals(x, pre[0])  # (.., O, B)
+            h = (m1[..., None, :, :] + torch.sqrt(v1)[..., None, :, :] * eps[0]).mT  # (.., S, B, O)
+            for layer, layer_pre, e in zip(stack[1:], pre[1:], eps[1:]):
+                h = layer.sample(h, e, layer_pre)
         mean, var = self.head.marginals(h, pre_uniq[-1])  # (.., S, 1, B)
         return mean[..., 0, :], var[..., 0, :]
 

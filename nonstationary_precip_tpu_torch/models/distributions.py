@@ -1,7 +1,9 @@
 """Predictive distributions: independent marginals and the full joint.
 
 Counterpart of ``nonstationary_precip_tpu/models/distributions.py``
-(``DiagNormal``, ``MVN``), batched over leading dimensions.
+(``DiagNormal``, ``MVN``), batched over leading dimensions.  Sampling
+takes the caller's standard normal draws ``eps`` (num_samples, ...), where
+the JAX package draws them from a key.
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ class DiagNormal(NamedTuple):
     def add_noise(self, noise) -> "DiagNormal":
         return DiagNormal(self.mean, self.var + noise)
 
+    def sample(self, eps: torch.Tensor) -> torch.Tensor:
+        """mean + √var·ε for ε (num_samples, *mean.shape)."""
+        return self.mean + torch.sqrt(self.var) * eps
+
 
 class MVN(NamedTuple):
     """Joint Gaussian with mean (..., N) and covariance (..., N, N)."""
@@ -47,3 +53,12 @@ class MVN(NamedTuple):
         eye = torch.eye(self.cov.shape[-1], dtype=self.cov.dtype, device=self.cov.device)
         noise = torch.as_tensor(noise, dtype=self.cov.dtype, device=self.cov.device)
         return MVN(self.mean, self.cov + noise[..., None, None] * eye)
+
+    def marginals(self) -> DiagNormal:
+        return DiagNormal(self.mean, self.var)
+
+    def sample(self, eps: torch.Tensor) -> torch.Tensor:
+        """Joint draws mean + Lε (L = ``safe_cholesky(cov)``) for ε
+        (num_samples, ..., N): (num_samples, ..., N)."""
+        chol = safe_cholesky(self.cov)
+        return self.mean + (eps[..., None, :] @ chol.mT)[..., 0, :]

@@ -3,20 +3,23 @@
 Counterpart of ``nonstationary_precip_tpu/models/exact_gp.py``.  The MLL is
 scaled by 1/N (GPyTorch's ``ExactMarginalLogLikelihood``), loss = −mll.
 
-Two solvers are ported:
+The solvers:
   * ``solver='chol'``: the dense Gram through ``safe_cholesky``, whose
     dispatch (``ops/linalg.cholesky``) takes K5, the streaming Cholesky, for
     one float32 matrix with 6144 ≤ N ≤ 8192, as on the TPU;
+  * ``solver='cg'``: the dense Gram through mBCG and SLQ (``ops/bbmm.cg_mll``
+    for the MLL, one deterministic mBCG over [resid, K_x*] for the
+    posterior), with the pivoted-Cholesky preconditioner at
+    ``precond_rank > 0``;
   * ``solver='cg', block=...``: matrix-free (``ops/lazy_cg``), the Gram
     never in memory, with ``matvec_builder`` swapping the panel matvec for
-    a fused one (``ops/matvec.stationary_matvec_builder``: K6).  Probe draws
-    come from the caller (``probe_noise``, as in ``lazy_cg_mll``), in place
-    of the JAX package's key.
-The dense ``solver='cg'`` (no ``block``; ``bbmm.cg_mll``) is not ported yet.
+    a fused one (``ops/matvec.stationary_matvec_builder``: K6).
+Probe draws come from the caller (``probe_noise``, as in ``lazy_cg_mll``),
+in place of the JAX package's key.
 
 Every parameter may carry a leading split axis: a stacked model holds the K
 benchmark splits at once, and ``mll``/``posterior`` (chol) then work on all
-of them.  The matrix-free solver takes one model.
+of them.  The CG solvers take one model.
 """
 
 from __future__ import annotations
@@ -26,10 +29,9 @@ from torch import nn
 
 from nonstationary_precip_tpu_torch.models.distributions import MVN
 from nonstationary_precip_tpu_torch.models.likelihoods import GaussianLikelihood
+from nonstationary_precip_tpu_torch.ops.bbmm import cg_mll, mbcg, pivoted_cholesky, woodbury_precond
 from nonstationary_precip_tpu_torch.ops.lazy_cg import lazy_cg_mll, lazy_cg_posterior
 from nonstationary_precip_tpu_torch.ops.linalg import cho_solve, mvn_logpdf_from_chol, safe_cholesky, tri_solve
-
-_DENSE_CG = "solver='cg' without block= (the dense bbmm.cg_mll path) is not yet ported"
 
 
 def _check_solver(solver: str, block):
@@ -37,8 +39,6 @@ def _check_solver(solver: str, block):
         raise ValueError(f"solver must be 'chol' or 'cg', got {solver!r}")
     if block is not None and solver != "cg":
         raise ValueError("block= (matrix-free) requires solver='cg'")
-    if solver == "cg" and block is None:
-        raise NotImplementedError(_DENSE_CG)
 
 
 def _eye(n, like):
@@ -74,19 +74,24 @@ class ExactGP(nn.Module):
 
     def mll(self, x, y, *, solver: str = "chol", probe_noise=None, max_iters: int = 1000, tol: float = 1e-6,
             precond_rank: int = 0, block=None, matvec_builder=None) -> torch.Tensor:
-        """log N(y; m, K + σ²I) / N.  ``solver='cg'`` with ``block``
-        (matrix-free) needs ``probe_noise``: with ``precond_rank > 0`` the
-        standard normal draws (u1 (rank, R), u2 (N, R)) behind the N(0, P)
-        probes, else the (N, R) Rademacher probes (``lazy_cg_mll``)."""
+        """log N(y; m, K + σ²I) / N.  ``solver='cg'`` needs ``probe_noise``:
+        with ``precond_rank > 0`` the standard normal draws (u1 (rank, R),
+        u2 (N, R)) behind the N(0, P) probes, else the (N, R) Rademacher
+        probes (``lazy_cg_mll``, ``bbmm.cg_mll``); with ``block`` it runs
+        matrix-free, without on the dense Gram."""
         _check_solver(solver, block)
         n = y.shape[-1]
         noise = self.likelihood.noise
         if solver == "cg":
             if probe_noise is None:
                 raise ValueError("solver='cg' requires probe_noise")
-            return lazy_cg_mll(self.kernel, x, y - self.mean(x), probe_noise, noise, block=block,
-                               max_iters=max_iters, tol=tol, precond_rank=precond_rank,
-                               matvec_builder=matvec_builder) / n
+            resid = y - self.mean(x)
+            if block is not None:
+                return lazy_cg_mll(self.kernel, x, resid, probe_noise, noise, block=block, max_iters=max_iters,
+                                   tol=tol, precond_rank=precond_rank, matvec_builder=matvec_builder) / n
+            k = self.kernel(x)
+            return cg_mll(k + noise * _eye(n, k), resid, probe_noise, noise, max_iters=max_iters, tol=tol,
+                          precond_rank=precond_rank) / n
         k = self.kernel(x)
         chol = safe_cholesky(k + noise[..., None, None] * _eye(n, k))
         return mvn_logpdf_from_chol(y, self.mean(x), chol) / n
@@ -100,15 +105,18 @@ class ExactGP(nn.Module):
                   max_iters: int = 1000, tol: float = 1e-6, precond_rank: int = 0, block=None,
                   matvec_builder=None) -> MVN:
         """The exact posterior p(f* | y) (``noiseless=False`` adds σ²I).
-        ``solver='cg'`` with ``block`` solves matrix-free: one mBCG run with
-        1 + N* right-hand sides (``lazy_cg_posterior``), no probes."""
+        ``solver='cg'`` solves K⁻¹[resid, K_x*] by one deterministic mBCG
+        run with 1 + N* right-hand sides, no probes: with ``block``
+        matrix-free (``lazy_cg_posterior``), without on the dense Gram."""
         _check_solver(solver, block)
         noise = self.likelihood.noise
-        if solver == "cg":
+        if solver == "cg" and block is not None:
             mean_f, cov = lazy_cg_posterior(self.kernel, x_train, y_train - self.mean(x_train), x_test, noise,
                                             block=block, max_iters=max_iters, tol=tol, precond_rank=precond_rank,
                                             matvec_builder=matvec_builder)
             mean = self.mean(x_test) + mean_f
+        elif solver == "cg":
+            mean, cov = self._dense_cg_posterior(x_train, y_train, x_test, max_iters, tol, precond_rank)
         else:
             n = y_train.shape[-1]
             k_xx = self.kernel(x_train)
@@ -122,6 +130,30 @@ class ExactGP(nn.Module):
         if not noiseless:
             cov = cov + noise[..., None, None] * _eye(cov.shape[-1], cov)
         return MVN(mean, cov)
+
+    def _dense_cg_posterior(self, x_train, y_train, x_test, max_iters, tol, precond_rank):
+        """(mean, cov) of the JAX package's dense CG posterior (:202-227):
+        one mBCG over [resid, K_x*] on K + σ²I, preconditioned by the
+        rank-``precond_rank`` pivoted Cholesky of K with σ² frozen in P; a
+        breakdown poisons both with NaN."""
+        n = y_train.shape[-1]
+        noise = self.likelihood.noise
+        k_xx = self.kernel(x_train)
+        k_xx = k_xx + noise * _eye(n, k_xx)
+        k_sx = self.kernel(x_test, x_train)
+        minv = None
+        if precond_rank > 0:
+            s2 = noise.detach()
+            lpc, _ = pivoted_cholesky(k_xx.detach() - s2 * _eye(n, k_xx), precond_rank)
+            minv = woodbury_precond(lpc, s2)
+        rhs = torch.cat([(y_train - self.mean(x_train))[:, None], k_sx.T], dim=1)
+        res = mbcg(lambda v: k_xx @ v, rhs, max_iters=max_iters, tol=tol, precond=minv)
+        mean = self.mean(x_test) + k_sx @ res.x[:, 0]
+        cov = self.kernel(x_test) - k_sx @ res.x[:, 1:]
+        cov = 0.5 * (cov + cov.T)
+        bad = torch.any(res.broke)
+        return (torch.where(bad, torch.full_like(mean, float("nan")), mean),
+                torch.where(bad, torch.full_like(cov, float("nan")), cov))
 
     def predictive(self, x_train, y_train, x_test, **solver_kwargs) -> MVN:
         """likelihood(posterior): what the metrics are computed on."""

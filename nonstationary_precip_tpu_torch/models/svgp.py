@@ -14,8 +14,9 @@ The output dims sit on a leading axis of each parameter (the JAX package's
 ``vmap`` written out), and any axes in front of that (the split axis of a
 stacked model) pass through every method.  An input x may carry further
 axes between those and its (N, Din) (the DSVI sample axis).  ``sample``
-takes the caller's ε; the full-covariance ``joint``/``sample_joint`` are
-not ported yet.
+and ``sample_joint`` take the caller's ε.  ``joint`` is the full posterior
+over a batch, cov = K_xx − AAᵀ + (AS)(AS)ᵀ, what GPyTorch's
+VariationalStrategy returns (the reference's layers rsample from it).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from nonstationary_precip_tpu_torch.ops.linalg import safe_cholesky
 from nonstationary_precip_tpu_torch.ops.svgp_precompute import svgp_precompute_fused
 from nonstationary_precip_tpu_torch.utils.config import EPSILON
 from nonstationary_precip_tpu_torch.utils.transforms import positive
@@ -163,11 +165,40 @@ class SVGPLayer(nn.Module):
         mean, var = self.marginals(x, pre)
         return (mean + torch.sqrt(var) * eps).mT
 
-    def joint(self, x, pre=None):
-        raise NotImplementedError("SVGPLayer.joint (full_cov) is not yet ported")
+    def joint(self, x: torch.Tensor, pre=None):
+        """Full posterior over the batch at x (..., N, Din): (mean (..., O,
+        N), cov (..., O, N, N)), cov = K_xx − AAᵀ + (AS)(AS)ᵀ with
+        A = K_xz L⁻ᵀ, L⁻ᵀ taken from ``pre[1]`` (K4 returns it)."""
+        if pre is None:
+            pre = self.precompute()
+        nb, extra = self._nb, x.ndim - 2 - self._nb
+        ell = _insert_axes(positive(self.raw_lengthscale), nb, extra)[..., :, None, :]  # (.., O, 1, Din)
+        s2 = _insert_axes(positive(self.raw_outputscale), nb, extra)[..., None, None]  # (.., O, 1, 1)
+        xs = x[..., None, :, :] / ell
+        zs = _insert_axes(self.z, nb, extra) / ell
+        x_sq = torch.sum(xs * xs, dim=-1)
+        z_sq = torch.sum(zs * zs, dim=-1)
+        k_xz = s2 * torch.exp(-0.5 * torch.clamp(x_sq[..., :, None] + z_sq[..., None, :] - 2.0 * (xs @ zs.mT),
+                                                 min=0.0))
+        k_xx = s2 * torch.exp(-0.5 * torch.clamp(x_sq[..., :, None] + x_sq[..., None, :] - 2.0 * (xs @ xs.mT),
+                                                 min=0.0))
+        a = k_xz @ _insert_axes(pre[1], nb, extra)  # (.., O, N, M)
+        a_s = a @ _insert_axes(torch.tril(self.var_chol), nb, extra)
+        cov = k_xx - a @ a.mT + a_s @ a_s.mT
+        mean = (a @ _insert_axes(self.var_mean, nb, extra)[..., None])[..., 0]
+        return mean + self._mean(x), cov
 
-    def sample_joint(self, x, eps, pre=None):
-        raise NotImplementedError("SVGPLayer.sample_joint (full_cov) is not yet ported")
+    def sample_joint(self, x: torch.Tensor, eps: torch.Tensor, pre=None) -> torch.Tensor:
+        """One batch-correlated sample per ε from the joint: mean + Lε with
+        L = ``safe_cholesky``(cov + 1e-4·I), ε (..., O, N), returned as
+        (..., N, O).  ε may carry sample axes that x lacks (between the
+        batch axes and O): the joint is then factored once and shared."""
+        mean, cov = self.joint(x, pre)
+        eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
+        chol = safe_cholesky(cov + 1e-4 * eye)
+        extra = eps.ndim - mean.ndim
+        mean, chol = _insert_axes(mean, self._nb, extra), _insert_axes(chol, self._nb, extra)
+        return (mean + (chol @ eps[..., None])[..., 0]).mT
 
 
 def precompute_inputs(layers):

@@ -1,5 +1,6 @@
-"""Black-box matrix-matrix (BBMM) inference: batched conjugate gradients and
-stochastic Lanczos quadrature.
+"""Black-box matrix-matrix (BBMM) inference: batched conjugate gradients,
+stochastic Lanczos quadrature and the CG-based exact-GP marginal
+log-likelihood on a dense Gram (``cg_mll``).
 
 Counterpart of ``nonstationary_precip_tpu/ops/bbmm.py`` (GPyTorch's mBCG,
 Gardner et al. 2018).  mBCG runs exactly ``max_iters`` masked iterations in
@@ -9,7 +10,10 @@ converged columns freeze through their masks, as in the JAX package's fixed
 ``stop_every`` mBCG runs chunks of it and stops once every column has
 converged, the host-chunked solves' early stop (``ops/lazy_cg``).
 Randomness comes from the caller: ``sample_precond_probes`` takes the
-normal draws, not a key.
+normal draws, not a key, and ``cg_mll`` takes ``lazy_cg_mll``'s
+``probe_noise``.  ``cg_mll`` is one ``torch.autograd.Function`` whose
+backward is the trace identity dMLL/dK = ½(ααᵀ − E[(K⁻¹z) rᵀ]) from the
+solves saved in the forward: no differentiation through the iterations.
 """
 
 from __future__ import annotations
@@ -196,3 +200,77 @@ def sample_precond_probes(l: torch.Tensor, sigma2, u1: torch.Tensor, u2: torch.T
     """z ~ N(0, P), P = LLᵀ + σ²I, from the caller's standard normal draws
     u1 (rank, R) and u2 (N, R): z = L u₁ + σ u₂."""
     return l @ u1 + torch.sqrt(torch.as_tensor(sigma2, dtype=l.dtype, device=l.device)) * u2
+
+
+# ---------------------------------------------------------------------------
+# CG-based exact-GP marginal log-likelihood on a dense Gram
+# ---------------------------------------------------------------------------
+
+
+class _CGMLL(torch.autograd.Function):
+    """The JAX package's ``cg_mll`` custom VJP: forward ``_cg_mll_fwd``
+    (:338-379), backward ``_cg_mll_bwd`` (:382-398)."""
+
+    @staticmethod
+    def forward(ctx, kmat, y, sigma2, probes, lpc, max_iters, tol):
+        n = y.shape[-1]
+        if lpc is not None:
+            # the preconditioner parameterises the estimator, not the
+            # estimand: σ² is frozen in it
+            minv = woodbury_precond(lpc, sigma2)
+            logdet_p = precond_logdet(lpc, sigma2, n)
+            # z ~ N(0, P): the SLQ weight is zᵀP⁻¹z, and pairing K⁻¹z with
+            # P⁻¹z keeps E[(K⁻¹z)(P⁻¹z)ᵀ] = K⁻¹ (pairing with z gives K⁻¹P)
+            rights = minv(probes)
+            probe_w = torch.sum(probes * rights, dim=0)
+        else:
+            minv = None
+            logdet_p = torch.zeros((), dtype=y.dtype, device=y.device)
+            rights = probes  # E[z zᵀ] = I for Rademacher probes
+            probe_w = torch.sum(probes * probes, dim=0)
+        res = mbcg(lambda v: kmat @ v, torch.cat([y[:, None], probes], dim=1), max_iters=max_iters, tol=tol,
+                   precond=minv)
+        alpha, solves = res.x[:, 0], res.x[:, 1:]
+        logdet = logdet_p + lanczos_logdet(res.alphas[:, 1:], res.betas[:, 1:], probe_w)
+        two_pi = torch.tensor(2.0 * math.pi, dtype=y.dtype, device=y.device)
+        mll = -0.5 * torch.dot(y, alpha) - 0.5 * logdet - 0.5 * n * torch.log(two_pi)
+        # a breakdown on any column invalidates the solve and the quadrature
+        mll = torch.where(torch.any(res.broke), torch.full_like(mll, math.nan), mll)
+        ctx.save_for_backward(alpha, solves, rights, sigma2)
+        return mll
+
+    @staticmethod
+    def backward(ctx, g):
+        alpha, solves, rights, sigma2 = ctx.saved_tensors
+        kbar = 0.5 * torch.outer(alpha, alpha) - 0.5 * (solves @ rights.T) / rights.shape[-1]
+        kbar = 0.5 * (kbar + kbar.T)
+        # σ² enters only through the frozen preconditioner: an exact zero in
+        # its own dtype
+        return g * kbar, -g * alpha, torch.zeros_like(sigma2), None, None, None, None
+
+
+def cg_mll(kmat: torch.Tensor, y: torch.Tensor, probe_noise, sigma2, *, max_iters: int = 100, tol: float = 1e-6,
+           precond_rank: int = 0) -> torch.Tensor:
+    """−½ yᵀK⁻¹y − ½ log det K − (n/2) log 2π by mBCG and SLQ, K =
+    ``kmat`` (N, N) with the noise in it (K_f + σ²I).  Differentiable w.r.t.
+    ``kmat`` and ``y``; ``sigma2`` only splits the preconditioner
+    P = LLᵀ + σ²I (the pivoted Cholesky runs on K − σ²I) and gets a zero
+    gradient.
+
+    ``probe_noise``, as ``ops/lazy_cg.lazy_cg_mll`` takes it: with
+    ``precond_rank > 0`` the standard normal draws (u1 (rank, R), u2 (N, R))
+    of the probes z = L u₁ + σ u₂ ~ N(0, P); without, the (N, R) Rademacher
+    probes themselves.  The probes, the factor and σ² in P carry no
+    gradient.  A breakdown of CG on any column makes the value NaN."""
+    n = y.shape[-1]
+    sigma2 = torch.as_tensor(sigma2, dtype=kmat.dtype, device=kmat.device)
+    with torch.no_grad():
+        s2 = sigma2.detach()
+        if precond_rank > 0:
+            eye = torch.eye(n, dtype=kmat.dtype, device=kmat.device)
+            lpc, _ = pivoted_cholesky(kmat.detach() - s2 * eye, precond_rank)
+            u1, u2 = probe_noise
+            probes = sample_precond_probes(lpc, s2, u1, u2)
+        else:
+            lpc, probes = None, probe_noise.detach()
+    return _CGMLL.apply(kmat, y, sigma2, probes, lpc, max_iters, tol)

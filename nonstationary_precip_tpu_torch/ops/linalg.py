@@ -29,8 +29,10 @@ __all__ = [
     "safe_cholesky",
     "tri_solve",
     "cho_solve",
+    "solve_psd",
     "diag_part",
     "mvn_logpdf_from_chol",
+    "robust_logdet",
 ]
 
 
@@ -174,6 +176,13 @@ def cho_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return tri_solve(chol, tri_solve(chol, rhs), trans=True)
 
 
+def solve_psd(mat: torch.Tensor, rhs: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Solve A x = rhs for PSD A through :func:`cholesky` (the reference's
+    ``fn.mv(..., invert=True)``), A + jitter·I when ``jitter``."""
+    a = add_jitter(mat, jitter) if jitter else mat
+    return cho_solve(cholesky(a), rhs)
+
+
 def diag_part(mat: torch.Tensor) -> torch.Tensor:
     """Diagonal of (..., N, N)."""
     return torch.diagonal(mat, dim1=-2, dim2=-1)
@@ -186,3 +195,24 @@ def mvn_logpdf_from_chol(y: torch.Tensor, mean: torch.Tensor, chol: torch.Tensor
     quad = torch.sum(alpha**2, dim=-1)
     logdet = 2.0 * torch.sum(torch.log(diag_part(chol)), dim=-1)
     return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
+
+
+def robust_logdet(mat: torch.Tensor, init_scale: float = 1e-30, max_scale: float = 1e-6) -> torch.Tensor:
+    """log det with escalating diagonal regularisation until finite (the
+    reference's utils/functional.py:152-162: init 1e-30, ×10, cap 1e-6).
+    A non-positive determinant counts as NaN; while any member of the batch
+    is NaN, the whole batch is refactored with the next regularisation, as
+    the JAX package's while-loop does.  The scale is kept in ``mat``'s
+    dtype."""
+    eye = torch.eye(mat.shape[-1], dtype=mat.dtype, device=mat.device)
+
+    def logdet(m):
+        sign, val = torch.linalg.slogdet(m)
+        return torch.where(sign > 0, val, torch.full_like(val, math.nan))
+
+    out = logdet(mat)
+    reg = torch.tensor(init_scale, dtype=mat.dtype, device=mat.device)
+    while bool(reg <= max_scale) and bool(torch.isnan(out).any()):
+        out = logdet(mat + reg * eye)
+        reg = reg * 10.0
+    return out

@@ -81,6 +81,7 @@ def fit(
     has_aux: bool = False,
     lr_backoff: int = 0,
     log_every: int = 0,
+    callback: Optional[Callable] = None,
 ) -> TrainResult:
     """Adam-optimise ``model`` (in place) under ``loss_fn(model, *args)``.
 
@@ -104,6 +105,9 @@ def fit(
     then defaults to min(num_steps, 500).  Off (0) the loop is the plain one.
     log_every: print the loss at the first chunk boundary past each multiple
     of ``log_every`` steps, and at the end (0: silent).
+    callback: ``callback(steps_done, model, losses)`` at each chunk boundary
+    that is kept (after the log line, before the threshold check), with the
+    chunk's per-step losses as numpy, as the JAX ``fit`` calls it.
     """
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
@@ -153,6 +157,8 @@ def fit(
         every = max(log_every, 1)
         if log_every and (steps_done // every > (steps_done - n) // every or steps_done == num_steps):
             print(f"step {steps_done}/{num_steps}  loss {float(np.sum(losses[-1])):.4f}")
+        if callback is not None:
+            callback(steps_done, model, losses)
         if threshold is not None:
             seq = losses if prev_last is None else np.concatenate([prev_last[None], losses], axis=0)
             if seq.shape[0] >= 2:

@@ -5,7 +5,9 @@ per-split models are stacked into one module whose parameters carry a
 leading split axis, and every loss or evaluation works on the whole stack at
 once (the JAX package's ``vmap`` written out).  Adam is elementwise, so the
 gradient of the summed loss w.r.t. split k's parameters is exactly split
-k's gradient: the batched run follows K sequential runs.
+k's gradient: the batched run follows K sequential runs.  ``fit_restarts``
+trains K differently initialised models on the same data the same way and
+keeps the best.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import copy
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -106,6 +109,23 @@ def fit_splits(
         return torch.sum(per), per
 
     return fit(stacked, scalar_loss, *stacked_args, lr=lr, num_steps=num_steps, has_aux=True, chunk=chunk)
+
+
+def fit_restarts(models: Sequence[nn.Module], loss_fn: Callable, *args, lr: float = 0.01,
+                 num_steps: int = 1000) -> tuple:
+    """Multi-restart training (the reference's SGPR advertises
+    ``n_restarts`` and never implements it): K differently initialised
+    models optimise the same data at once as one stacked model.
+    ``loss_fn(stacked_model, *args) -> (K,)`` is each restart's loss, the
+    args shared by all (they broadcast against the stack's leading axis).
+    Returns (the best restart's module, its final loss, every restart's
+    final loss (K,)), the final losses taken at the trained pose."""
+    stacked = stack_modules(models)
+    res = fit(stacked, lambda m, *a: torch.sum(loss_fn(m, *a)), *args, lr=lr, num_steps=num_steps)
+    with torch.no_grad():
+        finals = loss_fn(res.model, *args).detach()
+    best = int(np.argmin(finals.cpu().numpy()))
+    return unstack_module(res.model, len(models))[best], float(finals[best]), finals
 
 
 def eval_splits(models_stacked: nn.Module, eval_fn: Callable, *args_per_split):

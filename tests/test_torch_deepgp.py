@@ -155,14 +155,24 @@ def test_predict_matches_jax():
                                rtol=1e-10)
 
 
-def test_not_yet_ported_raises():
+def test_full_cov_propagates_from_the_joint():
+    """``propagate(full_cov=True)`` and ``joint``, once refused, run: with
+    ε = 0 each hidden layer passes on its joint mean, which is its marginal
+    mean, so the head's outputs equal the marginal path's at ε = 0, and
+    the joint's diagonal is the marginal variance (before its 1e-10 floor).
+    tests/test_torch_full_cov.py holds them to JAX."""
     pm = port_model(jax_model(9))
-    x = torch.zeros(4, 2, dtype=torch.float64)
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(4, 2)))
     eps = [torch.zeros(1, 2, 4, dtype=torch.float64)] * 2
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pm.propagate(x, eps, full_cov=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pm.layers[0].joint(x)
+    with torch.no_grad():
+        full = pm.propagate(x, eps, full_cov=True)
+        marginal = pm.propagate(x, eps)
+        mean, cov = pm.layers[0].joint(x)
+        m1, v1 = pm.layers[0].marginals(x)
+    for a, b in zip(full, marginal):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(mean.numpy(), m1.numpy(), rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(torch.diagonal(cov, dim1=-2, dim2=-1).numpy(), v1.numpy(), rtol=1e-10, atol=1e-12)
 
 
 @pytest.mark.parametrize("splits", [1, 2])

@@ -172,14 +172,23 @@ def test_exact_gp_chol_posterior_and_predictive_match_jax(kind):
         _close(got.cov, ref.cov, 1e-8)
 
 
-def test_exact_gp_refuses_what_is_not_ported():
+def test_exact_gp_refuses_bad_solver_arguments_and_runs_dense_cg():
+    """The dense ``solver='cg'`` runs (tests/test_torch_dense_cg.py holds it
+    to JAX) and, as the matrix-free one, refuses to run without probes; an
+    unknown solver and ``block`` without ``solver='cg'`` are refused."""
     _, m, x, y, _ = _exact_pair("seard")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        m.mll(torch.tensor(x), torch.tensor(y), solver="cg")
-    with pytest.raises(ValueError, match="requires solver='cg'"):
-        m.mll(torch.tensor(x), torch.tensor(y), block=30)
+    x, y = torch.tensor(x), torch.tensor(y)
+    probes = torch.from_numpy(np.random.default_rng(0).choice([-1.0, 1.0], size=(len(y), 4)))
+    assert torch.isfinite(m.mll(x, y, solver="cg", probe_noise=probes, max_iters=20))
+    assert torch.isfinite(m.predictive(x, y, x[:5], solver="cg", max_iters=20).mean).all()
     with pytest.raises(ValueError, match="probe_noise"):
-        m.mll(torch.tensor(x), torch.tensor(y), solver="cg", block=30)
+        m.mll(x, y, solver="cg")
+    with pytest.raises(ValueError, match="solver must be"):
+        m.mll(x, y, solver="lu")
+    with pytest.raises(ValueError, match="requires solver='cg'"):
+        m.mll(x, y, block=30)
+    with pytest.raises(ValueError, match="probe_noise"):
+        m.mll(x, y, solver="cg", block=30)
 
 
 # -- ExactGP, matrix-free solver --------------------------------------------------------

@@ -325,19 +325,22 @@ def test_padded_query_chunks_equal_one_chunk():
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
 
 
-def test_main_dispatches_list_serve_and_the_unported_experiment(tmp_path):
+def test_main_dispatches_list_serve_and_every_experiment(tmp_path):
     """``python -m nonstationary_precip_tpu_torch list`` names JAX's
-    experiments and serve; ``serve`` routes to ``serve.main``;
-    precipitation_baselines raises with its ROADMAP item."""
+    experiments and serve, none of them as not yet ported; ``serve`` routes
+    to ``serve.main``; precipitation_baselines, the last experiment ported,
+    routes to its driver and runs."""
     with contextlib.redirect_stdout(io.StringIO()) as printed:
         assert cli.main(["list"]) is None
     text = printed.getvalue()
     assert all(name in text for name in cli.EXPERIMENTS) and "serve" in text
+    assert not cli.NOT_PORTED and "not yet ported" not in text
     with contextlib.redirect_stdout(io.StringIO()):
         mean, std = cli.main(["serve", "--model", "seard", "--max_iters", "2", "--device", "cpu", "--output",
                               str(tmp_path / "s.csv")])
+        rmse, nlpd = cli.main(["precipitation_baselines", "--device", "cpu", "--max_iters", "2", "--log_interval",
+                               "1", "--logdir", str(tmp_path), "--name", "pb"])
     assert mean.shape == std.shape == (394,) and (tmp_path / "s.csv").is_file()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        cli.main(["precipitation_baselines"])
+    assert np.isfinite(rmse) and np.isfinite(nlpd) and (tmp_path / "pb" / "final" / "model").is_file()
     with pytest.raises(SystemExit, match="unknown experiment"):
         cli.main(["nope"])
