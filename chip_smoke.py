@@ -312,8 +312,41 @@ one JSON line each:
 47. quickstarts — the five ported examples/quickstart_* (exact_gp,
                   gibbs_spatial, deepgp, cg_largen, lazy_largen) at their
                   defaults with their asserts: K9 in gibbs_spatial, K4 and
-                  K7 in deepgp, K6 in lazy_largen, counted.
-Each of the last fifteen phases prints its seconds.  After k3 come k2_modes
+                  K7 in deepgp, K6 in lazy_largen, counted;
+48. parallel    — ``parallel/`` on a world-1 NCCL group this script starts
+                  from a FileStore in a temporary directory (one card:
+                  multi-GPU runs are unverified), the nine paths of JAX's
+                  ``dryrun_multichip``, each held to the one-device path
+                  (bit for bit where the computation is the same):
+                  data-parallel DSVI at bench.py's shapes for 3 Adam steps
+                  (K4 and K7 once each way a step); the sharded sparse
+                  Gibbs bound on the slice's 316 rows at M = 250, both
+                  scale_corrections, in float64 within PAR_SPARSE_F64 of
+                  one device's and in float32 as near float64 as one
+                  device's (K9 as on one device); the
+                  sharded marginals over the 394 sites; the 1-D and the 2-D
+                  (1 × 1) sharded Cholesky at 8192² and 4096², block 256, by
+                  K5's criteria beside potrf, timed; fit_splits(mesh=) on
+                  the 10-split slice for 50 steps and eval_splits(mesh=),
+                  bit for bit (K1 and K9 once a step); at the gate's trained
+                  pose (N = 16384, rank 150, 16 iterations) sharded_cg_mll
+                  with packed_gibbs_local_matvec(2) against lazy_cg_mll (K2
+                  once an iteration, no K3), the default path at N = 4096
+                  (no kernel), make_sharded_chunked_mll against it, and the
+                  sharded posterior state and a 512-point query with the
+                  Nyström factor (rank 1024, shift 10) against the lazy ones;
+49. k2_rows     — K2 on the four (N/4, N) row blocks of N = 16384 (each
+                  rank's product in a 4-card run) against its plain version
+                  and float64, their concatenation against the whole launch
+                  (bit for bit or not, reported), one block timed beside its
+                  plain version and its bound;
+50. parallel_examples — examples/quickstart_dataparallel and
+                  quickstart_sharded_largen (also --gibbs) at their defaults
+                  on a world-1 NCCL group, and mv_gibbs_demo and
+                  matrix_normal_demo, each ending in "ok" (no figure without
+                  matplotlib, said once), counted: K4 and K7, none, K2, K10a
+                  and K11.
+Each of the last eighteen phases prints its seconds.  After k3 come k2_modes
 (K2's 'default' and 'high3' tensor-core kernels against their plain
 versions and float64 within bf16's bound on the gate's trained payload and a
 ragged 1000 × 1300, 'default' against its plain version within MODE_TIGHT of
@@ -339,6 +372,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import io
 import json
 import os
@@ -4151,6 +4185,551 @@ def phase_quickstarts(dev_name: str):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# parallel/ at world 1 on NCCL
+# ---------------------------------------------------------------------------
+
+PAR_DGP_STEPS = 3  # Adam steps of the data-parallel DSVI check at bench.py's shapes
+PAR_DGP = (315, 250, 3)  # B, M, S (bench.py:22-26; 2 hidden layers of width 2)
+PAR_FIT_STEPS = 50  # fit_splits(mesh=) on the 10-split Gibbs slice
+PAR_CHOL_N, PAR_CHOL2D_N, PAR_BLOCK = 8192, 4096, 256
+PAR_CG_ITERS, PAR_CG_RANK = 16, 150  # the large-N gate's budget and rank
+PAR_DEFAULT_N = 4096  # the default (materialised row block) path, counted for no kernel
+PAR_NYSTROM = (1024, 10.0)  # rank, shift: serve --chunked's flagship factor
+PAR_QUERY = 512
+#: the sparse Gibbs bound, the one sharded path that is not the one-device
+#: algebra: the float32 floor beside twice one device's float32 error, and
+#: float64 against one device's float64 (relative to the largest entry; the
+#: gradients' bounds are tests/test_torch_sparse_gp.py's float64 ones at
+#: this size, where z's gradient loses ~9 digits to M = 250's conditioning)
+PAR_SPARSE_F32_FLOOR = 1e-5
+PAR_SPARSE_F64 = {"loss": 1e-10, "z": 1e-4, "log_ell_z": 1e-5}
+#: the demos' launches: the mv_gibbs demo's two 900² factors take 5 + 1
+#: tries of safe_cholesky's ladder (its latent prior's Gram is indefinite
+#: in float32 until a jitter of 1e-3), the matrix-normal one's two (U, in
+#: the draw and in the log-density) 1 + 1; the log-density's (900, 2) solve
+#: through K11
+DEMO_LAUNCHES = {"mv_gibbs_demo": {"blocked_cholesky": 6},
+                 "matrix_normal_demo": {"blocked_cholesky": 2, "blocked_trsm": 1}}
+K2_ROW_BLOCKS = 4  # the per-rank work of a 4-card run
+
+
+@contextlib.contextmanager
+def world1(dev):
+    """A process group of one rank, started from a ``FileStore`` in a
+    temporary directory (no network): NCCL on the card.  Destroyed on exit."""
+    import torch.distributed as dist
+
+    from nonstationary_precip_tpu_torch.parallel import init_world, make_mesh
+
+    with tempfile.TemporaryDirectory() as d:
+        init_world(1, 0, os.path.join(d, "store"), device=dev.type)
+        try:
+            yield make_mesh()
+        finally:
+            dist.destroy_process_group()
+
+
+def _rel(a, b) -> float:
+    """max |a − b| over max |b|, in float64."""
+    a, b = torch.as_tensor(a).detach().double(), torch.as_tensor(b).detach().double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def _same(pairs) -> bool:
+    return all(torch.equal(torch.as_tensor(a), torch.as_tensor(b)) for a, b in pairs)
+
+
+def _held(what: str, vals, grads) -> dict:
+    """Values and gradients of a sharded path bit for bit the single-device
+    path's (at world 1 the collectives are copies), with the relative gaps
+    reported."""
+    vals, grads = list(vals), list(grads)
+    gv = max(_rel(a, b) for a, b in vals)
+    gg = max((_rel(a, b) for a, b in grads), default=0.0)
+    check(_same([*vals, *grads]), f"{what}: bit for bit one device's (gaps {gv:.3g}, {gg:.3g})")
+    return {"value_rel": gv, "grad_rel": gg, "bitwise": True}
+
+
+def _par_dp(mesh, dev) -> tuple:
+    """Data-parallel DSVI at bench.py's shapes: PAR_DGP_STEPS Adam steps of
+    ``dp_value_and_grad`` against the same steps of the one-device loss,
+    from one init and one ε; K4 once and K7 once each way a step."""
+    from nonstationary_precip_tpu_torch.experiments.deepgp_spatial import draw_eps
+    from nonstationary_precip_tpu_torch.models.deep_gp import DeepGP
+    from nonstationary_precip_tpu_torch.parallel import dp_value_and_grad
+
+    b, m, s = PAR_DGP
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.standard_normal((b * mesh.size, 2)), dtype=torch.float32, device=dev)
+    y = torch.sin(x[:, 0])
+    stack = draw_eps(rng, (mesh.size, PAR_DGP_STEPS, s), 2, b)  # per layer (P, T, S, O, B)
+
+    def loss_fn(mdl, xb, yb, e):
+        return mdl.loss(xb, yb, num_data=b * mesh.size, eps=e)
+
+    def train(dp: bool):
+        model = DeepGP.create(torch.Generator().manual_seed(5), input_dims=2, num_layers=2, num_inducing=m, device=dev)
+        params = [p for p in model.parameters() if p.requires_grad]
+        opt = torch.optim.Adam(params, lr=0.01, betas=(0.9, 0.999), eps=1e-8)
+        vag = dp_value_and_grad(loss_fn, mesh)
+        losses = []
+        for t in range(PAR_DGP_STEPS):
+            e = [torch.tensor(layer[mesh.rank, t], device=dev) for layer in stack]
+            if dp:
+                loss, grads = vag(model, mesh.rows(x), mesh.rows(y), e)
+            else:
+                loss = loss_fn(model, x, y, e)
+                grads = torch.autograd.grad(loss, params)
+            for p, g in zip(params, grads):
+                p.grad = g
+            opt.step()
+            losses.append(loss.detach())
+        return torch.stack(losses), [p.detach() for p in params]
+
+    reset_launches()
+    got = train(True)
+    torch.cuda.synchronize()
+    t = PAR_DGP_STEPS
+    launches = check_launches({"svgp_precompute": t, "elbo_data_term_fwd": t, "elbo_data_term_bwd": t}, "parallel dp")
+    ref = train(False)
+    held = _held("parallel dp", [(got[0], ref[0])], list(zip(got[1], ref[1])))
+    return {"shape": {"B": b, "M": m, "S": s, "steps": t}, "losses": got[0].tolist(), **held}, launches
+
+
+def _slice_data(spatial_gibbs, argv, dev):
+    """The slice's normalised UIB data and its experiment config."""
+    from nonstationary_precip_tpu_torch.train.config import ExperimentConfig
+
+    cfg = ExperimentConfig(lr=0.01, max_iters=5000).parse_args([*argv, "--device", "cuda"])
+    _, x, y = spatial_gibbs.load_uib_spatial()
+    x_norm = (x - x.mean(0)) / x.std(0, ddof=1)
+    return cfg, x_norm, (y - y.mean()) / y.std(ddof=1)
+
+
+def _par_gibbs_sparse(spatial_gibbs, mesh, dev) -> tuple:
+    """``gibbs_sparse_sharded_loss`` on split 0's 316 rows at M = 250, both
+    ``scale_correction``s, against ``GibbsSparseGP.loss``.  In float64 (no
+    K9: its gate takes float32) the sharded value and every trainable
+    gradient within PAR_SPARSE_F64 of one device's.  In float32 each
+    within twice the one-device float32 error from float64 (+
+    PAR_SPARSE_F32_FLOOR of the largest entry): the Woodbury algebra at M =
+    250 is ill-conditioned in float32 (``sparse_ref`` holds the slice's z
+    gradients within 5e-2 of float64), so the two float32 orders differ by
+    more than rounding.  K9 as many times as one device's, K_xz and K_zz
+    each."""
+    from nonstationary_precip_tpu_torch.models.gibbs_gp import gibbs_sparse_sharded_loss
+
+    cfg, x_norm, y_norm = _slice_data(spatial_gibbs, ["--inference", "sparse"], dev)
+    model, (x_tr, y_tr, _, _) = spatial_gibbs.make_split(x_norm, y_norm, 0, cfg, torch.float32, dev)
+    m64 = copy.deepcopy(model).double()
+    params = [p for p in model.parameters() if p.requires_grad]
+    p64 = [p for p in m64.parameters() if p.requires_grad]
+    out, k9 = {}, 0
+    for sc in (False, True):
+        model.scale_correction = m64.scale_correction = sc
+        reset_launches()
+        loss = gibbs_sparse_sharded_loss(mesh)(model, mesh.rows(x_tr), mesh.rows(y_tr))
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        sharded = launch_counts()["gibbs_gram"]
+        reset_launches()
+        loss1 = model.loss(x_tr, y_tr)
+        grads1 = torch.autograd.grad(loss1, params)
+        torch.cuda.synchronize()
+        check_launches({"gibbs_gram": sharded}, f"parallel gibbs_sparse {sc}: one device's K9")
+        check(sharded >= 2, f"parallel gibbs_sparse {sc}: K_xz and K_zz through K9 ({sharded})")
+        x64, y64 = x_tr.double(), y_tr.double()
+        loss64 = m64.loss(x64, y64)
+        grads64 = torch.autograd.grad(loss64, p64)
+        sh64 = gibbs_sparse_sharded_loss(mesh)(m64, mesh.rows(x64), mesh.rows(y64))
+        shg64 = torch.autograd.grad(sh64, p64)
+        names = ["loss", *(n for n, p in model.named_parameters() if p.requires_grad)]
+        rows = {}
+        for name, a, b, r, a64 in zip(names, (loss, *grads), (loss1, *grads1), (loss64, *grads64),
+                                      (sh64, *shg64)):
+            e_sh, e_1, e64 = _rel(a, r), _rel(b, r), _rel(a64, r)
+            check(e64 <= PAR_SPARSE_F64[name],
+                  f"parallel gibbs_sparse {sc} {name}: float64 {e64:.3g} within {PAR_SPARSE_F64[name]} of one device's")
+            check(e_sh <= 2 * e_1 + PAR_SPARSE_F32_FLOOR,
+                  f"parallel gibbs_sparse {sc} {name}: float64 gap {e_sh:.3g} within 2x one device's {e_1:.3g}")
+            rows[name] = {"sharded_vs_f64": e_sh, "one_device_vs_f64": e_1, "sharded_vs_one": _rel(a, b),
+                          "sharded_f64_vs_one_f64": e64}
+        out[f"scale_correction_{sc}"] = {"loss": float(loss.detach()), "k9": sharded, "errors": rows}
+        k9 += sharded
+    return out, {"gibbs_gram": k9}
+
+
+def _par_marginals(spatial_gibbs, mesh, dev) -> tuple:
+    """``sharded_marginals`` of split 0's exact Gibbs model at its init pose
+    over the 394 sites, against its predictive: the same K9 launches."""
+    from nonstationary_precip_tpu_torch.parallel import sharded_marginals
+
+    cfg, x_norm, y_norm = _slice_data(spatial_gibbs, [], dev)
+    model, (x_tr, y_tr, _, _) = spatial_gibbs.make_split(x_norm, y_norm, 0, cfg, torch.float32, dev)
+    x_all = torch.as_tensor(x_norm, dtype=torch.float32, device=dev)
+
+    def predict_fn(m, xs):
+        post = m.predictive(x_tr, y_tr, xs)
+        return post.mean, post.var
+
+    with torch.no_grad():
+        reset_launches()
+        mean, var = sharded_marginals(predict_fn, mesh)(model, x_all)
+        torch.cuda.synchronize()
+        k9 = launch_counts()["gibbs_gram"]
+        reset_launches()
+        ref = model.predictive(x_tr, y_tr, x_all)
+        torch.cuda.synchronize()
+        check_launches({"gibbs_gram": k9}, "parallel marginals: one device's K9")
+    held = _held("parallel marginals", [(mean, ref.mean), (var, ref.var)], [])
+    return {"sites": int(x_all.shape[0]), "k9": k9, **held}, {"gibbs_gram": k9}
+
+
+def _par_chol(mesh, dev) -> dict:
+    """The 1-D sharded Cholesky at PAR_CHOL_N² and the 2-D one on a 1 × 1
+    mesh at PAR_CHOL2D_N², block PAR_BLOCK, on r·rᵀ/128 + 2I (the JAX
+    dryrun's payload), each by K5's criteria (``chol_errors``: float64 and
+    the backward-error ratio) beside ``torch.linalg.cholesky``, with times."""
+    from nonstationary_precip_tpu_torch.parallel import make_mesh_2d, sharded_cholesky, sharded_cholesky_2d, tile
+
+    gen = torch.Generator().manual_seed(43)
+    out = {}
+    mesh2 = make_mesh_2d(1, 1)
+    for name, n, fn in (("sharded_cholesky", PAR_CHOL_N, lambda a: sharded_cholesky(mesh, PAR_BLOCK)(mesh.rows(a))),
+                        ("sharded_cholesky_2d", PAR_CHOL2D_N,
+                         lambda a: sharded_cholesky_2d(mesh2, PAR_BLOCK)(tile(mesh2, a)))):
+        r = torch.randn(n, 128, generator=gen).to(dev)
+        a = r @ r.T / 128 + 2.0 * torch.eye(n, device=dev)
+        reset_launches()
+        errs = chol_errors(name, fn, a, {})
+        check_launches({}, f"parallel {name}: no kernel (the library's Cholesky and GEMMs, as JAX's)")
+        ms = statistics.median(block_times_ms(lambda: fn(a), 10))
+        lib = statistics.median(block_times_ms(lambda: torch.linalg.cholesky(a), 10))
+        out[name] = {"n": n, "block": PAR_BLOCK, "ms": ms, "library_ms": lib, **errs}
+        del r, a
+    return out
+
+
+def _par_fit_splits(spatial_gibbs, mesh, dev) -> tuple:
+    """``fit_splits(mesh=)`` on the 10-split Gibbs slice for PAR_FIT_STEPS
+    steps, bit for bit the mesh-free run (K1 and K9 once a step), then
+    ``eval_splits(mesh=)`` bit for bit (K9 twice)."""
+    from nonstationary_precip_tpu_torch.models.gibbs_gp import gibbs_map_loss_batched
+    from nonstationary_precip_tpu_torch.train.vmapped import Stacked, eval_splits, fit_splits
+
+    cfg, x_norm, y_norm = _slice_data(spatial_gibbs, [], dev)
+    stdy = torch.tensor(1.0, device=dev)
+
+    def fit(mesh_or_none):
+        splits = [spatial_gibbs.make_split(x_norm, y_norm, s, cfg, torch.float32, dev) for s in range(10)]
+        x_tr, y_tr, x_te, y_te = (list(c) for c in zip(*[s[1] for s in splits]))
+        pre = spatial_gibbs.build_prior(cfg, torch.float32, dev).gram_pre(torch.stack(x_tr))
+        reset_launches()
+        res = fit_splits([s[0] for s in splits], lambda m, a, b, p: m.loss(a, b, p), x_tr, y_tr, Stacked(pre),
+                         lr=cfg.lr, num_steps=PAR_FIT_STEPS, chunk=PAR_FIT_STEPS,
+                         batched_loss=gibbs_map_loss_batched, mesh=mesh_or_none)
+        torch.cuda.synchronize()
+        fit_launches = launch_counts()
+        reset_launches()
+        metrics = eval_splits(res.model, spatial_gibbs._eval_one(stdy), x_tr, y_tr, x_te, y_te, mesh=mesh_or_none)
+        torch.cuda.synchronize()
+        return res, metrics, fit_launches, launch_counts()
+
+    res, metrics, fit_l, eval_l = fit(mesh)
+    want = {"chol_inv_batched": PAR_FIT_STEPS, "gibbs_gram": PAR_FIT_STEPS}
+    check(fit_l == {k: want.get(k, 0) for k in fit_l}, f"parallel fit_splits: launches {_nonzero(fit_l)} == {want}")
+    check(eval_l == {k: 2 if k == "gibbs_gram" else 0 for k in eval_l},
+          f"parallel eval_splits: launches {_nonzero(eval_l)} == K9 2")
+    ref, ref_metrics, _, _ = fit(None)
+    check(np.array_equal(res.losses, ref.losses) and _same([(res.model.log_ell, ref.model.log_ell)])
+          and _same(list(zip(metrics, ref_metrics))), "parallel fit_splits/eval_splits: bit for bit the mesh-free run")
+    return ({"steps": PAR_FIT_STEPS, "splits": 10, "bitwise": True, "loss_first": res.losses[0].tolist(),
+             "loss_last": res.losses[-1].tolist(), "rmse": metrics[0].tolist()},
+            {"chol_inv_batched": PAR_FIT_STEPS, "gibbs_gram": PAR_FIT_STEPS + 2})
+
+
+def _gate_pose(gibbs_largen, largen_out, dev):
+    """(aug, y, σ², probe draws) of the large-N gate at its trained pose: the
+    packed payload [x, log ℓ], the unscaled Gram (the JAX builder's) with
+    the trained noise."""
+    cfg = gibbs_largen.LargeNConfig(n=LARGEN_N, device="cuda")
+    x, y = (t.to(dev) for t in gibbs_largen._data(LARGEN_N))
+    p = largen_out["params"]
+    aug = torch.cat([x, torch.as_tensor(p["log_ell_pp"], device=dev)], dim=1)
+    s2 = torch.exp(torch.as_tensor(p["log_noise"], device=dev))
+    noise = tuple(torch.as_tensor(a, device=dev) for a in gibbs_largen.probe_draws(cfg.seed, PAR_CG_RANK, LARGEN_N))
+    return aug, y, s2, noise
+
+
+def _par_sharded_cg(gibbs_largen, largen_out, mesh, dev) -> tuple:
+    """At the gate's pose, N = LARGEN_N, rank PAR_CG_RANK, PAR_CG_ITERS
+    iterations: ``sharded_cg_mll`` with ``packed_gibbs_local_matvec(2)``
+    (K2 once an iteration, no K3) against ``lazy_cg_mll`` through K2 on the
+    same probes and factor; the default path at PAR_DEFAULT_N (no kernel);
+    ``make_sharded_chunked_mll`` against the sharded MLL; the sharded
+    posterior state and query with the Nyström factor (rank, shift
+    PAR_NYSTROM) against ``lazy_posterior_state`` / ``_query``."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import packed_gibbs_cross
+    from nonstationary_precip_tpu_torch.ops import matvec
+    from nonstationary_precip_tpu_torch.ops.lazy_cg import lazy_cg_mll, lazy_posterior_query, lazy_posterior_state
+    from nonstationary_precip_tpu_torch.parallel import (make_sharded_chunked_mll, sharded_cg_mll,
+                                                         sharded_posterior_query, sharded_posterior_state)
+    from nonstationary_precip_tpu_torch.parallel.sharded_cg import packed_gibbs_local_matvec
+
+    aug0, y0, s20, noise = _gate_pose(gibbs_largen, largen_out, dev)
+    cross, local, whole = packed_gibbs_cross(2), packed_gibbs_local_matvec(2), matvec.packed_gibbs_matvec_builder(2)
+    kw = dict(max_iters=PAR_CG_ITERS, tol=1e-6, precond_rank=PAR_CG_RANK, cross_fn=cross)
+    leaves = lambda: [t.detach().clone().requires_grad_() for t in (aug0, y0, s20)]  # noqa: E731
+    out, k2 = {}, 0
+
+    aug, y, s2 = leaves()
+    info = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    val = sharded_cg_mll(None, aug, y, noise, s2, mesh, local_matvec_builder=local, info=info, **kw)
+    grads = torch.autograd.grad(val, [aug, y, s2])
+    torch.cuda.synchronize()
+    mll_s = time.perf_counter() - t0
+    check_launches({"gibbs_matvec": info["iters"]}, "parallel sharded_cg_mll: K2 once an iteration, no K3")
+    check(info["iters"] == PAR_CG_ITERS, f"sharded_cg_mll ran {info['iters']} iterations")
+    k2 += info["iters"]
+    a1, y1, s21 = leaves()
+    val1 = lazy_cg_mll(None, a1, y1, noise, s21, block=LARGEN_N, matvec_builder=whole, **kw)
+    grads1 = torch.autograd.grad(val1, [a1, y1, s21])
+    out["mll"] = {"n": LARGEN_N, "rank": PAR_CG_RANK, "iters": info["iters"], "value": float(val.detach()),
+                  "relres": info["relres"].tolist(), "seconds": mll_s,
+                  **_held("parallel sharded_cg_mll", [(val, val1)], zip(grads, grads1))}
+
+    n = PAR_DEFAULT_N
+    ad, yd, sd = (t.detach().clone().requires_grad_() for t in (aug0[:n], y0[:n], s20))
+    reset_launches()
+    vd = sharded_cg_mll(None, ad, yd, (noise[0], noise[1][:n]), sd, mesh, **kw)
+    torch.autograd.grad(vd, [ad, yd, sd])
+    torch.cuda.synchronize()
+    check_launches({}, "parallel sharded_cg_mll default path: neither K2 nor K9 (JAX's plain cross_fn row block)")
+    out["default_path"] = {"n": n, "value": float(vd)}
+
+    chunked = make_sharded_chunked_mll(mesh, PAR_CG_ITERS // 2, 2, 1e-6, PAR_CG_RANK, "pivchol", 1.0, cross, local)
+    aug, y, s2 = leaves()
+    reset_launches()
+    cv, crr, cg = chunked.value_and_grad(None, aug, y, s2, noise)
+    torch.cuda.synchronize()
+    check_launches({"gibbs_matvec": chunked.iters}, "parallel make_sharded_chunked_mll: K2 once an iteration")
+    k2 += chunked.iters
+    out["chunked"] = {"iters": chunked.iters, "value": float(cv),
+                      **_held("parallel make_sharded_chunked_mll", [(cv, val)], zip([cg[1], cg[2], cg[3]], grads))}
+
+    rank, shift = PAR_NYSTROM
+    gen = torch.Generator().manual_seed(47)
+    xt = torch.cat([6 * torch.rand(PAR_QUERY, 2, generator=gen) - 3, torch.zeros(PAR_QUERY, 2)], dim=1).to(dev)
+    xt[:, 2:] = aug0[:, 2:].mean(0)
+    skw = dict(max_iters=32, tol=1e-8, precond_rank=rank, precond="nystrom", precond_shift=shift, cross_fn=cross)
+    qkw = dict(max_iters=16, tol=1e-6, precond_shift=shift, cross_fn=cross, return_info=True)
+    reset_launches()
+    st = sharded_posterior_state(None, aug0, y0, s20, mesh, local_matvec_builder=local, **skw)
+    mean, cov, qinfo = sharded_posterior_query(st, xt, mesh, local_matvec_builder=local, **qkw)
+    torch.cuda.synchronize()
+    want = st.iters + qinfo["iters"] * -(-PAR_QUERY // matvec.MAX_R)
+    check_launches({"gibbs_matvec": want}, "parallel sharded posterior state and query: K2 once a column block")
+    k2 += want
+    st1 = lazy_posterior_state(None, aug0, y0, s20, block=LARGEN_N, matvec_builder=whole, **skw)
+    mean1, cov1, qinfo1 = lazy_posterior_query(st1, xt, block=LARGEN_N, matvec_builder=whole, **qkw)
+    check(not bool(qinfo["broke"]) and float(qinfo["relres_max"]) <= GATE_RELRES,
+          f"sharded query converged: relres_max {float(qinfo['relres_max']):.3g}")
+    out["posterior"] = {"rank": rank, "shift": shift, "state_iters": st.iters, "query_iters": qinfo["iters"],
+                        "alpha_relres": float(st.alpha_relres), "relres_max": float(qinfo["relres_max"]),
+                        **_held("parallel sharded posterior", [(st.alpha, st1.alpha), (mean, mean1), (cov, cov1)],
+                                [])}
+    return out, {"gibbs_matvec": k2}
+
+
+def phase_parallel(spatial_gibbs, gibbs_largen, largen_out, dev, dev_name: str) -> dict:
+    """The nine paths of JAX's ``__graft_entry__.dryrun_multichip`` at world
+    1 on NCCL (one card; multi-GPU runs are unverified), each held to the
+    port's one-device counterpart: bit for bit where the computation is the
+    same (``_held``), else as ``_par_gibbs_sparse`` and ``_par_chol`` say.
+    Returns the main-path launches by kernel."""
+    totals, rows = {}, {}
+    t_all = time.perf_counter()
+    with world1(dev) as mesh:
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        check(mesh.backend == want and mesh.size == 1, f"world 1 on {want}: {mesh.backend}, {mesh.size}")
+        for name, run in (("dp", lambda: _par_dp(mesh, dev)),
+                          ("gibbs_sparse", lambda: _par_gibbs_sparse(spatial_gibbs, mesh, dev)),
+                          ("marginals", lambda: _par_marginals(spatial_gibbs, mesh, dev)),
+                          ("cholesky", lambda: (_par_chol(mesh, dev), {})),
+                          ("fit_splits", lambda: _par_fit_splits(spatial_gibbs, mesh, dev)),
+                          ("sharded_cg", lambda: _par_sharded_cg(gibbs_largen, largen_out, mesh, dev))):
+            t0 = time.perf_counter()
+            rows[name], launches = run()
+            rows[name]["seconds"] = time.perf_counter() - t0
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+    emit("parallel", world=1, backend=want, rows=rows, launches=_nonzero(totals),
+         seconds=time.perf_counter() - t_all, device=dev_name)
+    return totals
+
+
+def phase_k2_rows(matvec, payloads, dev) -> dict:
+    """K2 on the K2_ROW_BLOCKS (N/4, N) row blocks of the gate's trained
+    payload at N = LARGEN_N (each rank's product in a 4-card run): each
+    block against its plain version (K2's band) and float64, and their
+    concatenation against the whole launch (reported: bit for bit or not;
+    the column splits follow the row count, so the sums' order may
+    differ).  Times each block beside its plain version and its bound."""
+    x, ell = payloads["trained"]
+    v = torch.randn(LARGEN_N, 9, generator=torch.Generator().manual_seed(53)).to(dev)
+    nb = LARGEN_N // K2_ROW_BLOCKS
+    whole = matvec.gibbs_gram_matvec_cuda(x, ell, x, ell, v)
+    blocks, errs = [], {}
+    for r in range(K2_ROW_BLOCKS):
+        sl = slice(r * nb, (r + 1) * nb)
+        k = matvec.gibbs_gram_matvec_cuda(x[sl], ell[sl], x, ell, v)
+        p = matvec.gibbs_gram_matvec_plain(x[sl], ell[sl], x, ell, v)
+        ref = gibbs_matvec_f64(x[sl], ell[sl], x, ell, v)
+        torch.cuda.synchronize()
+        err = (k - p).abs()
+        ek, ep = float((k.double() - ref).abs().max()), float((p.double() - ref).abs().max())
+        largest = float(ref.abs().max())
+        check(bool((err <= K2_ATOL + K2_RTOL * p.abs()).all()), f"K2 row block {r} within rtol {K2_RTOL} / atol {K2_ATOL}")
+        check(ek <= 2 * ep + K6_FLOOR * largest, f"K2 row block {r} vs float64 {ek:.3g} within 2x plain's {ep:.3g}")
+        errs[f"block{r}"] = {"max_abs_err": float(err.max()), "kernel_vs_f64": ek, "plain_vs_f64": ep,
+                             "largest": largest}
+        blocks.append(k)
+    cat = torch.cat(blocks)
+    diff = float((cat - whole).abs().max())
+    check(diff <= K2_ATOL + K2_RTOL * float(whole.abs().max()), f"K2 row blocks against the whole launch: {diff:.3g}")
+    xs, ls = x[:nb].contiguous(), ell[:nb].contiguous()
+    t = timed_pair(lambda: matvec.gibbs_gram_matvec_cuda(xs, ls, x, ell, v),
+                   lambda: matvec.gibbs_gram_matvec_plain(xs, ls, x, ell, v), N_TIMED_GRAM)
+    fp32_ms, fp32_by = bound(matvec.matvec_ops(nb, LARGEN_N, 2, 9), 4 * (2 * nb * 2 + 2 * LARGEN_N * 2 + LARGEN_N * 9
+                                                                          + nb * 9))
+    sfu_ms = matvec.matvec_sfu_ops(nb, LARGEN_N, 2) / (16 * torch.cuda.get_device_properties(dev).multi_processor_count
+                                                       * sm_clock_mhz() * 1e6) * 1e3
+    b_ms, b_by = max((fp32_ms, fp32_by), (sfu_ms, "operations"))
+    out = {"blocks": K2_ROW_BLOCKS, "shape": [nb, LARGEN_N, 2, 9], "errors": errs, "cat_vs_whole_max_abs": diff,
+           "cat_bitwise_whole": bool(torch.equal(cat, whole)), "bound_ms": b_ms, "bound_by": b_by, **t}
+    emit("k2_rows", **out)
+    return out
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """Every call of ``module.name`` inside the block, as (inputs, output)
+    copies, the function itself (its launch count included) unchanged."""
+    fn, calls = getattr(module, name), []
+
+    def wrapper(*args):
+        out = fn(*args)
+        calls.append((tuple(a.detach().clone() for a in args), out.detach().clone()))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def demo_kernels_held(what: str, chols, solves) -> dict:
+    """A demo's own K10a and K11 launches, each on the inputs the demo gave
+    it.  A finite factor by K5's criteria (``chol_errors``: float64, the
+    backward-error ratio) beside its plain version, with κ₂(H) reported, H
+    the unit-diagonal scaling of the input.  A failed try of
+    safe_cholesky's ladder only where no float32 Cholesky is sure to
+    succeed: λ_min(H) ≤ nγ_(n+1)/(1 − γ_(n+1)) (Demmel's condition,
+    Higham, Theorem 10.7); whether the plain version failed too is
+    reported.  A solve by its backward-error ratio ≤ 1 (Higham, Theorem
+    8.5), and against its plain version and float64 (``check_f64``) with
+    the floor max(DENSE_FLOOR, κ₂(L)·2⁻²⁴): at κ₂(L)·2⁻²⁴ = 2.7e-3 (the
+    matrix-normal demo's L_U) the forward errors of two backward-stable
+    substitutions are not ordered (on the card K11's was 2.02 times
+    cuBLAS's, on the CPU its emulation's 0.82 times LAPACK's)."""
+    from nonstationary_precip_tpu_torch.ops import chol_blocked, trsm
+
+    out = {}
+    for i, ((a,), l) in enumerate(chols):
+        a64 = torch.tril(a.double()) + torch.tril(a.double(), -1).T
+        d = torch.rsqrt(torch.diagonal(a64))
+        ev = torch.linalg.eigvalsh(d[:, None] * a64 * d[None, :])
+        lam = float(ev[0])
+        kappa = float(ev[-1]) / lam if lam > 0 else float("inf")
+        if bool(torch.isfinite(l).all()):
+            out[f"K10a_{i}"] = chol_errors(f"{what} K10a call {i}", lambda _: l, a,
+                                           {"plain": chol_blocked.blocked_cholesky_plain})
+            out[f"K10a_{i}"]["kappa_h"] = kappa
+            continue
+        n = a.shape[-1]
+        gamma = (n + 1) * 2.0**-24 / (1 - (n + 1) * 2.0**-24)
+        sure = n * gamma / (1 - gamma)
+        check(lam <= sure, f"{what} K10a call {i} failed where float32 Cholesky must succeed: "
+                           f"λ_min(H) {lam:.3g} > {sure:.3g}")
+        out[f"K10a_{i}"] = {"failed": True, "lambda_min_h": lam, "sure_above": sure,
+                            "plain_failed": not bool(torch.isfinite(chol_blocked.blocked_cholesky_plain(a)).all())}
+    for i, ((l, b), x) in enumerate(solves):
+        ref = torch.linalg.solve_triangular(l.double(), b.double(), upper=False)
+        ratio = backward_ratio(l, b, x)
+        check(ratio <= 1.0, f"{what} K11 call {i} backward error ratio {ratio:.3g} <= 1")
+        kappa = float(torch.linalg.cond(l.double()))
+        floor = max(DENSE_FLOOR, kappa * 2.0**-24)
+        e = out[f"K11_{i}"] = check_f64(f"{what} K11 call {i}", x, trsm.trsm_plain(l, b), ref, floor)
+        e.update(shape=list(b.shape), bound_ratio=ratio, kappa_l=kappa, floor=floor)
+    return out
+
+
+def phase_parallel_examples(dev, dev_name: str) -> dict:
+    """The two parallel quickstarts at their defaults on this process's
+    world-1 NCCL group (the sharded one also with --gibbs, K2's local
+    matvec) and the two plotting demos' numbers, each ending in "ok" (the
+    demos say that no figure is drawn where matplotlib is missing), with
+    their launches counted: the DP quickstart K4 and K7 (5 steps, the
+    parity's value and its replay), the Gibbs quickstart K2 once an
+    iteration (25 steps of 32, the parity's 32, the posterior's 60), the
+    stationary one none (JAX's plain row block), the demos DEMO_LAUNCHES:
+    K10a (the 900² Cholesky factors and their ladders' tries) and K11 (the
+    matrix-normal log-density's solve), each launch held at the demo's own
+    shape (``demo_kernels_held``)."""
+    from nonstationary_precip_tpu_torch.examples import (matrix_normal_demo, mv_gibbs_demo, quickstart_dataparallel,
+                                                         quickstart_sharded_largen)
+    from nonstationary_precip_tpu_torch.ops import chol_blocked, trsm
+
+    q = quickstart_sharded_largen
+    dp_calls = 5 + 1 + 1
+    cases = (("dataparallel", lambda _: quickstart_dataparallel.main(),
+              {"svgp_precompute": dp_calls, "elbo_data_term_fwd": dp_calls, "elbo_data_term_bwd": dp_calls - 1}),
+             ("sharded_largen", lambda _: q.main(), {}),
+             ("sharded_largen_gibbs", lambda _: q.main(gibbs=True),
+              {"gibbs_matvec": 25 * q.ITERS + q.ITERS + q.POST_ITERS}),
+             ("mv_gibbs_demo", lambda d: mv_gibbs_demo.main(d, dev="cuda"), DEMO_LAUNCHES["mv_gibbs_demo"]),
+             ("matrix_normal_demo", lambda d: matrix_normal_demo.main(d, dev="cuda"),
+              DEMO_LAUNCHES["matrix_normal_demo"]))
+    rows, totals = {}, {}
+    with world1(dev), tempfile.TemporaryDirectory() as d:
+        for name, call, want in cases:
+            reset_launches()
+            t0 = time.perf_counter()
+            with (contextlib.redirect_stdout(io.StringIO()) as printed,
+                  recorded(chol_blocked, "blocked_cholesky_cuda") as chols, recorded(trsm, "trsm_cuda") as solves):
+                out = call(d)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lines = printed.getvalue().splitlines()
+            check(lines[-1:] == ["ok"], f"{name} ends with ok: {lines[-3:]}")
+            got = check_launches(want, name)
+            held = {}
+            if name in DEMO_LAUNCHES:
+                check(sum("is not drawn" in ln or ln.startswith("wrote ") for ln in lines) == 1,
+                      f"{name}: a figure drawn or said not to be: {lines}")
+                held = {"held": demo_kernels_held(name, chols, solves)}
+            for k, v in got.items():
+                totals[k] = totals.get(k, 0) + v
+            numbers = {k: v for k, v in out.items() if isinstance(v, (int, float, bool))} if isinstance(out, dict) else {}
+            rows[name] = {"seconds": wall, "launches": _nonzero(got), "printed": lines[-4:], **numbers, **held}
+    emit("parallel_examples", rows=rows, launches=_nonzero(totals), device=dev_name)
+    return totals
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=300, help="Adam steps of the slice run")
@@ -4243,7 +4822,10 @@ def main(argv=None):
                        ("baselines_dense", lambda: phase_baselines_dense(pb, gibbs_fused, dev, name)),
                        ("full_cov", lambda: phase_full_cov(deepgp_spatial, svgp_precompute, dev, name)),
                        ("dense_cg", lambda: phase_dense_cg(quickstart_cg, dev, name)),
-                       ("quickstarts", lambda: phase_quickstarts(name))):
+                       ("quickstarts", lambda: phase_quickstarts(name)),
+                       ("parallel", lambda: phase_parallel(spatial_gibbs, gibbs_largen, out, dev, name)),
+                       ("k2_rows", lambda: phase_k2_rows(matvec, payloads, dev)),
+                       ("parallel_examples", lambda: phase_parallel_examples(dev, name))):
         t0 = time.perf_counter()
         timed[phase] = run()
         emit("seconds", of=phase, seconds=time.perf_counter() - t0)
@@ -4256,6 +4838,11 @@ def main(argv=None):
               + timed["quickstarts"].get(k, 0)
               for k in ("gibbs_gram", "svgp_precompute", "elbo_data_term_fwd", "elbo_data_term_bwd", "rbf_matvec",
                         "gibbs_chol_solve_fused", "blocked_cholesky", "blocked_trsm")}
+    # the parallel paths' and their examples' launches (world 1 on NCCL)
+    par = {k: timed["parallel"].get(k, 0) + timed["parallel_examples"].get(k, 0)
+           for k in ("chol_inv_batched", "gibbs_matvec", "svgp_precompute", "elbo_data_term_fwd",
+                     "elbo_data_term_bwd", "gibbs_gram", "blocked_cholesky", "blocked_trsm")}
+    driven = {k: v + par.get(k, 0) for k, v in driven.items()}
     k9_launches = (gibbs_launches["gibbs_gram"] + slice_k9 + timed["gibbs_sparse"] + timed["spatio_temporal"]
                    + served["gibbs_gram"] + driven["gibbs_gram"])
     k4_launches = (dgp_launches["svgp_precompute"] + timed["st_dgp"][0] + served["svgp_precompute"]
@@ -4273,15 +4860,17 @@ def main(argv=None):
     print(json.dumps({"kernels": [
         {"name": "chol_inv_batched_safe", "route": "cuda",
          "source": "nonstationary_precip_tpu_torch/csrc/chol_inv_cluster.cu",
-         "replaces": "nonstationary_precip_tpu/ops/pallas_chol.py:1054", "launches": launches,
+         "replaces": "nonstationary_precip_tpu/ops/pallas_chol.py:1054", "launches": launches + par["chol_inv_batched"],
          "max_abs_err": errs["gibbs_gram"]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "resources": {"chol_inv_cluster_kernel": {**ptxas_resources(logs["chol_inv"], "chol_inv_cluster_kernel"),
                                                    **k1_design}}},
         {"name": "gibbs_matvec", "route": "cuda", "source": "nonstationary_precip_tpu_torch/csrc/gibbs_matvec.cu",
          "replaces": "nonstationary_precip_tpu/ops/pallas_matvec.py:240",
-         "launches": largen_launches["gibbs_matvec"] + mf_launches["gibbs_matvec"] + served["gibbs_matvec"],
-         "max_abs_err": max(e["max_abs_err"] for e in k2_errs.values()), "ms": k2_t["ms"],
+         "launches": (largen_launches["gibbs_matvec"] + mf_launches["gibbs_matvec"] + served["gibbs_matvec"]
+                      + par["gibbs_matvec"]),
+         "max_abs_err": max(e["max_abs_err"] for e in (*k2_errs.values(), *timed["k2_rows"]["errors"].values())),
+         "ms": k2_t["ms"],
          "plain_ms": k2_t["plain_ms"], "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
          "resources": {WALK["K2"]: ptxas_resources(logs["gibbs_matvec"], WALK["K2"])}},
         {"name": "gibbs_panel_grads", "route": "cuda",

@@ -4,7 +4,7 @@ The JAX package beside it is the reference; this package keeps its module
 paths and public names so each counterpart is found at the same place, and
 never imports jax (nor the JAX package, whose config imports jax).
 
-Layering (bottom-up), as far as the port reaches today:
+Layering (bottom-up):
   ops/      — dense linear algebra, mBCG/SLQ and the lazy MLL; wrappers of
               the hand-written CUDA kernels in ``csrc/``: ``chol_inv`` (K1,
               batched (L, L⁻¹)), ``matvec`` (K2/K3/K6, the Gibbs and RBF
@@ -25,6 +25,10 @@ Layering (bottom-up), as far as the port reaches today:
   train/    — Adam loops (full-batch and epoch-shuffled minibatch), the
               split-batched trainer, metrics, config
   data/     — numpy CSV loaders, transforms and the seeded split harnesses
+  parallel/ — the multi-device paths on torch.distributed (one process per
+              device; NCCL on CUDA, gloo on the CPU): data-parallel DSVI,
+              row-sharded SGPR and BBMM, the distributed Cholesky, and the
+              collectives with JAX's transposes
   interop   — carries JAX model weights into the port's modules
 """
 

@@ -10,15 +10,14 @@
 // lower triangle of the padded matrix (n a multiple of kT = 128, the upper
 // triangle zero).  For each block column j (jp = j kT):
 //  1. diag_kernel, one CTA: the tile L[jp:jp+kT, jp:jp+kT] into shared memory
-//     as a square (row stride kT + 4, 66 KB) beside room for inverses
-//     (66 KB), factored by the recursive 2 x 2 blocking of _chol_inv_rec
-//     down to 32-wide leaves.  A leaf is one warp: 32 column steps in
-//     registers that yield L and L^-1, the column broadcast through shared
-//     memory, no block barrier inside; between leaves L21 = D21 I11^T,
-//     D22 -= L21 L21^T, T = L21 I11 and I21 = -I22 T run over all eight
-//     warps (the tile's own inverse is not needed, so its last level skips
-//     T and I21).  About twenty block barriers for 128 columns, where a
-//     column sweep takes two a column.  L_jj goes back into L.
+//     as a square (row stride kT + 4, 66 KB), factored by the recursive
+//     2 x 2 blocking of _chol_inv_rec down to 32-wide leaves, with L21 by
+//     forward substitution where _chol_inv_rec multiplies by L11^-1.  A
+//     leaf is one warp: 32 column steps in registers, the column broadcast
+//     through shared memory, no block barrier inside; between leaves
+//     L21 = D21 L11^-T (lower_solve: one thread a row) and D22 -= L21 L21^T
+//     (all eight warps).  About a dozen block barriers for 128 columns,
+//     where a column sweep takes two a column.  L_jj goes back into L.
 //  2. panel_kernel: the panel L[jp+kT:, j] = W[jp+kT:, j] L_jj^-T by blocked
 //     forward substitution against L_jj, 64 rows a CTA, in place.
 //  3. syrk_kernel<kColumn, kTriangle>: the trailing update
@@ -42,7 +41,7 @@
 // column order, so the rounding grows with 128 + N / 128 and every run gives
 // the same bits.
 // A diagonal tile with a pivot that is not > 0, or a non-finite entry of
-// L_jj or of the inverses on the way, is written as NaN whole, and the NaN
+// L_jj or of its Schur complements, is written as NaN whole, and the NaN
 // reaches every later column through the panels and the trailing updates:
 // safe_cholesky's retry sees a non-finite factor.
 // What bounds it on an H100: the N^3/3 FFMA operations of the trailing
@@ -72,8 +71,8 @@ constexpr int kT = 128;       // tile width
 constexpr int kLeaf = 32;     // leaf width of the diagonal recursion: one warp
 constexpr int kLds = kT + 4;  // diagonal tile's row stride: 16-byte rows, kLds / 4 odd
 constexpr int kDiagThreads = 256;
-// the tile, its inverse and the leaves' two 32-float column buffers
-constexpr int kDiagSmem = (2 * kT * kLds + 2 * kLeaf) * static_cast<int>(sizeof(float));
+// the tile and the leaves' two 32-float column buffers
+constexpr int kDiagSmem = (kT * kLds + 2 * kLeaf) * static_cast<int>(sizeof(float));
 
 constexpr int kPanelRows = 64;  // panel rows a CTA solves
 constexpr int kPanelThreads = 256;
@@ -120,37 +119,29 @@ __device__ __forceinline__ void cp_async_wait() {
 // The diagonal tile
 // ---------------------------------------------------------------------------
 
-// The 32 x 32 leaf at (o, o) of D, by warp 0, factored and inverted in one
-// pass of 32 column steps with no block barrier: lane r holds row r of the
-// Schur complement (a) and lane c column c of the forward substitution of
-// the identity (x), in registers.  Step k: the pivot from lane k,
-// L[r][k] = a[k] rsqrt(d) and x_k = x[k] rsqrt(d) stored to D and I, the
-// column L[:, k] broadcast through `col` (2 x 32 floats of shared memory,
-// read back as 16-byte broadcasts), then the rank-1 Schur update of a[j] and
-// the substitution step of x[j] for j > k.  Fully unrolled (no register
-// moves, the next pivot's broadcast issued as soon as it is ready) and not
-// inlined, so the four leaves of a tile share one copy of the code in the
-// instruction cache.  A pivot that is not > 0, or a non-finite entry, sets
-// *bad.
-__device__ __noinline__ void leaf(float* D, float* I, int o, float* col, int* bad) {
+// The 32 x 32 leaf at (o, o) of D, by warp 0, factored in one pass of 32
+// column steps with no block barrier: lane r holds row r of the Schur
+// complement (a) in registers.  Step k: the pivot from lane k,
+// L[r][k] = a[k] rsqrt(d) stored to D, the column L[:, k] broadcast through
+// `col` (2 x 32 floats of shared memory, read back as 16-byte broadcasts),
+// then the rank-1 Schur update of a[j] for j > k.  Fully unrolled (no
+// register moves, the next pivot's broadcast issued as soon as it is
+// ready) and not inlined, so the four leaves of a tile share one copy of
+// the code in the instruction cache.  A pivot that is not > 0, or a
+// non-finite entry, sets *bad.
+__device__ __noinline__ void leaf(float* D, int o, float* col, int* bad) {
   const int lane = threadIdx.x;
   float* drow = D + (o + lane) * kLds + o;
-  float* icol = I + o * kLds + o + lane;
-  float a[kLeaf], x[kLeaf];
+  float a[kLeaf];
 #pragma unroll
-  for (int j = 0; j < kLeaf; ++j) {
-    a[j] = j <= lane ? drow[j] : 0.f;
-    x[j] = j == lane ? 1.f : 0.f;
-  }
+  for (int j = 0; j < kLeaf; ++j) a[j] = j <= lane ? drow[j] : 0.f;
 #pragma unroll
   for (int k = 0; k < kLeaf; ++k) {
     const float d = __shfl_sync(0xffffffffu, a[k], k);  // the pivot, uniform over the warp
     const float rs = rsqrtf(d);
     const float l = lane == k ? d * rs : (lane > k ? a[k] * rs : 0.f);
-    const float xk = x[k] * rs;
-    if (!(d > 0.f && finite(d) && finite(l) && finite(xk))) *bad = 1;
+    if (!(d > 0.f && finite(d) && finite(l))) *bad = 1;
     drow[k] = l;  // zero above the diagonal
-    icol[k * kLds] = xk;
     float* cb = col + (k & 1) * kLeaf;  // two buffers: step k + 1 writes while step k's reads finish
     cb[lane] = l;
     __syncwarp();
@@ -164,10 +155,7 @@ __device__ __noinline__ void leaf(float* D, float* I, int o, float* col, int* ba
       cv[4 * q + 3] = v.w;
     }
 #pragma unroll
-    for (int j = k + 1; j < kLeaf; ++j) {
-      a[j] = fmaf(-l, cv[j], a[j]);
-      x[j] = fmaf(-cv[j], xk, x[j]);
-    }
+    for (int j = k + 1; j < kLeaf; ++j) a[j] = fmaf(-l, cv[j], a[j]);
   }
 }
 
@@ -240,48 +228,100 @@ __device__ __forceinline__ void block_store(float* C, const float (&s)[h / 16][h
   if (!ok) *bad = 1;
 }
 
-// (L, L^-1) of the S x S block at (o, o) of D, in place, L^-1 into I at
-// (o, o): the recursion of pallas_chol.py::_chol_inv_rec,
-//   L11, I11 = rec(D11);  L21 = D21 I11^T;  L22, I22 = rec(D22 - L21 L21^T);
-//   I21 = -I22 (L21 I11),
-// with T = L21 I11 kept in D's upper block D12 (never part of L).  Without
-// kInverse (the tile itself: the panel solves against L, not L^-1) the
-// block's own I21, and with it T and the second half's inverse, are
-// skipped.  Starts and ends with every thread past a block barrier.
-template <int S, bool kInverse = true>
-__device__ void chol_inv_rec(float* D, float* I, int o, float* col, int* bad) {
+// L21 = D21 L11^-T in place over the h x h block D21 at (o + h, o) of D,
+// by blocked forward substitution against L11 at (o, o), as panel_kernel
+// solves the panel: per 32-column block b, the update by the blocks
+// already solved, R_b -= X_<b L11[b, <b]^T (all 256 threads, thread
+// (ty, tx) the entries (ty + 32 a, tx + 8 c), K = 32 b in ascending
+// order), then the substitution against the 32 x 32 diagonal block, one
+// thread a row, dividing by the pivots.  _chol_inv_rec multiplies by
+// L11^-1 instead, which is not backward stable: its error grows with
+// |D21| |L11^-T|, and on an ill-conditioned tile (a 900^2 RBF Gram of
+// lengthscale 0.5 with jitter 2e-5) it broke gamma_(N+1) |L| |L^T| 70 times
+// over.  A non-finite entry sets *bad.  Starts and ends with every thread
+// past a block barrier.
+template <int h>
+__device__ void lower_solve(float* D, int o, int* bad) {
+  const float* l11 = D + o * kLds + o;
+  float* x = D + (o + h) * kLds + o;
+  const int tid = threadIdx.x;
+  const int tx = tid % 8;
+  const int ty = tid / 8;
+#pragma unroll 1
+  for (int c0 = 0; c0 < h; c0 += kLeaf) {
+    if (c0 > 0) {
+      float acc[h / 32][4];
+#pragma unroll
+      for (int a = 0; a < h / 32; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+#pragma unroll 2
+      for (int t = 0; t < c0; t += 4) {
+        float4 av[h / 32], bv[4];
+#pragma unroll
+        for (int a = 0; a < h / 32; ++a) av[a] = *reinterpret_cast<const float4*>(x + (ty + 32 * a) * kLds + t);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bv[c] = *reinterpret_cast<const float4*>(l11 + (c0 + tx + 8 * c) * kLds + t);
+#pragma unroll
+        for (int a = 0; a < h / 32; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[a][c] = fmaf(av[a].x, bv[c].x, acc[a][c]);
+            acc[a][c] = fmaf(av[a].y, bv[c].y, acc[a][c]);
+            acc[a][c] = fmaf(av[a].z, bv[c].z, acc[a][c]);
+            acc[a][c] = fmaf(av[a].w, bv[c].w, acc[a][c]);
+          }
+      }
+#pragma unroll
+      for (int a = 0; a < h / 32; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) x[(ty + 32 * a) * kLds + c0 + tx + 8 * c] -= acc[a][c];
+      __syncthreads();
+    }
+    if (tid < h) {
+      float* xr = x + tid * kLds + c0;
+      const float* lb = l11 + c0 * kLds + c0;  // the diagonal block
+      float r[kLeaf];
+#pragma unroll
+      for (int j = 0; j < kLeaf; ++j) r[j] = xr[j];
+      bool ok = true;
+#pragma unroll
+      for (int k = 0; k < kLeaf; ++k) {
+        r[k] = r[k] / lb[k * kLds + k];
+        ok = ok && finite(r[k]);
+#pragma unroll
+        for (int j = k + 1; j < kLeaf; ++j) r[j] = fmaf(-r[k], lb[j * kLds + k], r[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kLeaf; ++j) xr[j] = r[j];
+      if (!ok) *bad = 1;
+    }
+    __syncthreads();
+  }
+}
+
+// L of the S x S block at (o, o) of D, in place: the recursion of
+// pallas_chol.py::_chol_inv_rec with L21 by substitution,
+//   L11 = rec(D11);  L21 = D21 L11^-T (lower_solve);  L22 = rec(D22 - L21 L21^T),
+// so no inverse is formed.  Starts and ends with every thread past a block
+// barrier.
+template <int S>
+__device__ void chol_rec(float* D, int o, float* col, int* bad) {
   if constexpr (S == kLeaf) {
-    if (threadIdx.x < 32) leaf(D, I, o, col, bad);
+    if (threadIdx.x < 32) leaf(D, o, col, bad);
     __syncthreads();
   } else {
     constexpr int h = S / 2;
     constexpr int m = h / 16;
-    float* d11 = D + o * kLds + o;
-    float* d21 = d11 + h * kLds;
-    float* d12 = d11 + h;
+    float* d21 = D + (o + h) * kLds + o;
     float* d22 = d21 + h;
-    float* i11 = I + o * kLds + o;
-    float* i21 = i11 + h * kLds;
-    float* i22 = i21 + h;
-    chol_inv_rec<h>(D, I, o, col, bad);
+    chol_rec<h>(D, o, col, bad);
+    lower_solve<h>(D, o, bad);
     float s[m][m];
-    block_prod<h, true>(d21, i11, s);  // L21 = D21 I11^T, over D21 once all have read it
-    __syncthreads();
-    block_store<h>(d21, s, 1.f, 0.f, bad);
-    __syncthreads();
     block_prod<h, true>(d21, d21, s);  // D22 -= L21 L21^T
     block_store<h>(d22, s, -1.f, 1.f, bad);
-    if constexpr (kInverse) {
-      block_prod<h, false>(d21, i11, s);  // T = L21 I11 into D12
-      block_store<h>(d12, s, 1.f, 0.f, bad);
-    }
     __syncthreads();
-    chol_inv_rec<h, kInverse>(D, I, o + h, col, bad);
-    if constexpr (kInverse) {
-      block_prod<h, false>(i22, d12, s);  // I21 = -I22 T
-      block_store<h>(i21, s, -1.f, 0.f, bad);
-      __syncthreads();
-    }
+    chol_rec<h>(D, o + h, col, bad);
   }
 }
 
@@ -321,8 +361,8 @@ __device__ __forceinline__ void rhs_solve(const float* D, float* a, bool ok) {
 
 // Factor the diagonal tile at (jp, jp) of L (row stride n; its lower
 // triangle is read): L_jj back into L, zeros above its diagonal; NaN whole
-// if a pivot was not > 0 or an entry of L_jj, or of the inverses on the
-// way, is not finite.  The tile comes in and goes out as 16-byte pieces,
+// if a pivot was not > 0 or an entry of L_jj, or of its Schur complements,
+// is not finite.  The tile comes in and goes out as 16-byte pieces,
 // sixteen a thread in flight.  With kFused (K8): nothing once state[0] is
 // set; then alpha_j = L_jj^-1 alpha_j (rhs_solve) and state[1] = 1 if the
 // tile failed.
@@ -333,9 +373,8 @@ __global__ void __launch_bounds__(kDiagThreads) diag_kernel(float* __restrict__ 
   }
   extern __shared__ __align__(16) float smem[];
   __shared__ int bad;
-  float* D = smem;              // the tile, then L_jj (T in its upper blocks)
-  float* I = smem + kT * kLds;  // the inverses of the recursion's first halves, zero above their diagonals
-  float* col = I + kT * kLds;   // the leaves' column broadcast
+  float* D = smem;                // the tile, then L_jj (scratch in its upper blocks)
+  float* col = smem + kT * kLds;  // the leaves' column broadcast
   constexpr int kQuads = kT / 4;                       // 16-byte pieces a row
   constexpr int kPer = kT * kQuads / kDiagThreads;     // pieces a thread
   const int tid = threadIdx.x;
@@ -346,7 +385,6 @@ __global__ void __launch_bounds__(kDiagThreads) diag_kernel(float* __restrict__ 
     const int e = tid + q * kDiagThreads;
     v[q] = *reinterpret_cast<const float4*>(tile + static_cast<size_t>(e / kQuads) * n + (e % kQuads) * 4);
   }
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
   for (int q = 0; q < kPer; ++q) {
     const int e = tid + q * kDiagThreads;
@@ -355,11 +393,10 @@ __global__ void __launch_bounds__(kDiagThreads) diag_kernel(float* __restrict__ 
     const float4 w = make_float4(c <= r ? v[q].x : 0.f, c + 1 <= r ? v[q].y : 0.f, c + 2 <= r ? v[q].z : 0.f,
                                  c + 3 <= r ? v[q].w : 0.f);
     *reinterpret_cast<float4*>(D + r * kLds + c) = w;
-    *reinterpret_cast<float4*>(I + r * kLds + c) = zero;
   }
   if (tid == 0) bad = 0;
   __syncthreads();
-  chol_inv_rec<kT, false>(D, I, 0, col, &bad);
+  chol_rec<kT>(D, 0, col, &bad);
   const bool ok = bad == 0;
   const float nan = __int_as_float(0x7fc00000);
   const float4 nan4 = make_float4(nan, nan, nan, nan);

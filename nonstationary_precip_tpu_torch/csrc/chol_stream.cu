@@ -11,8 +11,9 @@
 // factorisation in place on the factor, at 128-wide tiles (the wrapper pads
 // to a multiple of the TPU kernel's 256-wide panels): per block column the
 // diagonal tile (one CTA, recursive 2 x 2 blocking in shared memory, as
-// _chol_inv_rec), the panel through L_jj^-1, and the trailing update as one
-// CTA per 128 x 128 lower tile (2016 at the first column of N = 8192).
+// _chol_inv_rec but by substitution), the panel by forward substitution
+// against L_jj, and the trailing update as one CTA per 128 x 128 lower
+// tile (2016 at the first column of N = 8192).
 // What bounds it on an H100 is the N^3/3 f32 FFMA operations of the
 // trailing updates (2.7 ms at 67 TFLOP/s), then the chain of N / 128
 // diagonal tiles; with look-ahead (factor<true>) each block column's first

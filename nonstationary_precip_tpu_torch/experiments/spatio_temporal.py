@@ -8,16 +8,20 @@ Counterpart of ``nonstationary_precip_tpu/experiments/spatio_temporal.py``:
 shared frozen k-means inducing inputs), Adam lr 0.015 × 500, RMSE
 (σ-rescaled) and per-point NLPD, then the predictive at all 215 rows of
 the five months written as ``st_<model>_means_sigmas.csv``
-(pred,std,time,lon,lat) under ``results_dir()``, with numpy.
+(pred,std,time,lon,lat) under ``results_dir()``, with numpy, and the
+5-month facet figure of the predictive mean (mm/day) as
+``st_<model>_facets.png`` (``utils/plotting.facetgrid_plot``).
 
 The k-means seed row is drawn by ``np.random.default_rng(BASE_SEED)``
 (``first_centre``), where the JAX experiment draws it from
 ``PRNGKey(BASE_SEED)``.  The JAX default of 500 inducing inputs exceeds
 the 172 training rows, so k-means repeats centres and K_zz is singular
 (``safe_cholesky``'s jitter decides); the quality band's run passes
-``--num_inducing 100``.  The JAX experiment's 5-month facet plot is not
-ported: it needs matplotlib, which the port does not use, and the JAX
-experiment carries on without it when the plot fails.
+``--num_inducing 100``.  matplotlib is imported only to draw the figure:
+where it is missing (the card's machine) the run says so once and draws
+nothing; any other failure of the figure raises, where the JAX experiment
+swallows every exception (as the production driver's plot step, ROADMAP
+§3 P1).
 
 Run: python -m nonstationary_precip_tpu_torch.experiments.spatio_temporal --model Non-Stationary [--device cuda|cpu]
 """
@@ -73,7 +77,7 @@ def run(cfg: ExperimentConfig) -> dict:
     dtype = torch.float32
     if dev.type == "cuda":  # compile K9 before the timed loop, not inside it
         gibbs_gram.build()
-    x_train, y_train, x_test, y_test, _, stdy, x_norm, _ = spatio_temporal_month_split()
+    x_train, y_train, x_test, y_test, meany, stdy, x_norm, _ = spatio_temporal_month_split()
     x_train, y_train, x_test, y_test, x_all = (torch.as_tensor(a, dtype=dtype, device=dev)
                                                for a in (x_train, y_train, x_test, y_test, x_norm))
     t_wall = time.perf_counter()
@@ -92,9 +96,27 @@ def run(cfg: ExperimentConfig) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     csv_path = out_dir / f"st_{cfg.model.lower()}_means_sigmas.csv"
     np.savetxt(csv_path, field, delimiter=",", header="pred,std,time,lon,lat", comments="", fmt="%.9g")
+    facets = facet_figure(field[:, 0] * stdy + meany, x_norm, cfg.model,
+                          out_dir / f"st_{cfg.model.lower()}_facets.png")
     print(f"train: {res.steps} steps; wall {wall_s:.2f} s on {dev}")
     return {"rmse": r, "nlpd": nl, "losses": res.losses, "steps": res.steps, "train_seconds": res.seconds,
-            "wall_seconds": wall_s, "model": res.model, "csv": csv_path}
+            "wall_seconds": wall_s, "model": res.model, "csv": csv_path, "facets": facets}
+
+
+def facet_figure(mean_f: np.ndarray, x_norm: np.ndarray, model: str, path):
+    """The 5-month facet map of the predictive mean (mm/day) at every row,
+    one panel a month (JAX ``spatio_temporal.py:118-136``), written to
+    ``path``; returns the path, or None (and says so) without matplotlib."""
+    from nonstationary_precip_tpu_torch.utils.plotting import facetgrid_plot, pyplot
+
+    if pyplot("the facet figure") is None:
+        return None
+
+    months = sorted(np.unique(x_norm[:, 0]))
+    first = x_norm[:, 0] == months[0]
+    facetgrid_plot(x_norm[first, 1], x_norm[first, 2], [mean_f[x_norm[:, 0] == t] for t in months],
+                   suptitle=f"{model} predictive mean (mm/day)", savepath=path)
+    return path
 
 
 def main(argv=None):

@@ -7,8 +7,9 @@ inducing inputs (sparse) is optimised under MLL + prior log-prob (both ÷N,
 GPyTorch convention); prediction conditions the field at new points on the
 trained one through the log-normal process's conditional mean.  The sparse
 model's MLL is Titsias's collapsed bound on the Nyström root of the Gibbs
-kernel (``models/sgpr.py``'s Woodbury algebra); its mesh-sharded loss
-(``gibbs_sparse_sharded_loss``) is not ported yet (ROADMAP queue 1 item 13).
+kernel (``models/sgpr.py``'s Woodbury algebra); ``gibbs_sparse_sharded_loss``
+is the same bound with the training rows split over the ranks of a mesh
+(``parallel/sharded_sgpr.py``).
 
 Every parameter may carry a leading split axis: a stacked model holds the K
 benchmark splits at once, and every method then works on all of them (the
@@ -440,6 +441,37 @@ def gibbs_map_loss_batched(models: GibbsExactGP, x, y, prior_pre) -> torch.Tenso
     logp = -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
     prior_term = models.prior.log_prob(x, models.log_ell, prior_pre)
     return -(logp + prior_term) / n
+
+
+def gibbs_sparse_sharded_loss(mesh):
+    """The collapsed bound of an unbatched ``GibbsSparseGP`` with its
+    training rows split over ``mesh``'s ranks: M-sized collectives only
+    (``parallel/sharded_sgpr.sharded_sgpr_loss``).  Each rank's K_xz and
+    the K_zz go through the dispatcher, so they reach K9 wherever its gate
+    admits them, as on one device.  The Titsias trace residual follows the
+    model's ``scale_correction`` as ``GibbsSparseGP.loss`` does (the Gibbs
+    prior diagonal is 1 before scaling).  The latent field's prior term
+    depends on the parameters only, so it stays outside the collectives.
+
+    Returns ``loss(model, x_shard, y_shard)``, the same on every rank."""
+    from nonstationary_precip_tpu_torch.parallel.sharded_sgpr import sharded_sgpr_loss
+
+    def root_fn(model, x_s):
+        return torch.sqrt(model.outputscale) * model._roots(x_s)[0]
+
+    def trace_fn(model, x_s, root):
+        q_scaled = torch.sum(root * root, dim=-1)
+        if model.scale_correction:
+            return model.outputscale - q_scaled  # s²·(1 − q_u)
+        return 1.0 - q_scaled / model.outputscale  # the reference's quirk: 1 − q_u
+
+    base = sharded_sgpr_loss(root_fn, trace_fn, mesh)
+
+    def loss(model, x_s, y_s):
+        n = y_s.shape[-1] * mesh.size
+        return base(model, x_s, y_s) - model.prior.log_prob(model.z, model.log_ell_z) / n
+
+    return loss
 
 
 class GibbsSparseGP(nn.Module):

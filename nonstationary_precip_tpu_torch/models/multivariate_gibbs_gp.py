@@ -13,7 +13,8 @@ Reference semantics kept from it:
 The prior's matrices (and the exact model's anchor inputs) are frozen
 leaves: parameters with ``requires_grad=False``, so ``train/optim.fit``
 leaves them alone and a ``state_dict`` carries them.  ``create`` draws H₀
-and D₀ from the caller's ``torch.Generator``.  The dense algebra is
+and D₀ from the caller's ``torch.Generator``, or takes the caller's
+standard-normal draws behind them.  The dense algebra is
 ``ops/linalg``'s ``safe_cholesky``, ``tri_solve`` and ``cho_solve``: the
 library at N = 394, K10a and K11 where N enters their 768..1280 window, as
 the JAX package's dispatch does.
@@ -53,14 +54,20 @@ def _rbf_cross(x: torch.Tensor, anchor: torch.Tensor, row_ls) -> torch.Tensor:
     return torch.exp(-0.5 * torch.maximum(d2, torch.zeros((), dtype=x.dtype, device=x.device)))
 
 
-def _draw_init(generator: torch.Generator, prior: MatrixNormalPrior):
+def _draw_init(draw, prior: MatrixNormalPrior):
     """H₀, a draw from the prior, then D₀, the diagonal matrix of two
-    standard-normal draws, in that order from ``generator``, on the
-    prior's device."""
+    standard-normal draws, in that order from ``draw``, a generator, on the
+    prior's device; or ``draw`` is those draws themselves, (Z (N, 2), d
+    (2,)), e.g. the ones the JAX package's ``create`` makes from its key."""
     dtype, dev = prior.loc.dtype, prior.loc.device
-    h0 = prior.sample(generator)
-    d0 = torch.diag(torch.randn((2,), generator=generator, dtype=dtype, device=generator.device).to(dev))
-    return h0, d0
+    if isinstance(draw, torch.Generator):
+        h0 = prior.sample(draw)
+        d = torch.randn((2,), generator=draw, dtype=dtype, device=draw.device)
+    else:
+        z, d = draw
+        h0 = prior.sample(torch.as_tensor(z, dtype=dtype, device=dev))
+        d = torch.as_tensor(d, dtype=dtype)
+    return h0, torch.diag(d.to(dev))
 
 
 class _MultivariateGibbsBase(nn.Module):

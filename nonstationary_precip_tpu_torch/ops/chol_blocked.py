@@ -20,7 +20,8 @@ for an SM's shared memory but not for L2.  So K10a is the right-looking
 factorisation of ``csrc/chol_rl.cuh``, which K5 shares, in place on the
 factor at the TPU kernel's 128-wide blocks: for each block column the
 diagonal tile in one CTA (recursive 2 × 2 blocking in shared memory down to
-32-wide leaves, one warp each, about twenty block barriers a tile), the
+32-wide leaves, one warp each, L21 by forward substitution between them,
+about a dozen block barriers a tile), the
 panel by blocked forward substitution against L_jj, and the trailing update
 on the lower 128 × 128 tiles (f32 FFMA micro-tiles over a ``cp.async``
 ring, one CTA an SM; fixed-order sums, no atomics), in turn on the caller's

@@ -31,10 +31,13 @@ factor, at 128-wide tiles; the matrix is identity-padded to a multiple of
 one C call issues these kernels, 4·N/128 − 4 launches a call (252 at
 N = 8192):
   * the diagonal tile in one CTA: the 128 × 128 tile as a square in shared
-    memory beside its inverse (132 KB), factored and inverted by
-    ``_chol_inv_rec``'s recursive 2 × 2 blocking down to 32-wide leaves,
-    each leaf one warp in registers, the products between them over all
-    eight warps: about twenty block barriers where a column sweep takes 256;
+    memory (66 KB), factored by ``_chol_inv_rec``'s recursive 2 × 2
+    blocking down to 32-wide leaves, each leaf one warp in registers,
+    between them L21 by forward substitution against L11 (where
+    ``_chol_inv_rec`` multiplies by L11⁻¹, which is not backward stable:
+    on an ill-conditioned tile it broke γ_{N+1}|L||Lᵀ| 70 times over, F-P7)
+    and the Schur update over all eight warps: about a dozen block
+    barriers where a column sweep takes 256;
   * the panel L[jp+128:, j] = W[jp+128:, j]·L_jj⁻ᵀ by blocked forward
     substitution against L_jj, one CTA per 64 rows (a product with L_jj⁻¹
     is not backward stable: on the noisy Gibbs Gram at init it broke the

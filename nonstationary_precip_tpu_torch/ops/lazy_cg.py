@@ -390,36 +390,48 @@ def make_jnp_panel_vjp(cross_fn: Callable, block: int):
         n = x.shape[0]
         blk = min(block, n)
         check_divisible(n, blk, "x", "row-panel block")
-        r = rights.shape[-1]
-        tensor_kernel = isinstance(kernel, torch.Tensor)
-        kern = kernel.detach().requires_grad_() if tensor_kernel else kernel
-        params = kernel_params(kernel)
-        kleaves = (kern,) if tensor_kernel else tuple(p for p in params if p.requires_grad)
-        xf = x.detach().requires_grad_()
-        s2 = sigma2.detach().requires_grad_()
-        leaves = kleaves + (xf, s2)
-        acc = [torch.zeros_like(t) for t in leaves]
-        rows = []
-        for i0 in range(0, n, blk):
-            sl = slice(i0, i0 + blk)
-            kbar = 0.5 * torch.outer(alpha[sl], alpha) - (0.25 / r) * (solves[sl] @ rights.T + rights[sl] @ solves.T)
-            xb = x[sl].detach().requires_grad_()
-            with torch.enable_grad():
-                panel = _panel(kern, xb, xf, s2, i0, cross_fn)
-                grads = torch.autograd.grad(panel, (xb, *leaves), grad_outputs=g * kbar, allow_unused=True)
-            grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip((xb, *leaves), grads)]
-            rows.append(grads[0])
-            acc = [a + gr for a, gr in zip(acc, grads[1:])]
-        if tensor_kernel:
-            kg = acc[0]
-        elif params:
-            live = iter(acc[:len(kleaves)])
-            kg = tuple(next(live) if p.requires_grad else None for p in params)
-        else:
-            kg = None
-        return kg, torch.cat(rows) + acc[-2], acc[-1]
+        kg, rows, cols, s2g = panel_pullback(cross_fn, kernel, x, sigma2, alpha, solves, rights, g, 0, n, blk)
+        return kg, rows + cols, s2g
 
     return panel_vjp
+
+
+def panel_pullback(cross_fn: Callable, kernel, x, sigma2, alpha, solves, rights, g, i0: int, nrows: int,
+                   blk: int):
+    """The MLL cotangent of rows [i0, i0 + nrows) of K + σ²I, pulled back
+    through ``_panel`` ``blk`` rows at a time: (kernel_grad, the rows' own x
+    gradient (nrows, D), the column side's x gradient (N, D), σ²'s
+    gradient), ``kernel_grad`` as :func:`make_jnp_panel_vjp`'s.  Over all N
+    rows the x gradient is the sum of the two; the row-sharded backward
+    (``parallel/sharded_cg.py``) takes one rank's rows."""
+    r = rights.shape[-1]
+    tensor_kernel = isinstance(kernel, torch.Tensor)
+    kern = kernel.detach().requires_grad_() if tensor_kernel else kernel
+    params = kernel_params(kernel)
+    kleaves = (kern,) if tensor_kernel else tuple(p for p in params if p.requires_grad)
+    xf = x.detach().requires_grad_()
+    s2 = sigma2.detach().requires_grad_()
+    leaves = kleaves + (xf, s2)
+    acc = [torch.zeros_like(t) for t in leaves]
+    rows = []
+    for b0 in range(i0, i0 + nrows, blk):
+        sl = slice(b0, b0 + blk)
+        kbar = 0.5 * torch.outer(alpha[sl], alpha) - (0.25 / r) * (solves[sl] @ rights.T + rights[sl] @ solves.T)
+        xb = x[sl].detach().requires_grad_()
+        with torch.enable_grad():
+            panel = _panel(kern, xb, xf, s2, b0, cross_fn)
+            grads = torch.autograd.grad(panel, (xb, *leaves), grad_outputs=g * kbar, allow_unused=True)
+        grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip((xb, *leaves), grads)]
+        rows.append(grads[0])
+        acc = [a + gr for a, gr in zip(acc, grads[1:])]
+    if tensor_kernel:
+        kg = acc[0]
+    elif params:
+        live = iter(acc[:len(kleaves)])
+        kg = tuple(next(live) if p.requires_grad else None for p in params)
+    else:
+        kg = None
+    return kg, torch.cat(rows), acc[-2], acc[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -720,10 +732,13 @@ class ChunkedMLL:
     ``chunk_iters``, with its backward (``panel_vjp``: K3, or its row
     blocks, ``ops/matvec.packed_gibbs_panel_vjp(d, row_blocks)``).
     ``iters`` holds the mBCG iterations the last call ran.  Build it with
-    :func:`make_chunked_mll`."""
+    :func:`make_chunked_mll`.  ``mll`` is the MLL it stops early:
+    :func:`lazy_cg_mll`, or the row-sharded one
+    (``parallel/sharded_cg.make_sharded_chunked_mll``)."""
 
-    def __init__(self, chunk_iters: int, n_chunks: int, **mll_kw):
+    def __init__(self, chunk_iters: int, n_chunks: int, mll: Optional[Callable] = None, **mll_kw):
         self.chunk_iters, self.n_chunks, self._kw = chunk_iters, n_chunks, mll_kw
+        self._mll = mll or lazy_cg_mll
         self.iters = 0
 
     def value_and_grad(self, kernel, x, resid, sigma2, probe_noise, pkey=None, early_stop: bool = True):
@@ -738,9 +753,9 @@ class ChunkedMLL:
         leaves = [None if t is None else t.detach().requires_grad_() for t in (kernel, x, resid, sigma2)]
         info = {}
         with torch.enable_grad():
-            val = lazy_cg_mll(leaves[0], leaves[1], leaves[2], probe_noise, leaves[3], precond_key=pkey,
-                              max_iters=self.chunk_iters * self.n_chunks,
-                              stop_every=self.chunk_iters if early_stop else 0, info=info, **self._kw)
+            val = self._mll(leaves[0], leaves[1], leaves[2], probe_noise, leaves[3], precond_key=pkey,
+                            max_iters=self.chunk_iters * self.n_chunks,
+                            stop_every=self.chunk_iters if early_stop else 0, info=info, **self._kw)
             grads = iter(torch.autograd.grad(val, [t for t in leaves if t is not None]))
         self.iters = info["iters"]
         return val.detach(), info["relres"], tuple(None if t is None else next(grads) for t in leaves)

@@ -322,7 +322,7 @@ def fit_minibatched(model, loss_fn: Callable, x, y, eps, *, num_epochs: int, bat
 
 def fit_minibatched_splits(models: Sequence[torch.nn.Module], loss_fn: Callable, xs, ys, eps, *,
                            num_epochs: int, batch_size: int, lr: float = 0.01,
-                           seeds: Optional[Sequence[int]] = None) -> TrainResult:
+                           seeds: Optional[Sequence[int]] = None, mesh=None) -> TrainResult:
     """K ``fit_minibatched`` runs in lockstep on one stacked model: the same
     per-split schedules, so the same trajectories (the gradient of the
     summed loss is each split's own, and Adam is elementwise).
@@ -331,11 +331,23 @@ def fit_minibatched_splits(models: Sequence[torch.nn.Module], loss_fn: Callable,
     per-split sequences of per-step noise tensors (T, ...), stacked here to
     (T, K, ...); ``seeds``: K schedule seeds (default range(K));
     ``loss_fn(stacked_model, eps_t, x_b, y_b)`` returns the (K,) losses.
-    Returns the stacked model and the (T, K) loss trace."""
-    from nonstationary_precip_tpu_torch.train.vmapped import stack_modules
+    Returns the stacked model and the (T, K) loss trace.
+
+    ``mesh``: split parallelism over its ranks (K % P == 0): rank r runs
+    splits [rK/P, (r+1)K/P) with their own seeds and ε, and every rank gets
+    the K stacked models and the (T, K) trace, gathered in split order; no
+    gradient crosses ranks.  ``seconds`` is this rank's."""
+    from nonstationary_precip_tpu_torch.train.vmapped import (gather_module, gather_trace, rank_splits,
+                                                              stack_modules)
 
     k = len(models)
     seeds = list(range(k)) if seeds is None else list(seeds)
+    if mesh is not None:
+        sl = rank_splits(k, mesh, "fit_minibatched_splits: ")
+        res = fit_minibatched_splits(list(models)[sl], loss_fn, list(xs)[sl], list(ys)[sl], list(eps)[sl],
+                                     num_epochs=num_epochs, batch_size=batch_size, lr=lr, seeds=seeds[sl])
+        losses = gather_trace(res.losses, mesh)
+        return res._replace(model=gather_module(res.model, mesh), losses=losses, steps=len(losses))
     x_stk, y_stk = torch.stack(list(xs)), torch.stack(list(ys))
     n = x_stk.shape[1]
     batch_idx = torch.as_tensor(

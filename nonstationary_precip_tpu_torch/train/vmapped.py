@@ -8,6 +8,11 @@ gradient of the summed loss w.r.t. split k's parameters is exactly split
 k's gradient: the batched run follows K sequential runs.  ``fit_restarts``
 trains K differently initialised models on the same data the same way and
 keeps the best.
+
+``mesh=`` (``parallel.make_mesh``) splits the K splits over the ranks of a
+process group: rank r trains and evaluates splits [rK/P, (r+1)K/P) as one
+stack of its own, and the results are gathered in split order.  Splits
+and Adam are independent, so no gradient crosses ranks.
 """
 
 from __future__ import annotations
@@ -46,18 +51,19 @@ def stack_modules(modules: Sequence[nn.Module]) -> nn.Module:
     return out
 
 
+def _map_parameters(module: nn.Module, fn: Callable) -> nn.Module:
+    """A copy of ``module`` with every parameter p replaced by fn(p), its
+    ``requires_grad`` kept."""
+    out = copy.deepcopy(module)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            _set_parameter(out, name, nn.Parameter(fn(p.detach()), requires_grad=p.requires_grad))
+    return out
+
+
 def unstack_module(module: nn.Module, k: int) -> list:
     """Inverse of ``stack_modules``: the K per-split modules."""
-    names = [(n, p.requires_grad) for n, p in module.named_parameters()]
-    out = []
-    with torch.no_grad():
-        for i in range(k):
-            m = copy.deepcopy(module)
-            for name, requires_grad in names:
-                value = module.get_parameter(name)[i].clone()
-                _set_parameter(m, name, nn.Parameter(value, requires_grad=requires_grad))
-            out.append(m)
-    return out
+    return [_map_parameters(module, lambda p, i=i: p[i].clone()) for i in range(k)]
 
 
 class Stacked:
@@ -82,6 +88,55 @@ def _stack_args(args_per_split):
     return tuple(seq.value if isinstance(seq, Stacked) else _stack_tree(seq) for seq in args_per_split)
 
 
+def rank_splits(k: int, mesh, who: str = "") -> slice:
+    """The splits [rK/P, (r+1)K/P) this rank of ``mesh`` owns; K % P ≠ 0
+    raises."""
+    if k % mesh.size:
+        raise ValueError(f"{who}{k} splits do not divide over a {mesh.size}-device mesh")
+    per = k // mesh.size
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def _slice_tree(tree, sl: slice):
+    if isinstance(tree, tuple):
+        return tuple(_slice_tree(t, sl) for t in tree)
+    return tree[sl]
+
+
+def _rank_args(args_per_split, sl: slice) -> tuple:
+    """Each per-split sequence cut to the rank's splits; a ``Stacked`` one
+    cut along its leading split axis."""
+    return tuple(Stacked(_slice_tree(a.value, sl)) if isinstance(a, Stacked) else list(a)[sl]
+                 for a in args_per_split)
+
+
+def gather_splits(tree, mesh):
+    """Each rank's split-stacked tensors (or tuples of them), concatenated
+    in rank order along the split axis; every rank gets the whole."""
+    from nonstationary_precip_tpu_torch.parallel.collectives import all_gather
+
+    if isinstance(tree, tuple):
+        return tuple(gather_splits(t, mesh) for t in tree)
+    return all_gather(tree.detach().contiguous(), mesh)
+
+
+def gather_module(module: nn.Module, mesh) -> nn.Module:
+    """The stacked module whose every parameter is the ranks' stacks
+    concatenated in rank order (the K splits from the K/P of each rank)."""
+    return _map_parameters(module, lambda p: gather_splits(p, mesh))
+
+
+def gather_trace(losses: np.ndarray, mesh) -> np.ndarray:
+    """The ranks' (T, K/P) loss traces side by side, (T, K) in split order.
+    A rank whose run stopped sooner (the NaN guard) is padded with NaN."""
+    from nonstationary_precip_tpu_torch.parallel.collectives import all_gather_object
+
+    parts = all_gather_object(np.asarray(losses), mesh)
+    t = max(len(p) for p in parts)
+    return np.concatenate([np.pad(p.astype(float), ((0, t - len(p)), (0, 0)), constant_values=np.nan)
+                           for p in parts], axis=1)
+
+
 def fit_splits(
     models: Sequence[nn.Module],
     loss_fn: Callable,
@@ -90,6 +145,7 @@ def fit_splits(
     num_steps: int = 1000,
     chunk: int = 0,
     batched_loss: Callable = None,
+    mesh=None,
 ) -> TrainResult:
     """Train K models on K datasets simultaneously.
 
@@ -99,7 +155,19 @@ def fit_splits(
     ``Stacked``.  ``batched_loss`` (same signature) overrides ``loss_fn`` with
     a hand-batched form, e.g. ``models.gibbs_gp.gibbs_map_loss_batched``.
     Returns a TrainResult whose model is the stacked module and whose losses
-    are (steps, K)."""
+    are (steps, K).
+
+    ``mesh``: split parallelism over its ranks (K % P == 0).  Every rank
+    holds all K models and arguments, trains its K/P as one stack (under
+    ``batched_loss`` too, where JAX refuses: here each rank's stack is its
+    own call, e.g. one K1 launch a step for the Gibbs slice) and returns
+    all K, gathered; ``seconds`` is this rank's."""
+    if mesh is not None:
+        sl = rank_splits(len(models), mesh)
+        res = fit_splits(list(models)[sl], loss_fn, *_rank_args(args_per_split, sl), lr=lr, num_steps=num_steps,
+                         chunk=chunk, batched_loss=batched_loss)
+        losses = gather_trace(res.losses, mesh)
+        return res._replace(model=gather_module(res.model, mesh), losses=losses, steps=len(losses))
     stacked = stack_modules(models)
     stacked_args = _stack_args(args_per_split)
     per_split = batched_loss if batched_loss is not None else loss_fn
@@ -128,11 +196,19 @@ def fit_restarts(models: Sequence[nn.Module], loss_fn: Callable, *args, lr: floa
     return unstack_module(res.model, len(models))[best], float(finals[best]), finals
 
 
-def eval_splits(models_stacked: nn.Module, eval_fn: Callable, *args_per_split):
+def eval_splits(models_stacked: nn.Module, eval_fn: Callable, *args_per_split, mesh=None):
     """Evaluate K trained splits at once, without gradients.
 
     ``eval_fn(stacked_model, *stacked_args)`` returns metric tensors with the
-    split axis first; per-split args stack as in ``fit_splits``."""
+    split axis first; per-split args stack as in ``fit_splits``.  ``mesh``:
+    each rank evaluates its K/P splits and every rank gets all K, in split
+    order (K % P == 0)."""
+    if mesh is not None:
+        k = next(models_stacked.parameters()).shape[0]
+        sl = rank_splits(k, mesh)
+        local = eval_splits(_map_parameters(models_stacked, lambda p: p[sl]), eval_fn,
+                            *_rank_args(args_per_split, sl))
+        return gather_splits(local, mesh)
     stacked_args = _stack_args(args_per_split)
     with torch.no_grad():
         return eval_fn(models_stacked, *stacked_args)

@@ -18,6 +18,21 @@ import numpy as np
 UIB_EXTENT = (71.0, 83.0, 30.0, 38.0)  # lon_min, lon_max, lat_min, lat_max
 
 
+def pyplot(what: str):
+    """``matplotlib.pyplot`` on the Agg backend, or None where matplotlib
+    does not import (the card's machine), after saying that ``what`` is
+    not drawn."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        print(f"matplotlib does not import ({e}): {what} is not drawn")
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
 def _axes(fig, extent=UIB_EXTENT):
     try:
         import cartopy.crs as ccrs

@@ -3,14 +3,17 @@
 The CUDA kernel runs only on the card (``chip_smoke.py`` holds it to float64
 there).  Here a float32 torch emulation of its blocking — right-looking at
 128-wide tiles, each diagonal tile by recursive 2 × 2 blocking down to
-32-wide leaves (a leaf: right-looking column steps, then a forward
-substitution for each column of its inverse), the panel by forward
-substitution against L_jj in 32-column blocks — is held to float64 by ``chip_smoke.py``'s own criterion on the paths'
+32-wide leaves (a leaf: right-looking column steps; between leaves L21 by
+forward substitution against L11), the panel by forward substitution
+against L_jj in 32-column blocks — is held to float64 by ``chip_smoke.py``'s own criterion on the paths'
 payloads: the factor within twice ``torch.linalg.cholesky``'s float32 error
 plus 1e-6 of the largest entry, and its backward error within
-γ_{N+1}|L||Lᵀ| (Higham, Theorem 10.3).  The recursion is held to the JAX
-package's ``pallas_chol._chol_inv_rec`` in float64 (to the float32 rounding
-of JAX's products; see that test).  A last test holds every wrapper's ctypes signature
+γ_{N+1}|L||Lᵀ| (Higham, Theorem 10.3).  On the matrix-normal demo's
+ill-conditioned 900² row covariance the backward error alone is held, and
+the product with L11⁻¹ that JAX's ``pallas_chol._chol_inv_rec`` forms in
+its place (the kernel's until F-P7) is shown to break it.  The recursion's
+factor is held to JAX's ``_chol_inv_rec`` in float64 (to the float32
+rounding of JAX's products; see that test).  A last test holds every wrapper's ctypes signature
 to the ``extern "C"`` function it calls, parsed from its ``.cu`` file.
 """
 
@@ -40,9 +43,8 @@ GIBBS_REF = Path(__file__).resolve().parent / "fixtures" / "jax_gibbs_dense_ref.
 
 
 def _leaf(d):
-    """(L, L⁻¹) of a 32 × 32 leaf as one warp computes it: right-looking
-    column steps on the lower triangle, then each column of L⁻¹ by forward
-    substitution."""
+    """L of a 32 × 32 leaf as one warp computes it: right-looking column
+    steps on the lower triangle."""
     n = d.shape[-1]
     a = torch.tril(d)
     for k in range(n):
@@ -50,24 +52,35 @@ def _leaf(d):
         a[k + 1:, k] = a[k + 1:, k] / lkk
         a[k, k] = lkk
         a[k + 1:, k + 1:] -= torch.outer(a[k + 1:, k], a[k + 1:, k])
-    l = torch.tril(a)
-    x = torch.zeros_like(l)
-    eye = torch.eye(n, dtype=d.dtype)
-    for i in range(n):
-        x[i] = (eye[i] - l[i, :i] @ x[:i]) / l[i, i]
-    return l, x
+    return torch.tril(a)
 
 
-def chol_inv_rec(d):
-    """(L, L⁻¹) of a square tile of 32·2ᵏ: ``_chol_inv_rec``'s recursion,
-    down to 32-wide leaves."""
+def chol_rec(d):
+    """L of a square tile of 32·2ᵏ: ``_chol_inv_rec``'s recursion down to
+    32-wide leaves, with L21 = D21·L11⁻ᵀ by ``panel_solve`` (the kernel's
+    ``lower_solve``) where JAX multiplies by L11⁻¹."""
     s = d.shape[-1]
     if s == LEAF:
         return _leaf(d)
     h = s // 2
-    l11, i11 = chol_inv_rec(d[:h, :h])
+    l11 = chol_rec(d[:h, :h])
+    l21 = panel_solve(d[h:, :h], l11)
+    l22 = chol_rec(d[h:, h:] - l21 @ l21.T)
+    z = torch.zeros((h, h), dtype=d.dtype)
+    return torch.cat([torch.cat([l11, z], 1), torch.cat([l21, l22], 1)])
+
+
+def _chol_inv_rec_product(d):
+    """(L, L⁻¹) by ``_chol_inv_rec``'s products with L11⁻¹, the recursion
+    the kernel had until F-P7, for the test that shows its fault."""
+    s = d.shape[-1]
+    if s == LEAF:
+        l = _leaf(d)
+        return l, torch.linalg.solve_triangular(l, torch.eye(s, dtype=d.dtype), upper=False)
+    h = s // 2
+    l11, i11 = _chol_inv_rec_product(d[:h, :h])
     l21 = d[h:, :h] @ i11.T
-    l22, i22 = chol_inv_rec(d[h:, h:] - l21 @ l21.T)
+    l22, i22 = _chol_inv_rec_product(d[h:, h:] - l21 @ l21.T)
     z = torch.zeros((h, h), dtype=d.dtype)
     l = torch.cat([torch.cat([l11, z], 1), torch.cat([l21, l22], 1)])
     li = torch.cat([torch.cat([i11, z], 1), torch.cat([-(i22 @ (l21 @ i11)), i22], 1)])
@@ -86,19 +99,17 @@ def panel_solve(w, ljj):
     return x
 
 
-def rl_cholesky(mat):
+def rl_cholesky(mat, tile=chol_rec):
     """The kernel's blocking in torch ops: the matrix identity-padded to a
-    multiple of 128, then per block column the diagonal tile by
-    ``chol_inv_rec`` (NaN whole if a pivot is not > 0 or an entry not
-    finite), the panel W·L_jj⁻ᵀ by ``panel_solve`` and the trailing update
-    W −= P·Pᵀ."""
+    multiple of 128, then per block column the diagonal tile by ``tile``
+    (NaN whole if a pivot is not > 0 or an entry not finite), the panel
+    W·L_jj⁻ᵀ by ``panel_solve`` and the trailing update W −= P·Pᵀ."""
     n = mat.shape[-1]
     w = torch.tril(chol_stream.padded(mat, TILE))
     for jp in range(0, w.shape[-1], TILE):
         d = w[jp:jp + TILE, jp:jp + TILE]
-        ljj, linv = chol_inv_rec(d.clone())
-        if not (bool(torch.isfinite(ljj).all() and torch.isfinite(linv).all())
-                and bool((torch.diagonal(ljj) > 0).all())):
+        ljj = tile(d.clone())
+        if not (bool(torch.isfinite(ljj).all()) and bool((torch.diagonal(ljj) > 0).all())):
             ljj = torch.full_like(ljj, float("nan"))
         w[jp:jp + TILE, jp:jp + TILE] = ljj
         p = panel_solve(w[jp + TILE:, jp:jp + TILE], ljj)
@@ -149,6 +160,42 @@ def test_emulated_blocking_meets_the_float64_criterion(payload):
     assert ratio <= 1.0, ratio
 
 
+def _matrix_normal_row_cov(jitter):
+    """The matrix-normal demo's 900² row covariance (RBF of lengthscale 0.5
+    on a 30 × 30 grid of [−2, 2]²) with ``jitter`` on its diagonal: κ₂
+    4.3e8 at the prior's 1e-5, 7.3e6 at 2e-5, the first retry of
+    ``safe_cholesky``'s ladder, which K10a took on the card."""
+    from nonstationary_precip_tpu_torch.examples.mv_gibbs_demo import grid
+    from nonstationary_precip_tpu_torch.priors.matrix_normal import latent_rbf_row_cov
+
+    _, _, xg = grid(-2.0, 2.0)
+    u = latent_rbf_row_cov(torch.tensor(xg, dtype=torch.float32), [0.5, 0.5])
+    return u + jitter * torch.eye(u.shape[0])
+
+
+@pytest.mark.parametrize("jitter", [1e-5, 2e-5])
+def test_emulated_blocking_is_backward_stable_on_an_ill_conditioned_tile(jitter):
+    """F-P7: on the matrix-normal demo's row covariance the factor's
+    backward error is within γ_{N+1}|L||Lᵀ| (here ~0.016 of it); the
+    product with L11⁻¹ that the diagonal tile formed before (JAX's
+    ``_chol_inv_rec``) fails the factor at 1e-5, where potrf succeeds, and
+    at 2e-5 breaks the bound 60 times over (the card's K10a: 70.6)."""
+    a = _matrix_normal_row_cov(jitter)
+    a64 = torch.tril(a.double()) + torch.tril(a.double(), -1).T
+    n = a.shape[-1]
+    gamma = (n + 1) * 2.0**-24 / (1 - (n + 1) * 2.0**-24)
+
+    def ratio(l):
+        lk = l.double()
+        return float(((lk @ lk.T - a64).abs() / (gamma * (lk.abs() @ lk.abs().T))).max())
+
+    l = rl_cholesky(a)
+    assert bool(torch.isfinite(l).all()) and ratio(l) <= 1.0, ratio(l)
+    assert bool(torch.isfinite(torch.linalg.cholesky(a)).all())
+    old = rl_cholesky(a, tile=lambda d: _chol_inv_rec_product(d)[0])
+    assert not bool(torch.isfinite(old).all()) or ratio(old) > 1.0
+
+
 def test_tile_widths_are_the_kernels():
     """The emulation's tile and leaf are the kernel's, and the wrappers pad
     to a multiple of the tile (K5 to the TPU kernel's 256, K10a to 128)."""
@@ -172,17 +219,20 @@ def test_recursion_matches_jax_chol_inv_rec_float64():
     base, three above the kernel's 32-wide leaves).  The JAX recursion asks
     its products for float32 (``preferred_element_type``) and returns
     float32, so it agrees with the float64 factor to float32 rounding
-    (3.4e-7 of the largest entry); the emulation is exact to float64
-    rounding, so the two agree to JAX's rounding."""
+    (3.4e-7 of the largest entry); the emulations are exact to float64
+    rounding, so they agree to JAX's rounding: the kernel's recursion
+    (``chol_rec``, which forms no inverse) in L, the product form it
+    replaced in L and L⁻¹."""
     rng = np.random.default_rng(9)
     b = rng.normal(size=(256, 256))
     d = b @ b.T / 256 + np.eye(256)
     rl, rli = (np.asarray(t, dtype=np.float64) for t in pc._chol_inv_rec(jnp.asarray(d)))
-    l, li = (t.numpy() for t in chol_inv_rec(torch.tensor(d)))
+    l, li = (t.numpy() for t in _chol_inv_rec_product(torch.tensor(d)))
+    lk = chol_rec(torch.tensor(d)).numpy()
     l64 = np.linalg.cholesky(d)
     li64 = np.linalg.inv(l64)
-    assert l.dtype == np.float64
-    for got, jax_, ref in ((l, rl, l64), (li, rli, li64)):
+    assert l.dtype == np.float64 and lk.dtype == np.float64
+    for got, jax_, ref in ((lk, rl, l64), (l, rl, l64), (li, rli, li64)):
         scale = np.abs(ref).max()
         assert np.abs(got - ref).max() <= 1e-13 * scale
         assert np.abs(got - jax_).max() <= 1e-6 * scale

@@ -6,7 +6,7 @@ to float64 on the card.  The replay follows the kernel's steps in torch:
 each attempt builds the lower 128-blocks of s²K + (σ² + extra)I into the
 padded L (the diagonal s² + (σ² + extra) in closed form, the padded rows
 and columns the identity); then per block column the diagonal tile by
-``chol_inv_rec`` (``test_torch_chol_rl.py``'s emulation of the header's
+``chol_rec`` (``test_torch_chol_rl.py``'s emulation of the header's
 recursion), NaN whole if it fails, which sets the failure flag; α_j
 forward-substituted against L_jj column by column, one division and one
 fused multiply-add a row a step (``rhs_solve``); the panel X = W·L_jj⁻ᵀ by
@@ -34,7 +34,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import nonstationary_precip_tpu.ops.pallas_fused as pf
 from chip_smoke import K8_FLOOR, chol_bound_ratio
-from test_torch_chol_rl import TILE, chol_inv_rec, panel_solve
+from test_torch_chol_rl import TILE, chol_rec, panel_solve
 from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
 from nonstationary_precip_tpu_torch.ops import gibbs_fused
 from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC
@@ -96,8 +96,8 @@ def attempt(w, a):
     failed = False
     for jp in range(0, w.shape[0], TILE):
         t = slice(jp, jp + TILE)
-        ljj, linv = chol_inv_rec(torch.tril(w[t, t]).clone())
-        ok = bool(torch.isfinite(ljj).all() and torch.isfinite(linv).all() and (torch.diagonal(ljj) > 0).all())
+        ljj = chol_rec(torch.tril(w[t, t]).clone())
+        ok = bool(torch.isfinite(ljj).all() and (torch.diagonal(ljj) > 0).all())
         if not ok:
             ljj = torch.full_like(ljj, float("nan"))
             failed = True

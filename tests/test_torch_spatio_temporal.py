@@ -189,6 +189,7 @@ def test_entry_points_run_on_the_cpu_and_default_to_the_card(name, tmp_path, mon
         assert field.shape == (215, 5) and np.isfinite(field).all()
         with open(tmp_path / f"st_{model}_means_sigmas.csv") as fh:
             assert fh.readline().strip() == "pred,std,time,lon,lat"
+        assert (tmp_path / f"st_{model}_facets.png").stat().st_size > 0
     if module is spatiotemporal_dgp:
         assert np.load(tmp_path / "results_st_dgp_mean.npy").shape == (43,)
     if not torch.cuda.is_available():
