@@ -314,27 +314,31 @@ one JSON line each:
                   defaults with their asserts: K9 in gibbs_spatial, K4 and
                   K7 in deepgp, K6 in lazy_largen, counted;
 48. parallel    — ``parallel/`` on a world-1 NCCL group this script starts
-                  from a FileStore in a temporary directory (one card:
-                  multi-GPU runs are unverified), the nine paths of JAX's
-                  ``dryrun_multichip``, each held to the one-device path
-                  (bit for bit where the computation is the same):
-                  data-parallel DSVI at bench.py's shapes for 3 Adam steps
-                  (K4 and K7 once each way a step); the sharded sparse
-                  Gibbs bound on the slice's 316 rows at M = 250, both
-                  scale_corrections, in float64 within PAR_SPARSE_F64 of
-                  one device's and in float32 as near float64 as one
-                  device's (K9 as on one device); the
-                  sharded marginals over the 394 sites; the 1-D and the 2-D
-                  (1 × 1) sharded Cholesky at 8192² and 4096², block 256, by
-                  K5's criteria beside potrf, timed; fit_splits(mesh=) on
-                  the 10-split slice for 50 steps and eval_splits(mesh=),
-                  bit for bit (K1 and K9 once a step); at the gate's trained
-                  pose (N = 16384, rank 150, 16 iterations) sharded_cg_mll
-                  with packed_gibbs_local_matvec(2) against lazy_cg_mll (K2
-                  once an iteration, no K3), the default path at N = 4096
-                  (no kernel), make_sharded_chunked_mll against it, and the
-                  sharded posterior state and a 512-point query with the
-                  Nyström factor (rank 1024, shift 10) against the lazy ones;
+                  from a FileStore in a temporary directory (one card;
+                  ``--world P`` runs the same ``w_*`` functions on P
+                  cards), the nine paths of JAX's ``dryrun_multichip``, each
+                  also run without a mesh in float32 and float64 and held
+                  by ``hold_path``: data-parallel DSVI at bench.py's shapes
+                  for 3 Adam steps (K4 and K7 once each way a step), the
+                  sharded marginals over the 394 sites (K9),
+                  fit_splits(mesh=) on 8 splits of the slice for 50 steps
+                  and eval_splits(mesh=) (K1 and K9 once a step), and at the
+                  gate's trained pose (N = 16384, rank 150, 16 iterations)
+                  sharded_cg_mll with packed_gibbs_local_matvec(2) (K2 once
+                  an iteration, no K3), its default path at N = 4096 (no
+                  kernel), make_sharded_chunked_mll and the sharded
+                  posterior state and a 512-point query with the Nyström
+                  factor (rank 1024, shift 10), each bit for bit one
+                  device's; the row-sharded SGPR by JAX's dryrun criterion;
+                  the sharded sparse Gibbs bound on the slice's 316 rows at
+                  M = 250, both scale_corrections (K9), in float32 as near
+                  float64 as one device's; the sparse bound and the CG paths
+                  also in float64, within PAR_SPARSE_F64 and PAR_CG_F64 of
+                  one device's float64; the 1-D and the 2-D (1 × 1) sharded
+                  Cholesky at 8192² and 4096², block 256, by K5's criteria
+                  beside potrf, timed, and both on F-P8's ill-conditioned
+                  1024² input (``fp8_input``) at jitters 1e-4 and 2e-5 by the
+                  same criteria;
 49. k2_rows     — K2 on the four (N/4, N) row blocks of N = 16384 (each
                   rank's product in a 4-card run) against its plain version
                   and float64, their concatenation against the whole launch
@@ -365,7 +369,36 @@ with the registers, spills and shared memory of each of their kernels, K1's
 and K4's with their cluster size) and the result line.  Needs a CUDA card and nvcc; imports no
 JAX.
 
-Run from the repository root: python3 chip_smoke.py [--steps N]
+With ``--world P`` the script runs ``parallel/`` on P cards of one host
+instead, one NCCL rank a card (``parallel.launch.start``; P = 1 rehearses
+the multi-card run on one card), and raises where the host has fewer than P
+cards.  It builds every kernel once in this process, makes the gate's
+trained pose on card 0, then each rank (``world_rank``) drives, at JAX's
+P-scaled ``dryrun_multichip`` sizes (WORLD_SPLITS, WORLD_SGPR_ROWS): DP
+DSVI (B = 315 a shard, M = 250, S = 3, 3 steps; K4, K7), the row-sharded
+SGPR, the sharded sparse Gibbs bound (K9), the sharded marginals (K9), the
+1-D sharded Cholesky at 8192² and the 2-D one at 4096² on a (P/2, 2) mesh,
+each also on F-P8's input, fit_splits/eval_splits(mesh=) on 8 splits (K1,
+K9), at the gate's pose the sharded CG MLL, its default path, its chunked
+entry and the Nyström state and query (K2 on each rank's (N/P, N) row
+block), the sparse bound and the CG paths also in float64, one mBCG
+iteration's K2 and NCCL all_gather timed (the tiled wrapper and
+``all_gather_into_tensor``), and the two parallel quickstarts at their
+defaults (K4, K7; K2 with --gibbs).  This process then runs each path's
+one-device counterpart on card 0 in float32 and float64 and holds every
+rank (``hold_path``): each float32 result the same on every rank and
+within WORLD_GAP times the one-device float32 gap to float64, each float64
+run within PAR_SPARSE_F64 or PAR_CG_F64 of one device's float64; each
+Cholesky by K5's criteria on rank 0; every rank's launches
+(``world_launches``).  Beside fit_splits, ``fit_splits_batch_probe``
+reports which batched op makes P ranks part from one card.  Lines: device, build,
+gate_pose, a ``parallel`` line a path (per-rank launches, errors, seconds
+at P beside one card's), ``parallel_examples``, ``kernels`` (every rank's
+launches), nvidia-smi's line, the result line.  A rank that fails ends
+the run with its log and a non-zero exit; every rank is killed past
+WORLD_DEADLINE.
+
+Run from the repository root: python3 chip_smoke.py [--steps N] [--world P]
 """
 
 from __future__ import annotations
@@ -3674,11 +3707,6 @@ def _chunked_loss(rule: str, fused: bool, f64: bool = False):
                                  **budget)
 
 
-def _rel(a, b) -> float:
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
-
-
 def phase_chunked_ref(quickstart, dev):
     """The chunked surface against the pinned JAX runs (CHUNKED_REF) at the
     quickstart's N = 384 and at 2048: the step-0 loss and gradients of
@@ -4191,19 +4219,29 @@ def phase_quickstarts(dev_name: str):
 
 PAR_DGP_STEPS = 3  # Adam steps of the data-parallel DSVI check at bench.py's shapes
 PAR_DGP = (315, 250, 3)  # B, M, S (bench.py:22-26; 2 hidden layers of width 2)
-PAR_FIT_STEPS = 50  # fit_splits(mesh=) on the 10-split Gibbs slice
+PAR_FIT_STEPS = 50  # fit_splits(mesh=) on WORLD_SPLITS splits of the Gibbs slice
 PAR_CHOL_N, PAR_CHOL2D_N, PAR_BLOCK = 8192, 4096, 256
+#: F-P8's input (``fp8_input``): N and the jitters at which the product form
+#: JAX's panel takes broke γ_{N+1}|L||Lᵀ| 481 and 2775 times over on the
+#: CPU (tests/test_torch_parallel.py), where potrf factors both
+PAR_FP8_N, PAR_FP8_JITTERS = 1024, (1e-4, 2e-5)
 PAR_CG_ITERS, PAR_CG_RANK = 16, 150  # the large-N gate's budget and rank
 PAR_DEFAULT_N = 4096  # the default (materialised row block) path, counted for no kernel
 PAR_NYSTROM = (1024, 10.0)  # rank, shift: serve --chunked's flagship factor
 PAR_QUERY = 512
-#: the sparse Gibbs bound, the one sharded path that is not the one-device
-#: algebra: the float32 floor beside twice one device's float32 error, and
-#: float64 against one device's float64 (relative to the largest entry; the
-#: gradients' bounds are tests/test_torch_sparse_gp.py's float64 ones at
-#: this size, where z's gradient loses ~9 digits to M = 250's conditioning)
+#: the float32 floor of ``_gap``: PAR_SPARSE_F32_FLOOR of the result's scale
+#: beside the multiple of one device's own float32 gap to float64
 PAR_SPARSE_F32_FLOOR = 1e-5
+#: the sparse Gibbs bound's float64 run on the group against one device's
+#: float64, relative to each leaf's largest entry (the gradients' bounds are
+#: tests/test_torch_sparse_gp.py's float64 ones at this size, where z's
+#: gradient loses ~9 digits to M = 250's conditioning)
 PAR_SPARSE_F64 = {"loss": 1e-10, "z": 1e-4, "log_ell_z": 1e-5}
+#: the sharded CG paths' float64 run against one device's float64, relative
+#: to each leaf's largest entry: tests/test_torch_sharded_cg.py's bound for
+#: the port at P ranks against itself at P = 1, where the only difference is
+#: the BLAS blocking of an (N/P, N) row block against the whole
+PAR_CG_F64 = 1e-9
 #: the demos' launches: the mv_gibbs demo's two 900² factors take 5 + 1
 #: tries of safe_cholesky's ladder (its latent prior's Gram is indefinite
 #: in float32 until a jitter of 1e-3), the matrix-normal one's two (U, in
@@ -4230,71 +4268,22 @@ def world1(dev):
             dist.destroy_process_group()
 
 
+def fp8_input(jitter: float) -> torch.Tensor:
+    """F-P8's ill-conditioned input, float32 on the CPU: the H prior's RBF
+    row covariance (ℓ 0.5, ``priors/matrix_normal.latent_rbf_row_cov``) on
+    a 32 × 32 grid of [−2, 2]² (N = PAR_FP8_N) plus ``jitter``·I."""
+    from nonstationary_precip_tpu_torch.priors.matrix_normal import latent_rbf_row_cov
+
+    g = np.linspace(-2.0, 2.0, 32)
+    gx, gy = np.meshgrid(g, g)
+    u = latent_rbf_row_cov(torch.tensor(np.stack([gx.ravel(), gy.ravel()], 1), dtype=torch.float32), [0.5, 0.5])
+    return u + jitter * torch.eye(u.shape[0])
+
+
 def _rel(a, b) -> float:
     """max |a − b| over max |b|, in float64."""
     a, b = torch.as_tensor(a).detach().double(), torch.as_tensor(b).detach().double()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
-
-
-def _same(pairs) -> bool:
-    return all(torch.equal(torch.as_tensor(a), torch.as_tensor(b)) for a, b in pairs)
-
-
-def _held(what: str, vals, grads) -> dict:
-    """Values and gradients of a sharded path bit for bit the single-device
-    path's (at world 1 the collectives are copies), with the relative gaps
-    reported."""
-    vals, grads = list(vals), list(grads)
-    gv = max(_rel(a, b) for a, b in vals)
-    gg = max((_rel(a, b) for a, b in grads), default=0.0)
-    check(_same([*vals, *grads]), f"{what}: bit for bit one device's (gaps {gv:.3g}, {gg:.3g})")
-    return {"value_rel": gv, "grad_rel": gg, "bitwise": True}
-
-
-def _par_dp(mesh, dev) -> tuple:
-    """Data-parallel DSVI at bench.py's shapes: PAR_DGP_STEPS Adam steps of
-    ``dp_value_and_grad`` against the same steps of the one-device loss,
-    from one init and one ε; K4 once and K7 once each way a step."""
-    from nonstationary_precip_tpu_torch.experiments.deepgp_spatial import draw_eps
-    from nonstationary_precip_tpu_torch.models.deep_gp import DeepGP
-    from nonstationary_precip_tpu_torch.parallel import dp_value_and_grad
-
-    b, m, s = PAR_DGP
-    rng = np.random.default_rng(11)
-    x = torch.tensor(rng.standard_normal((b * mesh.size, 2)), dtype=torch.float32, device=dev)
-    y = torch.sin(x[:, 0])
-    stack = draw_eps(rng, (mesh.size, PAR_DGP_STEPS, s), 2, b)  # per layer (P, T, S, O, B)
-
-    def loss_fn(mdl, xb, yb, e):
-        return mdl.loss(xb, yb, num_data=b * mesh.size, eps=e)
-
-    def train(dp: bool):
-        model = DeepGP.create(torch.Generator().manual_seed(5), input_dims=2, num_layers=2, num_inducing=m, device=dev)
-        params = [p for p in model.parameters() if p.requires_grad]
-        opt = torch.optim.Adam(params, lr=0.01, betas=(0.9, 0.999), eps=1e-8)
-        vag = dp_value_and_grad(loss_fn, mesh)
-        losses = []
-        for t in range(PAR_DGP_STEPS):
-            e = [torch.tensor(layer[mesh.rank, t], device=dev) for layer in stack]
-            if dp:
-                loss, grads = vag(model, mesh.rows(x), mesh.rows(y), e)
-            else:
-                loss = loss_fn(model, x, y, e)
-                grads = torch.autograd.grad(loss, params)
-            for p, g in zip(params, grads):
-                p.grad = g
-            opt.step()
-            losses.append(loss.detach())
-        return torch.stack(losses), [p.detach() for p in params]
-
-    reset_launches()
-    got = train(True)
-    torch.cuda.synchronize()
-    t = PAR_DGP_STEPS
-    launches = check_launches({"svgp_precompute": t, "elbo_data_term_fwd": t, "elbo_data_term_bwd": t}, "parallel dp")
-    ref = train(False)
-    held = _held("parallel dp", [(got[0], ref[0])], list(zip(got[1], ref[1])))
-    return {"shape": {"B": b, "M": m, "S": s, "steps": t}, "losses": got[0].tolist(), **held}, launches
 
 
 def _slice_data(spatial_gibbs, argv, dev):
@@ -4307,265 +4296,50 @@ def _slice_data(spatial_gibbs, argv, dev):
     return cfg, x_norm, (y - y.mean()) / y.std(ddof=1)
 
 
-def _par_gibbs_sparse(spatial_gibbs, mesh, dev) -> tuple:
-    """``gibbs_sparse_sharded_loss`` on split 0's 316 rows at M = 250, both
-    ``scale_correction``s, against ``GibbsSparseGP.loss``.  In float64 (no
-    K9: its gate takes float32) the sharded value and every trainable
-    gradient within PAR_SPARSE_F64 of one device's.  In float32 each
-    within twice the one-device float32 error from float64 (+
-    PAR_SPARSE_F32_FLOOR of the largest entry): the Woodbury algebra at M =
-    250 is ill-conditioned in float32 (``sparse_ref`` holds the slice's z
-    gradients within 5e-2 of float64), so the two float32 orders differ by
-    more than rounding.  K9 as many times as one device's, K_xz and K_zz
-    each."""
-    from nonstationary_precip_tpu_torch.models.gibbs_gp import gibbs_sparse_sharded_loss
-
-    cfg, x_norm, y_norm = _slice_data(spatial_gibbs, ["--inference", "sparse"], dev)
-    model, (x_tr, y_tr, _, _) = spatial_gibbs.make_split(x_norm, y_norm, 0, cfg, torch.float32, dev)
-    m64 = copy.deepcopy(model).double()
-    params = [p for p in model.parameters() if p.requires_grad]
-    p64 = [p for p in m64.parameters() if p.requires_grad]
-    out, k9 = {}, 0
-    for sc in (False, True):
-        model.scale_correction = m64.scale_correction = sc
-        reset_launches()
-        loss = gibbs_sparse_sharded_loss(mesh)(model, mesh.rows(x_tr), mesh.rows(y_tr))
-        grads = torch.autograd.grad(loss, params)
-        torch.cuda.synchronize()
-        sharded = launch_counts()["gibbs_gram"]
-        reset_launches()
-        loss1 = model.loss(x_tr, y_tr)
-        grads1 = torch.autograd.grad(loss1, params)
-        torch.cuda.synchronize()
-        check_launches({"gibbs_gram": sharded}, f"parallel gibbs_sparse {sc}: one device's K9")
-        check(sharded >= 2, f"parallel gibbs_sparse {sc}: K_xz and K_zz through K9 ({sharded})")
-        x64, y64 = x_tr.double(), y_tr.double()
-        loss64 = m64.loss(x64, y64)
-        grads64 = torch.autograd.grad(loss64, p64)
-        sh64 = gibbs_sparse_sharded_loss(mesh)(m64, mesh.rows(x64), mesh.rows(y64))
-        shg64 = torch.autograd.grad(sh64, p64)
-        names = ["loss", *(n for n, p in model.named_parameters() if p.requires_grad)]
-        rows = {}
-        for name, a, b, r, a64 in zip(names, (loss, *grads), (loss1, *grads1), (loss64, *grads64),
-                                      (sh64, *shg64)):
-            e_sh, e_1, e64 = _rel(a, r), _rel(b, r), _rel(a64, r)
-            check(e64 <= PAR_SPARSE_F64[name],
-                  f"parallel gibbs_sparse {sc} {name}: float64 {e64:.3g} within {PAR_SPARSE_F64[name]} of one device's")
-            check(e_sh <= 2 * e_1 + PAR_SPARSE_F32_FLOOR,
-                  f"parallel gibbs_sparse {sc} {name}: float64 gap {e_sh:.3g} within 2x one device's {e_1:.3g}")
-            rows[name] = {"sharded_vs_f64": e_sh, "one_device_vs_f64": e_1, "sharded_vs_one": _rel(a, b),
-                          "sharded_f64_vs_one_f64": e64}
-        out[f"scale_correction_{sc}"] = {"loss": float(loss.detach()), "k9": sharded, "errors": rows}
-        k9 += sharded
-    return out, {"gibbs_gram": k9}
-
-
-def _par_marginals(spatial_gibbs, mesh, dev) -> tuple:
-    """``sharded_marginals`` of split 0's exact Gibbs model at its init pose
-    over the 394 sites, against its predictive: the same K9 launches."""
-    from nonstationary_precip_tpu_torch.parallel import sharded_marginals
-
-    cfg, x_norm, y_norm = _slice_data(spatial_gibbs, [], dev)
-    model, (x_tr, y_tr, _, _) = spatial_gibbs.make_split(x_norm, y_norm, 0, cfg, torch.float32, dev)
-    x_all = torch.as_tensor(x_norm, dtype=torch.float32, device=dev)
-
-    def predict_fn(m, xs):
-        post = m.predictive(x_tr, y_tr, xs)
-        return post.mean, post.var
-
-    with torch.no_grad():
-        reset_launches()
-        mean, var = sharded_marginals(predict_fn, mesh)(model, x_all)
-        torch.cuda.synchronize()
-        k9 = launch_counts()["gibbs_gram"]
-        reset_launches()
-        ref = model.predictive(x_tr, y_tr, x_all)
-        torch.cuda.synchronize()
-        check_launches({"gibbs_gram": k9}, "parallel marginals: one device's K9")
-    held = _held("parallel marginals", [(mean, ref.mean), (var, ref.var)], [])
-    return {"sites": int(x_all.shape[0]), "k9": k9, **held}, {"gibbs_gram": k9}
-
-
-def _par_chol(mesh, dev) -> dict:
-    """The 1-D sharded Cholesky at PAR_CHOL_N² and the 2-D one on a 1 × 1
-    mesh at PAR_CHOL2D_N², block PAR_BLOCK, on r·rᵀ/128 + 2I (the JAX
-    dryrun's payload), each by K5's criteria (``chol_errors``: float64 and
-    the backward-error ratio) beside ``torch.linalg.cholesky``, with times."""
-    from nonstationary_precip_tpu_torch.parallel import make_mesh_2d, sharded_cholesky, sharded_cholesky_2d, tile
-
-    gen = torch.Generator().manual_seed(43)
-    out = {}
-    mesh2 = make_mesh_2d(1, 1)
-    for name, n, fn in (("sharded_cholesky", PAR_CHOL_N, lambda a: sharded_cholesky(mesh, PAR_BLOCK)(mesh.rows(a))),
-                        ("sharded_cholesky_2d", PAR_CHOL2D_N,
-                         lambda a: sharded_cholesky_2d(mesh2, PAR_BLOCK)(tile(mesh2, a)))):
-        r = torch.randn(n, 128, generator=gen).to(dev)
-        a = r @ r.T / 128 + 2.0 * torch.eye(n, device=dev)
-        reset_launches()
-        errs = chol_errors(name, fn, a, {})
-        check_launches({}, f"parallel {name}: no kernel (the library's Cholesky and GEMMs, as JAX's)")
-        ms = statistics.median(block_times_ms(lambda: fn(a), 10))
-        lib = statistics.median(block_times_ms(lambda: torch.linalg.cholesky(a), 10))
-        out[name] = {"n": n, "block": PAR_BLOCK, "ms": ms, "library_ms": lib, **errs}
-        del r, a
-    return out
-
-
-def _par_fit_splits(spatial_gibbs, mesh, dev) -> tuple:
-    """``fit_splits(mesh=)`` on the 10-split Gibbs slice for PAR_FIT_STEPS
-    steps, bit for bit the mesh-free run (K1 and K9 once a step), then
-    ``eval_splits(mesh=)`` bit for bit (K9 twice)."""
-    from nonstationary_precip_tpu_torch.models.gibbs_gp import gibbs_map_loss_batched
-    from nonstationary_precip_tpu_torch.train.vmapped import Stacked, eval_splits, fit_splits
-
-    cfg, x_norm, y_norm = _slice_data(spatial_gibbs, [], dev)
-    stdy = torch.tensor(1.0, device=dev)
-
-    def fit(mesh_or_none):
-        splits = [spatial_gibbs.make_split(x_norm, y_norm, s, cfg, torch.float32, dev) for s in range(10)]
-        x_tr, y_tr, x_te, y_te = (list(c) for c in zip(*[s[1] for s in splits]))
-        pre = spatial_gibbs.build_prior(cfg, torch.float32, dev).gram_pre(torch.stack(x_tr))
-        reset_launches()
-        res = fit_splits([s[0] for s in splits], lambda m, a, b, p: m.loss(a, b, p), x_tr, y_tr, Stacked(pre),
-                         lr=cfg.lr, num_steps=PAR_FIT_STEPS, chunk=PAR_FIT_STEPS,
-                         batched_loss=gibbs_map_loss_batched, mesh=mesh_or_none)
-        torch.cuda.synchronize()
-        fit_launches = launch_counts()
-        reset_launches()
-        metrics = eval_splits(res.model, spatial_gibbs._eval_one(stdy), x_tr, y_tr, x_te, y_te, mesh=mesh_or_none)
-        torch.cuda.synchronize()
-        return res, metrics, fit_launches, launch_counts()
-
-    res, metrics, fit_l, eval_l = fit(mesh)
-    want = {"chol_inv_batched": PAR_FIT_STEPS, "gibbs_gram": PAR_FIT_STEPS}
-    check(fit_l == {k: want.get(k, 0) for k in fit_l}, f"parallel fit_splits: launches {_nonzero(fit_l)} == {want}")
-    check(eval_l == {k: 2 if k == "gibbs_gram" else 0 for k in eval_l},
-          f"parallel eval_splits: launches {_nonzero(eval_l)} == K9 2")
-    ref, ref_metrics, _, _ = fit(None)
-    check(np.array_equal(res.losses, ref.losses) and _same([(res.model.log_ell, ref.model.log_ell)])
-          and _same(list(zip(metrics, ref_metrics))), "parallel fit_splits/eval_splits: bit for bit the mesh-free run")
-    return ({"steps": PAR_FIT_STEPS, "splits": 10, "bitwise": True, "loss_first": res.losses[0].tolist(),
-             "loss_last": res.losses[-1].tolist(), "rmse": metrics[0].tolist()},
-            {"chol_inv_batched": PAR_FIT_STEPS, "gibbs_gram": PAR_FIT_STEPS + 2})
-
-
-def _gate_pose(gibbs_largen, largen_out, dev):
-    """(aug, y, σ², probe draws) of the large-N gate at its trained pose: the
-    packed payload [x, log ℓ], the unscaled Gram (the JAX builder's) with
-    the trained noise."""
-    cfg = gibbs_largen.LargeNConfig(n=LARGEN_N, device="cuda")
-    x, y = (t.to(dev) for t in gibbs_largen._data(LARGEN_N))
+def gate_spec(largen_out) -> dict:
+    """The large-N gate's trained pose in the form a spawned rank receives
+    (``_world_pose`` makes the paths' tensors from it): log ℓ per point and
+    log σ²."""
     p = largen_out["params"]
-    aug = torch.cat([x, torch.as_tensor(p["log_ell_pp"], device=dev)], dim=1)
-    s2 = torch.exp(torch.as_tensor(p["log_noise"], device=dev))
-    noise = tuple(torch.as_tensor(a, device=dev) for a in gibbs_largen.probe_draws(cfg.seed, PAR_CG_RANK, LARGEN_N))
-    return aug, y, s2, noise
+    return {"gate": {"log_ell_pp": np.asarray(torch.as_tensor(p["log_ell_pp"]).cpu(), np.float32),
+                     "log_noise": float(torch.as_tensor(p["log_noise"]))}}
 
 
-def _par_sharded_cg(gibbs_largen, largen_out, mesh, dev) -> tuple:
-    """At the gate's pose, N = LARGEN_N, rank PAR_CG_RANK, PAR_CG_ITERS
-    iterations: ``sharded_cg_mll`` with ``packed_gibbs_local_matvec(2)``
-    (K2 once an iteration, no K3) against ``lazy_cg_mll`` through K2 on the
-    same probes and factor; the default path at PAR_DEFAULT_N (no kernel);
-    ``make_sharded_chunked_mll`` against the sharded MLL; the sharded
-    posterior state and query with the Nyström factor (rank, shift
-    PAR_NYSTROM) against ``lazy_posterior_state`` / ``_query``."""
-    from nonstationary_precip_tpu_torch.kernels.gibbs import packed_gibbs_cross
-    from nonstationary_precip_tpu_torch.ops import matvec
-    from nonstationary_precip_tpu_torch.ops.lazy_cg import lazy_cg_mll, lazy_posterior_query, lazy_posterior_state
-    from nonstationary_precip_tpu_torch.parallel import (make_sharded_chunked_mll, sharded_cg_mll,
-                                                         sharded_posterior_query, sharded_posterior_state)
-    from nonstationary_precip_tpu_torch.parallel.sharded_cg import packed_gibbs_local_matvec
-
-    aug0, y0, s20, noise = _gate_pose(gibbs_largen, largen_out, dev)
-    cross, local, whole = packed_gibbs_cross(2), packed_gibbs_local_matvec(2), matvec.packed_gibbs_matvec_builder(2)
-    kw = dict(max_iters=PAR_CG_ITERS, tol=1e-6, precond_rank=PAR_CG_RANK, cross_fn=cross)
-    leaves = lambda: [t.detach().clone().requires_grad_() for t in (aug0, y0, s20)]  # noqa: E731
-    out, k2 = {}, 0
-
-    aug, y, s2 = leaves()
-    info = {}
-    reset_launches()
-    t0 = time.perf_counter()
-    val = sharded_cg_mll(None, aug, y, noise, s2, mesh, local_matvec_builder=local, info=info, **kw)
-    grads = torch.autograd.grad(val, [aug, y, s2])
-    torch.cuda.synchronize()
-    mll_s = time.perf_counter() - t0
-    check_launches({"gibbs_matvec": info["iters"]}, "parallel sharded_cg_mll: K2 once an iteration, no K3")
-    check(info["iters"] == PAR_CG_ITERS, f"sharded_cg_mll ran {info['iters']} iterations")
-    k2 += info["iters"]
-    a1, y1, s21 = leaves()
-    val1 = lazy_cg_mll(None, a1, y1, noise, s21, block=LARGEN_N, matvec_builder=whole, **kw)
-    grads1 = torch.autograd.grad(val1, [a1, y1, s21])
-    out["mll"] = {"n": LARGEN_N, "rank": PAR_CG_RANK, "iters": info["iters"], "value": float(val.detach()),
-                  "relres": info["relres"].tolist(), "seconds": mll_s,
-                  **_held("parallel sharded_cg_mll", [(val, val1)], zip(grads, grads1))}
-
-    n = PAR_DEFAULT_N
-    ad, yd, sd = (t.detach().clone().requires_grad_() for t in (aug0[:n], y0[:n], s20))
-    reset_launches()
-    vd = sharded_cg_mll(None, ad, yd, (noise[0], noise[1][:n]), sd, mesh, **kw)
-    torch.autograd.grad(vd, [ad, yd, sd])
-    torch.cuda.synchronize()
-    check_launches({}, "parallel sharded_cg_mll default path: neither K2 nor K9 (JAX's plain cross_fn row block)")
-    out["default_path"] = {"n": n, "value": float(vd)}
-
-    chunked = make_sharded_chunked_mll(mesh, PAR_CG_ITERS // 2, 2, 1e-6, PAR_CG_RANK, "pivchol", 1.0, cross, local)
-    aug, y, s2 = leaves()
-    reset_launches()
-    cv, crr, cg = chunked.value_and_grad(None, aug, y, s2, noise)
-    torch.cuda.synchronize()
-    check_launches({"gibbs_matvec": chunked.iters}, "parallel make_sharded_chunked_mll: K2 once an iteration")
-    k2 += chunked.iters
-    out["chunked"] = {"iters": chunked.iters, "value": float(cv),
-                      **_held("parallel make_sharded_chunked_mll", [(cv, val)], zip([cg[1], cg[2], cg[3]], grads))}
-
-    rank, shift = PAR_NYSTROM
-    gen = torch.Generator().manual_seed(47)
-    xt = torch.cat([6 * torch.rand(PAR_QUERY, 2, generator=gen) - 3, torch.zeros(PAR_QUERY, 2)], dim=1).to(dev)
-    xt[:, 2:] = aug0[:, 2:].mean(0)
-    skw = dict(max_iters=32, tol=1e-8, precond_rank=rank, precond="nystrom", precond_shift=shift, cross_fn=cross)
-    qkw = dict(max_iters=16, tol=1e-6, precond_shift=shift, cross_fn=cross, return_info=True)
-    reset_launches()
-    st = sharded_posterior_state(None, aug0, y0, s20, mesh, local_matvec_builder=local, **skw)
-    mean, cov, qinfo = sharded_posterior_query(st, xt, mesh, local_matvec_builder=local, **qkw)
-    torch.cuda.synchronize()
-    want = st.iters + qinfo["iters"] * -(-PAR_QUERY // matvec.MAX_R)
-    check_launches({"gibbs_matvec": want}, "parallel sharded posterior state and query: K2 once a column block")
-    k2 += want
-    st1 = lazy_posterior_state(None, aug0, y0, s20, block=LARGEN_N, matvec_builder=whole, **skw)
-    mean1, cov1, qinfo1 = lazy_posterior_query(st1, xt, block=LARGEN_N, matvec_builder=whole, **qkw)
-    check(not bool(qinfo["broke"]) and float(qinfo["relres_max"]) <= GATE_RELRES,
-          f"sharded query converged: relres_max {float(qinfo['relres_max']):.3g}")
-    out["posterior"] = {"rank": rank, "shift": shift, "state_iters": st.iters, "query_iters": qinfo["iters"],
-                        "alpha_relres": float(st.alpha_relres), "relres_max": float(qinfo["relres_max"]),
-                        **_held("parallel sharded posterior", [(st.alpha, st1.alpha), (mean, mean1), (cov, cov1)],
-                                [])}
-    return out, {"gibbs_matvec": k2}
-
-
-def phase_parallel(spatial_gibbs, gibbs_largen, largen_out, dev, dev_name: str) -> dict:
+def phase_parallel(largen_out, dev, dev_name: str) -> dict:
     """The nine paths of JAX's ``__graft_entry__.dryrun_multichip`` at world
-    1 on NCCL (one card; multi-GPU runs are unverified), each held to the
-    port's one-device counterpart: bit for bit where the computation is the
-    same (``_held``), else as ``_par_gibbs_sparse`` and ``_par_chol`` say.
-    Returns the main-path launches by kernel."""
+    1 on NCCL (one card; ``--world P`` runs the same ``w_*`` functions on P
+    cards): each path on the group, its launches held to
+    ``world_launches``, then without a mesh on the card in float32 and in
+    float64 (WORLD_F64_ON_CARD, else the CPU), the sparse bound and the CG
+    paths also in float64 on the group, all held by ``hold_path``: at
+    world 1 every collective is a copy, so the paths of WORLD1_BITWISE are
+    one device's bit for bit.  Returns the main-path launches by kernel."""
+    f32, f64 = torch.float32, torch.float64
+    spec = gate_spec(largen_out)
     totals, rows = {}, {}
     t_all = time.perf_counter()
     with world1(dev) as mesh:
         want = "nccl" if dev.type == "cuda" else "gloo"
         check(mesh.backend == want and mesh.size == 1, f"world 1 on {want}: {mesh.backend}, {mesh.size}")
-        for name, run in (("dp", lambda: _par_dp(mesh, dev)),
-                          ("gibbs_sparse", lambda: _par_gibbs_sparse(spatial_gibbs, mesh, dev)),
-                          ("marginals", lambda: _par_marginals(spatial_gibbs, mesh, dev)),
-                          ("cholesky", lambda: (_par_chol(mesh, dev), {})),
-                          ("fit_splits", lambda: _par_fit_splits(spatial_gibbs, mesh, dev)),
-                          ("sharded_cg", lambda: _par_sharded_cg(gibbs_largen, largen_out, mesh, dev))):
+        for name in WORLD_PATHS:
+            torch.cuda.synchronize()
+            reset_launches()
             t0 = time.perf_counter()
-            rows[name], launches = run()
-            rows[name]["seconds"] = time.perf_counter() - t0
-            for k, v in launches.items():
+            res = w_cholesky(mesh) if name == "cholesky" else WORLD_RUNS[name](mesh, 1, dev, f32, spec)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = check_launches(world_launches(name, 1, {"results": {name: res}}), f"parallel {name}")
+            for k, v in got.items():
                 totals[k] = totals.get(k, 0) + v
+            if name == "cholesky":
+                rows[name] = {"seconds": seconds, **res}
+                continue
+            run = WORLD_RUNS[name]
+            one = _tree_cpu(run(None, 1, dev, f32, spec))
+            ref = _tree_cpu(run(None, 1, world_f64_device(name, dev), f64, spec))
+            ranks64 = [_tree_cpu(run(mesh, 1, dev, f64, spec))] if name in WORLD_F64_ON_CARD else None
+            rows[name] = {"seconds": seconds,
+                          **hold_path(f"parallel {name}", name, 1, [_tree_cpu(res)], one, ref, ranks64)}
     emit("parallel", world=1, backend=want, rows=rows, launches=_nonzero(totals),
          seconds=time.perf_counter() - t_all, device=dev_name)
     return totals
@@ -4730,13 +4504,775 @@ def phase_parallel_examples(dev, dev_name: str) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# parallel/ on P cards over NCCL (--world P)
+# ---------------------------------------------------------------------------
+
+#: ``--world P``: JAX's ``dryrun_multichip`` sizes at P devices
+#: (``__graft_entry__.py:93, 140, 177, 206-213, 229, 259``), each at the
+#: world-1 phase's size where that divides over P.  Cut to JAX's P-scaled
+#: size: ``fit_splits`` takes WORLD_SPLITS splits (the slice's 10 do not
+#: divide over 4; ``train/vmapped.py`` raises where K % P ≠ 0, as JAX's
+#: does).  Kept: the 394 marginal sites (``sharded_marginals`` pads them to a
+#: multiple of P, as JAX's 5P + 3 test points are padded) and the sparse
+#: bound's 316 rows (316 = 4 · 79).  The row-sharded SGPR, which the world-1
+#: phase leaves to the CPU tests, runs at JAX's 128·P rows (z every 16th).
+WORLD_SPLITS = 8
+WORLD_SGPR_ROWS = 128
+WORLD_DEADLINE = 900.0  # seconds the P ranks may take in all (parallel.launch's deadline)
+#: A float32 result of P ranks against the float64 one-device path: within
+#: WORLD_GAP times the float32 one-device path's own gap to float64, plus
+#: PAR_SPARSE_F32_FLOOR of the result's scale (``_gap``, ``_gap_scales``).  P
+#: ranks sum in another order than one card, so the two float32 results are
+#: two roundings of one computation, each about one float32 gap from
+#: float64; the ratio of the two gaps spreads (1.6 on one leaf of DP DSVI's
+#: gradient at P = 2 on the CPU, and CG and 50 Adam steps amplify rounding),
+#: so 4 leaves room for it, while a lost shard or a gradient counted P times
+#: (an error of 1/P of the value or more) still fails by orders of magnitude.
+WORLD_GAP = 4
+#: at world 1 the float32 results differ from one device's only where the
+#: sharded algebra is not the one-device one (the SGPR and sparse Gibbs
+#: bounds' per-shard terms): twice one device's gap, as two roundings of
+#: one computation
+WORLD1_GAP = 2
+#: the paths whose world-1 run is one device's bit for bit (every
+#: collective a copy, the same operations in the same order)
+WORLD1_BITWISE = ("dp", "marginals", "fit_splits", "sharded_cg")
+#: where each path's float64 counterpart runs: K1, K4 and K7 take float32
+#: only and raise on a float64 CUDA tensor, so their paths' float64 runs on
+#: the CPU (plain versions); the sparse bound and the CG paths run theirs on
+#: the card through the plain Gram and row blocks (K9's and K2's gates take
+#: float32 only), on the ranks too, where each is held to one device's
+#: float64 (PAR_SPARSE_F64, PAR_CG_F64)
+WORLD_F64_ON_CARD = ("gibbs_sparse", "sharded_cg")
+WORLD_PATHS = ("dp", "sgpr", "gibbs_sparse", "marginals", "cholesky", "fit_splits", "sharded_cg")
+#: the paths run once untimed and uncounted on each rank, and on card 0
+#: before its one-device run, so that no path's seconds hold a first call
+WORLD_WARM = ("dp", "sgpr", "gibbs_sparse", "marginals", "fit_splits", "sharded_cg")
+WORLD_QUICKSTARTS = ("dataparallel", "sharded_largen", "sharded_largen_gibbs")
+
+
+def _tree_cpu(t):
+    """A nested result with every tensor moved to the CPU in float64 (exact
+    for float32), so it crosses ``torch.save`` small and compares anywhere."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", torch.float64)
+    if isinstance(t, dict):
+        return {k: _tree_cpu(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [_tree_cpu(v) for v in t]
+    return t
+
+
+def _tensor_leaves(tree, prefix: str = "") -> list:
+    """[(dotted name, tensor)] of a nested result; other leaves skipped."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items() for leaf in _tensor_leaves(v, f"{prefix}.{k}" if prefix else str(k))]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, v in enumerate(tree) for leaf in _tensor_leaves(v, f"{prefix}[{i}]")]
+    return []
+
+
+def _world_sync(mesh):
+    """Every rank's card idle and every rank here: the edge of a timed window."""
+    import torch.distributed as dist
+
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+        dist.barrier(group=mesh.group, device_ids=[mesh.device.index])
+    else:
+        dist.barrier(group=mesh.group)
+
+
+def w_dp(mesh, p: int, dev, dtype, spec=None) -> dict:
+    """Data-parallel DSVI at bench.py's shapes, B = PAR_DGP[0] a shard:
+    PAR_DGP_STEPS Adam steps of ``dp_value_and_grad`` on P ranks, or (mesh
+    None) of the mean of the P shard losses on one device, from one init
+    and one ε stack: the first step's loss and gradients, and the loss
+    trace (``trace``, reported, not held: a dozen of the deep GP's
+    gradients are zero to rounding at init, 1e-17 in float64 and exactly 0
+    in float32 or not, and Adam's first step normalises each to ±lr, so
+    the traces of two roundings part by ~1e-3 from step 1 on)."""
+    from nonstationary_precip_tpu_torch.experiments.deepgp_spatial import draw_eps
+    from nonstationary_precip_tpu_torch.models.deep_gp import DeepGP
+    from nonstationary_precip_tpu_torch.parallel import dp_value_and_grad
+
+    b, m, s = PAR_DGP
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.standard_normal((b * p, 2)), dtype=torch.float32).to(dev, dtype)
+    y = torch.sin(x[:, 0])
+    stack = draw_eps(rng, (p, PAR_DGP_STEPS, s), 2, b)  # per layer (P, T, S, O, B)
+    model = DeepGP.create(torch.Generator().manual_seed(5), input_dims=2, num_layers=2, num_inducing=m).to(dev, dtype)
+    params = [q for q in model.parameters() if q.requires_grad]
+    opt = torch.optim.Adam(params, lr=0.01, betas=(0.9, 0.999), eps=1e-8)
+
+    def loss_fn(mdl, xb, yb, e):
+        return mdl.loss(xb, yb, num_data=b * p, eps=e)
+
+    vag = dp_value_and_grad(loss_fn, mesh) if mesh is not None else None
+    losses, grads0 = [], None
+    for t in range(PAR_DGP_STEPS):
+        def eps(r):
+            return [torch.tensor(layer[r, t]).to(dev, dtype) for layer in stack]
+
+        if mesh is not None:
+            loss, grads = vag(model, mesh.rows(x), mesh.rows(y), eps(mesh.rank))
+        else:
+            loss = sum(loss_fn(model, x[r * b:(r + 1) * b], y[r * b:(r + 1) * b], eps(r)) for r in range(p)) / p
+            grads = torch.autograd.grad(loss, params)
+        grads0 = grads0 if grads0 is not None else [g.detach().clone() for g in grads]
+        for q, g in zip(params, grads):
+            q.grad = g
+        opt.step()
+        losses.append(loss.detach())
+    return {"loss0": losses[0], "grads0": grads0, "trace": torch.stack(losses)}
+
+
+def w_sgpr(mesh, p: int, dev, dtype, spec=None) -> dict:
+    """The row-sharded SGPR bound (``sharded_sgpr_value_and_grad``) at
+    JAX's dryrun size, WORLD_SGPR_ROWS·P rows, z every 16th row, against
+    ``SGPR.loss`` on one device: value and every gradient."""
+    from nonstationary_precip_tpu_torch.kernels.base import Scale
+    from nonstationary_precip_tpu_torch.kernels.inducing import nystrom_root
+    from nonstationary_precip_tpu_torch.kernels.stationary import RBF
+    from nonstationary_precip_tpu_torch.models.sgpr import SGPR
+    from nonstationary_precip_tpu_torch.parallel import sharded_sgpr_value_and_grad
+
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.normal(size=(WORLD_SGPR_ROWS * p, 2)), dtype=torch.float32).to(dev, dtype)
+    y = torch.sin(x[:, 0])
+    kern = Scale.create(RBF.create(2, lengthscale=1.1), outputscale=0.8)
+    model = SGPR.create(kern, x[::16].float().cpu(), noise=0.1).to(dev, dtype)
+    params = [q for q in model.parameters() if q.requires_grad]
+
+    def root_fn(mdl, x_s):
+        return nystrom_root(mdl.kernel(x_s, mdl.z), mdl.kernel(mdl.z))[0]
+
+    def trace_fn(mdl, x_s, root):
+        return mdl.kernel.diag(x_s) - torch.sum(root * root, dim=-1)
+
+    if mesh is not None:
+        loss, grads = sharded_sgpr_value_and_grad(root_fn, trace_fn, mesh)(model, mesh.rows(x), mesh.rows(y))
+    else:
+        loss = model.loss(x, y)
+        grads = torch.autograd.grad(loss, params)
+    return {"loss": loss.detach(), "grads": list(grads)}
+
+
+def w_gibbs_sparse(mesh, p: int, dev, dtype, spec=None) -> dict:
+    """``gibbs_sparse_sharded_loss`` on split 0's 316 rows at M = 250, both
+    ``scale_correction``s, or ``GibbsSparseGP.loss`` on one device: value
+    and every trainable gradient by name (K9: K_xz and K_zz, in float32)."""
+    from nonstationary_precip_tpu_torch.experiments import spatial_gibbs
+    from nonstationary_precip_tpu_torch.models.gibbs_gp import gibbs_sparse_sharded_loss
+
+    cfg, x_norm, y_norm = _slice_data(spatial_gibbs, ["--inference", "sparse"], dev)
+    model, (x_tr, y_tr, _, _) = spatial_gibbs.make_split(x_norm, y_norm, 0, cfg, torch.float32, dev)
+    model, x_tr, y_tr = model.to(dtype), x_tr.to(dtype), y_tr.to(dtype)
+    named = [(n, q) for n, q in model.named_parameters() if q.requires_grad]
+    out = {}
+    for sc in (False, True):
+        model.scale_correction = sc
+        if mesh is not None:
+            loss = gibbs_sparse_sharded_loss(mesh)(model, mesh.rows(x_tr), mesh.rows(y_tr))
+        else:
+            loss = model.loss(x_tr, y_tr)
+        grads = torch.autograd.grad(loss, [q for _, q in named])
+        out[f"scale_correction_{sc}"] = {"loss": loss.detach(), "grads": {n: g for (n, _), g in zip(named, grads)}}
+    out["shape"] = [x_tr.shape[0] // (mesh.size if mesh is not None else 1), model.z.shape[-2]]  # rows a rank, M
+    return out
+
+
+def w_marginals(mesh, p: int, dev, dtype, spec=None) -> dict:
+    """``sharded_marginals`` of split 0's exact Gibbs model at its init pose
+    over the 394 sites (padded to a multiple of P), or its predictive on
+    one device (K9)."""
+    from nonstationary_precip_tpu_torch.experiments import spatial_gibbs
+    from nonstationary_precip_tpu_torch.parallel import sharded_marginals
+
+    cfg, x_norm, y_norm = _slice_data(spatial_gibbs, [], dev)
+    model, (x_tr, y_tr, _, _) = spatial_gibbs.make_split(x_norm, y_norm, 0, cfg, torch.float32, dev)
+    model, x_tr, y_tr = model.to(dtype), x_tr.to(dtype), y_tr.to(dtype)
+    x_all = torch.as_tensor(x_norm, dtype=torch.float32).to(dev, dtype)
+
+    def predict_fn(mdl, xs):
+        post = mdl.predictive(x_tr, y_tr, xs)
+        return post.mean, post.var
+
+    with torch.no_grad():
+        mean, var = (sharded_marginals(predict_fn, mesh)(model, x_all) if mesh is not None
+                     else predict_fn(model, x_all))
+    return {"mean": mean, "var": var, "shape": [-(-x_all.shape[0] // p) if mesh is not None else x_all.shape[0],
+                                                x_tr.shape[0]]}  # test rows a rank, training rows
+
+
+def w_fit_splits(mesh, p: int, dev, dtype, spec=None, splits=range(WORLD_SPLITS)) -> dict:
+    """``fit_splits(mesh=)`` on the Gibbs slice's ``splits`` (WORLD_SPLITS)
+    for PAR_FIT_STEPS steps and ``eval_splits(mesh=)`` (K1 and K9 once a
+    step on each rank's K/P splits, K9 twice in the evaluation), or both
+    without a mesh: the loss trace, the trained lengthscales, RMSE and
+    NLPD."""
+    from nonstationary_precip_tpu_torch.experiments import spatial_gibbs
+    from nonstationary_precip_tpu_torch.models.gibbs_gp import gibbs_map_loss_batched
+    from nonstationary_precip_tpu_torch.train.vmapped import Stacked, eval_splits, fit_splits
+
+    cfg, x_norm, y_norm = _slice_data(spatial_gibbs, [], dev)
+    splits = [spatial_gibbs.make_split(x_norm, y_norm, s, cfg, torch.float32, dev) for s in splits]
+    models = [s[0].to(dtype) for s in splits]
+    x_tr, y_tr, x_te, y_te = ([t.to(dtype) for t in c] for c in zip(*[s[1] for s in splits]))
+    pre = spatial_gibbs.build_prior(cfg, dtype, dev).gram_pre(torch.stack(x_tr))
+    res = fit_splits(models, lambda m, a, b, q: m.loss(a, b, q), x_tr, y_tr, Stacked(pre), lr=cfg.lr,
+                     num_steps=PAR_FIT_STEPS, chunk=PAR_FIT_STEPS, batched_loss=gibbs_map_loss_batched, mesh=mesh)
+    rmse, nlpd = eval_splits(res.model, spatial_gibbs._eval_one(torch.tensor(1.0, dtype=dtype, device=dev)), x_tr,
+                             y_tr, x_te, y_te, mesh=mesh)
+    return {"losses": torch.as_tensor(np.asarray(res.losses)), "log_ell": res.model.log_ell.detach(), "rmse": rmse,
+            "nlpd": nlpd}
+
+
+def _world_pose(spec: dict, dev, dtype):
+    """(aug, y, σ², probe draws) of the large-N gate at its trained pose
+    (``gate_spec``) in ``dtype``: the packed payload [x, log ℓ], the
+    unscaled Gram (the JAX builder's) with the trained noise."""
+    from nonstationary_precip_tpu_torch.experiments import gibbs_largen
+
+    cfg = gibbs_largen.LargeNConfig(n=LARGEN_N, device="cuda")
+    x, y = (t.to(dev) for t in gibbs_largen._data(LARGEN_N))
+    aug = torch.cat([x, torch.as_tensor(spec["gate"]["log_ell_pp"], device=dev)], dim=1)
+    s2 = torch.exp(torch.as_tensor(spec["gate"]["log_noise"], device=dev))
+    noise = tuple(torch.as_tensor(a, device=dev) for a in gibbs_largen.probe_draws(cfg.seed, PAR_CG_RANK, LARGEN_N))
+    return aug.to(dtype), y.to(dtype), s2.to(dtype), tuple(t.to(dtype) for t in noise)
+
+
+def w_sharded_cg(mesh, p: int, dev, dtype, spec: dict) -> dict:
+    """At the gate's trained pose (N = LARGEN_N, rank PAR_CG_RANK,
+    PAR_CG_ITERS iterations): the MLL and its x, y and σ² gradients through
+    ``sharded_cg_mll`` with ``packed_gibbs_local_matvec(2)`` (K2 on each
+    rank's (N/P, N) row block) or ``lazy_cg_mll`` through K2 on one device;
+    the default path at PAR_DEFAULT_N (materialised row blocks, no kernel);
+    ``make_sharded_chunked_mll`` (P ranks only; held to the one-device MLL);
+    the posterior state with the Nyström factor (rank, shift PAR_NYSTROM)
+    and a PAR_QUERY-point query.  float64 runs the plain row blocks
+    (``lazy_cg``'s default builder, 2048 rows a block on one device).  The
+    default path on one device takes the ranks' (N/P)-row panels, so that
+    at world 1 it is the sharded one's bit for bit."""
+    from nonstationary_precip_tpu_torch.kernels.gibbs import packed_gibbs_cross
+    from nonstationary_precip_tpu_torch.ops import matvec
+    from nonstationary_precip_tpu_torch.ops.lazy_cg import lazy_cg_mll, lazy_posterior_query, lazy_posterior_state
+    from nonstationary_precip_tpu_torch.parallel import (make_sharded_chunked_mll, sharded_cg_mll,
+                                                         sharded_posterior_query, sharded_posterior_state)
+    from nonstationary_precip_tpu_torch.parallel.sharded_cg import packed_gibbs_local_matvec
+
+    aug0, y0, s20, noise = _world_pose(spec, dev, dtype)
+    n = aug0.shape[0]
+    cross = packed_gibbs_cross(2)
+    local, whole, block = ((packed_gibbs_local_matvec(2), matvec.packed_gibbs_matvec_builder(2), n)
+                           if dtype == torch.float32 else (None, None, min(n, 2048)))
+    kw = dict(max_iters=PAR_CG_ITERS, tol=1e-6, precond_rank=PAR_CG_RANK, cross_fn=cross)
+    out = {}
+
+    def mll(aug, y, s2, nz, builder: bool, info):
+        if mesh is not None:
+            return sharded_cg_mll(None, aug, y, nz, s2, mesh, local_matvec_builder=local if builder else None,
+                                  info=info, **kw)
+        return lazy_cg_mll(None, aug, y, nz, s2, block=block if builder else aug.shape[0] // p,
+                           matvec_builder=whole if builder else None, info=info, **kw)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (aug0, y0, s20)]
+    info = {}
+    val = mll(*leaves, noise, True, info)
+    out["mll"] = {"value": val.detach(), "grads": list(torch.autograd.grad(val, leaves))}
+    out["iters"] = {"mll": info["iters"]}
+
+    nd = min(PAR_DEFAULT_N, n)
+    leaves = [t.detach().clone().requires_grad_() for t in (aug0[:nd], y0[:nd], s20)]
+    vd = mll(*leaves, (noise[0], noise[1][:nd]), False, {})
+    out["default_path"] = {"value": vd.detach(), "grads": list(torch.autograd.grad(vd, leaves))}
+
+    if mesh is not None:
+        chunked = make_sharded_chunked_mll(mesh, PAR_CG_ITERS // 2, 2, 1e-6, PAR_CG_RANK, "pivchol", 1.0, cross,
+                                           local)
+        cv, _, cg = chunked.value_and_grad(None, aug0, y0, s20, noise)
+        out["chunked"] = {"value": cv.detach(), "grads": [cg[1], cg[2], cg[3]]}
+        out["iters"]["chunked"] = chunked.iters
+
+    rank, shift = PAR_NYSTROM
+    gen = torch.Generator().manual_seed(47)
+    xt = torch.cat([6 * torch.rand(PAR_QUERY, 2, generator=gen) - 3, torch.zeros(PAR_QUERY, 2)], dim=1).to(dev, dtype)
+    xt[:, 2:] = aug0[:, 2:].mean(0)
+    skw = dict(max_iters=32, tol=1e-8, precond_rank=rank, precond="nystrom", precond_shift=shift, cross_fn=cross)
+    qkw = dict(max_iters=16, tol=1e-6, precond_shift=shift, cross_fn=cross, return_info=True)
+    if mesh is not None:
+        st = sharded_posterior_state(None, aug0, y0, s20, mesh, local_matvec_builder=local, **skw)
+        mean, cov, qinfo = sharded_posterior_query(st, xt, mesh, local_matvec_builder=local, **qkw)
+    else:
+        st = lazy_posterior_state(None, aug0, y0, s20, block=block, matvec_builder=whole, **skw)
+        mean, cov, qinfo = lazy_posterior_query(st, xt, block=block, matvec_builder=whole, **qkw)
+    out["posterior"] = {"alpha": st.alpha, "mean": mean, "cov": cov}
+    out["iters"].update(state=st.iters, query=qinfo["iters"])
+    out["query"] = {"broke": bool(qinfo["broke"]), "relres_max": float(qinfo["relres_max"]),
+                    "alpha_relres": float(st.alpha_relres)}
+    return out
+
+
+def w_comm(mesh, spec: dict) -> dict:
+    """One mBCG iteration's two parts on each rank at the gate's pose, timed
+    on rank 0 with CUDA events after a barrier: K2 on the rank's (N/P, N)
+    row block at R = 9 (the gate's 1 + 8 columns) and the tiled
+    ``collectives.all_gather`` of its (N/P, 9) product, the iteration's only
+    collective, beside NCCL's single-buffer ``all_gather_into_tensor`` of
+    the same product (what the wrapper's list form and concatenation
+    cost)."""
+    import torch.distributed as dist
+
+    from nonstationary_precip_tpu_torch.parallel.collectives import all_gather
+    from nonstationary_precip_tpu_torch.parallel.sharded_cg import packed_gibbs_local_matvec
+
+    aug, _, s2, _ = _world_pose(spec, mesh.device, torch.float32)
+    mv = packed_gibbs_local_matvec(2)(None, mesh.rows(aug), aug, s2, mesh)
+    v = torch.randn(aug.shape[0], 9, generator=torch.Generator().manual_seed(53)).to(mesh.device)
+    _world_sync(mesh)
+    k2 = block_times_ms(lambda: mv(v), N_TIMED_GRAM)
+    part = mv(v)
+    _world_sync(mesh)
+    gather = block_times_ms(lambda: all_gather(part, mesh), N_TIMED)
+    flat = torch.empty(mesh.size * part.shape[0], part.shape[1], device=mesh.device)
+    _world_sync(mesh)
+    into = block_times_ms(lambda: dist.all_gather_into_tensor(flat, part, group=mesh.group), N_TIMED)
+    check(torch.equal(flat, all_gather(part, mesh)), "all_gather_into_tensor: the tiled all_gather's result")
+    return {"rows": int(part.shape[0]), "n": int(aug.shape[0]), "r": 9, "k2_ms": statistics.median(k2),
+            "all_gather_ms": statistics.median(gather), "all_gather_into_tensor_ms": statistics.median(into),
+            "all_gather_bytes": 4 * aug.shape[0] * 9}
+
+
+def w_cholesky(mesh) -> dict:
+    """The 1-D sharded Cholesky at PAR_CHOL_N² and the 2-D one at
+    PAR_CHOL2D_N² on JAX's (P/2, 2) mesh (``__graft_entry__.py:211``; 1 × 1
+    at P = 1), block PAR_BLOCK, on the dryrun's r·rᵀ/128 + 2I, and both on
+    F-P8's input (``fp8_input``) at PAR_FP8_N.  Each factor gathered whole
+    and held on rank 0 by K5's criteria (``chol_errors``); each timed on
+    every rank at once (rank 0's CUDA events) beside one card's
+    ``torch.linalg.cholesky`` of the whole matrix."""
+    from nonstationary_precip_tpu_torch.parallel import make_mesh_2d, sharded_cholesky, sharded_cholesky_2d, tile
+    from nonstationary_precip_tpu_torch.parallel.collectives import all_gather
+
+    dev, p = mesh.device, mesh.size
+    grid = (p // 2, 2) if p % 2 == 0 else (p, 1)
+    mesh2 = make_mesh_2d(*grid)
+    row_axis, col_axis = mesh2.axis
+
+    def one_d(a):
+        local = mesh.rows(a).contiguous()
+        fn = sharded_cholesky(mesh, PAR_BLOCK)
+        return (lambda: fn(local)), (lambda l: all_gather(l, mesh))
+
+    def two_d(a):
+        local = tile(mesh2, a).contiguous()
+        fn = sharded_cholesky_2d(mesh2, PAR_BLOCK)
+        return (lambda: fn(local)), (lambda l: all_gather(all_gather(l, mesh2, row_axis).mT.contiguous(), mesh2,
+                                                          col_axis).mT)
+
+    gen = torch.Generator().manual_seed(43)
+    cases = []
+    for name, n, form in (("sharded_cholesky", PAR_CHOL_N, one_d), ("sharded_cholesky_2d", PAR_CHOL2D_N, two_d)):
+        r = torch.randn(n, 128, generator=gen).to(dev)
+        cases.append((name, n, form, r @ r.T / 128 + 2.0 * torch.eye(n, device=dev), True))
+    for jitter in PAR_FP8_JITTERS:
+        a = fp8_input(jitter).to(dev)
+        cases += [(f"sharded_cholesky_fp8_{jitter:g}", PAR_FP8_N, one_d, a, False),
+                  (f"sharded_cholesky_2d_fp8_{jitter:g}", PAR_FP8_N, two_d, a, False)]
+    out = {}
+    for name, n, form, a, timed in cases:
+        run, gather = form(a)
+        l = gather(run())
+        row = {"n": n, "block": PAR_BLOCK, "grid": list(grid) if "2d" in name else [p]}
+        if mesh.rank == 0:
+            row.update(chol_errors(f"world {p} {name}", lambda _: l, a, {}))
+        del l
+        _world_sync(mesh)
+        if timed:
+            row["ms"] = statistics.median(block_times_ms(run, 10))
+            _world_sync(mesh)
+            row["library_ms"] = statistics.median(block_times_ms(lambda: torch.linalg.cholesky(a), 10))
+            _world_sync(mesh)
+        out[name] = row
+        del a
+    return out
+
+
+def w_quickstart(name: str, p: int) -> dict:
+    """One parallel quickstart at its defaults on the caller's group (or, on
+    one device, its world-1 group): what rank 0 printed and its numbers."""
+    from nonstationary_precip_tpu_torch.examples import quickstart_dataparallel, quickstart_sharded_largen
+
+    call = {"dataparallel": lambda: quickstart_dataparallel.main(),
+            "sharded_largen": lambda: quickstart_sharded_largen.main(),
+            "sharded_largen_gibbs": lambda: quickstart_sharded_largen.main(gibbs=True)}[name]
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = call()
+    return {"printed": printed.getvalue().splitlines(),
+            **{k: v for k, v in out.items() if isinstance(v, (int, float, bool, list))}}
+
+
+def world_rank(spec: dict) -> dict:
+    """One rank of ``--world P`` (run by ``parallel.launch`` on its card):
+    each path of WORLD_PATHS (those of WORLD_F64_ON_CARD also in float64),
+    one mBCG iteration's parts (``w_comm``), then the parallel quickstarts,
+    each between two ``_world_sync``s with the launch counts set to 0 just
+    before it and read just after.  Returns, for the parent, each path's result (CPU,
+    float64), launches and seconds, and rank 0's timings."""
+    from nonstationary_precip_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    dev, p = mesh.device, mesh.size
+    runs = {}
+    for name in WORLD_PATHS:
+        runs[name] = (lambda: w_cholesky(mesh)) if name == "cholesky" else (
+            lambda name=name: WORLD_RUNS[name](mesh, p, dev, torch.float32, spec))
+        if name in WORLD_F64_ON_CARD:
+            runs[f"{name}_f64"] = lambda name=name: WORLD_RUNS[name](mesh, p, dev, torch.float64, spec)
+    runs["comm"] = lambda: w_comm(mesh, spec)
+    runs.update({f"quickstart_{q}": (lambda q=q: w_quickstart(q, p)) for q in WORLD_QUICKSTARTS})
+    out = {"rank": mesh.rank, "size": p, "backend": mesh.backend, "device": str(dev), "results": {},
+           "launches": {}, "seconds": {}}
+    if dev.type == "cuda":
+        out["card"] = torch.cuda.get_device_name(dev)
+    for name in WORLD_WARM:  # the process's first calls (communicators, handles, libraries) go untimed
+        runs[name]()
+    for name, run in runs.items():
+        _world_sync(mesh)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        _world_sync(mesh)
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = launch_counts()
+        out["results"][name] = _tree_cpu(res)
+    return out
+
+
+def world_launches(name: str, p: int, rank_out: dict) -> dict:
+    """What each rank of a P-rank run must have launched on ``name``: a
+    step's K4 and K7 (dp), K9 on each Gram its gate admits (N₁·N₂ ≥ 128²,
+    ``gibbs_gram.MIN_ELEMS``, as JAX's): the sparse bound's K_xz (N/P × M)
+    and K_zz for each scale_correction, the predictive's K_xx, K_sx and
+    K_ss at the rank's ⌈394/P⌉ test rows (K_ss of 99² falls under it at P =
+    4, where one card's 394² does not), K1 and
+    K9 once a step and K9 twice in the evaluation (fit_splits), K2 once an
+    mBCG iteration and column block (sharded_cg, from the rank's own
+    iteration counts), K4 and K7 in the DP quickstart (its 5 steps, its P
+    shard replays forward only and its last value and gradient), K2 in the
+    Gibbs quickstart (25 steps of ITERS, the parity's ITERS, the
+    posterior's POST_ITERS); none elsewhere (the Cholesky is the library's,
+    as JAX's; the stationary quickstart runs JAX's plain row block)."""
+    from nonstationary_precip_tpu_torch.examples import quickstart_sharded_largen as q
+    from nonstationary_precip_tpu_torch.ops import matvec
+
+    t = PAR_DGP_STEPS
+    if name == "dp":
+        return {"svgp_precompute": t, "elbo_data_term_fwd": t, "elbo_data_term_bwd": t}
+    if name in ("gibbs_sparse", "marginals"):
+        from nonstationary_precip_tpu_torch.ops.gibbs_gram import MIN_ELEMS
+
+        rows, n = rank_out["results"][name]["shape"]
+        pairs = ((rows, n), (n, n)) * 2 if name == "gibbs_sparse" else ((n, n), (rows, n), (rows, rows))
+        return {"gibbs_gram": sum(a * b >= MIN_ELEMS for a, b in pairs)}
+    if name == "fit_splits":
+        return {"chol_inv_batched": PAR_FIT_STEPS, "gibbs_gram": PAR_FIT_STEPS + 2}
+    if name == "sharded_cg":
+        it = rank_out["results"]["sharded_cg"]["iters"]
+        return {"gibbs_matvec": it["mll"] + it["chunked"] + it["state"] + it["query"] * -(-PAR_QUERY // matvec.MAX_R)}
+    if name == "comm":
+        return {"gibbs_matvec": 3 + N_TIMED_GRAM // 10 * 10 + 1}
+    if name == "quickstart_dataparallel":
+        return {"svgp_precompute": 5 + p + 1, "elbo_data_term_fwd": 5 + p + 1, "elbo_data_term_bwd": 5 + 1}
+    if name == "quickstart_sharded_largen_gibbs":
+        return {"gibbs_matvec": 25 * q.ITERS + q.ITERS + q.POST_ITERS}
+    return {}
+
+
+def _gap(what: str, ranks: list, one, ref, mult: float, scale: float) -> dict:
+    """Every rank's float32 result the same bit for bit (each is replicated
+    by the collectives) and within ``mult`` times the float32 one-device
+    result's gap to float64, plus PAR_SPARSE_F32_FLOOR of ``scale`` (gaps
+    max |a − ref| over ``scale``: the largest entry of the result, or of the
+    whole gradient it belongs to); the gaps reported."""
+    scale = max(scale, 1e-300)
+    e_1 = float((one - ref).abs().max()) / scale
+    e_r = [float((r - ref).abs().max()) / scale for r in ranks]
+    limit = mult * e_1 + PAR_SPARSE_F32_FLOOR
+    check(all(torch.equal(r, ranks[0]) for r in ranks[1:]), f"{what}: the ranks' results the same bit for bit")
+    check(max(e_r) <= limit, f"{what}: P ranks' gap to float64 {max(e_r):.3g} within {mult}x one card's "
+                             f"{e_1:.3g} + {PAR_SPARSE_F32_FLOOR}")
+    return {"ranks_vs_f64": max(e_r), "one_vs_f64": e_1, "ranks_vs_one": float((ranks[0] - one).abs().max()) / scale,
+            "bitwise_one": bool(torch.equal(ranks[0], one.to(ranks[0].dtype)))}
+
+
+def _gap_scales(ref: dict) -> dict:
+    """Each leaf's scale for ``_gap``: its own largest entry, or for a
+    gradient leaf ("…grads[i]", "…grads0[i]", "…grads.name") the largest entry of the
+    whole gradient, as JAX's dryrun holds max |Δ| over all its leaves.  A
+    parameter whose gradient is zero to rounding (a dozen of the deep GP's
+    at init: 1e-17 in float64, 1e-9 or 0 in float32) then counts as the
+    noise it is."""
+    group = {k: re.sub(r"^(.*?grads\d*)[.\[].*$", r"\1", k) for k in ref}
+    top = {}
+    for k, v in ref.items():
+        top[group[k]] = max(top.get(group[k], 0.0), float(v.abs().max()))
+    return {k: (top[group[k]] if group[k] != k else float(v.abs().max())) for k, v in ref.items()}
+
+
+def world_f64_device(name: str, dev):
+    """Where a path's float64 one-device counterpart runs."""
+    return dev if name in WORLD_F64_ON_CARD else torch.device("cpu")
+
+
+#: each path but the Cholesky's: ``run(mesh or None, P, device, dtype, spec)``
+WORLD_RUNS = {"dp": w_dp, "sgpr": w_sgpr, "gibbs_sparse": w_gibbs_sparse, "marginals": w_marginals,
+              "fit_splits": w_fit_splits, "sharded_cg": w_sharded_cg}
+
+
+def hold_path(what: str, name: str, p: int, ranks: list, one: dict, ref: dict, ranks64=None) -> dict:
+    """A path's results on P ranks (``_tree_cpu``'d, one a rank) against its
+    one-device runs in float32 (``one``) and float64 (``ref``): every
+    tensor leaf by ``_gap`` (WORLD1_GAP at world 1, WORLD_GAP at P), bit
+    for bit ``one`` at world 1 on the paths of WORLD1_BITWISE, each rank's
+    float64 run (``ranks64``, WORLD_F64_ON_CARD's paths) within
+    PAR_SPARSE_F64 or PAR_CG_F64 of ``ref``, and the path's own checks: the
+    SGPR's JAX criterion, the CG's iteration count and the query's
+    convergence.  Returns the path's row."""
+    row = {}
+    if name == "sgpr":
+        # JAX's own criterion for this path (__graft_entry__.py:169): |Δloss| < 1e-4, max |Δgrad| < 1e-2
+        # against one device in float32; at 512 rows, z every 16th, float32's jitter keeps both float32
+        # bounds far from float64 (0.44 of the loss on the card), so _gap alone says little here
+        for r, o in enumerate(ranks):
+            dl = float((o["loss"] - one["loss"]).abs())
+            dg = max(float((x - y).abs().max()) for x, y in zip(o["grads"], one["grads"]))
+            row.setdefault("jax_criterion", []).append({"dloss": dl, "dgrad": dg})
+            check(dl < 1e-4 and dg < 1e-2, f"{what} rank {r}: |Δloss| {dl:.3g} < 1e-4, max |Δgrad| {dg:.3g} < 1e-2 "
+                                           f"(JAX's dryrun criterion)")
+    if name == "sharded_cg":
+        for r, o in enumerate(ranks):
+            check(o["iters"]["mll"] == PAR_CG_ITERS, f"{what} rank {r}: {o['iters']}")
+            check(not o["query"]["broke"] and o["query"]["relres_max"] <= GATE_RELRES,
+                  f"{what} rank {r}: the sharded query converged ({o['query']})")
+        row.update(iters=ranks[0]["iters"], query=ranks[0]["query"], one_device_iters=one["iters"])
+        for o in (one, ref):
+            o["chunked"] = o["mll"]  # the chunked entry is held to the one-device MLL
+    if name == "dp":
+        # reported, held bit for bit at world 1 only: a dozen of the deep GP's gradients are zero to rounding
+        # at init and Adam's first step normalises each to ±lr, so two roundings' traces part by ~1e-3
+        row["trace"] = {"ranks": ranks[0]["trace"].tolist(), "one_device": one["trace"].tolist(),
+                        "f64": ref["trace"].tolist()}
+        if p == 1:
+            check(torch.equal(ranks[0]["trace"], one["trace"]), f"{what}: the loss trace bit for bit one device's")
+        ranks, one, ref = ([{k: v for k, v in o.items() if k != "trace"} for o in ranks],
+                           *({k: v for k, v in o.items() if k != "trace"} for o in (one, ref)))
+    leaves = {k: [dict(_tensor_leaves(o))[k] for o in ranks] for k, _ in _tensor_leaves(ranks[0])}
+    one_l, ref_l = dict(_tensor_leaves(one)), dict(_tensor_leaves(ref))
+    scales = _gap_scales(ref_l)
+    mult = WORLD1_GAP if p == 1 else WORLD_GAP
+    row["errors"] = {}
+    for k, v in leaves.items():
+        row["errors"][k] = _gap(f"{what} {k}", v, one_l[k], ref_l[k], mult, scales[k])
+    if p == 1 and name in WORLD1_BITWISE:
+        apart = [k for k, e in row["errors"].items() if not e["bitwise_one"]]
+        check(not apart, f"{what}: bit for bit one device's at world 1 (apart: {apart})")
+    if ranks64 is not None:
+        row["f64"] = {}
+        for r, o in enumerate(ranks64):
+            for k, v in _tensor_leaves(o):
+                tol = PAR_SPARSE_F64[k.rsplit(".", 1)[-1]] if name == "gibbs_sparse" else PAR_CG_F64
+                e = _rel(v, ref_l[k])
+                check(e <= tol, f"{what} {k} rank {r}: float64 {e:.3g} within {tol} of one device's float64")
+                row["f64"][k] = max(row["f64"].get(k, 0.0), e)
+    return row
+
+
+def world_one_device(name: str, p: int, dev, dtype, spec: dict):
+    """The one-device counterpart of a path on ``dev`` in ``dtype``: (result
+    on the CPU in float64, its launches, its seconds)."""
+    def call():
+        return WORLD_RUNS[name](None, p, dev, dtype, spec)
+
+    if name in WORLD_WARM and dtype == torch.float32:
+        call()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = call()
+    torch.cuda.synchronize()
+    return _tree_cpu(res), launch_counts(), time.perf_counter() - t0
+
+
+def fit_splits_batch_probe(p: int, dev, rank0: dict) -> dict:
+    """Where P ranks' ``fit_splits`` parts from one card's, though each
+    split's work is its own: rank 0's K/P splits trained alone on card 0
+    against rank 0's share of the P-rank run (bit for bit or not), and at
+    the splits' init pose each batched step of ``gibbs_map_loss_batched``
+    (the frozen prior's ``gram_pre``: cuSOLVER's Cholesky, a triangular
+    solve and a product; K9's stacked Gram, K1's L and L⁻¹, α = L⁻¹y, the
+    prior's log-density, the losses and their gradient) on all K splits against the
+    same on the first K/P alone (bit for bit or not).  An op whose first
+    K/P results change with the stack's size makes the runs part.
+    Reported, not held."""
+    from nonstationary_precip_tpu_torch.experiments import spatial_gibbs
+    from nonstationary_precip_tpu_torch.models import gibbs_gp
+    from nonstationary_precip_tpu_torch.train.vmapped import stack_modules
+
+    kp = WORLD_SPLITS // p
+    alone = _tree_cpu(w_fit_splits(None, p, dev, torch.float32, splits=range(kp)))
+    share = {"losses": rank0["losses"][:, :kp], "log_ell": rank0["log_ell"][:kp], "rmse": rank0["rmse"][:kp],
+             "nlpd": rank0["nlpd"][:kp]}
+    out = {"splits": kp, "alone_vs_rank0_bitwise": {k: bool(torch.equal(alone[k], v)) for k, v in share.items()},
+           "alone_vs_rank0_max_abs": {k: float((alone[k] - v).abs().max()) for k, v in share.items()}}
+    cfg, x_norm, y_norm = _slice_data(spatial_gibbs, [], dev)
+    splits = [spatial_gibbs.make_split(x_norm, y_norm, s, cfg, torch.float32, dev) for s in range(WORLD_SPLITS)]
+    prior = spatial_gibbs.build_prior(cfg, torch.float32, dev)
+
+    def steps(k):
+        models = stack_modules([s[0] for s in splits[:k]])
+        x, y = (torch.stack([s[1][i] for s in splits[:k]]) for i in (0, 1))
+        pre = prior.gram_pre(x)
+        gram = gibbs_gp.noisy_gibbs_gram(models, x)
+        l, li = gibbs_gp.chol_inv_batched_safe(gram)
+        loss = gibbs_gp.gibbs_map_loss_batched(models, x, y, pre)
+        grads = torch.autograd.grad(loss.sum(), [q for q in models.parameters() if q.requires_grad])
+        return {"prior_kinv": pre[0], "prior_logdet": pre[1], "gram": gram, "chol": l, "chol_inv": li,
+                "alpha": (li @ y[..., None])[..., 0],
+                "prior": models.prior.log_prob(x, models.log_ell, pre), "losses": loss, "grads": torch.cat(
+                    [g.reshape(k, -1) for g in grads], dim=1)}
+
+    whole, first = steps(WORLD_SPLITS), steps(kp)
+    torch.cuda.synchronize()
+    out["first_splits_bitwise"] = {k: bool(torch.equal(whole[k][:kp], first[k])) for k in whole}
+    return out
+
+
+def phase_world(p: int, dev, dev_name: str, spec: dict) -> dict:
+    """``--world P``: the P ranks (``world_rank``, spawned by
+    ``parallel.launch.start`` on cards 0..P−1 over NCCL, every kernel built
+    beforehand by this process), then each path's one-device counterpart on
+    card 0 in float32 and float64 from the same inputs, each rank's results
+    held to them (``hold_path``) and its launches to ``world_launches``;
+    at P > 1 ``fit_splits_batch_probe`` beside ``fit_splits``.  Emits a
+    ``parallel`` line a path, then
+    ``parallel_examples`` (the quickstarts, each also run on a world-1
+    group on card 0 for its seconds) and a ``kernels`` line of every rank's
+    launches.  Returns the per-rank launch totals."""
+    from nonstationary_precip_tpu_torch.parallel.launch import start
+
+    t0 = time.perf_counter()
+    group = start("chip_smoke:world_rank", p, device=dev.type, args=(spec,), deadline=WORLD_DEADLINE, echo=False,
+                  paths=[Path(__file__).resolve().parent])
+    outs = group.join()
+    ranks_s = time.perf_counter() - t0
+    check([o["rank"] for o in outs] == list(range(p)) and all(o["size"] == p for o in outs),
+          f"world {p}: ranks {[o['rank'] for o in outs]}")
+    backend = outs[0]["backend"]
+    check(all(o["backend"] == ("nccl" if dev.type == "cuda" else "gloo") for o in outs), f"world {p} backend {backend}")
+    if dev.type == "cuda":
+        check(len({o["device"] for o in outs}) == p, f"world {p}: one card a rank ({[o['device'] for o in outs]})")
+    totals = [{} for _ in range(p)]
+
+    def launches_held(name):
+        per_rank = [outs[r]["launches"][name] for r in range(p)]
+        for r, got in enumerate(per_rank):
+            want = world_launches(name, p, outs[r])
+            check(got == {k: want.get(k, 0) for k in got}, f"world {p} {name} rank {r}: launches {_nonzero(got)} == "
+                                                           f"{want}")
+            for k, v in got.items():
+                totals[r][k] = totals[r].get(k, 0) + v
+        return [_nonzero(g) for g in per_rank]
+
+    failed = []
+
+    def guarded(name, hold):
+        """Run one path's checks; a failed check is kept, the next path
+        held all the same, and the phase fails at its end with every
+        failure (one multi-card call shows them all)."""
+        try:
+            hold()
+        except RuntimeError as e:
+            if not str(e).startswith("chip_smoke: check failed"):
+                raise
+            failed.append(f"{name}: {e}")
+            emit("parallel_failed", path=name, error=str(e), device=dev_name)
+
+    def hold_world(name):
+        row = {"world": p, "backend": backend, "seconds": outs[0]["seconds"][name]}
+        ranks = [o["results"][name] for o in outs]
+        if name == "cholesky":
+            row["launches"] = launches_held(name)
+            row["results"] = ranks[0]
+            emit("parallel", path=name, **row, device=dev_name)
+            return
+        one, one_l, row["one_device_seconds"] = world_one_device(name, p, dev, torch.float32, spec)
+        ref, _, row["f64_seconds"] = world_one_device(name, p, world_f64_device(name, dev), torch.float64, spec)
+        row["launches"] = launches_held(name)
+        ranks64 = None
+        if name in WORLD_F64_ON_CARD:
+            ranks64 = [o["results"][f"{name}_f64"] for o in outs]
+            row.update(f64_rank_seconds=outs[0]["seconds"][f"{name}_f64"], f64_launches=launches_held(f"{name}_f64"))
+        if name in ("gibbs_sparse", "marginals"):
+            check(one_l["gibbs_gram"] >= (4 if name == "gibbs_sparse" else 1),
+                  f"world {p} {name}: K9 on one device ({one_l['gibbs_gram']})")
+        if name == "sharded_cg":
+            row["comm"] = {**outs[0]["results"]["comm"], "launches": launches_held("comm")}
+        try:
+            row.update(hold_path(f"world {p} {name}", name, p, ranks, one, ref, ranks64))
+            if name == "fit_splits" and p > 1:
+                row["batch_probe"] = fit_splits_batch_probe(p, dev, ranks[0])
+        finally:
+            emit("parallel", path=name, **row, device=dev_name)
+
+    for name in WORLD_PATHS:
+        guarded(name, lambda: hold_world(name))
+
+    from nonstationary_precip_tpu_torch.examples import quickstart_dataparallel, quickstart_sharded_largen  # noqa: F401
+
+    rows = {}
+
+    def hold_quickstart(q):
+        name = f"quickstart_{q}"
+        res = outs[0]["results"][name]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one = w_quickstart(q, 1)
+        torch.cuda.synchronize()
+        rows[q] = {"seconds": outs[0]["seconds"][name], "one_device_seconds": time.perf_counter() - t1,
+                   "printed": res["printed"][-4:], "one_device_printed": one["printed"][-4:],
+                   **{k: v for k, v in res.items() if k not in ("printed",) and not isinstance(v, list)}}
+        check(res["printed"][-1:] == ["ok"], f"world {p} {q} ends with ok: {res['printed'][-3:]}")
+        for r in range(1, p):
+            check("ok" not in outs[r]["results"][name]["printed"], f"world {p} {q}: only rank 0 prints")
+        check(res.get("world") == p, f"world {p} {q} ran on {res.get('world')} ranks")
+        rows[q]["launches"] = launches_held(name)
+
+    with world1(dev):
+        for q in WORLD_QUICKSTARTS:
+            guarded(f"quickstart_{q}", lambda: hold_quickstart(q))
+    emit("parallel_examples", world=p, rows=rows, device=dev_name)
+    emit("kernels", world=p, launches=[_nonzero(t) for t in totals], ranks_seconds=ranks_s,
+         rank_seconds={k: v for k, v in outs[0]["seconds"].items()})
+    check(not failed, f"world {p}: {len(failed)} path(s) failed: " + " | ".join(failed))
+    return totals
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=300, help="Adam steps of the slice run")
+    ap.add_argument("--world", type=int, default=0,
+                    help="run parallel/ on this many cards of the host over NCCL, one spawned rank a card, "
+                         "instead of the one-card smoke (raises where the host has fewer cards)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke test runs only on a CUDA card")
+    if args.world:
+        return main_world(args.world)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi, torch=torch.__version__,
@@ -4823,7 +5359,7 @@ def main(argv=None):
                        ("full_cov", lambda: phase_full_cov(deepgp_spatial, svgp_precompute, dev, name)),
                        ("dense_cg", lambda: phase_dense_cg(quickstart_cg, dev, name)),
                        ("quickstarts", lambda: phase_quickstarts(name)),
-                       ("parallel", lambda: phase_parallel(spatial_gibbs, gibbs_largen, out, dev, name)),
+                       ("parallel", lambda: phase_parallel(out, dev, name)),
                        ("k2_rows", lambda: phase_k2_rows(matvec, payloads, dev)),
                        ("parallel_examples", lambda: phase_parallel_examples(dev, name))):
         t0 = time.perf_counter()
@@ -4938,6 +5474,93 @@ def main(argv=None):
           for kname, src, tpu, k in (("chol_inv_grid", "chol_inv_cluster.cu", "pallas_chol.py:348", k10b),
                                      ("streaming_cholesky_v1", "chol_stream_v1.cu", "pallas_chol.py:601", k10c))),
     ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+def world_fail(mode: str) -> int:
+    """Rank 0 enters an all-reduce that rank 1 never joins: rank 1 raises
+    (``mode`` "raise", a rank that fails) or sleeps past every timeout
+    ("hang", a rank that never arrives)."""
+    from nonstationary_precip_tpu_torch.parallel import make_mesh
+    from nonstationary_precip_tpu_torch.parallel.collectives import psum
+
+    mesh = make_mesh()
+    if mesh.rank == 0:
+        psum(torch.ones(3, device=mesh.device), mesh)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+    elif mode == "raise":
+        raise RuntimeError("world_fail: rank 1 fails on purpose")
+    else:
+        time.sleep(600)
+    return mesh.rank
+
+
+WORLD_FAIL_DEADLINE, WORLD_FAIL_TIMEOUT = 45.0, 10.0  # seconds: the spawn's deadline, the group's timeout
+
+
+def phase_world_failure(dev_name: str, device: str = "cuda"):
+    """On 2 ranks over NCCL, a rank that raises and a rank that hangs
+    (``world_fail``): each run must raise within the spawn's deadline, every
+    rank killed, with no hang in NCCL's watchdog."""
+    from datetime import timedelta
+
+    from nonstationary_precip_tpu_torch.parallel.launch import start
+
+    rows = {}
+    for mode in ("raise", "hang"):
+        t0 = time.perf_counter()
+        group = start("chip_smoke:world_fail", 2, device=device, args=(mode,), deadline=WORLD_FAIL_DEADLINE,
+                      group_timeout=timedelta(seconds=WORLD_FAIL_TIMEOUT), echo=False,
+                      paths=[Path(__file__).resolve().parent])
+        try:
+            group.join()
+            raised = None
+        except (RuntimeError, TimeoutError) as e:
+            raised = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+        wall = time.perf_counter() - t0
+        alive = [r for r, q in enumerate(group.procs) if q.poll() is None]
+        check(raised is not None and wall <= WORLD_FAIL_DEADLINE + 15 and not alive,
+              f"world_fail {mode}: raised {raised!r} in {wall:.1f} s, ranks alive {alive}")
+        rows[mode] = {"raised": raised, "seconds": wall}
+    emit("failure", rows=rows, deadline=WORLD_FAIL_DEADLINE, group_timeout=WORLD_FAIL_TIMEOUT, device=dev_name)
+
+
+def main_world(p: int):
+    """``--world P``: every kernel built here once (the ranks load the same
+    libraries from build/torch_kernels/), the gate's trained pose made on
+    card 0 (``gibbs_largen.run``, as the one-card ``largen`` phase makes
+    it), then ``phase_world``.  A host with fewer than P cards raises
+    before anything runs: a smaller world would hold nothing of P's."""
+    count = torch.cuda.device_count()
+    if p < 1 or count < p:
+        raise SystemExit(f"chip_smoke --world {p}: needs {p} cards, this host has {count}")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    emit("device", kind=name, count=count, world=p, nvidia_smi=smi[0], nvidia_smi_cards=smi, torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    from nonstationary_precip_tpu_torch.experiments import gibbs_largen
+    from nonstationary_precip_tpu_torch.ops import (chol_blocked, chol_inv, chol_stream, elbo_fused, gibbs_fused,
+                                                    gibbs_gram, matvec, svgp_precompute, trsm)
+    from nonstationary_precip_tpu_torch.utils import config
+
+    dev = config.device("cuda")
+    build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram, chol_blocked, trsm, gibbs_fused)
+    t0 = time.perf_counter()
+    out = gibbs_largen.run(gibbs_largen.LargeNConfig(n=LARGEN_N, device="cuda"))
+    spec = gate_spec(out)
+    emit("gate_pose", n=LARGEN_N, relres_solve=out["relres_solve"], seconds=time.perf_counter() - t0)
+    del out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_world(p, dev, name, spec)
+    emit("seconds", of="world", seconds=time.perf_counter() - t0)
+    if p >= 2:
+        phase_world_failure(name)
+    print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)
 

@@ -15,8 +15,8 @@ backward) on each rank.
 
 By default it runs on every card (one NCCL rank each); ``--device cpu
 --world P`` spawns P gloo processes (JAX's 8 virtual CPU devices).  Called
-from a process that already belongs to a group, it runs on that group.
-Multi-GPU runs are unverified: the card's machine has one H100.
+from a process that already belongs to a group, it runs on that group
+(``chip_smoke.py --world 4`` runs it so on four cards over NCCL).
 
 Run: python -m nonstationary_precip_tpu_torch.examples.quickstart_dataparallel [--device cpu --world 4]
 """

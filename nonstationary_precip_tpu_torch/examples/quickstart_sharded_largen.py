@@ -23,8 +23,8 @@ draws come from a numpy seed and stay fixed (common random numbers).
 
 By default it runs on every card (one NCCL rank each); ``--device cpu
 --world P`` spawns P gloo processes.  Called from a process that already
-belongs to a group, it runs on that group.  Multi-GPU runs are unverified:
-the card's machine has one H100.
+belongs to a group, it runs on that group (``chip_smoke.py --world 4`` runs
+it so on four cards over NCCL, in both forms).
 
 Run: python -m nonstationary_precip_tpu_torch.examples.quickstart_sharded_largen [--gibbs] [--device cpu --world 4]
 """

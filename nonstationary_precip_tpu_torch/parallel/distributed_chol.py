@@ -8,18 +8,24 @@ Layout: block rows of A are split over a 1-D mesh (each rank owns an
     1. every rank contributes its rows of column block j, and one
        ``all_gather`` assembles the (N, B) column, the only collective;
     2. every rank factors the (B, B) diagonal block itself and forms the
-       whole scaled panel P = col · L_jj⁻ᵀ (O(N·B²), cheaper than a
-       broadcast);
+       panel P: L_jj on the diagonal block, and the rows below it solved
+       by substitution, P_below = col_below · L_jj⁻ᵀ (O(N·B²), cheaper than
+       a broadcast);
     3. each rank subtracts P_mine · Pᵀ from its strip at full width: the
        update over-subtracts only entries that are never read again
        (columns < jB live in the separate L accumulator), the trade the
        single-device streaming kernel makes with its full-height panels.
 
-The (B, B) factor and the panel products are ``torch.linalg.cholesky``,
-``solve_triangular`` and ``torch.matmul``, as JAX computes them outside any
-Pallas kernel.  ``sharded_cholesky_2d`` is the SUMMA variant on a 2-D mesh,
-each rank owning an (N/R, N/C) tile; ``sharded_mvn_logpdf`` composes the
-1-D factor with a triangular solve of the gathered factor.
+The (B, B) factor, the panel's substitution and the update are
+``torch.linalg.cholesky``, ``solve_triangular`` and ``torch.matmul``, as
+JAX computes them outside any Pallas kernel.  The panel departs from JAX's
+(F-P8): JAX forms L_jj⁻¹ and takes the whole column, diagonal block
+included, as the product col · L_jj⁻ᵀ, which is not backward stable (the
+form F-P7 took out of the single-device tile); here the diagonal block is
+L_jj itself and the rows below are a triangular solve.
+``sharded_cholesky_2d`` is the SUMMA variant on a 2-D mesh, each rank
+owning an (N/R, N/C) tile; ``sharded_mvn_logpdf`` composes the 1-D factor
+with a triangular solve of the gathered factor.
 """
 
 from __future__ import annotations
@@ -33,19 +39,14 @@ from nonstationary_precip_tpu_torch.parallel.mesh import Mesh
 
 
 def _panel(col_full: torch.Tensor, jb: int, block: int) -> torch.Tensor:
-    """The scaled panel col · L_jj⁻ᵀ of block column j, with the rows above
-    the diagonal block (stale, over-subtracted) and the strict upper
-    triangle inside it zeroed: JAX's keep mask."""
-    n = col_full.shape[0]
-    d = col_full[jb:jb + block]
-    l_jj = torch.linalg.cholesky(d)
-    eye = torch.eye(block, dtype=col_full.dtype, device=col_full.device)
-    l_inv = torch.linalg.solve_triangular(l_jj, eye, upper=False)
-    p_full = col_full @ l_inv.mT
-    rowid = torch.arange(n, device=col_full.device)[:, None]
-    colid = torch.arange(block, device=col_full.device)[None, :]
-    keep = (rowid >= jb) & ~((rowid < jb + block) & (rowid - jb < colid))
-    return torch.where(keep, p_full, torch.zeros_like(p_full))
+    """The panel of block column j: zero above the diagonal block (those
+    rows hold stale, over-subtracted entries), L_jj = chol(D) on it, and
+    the rows below it solved by substitution, col_below · L_jj⁻ᵀ.  The
+    strict upper triangle of the diagonal block is zero, as JAX's keep
+    mask leaves it."""
+    l_jj = torch.linalg.cholesky(col_full[jb:jb + block])
+    below = torch.linalg.solve_triangular(l_jj, col_full[jb + block:].mT, upper=False).mT
+    return torch.cat([torch.zeros_like(col_full[:jb]), l_jj, below])
 
 
 def sharded_cholesky(mesh: Mesh, block: int = 256):

@@ -4,7 +4,11 @@ same functions on virtual CPU meshes of as many devices, in float64.
 
 Each world size is spawned once (``parallel.launch.spawn``, the ranks in
 ``tests/torch_dist_harness.py``, which imports no JAX), every case in that
-one group; the ranks' results come back as numpy.  Checked:
+one group; the ranks' results come back as numpy.  JAX's results are
+pinned in tests/fixtures/jax_parallel_ref.npz by tools/pin_jax_parallel.py
+from ``jax_ref_live``, which stays here, with the digest of the inputs,
+checked on load; two cases are recomputed live against the fixture at
+P = 2 and one at P = 4.  Checked:
 
 * data-parallel DSVI (``dp_value_and_grad``): the loss and every gradient
   against JAX's ``dp_value_and_grad`` with ε drawn from
@@ -17,6 +21,9 @@ one group; the ranks' results come back as numpy.  Checked:
   ``scale_correction``s): value and every gradient;
 * ``sharded_cholesky``, ``sharded_cholesky_2d`` (1 × 1; 2 × 1 and 1 × 2;
   2 × 2 and 4 × 1) and ``sharded_mvn_logpdf``, and the divisibility error;
+* F-P8: the float32 1-D sharded factor of an ill-conditioned RBF Gram
+  within the backward-error bound γ_{N+1}|L||Lᵀ|, where JAX's panel (the
+  product with L_jj⁻¹) breaks it;
 * ``fit_splits`` / ``eval_splits`` (the Gibbs slice's loss, 4 splits) and
   ``fit_minibatched_splits`` (the deep GP, 4 splits) with ``mesh=``: the
   loss traces, the trained parameters and the metrics, and K % P ≠ 0.
@@ -25,7 +32,7 @@ Tolerances: 1e-10 relative (to each array's largest entry) where no
 optimiser runs; Adam's trajectories against JAX to 1e-8 (they amplify
 rounding, as tests/test_torch_gibbs_slice.py's); every replicated result
 the same on every rank, and at P = 2 and 4 the same as at P = 1 to 1e-10.
-Budget: ~20 s serially with the three spawns.
+Budget: ~15–30 s with the three spawns, most of it the groups' run.
 """
 
 from __future__ import annotations
@@ -65,11 +72,14 @@ from nonstationary_precip_tpu.train.vmapped import Stacked as JaxStacked
 from nonstationary_precip_tpu.train.vmapped import eval_splits as jax_eval_splits
 from nonstationary_precip_tpu.train.vmapped import fit_splits as jax_fit_splits
 
+import pinned_refs
 from nonstationary_precip_tpu_torch import interop
 from nonstationary_precip_tpu_torch.parallel.launch import spawn, start
+from nonstationary_precip_tpu_torch.priors.matrix_normal import latent_rbf_row_cov
 
 torch.set_num_threads(1)
 TESTS = Path(__file__).resolve().parent
+JAX_REF = TESTS / "fixtures" / "jax_parallel_ref.npz"
 WORLDS = (1, 2, 4)
 RTOL = 1e-10
 TRAJ_RTOL = 1e-8
@@ -205,6 +215,7 @@ def port_inputs() -> dict:
         g = c[f"gibbs_sparse_{sc}"]
         out[f"gibbs_sparse_{sc}"] = {"leaves": jax_leaves(g["jm"]), "x": g["x"], "y": g["y"]}
     out["chol"] = {**c["chol"], "grids": GRIDS}
+    out["chol_fp8"] = {"a": fp8_inputs(), "block": FP8_BLOCK}
     sl = c["slice"]
     out["slice"] = {"leaves": [jax_leaves(m) for m in sl["jm"]],
                     **{k: sl[k] for k in ("x_tr", "y_tr", "x_te", "y_te", "stdy", "steps")}}
@@ -216,87 +227,165 @@ def port_inputs() -> dict:
     return out
 
 
+#: F-P8's inputs: the RBF row covariance (ℓ 0.5) of the H prior on a 32 × 32
+#: grid of [−2, 2]², N = 1024, in float32 with these jitters (κ₂ 9.4e5 and
+#: 8.3e6); potrf factors both.
+FP8_JITTERS, FP8_BLOCK = (1e-4, 2e-5), 256
+
+
+@functools.cache
+def fp8_inputs() -> dict:
+    g = np.linspace(-2.0, 2.0, 32)
+    gx, gy = np.meshgrid(g, g)
+    u = latent_rbf_row_cov(torch.tensor(np.stack([gx.ravel(), gy.ravel()], 1), dtype=torch.float32), [0.5, 0.5])
+    return {j: (u + j * torch.eye(u.shape[0])).numpy() for j in FP8_JITTERS}
+
+
+def chol_bound_ratio(l, a) -> float:
+    """Largest entrywise |LLᵀ − A| / γ_{N+1}|L||Lᵀ| in float64, A's lower
+    triangle symmetrised (Higham, Theorem 10.3, float32's unit roundoff)."""
+    l, a = np.asarray(l, dtype=np.float64), np.tril(np.asarray(a, dtype=np.float64))
+    a = a + np.tril(a, -1).T
+    n = a.shape[0]
+    gamma = (n + 1) * 2.0**-24 / (1 - (n + 1) * 2.0**-24)
+    return float((np.abs(l @ l.T - a) / (gamma * (np.abs(l) @ np.abs(l).T))).max())
+
+
 # ---------------------------------------------------------------------------
 # JAX on its P-device virtual mesh
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def jax_ref(p: int) -> dict:
+def jax_ref_live(p: int, only=None) -> dict:
+    """JAX's results on its P-device virtual mesh, computed now: every case,
+    or those named in ``only``."""
     c = models()
     mesh = jax_make_mesh(p)
     ref = {}
 
-    key = jax.random.PRNGKey(DP_KEY)
-    d = c["dp"]
+    def want(name):
+        return only is None or name in only
 
-    def shard_loss(m, xs, ys):
-        ks = jax.random.fold_in(key, jax.lax.axis_index("data"))
-        return m.loss(ks, xs, ys, num_data=DP_B, num_samples=DP_S)
+    if want("dp"):
+        key = jax.random.PRNGKey(DP_KEY)
+        d = c["dp"]
 
-    loss, g = jax.jit(jax_dp_value_and_grad(shard_loss, mesh))(d["jm"], jnp.asarray(d["x"]), jnp.asarray(d["y"]))
-    ref["dp"] = {"loss": float(loss), "grads": jax_leaves(g)}
+        def shard_loss(m, xs, ys):
+            ks = jax.random.fold_in(key, jax.lax.axis_index("data"))
+            return m.loss(ks, xs, ys, num_data=DP_B, num_samples=DP_S)
 
-    d = c["predict"]
-    xj, yj = jnp.asarray(d["x"]), jnp.asarray(d["y"])
+        loss, g = jax.jit(jax_dp_value_and_grad(shard_loss, mesh))(d["jm"], jnp.asarray(d["x"]), jnp.asarray(d["y"]))
+        ref["dp"] = {"loss": float(loss), "grads": jax_leaves(g)}
 
-    def predict_fn(m, x_shard):
-        post = m.predictive(xj, yj, x_shard)
-        return post.mean, post.var
+    if want("predict"):
+        d = c["predict"]
+        xj, yj = jnp.asarray(d["x"]), jnp.asarray(d["y"])
 
-    mean, var = jax.jit(jax_sharded_marginals(predict_fn, mesh))(d["jm"], jnp.asarray(d["xs"]))
-    ref["predict"] = {"mean": np.asarray(mean), "var": np.asarray(var)}
+        def predict_fn(m, x_shard):
+            post = m.predictive(xj, yj, x_shard)
+            return post.mean, post.var
 
-    def root_fn(m, x_s):
-        return jax_nystrom_root(m.kernel(x_s, m.z), m.kernel(m.z))[0]
+        mean, var = jax.jit(jax_sharded_marginals(predict_fn, mesh))(d["jm"], jnp.asarray(d["xs"]))
+        ref["predict"] = {"mean": np.asarray(mean), "var": np.asarray(var)}
 
-    def trace_fn(m, x_s, root):
-        return m.kernel.diag(x_s) - jnp.sum(root * root, axis=-1)
+    if want("sgpr"):
+        def root_fn(m, x_s):
+            return jax_nystrom_root(m.kernel(x_s, m.z), m.kernel(m.z))[0]
 
-    d = c["sgpr"]
-    loss, g = jax.jit(jax_sgpr_vag(root_fn, trace_fn, mesh))(d["jm"], jnp.asarray(d["x"]), jnp.asarray(d["y"]))
-    ref["sgpr"] = {"loss": float(loss), "grads": jax_leaves(g)}
+        def trace_fn(m, x_s, root):
+            return m.kernel.diag(x_s) - jnp.sum(root * root, axis=-1)
+
+        d = c["sgpr"]
+        loss, g = jax.jit(jax_sgpr_vag(root_fn, trace_fn, mesh))(d["jm"], jnp.asarray(d["x"]), jnp.asarray(d["y"]))
+        ref["sgpr"] = {"loss": float(loss), "grads": jax_leaves(g)}
 
     for sc in (False, True):
-        d = c[f"gibbs_sparse_{sc}"]
-        loss, g = jax.jit(jax.value_and_grad(jax_gibbs_sparse_sharded_loss(mesh)))(d["jm"], jnp.asarray(d["x"]),
-                                                                                 jnp.asarray(d["y"]))
-        ref[f"gibbs_sparse_{sc}"] = {"loss": float(loss), "grads": jax_leaves(g)}
+        if want(f"gibbs_sparse_{sc}"):
+            d = c[f"gibbs_sparse_{sc}"]
+            loss, g = jax.jit(jax.value_and_grad(jax_gibbs_sparse_sharded_loss(mesh)))(d["jm"], jnp.asarray(d["x"]),
+                                                                                     jnp.asarray(d["y"]))
+            ref[f"gibbs_sparse_{sc}"] = {"loss": float(loss), "grads": jax_leaves(g)}
 
-    d = c["chol"]
-    a = jnp.asarray(d["a"])
-    ref["chol"] = {"chol": np.asarray(jax.jit(jax_sharded_cholesky(mesh, block=d["block"]))(a)),
-                   "logpdf": float(jax.jit(jax_sharded_mvn_logpdf(mesh, block=d["block"]))(a, jnp.asarray(d["y"])))}
-    for grid in GRIDS[p]:
-        ref["chol"][f"chol2d_{grid[0]}x{grid[1]}"] = np.asarray(
-            jax.jit(jax_sharded_cholesky_2d(jax_make_mesh_2d(*grid), block=d["block"]))(a))
+    if want("chol"):
+        d = c["chol"]
+        a = jnp.asarray(d["a"])
+        ref["chol"] = {"chol": np.asarray(jax.jit(jax_sharded_cholesky(mesh, block=d["block"]))(a)),
+                       "logpdf": float(jax.jit(jax_sharded_mvn_logpdf(mesh, block=d["block"]))(a,
+                                                                                              jnp.asarray(d["y"])))}
+        for grid in GRIDS[p]:
+            ref["chol"][f"chol2d_{grid[0]}x{grid[1]}"] = np.asarray(
+                jax.jit(jax_sharded_cholesky_2d(jax_make_mesh_2d(*grid), block=d["block"]))(a))
 
-    d = c["slice"]
-    res = jax_fit_splits(d["jm"], lambda m, a, b, pc: m.loss(a, b, pc), d["x_tr"], d["y_tr"],
-                         JaxStacked(jax.vmap(jax_prior().gram_pre)(jnp.asarray(np.stack(d["x_tr"])))), lr=0.01,
-                         num_steps=d["steps"], masks=[m.trainable() for m in d["jm"]], mesh=mesh)
+    if want("slice"):
+        d = c["slice"]
+        res = jax_fit_splits(d["jm"], lambda m, a, b, pc: m.loss(a, b, pc), d["x_tr"], d["y_tr"],
+                             JaxStacked(jax.vmap(jax_prior().gram_pre)(jnp.asarray(np.stack(d["x_tr"])))), lr=0.01,
+                             num_steps=d["steps"], masks=[m.trainable() for m in d["jm"]], mesh=mesh)
 
-    def eval_fn(m, xtr, ytr, xte, yte):
-        pred = m.predictive(xtr, ytr, xte)
-        return jax_metrics.rmse_rescaled(pred.mean, yte, d["stdy"]), jax_metrics.nlpd_joint(pred, yte, d["stdy"])
+        def eval_fn(m, xtr, ytr, xte, yte):
+            pred = m.predictive(xtr, ytr, xte)
+            return (jax_metrics.rmse_rescaled(pred.mean, yte, d["stdy"]),
+                    jax_metrics.nlpd_joint(pred, yte, d["stdy"]))
 
-    rm, nl = jax_eval_splits(res.model, eval_fn, *(list(map(jnp.asarray, d[k])) for k in ("x_tr", "y_tr", "x_te",
-                                                                                          "y_te")), mesh=mesh)
-    ref["slice"] = {"losses": np.asarray(res.losses), "log_ell": np.asarray(res.model.log_ell),
-                    "rmse": np.asarray(rm), "nlpd": np.asarray(nl)}
+        rm, nl = jax_eval_splits(res.model, eval_fn, *(list(map(jnp.asarray, d[k])) for k in ("x_tr", "y_tr", "x_te",
+                                                                                              "y_te")), mesh=mesh)
+        ref["slice"] = {"losses": np.asarray(res.losses), "log_ell": np.asarray(res.model.log_ell),
+                        "rmse": np.asarray(rm), "nlpd": np.asarray(nl)}
 
-    d = c["minibatched"]
-    res = jax_fit_minibatched_splits(
-        d["jm"], lambda m, kk, xb, yb: m.loss(kk, xb, yb, num_data=MB_N, num_samples=MB_S),
-        [jnp.asarray(a) for a in d["xs"]], [jnp.asarray(a) for a in d["ys"]], keys=d["keys"], num_epochs=MB_EPOCHS,
-        batch_size=MB_BATCH, lr=0.01, seeds=list(range(K_SPLITS)), mesh=mesh)
-    ref["minibatched"] = {"losses": np.asarray(res.losses), "params": jax_leaves(res.model)}
+    if want("minibatched"):
+        d = c["minibatched"]
+        res = jax_fit_minibatched_splits(
+            d["jm"], lambda m, kk, xb, yb: m.loss(kk, xb, yb, num_data=MB_N, num_samples=MB_S),
+            [jnp.asarray(a) for a in d["xs"]], [jnp.asarray(a) for a in d["ys"]], keys=d["keys"],
+            num_epochs=MB_EPOCHS, batch_size=MB_BATCH, lr=0.01, seeds=list(range(K_SPLITS)), mesh=mesh)
+        ref["minibatched"] = {"losses": np.asarray(res.losses), "params": jax_leaves(res.model)}
     return ref
+
+
+def inputs_digest() -> str:
+    """The digest of every input JAX's side and the ranks get, which a
+    fixture keeps from its pinning (``pinned_refs.DIGEST``)."""
+    leaves, treedef = jax.tree_util.tree_flatten((models(), port_inputs()))
+    return pinned_refs.digest([*leaves, str(treedef)])
+
+
+@functools.cache
+def pinned() -> dict:
+    return pinned_refs.load_checked(JAX_REF, inputs_digest())
+
+
+def jax_ref(p: int) -> dict:
+    """JAX's results at P, pinned by tools/pin_jax_parallel.py (the live
+    computation, ``jax_ref_live``, takes ~40 s on one idle CPU, several
+    times that beside the suite's other workers)."""
+    return pinned()[str(p)]
 
 
 # ---------------------------------------------------------------------------
 # the port on P gloo ranks
 # ---------------------------------------------------------------------------
+
+
+def _live_is_pinned(p: int, only: tuple):
+    live = pinned_refs.flatten(jax_ref_live(p, only=only))
+    ref = pinned_refs.flatten({k: v for k, v in jax_ref(p).items() if k in only})
+    assert live and set(live) == set(ref), sorted(set(live) ^ set(ref))
+    for k, v in live.items():
+        np.testing.assert_allclose(v, ref[k], rtol=0, atol=1e-12 * max(np.abs(ref[k]).max(), 1e-300), err_msg=k)
+
+
+def test_pinned_jax_reference_is_the_live_one():
+    """The pinned JAX results are what the JAX package computes now on these
+    inputs: two cases recomputed live at P = 2, to 1e-12 of each array's
+    largest entry (the same program on the same CPU; the margin is for
+    XLA's thread count).  ``pinned`` checks the inputs' digest on load."""
+    _live_is_pinned(2, ("predict", "sgpr"))
+
+
+def test_pinned_jax_reference_at_four_ranks_is_the_live_one():
+    """As above, one cheap case at P = 4, so that a pinned world size
+    other than 2 is held to live JAX too."""
+    _live_is_pinned(4, ("chol",))
 
 
 @pytest.fixture(scope="module")
@@ -411,6 +500,25 @@ def test_matches_one_rank(case, p, port):
             close(got[k], ref, what=k)
 
 
+@pytest.mark.parametrize("p", WORLDS)
+@pytest.mark.parametrize("jitter", FP8_JITTERS)
+def test_sharded_cholesky_is_backward_stable_on_an_ill_conditioned_input(jitter, p, port):
+    """F-P8: at every P the float32 factor (L_jj on the diagonal block, the
+    rows below it by substitution) is within γ_{N+1}|L||Lᵀ| (~0.02 of it),
+    as potrf's is; JAX's panel, the product with L_jj⁻¹ on the same input
+    and ranks, breaks the bound (~600 and ~4000 times over) or fails."""
+    a = fp8_inputs()[jitter]
+    assert np.isfinite(np.linalg.cholesky(a.astype(np.float64))).all()
+    assert bool(torch.isfinite(torch.linalg.cholesky(torch.tensor(a))).all())
+    outs = port(p)
+    _same_on_every_rank(outs, "chol_fp8")
+    l, old = outs[0]["chol_fp8"][f"port_{jitter}"], outs[0]["chol_fp8"][f"jax_{jitter}"]
+    assert l.dtype == np.float32 and np.isfinite(l).all()
+    np.testing.assert_array_equal(np.triu(l, 1), 0.0)
+    assert chol_bound_ratio(l, a) <= 1.0, chol_bound_ratio(l, a)
+    assert not np.isfinite(old).all() or chol_bound_ratio(old, a) > 1.0
+
+
 def test_hang_guard_fails_within_its_deadline(tmp_path):
     """Rank 1 skips the all-reduce rank 0 waits in: with a 5 s group
     timeout and a 15 s deadline the spawn raises, and does not hang."""
@@ -421,6 +529,17 @@ def test_hang_guard_fails_within_its_deadline(tmp_path):
         spawn("torch_dist_harness:skip_a_collective", 2, args=(60.0,), workdir=tmp_path, paths=[TESTS],
               deadline=15, group_timeout=timedelta(seconds=5), echo=False)
     assert time.monotonic() - t0 < 25
+
+
+def test_chip_smoke_world_refuses_more_ranks_than_cards(monkeypatch):
+    """``chip_smoke.py --world 4`` on a host with two cards raises before it
+    builds or runs anything: a smaller world would hold nothing of four's."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit, match="needs 4 cards, this host has 2"):
+        chip_smoke.main(["--world", "4"])
 
 
 def test_refusals(tmp_path):

@@ -13,7 +13,11 @@ Both sides get the same numbers: the JAX side draws its probes from a key
 (``rademacher``, or ``sample_precond_probes``'s two normal draws) and the
 port gets those draws; the keyed Nyström landmarks are JAX's permutation,
 and JAX's ``eigh`` takes the port's sign rule (``lazy_cg.canonical_eigh``)
-for the one case whose probes see the factor's signs.
+for the one case whose probes see the factor's signs.  JAX's results are
+pinned in tests/fixtures/jax_sharded_cg_ref.npz by tools/pin_jax_parallel.py
+from ``jax_ref_live``, which stays here, with the digest of the inputs,
+checked on load; two cases are recomputed live against the fixture at
+P = 2 and one at P = 4.
 
 Tolerances.  CG is not forward stable (ROADMAP §3): two correct
 implementations part past ~10 iterations on rounding alone, so against
@@ -25,7 +29,8 @@ factor is built to rounding on each side), 1e-7 on posteriors solved to
 and are held to 1e-7 relative; the local matvec builder's run to 1e-5 of
 the materialised row block's (``BUILDER_TOL``).  The port at P = 2 and 4 against itself at
 P = 1: 1e-9 relative, where the only difference is the BLAS blocking of
-an (N/P, N) row block against the (N, N) one.  Budget: ~25 s serially.
+an (N/P, N) row block against the (N, N) one.  Budget: ~20–30 s, most
+of it the P = 4 group's run.
 """
 
 from __future__ import annotations
@@ -51,10 +56,12 @@ from nonstationary_precip_tpu.parallel import sharded_cg_posterior as jax_sharde
 from nonstationary_precip_tpu.parallel import sharded_posterior_query as jax_sharded_posterior_query
 from nonstationary_precip_tpu.parallel import sharded_posterior_state as jax_sharded_posterior_state
 
+import pinned_refs
 from nonstationary_precip_tpu_torch.parallel.launch import start
 
 torch.set_num_threads(1)
 TESTS = Path(__file__).resolve().parent
+JAX_REF = TESTS / "fixtures" / "jax_sharded_cg_ref.npz"
 WORLDS = (1, 2, 4)
 
 
@@ -175,58 +182,112 @@ def _packed(kern, xa, xb):
     return kern(xa[:, :2], jnp.exp(xa[:, 2:]), xb[:, :2], jnp.exp(xb[:, 2:]))
 
 
-@functools.cache
-def jax_ref(p: int) -> dict:
+def jax_ref_live(p: int, only=None) -> dict:
+    """JAX's results on its P-device virtual mesh, computed now: every case,
+    or those named in ``only``."""
     c = {k: v["jax"] for k, v in cases().items()}
     mesh = jax_make_mesh(p)
     a = jnp.asarray
     ref = {}
+
+    def want(name):
+        return only is None or name in only
+
     for name in ("mll", "mll_pre"):
-        d = c[name]
-        ref[name] = {"val": float(jax.jit(lambda k, yy, ss: jax_sharded_cg_mll(k, a(d["x"]), yy, d["key"], ss, mesh,
-                                                                              **d["kw"]))(d["kernel"], a(d["y"]),
-                                                                                           a(d["s2"])))}
+        if want(name):
+            d = c[name]
+            ref[name] = {"val": float(jax.jit(lambda k, yy, ss: jax_sharded_cg_mll(k, a(d["x"]), yy, d["key"], ss, mesh,
+                                                                                  **d["kw"]))(d["kernel"], a(d["y"]),
+                                                                                               a(d["s2"])))}
     for name in ("grads", "grads_pre"):
-        d = c[name]
-        v, (gk, gy, gs) = jax.jit(jax.value_and_grad(
-            lambda k, yy, ss: jax_sharded_cg_mll(k, a(d["x"]), yy, d["key"], ss, mesh, **d["kw"]),
-            argnums=(0, 1, 2)))(d["kernel"], a(d["y"]), a(d["s2"]))
-        ref[name] = {"val": float(v), "grads": {**jax_leaves(gk), "y": np.asarray(gy), "s2": np.asarray(gs)}}
+        if want(name):
+            d = c[name]
+            v, (gk, gy, gs) = jax.jit(jax.value_and_grad(
+                lambda k, yy, ss: jax_sharded_cg_mll(k, a(d["x"]), yy, d["key"], ss, mesh, **d["kw"]),
+                argnums=(0, 1, 2)))(d["kernel"], a(d["y"]), a(d["s2"]))
+            ref[name] = {"val": float(v), "grads": {**jax_leaves(gk), "y": np.asarray(gy), "s2": np.asarray(gs)}}
     for name in ("post", "post_pre"):
-        d = c[name]
-        mean, cov = jax.jit(lambda k, yy: jax_sharded_cg_posterior(k, a(d["x"]), yy, a(d["xs"]), a(d["s2"]), mesh,
-                                                                   **d["kw"]))(d["kernel"], a(d["y"]))
-        ref[name] = {"mean": np.asarray(mean), "cov": np.asarray(cov)}
+        if want(name):
+            d = c[name]
+            mean, cov = jax.jit(lambda k, yy: jax_sharded_cg_posterior(k, a(d["x"]), yy, a(d["xs"]), a(d["s2"]), mesh,
+                                                                       **d["kw"]))(d["kernel"], a(d["y"]))
+            ref[name] = {"mean": np.asarray(mean), "cov": np.asarray(cov)}
     gibbs = JaxGibbsKernel()
     for name in ("gibbs", "builder"):
-        d = c[name]
-        v, g = jax.jit(jax.value_and_grad(
-            lambda aa, yy, ss: jax_sharded_cg_mll(gibbs, aa, yy, d["key"], ss, mesh, cross_fn=_packed, **d["kw"]),
-            argnums=(0, 1, 2)))(a(d["aug"]), a(d["y"]), a(d["s2"]))
-        ref[name] = {"val": float(v), "grads": dict(zip(("aug", "y", "s2"), map(np.asarray, g)))}
+        if want(name):
+            d = c[name]
+            v, g = jax.jit(jax.value_and_grad(
+                lambda aa, yy, ss: jax_sharded_cg_mll(gibbs, aa, yy, d["key"], ss, mesh, cross_fn=_packed, **d["kw"]),
+                argnums=(0, 1, 2)))(a(d["aug"]), a(d["y"]), a(d["s2"]))
+            ref[name] = {"val": float(v), "grads": dict(zip(("aug", "y", "s2"), map(np.asarray, g)))}
     cross = jax_packed_cross(2)
-    d = c["nystrom"]
-    with mock.patch.object(jnp.linalg, "eigh", canonical_eigh):
-        v, g = jax.jit(jax.value_and_grad(
-            lambda aa, yy, ss: jax_sharded_cg_mll(None, aa, yy, d["key"], ss, mesh, cross_fn=cross, **d["kw"]),
-            argnums=(0, 1, 2)))(a(d["aug"]), a(d["y"]), a(d["s2"]))
-    ref["nystrom"] = {"val": float(v), "grads": dict(zip(("aug", "y", "s2"), map(np.asarray, g)))}
-    d = c["state"]
-    st = jax_sharded_posterior_state(None, a(d["aug"]), a(d["y"]), a(d["s2"]), mesh, precond_key=d["pk"],
-                                     cross_fn=cross, **d["state_kw"])
-    mean, cov, info = jax_sharded_posterior_query(st, a(d["xt"]), mesh, cross_fn=cross, max_iters=64, tol=1e-10,
-                                                  return_info=True)
-    mean_only, _ = jax_sharded_posterior_query(st, a(d["xt"]), mesh, cross_fn=cross, mean_only=True)
-    ref["state"] = {"alpha": np.asarray(st.alpha), "lpc_pp": np.asarray(st.lpc @ st.lpc.T),
-                    "alpha_relres": float(st.alpha_relres), "mean": np.asarray(mean), "cov": np.asarray(cov),
-                    "relres": np.asarray(info["relres"]), "mean_only": np.asarray(mean_only)}
-    d = c["chunked"]
-    with mock.patch.object(jnp.linalg, "eigh", canonical_eigh):
-        mll = jax_make_sharded_chunked_mll(mesh, "data", 4, 8, 4, 1e-10, 32, "nystrom", 1.0, cross)
-        v, rr, (_, xg, rg, s2g) = mll.value_and_grad(None, a(d["aug"]), a(d["y"]), a(d["s2"]), d["key"], pkey=d["pk"])
-    ref["chunked"] = {"val": float(v), "relres": np.asarray(rr),
-                      "grads": {"aug": np.asarray(xg), "y": np.asarray(rg), "s2": np.asarray(s2g)}}
+    if want("nystrom"):
+        d = c["nystrom"]
+        with mock.patch.object(jnp.linalg, "eigh", canonical_eigh):
+            v, g = jax.jit(jax.value_and_grad(
+                lambda aa, yy, ss: jax_sharded_cg_mll(None, aa, yy, d["key"], ss, mesh, cross_fn=cross, **d["kw"]),
+                argnums=(0, 1, 2)))(a(d["aug"]), a(d["y"]), a(d["s2"]))
+        ref["nystrom"] = {"val": float(v), "grads": dict(zip(("aug", "y", "s2"), map(np.asarray, g)))}
+    if want("state"):
+        d = c["state"]
+        st = jax_sharded_posterior_state(None, a(d["aug"]), a(d["y"]), a(d["s2"]), mesh, precond_key=d["pk"],
+                                         cross_fn=cross, **d["state_kw"])
+        mean, cov, info = jax_sharded_posterior_query(st, a(d["xt"]), mesh, cross_fn=cross, max_iters=64, tol=1e-10,
+                                                      return_info=True)
+        mean_only, _ = jax_sharded_posterior_query(st, a(d["xt"]), mesh, cross_fn=cross, mean_only=True)
+        ref["state"] = {"alpha": np.asarray(st.alpha), "lpc_pp": np.asarray(st.lpc @ st.lpc.T),
+                        "alpha_relres": float(st.alpha_relres), "mean": np.asarray(mean), "cov": np.asarray(cov),
+                        "relres": np.asarray(info["relres"]), "mean_only": np.asarray(mean_only)}
+    if want("chunked"):
+        d = c["chunked"]
+        with mock.patch.object(jnp.linalg, "eigh", canonical_eigh):
+            mll = jax_make_sharded_chunked_mll(mesh, "data", 4, 8, 4, 1e-10, 32, "nystrom", 1.0, cross)
+            v, rr, (_, xg, rg, s2g) = mll.value_and_grad(None, a(d["aug"]), a(d["y"]), a(d["s2"]), d["key"],
+                                                         pkey=d["pk"])
+        ref["chunked"] = {"val": float(v), "relres": np.asarray(rr),
+                          "grads": {"aug": np.asarray(xg), "y": np.asarray(rg), "s2": np.asarray(s2g)}}
     return ref
+
+
+def inputs_digest() -> str:
+    """The digest of every input JAX's side and the ranks get, which a
+    fixture keeps from its pinning (``pinned_refs.DIGEST``)."""
+    leaves, treedef = jax.tree_util.tree_flatten(cases())
+    return pinned_refs.digest([*leaves, str(treedef)])
+
+
+@functools.cache
+def pinned() -> dict:
+    return pinned_refs.load_checked(JAX_REF, inputs_digest())
+
+
+def jax_ref(p: int) -> dict:
+    """JAX's results at P, pinned by tools/pin_jax_parallel.py (the live
+    computation, ``jax_ref_live``, takes ~60 s on one idle CPU, several
+    times that beside the suite's other workers)."""
+    return pinned()[str(p)]
+
+
+def _live_is_pinned(p: int, only: tuple):
+    live = pinned_refs.flatten(jax_ref_live(p, only=only))
+    ref = pinned_refs.flatten({k: v for k, v in jax_ref(p).items() if k in only})
+    assert live and set(live) == set(ref), sorted(set(live) ^ set(ref))
+    for k, v in live.items():
+        np.testing.assert_allclose(v, ref[k], rtol=0, atol=1e-12 * max(np.abs(ref[k]).max(), 1e-300), err_msg=k)
+
+
+def test_pinned_jax_reference_is_the_live_one():
+    """The pinned JAX results are what the JAX package computes now on these
+    inputs: two cases recomputed live at P = 2, to 1e-12 of each array's
+    largest entry (the same program on the same CPU; the margin is for
+    XLA's thread count).  ``pinned`` checks the inputs' digest on load."""
+    _live_is_pinned(2, ("post_pre", "grads"))
+
+
+def test_pinned_jax_reference_at_four_ranks_is_the_live_one():
+    """As above, one cheap case at P = 4, so that a pinned world size
+    other than 2 is held to live JAX too."""
+    _live_is_pinned(4, ("post",))
 
 
 @pytest.fixture(scope="module")

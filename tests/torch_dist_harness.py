@@ -139,6 +139,37 @@ def _chol(mesh, c):
     return out
 
 
+def _jax_panel(col_full, jb, block):
+    """JAX's panel (``parallel/distributed_chol.py:69-80``), the port's
+    before F-P8: L_jj⁻¹ formed, the whole column taken as col · L_jj⁻ᵀ,
+    diagonal block included, then masked.  A diagonal block that fails
+    gives NaN, as JAX's Cholesky does."""
+    n = col_full.shape[0]
+    l_jj, info = torch.linalg.cholesky_ex(col_full[jb:jb + block])
+    l_jj = torch.full_like(l_jj, float("nan")) if int(info) else l_jj
+    l_inv = torch.linalg.solve_triangular(l_jj, torch.eye(block, dtype=col_full.dtype), upper=False)
+    p_full = col_full @ l_inv.mT
+    rowid, colid = torch.arange(n)[:, None], torch.arange(block)[None, :]
+    keep = (rowid >= jb) & ~((rowid < jb + block) & (rowid - jb < colid))
+    return torch.where(keep, p_full, torch.zeros_like(p_full))
+
+
+def _chol_fp8(mesh, c):
+    """F-P8: the float32 1-D sharded factor of each ill-conditioned input,
+    with the port's panel and with JAX's, gathered."""
+    from unittest import mock
+
+    from nonstationary_precip_tpu_torch.parallel import distributed_chol
+
+    out = {}
+    for jitter, a in c["a"].items():
+        a_s = mesh.rows(torch.tensor(a))
+        out[f"port_{jitter}"] = _np(collectives.all_gather(sharded_cholesky(mesh, block=c["block"])(a_s), mesh))
+        with mock.patch.object(distributed_chol, "_panel", _jax_panel):
+            out[f"jax_{jitter}"] = _np(collectives.all_gather(sharded_cholesky(mesh, block=c["block"])(a_s), mesh))
+    return out
+
+
 def _slice(mesh, c):
     models = [interop.gibbs_exact_from_jax(leaves, CPU, F64) for leaves in c["leaves"]]
     x_tr, y_tr, x_te, y_te = ([t64(a) for a in c[k]] for k in ("x_tr", "y_tr", "x_te", "y_te"))
@@ -182,6 +213,7 @@ def parallel_cases(inputs: dict) -> dict:
     for sc in (False, True):
         out[f"gibbs_sparse_{sc}"] = _gibbs_sparse(mesh, inputs[f"gibbs_sparse_{sc}"], sc)
     out["chol"] = _chol(mesh, inputs["chol"])
+    out["chol_fp8"] = _chol_fp8(mesh, inputs["chol_fp8"])
     out["slice"] = _slice(mesh, inputs["slice"])
     out["minibatched"] = _minibatched(mesh, inputs["minibatched"])
     out["seconds"] = time.perf_counter() - t0
