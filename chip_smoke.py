@@ -36,8 +36,9 @@ one JSON line each:
                   header csrc/chol_inv_cluster.cuh), K5 (csrc/chol_stream.cu),
                   K7 (csrc/elbo_fused.cu), K9 (csrc/gibbs_gram.cu), K10a
                   (csrc/chol_blocked.cu), K11 (csrc/trsm.cu), K8
-                  (csrc/gibbs_fused.cu) and K10c (csrc/chol_stream_v1.cu; K10b
-                  is K1's library with its retry off), ten nvcc runs started together, in
+                  (csrc/gibbs_fused.cu), K10c (csrc/chol_stream_v1.cu; K10b
+                  is K1's library with its retry off) and K12
+                  (csrc/se_matvec_f64.cu), eleven nvcc runs started together, in
                   seconds, with each kernel's registers, spills and shared
                   memory, and each library's sources (its .cu and the
                   headers it includes);
@@ -208,6 +209,14 @@ one JSON line each:
                   forward's (checked 10), K7's forward and backward time by
                   kernel, and K9's device time (the median of 60 launches'
                   durations at 1280²);
+30b. k12       — K12 (the prior's SE-ARD Gram·V in float64) against its plain
+                  version (the prior's float64 panels) on the quickstart's
+                  data at the prior's pose: 16384², R 1 and R 16 with the
+                  1e-4 jitter, a ragged 4096 × 16391, R 2; each entry within
+                  2(N + 64)·ε₆₄ of Σⱼ |K_ij||V_j|, bitwise repeat; its exp
+                  probe against torch.exp and exp's FP64 operations counted
+                  in the library's SASS (cuobjdump) against the bound's
+                  constant; times and the FP64 bound (34 TFLOP/s);
 31. gibbs_mf_ref — the matrix-free Gibbs flow of examples/
                   quickstart_gibbs_largen.py at N = 2048 on the data, prior
                   SLQ probes and per-step probes of the JAX run pinned in
@@ -215,17 +224,19 @@ one JSON line each:
                   logdet against the float64 dense one, its losses at steps
                   0 and 19 against JAX's (the prior's logdet the pinned one),
                   the posterior at the pinned trained pose against the
-                  float64 dense posterior, K2's and K3's launches;
+                  float64 dense posterior, K2's, K3's and K12's launches
+                  (K12 once an iteration of each prior solve, none stopped
+                  early, and once a dim a conditional mean);
 32. gibbs_mf    — the same flow at N = 16384 (20 steps, data rank 150, prior
                   rank 50, 8 probes, block 2048): the matrix-free loss against
                   the dense MAP loss, prior included, the gradient cosine, the
                   field's gradient term by term against float64 (the prior's
                   against the exact one, the data term's against the same
                   probes' estimator with exact solves), the trained-pose relres, the state's mean-only query against the
-                  one-shot posterior mean, a finite RMSE, K2's and K3's
-                  launches against what the code implies (K9 once, in the
-                  dense oracle); ms a step, the prior's share, the hoist, the
-                  state and a query batch;
+                  one-shot posterior mean, a finite RMSE, K2's, K3's and
+                  K12's launches against what the code implies (K9 once, in
+                  the dense oracle); ms a step, the prior's share, the
+                  hoist, the state and a query batch;
 33. sparse_ref  — the sparse Gibbs slice (10 splits, M = 250), the ST
                   nonstationary model (M = 100) and SGPR (M = 1900) for 20
                   steps from the z of the JAX runs pinned in
@@ -279,9 +290,12 @@ one JSON line each:
                   the monolithic loss_matrixfree with the same factor and
                   draws, each solve's relres and the Nyström directions kept
                   (readings), K2's and K3's launches from the iterations
-                  each run reports, K9 none; then the prior-free chunked
-                  loss at N = 131072 with the backward whole and in 2 row
-                  blocks (K3's row entry), bit for bit.
+                  each run reports, K12 from the prior solves' reported
+                  iterations, K9 none; then the prior-free chunked loss at
+                  N = 131072 with the backward whole and in 2 row blocks
+                  (K3's row entry), bit for bit, and the same loss with its
+                  prior, hoisted as serve hoists it (K12), every training
+                  solve within the relres gate.
 42. baselines_ref — the production driver (``experiments.
                   precipitation_baselines``) exact and sparse at the argv of
                   the JAX driver's runs pinned in
@@ -364,7 +378,7 @@ each mode).
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last lines are nvidia-smi's line, the kernels' JSON line (K1's,
 K2's, K3's, K4's, K2's and K6's mode kernels', K6's, K7's, K5's, K10c's,
-K10a's, K11's and K8's entries
+K10a's, K11's, K8's and K12's entries
 with the registers, spills and shared memory of each of their kernels, K1's
 and K4's with their cluster size) and the result line.  Needs a CUDA card and nvcc; imports no
 JAX.
@@ -398,7 +412,21 @@ launches), nvidia-smi's line, the result line.  A rank that fails ends
 the run with its log and a non-zero exit; every rank is killed past
 WORLD_DEADLINE.
 
+With ``--octave N`` the script runs the JAX package's N = 1,048,576 flagship
+configuration at N rows instead, on K2, K3 and K12 (two nvcc runs): (i)
+the prior-free host-chunked MLL of tools/probe_chunked.py (its recorded
+row, chunked-lazygnys-r1024-i32x8-s10-1048576: Nyström rank 1024, shift
+10, 4 × 8 chunks, 3 Adam steps), every training solve within the relres
+gate, the kept directions, the state's α relres along the shift ladder,
+the held-out RMSE against the predict-zero baseline's; (ii) ``serve
+--matrixfree --chunked --precond nystrom --precond_rank 1024
+--precond_shift 10`` with its prior on the same data, 3 Adam steps, 128
+query points with variances: every solve's relres and iterations, the hoist's, fit's and
+serve's seconds, the launches, the training solves within the gate, no
+panel built on the card.
+
 Run from the repository root: python3 chip_smoke.py [--steps N] [--world P]
+[--octave N]
 """
 
 from __future__ import annotations
@@ -706,6 +734,20 @@ GIBBS_MF_N, GIBBS_MF_STEPS, GIBBS_MF_DRIFT = 16384, 20, 1e-3
 # trace cotangent gives 0.5 and 0.19 (a CPU run at N = 256).
 GIBBS_MF_PRIOR_GRAD = {"cosine": 0.99999, "rel": 1e-5}
 GIBBS_MF_DATA_GRAD = {"cosine": 0.9999, "rel": 5e-3}
+# K12, the prior's SE-ARD Gram·V in float64 (csrc/se_matvec_f64.cu), against
+# its plain version (the prior's float64 panels) on the quickstart's data at
+# the prior's pose (ℓ 1.5, s² 1): the square operator with the 1e-4 jitter at
+# 16384², R 1 (the quadratic's and the conditioning solves') and R 16 (the
+# SLQ hoist's probes), and a ragged rectangular 4096 × (16384 + 7), R 2 (the
+# conditional mean's cross).  Both are float64 sums of N terms in another
+# order, each within γ_N·S of the exact product, S = Σⱼ |K_ij||V_jr| (+ σ²|V_ir|)
+# (K ≥ 0, so S is the plain version applied to |V|), with a few roundings of
+# the element and exp beside: the two within 2(N + K12_ULPS)·ε₆₄·S entry by
+# entry, and the kernel bitwise repeatable.
+K12_SHAPES = (("square_r1", 16384, None, 1), ("square_r16", 16384, None, 16), ("ragged_r2", 4096, 16384 + 7, 2))
+K12_ULPS = 64
+K12_TIMED = 20  # calls per timed block (the plain version takes ~20 ms at 16384²)
+K12_WALK = ("se_f64_rows_kernel<2,1>", "se_f64_rows_kernel<2,16>", "se_f64_rows_kernel<2,2>")  # the paths' walks
 # The walk's instantiations at the paths' shapes (csrc/gibbs_matvec.cu): K2
 # and K6 at D 2, R 9; K3 at D 2 and 1 + 2R = 17 factors.
 # The serving CLI.  serve_ref: every family from the pinned JAX
@@ -1366,7 +1408,7 @@ def phase_k3(matvec, payloads, dev):
 
 def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram, chol_blocked, trsm,
               gibbs_fused) -> dict:
-    """The ten nvcc runs at once, each timed on its own; returns
+    """The eleven nvcc runs at once, each timed on its own; returns
     {library: nvcc's output}."""
     def timed(build):
         t0 = time.perf_counter()
@@ -1377,11 +1419,11 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_
         return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
     builds = [m.build for m in (chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_gram,
-                                 chol_blocked, trsm, gibbs_fused)] + [chol_stream.build_v1]
+                                 chol_blocked, trsm, gibbs_fused)] + [chol_stream.build_v1, matvec.build_f64]
     with ThreadPoolExecutor(len(builds)) as pool:
         jobs = [pool.submit(timed, b) for b in builds]
-        (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log), (k5_s, k5_log), (k7_s, k7_log), *dense = (j.result()
-                                                                                                 for j in jobs)
+        (k1_s, k1_log), (gm_s, gm_log), (k4_s, k4_log), (k5_s, k5_log), (k7_s, k7_log), *dense, (k12_s, k12_log) = (
+            j.result() for j in jobs)
     emit("build", kernel="chol_inv_batched", seconds=k1_s, ptxas=ptxas_summary(k1_log),
          sources=sources_of(chol_inv.SOURCE))
     emit("build", kernel="gibbs_matvec", seconds=gm_s, ptxas=ptxas_summary(gm_log), sources=sources_of(matvec.SOURCE))
@@ -1393,9 +1435,11 @@ def build_all(chol_inv, matvec, svgp_precompute, chol_stream, elbo_fused, gibbs_
                                      (gibbs_gram.SOURCE, chol_blocked.SOURCE, trsm.SOURCE, gibbs_fused.SOURCE,
                                       chol_stream.V1_SOURCE)):
         emit("build", kernel=name, seconds=sec, ptxas=ptxas_summary(log), sources=sources_of(src))
+    emit("build", kernel="se_matvec_f64", seconds=k12_s, ptxas=ptxas_summary(k12_log),
+         sources=sources_of(matvec.SOURCE_F64))
     return {"chol_inv": k1_log, "gibbs_matvec": gm_log, "svgp_precompute": k4_log, "elbo_fused": k7_log,
             "chol_stream": k5_log, "chol_blocked": dense[1][1], "trsm": dense[2][1], "gibbs_fused": dense[3][1],
-            "chol_stream_v1": dense[4][1], "gibbs_gram": dense[0][1]}
+            "chol_stream_v1": dense[4][1], "gibbs_gram": dense[0][1], "se_matvec_f64": k12_log}
 
 
 def sources_of(source: Path) -> list:
@@ -2810,6 +2854,92 @@ def phase_k10c(chol_stream, exact_largen, dev):
     return out
 
 
+def exp_f64_sass_ops(matvec) -> dict:
+    """The FP64 instructions of K12's ``exp_f64_probe`` in the SASS of its
+    library (cuobjdump), counted by ``matvec.fp64_sass_ops``: those that
+    run on arguments within the range check, and apart those of the block
+    it branches over."""
+    from nonstationary_precip_tpu_torch.ops.cuda_build import nvcc
+
+    lib = matvec._lib_f64._name
+    sass = subprocess.run([str(Path(nvcc()).parent / "cuobjdump"), "-sass", lib], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    body = re.search(r"Function : \S*exp_f64_probe\S*\n(.*?)(?=\n\s*Function :|\Z)", sass, re.S).group(1)
+    return matvec.fp64_sass_ops(body)
+
+
+def k12_payload(quickstart, dev):
+    """The quickstart's 16384 rows (float64) and its prior dim 0's
+    (ℓ, s²), the operands of K12 on the gibbs_mf path."""
+    x = torch.tensor(quickstart.problem(K12_SHAPES[0][1])[0], dtype=torch.float64, device=dev)
+    prior = quickstart.build_model(x.float()).prior
+    ell, s2 = prior._dim_params()[0]
+    return x, (ell, s2)
+
+
+def phase_k12(matvec, quickstart, dev):
+    """K12 against its plain version at K12_SHAPES (K12_ULPS's criterion),
+    bitwise repeat, the exp probe against torch.exp and its SASS count
+    against ``matvec.EXP_F64_OPS`` (the path that runs: every operand's
+    scaled distance, bounded by its box, within ``matvec.EXP_F64_RANGE``);
+    times of each shape, kernel against plain, and the FP64 bound
+    (``matvec.se_f64_matvec_ops`` over 34 TFLOP/s)."""
+    from nonstationary_precip_tpu_torch.priors.lognormal_process import _COND_JITTER
+
+    sass = exp_f64_sass_ops(matvec)
+    check(sass["ops"] == matvec.EXP_F64_OPS, f"K12 exp's SASS: {sass} FP64 operations == {matvec.EXP_F64_OPS}")
+    gen = torch.Generator().manual_seed(41)
+    q = (torch.rand(1 << 16, generator=gen, dtype=torch.float64) * 60).to(dev)
+    probe_rel = float(((matvec.exp_f64_probe(q) - torch.exp(-q)) / torch.exp(-q)).abs().max())
+    check(probe_rel <= 4 * 2.0**-52, f"K12 exp probe vs torch.exp {probe_rel:.3g} <= 4 eps")
+    x, params = k12_payload(quickstart, dev)
+    jitter = torch.tensor(_COND_JITTER, dtype=torch.float64, device=dev)
+    eps = torch.finfo(torch.float64).eps
+    rows, out = {}, {"max_abs_err": 0.0}
+    for name, n1, n2, r in K12_SHAPES:
+        x1 = x[:n1]
+        x2 = None if n2 is None else torch.cat([x, 6 * torch.rand(n2 - x.shape[0], 2, generator=gen,
+                                                                    dtype=torch.float64).to(dev) - 3])
+        cols = x1 if x2 is None else x2
+        sig = jitter if x2 is None else None
+        both = torch.cat([x1, cols])
+        q_box = float(torch.sum(((both.amax(0) - both.amin(0)) / params[0]) ** 2) / 2)
+        check(q_box < matvec.EXP_F64_RANGE, f"K12 {name}: exp's arguments within its range check "
+                                            f"({q_box:.3g} < {matvec.EXP_F64_RANGE})")
+        v = torch.randn(cols.shape[0], r, generator=gen, dtype=torch.float64).to(dev)
+        mv = matvec.make_se_f64_matvec(params, x1, x2, sig)
+        k, again = mv(v), mv(v)
+        p = matvec.se_f64_matvec_plain(params, x1, cols, v, sig)
+        s_abs = matvec.se_f64_matvec_plain(params, x1, cols, v.abs(), sig)
+        torch.cuda.synchronize()
+        err = (k - p).abs()
+        ratio = float((err / (2 * (cols.shape[0] + K12_ULPS) * eps * s_abs)).max())
+        check(bool(torch.isfinite(k).all()) and ratio <= 1.0,
+              f"K12 {name}: |kernel − plain| within 2(N + {K12_ULPS})·ε·S (ratio {ratio:.3g})")
+        check(torch.equal(k, again), f"K12 {name} bitwise repeatable")
+        t = timed_pair(lambda: mv(v), lambda: matvec.se_f64_matvec_plain(params, x1, cols, v, sig), K12_TIMED)
+        ops = matvec.se_f64_matvec_ops(n1, cols.shape[0], 2, r)
+        nbytes = 8 * (2 * (n1 + cols.shape[0]) + cols.shape[0] * r + n1 * r)
+        b_ops, b_bytes = ops / matvec.PEAK_F64 * 1e3, nbytes / PEAK_BYTES * 1e3
+        rows[name] = {"shape": [n1, cols.shape[0], 2, r], "max_abs_err": float(err.max()),
+                      "max_rel_err": float(err.max() / p.abs().max()), "bound_ratio": ratio, "ops": ops,
+                      "exp_arg_box": q_box, "bound_ms": max(b_ops, b_bytes),
+                      "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+                      "timed_calls": 2 * K12_TIMED, **t}
+        out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+    emit("k12", rows=rows, exp_sass=sass, exp_probe_rel_err=probe_rel, peak_f64=matvec.PEAK_F64)
+    head = rows[K12_SHAPES[0][0]]
+    return {**out, **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
+def prior_launches(dims: int, *solves: int, means: int = 0) -> int:
+    """K12's launches: one an mBCG iteration of each prior solve (``solves``,
+    the iterations each dim's solves ran, summed over the run's solves: each
+    takes at most 16 right-hand sides, one launch), and one a dim for each
+    conditional mean (``means``)."""
+    return dims * sum(solves) + dims * means
+
+
 def gibbs_mf_launches(iters: int, steps: int, post_iters: int, extra_steps: int = 0,
                       queries: tuple = ()) -> dict:
     """K2 once per mBCG iteration of the data term (``iters`` a step) and of
@@ -2857,7 +2987,11 @@ def phase_gibbs_mf_ref(quickstart, dev):
         model.likelihood.raw_noise.copy_(torch.tensor(ref["raw_noise"], device=dev))
     post = model.posterior_matrixfree(x, y, xs, (lpc, pinned), block=block, max_iters=quickstart.PRIOR_ITERS,
                                       tol=1e-8, precond_rank=rank)
-    launches = check_launches(gibbs_mf_launches(quickstart.ITERS, steps, (quickstart.PRIOR_ITERS,)), "gibbs_mf_ref")
+    # K12: the hoist's SLQ, each step's quadratic and the posterior's
+    # conditioning solve, PRIOR_ITERS each (none stops early), and its mean
+    k12 = prior_launches(2, quickstart.PRIOR_ITERS, steps * quickstart.PRIOR_ITERS, quickstart.PRIOR_ITERS, means=1)
+    launches = check_launches({**gibbs_mf_launches(quickstart.ITERS, steps, (quickstart.PRIOR_ITERS,)),
+                               "se_matvec_f64": k12}, "gibbs_mf_ref")
     with torch.no_grad():
         dense = model.double().posterior(x.double(), y.double(), xs.double())
     dm, dv = dense.mean.cpu().numpy(), torch.diagonal(dense.cov).cpu().numpy()
@@ -2872,6 +3006,7 @@ def phase_gibbs_mf_ref(quickstart, dev):
          jax_losses=ref["losses"].tolist(), prior_logdet=logdet.tolist(), jax_prior_logdet=ref["prior_logdet"].tolist(),
          dense_prior_logdet_f64=dense_logdet.tolist(), prior_logdet_rel_err=logdet_err, posterior_errors=errs,
          launches=launches)
+    return launches
 
 
 def gibbs_mf_field_grads(quickstart, out: dict) -> dict:
@@ -2960,7 +3095,13 @@ def phase_gibbs_mf(quickstart, dev_name: str):
     # and the state's α solve; 4 timed steps (one warm-up) and 4 variance
     # queries at the auto budget (16 at this N); the dense oracle's Gram
     want = gibbs_mf_launches(it, GIBBS_MF_STEPS + 1, (it, post_it, post_it), extra_steps=4, queries=(16,) * 4)
-    launches = check_launches({**want, "gibbs_gram": 1}, "gibbs_mf")
+    # K12, none of whose solves stops early: the hoist's SLQ, the steps'
+    # quadratics (the trained-pose loss and the 4 timed steps among them),
+    # the one-shot posterior's conditioning solve, the state's (its
+    # prior_max_iters, 64), the 4 timed prior terms; a mean a dim for the
+    # posterior, the state's query and the 8 timed queries
+    k12 = prior_launches(2, post_it, (GIBBS_MF_STEPS + 1 + 4) * post_it, post_it, 64, 4 * post_it, means=10)
+    launches = check_launches({**want, "gibbs_gram": 1, "se_matvec_f64": k12}, "gibbs_mf")
     check(out["loss_rel_diff"] <= GATE_LOSS_REL, f"loss vs dense {out['loss_rel_diff']:.3g} <= {GATE_LOSS_REL}")
     check(out["grad_cosine"] >= GATE_COSINE, f"gradient cosine {out['grad_cosine']:.5f} >= {GATE_COSINE}")
     check(out["diag"]["relres_solve"] <= GATE_RELRES,
@@ -3239,7 +3380,10 @@ def serve_launches(serve, cfg, n: int, n_pts: int, executed: int) -> dict:
     K4 once a step and once in predict, K7 once forward and once backward a
     step.  Matrix-free: K2 once an mBCG iteration for each 128 right-hand
     sides (16 iterations of 1 + 8 a step's loss, 32 of 1 for the state's α,
-    16 of a chunk's columns a chunk), K3 once a step.  The rest:
+    16 of a chunk's columns a chunk), K3 once a step, and K12 once an
+    iteration of the prior's solves on its 2 dims (the hoist's SLQ, 256;
+    each step's quadratic and the state's conditioning solve, 64; none
+    stops early) and once a dim for each chunk's conditional mean.  The rest:
     no kernel; N is checked outside K5's, K8's, K10a's and K11's windows."""
     def k9(n1, n2):
         return int(n1 * n2 >= 128 * 128)
@@ -3249,7 +3393,7 @@ def serve_launches(serve, cfg, n: int, n_pts: int, executed: int) -> dict:
     if cfg.matrixfree:  # K2 takes 128 right-hand sides a launch (ops/matvec.MAX_R)
         c, chunks, iters = min(n_pts, 1024), -(-n_pts // 1024), 16 if n <= 32768 else 32
         return {"gibbs_matvec": iters * (executed * -(-(1 + serve.NUM_PROBES) // 128) + 2 + chunks * -(-c // 128)),
-                "gibbs_panel_grads": executed}
+                "gibbs_panel_grads": executed, "se_matvec_f64": prior_launches(2, 256, 64 * executed, 64, means=chunks)}
     c, chunks = min(n_pts, 4096), -(-n_pts // 4096)
     m = cfg.num_inducing
     roots = k9(n, m) + k9(m, m) + k9(c, m) + k9(m, m)
@@ -3723,12 +3867,14 @@ def phase_chunked_ref(quickstart, dev):
         tag = f"n{n}"
         x, y, xs, model, pre, probes = _chunked_case(quickstart, ref, tag, n, torch.float32, dev)
         reset_launches()
+        prior_iters = 0  # K12's launches: the prior solves' iterations as each reports them
         for case in ("pivchol", "nystrom", "nystrom_keyed", "pivchol_keyed"):
             if f"{tag}.{case}.loss0" not in ref.files:
                 continue
             pkey = (torch.as_tensor(ref[f"{tag}.landmarks"]) if case == "nystrom_keyed" else
                     torch.as_tensor(ref[f"{tag}.gumbel"]) if case == "pivchol_keyed" else None)
             val, g, info = _chunked_loss(case.split("_")[0], True).value_and_grad(model, x, y, pre, probes, pkey=pkey)
+            prior_iters += info["iters_prior"]
             want = float(ref[f"{tag}.{case}.loss0"])
             row = {"loss_rel_err": abs(float(val) - want) / abs(want), "relres_max": float(info["relres_max"]),
                    "jax_relres_max": float(ref[f"{tag}.{case}.relres_max"]), "iters": info["iters"]}
@@ -3747,10 +3893,12 @@ def phase_chunked_ref(quickstart, dev):
         rel0, rel_last = (abs(res.losses[i] - jl[i]) / abs(jl[i]) for i in (0, -1))
         check(res.steps == len(jl) and rel0 <= SERVE_MF_RTOL0 and rel_last <= RTOL_STEP50,
               f"chunked_ref {tag} fit: step 0 {rel0:.3g} <= {SERVE_MF_RTOL0}, last {rel_last:.3g} <= {RTOL_STEP50}")
+        cond_info = {}
         state = model.posterior_state_matrixfree(x, y, pre, block=128, tol=1e-8, precond_rank=64, chunk_iters=8,
-                                                 n_chunks=16)
+                                                 n_chunks=16, prior_info=cond_info)
         mean, qinfo = model.posterior_matrixfree_from_state(state, xs, mean_only=True, block=128, chunk_iters=8,
                                                             n_chunks=16, return_info=True)
+        prior_iters += int(res.prior_iters.sum()) + sum(cond_info["iters"])
         jm = ref[f"{tag}.query_mean"]
         mean_err = float(np.max(np.abs(mean.double().cpu().numpy() - jm)) / np.max(np.abs(jm)))
         check(mean_err <= RTOL_STEP50 and not bool(qinfo["broke"]),
@@ -3762,6 +3910,9 @@ def phase_chunked_ref(quickstart, dev):
         got = launch_counts()
         check(got["gibbs_gram"] == 0 and got["gibbs_matvec"] > 0 and got["gibbs_panel_grads"] > 0,
               f"chunked_ref {tag}: K2 and K3 ran, K9 did not: {_nonzero(got)}")
+        check(got["se_matvec_f64"] == prior_iters + 2,
+              f"chunked_ref {tag}: K12 once a prior mBCG iteration ({prior_iters}) and once a dim for the query's "
+              f"mean: {_nonzero(got)}")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
     tag = "n384_f64"
@@ -3786,12 +3937,15 @@ def phase_chunked(serve, quickstart, dev, dev_name: str):
     a CHUNKED_QUERY-point query with variances; the step-0 chunked loss and
     gradients against the port's monolithic loss_matrixfree with the same
     factor and draws (to rounding); each solve's relres and the landmark
-    directions kept of 1024 (F4) as readings; K2's and K3's launches from
-    the iterations each run reports, K9 none.  (b) ChunkedMAPLoss without
-    the prior at N = 131072 (Nyström rank 1024, shift 10) with the backward
-    whole and in 2 row blocks: the row blocks' gradients the whole sweep's
-    bit for bit (K3's row entry takes the whole sweep's column splits),
-    every value finite; relres and the kept directions as readings."""
+    directions kept of 1024 (F4) as readings; K2's, K3's and K12's
+    launches from the iterations each run reports, K9 none.  (b)
+    ChunkedMAPLoss without the prior at N = 131072 (Nyström rank 1024,
+    shift 10) with the backward whole and in 2 row blocks: the row blocks'
+    gradients the whole sweep's bit for bit (K3's row entry takes the whole
+    sweep's column splits), every value finite; relres and the kept
+    directions as readings; then the same loss with its prior, hoisted as
+    serve hoists it: K12 once a prior mBCG iteration, every training solve
+    within the relres gate, finite."""
     from nonstationary_precip_tpu_torch.kernels.gibbs import packed_gibbs_cross
     from nonstationary_precip_tpu_torch.models.gibbs_gp import make_chunked_map_loss
     from nonstationary_precip_tpu_torch.ops.lazy_cg import build_precond_factor
@@ -3816,7 +3970,8 @@ def phase_chunked(serve, quickstart, dev, dev_name: str):
         queries = run["query_iters"]
         chunk = min(CHUNKED_QUERY, 1024)
         want = {"gibbs_matvec": int(sum(run["fit_iters"])) * -(-(1 + serve.NUM_PROBES) // 128) + run["alpha_iters"]
-                + sum(q * -(-chunk // 128) for q in queries), "gibbs_panel_grads": run["executed"]}
+                + sum(q * -(-chunk // 128) for q in queries), "gibbs_panel_grads": run["executed"],
+                "se_matvec_f64": serve_prior_launches(run)}
         launches = check_launches(want, "chunked flagship CLI")
         check(bool(np.isfinite(run["mean"]).all() and np.isfinite(run["std"]).all()), "chunked CLI served finite")
         # step 0 again, chunked against the monolithic loss with the same factor and draws
@@ -3838,6 +3993,9 @@ def phase_chunked(serve, quickstart, dev, dev_name: str):
                            "fit_relres": run["fit_relres"].tolist(), "fit_iters": run["fit_iters"].tolist(),
                            "alpha_relres": run["alpha_relres"], "alpha_iters": run["alpha_iters"],
                            "worst_query_relres": run["worst_relres"], "query_iters": queries,
+                           "hoist_seconds": run["hoist_seconds"], "hoist_iters": run["hoist_iters"],
+                           "hoist_relres": run["hoist_relres"], "fit_prior_iters": run["fit_prior_iters"].tolist(),
+                           "fit_prior_relres": run["fit_prior_relres"].tolist(), "prior_iters": run["prior_iters"],
                            "kept_directions": kept, "rank": rank, "step0_vs_monolithic_rel": mono_rel,
                            "step0_field_grad_rel": grad_rel, "step0_relres_max": float(info["relres_max"]),
                            "fit_seconds": run["fit_seconds"], "serve_seconds": run["serve_seconds"],
@@ -3863,6 +4021,38 @@ def phase_chunked(serve, quickstart, dev, dev_name: str):
         check(bool(torch.isfinite(val)) and all(bool(torch.isfinite(t).all()) for t in g.values()),
               f"chunked N = {CHUNKED_BIG}: finite loss and gradients")
         big[rows] = (val, g, info, time.perf_counter() - t0, _nonzero(got))
+    # the same loss with its prior, hoisted as serve hoists it (rank 50, 16
+    # SLQ probes, 256 iterations at tol 1e-10): K12 once a prior mBCG
+    # iteration, the training solves within the gate
+    slq = [tuple(torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+                 for shape in ((serve.PRIOR_RANK, serve.PRIOR_PROBES), (CHUNKED_BIG, serve.PRIOR_PROBES)))
+           for _ in range(2)]
+    reset_launches()
+    t0 = time.perf_counter()
+    hoist = {}
+    pre = model.prior_pre_matrixfree(xb, slq, rank=serve.PRIOR_RANK, block=2048, info=hoist)
+    torch.cuda.synchronize()
+    hoist_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    vp, gp, ip = make_chunked_map_loss(2).value_and_grad(model, xb, yb, pre, probes)
+    torch.cuda.synchronize()
+    loss_s, got = time.perf_counter() - t0, launch_counts()
+    hoist_iters = [h["iters"] for h in hoist["dims"]]
+    check(got == {**{k: 0 for k in got}, "gibbs_matvec": ip["iters"], "gibbs_panel_grads": 1,
+                  "se_matvec_f64": sum(hoist_iters) + ip["iters_prior"]},
+          f"chunked N = {CHUNKED_BIG} with its prior: K2 once an iteration, K3 once, K12 once a prior iteration "
+          f"({sum(hoist_iters)} + {ip['iters_prior']}): {_nonzero(got)}")
+    check(bool(torch.isfinite(vp)) and all(bool(torch.isfinite(t).all()) for t in gp.values())
+          and bool(torch.isfinite(pre[1]).all()), f"chunked N = {CHUNKED_BIG} with its prior: finite")
+    check(float(ip["relres_max"]) <= SERVE_RELRES,
+          f"chunked N = {CHUNKED_BIG} with its prior: training solves' relres {float(ip['relres_max']):.3g} <= "
+          f"{SERVE_RELRES}")
+    out["with_prior"] = {"n": CHUNKED_BIG, "loss": float(vp), "relres_mll": ip["relres_mll"].tolist(),
+                         "relres_prior": ip["relres_prior"].tolist(), "iters": ip["iters"],
+                         "iters_prior": ip["iters_prior"], "hoist_iters": hoist_iters,
+                         "hoist_relres": [float(h["relres"].max()) for h in hoist["dims"]],
+                         "hoist_converged": [int(h["converged"].max()) for h in hoist["dims"]],
+                         "prior_logdet": pre[1].tolist(), "seconds": {"hoist": hoist_s, "loss": loss_s},
+                         "launches": _nonzero(got)}
     (v1, g1, i1, s1, l1), (v2, g2, _, s2, l2) = big[1], big[2]
     grad_rel = max(_rel(g2[k].cpu(), g1[k].cpu()) for k in ("log_ell", "raw_outputscale", "likelihood.raw_noise"))
     check(float(v1) == float(v2) and all(torch.equal(g1[k], g2[k]) for k in g1),
@@ -3874,8 +4064,17 @@ def phase_chunked(serve, quickstart, dev, dev_name: str):
                          "row_block_grad_rel": grad_rel, "seconds": {"rows1": s1, "rows2": s2},
                          "launches": {"rows1": l1, "rows2": l2}}
     emit("chunked", device=dev_name, **out)
-    return {"gibbs_matvec": out["flagship"]["launches"].get("gibbs_matvec", 0) + l1["gibbs_matvec"]
-            + l2["gibbs_matvec"], "gibbs_panel_grads": out["flagship"]["launches"].get("gibbs_panel_grads", 0) + 3}
+    return {k: out["flagship"]["launches"].get(k, 0) + l1.get(k, 0) + l2.get(k, 0)
+            + out["with_prior"]["launches"].get(k, 0) for k in ("gibbs_matvec", "gibbs_panel_grads", "se_matvec_f64")}
+
+
+def serve_prior_launches(run: dict) -> int:
+    """K12's launches in a matrix-free serve from what its solves report:
+    the hoist's SLQ, each step's prior quadratics (the chunked fit's), the
+    state's conditioning solves, and a conditional mean a dim for each
+    query chunk."""
+    return (sum(run["hoist_iters"]) + int(sum(run.get("fit_prior_iters", ()))) + sum(run["prior_iters"])
+            + len(run["prior_iters"]) * len(run["query_iters"]))
 
 
 def baselines_launches(cfg, n: int, n_test: int, steps: int, predictives: int) -> dict:
@@ -5267,12 +5466,17 @@ def main(argv=None):
     ap.add_argument("--world", type=int, default=0,
                     help="run parallel/ on this many cards of the host over NCCL, one spawned rank a card, "
                          "instead of the one-card smoke (raises where the host has fewer cards)")
+    ap.add_argument("--octave", type=int, default=0,
+                    help="run the JAX package's flagship configuration at this many rows instead of the smoke: "
+                         "(i) its recorded prior-free run, (ii) the serve CLI's flagship with its prior")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke test runs only on a CUDA card")
     if args.world:
         return main_world(args.world)
+    if args.octave:
+        return main_octave(args.octave)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi, torch=torch.__version__,
@@ -5340,7 +5544,8 @@ def main(argv=None):
                           k9.pop("stacked_call"))
     k9.update(device_ms=traced["k9_device_ms"],
               resources={"gibbs_gram_kernel<2,4>": ptxas_resources(logs["gibbs_gram"], "gibbs_gram_kernel<2,4>")})
-    phase_gibbs_mf_ref(quickstart, dev)
+    k12 = phase_k12(matvec, quickstart, dev)
+    mf_ref_launches = phase_gibbs_mf_ref(quickstart, dev)
     mf_launches = phase_gibbs_mf(quickstart, name)
     timed = {}
     for phase, run in (("sparse_ref", lambda: phase_sparse_ref(spatial_gibbs, spatio_temporal, sgpr_bench, dev)),
@@ -5368,7 +5573,7 @@ def main(argv=None):
     served = {k: timed["serve_ref"].get(k, 0) + timed["serve"].get(k, 0) + timed["chunked_ref"].get(k, 0)
               + timed["chunked"].get(k, 0)
               for k in ("gibbs_gram", "svgp_precompute", "elbo_data_term_fwd", "elbo_data_term_bwd", "gibbs_matvec",
-                        "gibbs_panel_grads")}
+                        "gibbs_panel_grads", "se_matvec_f64")}
     # the driver's, the quickstarts' and full_cov's launches
     driven = {k: timed["baselines_ref"].get(k, 0) + timed["baselines"].get(k, 0) + timed["baselines_dense"][0].get(k, 0)
               + timed["quickstarts"].get(k, 0)
@@ -5466,6 +5671,12 @@ def main(argv=None):
                                      ("gibbs_gram", "gibbs_gram.cu", "pallas_gram.py:136", k9),
                                      ("blocked_cholesky", "chol_blocked.cu", "pallas_chol.py:251", k10a),
                                      ("blocked_trsm", "trsm.cu", "pallas_trsm.py:106", k11))),
+        {"name": "se_matvec_f64", "route": "cuda", "source": "nonstationary_precip_tpu_torch/csrc/se_matvec_f64.cu",
+         "replaces": "nonstationary_precip_tpu/priors/lognormal_process.py:263",
+         "launches": mf_ref_launches["se_matvec_f64"] + mf_launches["se_matvec_f64"] + served["se_matvec_f64"],
+         "max_abs_err": k12["max_abs_err"], "ms": k12["ms"], "plain_ms": k12["plain_ms"], "bound_ms": k12["bound_ms"],
+         "bound_by": k12["bound_by"], "library_ms": None,
+         "resources": {w: ptxas_resources(logs["se_matvec_f64"], w) for w in K12_WALK}},
         *({"name": kname, "route": "cuda", "source": f"nonstationary_precip_tpu_torch/csrc/{src}",
            "replaces": f"nonstationary_precip_tpu/ops/{tpu}", "launches": k["launches"],
            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -5561,6 +5772,237 @@ def main_world(p: int):
     if p >= 2:
         phase_world_failure(name)
     print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+# --octave N: the JAX package's N = 1,048,576 flagship and its recorded
+# configuration (tools/probe_chunked.py, whose row in tools/bench_cg.json is
+# chunked-lazygnys-r1024-i32x8-s10-1048576): x ~ U[−3, 3]² and
+# y = sin 2x₀ · cos x₁ + 0.1ε from default_rng(0); the unscaled Gibbs
+# MLL, host-chunked (4-iteration chunks, 8 of them, tol 1e-6) with the keyed
+# Nyström factor of rank 1024 at shift 10, block 2048, 8 probes; Adam at lr
+# 1e-2 from log ℓ = 0, log σ² = −2; then the chunked mean-only state (16
+# chunks, the shift ladder 10, 100, 1000 until its α relres is within the
+# gate) and 2048 held-out points from default_rng(100), the trained field
+# carried to them by nearest neighbour.
+OCTAVE_STEPS, OCTAVE_RANK, OCTAVE_SHIFTS, OCTAVE_CHUNK, OCTAVE_CHUNKS = 3, 1024, (10.0, 100.0, 1000.0), 4, 8
+OCTAVE_HELDOUT, OCTAVE_POINTS, OCTAVE_PROBES = 2048, 128, 8
+OCTAVE_JAX_ROW = "chunked-lazygnys-r1024-i32x8-s10-1048576"
+
+
+def octave_data(n: int, dev):
+    """tools/probe_chunked.py's training data at n rows, float32 on ``dev``."""
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.uniform(-3, 3, size=(n, 2)), dtype=torch.float32, device=dev)
+    eps = torch.tensor(rng.normal(size=n), dtype=torch.float32, device=dev)
+    return x, torch.sin(2 * x[:, 0]) * torch.cos(x[:, 1]) + 0.1 * eps
+
+
+def octave_heldout(dev):
+    """The held-out points (default_rng(100)) and the generating function there."""
+    xt = torch.tensor(np.random.default_rng(100).uniform(-3, 3, size=(OCTAVE_HELDOUT, 2)), dtype=torch.float32,
+                      device=dev)
+    return xt, torch.sin(2 * xt[:, 0]) * torch.cos(xt[:, 1])
+
+
+def nn_field(x, log_ell, xt, chunk: int = 256):
+    """The trained field at xt by nearest neighbour, in (chunk, N) distance
+    blocks from the matmul expansion (probe_chunked.py's ``_nn_field``)."""
+    sq = torch.sum(x * x, dim=1)
+    idx = [torch.argmin(torch.sum(b * b, dim=1)[:, None] + sq[None, :] - 2.0 * (b @ x.T), dim=1)
+           for b in xt.split(chunk)]
+    return log_ell[torch.cat(idx)]
+
+
+def octave_jax_config(n: int, dev) -> dict:
+    """(i): the recorded configuration at n rows, prior-free, on K2 and K3:
+    OCTAVE_STEPS Adam steps, each step's loss, relres and iterations, every
+    training solve within serve.RELRES_GATE; the Nyström directions kept at
+    the trained pose; the state's α relres at each shift tried; the
+    held-out RMSE against the generating function and the predict-zero
+    baseline's.  K2 once an iteration, K3 once a step, no other kernel."""
+    from nonstationary_precip_tpu_torch import serve
+    from nonstationary_precip_tpu_torch.kernels.gibbs import packed_gibbs_cross
+    from nonstationary_precip_tpu_torch.ops import matvec
+    from nonstationary_precip_tpu_torch.ops.lazy_cg import (build_precond_factor, lazy_posterior_query,
+                                                            lazy_posterior_state_chunked, make_chunked_mll)
+
+    x, y = octave_data(n, dev)
+    cross = packed_gibbs_cross(2)
+    mll = make_chunked_mll(2048, OCTAVE_CHUNK, OCTAVE_CHUNKS, 1e-6, OCTAVE_RANK, "nystrom", 10.0, cross,
+                           matvec.packed_gibbs_matvec_builder(2), matvec.packed_gibbs_panel_vjp(2))
+    rng = np.random.default_rng(5)
+    probes = tuple(torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+                   for shape in ((OCTAVE_RANK, OCTAVE_PROBES), (n, OCTAVE_PROBES)))
+
+    def landmarks():  # JAX's fixed key: the same keyed landmarks every call
+        return torch.Generator().manual_seed(17)
+
+    log_ell = torch.zeros((n, 2), dtype=torch.float32, device=dev, requires_grad=True)
+    log_noise = torch.tensor(-2.0, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([log_ell, log_noise], lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
+    steps = []
+    for i in range(OCTAVE_STEPS):
+        reset_launches()
+        t0 = time.perf_counter()
+        aug = torch.cat([x, log_ell.detach()], dim=1)
+        val, relres, (_, xg, _, s2g) = mll.value_and_grad(None, aug, y, torch.exp(log_noise.detach()), probes,
+                                                          pkey=landmarks())
+        log_ell.grad, log_noise.grad = -xg[:, 2:] / n, -s2g * torch.exp(log_noise.detach()) / n
+        opt.step()
+        torch.cuda.synchronize()
+        got = check_launches({"gibbs_matvec": mll.iters, "gibbs_panel_grads": 1}, f"octave {n} step {i}")
+        steps.append({"loss": -float(val) / n, "relres_max": float(relres.max()), "iters": mll.iters,
+                      "seconds": time.perf_counter() - t0, "launches": _nonzero(got)})
+        emit("octave_step", n=n, step=i, **steps[-1])
+        check(np.isfinite(steps[-1]["loss"]) and steps[-1]["relres_max"] <= serve.RELRES_GATE,
+              f"octave {n} step {i}: finite, training relres {steps[-1]['relres_max']:.3g} <= {serve.RELRES_GATE}")
+    check(bool(torch.isfinite(log_ell).all()) and bool(torch.isfinite(log_noise)), f"octave {n}: finite pose")
+    aug = torch.cat([x, log_ell.detach()], dim=1)
+    s2 = torch.exp(log_noise.detach())
+    lpc = build_precond_factor("nystrom", None, aug, OCTAVE_RANK, cross, landmarks())
+    kept = int((lpc.abs().amax(0) > 0).sum())
+    del lpc
+    reset_launches()
+    ladder, state = [], None
+    t0 = time.perf_counter()
+    for shift in OCTAVE_SHIFTS:
+        st = lazy_posterior_state_chunked(None, aug, y, s2, block=2048, chunk_iters=OCTAVE_CHUNK,
+                                          n_chunks=2 * OCTAVE_CHUNKS, tol=1e-6, precond_rank=OCTAVE_RANK,
+                                          precond="nystrom", precond_key=landmarks(), precond_shift=shift,
+                                          cross_fn=cross, matvec_builder=matvec.packed_gibbs_matvec_builder(2))
+        ladder.append({"shift": shift, "alpha_relres": float(st.alpha_relres), "iters": st.iters})
+        emit("octave_state", n=n, **ladder[-1])
+        if state is None or ladder[-1]["alpha_relres"] < min(r["alpha_relres"] for r in ladder[:-1]):
+            state = st
+        if ladder[-1]["alpha_relres"] <= serve.RELRES_GATE:
+            break
+    state_s = time.perf_counter() - t0
+    check_launches({"gibbs_matvec": sum(r["iters"] for r in ladder)}, f"octave {n} state")
+    xt, truth = octave_heldout(dev)
+    aug_t = torch.cat([xt, nn_field(x, log_ell.detach(), xt)], dim=1)
+    mean = torch.cat([lazy_posterior_query(state, a, mean_only=True, cross_fn=cross)[0] for a in aug_t.split(256)])
+    rmse, base = float(torch.sqrt(torch.mean((mean - truth) ** 2))), float(torch.sqrt(torch.mean(truth ** 2)))
+    check(np.isfinite(rmse) and bool(torch.isfinite(state.alpha).all()), f"octave {n}: finite state and RMSE")
+    out = {"n": n, "steps": steps, "kept_directions": kept, "rank": OCTAVE_RANK, "state_ladder": ladder,
+           "state_seconds": state_s, "heldout_rmse": rmse, "baseline_rmse": base,
+           "log_noise": float(log_noise.detach())}
+    jax_row = Path(__file__).resolve().parent / "tools" / "bench_cg.json"
+    if jax_row.exists():
+        row = json.loads(jax_row.read_text()).get(OCTAVE_JAX_ROW, {})
+        out["jax_reading"] = {k: row.get(k) for k in ("relres_max_final", "heldout_rmse", "heldout_baseline_rmse",
+                                                       "state_alpha_relres", "chunk_iters", "n_chunks")}
+    emit("octave_jax", **out)
+    return out
+
+
+def octave_serve(n: int, steps: int, dev) -> dict:
+    """(ii): ``serve --model gibbs_exact --matrixfree true --chunked true
+    --precond nystrom --precond_rank 1024 --precond_shift 10`` on the n-row
+    CSV of ``octave_data`` with OCTAVE_POINTS held-out query points
+    (variances served): the hoist's, the fit's and the serve's seconds,
+    every solve's relres and iterations, the launches (K2 once an iteration
+    of each data solve, K3 once a step, K12 once a prior iteration and once
+    a dim a query chunk), every training solve within serve.RELRES_GATE, a
+    finite mean and std, and no panel built on the card (``lazy_cg._panel``
+    and K12's plain version never called)."""
+    from nonstationary_precip_tpu_torch import serve
+    from nonstationary_precip_tpu_torch.ops import lazy_cg, matvec
+
+    x, y = octave_data(n, dev)
+    plain_calls = {"panel": 0, "k12_plain": 0}
+
+    def counted(fn, key):
+        def wrapped(*a, **k):
+            plain_calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train, pts = os.path.join(tmp, "train.csv"), os.path.join(tmp, "pts.csv")
+        t0 = time.perf_counter()
+        np.savetxt(train, np.column_stack([x.cpu().numpy(), y.cpu().numpy()]), delimiter=",", header="x0,x1,y",
+                   comments="", fmt="%.9g")
+        np.savetxt(pts, octave_heldout(dev)[0][:OCTAVE_POINTS].cpu().numpy(), delimiter=",", header="x0,x1",
+                   comments="", fmt="%.9g")
+        csv_s = time.perf_counter() - t0
+        del x, y
+        argv = ["--model", "gibbs_exact", "--matrixfree", "true", "--chunked", "true", "--precond", "nystrom",
+                "--precond_rank", str(OCTAVE_RANK), "--precond_shift", "10", "--train_csv", train, "--points_csv", pts,
+                "--max_iters", str(steps), "--device", "cuda", "--output", os.path.join(tmp, "p.csv")]
+        panel, k12_plain = lazy_cg._panel, matvec.se_f64_matvec_plain
+        lazy_cg._panel, matvec.se_f64_matvec_plain = counted(panel, "panel"), counted(k12_plain, "k12_plain")
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            run = serve.run(serve.config(argv))
+            wall = time.perf_counter() - t0
+        finally:
+            lazy_cg._panel, matvec.se_f64_matvec_plain = panel, k12_plain
+    queries = run["query_iters"]
+    want = {"gibbs_matvec": int(sum(run["fit_iters"])) + run["alpha_iters"]
+            + sum(q * -(-min(OCTAVE_POINTS, 1024) // matvec.MAX_R) for q in queries),
+            "gibbs_panel_grads": run["executed"], "se_matvec_f64": serve_prior_launches(run)}
+    launches = check_launches(want, f"octave serve {n}")
+    check(plain_calls == {"panel": 0, "k12_plain": 0}, f"octave serve {n}: no panel built on the card {plain_calls}")
+    check(bool(np.isfinite(run["mean"]).all() and np.isfinite(run["std"]).all()), f"octave serve {n}: finite")
+    check(bool((run["fit_relres"] <= serve.RELRES_GATE).all()),
+          f"octave serve {n}: training solves' relres {run['fit_relres'].tolist()} <= {serve.RELRES_GATE}")
+    out = {"n": n, "steps": run["steps"], "losses": run["losses"].tolist(), "fit_relres": run["fit_relres"].tolist(),
+           "fit_iters": run["fit_iters"].tolist(), "fit_prior_iters": run["fit_prior_iters"].tolist(),
+           "fit_prior_relres": run["fit_prior_relres"].tolist(), "hoist_seconds": run["hoist_seconds"],
+           "hoist_iters": run["hoist_iters"], "hoist_relres": run["hoist_relres"],
+           "hoist_converged": [max(c) for c in run["hoist_converged"]], "fit_seconds": run["fit_seconds"],
+           "serve_seconds": run["serve_seconds"], "wall_seconds": wall, "csv_seconds": csv_s,
+           "alpha_relres": run["alpha_relres"], "alpha_iters": run["alpha_iters"],
+           "prior_cond_relres": run["prior_relres"], "prior_cond_iters": run["prior_iters"],
+           "worst_query_relres": run["worst_relres"], "query_iters": queries,
+           "mean_range": [float(run["mean"].min()), float(run["mean"].max())],
+           "std_range": [float(run["std"].min()), float(run["std"].max())],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "launches": _nonzero(launches)}
+    emit("octave_serve", **out)
+    return out
+
+
+def main_octave(n: int):
+    """``--octave N``: K2/K3 and K12 built (two nvcc runs at once), then (i)
+    ``octave_jax_config`` and (ii) ``octave_serve`` at N rows, OCTAVE_STEPS
+    steps each; the kernels' line (their launches, K12's bound at the octave's R = 1
+    operator), nvidia-smi's line and the result line."""
+    from nonstationary_precip_tpu_torch.ops import matvec
+
+    name = torch.cuda.get_device_name(0)
+    emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=nvidia_smi_line(), torch=torch.__version__,
+         cuda=torch.version.cuda, octave=n, steps=OCTAVE_STEPS)
+    dev = torch.device("cuda")
+    with ThreadPoolExecutor(2) as pool:
+        logs = dict(zip(("gibbs_matvec", "se_matvec_f64"), pool.map(lambda b: b(force=True),
+                                                                    (matvec.build, matvec.build_f64))))
+    for lib, log in logs.items():
+        emit("build", kernel=lib, ptxas=ptxas_summary(log))
+    t0 = time.perf_counter()
+    jax_out = octave_jax_config(n, dev)
+    emit("seconds", of="octave_jax", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_out = octave_serve(n, OCTAVE_STEPS, dev)
+    emit("seconds", of="octave_serve", seconds=time.perf_counter() - t0)
+    launches = {k: sum(s["launches"].get(k, 0) for s in jax_out["steps"]) + serve_out["launches"].get(k, 0)
+                for k in ("gibbs_matvec", "gibbs_panel_grads", "se_matvec_f64")}
+    launches["gibbs_matvec"] += sum(r["iters"] for r in jax_out["state_ladder"])
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": f"nonstationary_precip_tpu_torch/csrc/{src}", "replaces": tpu,
+         "launches": launches[k]}
+        for k, src, tpu in (("gibbs_matvec", "gibbs_matvec.cu", "nonstationary_precip_tpu/ops/pallas_matvec.py:240"),
+                            ("gibbs_panel_grads", "gibbs_matvec.cu",
+                             "nonstationary_precip_tpu/ops/pallas_matvec.py:350"),
+                            ("se_matvec_f64", "se_matvec_f64.cu",
+                             "nonstationary_precip_tpu/priors/lognormal_process.py:263"))],
+        "se_matvec_f64_bound_ms": matvec.se_f64_matvec_ops(n, n, 2, 1) / matvec.PEAK_F64 * 1e3}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)
 

@@ -11,7 +11,7 @@ matrix, data Gram or prior Gram, ever in memory:
     ``--refresh`` steps: the estimator is unbiased for any fixed SPD P);
   * Adam on the field, the outputscale and the noise, the data term's
     mBCG through K2 and its backward through K3 on the card, the prior's
-    quadratic by float64 CG over plain torch panels;
+    quadratic by float64 CG through K12 (plain torch panels on the CPU);
   * the matrix-free loss at the trained pose against the dense MAP loss;
   * ``posterior_matrixfree`` at 96 test points;
   * the serving state (``posterior_state_matrixfree``) and its mean-only

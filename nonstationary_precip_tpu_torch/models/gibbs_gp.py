@@ -177,8 +177,9 @@ class GibbsExactGP(nn.Module):
         ``stop_every`` / ``prior_stop_every`` (the solves' early stop,
         ``bbmm.mbcg``) and ``info``, a dict that receives the evidence:
         ``mll`` the raw MLL, ``relres_mll`` its (1 + R,) residuals,
-        ``relres_prior`` a dim's, ``iters`` the MLL's mBCG iterations and
-        ``relres_max`` the worst."""
+        ``relres_prior`` a dim's, ``iters`` the MLL's mBCG iterations,
+        ``iters_prior`` the prior's solves' (0 without the prior: one K12
+        launch each on the card) and ``relres_max`` the worst."""
         n = y.shape[-1]
         d = x.shape[-1]
         if max_iters is None:
@@ -196,7 +197,7 @@ class GibbsExactGP(nn.Module):
                            else None,
                            panel_vjp=packed_gibbs_panel_vjp(d, bwd_row_chunks) if fused_matvec else None,
                            stop_every=stop_every, info=mll_info)
-        prior_info = {"relres": torch.zeros((d,), dtype=x.dtype, device=x.device)}
+        prior_info = {"relres": torch.zeros((d,), dtype=x.dtype, device=x.device), "iters": []}
         prior_term = self.prior.log_prob_matrixfree(x, self.log_ell, prior_pre, block=block,
                                                     max_iters=prior_max_iters, tol=tol,
                                                     precond_shift=prior_precond_shift, stop_every=prior_stop_every,
@@ -204,7 +205,7 @@ class GibbsExactGP(nn.Module):
         if info is not None:
             worst = torch.max(mll_info["relres"])
             info.update(mll=logp.detach(), relres_mll=mll_info["relres"], relres_prior=prior_info["relres"],
-                        iters=mll_info["iters"],
+                        iters=mll_info["iters"], iters_prior=sum(prior_info["iters"]),
                         relres_max=torch.maximum(worst, torch.max(prior_info["relres"]).to(worst.dtype)))
         return -(logp + prior_term) / n
 
@@ -268,14 +269,16 @@ class GibbsExactGP(nn.Module):
                                    max_iters: Optional[int] = None, tol: float = 1e-8, precond_rank: int = 150,
                                    precond: str = "pivchol", precond_key=None, precond_shift: float = 1.0,
                                    prior_max_iters: int = 64, chunk_iters: Optional[int] = None,
-                                   n_chunks: int = 8):
+                                   n_chunks: int = 8, prior_info: Optional[dict] = None):
         """Once-per-fit serving state for :meth:`posterior_matrixfree_from_state`:
         α = (K + σ²I)⁻¹y with the rank-``precond_rank`` factor
         (``lazy_posterior_state``, through K2) and the prior's per-dim
         conditioning solves (``conditional_pre_matrixfree``).  Returns
         (state, cond).  ``chunk_iters`` (with ``n_chunks``) runs the α solve
         and the prior's solves host-chunked (``lazy_posterior_state_chunked``:
-        at most ``chunk_iters``·``n_chunks`` iterations, stopped early)."""
+        at most ``chunk_iters``·``n_chunks`` iterations, stopped early).
+        ``prior_info``, a dict, receives the prior's solves' evidence
+        (``conditional_pre_matrixfree``'s ``info``)."""
         d = x_train.shape[-1]
         aug = torch.cat([x_train, self.log_ell], dim=1)
         kw = dict(block=block, tol=tol, precond_rank=min(precond_rank, y_train.shape[-1]), precond=precond,
@@ -288,7 +291,8 @@ class GibbsExactGP(nn.Module):
             st = lazy_posterior_state(self.raw_outputscale, aug, y_train, self.likelihood.noise, max_iters=max_iters,
                                       **kw)
         cond = self.prior.conditional_pre_matrixfree((x_train, torch.exp(self.log_ell)), prior_pre, block=block,
-                                                     max_iters=prior_max_iters, tol=tol, chunk_iters=chunk_iters)
+                                                     max_iters=prior_max_iters, tol=tol, chunk_iters=chunk_iters,
+                                                     info=prior_info)
         return st, cond
 
     @torch.no_grad()

@@ -183,10 +183,22 @@ def pivoted_cholesky(k: torch.Tensor, rank: int, jitter: float = 1e-8):
 
 def woodbury_precond(l: torch.Tensor, sigma2) -> Callable[[torch.Tensor], torch.Tensor]:
     """P⁻¹ for P = LLᵀ + σ²I by Woodbury:
-    P⁻¹v = (v − L (σ²I + LᵀL)⁻¹ Lᵀ v) / σ², one k×k Cholesky up front."""
+    P⁻¹v = (v − L (σ²I + LᵀL)⁻¹ Lᵀ v) / σ², one k×k Cholesky up front.
+
+    Computed in float64 whatever the operands' dtype (float64 operands
+    unchanged), the result in v's dtype.  In float32 two things fail at the
+    JAX flagship's N = 1,048,576 (Nyström rank 1024, shift 10; ROADMAP §3,
+    F-P9, ``tools/probe_woodbury_f32.py``): LᵀL summed down the 2²⁰ rows in
+    one product is off by more than σ², which diverged the training solves
+    at the init pose, and the correction's cancellation against v,
+    ε·λmax(P)/σ² (the JAX package's DESIGN §30), kept the serve's training
+    solves near the relres gate.  Costs an (N, k) float64 copy of L a
+    preconditioner."""
+    l64 = l.double()
+    s2 = torch.as_tensor(sigma2, dtype=torch.float64, device=l.device)
     kk = l.shape[-1]
-    cf = torch.linalg.cholesky(sigma2 * torch.eye(kk, dtype=l.dtype, device=l.device) + l.T @ l)
-    return lambda v: (v - l @ torch.cholesky_solve(l.T @ v, cf)) / sigma2
+    cf = torch.linalg.cholesky(s2 * torch.eye(kk, dtype=torch.float64, device=l.device) + l64.T @ l64)
+    return lambda v: ((v.double() - l64 @ torch.cholesky_solve(l64.T @ v.double(), cf)) / s2).to(v.dtype)
 
 
 def precond_logdet(l: torch.Tensor, sigma2, n: int) -> torch.Tensor:

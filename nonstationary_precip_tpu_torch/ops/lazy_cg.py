@@ -544,8 +544,8 @@ class _LazyCGQuad(torch.autograd.Function):
 
 def lazy_cg_quad(kernel, x: torch.Tensor, diff: torch.Tensor, sigma2, *, lpc: Optional[torch.Tensor] = None,
                  block: int = 1024, max_iters: int = 64, tol: float = 1e-6, precond_shift: float = 1.0,
-                 cross_fn: Optional[Callable] = None, stop_every: int = 0,
-                 info: Optional[dict] = None) -> torch.Tensor:
+                 cross_fn: Optional[Callable] = None, matvec_builder: Optional[Callable] = None,
+                 stop_every: int = 0, info: Optional[dict] = None) -> torch.Tensor:
     """diffᵀ(K(x, x) + σ²I)⁻¹diff by one mBCG solve over lazy row panels.
 
     Differentiable in ``diff`` only, with the pullback 2·(K + σ²I)⁻¹diff,
@@ -554,8 +554,9 @@ def lazy_cg_quad(kernel, x: torch.Tensor, diff: torch.Tensor, sigma2, *, lpc: Op
     prior).  A breakdown gives NaN.  ``lpc``: a hoisted (N, rank)
     pivoted-Cholesky factor of the noise-free K, the Woodbury
     preconditioner with ridge ``precond_shift``·σ²; without it the prior's
-    1e-4 jitter makes plain CG stall at large N.  ``stop_every`` and
-    ``info`` as :func:`lazy_cg_mll`'s (``relres`` the solve's)."""
+    1e-4 jitter makes plain CG stall at large N.  ``matvec_builder``,
+    ``stop_every`` and ``info`` as :func:`lazy_cg_mll`'s (``relres`` the
+    solve's; the prior passes K12's builder, ``ops/matvec``)."""
     n = x.shape[0]
     block = min(block, n)
     check_divisible(n, block, "x", "row-panel block")
@@ -564,14 +565,15 @@ def lazy_cg_quad(kernel, x: torch.Tensor, diff: torch.Tensor, sigma2, *, lpc: Op
     sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device).detach()
     kern = kernel.detach() if isinstance(kernel, torch.Tensor) else kernel
     minv = None if lpc is None else woodbury_precond(lpc.detach(), precond_shift * sigma2)
-    matvec = _lazy_matvec(kern, x, sigma2, block, cross)
+    matvec = _operator(kern, x, sigma2, block, cross, matvec_builder)
     return _LazyCGQuad.apply(diff, matvec, minv, max_iters, tol, stop_every, info)
 
 
 @torch.no_grad()
 def lazy_slq_logdet(kernel, x: torch.Tensor, probe_noise, sigma2, *, lpc: Optional[torch.Tensor] = None,
                     block: int = 1024, max_iters: int = 128, tol: float = 1e-10, precond_shift: float = 1.0,
-                    cross_fn: Optional[Callable] = None) -> torch.Tensor:
+                    cross_fn: Optional[Callable] = None, matvec_builder: Optional[Callable] = None,
+                    stop_every: int = 0, info: Optional[dict] = None) -> torch.Tensor:
     """SLQ estimate of log det(K(x, x) + σ²I), matrix-free: the estimator
     ``lazy_cg_mll`` embeds, standalone for a frozen operator, whose logdet
     is a constant of training.  Not differentiable.
@@ -579,13 +581,19 @@ def lazy_slq_logdet(kernel, x: torch.Tensor, probe_noise, sigma2, *, lpc: Option
     ``probe_noise``: with ``lpc`` (P = LLᵀ + c·I, c = ``precond_shift``·σ²),
     the standard normal draws (u1 (rank, R), u2 (N, R)) of the N(0, P)
     probes (``bbmm.sample_precond_probes``); without it, the (N, R)
-    Rademacher probes.  The JAX package draws either from a key."""
+    Rademacher probes.  The JAX package draws either from a key.
+    ``matvec_builder`` and ``stop_every`` as :func:`lazy_cg_mll`'s (a
+    stopped run's estimate is the full run's, bit for bit: ``bbmm.mbcg``
+    pads the coefficients as the full run masks them); ``info``, a dict, receives
+    ``relres`` the (R,) probes' final relative residuals, ``converged`` the
+    iterations each ran before it converged (its whole budget if it did
+    not) and ``iters`` the mBCG iterations run."""
     n = x.shape[0]
     block = min(block, n)
     check_divisible(n, block, "x", "row-panel block")
     cross = cross_fn or default_cross
     sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device)
-    matvec = _lazy_matvec(kernel, x, sigma2, block, cross)
+    matvec = _operator(kernel, x, sigma2, block, cross, matvec_builder)
     if lpc is not None:
         c = precond_shift * sigma2
         minv = woodbury_precond(lpc, c)
@@ -598,7 +606,9 @@ def lazy_slq_logdet(kernel, x: torch.Tensor, probe_noise, sigma2, *, lpc: Option
         probes = probe_noise
         probe_w = torch.sum(probes * probes, dim=0)
         base = torch.zeros((), dtype=x.dtype, device=x.device)
-    res = mbcg(matvec, probes, max_iters=max_iters, tol=tol, precond=minv)
+    res = mbcg(matvec, probes, max_iters=max_iters, tol=tol, precond=minv, stop_every=stop_every)
+    if info is not None:
+        info.update(relres=res.residnorm, converged=res.iters, iters=res.ran)
     est = base + lanczos_logdet(res.alphas, res.betas, probe_w)
     return torch.where(torch.any(res.broke), torch.full_like(est, math.nan), est)
 

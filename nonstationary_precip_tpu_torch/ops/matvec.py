@@ -1,5 +1,6 @@
 """K2, K3 and K6: the Gibbs Gram·V, the fused backward panel sweep of the
-matrix-free MLL, and the SE-ARD (RBF) Gram·V, by hand for Hopper.
+matrix-free MLL, and the SE-ARD (RBF) Gram·V, by hand for Hopper; and K12,
+the log-normal prior's SE-ARD Gram·V in float64.
 
 Replaces, in ``nonstationary_precip_tpu/ops/pallas_matvec.py``:
   * K2 ``make_gibbs_matvec`` (:240, ``pallas_call`` at :207; body
@@ -112,12 +113,41 @@ the mode kernels under their own names.
 Forward-only, as on the TPU: the matvec sits inside ``lazy_cg_mll``'s
 autograd Function, and K3 is itself a backward (K6's MLL backward is the
 panel pullback through the kernel module, ``lazy_cg.make_jnp_panel_vjp``).
+
+K12, ``csrc/se_matvec_f64.cu``: s²·exp(−½‖(x₁ᵢ − x₂ⱼ)/ℓ‖²)·V, plus σ²V for
+the square operator, in float64 throughout (payload, element, ``exp`` and
+accumulators): K6's function at the precision of the log-normal prior's
+matrix-free solves (``priors/lognormal_process.SOLVE_DTYPE``, ROADMAP F6).
+The JAX package runs those solves as plain panels
+(``priors/lognormal_process.py:263``, ``_lazy_matvec`` over ``_dim_cross``;
+``models/gibbs_gp.py:728-731``: on its TPU the fused SE kernel measured
+slower than XLA's panels, DESIGN §15), so K12 replaces no ``pallas_call``:
+on Hopper in float64 those panels, a (block, N) float64 Gram and an
+identity mask of the same size per row block, are what kept the prior out
+of reach past N ~ 10⁵.  Its plain version is those panels
+(:func:`se_f64_matvec_plain`, bit for bit the prior's CPU path).  The
+design is K6's walk made simple: a thread owns 4 rows (2 at 8 or 16
+right-hand sides) with their z = x/(ℓ√2) and accumulators in registers,
+the block stages 64 columns of z and V a pass in shared memory, and each
+element is its D differences, a product and D − 1 FMAs, ``exp`` (no
+special-function unit in float64, so the tensor cores cannot help) and one
+FMA a right-hand side; ``gridDim.z`` covers V in groups of 16; the column
+splits and their fixed-order sum are K6's, the sum pass also scaling by s²
+and adding σ²V.  64-bit offsets throughout.  What bounds it: the FP64
+lanes (:func:`se_f64_matvec_ops`, ``exp`` counted from its SASS,
+``EXP_F64_OPS``, over the H100 SXM's 34 TFLOP/s).  Paths: the prior's
+``gram_pre_lazy`` (its SLQ hoist, 16 probes), ``log_prob_matrixfree`` (one
+column a dim), ``conditional_pre_matrixfree`` and the conditional mean's
+cross (``conditional_mean_from_pre``), through
+:func:`se_f64_matvec_builder` and :func:`make_se_f64_matvec`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+import re
 
 import torch
 
@@ -125,9 +155,11 @@ from nonstationary_precip_tpu_torch.kernels.base import Scale
 from nonstationary_precip_tpu_torch.kernels.gibbs import gibbs_gram_reference
 from nonstationary_precip_tpu_torch.kernels.stationary import RBF, _sq_dist
 from nonstationary_precip_tpu_torch.ops.cuda_build import CSRC, build_library
+from nonstationary_precip_tpu_torch.ops.lazy_cg import _lazy_matvec
 from nonstationary_precip_tpu_torch.utils.transforms import positive
 
 SOURCE = CSRC / "gibbs_matvec.cu"
+SOURCE_F64 = CSRC / "se_matvec_f64.cu"  # K12
 
 MAX_D = 8  # input dims the kernels take
 MAX_R = 128  # K2, K6: right-hand sides one launch takes; wider V is column-chunked
@@ -152,13 +184,28 @@ PRECISIONS = ("highest", "default", "high3", "vpu")  # K2's modes; K6 has all bu
 BLOCKS_PER_SM = 8  # column splits are added until the grid has this many (K2, K3)
 K6_BLOCKS_PER_SM = 4  # K6's (tools/bench_k2.py: 4 rows a thread with free registers, 4 an SM)
 PLAIN_BLOCK = 2048  # row-panel height of the plain versions
+F64_THREADS = 256  # K12: threads a block (csrc kThreads)
+F64_GROUP = 16  # K12: right-hand sides a block contracts (csrc kGroup)
+F64_BLOCKS_PER_SM = 4  # K12's column splits
+#: FP64 operations (an FMA as 2) that float64 ``exp`` runs, as nvcc compiles
+#: it for sm_90a, on arguments within ±EXP_F64_RANGE: 14 DFMA and 2 DADD in
+#: the SASS of ``exp_f64_probe`` (cuobjdump of the build on the H100 machine;
+#: the walk inlines the same sequence).  The block its range check branches
+#: over (a DADD, a DMUL and a DSETP, for results that overflow or
+#: underflow) is left out: a prior's scaled distances stay far inside the
+#: range, and ``chip_smoke.py`` checks that on its operands, recounts the
+#: SASS on the card (:func:`fp64_sass_ops`) and holds this constant to it
+EXP_F64_OPS = 30
+EXP_F64_RANGE = 708.0  # |argument| below which exp's range check is not taken (its FSETP's 4.1918 high word)
+PEAK_F64 = 34e12  # the H100 SXM's FP64 rate outside the tensor cores (data sheet)
 
-#: Kernel launches so far in this process, one per K2, K3 or K6 call of the
-#: library (each call is the kernel plus its fixed-order reduction pass).
+#: Kernel launches so far in this process, one per K2, K3, K6 or K12 call of
+#: the libraries (each call is the kernel plus its fixed-order reduction pass).
 LAUNCHES = {"gibbs_matvec": 0, "gibbs_panel_grads": 0, "rbf_matvec": 0, "gibbs_matvec_default": 0,
-            "gibbs_matvec_high3": 0, "rbf_matvec_default": 0, "rbf_matvec_high3": 0}
+            "gibbs_matvec_high3": 0, "rbf_matvec_default": 0, "rbf_matvec_high3": 0, "se_matvec_f64": 0}
 
 _lib = None
+_lib_f64 = None
 
 
 def build(force: bool = False) -> str:
@@ -179,6 +226,20 @@ def build(force: bool = False) -> str:
     lib.rbf_matvec_mma.argtypes = [p, i, p, i, i, p, p, i, i, i, p, i, p, i, i, i, p]
     lib.rbf_matvec_mma.restype = i
     _lib = lib
+    return log
+
+
+def build_f64(force: bool = False) -> str:
+    """Compile ``csrc/se_matvec_f64.cu`` (K12), load it, and return nvcc's
+    output.  Reused unless ``force``; a failed compile raises."""
+    global _lib_f64
+    lib, log = build_library(SOURCE_F64, force)
+    p, i, q, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+    lib.se_matvec_f64.argtypes = [p, q, p, q, i, p, q, i, i, f, f, i, p, q, p, i, q, p]
+    lib.se_matvec_f64.restype = i
+    lib.se_exp_probe.argtypes = [p, p, i, p]
+    lib.se_exp_probe.restype = i
+    _lib_f64 = lib
     return log
 
 
@@ -527,6 +588,165 @@ def stationary_matvec_builder(kernel, x, sigma2):
 
 
 # ---------------------------------------------------------------------------
+# K12: the prior's SE-ARD Gram·V in float64
+# ---------------------------------------------------------------------------
+
+
+def se_cross(params, xa, xb):
+    """Scale(RBF-ARD) cross-Gram s²·exp(−½‖(xa − xb)/ℓ‖²) of one log-normal
+    prior dim, ``params`` = (ℓ (D,), s²): K12's plain element, and the
+    ``cross_fn`` of the prior's matrix-free paths (its ``_dim_cross``)."""
+    ell, s2 = params
+    return s2 * torch.exp(-0.5 * _sq_dist(xa / ell, xb / ell))
+
+
+def f64_bucket(r: int) -> int:
+    """The accumulators K12 keeps a row for r right-hand sides: the least of
+    1, 2, 4, 8 and 16 that holds r (16 above: V in groups of 16)."""
+    return next(b for b in (1, 2, 4, 8, F64_GROUP) if r <= b or b == F64_GROUP)
+
+
+def f64_rows(r: int) -> int:
+    """Rows a K12 block owns at r right-hand sides (csrc rows_per_thread)."""
+    return F64_THREADS * (4 if f64_bucket(r) <= 4 else 2)
+
+
+def _check_f64(*ts: torch.Tensor):
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError("se_matvec_f64 kernel takes CUDA tensors on one device")
+        if t.dtype != torch.float64:
+            raise TypeError(f"se_matvec_f64 kernel takes float64, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("se_matvec_f64 kernel takes contiguous tensors")
+
+
+def se_f64_matvec_cuda(z1, z2, v, s2: float, sigma2=None):
+    """K12's wrapper: s²·exp(−‖z1ᵢ − z2ⱼ‖²) @ v, plus σ²v when ``sigma2`` is
+    given (the square operator: z1 is z2), from one launch of the walk and
+    its fixed-order sum on the current stream.  z = x/(ℓ√2) prescaled; z1
+    (N1, D ≤ 8), z2 (N2, D), v (N2, R), all float64, contiguous, on one
+    CUDA device; ``s2`` and ``sigma2`` host floats.  Raises on anything
+    else."""
+    if z1.ndim != 2 or z2.ndim != 2 or z1.shape[1] != z2.shape[1]:
+        raise ValueError(f"se_matvec_f64: z1, z2 must be (N, D) of one D, got {tuple(z1.shape)}, {tuple(z2.shape)}")
+    if not 1 <= z1.shape[1] <= MAX_D:
+        raise ValueError(f"se_matvec_f64: D ≤ {MAX_D}, got D = {z1.shape[1]}")
+    if v.ndim != 2 or v.shape[0] != z2.shape[0] or v.shape[1] < 1:
+        raise ValueError(f"se_matvec_f64: v {tuple(v.shape)} against z2 {tuple(z2.shape)}")
+    if sigma2 is not None and z1.shape[0] != z2.shape[0]:
+        raise ValueError("se_matvec_f64: the jitter needs the square operator (z1 is z2)")
+    _check_f64(z1, z2, v)
+    if _lib_f64 is None:
+        build_f64()
+    (n1, d), n2, r = z1.shape, z2.shape[0], v.shape[1]
+    rb = f64_bucket(r)
+    out = torch.empty((n1, r), dtype=v.dtype, device=v.device)
+    splits, per = column_splits(n1, n2, -(-r // rb), _num_sms(v.device), f64_rows(r), F64_BLOCKS_PER_SM)
+    part = torch.empty(splits * n1 * r, dtype=v.dtype, device=v.device)
+    err = _lib_f64.se_matvec_f64(z1.data_ptr(), n1, z2.data_ptr(), n2, d, v.data_ptr(), r, r, rb, float(s2),
+                                 0.0 if sigma2 is None else float(sigma2), int(sigma2 is not None),
+                                 out.data_ptr(), r, part.data_ptr(), splits, per, _stream(v.device))
+    _launched(err, "se_matvec_f64")
+    return out
+
+
+def se_f64_matvec_plain(params, x1, x2, v, sigma2=None, block: int = 1024):
+    """The plain version of K12, the prior's float64 panel path: row panels
+    of ``block`` rows of :func:`se_cross` (with σ² on the diagonal of the
+    square operator, ``lazy_cg._lazy_matvec``'s (block, N) panel and mask,
+    when ``sigma2`` is given and x2 is x1) times v, (N2,) or (N2, R)."""
+    if sigma2 is not None:
+        return _lazy_matvec(params, x1, sigma2, block, se_cross)(v)
+    return torch.cat([se_cross(params, x1[i:i + block], x2) @ v for i in range(0, x1.shape[0], block)])
+
+
+def _route(t: torch.Tensor) -> str:
+    """Where K12's matvec over the operand ``t`` goes: "cpu" to the plain
+    version, anything else to the kernel (which raises off a CUDA device)."""
+    return t.device.type
+
+
+def make_se_f64_matvec(params, x1, x2=None, sigma2=None, block: int = 1024):
+    """``matvec(v)`` = s²·exp(−½‖(x1 − x2)/ℓ‖²) @ v (+ σ²v with ``sigma2``,
+    the square operator: ``x2`` None), ``params`` = (ℓ (D,), s²), the Gram
+    never in memory; v (N2,) or (N2, R).  For x1 on the CPU the plain
+    version (``block``-row panels, the prior's bits); on a CUDA device K12,
+    which raises on anything it does not take.  z = x/(ℓ√2), s² and σ² are made once here, outside the
+    caller's iteration loop (one host read of each)."""
+    ell, s2 = params
+    square = x2 is None
+    if square:
+        x2 = x1
+    elif sigma2 is not None:
+        raise ValueError("make_se_f64_matvec: the jitter rides the square operator only (x2 None)")
+    if x1.shape[-1] > MAX_D:
+        raise ValueError(f"se_matvec_f64: D ≤ {MAX_D}, got D = {x1.shape[-1]}")
+    if _route(x1) == "cpu":
+        return lambda v: se_f64_matvec_plain(params, x1, x2, v, sigma2, block)
+    scale = ell * math.sqrt(2.0)
+    z1 = (x1 / scale).contiguous()
+    z2 = z1 if square else (x2 / scale).contiguous()
+    s2f, sig = float(s2), None if sigma2 is None else float(sigma2)
+
+    def matvec(v):
+        vv = v[:, None] if v.ndim == 1 else v
+        out = se_f64_matvec_cuda(z1, z2, vv.contiguous(), s2f, sig)
+        return out[:, 0] if v.ndim == 1 else out
+
+    return matvec
+
+
+@functools.lru_cache(maxsize=8)
+def se_f64_matvec_builder(block: int):
+    """The ``matvec_builder`` (``lazy_cg._operator``'s contract) of the
+    prior's square operator: ``builder(params, x, sigma2) -> matvec`` with
+    matvec(v) = (K + σ²I)v through :func:`make_se_f64_matvec`; ``block`` the
+    plain version's panel height."""
+
+    def builder(params, x, sigma2):
+        return make_se_f64_matvec(params, x, sigma2=sigma2, block=block)
+
+    return builder
+
+
+def fp64_sass_ops(body: str) -> dict:
+    """FP64 instructions of one function's SASS ``body`` (cuobjdump's
+    text): {opcode: count} of its D* opcodes on the path that runs, the
+    instructions a predicated forward ``BRA`` jumps over counted apart
+    under ``skipped``, and ``ops`` / ``skipped_ops``, the FP64 operations
+    each makes (DFMA 2, DADD and DMUL 1; a DSETP compares and counts 0)."""
+    rows = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)\s*([^;]*);", body)
+    spans = [(int(a, 16), int(arg.split()[0], 16)) for a, pred, op, arg in rows
+             if pred and op == "BRA" and int(arg.split()[0], 16) > int(a, 16)]
+    run, skipped = {}, {}
+    for a, _, op, _ in rows:
+        if op.startswith("D") and op.split(".")[0] in ("DFMA", "DADD", "DMUL", "DSETP"):
+            op = op.split(".")[0]
+            into = skipped if any(lo < int(a, 16) < hi for lo, hi in spans) else run
+            into[op] = into.get(op, 0) + 1
+
+    def ops(c):
+        return 2 * c.get("DFMA", 0) + c.get("DADD", 0) + c.get("DMUL", 0)
+
+    return {**run, "ops": ops(run), "skipped": skipped, "skipped_ops": ops(skipped)}
+
+
+def exp_f64_probe(q: torch.Tensor) -> torch.Tensor:
+    """exp(−q) by K12's library's probe kernel (float64, CUDA), the
+    function whose SASS ``EXP_F64_OPS`` counts."""
+    _check_f64(q)
+    if _lib_f64 is None:
+        build_f64()
+    out = torch.empty_like(q)
+    err = _lib_f64.se_exp_probe(q.data_ptr(), out.data_ptr(), q.numel(), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"exp_f64_probe launch failed: CUDA error {err}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K3: the backward panel sweep
 # ---------------------------------------------------------------------------
 
@@ -803,3 +1023,19 @@ def panel_grads_sfu_ops(nr: int, n: int, d: int) -> int:
     d = 2 one rsqrt and one ex2 an element; else per dim a division and a
     square root, and one exp."""
     return nr * n * (2 if d == 2 else 2 * d + 1)
+
+
+def se_f64_elem_ops(d: int) -> int:
+    """FP64 operations per Gram element of K12 before its contraction: the d
+    differences, the first square (1) and d − 1 FMAs (2 each), and
+    ``exp`` (``EXP_F64_OPS``, its SASS; the negation rides its first
+    FMA's operand) = 3d − 1 + EXP_F64_OPS."""
+    return 3 * d - 1 + EXP_F64_OPS
+
+
+def se_f64_matvec_ops(n1: int, n2: int, d: int, r: int) -> int:
+    """FP64 operations of K12 over an n1 × n2 Gram with r right-hand sides:
+    the element once a group of 16 (``f64_bucket``) and one FMA (2 ops) a
+    right-hand side."""
+    groups = -(-r // f64_bucket(r))
+    return n1 * n2 * (groups * se_f64_elem_ops(d) + 2 * r)

@@ -13,9 +13,15 @@ Counterpart of ``nonstationary_precip_tpu/priors/lognormal_process.py``:
     ``conditional_pre_matrixfree`` / ``conditional_mean_from_pre`` split
     the conditional mean into its per-fit solves and its per-query panels
     (the solves host-chunked with ``chunk_iters``).
-    Each dim's operator is a plain Scale(RBF-ARD) Gram built in row panels
-    (``_dim_cross``), as the JAX package leaves it to XLA.  These take an
-    unbatched prior and (N, D_in) inputs, and run their solves in
+    Each dim's operator is a Scale(RBF-ARD) Gram that never exists: on a
+    CUDA tensor K12 (``ops/matvec.make_se_f64_matvec``, its SE Gram·V in
+    float64) takes every matvec of the four (the SLQ hoist's, the
+    quadratic's, the conditioning solve's and the conditional mean's
+    cross), and no (block, N) panel is built on the card; on the CPU its
+    plain version, the row panels of ``_dim_cross`` that the JAX package
+    leaves to XLA, bit for bit the panels these paths built before.  The
+    pivoted-Cholesky factor's rows stay ``_dim_cross`` calls.  These take
+    an unbatched prior and (N, D_in) inputs, and run their solves in
     ``SOLVE_DTYPE`` (float64) whatever the inputs' dtype, where the JAX
     package runs float32: the jittered prior Gram (ridge 1e-4, λmax ~ 3·10³
     at N = 16384 on the quickstart's data) is beyond float32, where these
@@ -39,12 +45,12 @@ from torch import nn
 from nonstationary_precip_tpu_torch.kernels.stationary import _sq_dist as sq_dist
 from nonstationary_precip_tpu_torch.ops.bbmm import mbcg, woodbury_precond
 from nonstationary_precip_tpu_torch.ops.lazy_cg import (
-    _lazy_matvec,
     check_divisible,
     lazy_cg_quad,
     lazy_pivoted_cholesky,
     lazy_slq_logdet,
 )
+from nonstationary_precip_tpu_torch.ops.matvec import make_se_f64_matvec, se_cross, se_f64_matvec_builder
 from nonstationary_precip_tpu_torch.ops.linalg import (
     add_jitter,
     cho_solve,
@@ -64,11 +70,10 @@ _COND_JITTER = 1e-4  # reference: gibbs_kernels.py:88,107
 SOLVE_DTYPE = torch.float64
 
 
-def _dim_cross(params, xa, xb):
-    """Scale(RBF-ARD) cross-Gram of one prior output dim, ``params`` =
-    (ℓ (D_in,), s²): the ``cross_fn`` of the matrix-free paths."""
-    ell, s2 = params
-    return s2 * torch.exp(-0.5 * sq_dist(xa / ell, xb / ell))
+#: Scale(RBF-ARD) cross-Gram of one prior output dim, ``params`` =
+#: (ℓ (D_in,), s²): the pivoted-Cholesky factor's rows (K12's plain
+#: element, ``ops/matvec.se_cross``; K12 takes the matvecs).
+_dim_cross = se_cross
 
 
 class LogNormalProcess(nn.Module):
@@ -198,7 +203,8 @@ class LogNormalProcess(nn.Module):
 
     @torch.no_grad()
     def gram_pre_lazy(self, x: torch.Tensor, probe_noise, *, rank: int = 50, block: int = 1024,
-                      max_iters: int = 256, tol: float = 1e-10, precond_key=None, precond_shift: float = 1.0):
+                      max_iters: int = 256, tol: float = 1e-10, precond_key=None, precond_shift: float = 1.0,
+                      stop_every: int = 0, info: Optional[dict] = None):
         """Matrix-free counterpart of ``gram_pre`` for large N, where the D
         (N, N) prior Grams no longer fit: per-dim rank-``rank`` pivoted-
         Cholesky factors of K_d (the loop-invariant preconditioners of the
@@ -212,16 +218,23 @@ class LogNormalProcess(nn.Module):
         JAX package passes one key to each, or a ``torch.Generator`` (which
         advances from dim to dim).  Returns
         ``(lpc (D, N, rank), logdet (D,))``, both in ``SOLVE_DTYPE``, for
-        :meth:`log_prob_matrixfree`."""
+        :meth:`log_prob_matrixfree`.  ``stop_every``: the SLQ solves' early
+        stop, whose logdet is the full budget's bit for bit
+        (``lazy_slq_logdet``); ``info``, a dict, receives a dim's
+        ``lazy_slq_logdet`` evidence each under ``dims``."""
         xs = self._slice(x).to(SOLVE_DTYPE)
         jitter = torch.tensor(_COND_JITTER, dtype=SOLVE_DTYPE, device=x.device)
-        lpcs, logdets = [], []
+        lpcs, logdets, dims = [], [], []
         for params, (u1, u2) in zip(self._dim_params(), probe_noise, strict=True):
             lpc = lazy_pivoted_cholesky(params, xs, rank, cross_fn=_dim_cross, key=precond_key)
+            dims.append({})
             logdets.append(lazy_slq_logdet(params, xs, (u1.to(SOLVE_DTYPE), u2.to(SOLVE_DTYPE)), jitter, lpc=lpc,
                                            block=block, max_iters=max_iters, tol=tol, precond_shift=precond_shift,
-                                           cross_fn=_dim_cross))
+                                           matvec_builder=se_f64_matvec_builder(block), stop_every=stop_every,
+                                           info=dims[-1]))
             lpcs.append(lpc)
+        if info is not None:
+            info["dims"] = dims
         return torch.stack(lpcs), torch.stack(logdets)
 
     def log_prob_matrixfree(self, x: torch.Tensor, log_ell: torch.Tensor, pre, *, block: int = 1024,
@@ -233,7 +246,8 @@ class LogNormalProcess(nn.Module):
         2K⁻¹diff at convergence), its logdet the hoisted constant of
         :meth:`gram_pre_lazy`.  The prior's own parameters get no gradient.
         ``stop_every``: the solves' early stop; ``info``, a dict, receives
-        ``relres``, the (D,) solves' final relative residuals."""
+        ``relres``, the (D,) solves' final relative residuals, and
+        ``iters``, the mBCG iterations each ran."""
         lpc, logdet = pre
         n = x.shape[-2]
         xs = self._slice(x).to(SOLVE_DTYPE)
@@ -242,17 +256,18 @@ class LogNormalProcess(nn.Module):
         lp, dims = 0.0, [{} for _ in range(diff.shape[0])]
         for d, params in enumerate(self._dim_params()):
             quad = lazy_cg_quad(params, xs, diff[d], jitter, lpc=lpc[d].to(SOLVE_DTYPE), block=block,
-                                max_iters=max_iters, tol=tol, precond_shift=precond_shift, cross_fn=_dim_cross,
-                                stop_every=stop_every, info=dims[d])
+                                max_iters=max_iters, tol=tol, precond_shift=precond_shift,
+                                matvec_builder=se_f64_matvec_builder(block), stop_every=stop_every, info=dims[d])
             lp = lp - 0.5 * (quad + logdet[d].to(SOLVE_DTYPE) + n * math.log(2.0 * math.pi))
         if info is not None:
             info["relres"] = torch.stack([dim["relres"] for dim in dims])
+            info["iters"] = [dim["iters"] for dim in dims]
         return (lp / n).to(log_ell.dtype)
 
     @torch.no_grad()
     def conditional_pre_matrixfree(self, given, pre, *, block: int = 1024, max_iters: int = 256,
                                    tol: float = 1e-10, precond_shift: float = 1.0,
-                                   chunk_iters: Optional[int] = None) -> torch.Tensor:
+                                   chunk_iters: Optional[int] = None, info: Optional[dict] = None) -> torch.Tensor:
         """The query-independent half of :meth:`conditional_mean_matrixfree`:
         per-dim conditioning solves αᵈ = (Kᵈ(x_g, x_g) + 1e-4 I)⁻¹(log ℓ_g − μ)ᵈ,
         each one preconditioned single-RHS mBCG over lazy panels with
@@ -261,7 +276,9 @@ class LogNormalProcess(nn.Module):
         fit; returns (D, Ng) in ``SOLVE_DTYPE``.  ``chunk_iters`` runs each
         solve host-chunked, the JAX package's chunked route: ⌈max_iters /
         chunk_iters⌉ chunks at most, stopped early once converged
-        (``bbmm.mbcg``'s ``stop_every``)."""
+        (``bbmm.mbcg``'s ``stop_every``).  ``info``, a dict, receives
+        ``relres``, the (D,) solves' final relative residuals, and
+        ``iters``, the mBCG iterations each ran."""
         xg, ell_g = given
         lpc, _ = pre
         xgs = self._slice(xg).to(SOLVE_DTYPE)
@@ -270,31 +287,35 @@ class LogNormalProcess(nn.Module):
         check_divisible(ng, blk, "x_g", "row-panel block")
         jitter = torch.tensor(_COND_JITTER, dtype=SOLVE_DTYPE, device=xg.device)
         resid = (torch.log(ell_g).mT - self.mean(xg).mT).to(SOLVE_DTYPE)  # (D, Ng)
-        alphas = []
+        alphas, relres, iters = [], [], []
         if chunk_iters is not None:
             max_iters = -(-max_iters // chunk_iters) * chunk_iters
         for d, params in enumerate(self._dim_params()):
-            matvec = _lazy_matvec(params, xgs, jitter, blk, _dim_cross)
+            matvec = make_se_f64_matvec(params, xgs, sigma2=jitter, block=blk)
             res = mbcg(matvec, resid[d][:, None], max_iters=max_iters, tol=tol,
                        precond=woodbury_precond(lpc[d].to(SOLVE_DTYPE), precond_shift * jitter),
                        stop_every=chunk_iters or 0)
             alphas.append(torch.where(torch.any(res.broke), torch.full_like(res.x[:, 0], math.nan), res.x[:, 0]))
+            relres.append(res.residnorm[0])
+            iters.append(res.ran)
+        if info is not None:
+            info.update(relres=torch.stack(relres), iters=iters)
         return torch.stack(alphas)
 
     @torch.no_grad()
     def conditional_mean_from_pre(self, x: torch.Tensor, given, cond_alphas: torch.Tensor, *,
                                   block: int = 1024) -> torch.Tensor:
         """The per-query half: ℓ(x) = exp(μ + k(x, x_g)·α), the cross Gram
-        consumed in row panels of x (no solve).  ``given`` is (x_g, anything);
-        ``cond_alphas`` from :meth:`conditional_pre_matrixfree`.  (N, D)."""
+        times α by K12 (on the CPU its plain version, row panels of x), no
+        solve.  ``given`` is (x_g, anything); ``cond_alphas`` from
+        :meth:`conditional_pre_matrixfree`.  (N, D)."""
         xg, _ = given
         xgs = self._slice(xg).to(SOLVE_DTYPE)
         xs = self._slice(x).to(SOLVE_DTYPE)
         tb = min(block, xs.shape[0])
         mus = []
         for d, params in enumerate(self._dim_params()):
-            proj = torch.cat([_dim_cross(params, xs[i:i + tb], xgs) @ cond_alphas[d].to(SOLVE_DTYPE)
-                              for i in range(0, xs.shape[0], tb)])
+            proj = make_se_f64_matvec(params, xs, xgs, block=tb)(cond_alphas[d].to(SOLVE_DTYPE))
             mus.append(self.mean_const[d] + proj)
         return torch.exp(torch.stack(mus)).mT.to(x.dtype)
 

@@ -24,11 +24,13 @@ CSV whose first columns are the input coordinates; without it the training
 sites are served (a hindcast).  ``--matrixfree true`` (``gibbs_exact``
 only) routes fit and predict through the matrix-free CG path
 (``GibbsExactGP.loss_matrixfree``, ``posterior_state_matrixfree``): no N×N
-matrix, with K2 and K3 on the card.  ``--chunked true`` drives the fit and
-the serve through the host-chunked phases (``make_chunked_map_loss``,
-``fit_chunked``, the chunked posterior routes: ``--chunk_iters`` iterations
-a chunk, at most ``--n_chunks`` of them, 8 for the serving state, stopped
-early; ``--bwd_row_chunks`` row blocks of K3's sweep, for parity with the
+matrix, with K2 and K3 on the card and the prior's float64 solves on K12.
+``--chunked true`` drives the fit and the serve through the host-chunked
+phases (``make_chunked_map_loss``, ``fit_chunked``, the chunked posterior
+routes: ``--chunk_iters`` iterations a chunk, at most ``--n_chunks`` of
+them, 8 for the serving state, stopped early; the prior's SLQ hoist keeps
+its 256 iterations, stopped early too, its logdet the full run's bit for
+bit; ``--bwd_row_chunks`` row blocks of K3's sweep, for parity with the
 JAX CLI).  ``--precond``
 picks the preconditioner factor: pivoted Cholesky or Nyström, by default
 pivoted Cholesky up to rank 200 and Nyström above.  The JAX package's
@@ -150,13 +152,17 @@ def chunked_fit(name: str, cfg: ServeConfig) -> bool:
     return name == "gibbs_exact" and cfg.matrixfree and cfg.chunked
 
 
-def _build(name: str, train_x: torch.Tensor, train_y: torch.Tensor, cfg: ServeConfig, draws: Mapping):
+def _build(name: str, train_x: torch.Tensor, train_y: torch.Tensor, cfg: ServeConfig, draws: Mapping,
+           report: Optional[dict] = None):
     """An unfitted model for ``_fit``: ``(model, loss_fn, extra)``, with
     ``extra`` the loop-invariant tensors ``fit`` passes after ``(train_x,
     train_y)`` (the frozen prior's hoisted algebra of the exact Gibbs
     family).  The trainability is each model's default (``requires_grad``).
     ``draws`` may hold the matrix-free probes ("prior_probes": one (u1, u2)
-    a dim; "probes": (u1, u2)); the rest is drawn from the streams."""
+    a dim; "probes": (u1, u2)); the rest is drawn from the streams.
+    ``report``, if given, receives the matrix-free hoist's seconds and its
+    SLQ solves' evidence ("hoist_seconds", "hoist_iters", "hoist_relres",
+    "hoist_converged": per dim)."""
     from nonstationary_precip_tpu_torch.kernels.base import Scale
     from nonstationary_precip_tpu_torch.kernels.stationary import RBF
     from nonstationary_precip_tpu_torch.models.deep_gp import DeepGP
@@ -221,7 +227,20 @@ def _build(name: str, train_x: torch.Tensor, train_y: torch.Tensor, cfg: ServeCo
                 # serve and every measured large-N row
                 pg = generator(cfg, "probes")
                 probes = (_normal(pg, (rank, NUM_PROBES), dev), _normal(pg, (n, NUM_PROBES), dev))
-            pre = model.prior_pre_matrixfree(train_x, prior_probes, rank=prior_rank, block=blk)
+            from nonstationary_precip_tpu_torch.train.optim import _Clock
+
+            # the chunked route stops the hoist's SLQ once every probe has
+            # converged, as its other solves: the full 256 iterations'
+            # logdet bit for bit (lazy_slq_logdet)
+            clock, hoist = _Clock(dev), {}
+            clock.start()
+            pre = model.prior_pre_matrixfree(train_x, prior_probes, rank=prior_rank, block=blk,
+                                             stop_every=cfg.chunk_iters if cfg.chunked else 0, info=hoist)
+            clock.stop()
+            if report is not None:
+                report.update(hoist_seconds=clock.seconds(), hoist_iters=[h["iters"] for h in hoist["dims"]],
+                              hoist_relres=[float(h["relres"].max()) for h in hoist["dims"]],
+                              hoist_converged=[h["converged"].tolist() for h in hoist["dims"]])
             if chunked_fit(name, cfg):
                 # the host-chunked phases, the same MAP estimand
                 from nonstationary_precip_tpu_torch.models.gibbs_gp import make_chunked_map_loss
@@ -322,8 +341,9 @@ def _predict(name: str, model, train_x, train_y, pts, cfg: ServeConfig, chunk: i
     O(chunk²) memory a call.  ``draws`` may hold the deep GP's predictive
     ε ("eps_pred": one (10, O, N*) array a hidden layer).  ``report``, if
     given, receives the matrix-free solves' evidence ("alpha_relres",
-    "worst_relres"; chunked, also "alpha_iters" and each query chunk's
-    "query_iters")."""
+    "alpha_iters", "worst_relres", the prior's conditioning solves'
+    "prior_relres" and "prior_iters" a dim; chunked, also each query
+    chunk's "query_iters")."""
     draws = draws or {}
     report = {} if report is None else report
     if name == "deepgp":
@@ -349,9 +369,11 @@ def _predict(name: str, model, train_x, train_y, pts, cfg: ServeConfig, chunk: i
         # pivoted Cholesky)
         chunked = dict(precond=precond, chunk_iters=cfg.chunk_iters, n_chunks=max(cfg.n_chunks, 8)) \
             if cfg.chunked else {}
+        prior_info = {}
         state = model.posterior_state_matrixfree(train_x, train_y, pre, block=blk, precond_rank=rank,
-                                                 precond_shift=cfg.precond_shift, **chunked)
+                                                 precond_shift=cfg.precond_shift, prior_info=prior_info, **chunked)
         report["alpha_relres"], report["alpha_iters"] = float(state[0].alpha_relres), state[0].iters
+        report["prior_relres"], report["prior_iters"] = prior_info["relres"].tolist(), prior_info["iters"]
         print(f"posterior state built{' (chunked)' if cfg.chunked else ''}: alpha solve relres="
               f"{report['alpha_relres']:.2e}")
         relres_seen, iters_seen = [], []
@@ -465,11 +487,12 @@ def run(cfg: ServeConfig, *, init: Optional[Mapping[str, np.ndarray]] = None,
 
     data = training_data(cfg, dev)
     train_x, train_y = data.x, data.y
-    model, loss_fn, extra = _build(cfg.model, train_x, train_y, cfg, draws)
+    out = {}
+    model, loss_fn, extra = _build(cfg.model, train_x, train_y, cfg, draws, report=out)
     if init is not None:
         model = interop.serve_model_from_jax(cfg.model, init, train_x.shape[-1], dev, num_layers=cfg.num_layers)
-    out = {"n_train": int(train_x.shape[0]), "losses": np.zeros((0,)), "steps": 0, "executed": 0,
-           "backoffs": 0, "fit_seconds": 0.0, "train_seconds": 0.0, "steps_per_s": float("nan")}
+    out.update({"n_train": int(train_x.shape[0]), "losses": np.zeros((0,)), "steps": 0, "executed": 0,
+                "backoffs": 0, "fit_seconds": 0.0, "train_seconds": 0.0, "steps_per_s": float("nan")})
     if cfg.checkpoint:
         model = restore_pytree(cfg.checkpoint, model)
         print(f"restored {cfg.model} checkpoint from {cfg.checkpoint}")
@@ -485,7 +508,8 @@ def run(cfg: ServeConfig, *, init: Optional[Mapping[str, np.ndarray]] = None,
         out.update(losses=res.losses, steps=res.steps, executed=executed, backoffs=res.backoffs,
                    fit_seconds=clock.seconds(), train_seconds=res.seconds, steps_per_s=steps_per_s)
         if res.relres is not None:  # the chunked fit's evidence
-            out.update(fit_relres=res.relres, fit_iters=res.iters)
+            out.update(fit_relres=res.relres, fit_iters=res.iters, fit_prior_iters=res.prior_iters,
+                       fit_prior_relres=res.prior_relres)
         print(f"fitted {cfg.model} in {out['fit_seconds']:.1f}s: {res.steps} steps ({executed} run), "
               f"{steps_per_s:.1f} steps/s after the first, {out['backoffs']} lr back-offs")
 

@@ -38,6 +38,10 @@ class TrainResult(NamedTuple):
     #: (``fit_chunked``'s evidence), else None
     relres: Optional[np.ndarray] = None
     iters: Optional[np.ndarray] = None
+    #: each step's prior solves' iterations (summed over its dims) and
+    #: final relres (one a dim), ``fit_chunked``'s evidence, else None
+    prior_iters: Optional[np.ndarray] = None
+    prior_relres: Optional[np.ndarray] = None
 
 
 class _Clock:
@@ -189,8 +193,9 @@ def fit_chunked(model: torch.nn.Module, loss, x, y, prior_pre=None, *, probe_noi
     ``train.checkpoint.BestCheckpointer``).  ``probe_noise``: the same draws
     every step (common random numbers, the JAX default).  ``relres`` is
     each step's worst solve residual: gate on it; ``iters`` each step's MLL
-    mBCG iterations; ``seconds`` as :func:`fit`'s, from the end of the
-    first step.
+    mBCG iterations; ``prior_iters`` and ``prior_relres`` the prior's
+    solves' (its iterations summed over the dims; none without the prior);
+    ``seconds`` as :func:`fit`'s, from the end of the first step.
 
     A loop of its own, as in the JAX package: a step's loss is read before
     its update, so a non-finite one rolls the model back a step, where
@@ -201,7 +206,7 @@ def fit_chunked(model: torch.nn.Module, loss, x, y, prior_pre=None, *, probe_noi
         raise ValueError("fit_chunked: the model has no parameter that requires grad")
     optimizer = torch.optim.Adam([p for _, p in params], lr=lr, betas=(0.9, 0.999), eps=1e-8)
     clock = _Clock(params[0][1].device)
-    losses, relres_hist, iters = [], [], []
+    losses, relres_hist, iters, prior_iters, prior_relres = [], [], [], [], []
     prev, finite = None, None
     for i in range(num_steps):
         val, grads, info = loss.value_and_grad(model, x, y, prior_pre, probe_noise)
@@ -220,6 +225,8 @@ def fit_chunked(model: torch.nn.Module, loss, x, y, prior_pre=None, *, probe_noi
         losses.append(f)
         relres_hist.append(rr)
         iters.append(int(info["iters"]))
+        prior_iters.append(int(info.get("iters_prior", 0)))
+        prior_relres.append(info["relres_prior"].double().cpu().numpy() if "relres_prior" in info else np.zeros(0))
         if clock.t0 is None:
             clock.start()
         clock.stop()
@@ -231,7 +238,8 @@ def fit_chunked(model: torch.nn.Module, loss, x, y, prior_pre=None, *, probe_noi
             break
         prev = f
     return TrainResult(model=model, losses=np.asarray(losses), steps=len(losses), seconds=clock.seconds(),
-                       relres=np.asarray(relres_hist), iters=np.asarray(iters, dtype=np.int64))
+                       relres=np.asarray(relres_hist), iters=np.asarray(iters, dtype=np.int64),
+                       prior_iters=np.asarray(prior_iters, dtype=np.int64), prior_relres=np.asarray(prior_relres))
 
 
 def _snapshot(params, optimizer) -> tuple:

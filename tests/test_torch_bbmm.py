@@ -144,3 +144,45 @@ def test_sample_precond_probes_matches_jax_on_its_keyed_draws():
     u2 = jax.random.normal(k2, (64, 8), jnp.float64)
     ref = jbbmm.sample_precond_probes(key, lj, 0.2, 8)
     _close(bbmm.sample_precond_probes(_t(lj), 0.2, _t(u1), _t(u2)), ref)
+
+
+def test_woodbury_apply_is_float64_for_float32_operands_regression():
+    """F-P9: at the JAX flagship's N = 1,048,576 (Nyström rank 1024, shift
+    10) the float32 formula failed twice on an H100
+    (tools/probe_woodbury_f32.py, chip_smoke.py --octave 1048576): LᵀL
+    summed in one float32 product was off by more than the ridge c, which
+    diverged the training solves at the init pose, and with that sum in
+    float64 the float32 apply's cancellation, ε·λmax(P)/c, still left the
+    serve's training solves at the relres gate.  Here 2²⁰ rows of a rank-4
+    L, c = 4: a float32 sum over 64-row tiles, as a GEMM's K loop
+    accumulates, is off by more than c; in L's range, where P⁻¹ differs from
+    I/c, the port's apply (float64's on the same float32 operands) errs
+    over 100 times less than the float32 apply on that sum or on float64's
+    sum; float64 operands keep the plain formula's bits."""
+    g = torch.Generator().manual_seed(0)
+    n, k, c = 1 << 20, 4, 4.0
+    l = (torch.randn(n, k, generator=g, dtype=torch.float64)
+         * torch.tensor([3.0, 1.0, 0.3, 0.01], dtype=torch.float64)).float()
+    l64 = l.double()
+    exact = l64.T @ l64
+    tiled = torch.zeros(k, k)
+    for b in l.split(64):
+        tiled += b.T @ b
+    assert (tiled.double() - exact).abs().max() > c
+    v = (l64 @ torch.randn(k, 3, generator=g, dtype=torch.float64)
+         + torch.randn(n, 3, generator=g, dtype=torch.float64)).float()
+    ref = bbmm.woodbury_precond(l64, c)(v.double())
+
+    def f32_apply(gram):
+        cf = torch.linalg.cholesky(c * torch.eye(k) + gram)
+        return (v - l @ torch.cholesky_solve(l.T @ v, cf)) / c
+
+    def range_err(a):
+        return float((l64.T @ (a.double() - ref)).norm() / (l64.T @ ref).norm())
+
+    got = bbmm.woodbury_precond(l, torch.tensor(c))(v)
+    errs = (range_err(got), range_err(f32_apply(exact.float())), range_err(f32_apply(tiled)))
+    assert got.dtype == torch.float32 and 100 * errs[0] < min(errs[1:]), errs
+    cf = torch.linalg.cholesky(0.1 * torch.eye(k, dtype=torch.float64) + exact)
+    v64 = v.double()
+    assert torch.equal(bbmm.woodbury_precond(l64, 0.1)(v64), (v64 - l64 @ torch.cholesky_solve(l64.T @ v64, cf)) / 0.1)
